@@ -1,0 +1,124 @@
+"""The port stands alone: no jax, nothing of zest_tpu, cuda by default.
+
+- importing every ``zest_tpu_torch`` module in a fresh interpreter leaves
+  ``jax`` and ``zest_tpu`` out of ``sys.modules``;
+- no source file of the port (nor ``chip_smoke.py``) imports them;
+- the entry points default to ``cuda`` and raise where there is no card
+  instead of falling back to the CPU.
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "zest_tpu_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names() -> list[str]:
+    names = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__main__":
+            continue
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_every_module_imports_without_jax_or_zest_tpu():
+    names = _module_names()
+    assert len(names) >= 25
+    code = (
+        "import importlib, json, sys\n"
+        "before = set(sys.modules)\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "new = set(sys.modules) - before\n"
+        "print(json.dumps(sorted(m for m in new if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'zest_tpu'))))\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] "
+        "in ('jax', 'zest_tpu'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    added, present = (json.loads(line)
+                      for line in proc.stdout.strip().splitlines()[-2:])
+    assert added == [] and present == []
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(
+    p.relative_to(ROOT)))
+def test_source_imports_nothing_of_jax_or_zest_tpu(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        bad += [m for m in mods if m.split(".")[0] in ("jax", "jaxlib",
+                                                       "zest_tpu")]
+    assert bad == []
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour where there is no CUDA device")
+
+
+def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
+    from zest_tpu_torch import ops
+    from zest_tpu_torch.cli import main
+    from zest_tpu_torch.config import Config, resolve_device
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest",
+                 endpoint="http://127.0.0.1:9")
+    (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt2"}))
+    calls = [
+        lambda: resolve_device(),
+        lambda: ops.unit_verify_hasher(),
+        lambda: push_checkpoint(cfg, "org/m", files={"a.bin": b"x"}),
+        lambda: pull_model(cfg, "org/m"),
+        lambda: stage_snapshot_to_hbm(tmp_path),
+        lambda: load_generator(tmp_path),
+        lambda: main(["pull", "org/m"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "zest").exists()  # nothing ran before the raise
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """The wrapper routes a CUDA tensor to the kernel launch only."""
+    from zest_tpu_torch.ops import blake3_cuda
+
+    seen = []
+    monkeypatch.setattr(blake3_cuda, "launch",
+                        lambda *a: seen.append("kernel"))
+    monkeypatch.setattr(blake3_cuda.plain, "hash_words",
+                        lambda *a: seen.append("plain"))
+    words = torch.zeros((1, 256), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        blake3_cuda.CudaHasher().hash_device(words, words[:, 0])
+    assert seen == []

@@ -1,0 +1,149 @@
+"""``python -m zest_tpu_torch {push,pull,generate}``.
+
+The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
+default (``--device cpu`` runs on the CPU). ``serve`` starts the
+publisher endpoint that a second node's ``pull`` points at
+(``HF_ENDPOINT=http://host:port``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from zest_tpu_torch.config import Config
+
+
+def cmd_push(args) -> int:
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    try:
+        res = push_checkpoint(Config.load(), args.repo, args.checkpoint_dir,
+                              base_revision=args.base, device=args.device)
+    except (ValueError, OSError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    if args.json:
+        print(json.dumps(res.summary(), indent=2))
+        return 0
+    print(f"pushed {args.repo}@{res.revision[:12]} "
+          f"(parent {res.parent[:12] if res.parent else '(none)'})")
+    print(f"  files {res.files} ({res.xet_files} xet), "
+          f"{res.total_bytes:,} bytes")
+    print(f"  new xorbs {res.new_xorbs} ({res.new_xorb_bytes:,} bytes, "
+          f"{res.minted_chunks} chunks verified on {args.device}), "
+          f"dedup ratio {res.dedup_ratio:.4f}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from zest_tpu_torch.api.http_api import PublisherServer
+
+    cfg = Config.load()
+    port = cfg.http_port if args.port is None else args.port
+    with PublisherServer(cfg, host=args.host, port=port) as server:
+        print(f"publisher endpoint at {server.url}", flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
+def cmd_pull(args) -> int:
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    res = pull_model(Config.load(), args.repo, revision=args.revision,
+                     device=args.device)
+    st = res.stats
+    print(f"pulled {args.repo}@{st['revision'][:12]} → {res.snapshot_dir}")
+    print(f"  {st['files_downloaded']} downloaded, {st['files_skipped']} "
+          f"skipped; {st['hbm']['tensors']} tensors "
+          f"({st['hbm']['bytes']:,} bytes) on {st['device']}")
+    print(f"  elapsed {st['elapsed_s']} s, time to device "
+          f"{st['time_to_hbm_s']} s")
+    return 0
+
+
+def cmd_generate(args) -> int:
+    from zest_tpu_torch.models.generate import (
+        UnsupportedModelError,
+        load_generator,
+    )
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    if args.steps < 1:
+        print(f"error: --steps must be positive (got {args.steps})",
+              file=sys.stderr)
+        return 2
+    try:
+        prompt = [int(t) for t in args.ids.split(",")]
+    except ValueError:
+        print(f"error: --ids {args.ids!r} is not a comma-separated list "
+              "of ints", file=sys.stderr)
+        return 2
+    res = pull_model(Config.load(), args.repo, revision=args.revision,
+                     device=args.device)
+    try:
+        model_type, generate = load_generator(
+            res.snapshot_dir, device=args.device, tensors=res.params)
+        out = generate(prompt, args.steps, stop_at_eos=not args.ignore_eos)
+    except (UnsupportedModelError, FileNotFoundError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(f"[{model_type}] {len(prompt)} prompt + {len(out) - len(prompt)} "
+          "new tokens")
+    print(",".join(str(int(t)) for t in out))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="zest-tpu-torch",
+        description="PyTorch/CUDA port of zest: push, pull, generate")
+    sub = p.add_subparsers(dest="command", required=True)
+    devices = ["cuda", "cpu"]
+
+    push = sub.add_parser("push", help="publish a checkpoint dir as a new "
+                                       "revision in the local cache")
+    push.add_argument("repo")
+    push.add_argument("checkpoint_dir")
+    push.add_argument("--base", default=None,
+                      help="base revision to dedup against (default: "
+                           "refs/main)")
+    push.add_argument("--device", choices=devices, default="cuda",
+                      help="where minted chunks are re-verified")
+    push.add_argument("--json", action="store_true")
+    push.set_defaults(fn=cmd_push)
+
+    serve = sub.add_parser("serve", help="serve pushed revisions to pulls")
+    serve.add_argument("--host", default="127.0.0.1")
+    serve.add_argument("--port", type=int, default=None,
+                       help="default ZEST_HTTP_PORT (9847); 0 = ephemeral")
+    serve.set_defaults(fn=cmd_serve)
+
+    pull = sub.add_parser("pull", help="download a model and land it on "
+                                       "the device")
+    pull.add_argument("repo")
+    pull.add_argument("--revision", default="main")
+    pull.add_argument("--device", choices=devices, default="cuda")
+    pull.set_defaults(fn=cmd_pull)
+
+    gen = sub.add_parser("generate", help="pull a model and greedy-decode")
+    gen.add_argument("repo")
+    gen.add_argument("--revision", default="main")
+    gen.add_argument("--ids", required=True,
+                     help="comma-separated prompt token ids")
+    gen.add_argument("--steps", type=int, default=20)
+    gen.add_argument("--device", choices=devices, default="cuda")
+    gen.add_argument("--ignore-eos", action="store_true")
+    gen.set_defaults(fn=cmd_generate)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)

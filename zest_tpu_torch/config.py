@@ -1,0 +1,123 @@
+"""Configuration: cache layout, token, endpoint, ports and device.
+
+The subset of ``zest_tpu/config.py`` that the push → pull → generate
+slice reads, with the same environment names (``HF_HOME``,
+``ZEST_CACHE_DIR``, ``HF_TOKEN``, ``HF_ENDPOINT``, ``ZEST_HTTP_PORT``,
+``ZEST_MAX_CONCURRENT``, ``ZEST_PUSH_CHUNKS_PER_XORB``) and the same HF
+cache layout, so a tree pulled by either package reads the same on disk.
+
+:func:`resolve_device` is the one place the port turns a device name into
+a ``torch.device``: entry points run on ``cuda`` unless the caller asks
+for ``cpu``, and asking for ``cuda`` where there is none raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+from pathlib import Path
+
+DEFAULT_HTTP_PORT = 9847            # localhost REST / publisher endpoint
+DEFAULT_MAX_CONCURRENT_DOWNLOADS = 16
+DEFAULT_DEVICE = "cuda"
+
+_REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
+
+
+def resolve_device(device: str | None = DEFAULT_DEVICE):
+    """``"cuda"`` (the default) or ``"cpu"`` → ``torch.device``.
+
+    No silent fallback: ``cuda`` on a machine without a usable card
+    raises ``RuntimeError``."""
+    import torch
+
+    dev = torch.device(DEFAULT_DEVICE if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device()
+                            if dev.index is None else dev.index)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev
+
+
+def _expand(p: str) -> Path:
+    return Path(os.path.expanduser(p))
+
+
+def _nonneg_int(env: dict[str, str], name: str, default: int) -> int:
+    raw = env.get(name)
+    if raw is None or not raw.strip():
+        return default
+    value = int(raw)
+    if value < 0:
+        raise ValueError(f"{name} must be >= 0, got {value}")
+    return value
+
+
+@dataclasses.dataclass
+class Config:
+    """Resolved runtime configuration. Build with :meth:`Config.load` so
+    environment overrides apply; construct directly in tests."""
+
+    hf_home: Path
+    cache_dir: Path                      # zest-private cache root
+    hf_token: str | None = None
+    http_port: int = DEFAULT_HTTP_PORT
+    max_concurrent_downloads: int = DEFAULT_MAX_CONCURRENT_DOWNLOADS
+    # Caps chunks packed per minted xorb (0 = format caps only).
+    push_chunks_per_xorb: int = 0
+    endpoint: str = "https://huggingface.co"
+
+    @staticmethod
+    def load(env: dict[str, str] | None = None) -> "Config":
+        """Resolve config from the environment. Token order: ``HF_TOKEN``,
+        then ``$HF_HOME/token``."""
+        env = dict(os.environ) if env is None else env
+        hf_home = _expand(env.get("HF_HOME", "~/.cache/huggingface"))
+        token = env.get("HF_TOKEN") or None
+        if not token:
+            try:
+                token = (hf_home / "token").read_text().strip() or None
+            except OSError:
+                token = None
+        return Config(
+            hf_home=hf_home,
+            cache_dir=_expand(env.get("ZEST_CACHE_DIR", "~/.cache/zest")),
+            hf_token=token,
+            http_port=_nonneg_int(env, "ZEST_HTTP_PORT", DEFAULT_HTTP_PORT),
+            max_concurrent_downloads=max(1, _nonneg_int(
+                env, "ZEST_MAX_CONCURRENT",
+                DEFAULT_MAX_CONCURRENT_DOWNLOADS)),
+            push_chunks_per_xorb=_nonneg_int(
+                env, "ZEST_PUSH_CHUNKS_PER_XORB", 0),
+            endpoint=env.get("HF_ENDPOINT", "https://huggingface.co"),
+        )
+
+    # ── HF cache layout ──
+
+    def hub_dir(self) -> Path:
+        return self.hf_home / "hub"
+
+    def model_cache_dir(self, repo_id: str) -> Path:
+        """``hub/models--{org}--{name}``."""
+        if not _REPO_RE.match(repo_id):
+            raise ValueError(f"invalid repo id: {repo_id!r}")
+        return self.hub_dir() / ("models--" + repo_id.replace("/", "--"))
+
+    def model_snapshot_dir(self, repo_id: str, commit_sha: str) -> Path:
+        return self.model_cache_dir(repo_id) / "snapshots" / commit_sha
+
+    def model_refs_dir(self, repo_id: str) -> Path:
+        return self.model_cache_dir(repo_id) / "refs"
+
+    def xorb_cache_dir(self) -> Path:
+        return self.cache_dir / "xorbs"
+
+    def xorb_cache_path(self, hash_hex: str) -> Path:
+        """``xorbs/{2-char prefix}/{hash}``."""
+        return self.xorb_cache_dir() / hash_hex[:2] / hash_hex

@@ -1,0 +1,217 @@
+"""GPT-2 in plain PyTorch, consuming pulled HF checkpoints.
+
+The counterpart of ``zest_tpu/models/gpt2.py``, kept in its layout so the
+tests compare like with like: params are a dict tree with per-layer
+leaves stacked along a leading layer axis (``blocks.attn.qkv_w`` is
+``(L, E, 3E)``, GPT-2's Conv1D ``x @ W`` layout). Matrix products are
+``torch.matmul``; attention is the same matmul, causal mask (filled with
+``finfo.min``) and softmax as the JAX package, not a fused kernel; the
+MLP uses the tanh GELU.
+
+The KV cache is updated in place (the JAX version returns a new cache);
+:func:`decode_window` still returns it so the two read alike.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    vocab_size: int = 50257
+    n_ctx: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_eps: float = 1e-5
+
+    @staticmethod
+    def from_hf(cfg_json: dict) -> "GPT2Config":
+        return GPT2Config(
+            vocab_size=cfg_json["vocab_size"],
+            n_ctx=cfg_json.get("n_ctx", cfg_json.get("n_positions", 1024)),
+            n_embd=cfg_json["n_embd"],
+            n_layer=cfg_json["n_layer"],
+            n_head=cfg_json["n_head"],
+            layer_norm_eps=cfg_json.get("layer_norm_epsilon", 1e-5),
+        )
+
+
+# ── Parameters ──
+
+_HF_BLOCK = re.compile(r"^h\.(\d+)\.(.+)$")
+
+# HF tensor name (within a block) -> (group, leaf).
+_HF_LEAF = {
+    "ln_1.weight": ("ln_1", "g"), "ln_1.bias": ("ln_1", "b"),
+    "ln_2.weight": ("ln_2", "g"), "ln_2.bias": ("ln_2", "b"),
+    "attn.c_attn.weight": ("attn", "qkv_w"),
+    "attn.c_attn.bias": ("attn", "qkv_b"),
+    "attn.c_proj.weight": ("attn", "proj_w"),
+    "attn.c_proj.bias": ("attn", "proj_b"),
+    "mlp.c_fc.weight": ("mlp", "fc_w"), "mlp.c_fc.bias": ("mlp", "fc_b"),
+    "mlp.c_proj.weight": ("mlp", "proj_w"),
+    "mlp.c_proj.bias": ("mlp", "proj_b"),
+}
+
+
+def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """Map an HF gpt2 checkpoint (flat name→tensor) onto the param tree,
+    on the tensors' device. Accepts bare or ``transformer.``-prefixed
+    names; skips ``lm_head.weight`` (tied) and the ``attn.bias`` buffers."""
+    flat = {(n[len("transformer."):] if n.startswith("transformer.")
+             else n): t for n, t in tensors.items()}
+    stacks: dict[tuple[str, str], list] = {
+        key: [None] * cfg.n_layer for key in set(_HF_LEAF.values())}
+    for name, t in flat.items():
+        m = _HF_BLOCK.match(name)
+        if m and m.group(2) in _HF_LEAF:
+            stacks[_HF_LEAF[m.group(2)]][int(m.group(1))] = t
+    out = {
+        "wte": flat["wte.weight"].to(dtype),
+        "wpe": flat["wpe.weight"].to(dtype),
+        "ln_f": {"g": flat["ln_f.weight"].to(dtype),
+                 "b": flat["ln_f.bias"].to(dtype)},
+        "blocks": {},
+    }
+    for (group, leaf), layers in stacks.items():
+        missing = [i for i, t in enumerate(layers) if t is None]
+        if missing:
+            raise ValueError(f"checkpoint missing {group}.{leaf} "
+                             f"for layers {missing}")
+        out["blocks"].setdefault(group, {})[leaf] = torch.stack(
+            layers).to(dtype)
+    return out
+
+
+def params_from_jax(tree: dict, device="cpu",
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """The JAX package's GPT-2 param tree (``zest_tpu.models.gpt2.
+    params_from_hf`` output, converted to numpy arrays) → this module's
+    params. Numpy only, so the port never imports jax."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
+
+
+def _layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked block tree."""
+    return {g: {k: v[i] for k, v in leaves.items()}
+            for g, leaves in params["blocks"].items()}
+
+
+# ── Forward ──
+
+
+def _layer_norm(x, g, b, eps):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps) * g + b
+
+
+def _mlp(x, p, cfg: GPT2Config):
+    h = _layer_norm(x, p["ln_2"]["g"], p["ln_2"]["b"], cfg.layer_norm_eps)
+    h = F.gelu(h @ p["mlp"]["fc_w"] + p["mlp"]["fc_b"], approximate="tanh")
+    return x + h @ p["mlp"]["proj_w"] + p["mlp"]["proj_b"]
+
+
+def _block(x, p, cfg: GPT2Config):
+    B, T, E = x.shape
+    H = cfg.n_head
+    h = _layer_norm(x, p["ln_1"]["g"], p["ln_1"]["b"], cfg.layer_norm_eps)
+    qkv = h @ p["attn"]["qkv_w"] + p["attn"]["qkv_b"]
+    q, k, v = (t.reshape(B, T, H, E // H).transpose(1, 2)
+               for t in qkv.split(E, dim=-1))
+    scores = (q @ k.transpose(-1, -2)) / math.sqrt(E // H)
+    mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+    att = torch.softmax(scores, dim=-1)
+    out = (att @ v).transpose(1, 2).reshape(B, T, E)
+    x = x + out @ p["attn"]["proj_w"] + p["attn"]["proj_b"]
+    return _mlp(x, p, cfg)
+
+
+@torch.inference_mode()
+def forward(params: dict, input_ids: torch.Tensor,
+            cfg: GPT2Config) -> torch.Tensor:
+    """(B, T) token ids → (B, T, vocab) logits."""
+    T = input_ids.shape[1]
+    x = params["wte"][input_ids] + params["wpe"][:T]
+    for i in range(cfg.n_layer):
+        x = _block(x, _layer(params, i), cfg)
+    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"],
+                    cfg.layer_norm_eps)
+    return x @ params["wte"].T
+
+
+def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.float32,
+                  device="cpu") -> dict:
+    """Static-shape per-layer K/V cache: (L, B, max_len, H, head_dim)."""
+    H = cfg.n_head
+    shape = (cfg.n_layer, batch, max_len, H, cfg.n_embd // H)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@torch.inference_mode()
+def decode_window(params: dict, cache: dict, tokens: torch.Tensor, pos: int,
+                  cfg: GPT2Config, last_only: bool = False):
+    """Cached step over a token window: (B, S) ids at positions
+    ``pos``..``pos+S-1`` → ((B, S, vocab) logits, cache). S=1 is one
+    decode step; S=len(prompt) is the batched prefill. ``last_only``
+    unembeds only the final position."""
+    B, S = tokens.shape
+    H, D = cfg.n_head, cfg.n_embd // cfg.n_head
+    x = params["wte"][tokens] + params["wpe"][pos:pos + S][None]
+    max_len = cache["k"].shape[2]
+    valid = (torch.arange(max_len, device=x.device)[None, :]
+             <= pos + torch.arange(S, device=x.device)[:, None])
+    for i in range(cfg.n_layer):
+        lp = _layer(params, i)
+        h = _layer_norm(x, lp["ln_1"]["g"], lp["ln_1"]["b"],
+                        cfg.layer_norm_eps)
+        qkv = h @ lp["attn"]["qkv_w"] + lp["attn"]["qkv_b"]
+        q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(cfg.n_embd, -1))
+        cache["k"][i, :, pos:pos + S] = k
+        cache["v"][i, :, pos:pos + S] = v
+        ck, cv = cache["k"][i], cache["v"][i]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, ck) / math.sqrt(D)
+        scores = scores.masked_fill(~valid[None, None],
+                                    torch.finfo(scores.dtype).min)
+        att = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", att, cv).reshape(
+            B, S, cfg.n_embd)
+        x = x + out @ lp["attn"]["proj_w"] + lp["attn"]["proj_b"]
+        x = _mlp(x, lp, cfg)
+    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"],
+                    cfg.layer_norm_eps)
+    if last_only:
+        x = x[:, -1:, :]
+    return x @ params["wte"].T, cache
+
+
+def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
+                cfg: GPT2Config):
+    """One incremental step: (B,) ids at ``pos`` → ((B, vocab), cache)."""
+    logits, cache = decode_window(params, cache, token[:, None], pos, cfg)
+    return logits[:, 0, :], cache
+
+
+def generate_cached(params: dict, cfg: GPT2Config, prompt_ids, steps: int,
+                    temperature: float = 0.0,
+                    eos_id: int | tuple[int, ...] | None = None):
+    """KV-cached greedy decode (sampling.cached_decode_loop)."""
+    from zest_tpu_torch.models.sampling import cached_decode_loop
+
+    return cached_decode_loop(
+        init_kv_cache, decode_step, params, cfg, prompt_ids, steps,
+        temperature=temperature, eos_id=eos_id, prefill_step=decode_window)

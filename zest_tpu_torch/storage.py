@@ -1,0 +1,93 @@
+"""Host-disk storage tier: atomic writes, HF refs and the xorb cache.
+
+The subset of ``zest_tpu/storage.py`` the slice runs, with the same
+on-disk layout: full xorbs at ``xorbs/{prefix}/{hash}``, partial entries
+(a chunk sub-range fetched from the CDN) at ``{hash}.{range_start}``.
+"""
+
+from __future__ import annotations
+
+import os
+import tempfile
+from dataclasses import dataclass
+from pathlib import Path
+
+from zest_tpu_torch.config import Config
+
+
+def atomic_write(path: Path, data: bytes) -> None:
+    """Write via tmp file + rename so readers never see partial content."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=".tmp-")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def write_ref(cfg: Config, repo_id: str, ref: str, commit_sha: str) -> None:
+    """Record ``refs/{ref} -> commit_sha`` in the HF cache layout."""
+    atomic_write(cfg.model_refs_dir(repo_id) / ref, commit_sha.encode())
+
+
+def read_ref(cfg: Config, repo_id: str, ref: str) -> str | None:
+    try:
+        return (cfg.model_refs_dir(repo_id) / ref).read_text().strip()
+    except OSError:
+        return None
+
+
+@dataclass(frozen=True)
+class CacheResult:
+    """A serialized xorb whose chunk 0 is absolute chunk ``chunk_offset``
+    of the full xorb."""
+
+    data: bytes
+    chunk_offset: int
+
+
+class XorbCache:
+    """Full (``{hash}``) and partial (``{hash}.{range_start}``) xorbs on
+    disk; every fetched entry is kept so this host can serve it."""
+
+    def __init__(self, cfg: Config):
+        self.cfg = cfg
+
+    def _path(self, key: str) -> Path:
+        return self.cfg.xorb_cache_path(key)
+
+    def has(self, hash_hex: str) -> bool:
+        return self._path(hash_hex).exists()
+
+    def get(self, hash_hex: str) -> bytes | None:
+        try:
+            return self._path(hash_hex).read_bytes()
+        except OSError:
+            return None
+
+    def get_with_range(self, hash_hex: str, range_start: int,
+                       covers=None) -> CacheResult | None:
+        """Full xorb first (offset 0), then the exact partial entry.
+        ``covers(result) -> bool`` lets a non-covering candidate fall
+        through to the next one instead of shadowing it."""
+        for key, offset in ((hash_hex, 0),
+                            (f"{hash_hex}.{range_start}", range_start)):
+            data = self.get(key)
+            if data is not None:
+                result = CacheResult(data, offset)
+                if covers is None or covers(result):
+                    return result
+        return None
+
+    def put(self, hash_hex: str, data: bytes) -> None:
+        atomic_write(self._path(hash_hex), data)
+
+    def put_partial(self, hash_hex: str, range_start: int,
+                    data: bytes) -> None:
+        atomic_write(self._path(f"{hash_hex}.{range_start}"), data)

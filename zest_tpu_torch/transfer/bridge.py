@@ -1,0 +1,229 @@
+"""XetBridge: the cache → CDN waterfall.
+
+The counterpart of ``zest_tpu/transfer/bridge.py`` with tier 1 (the local
+xorb cache, range-aware) and tier 3 (CDN byte ranges); the peer tier
+comes with the p2p slice. Every CDN fetch is cached — under the full key
+only with whole-xorb evidence, else as a partial entry keyed by its chunk
+offset — so this host can serve it on.
+
+Coordinate frames: a fetched blob's chunk 0 is absolute chunk
+``chunk_offset``; a term extracts ``[term.start - chunk_offset,
+term.end - chunk_offset)`` from it.
+"""
+
+from __future__ import annotations
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+
+from zest_tpu_torch import storage
+from zest_tpu_torch.cas import reconstruction as recon
+from zest_tpu_torch.cas.client import CasClient
+from zest_tpu_torch.cas.hub import HubClient
+from zest_tpu_torch.cas.xorb import XorbReader
+from zest_tpu_torch.config import Config
+
+
+class BridgeError(RuntimeError):
+    pass
+
+
+@dataclass
+class FetchStats:
+    """Per-pull source accounting, in the JAX package's summary schema
+    (the peer tier reads 0 until the p2p slice)."""
+
+    xorbs_from_cache: int = 0
+    xorbs_from_cdn: int = 0
+    bytes_from_cache: int = 0
+    bytes_from_cdn: int = 0
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    def record(self, source: str, nbytes: int) -> None:
+        with self._lock:
+            setattr(self, f"xorbs_from_{source}",
+                    getattr(self, f"xorbs_from_{source}") + 1)
+            setattr(self, f"bytes_from_{source}",
+                    getattr(self, f"bytes_from_{source}") + nbytes)
+
+    def summary(self, cdn_retries: int = 0) -> dict:
+        return {
+            "xorbs": {"cache": self.xorbs_from_cache, "peer": 0,
+                      "cdn": self.xorbs_from_cdn},
+            "bytes": {"cache": self.bytes_from_cache, "peer": 0,
+                      "cdn": self.bytes_from_cdn},
+            "p2p_ratio": 0.0,
+            "resilience": {"cdn_retries": cdn_retries},
+        }
+
+
+@dataclass(frozen=True)
+class XorbFetchResult:
+    """Blob + the term's chunk range rebased into it."""
+
+    data: bytes
+    local_start: int
+    local_end: int
+    source: str = "cache"                      # cache | cdn
+
+
+def _blob_covers(data: bytes, local_start: int, local_end: int) -> bool:
+    """The blob parses as a frame stream holding [local_start, local_end)."""
+    if local_start < 0 or local_end <= local_start:
+        return False
+    try:
+        return len(XorbReader(data)) >= local_end
+    except ValueError:
+        return False
+
+
+def provably_whole(entries, chunk_offset: int) -> bool:
+    """A blob fetched at ``chunk_offset`` is the whole xorb only when every
+    known reference to it is the same single range starting at chunk 0."""
+    ranges = {(e.range.start, e.range.end) for e in entries}
+    return (chunk_offset == 0 and len(ranges) == 1
+            and next(iter(ranges))[0] == 0)
+
+
+class XetBridge:
+    def __init__(self, cfg: Config, cache: storage.XorbCache | None = None):
+        self.cfg = cfg
+        self.cache = cache or storage.XorbCache(cfg)
+        self.cas: CasClient | None = None
+        self.stats = FetchStats()
+        self._recons: dict[str, recon.Reconstruction] = {}
+        self._lock = threading.Lock()
+
+    def authenticate(self, repo_id: str, revision: str = "main",
+                     hub: HubClient | None = None) -> None:
+        hub = hub or HubClient(self.cfg)
+        cas_url, token = hub.xet_read_token(repo_id, revision)
+        self.cas = CasClient(
+            cas_url, token,
+            token_refresher=lambda: hub.xet_read_token(repo_id, revision))
+
+    def get_reconstruction(self, file_hash_hex: str) -> recon.Reconstruction:
+        """Memoized: reconstructions are content-addressed and immutable."""
+        if self.cas is None:
+            raise BridgeError("call authenticate() first")
+        with self._lock:
+            cached = self._recons.get(file_hash_hex)
+        if cached is None:
+            cached = self.cas.get_reconstruction(file_hash_hex)
+            with self._lock:
+                cached = self._recons.setdefault(file_hash_hex, cached)
+        return cached
+
+    def known_reconstruction(self, file_hash_hex: str
+                             ) -> recon.Reconstruction | None:
+        with self._lock:
+            return self._recons.get(file_hash_hex)
+
+    # ── The waterfall ──
+
+    def fetch_xorb_for_term(self, term: recon.Term,
+                            rec: recon.Reconstruction) -> XorbFetchResult:
+        fi = rec.find_fetch_info(term)
+        if fi is None:
+            raise BridgeError(f"no fetch info covers chunks "
+                              f"[{term.range.start},{term.range.end}) of "
+                              f"{term.hash_hex}")
+        # 1. Local cache: the full xorb, or the partial entry for fi's
+        # range — whichever actually covers the term.
+        def covers(res: storage.CacheResult) -> bool:
+            return _blob_covers(res.data,
+                                term.range.start - res.chunk_offset,
+                                term.range.end - res.chunk_offset)
+
+        hit = self.cache.get_with_range(term.hash_hex, fi.range.start,
+                                        covers=covers)
+        if hit is not None:
+            self.stats.record("cache", len(hit.data))
+            return XorbFetchResult(hit.data,
+                                   term.range.start - hit.chunk_offset,
+                                   term.range.end - hit.chunk_offset)
+        # 3. CDN byte range — fi's whole chunk range, so the cached entry
+        # also serves later terms that share this fetch_info.
+        if self.cas is None:
+            raise BridgeError("no CAS client and the xorb is not cached")
+        url = fi.url if fi.url.startswith(("http://", "https://")) \
+            else self.cas.cas_url + fi.url
+        data = self.cas.fetch_xorb_from_url(
+            url, (fi.url_range_start, fi.url_range_end))
+        self.stats.record("cdn", len(data))
+        if not _blob_covers(data, term.range.start - fi.range.start,
+                            term.range.end - fi.range.start):
+            raise BridgeError(f"CDN blob for {term.hash_hex[:12]} does not "
+                              "hold the term's chunks")
+        self._cache_fetched(rec, term.hash_hex, fi.range.start, data)
+        return XorbFetchResult(data, term.range.start - fi.range.start,
+                               term.range.end - fi.range.start, "cdn")
+
+    def _known_entries(self, rec: recon.Reconstruction,
+                       hash_hex: str) -> list[recon.FetchInfo]:
+        """Every resolved reference to ``hash_hex``, across all memoized
+        reconstructions (a xorb shared by two files may look whole from
+        one file's fetch_info alone)."""
+        entries = list(rec.fetch_info.get(hash_hex, []))
+        with self._lock:
+            others = [r for r in self._recons.values() if r is not rec]
+        for other in others:
+            entries.extend(other.fetch_info.get(hash_hex, []))
+        return entries
+
+    def _cache_fetched(self, rec: recon.Reconstruction, hash_hex: str,
+                       chunk_offset: int, data: bytes) -> None:
+        """Persist a fetched blob, never over a wider existing entry."""
+        existing = self.cache.get_with_range(hash_hex, chunk_offset)
+        if existing is not None and existing.chunk_offset <= chunk_offset:
+            try:
+                if (existing.chunk_offset + len(XorbReader(existing.data))
+                        >= chunk_offset + len(XorbReader(data))):
+                    return
+            except ValueError:
+                pass  # corrupt entry: overwrite
+        if provably_whole(self._known_entries(rec, hash_hex), chunk_offset):
+            self.cache.put(hash_hex, data)
+        else:
+            self.cache.put_partial(hash_hex, chunk_offset, data)
+
+    # ── Term extraction + file reconstruction ──
+
+    def extract_term_into(self, term: recon.Term, result: XorbFetchResult,
+                          out) -> None:
+        """Decode the term's chunks into ``out`` (exactly
+        ``term.unpacked_length`` bytes); a blob with a footer verifies
+        every chunk's hash on the way."""
+        reader = XorbReader(result.data)
+        n = reader.extract_range_into(result.local_start, result.local_end,
+                                      out)
+        if n != term.unpacked_length:
+            raise BridgeError(f"term decoded to {n} bytes, expected "
+                              f"{term.unpacked_length}")
+
+    def reconstruct_to_file(self, file_hash_hex: str, out_path) -> int:
+        """Fetch every term (in parallel, ``max_concurrent_downloads``
+        wide), decode each into its place in the file, write atomically."""
+        rec = self.get_reconstruction(file_hash_hex)
+        offsets, total = [], 0
+        for term in rec.terms:
+            offsets.append(total)
+            total += term.unpacked_length
+        buf = bytearray(total)
+        view = memoryview(buf)
+
+        def work(i: int) -> None:
+            term = rec.terms[i]
+            start = offsets[i]
+            self.extract_term_into(
+                term, self.fetch_xorb_for_term(term, rec),
+                view[start:start + term.unpacked_length])
+
+        width = max(1, min(len(rec.terms), self.cfg.max_concurrent_downloads))
+        with ThreadPoolExecutor(width, thread_name_prefix="zest-term") as pool:
+            for fut in [pool.submit(work, i) for i in range(len(rec.terms))]:
+                fut.result()
+        view.release()
+        storage.atomic_write(out_path, buf)
+        return total
