@@ -3,26 +3,45 @@
 
     python3 chip_smoke.py [--seed N] [--steps N]
 
-Drives the port's push → pull → generate slice once, through its entry
-points, at the full width of ``openai-community/gpt2`` (12 layers, 768
-wide, 50257 vocab; ~124 M f32 parameters, random weights from ``--seed``):
+Drives the port's two main paths once each, through their entry points,
+at the full width of ``openai-community/gpt2`` (12 layers, 768 wide, 50257
+vocab; ~124 M f32 parameters, random weights from ``--seed``):
 
-1. build the CUDA BLAKE3 kernel from ``zest_tpu_torch/csrc/blake3.cu``
-   and the native host library from ``zest_tpu_torch/native/*.cc``;
-2. hold the kernel bit-exact against its plain PyTorch version and the
-   native host BLAKE3 on the card (plain and keyed, with garbage past
+1. build the CUDA kernels from ``zest_tpu_torch/csrc/blake3.cu`` and
+   ``csrc/bg4.cu`` (one nvcc each, side by side) and the native host
+   library from ``zest_tpu_torch/native/*.cc``;
+2. hold the BLAKE3 kernel bit-exact against its plain PyTorch version and
+   the native host BLAKE3 on the card (plain and keyed, with garbage past
    each row's length);
+   2b. hold the BG4 regroup kernel and the fused regroup → BLAKE3 pair
+   bit-exact against their plain versions and the native host decode +
+   BLAKE3, at every chunk length mod 4 up to 128 KiB, plain and keyed,
+   with garbage in every planar slot past its plane;
 3. ``push_checkpoint`` into node A's cache — every minted chunk is
-   re-verified by the kernel — then time the kernel and its plain
-   version on the largest minted xorb's chunks (the shapes the push gave
-   it) against its bound;
+   re-verified by the BLAKE3 kernel;
 4. ``pull_model(device="cuda")`` into a fresh node B through node A's
    loopback publisher endpoint; every xet file must be rebuilt by the
    cache → CDN waterfall (no whole-file fallback), the files must equal
    the pushed ones and the landed tree must sit on ``cuda:0`` with the CPU
    landing's digest;
 5. greedy KV-cached decoding at batch 1 and 4 from the landed tree, equal
-   to the port's own CPU float32 run.
+   to the port's own CPU float32 run;
+6. the cooperative pull: ``COOP_HOSTS`` (4) fresh hosts in threads, each
+   with its own cache and DCN server on loopback, run
+   ``pull_model(coop=True)`` against node A's publisher. Each fetches its
+   share from the CDN and receives the rest over DCN, every received whole
+   xorb verified on the card (BG4 chunks through the regroup → BLAKE3
+   pair); no fallbacks, no rejections, ≥ 60% peer-served, one copy of the
+   xorbs from the CDN in all, the files and landed digests equal to phase
+   4's, and the regroup kernel's rows equal to the BG4 chunks the hosts
+   received; then each host's receipt verification is timed again without
+   the network, once alone and once with every host's verifier running at
+   the same time;
+
+then time each kernel at its path's shapes against its bound, its plain
+version and, where one exists, the one PyTorch call that computes the same
+function. Every kernel's launch count is zeroed just before its path runs
+and read just after.
 
 Every phase is fatal. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -38,6 +57,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +72,8 @@ GPT2_CONFIG = {  # openai-community/gpt2's published config.json
     "eos_token_id": 50256,
 }
 KERNEL_LENGTHS = (0, 1, 63, 64, 1023, 1024, 1025, 2049, 65536, 131072)
+BG4_LENGTHS = (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
+COOP_HOSTS = 4
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3. Integer rate: 64 INT32
 # lanes per SM x 132 SMs x 1.98 GHz boost clock (the same data sheet's
 # clock behind its 67 TFLOP/s float32 figure: 128 FP32 lanes x 2 x 132 x
@@ -120,6 +142,16 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def max_abs_err(a, b) -> int:
+    """Largest |a - b| over two u32 tensors of one shape, as integers."""
+    import torch
+
+    def wide(t):
+        return t.view(torch.int32).long() & 0xFFFFFFFF
+
+    return int((wide(a) - wide(b)).abs().max()) if a.numel() else 0
+
+
 def blake3_work(lengths: np.ndarray) -> tuple[int, int]:
     """``(bytes, compressions)`` the kernel needs for these chunk lengths:
     it reads each row up to its length rounded up to a 64-byte block (at
@@ -129,6 +161,355 @@ def blake3_work(lengths: np.ndarray) -> tuple[int, int]:
     blocks = np.maximum((lengths + 63) // 64, 1)
     nbytes = int(blocks.sum()) * 64 + len(lengths) * (4 + 32)
     return nbytes, int(blocks.sum() + (leaves - 1).sum())
+
+
+def build_all() -> None:
+    """Phase 1: both kernels (one nvcc each, side by side) and the native
+    host library; prints each kernel's registers and spills."""
+    from zest_tpu_torch import native
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda, nvcc
+
+    logs, errors = {}, []
+
+    def build(mod):
+        t0 = time.monotonic()
+        try:
+            logs[mod.SOURCE.name] = (mod.build(), time.monotonic() - t0)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=build, args=(m,))
+               for m in (blake3_cuda, bg4_cuda)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    t1 = time.monotonic()
+    native.build()
+    print(f"phase 1 build: kernels {t1 - t0:.2f} s in parallel "
+          f"(nvcc {' '.join(nvcc.NVCC_FLAGS)}); native host library "
+          f"{time.monotonic() - t1:.2f} s (g++)")
+    for name, (ptxas, secs) in sorted(logs.items()):
+        print(f"  {name}: {secs:.2f} s")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
+
+
+def bg4_phase(rng, dev) -> None:
+    """Phase 2b: the regroup kernel and the fused pair against their plain
+    versions and the native host decode + BLAKE3."""
+    import torch
+
+    from zest_tpu_torch import native
+    from zest_tpu_torch.cas import compression, hashing
+    from zest_tpu_torch.ops import bg4, bg4_cuda
+    from zest_tpu_torch.ops.blake3 import digests_to_bytes
+
+    bg4_scheme = compression.Scheme.BG4_LZ4
+    chunks = [(rng.standard_normal(-(-n // 4), dtype=np.float32)
+               * np.float32(0.02)).tobytes()[:n] for n in BG4_LENGTHS]
+    payloads = [compression.compress(c, bg4_scheme) for c in chunks]
+    host = [compression.decompress(f, bg4_scheme, len(c))
+            for f, c in zip(payloads, chunks)]
+    if host != chunks:
+        fail("native host BG4 decode does not round-trip")
+    planar = [compression.lz4_frame_decompress(f, len(c))
+              for f, c in zip(payloads, chunks)]
+    words, lengths = bg4.stage_planar(planar, list(BG4_LENGTHS), dev)
+    raw = words.view(torch.uint8)
+    slot = raw.shape[1] // 4
+    keep = torch.zeros(raw.shape, dtype=torch.bool)
+    for i, n in enumerate(BG4_LENGTHS):
+        for k, size in enumerate(bg4.bg4_plane_sizes(n)):
+            keep[i, k * slot:k * slot + size] = True
+    junk = torch.randint(0, 256, raw.shape, device=dev, dtype=torch.uint8)
+    dirty = torch.where(keep.to(dev), raw, junk).contiguous().view(
+        torch.uint32)
+    for w in (words, dirty):
+        got = bg4_cuda.launch(w)
+        if max_abs_err(got, bg4.regroup_words(w)):
+            fail("BG4 regroup kernel != plain regroup")
+        rows = got.cpu().view(torch.uint8).numpy()
+        if any(rows[i, :len(c)].tobytes() != c for i, c in enumerate(host)):
+            fail("BG4 regroup kernel != native host decode")
+    for key in (None, hashing.CHUNK_KEY):
+        v = bg4.FusedBg4Verifier(key, dev)
+        want = [native.lib.blake3(c) if key is None
+                else native.lib.blake3_keyed(key, c) for c in host]
+        for w in (words, dirty):
+            got = v.hash_planar_device(w, lengths)
+            plain = bg4.fused_regroup_hash(w, lengths, v.key_words,
+                                           v.base_flags)
+            if max_abs_err(got, plain):
+                fail(f"fused pair != plain fused (keyed={key is not None})")
+            if digests_to_bytes(got) != want:
+                fail(f"fused pair != native decode + BLAKE3 "
+                     f"(keyed={key is not None})")
+    torch.cuda.synchronize()
+    print(f"phase 2b bg4 regroup and fused pair == plain == native decode + "
+          f"BLAKE3 on {len(chunks)} lengths {list(BG4_LENGTHS)}, plain and "
+          f"keyed, garbage past every plane")
+
+
+def bg4_chunks_of(blob: bytes) -> int:
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.xorb import XorbReader
+
+    return int((XorbReader(blob).chunk_schemes == int(Scheme.BG4_LZ4)).sum())
+
+
+def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
+               digest: str, dev) -> dict:
+    """Phase 6: ``COOP_HOSTS`` cooperative pulls in threads. Returns the
+    launch counts of the coop path."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import params_digest
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    n = COOP_HOSTS
+    cfgs = [Config(hf_home=work / f"c{i}" / "hf",
+                   cache_dir=work / f"c{i}" / "zest", endpoint=url,
+                   dcn_port=0) for i in range(n)]
+    # Each host's listener outlives its own pull: the peers still behind
+    # it read from it until every host is done.
+    servers = [DcnServer(c) for c in cfgs]
+    addrs = {i: ("127.0.0.1", srv.start()) for i, srv in enumerate(servers)}
+    results, errors = [None] * n, []
+
+    def host(i):
+        try:
+            results[i] = pull_model(
+                cfgs[i], REPO, device=dev, coop=True, coop_hosts=n,
+                coop_index=i,
+                coop_addrs={j: a for j, a in addrs.items() if j != i},
+                coop_server=servers[i],
+                log=lambda *a, **k: print(f"  [host {i}]", *a,
+                                          file=sys.stderr))
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER)
+    for c in counters:
+        c.reset()  # counts from here are the coop path's
+    threads = [threading.Thread(target=host, args=(i,)) for i in range(n)]
+    t0 = time.monotonic()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    wall = time.monotonic() - t0
+    launches = {name: (c.launches, c.rows) for name, c in zip(
+        ("blake3_chunks", "bg4_regroup"), counters)}
+    if errors:
+        raise errors[0]
+
+    per_xorb = {h: bg4_chunks_of(cfg_a.xorb_cache_path(h).read_bytes())
+                for h in pushed.xorb_digests}
+    want_rows = (n - 1) * sum(per_xorb.values())
+    cdn_total = 0
+    for i, res in enumerate(results):
+        st = res.stats
+        c = st.get("coop")
+        if not c or c.get("skipped"):
+            fail(f"host {i}: no cooperative round ran: {st.get('coop')}")
+        ex = c["exchange"]
+        if c["fallbacks"] or ex["verify_rejected"] or not ex["units"]:
+            fail(f"host {i}: fallbacks {c['fallbacks']}, rejected "
+                 f"{ex['verify_rejected']}, exchanged {ex['units']}")
+        if not 0 < ex["wire_bytes"] < ex["unpacked_bytes"]:
+            fail(f"host {i}: wire {ex['wire_bytes']} vs unpacked "
+                 f"{ex['unpacked_bytes']}")
+        if c["peer_served_ratio"] < 0.6 or st["fallback_files"]:
+            fail(f"host {i}: peer-served {c['peer_served_ratio']}, "
+                 f"fallback_files {st['fallback_files']}")
+        coop_cdn = (c["fetch"]["tiers"].get("cdn", 0)
+                    + ex.get("fallback_tiers", {}).get("cdn", 0))
+        if st["fetch"]["bytes"]["cdn"] != coop_cdn:
+            fail(f"host {i}: the files stage fetched "
+                 f"{st['fetch']['bytes']['cdn'] - coop_cdn} CDN bytes")
+        cdn_total += st["fetch"]["bytes"]["cdn"]
+        for f in sorted(ckpt.iterdir()):
+            if (res.snapshot_dir / f.name).read_bytes() != f.read_bytes():
+                fail(f"host {i}: pulled {f.name} differs from the pushed file")
+        if any(t.device != dev for t in res.params.values()):
+            fail(f"host {i}: tensors not all on {dev}")
+        if params_digest(res.params) != digest:
+            fail(f"host {i}: params_digest != phase 4's")
+    if cdn_total > 1.05 * pushed.new_xorb_bytes:
+        fail(f"{cdn_total:,} CDN bytes over {n} hosts > 1.05 x "
+             f"{pushed.new_xorb_bytes:,}")
+    rg_launches, rg_rows = launches["bg4_regroup"]
+    if rg_rows != want_rows or not rg_launches:
+        fail(f"bg4_regroup covered {rg_rows} rows in {rg_launches} launches; "
+             f"the hosts received {want_rows} BG4 chunks")
+    if launches["blake3_chunks"][1] < want_rows:
+        fail(f"blake3_chunks hashed {launches['blake3_chunks'][1]} rows < "
+             f"{want_rows}")
+    print(f"phase 6 coop pull: {n} hosts in {wall:.2f} s; {cdn_total:,} CDN "
+          f"bytes in all ({pushed.new_xorb_bytes:,} pushed); "
+          f"{sum(per_xorb.values())} BG4 chunks in {len(per_xorb)} xorbs, "
+          f"x{n - 1} receivers = {want_rows} rows; launches (rows): "
+          + ", ".join(f"{k} {v[0]} ({v[1]})" for k, v in launches.items()))
+    for i, res in enumerate(results):
+        st, c = res.stats, res.stats["coop"]
+        ex = c["exchange"]
+        print(f"  host {i}: time_to_hbm_s {st['time_to_hbm_s']} stages "
+              f"{st['stages']}; coop elapsed_s {c['elapsed_s']}, fetched "
+              f"{c['fetch']['units']} units "
+              f"({c['fetch']['tiers'].get('cdn', 0):,} CDN bytes), "
+              f"exchanged {ex['units']} ({ex['wire_bytes']:,} wire / "
+              f"{ex['unpacked_bytes']:,} unpacked bytes, {ex['retries']} "
+              f"retries, peak in flight {ex['inflight_peak_bytes']:,}), "
+              f"fallback {c['fallbacks']} ({ex['fallback_bytes']} bytes), "
+              f"peer-served {c['peer_served_ratio']}")
+    # The regroup runs only inside the fused pair (``launch_fused``): its
+    # launches are the pair's.
+    return {"blake3_chunks": launches["blake3_chunks"][0],
+            "bg4_regroup": rg_launches, "bg4_fused_verify": rg_launches}
+
+
+def receipt_timing(cfg_a, pushed, dev) -> None:
+    """Each coop host's receipt verification without the network: host
+    ``i`` verifies, through its own ``make_unit_verifier``, every minted
+    xorb ``j`` with ``j % COOP_HOSTS != i`` (the 5-6 whole xorbs a host
+    receives in phase 6). Timed host after host, each alone, then with
+    every host's verifier in its own thread at once, as in phase 6: this
+    parts the verifiers' contention with one another from the exchange's
+    and the DCN servers'."""
+    from zest_tpu_torch.transfer.pod import make_unit_verifier
+
+    blobs = [(h, cfg_a.xorb_cache_path(h).read_bytes())
+             for h in pushed.xorb_digests]
+    sets = [[b for j, b in enumerate(blobs) if j % COOP_HOSTS != i]
+            for i in range(COOP_HOSTS)]
+    verifiers = [make_unit_verifier(device=dev) for _ in range(COOP_HOSTS)]
+
+    errors = []
+
+    def host(i, out):
+        t0 = time.perf_counter()
+        for h, data in sets[i]:
+            if not verifiers[i](h, data):
+                errors.append(f"receipt verify rejected minted xorb {h[:12]}")
+        out[i] = time.perf_counter() - t0
+
+    host(0, [0.0])  # warm-up
+    alone, together = [0.0] * COOP_HOSTS, [0.0] * COOP_HOSTS
+    for i in range(COOP_HOSTS):
+        host(i, alone)
+    threads = [threading.Thread(target=host, args=(i, together))
+               for i in range(COOP_HOSTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors or not all(together):
+        fail(f"receipt timing: {errors or 'a host thread died'}")
+    print(f"receipt verify without the network, per host (xorbs "
+          f"{[len(s) for s in sets]}): alone "
+          f"{[round(x, 3) for x in alone]} s (sum {sum(alone):.3f} s); "
+          f"{COOP_HOSTS} hosts at once {[round(x, 3) for x in together]} s "
+          f"(wall {wall:.3f} s)")
+
+
+def time_bg4(cfg_a, pushed, dev) -> list[dict]:
+    """Both BG4 kernels at the coop path's shapes: the largest minted
+    xorb's BG4 chunks, staged as ``hash_planar_batch`` stages them."""
+    import torch
+
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.hashing import CHUNK_KEY
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.ops import bg4, bg4_cuda
+
+    blob = max((cfg_a.xorb_cache_path(h).read_bytes()
+                for h in pushed.xorb_digests), key=len)
+    reader = XorbReader(blob)
+    idx = [i for i, s in enumerate(reader.chunk_schemes.tolist())
+           if s == int(Scheme.BG4_LZ4)]
+    sizes = [int(reader.chunk_sizes[i]) for i in idx]
+    t0 = time.perf_counter()
+    planar = [reader.extract_chunk_planar(i) for i in idx]
+    t1 = time.perf_counter()
+    words, lengths = bg4.stage_planar(planar, sizes, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    B, W = words.shape
+    cap = 4 * W
+    v = bg4.FusedBg4Verifier(CHUNK_KEY, dev)
+    kw, bf = v.key_words, v.base_flags
+
+    def library():
+        return words.view(torch.uint8).view(B, 4, cap // 4).transpose(
+            1, 2).contiguous()
+
+    out = bg4_cuda.launch(words)
+    rg_err = max_abs_err(out, bg4.regroup_words(words))
+    if rg_err or not torch.equal(out.view(torch.uint8),
+                                 library().view(B, cap)):
+        fail("regroup kernel != plain / library at the coop shapes")
+    fused_err = max_abs_err(bg4_cuda.launch_fused(words, lengths, kw, bf),
+                            bg4.fused_regroup_hash(words, lengths, kw, bf))
+    if fused_err:
+        fail("fused pair != plain fused at the coop shapes")
+    rg_ms = cuda_ms(lambda: bg4_cuda.launch(words), 50)
+    rg_plain = cuda_ms(lambda: bg4.regroup_words(words), 3)
+    rg_lib = cuda_ms(library, 50)
+    fu_ms = cuda_ms(lambda: bg4_cuda.launch_fused(words, lengths, kw, bf), 50)
+    fu_plain = cuda_ms(lambda: bg4.fused_regroup_hash(words, lengths, kw, bf),
+                       3)
+    # Regroup: it reads and writes each row's capacity once.
+    rg_bytes = 2 * B * cap
+    rg_bound = rg_bytes / HBM_BYTES_PER_S * 1e3
+    # Fused pair, as one function: its input read once up to each row's
+    # length (64-byte blocks, as kernel #1 counts it) and its digests
+    # written once; the operations are kernel #1's for these lengths plus
+    # eight byte permutes per 16 regrouped bytes.
+    lens = np.asarray(sizes, dtype=np.int64)
+    fu_bytes, n_compressions = blake3_work(lens)
+    fu_ops = (n_compressions * OPS_PER_COMPRESSION
+              + 8 * int(((lens + 15) // 16).sum()))
+    fu_byte_ms = fu_bytes / HBM_BYTES_PER_S * 1e3
+    fu_op_ms = fu_ops / INT32_OPS_PER_S * 1e3
+    pair_floor = rg_bound + n_compressions * OPS_PER_COMPRESSION \
+        / INT32_OPS_PER_S * 1e3
+    print(f"bg4 kernels at coop shapes: {B} BG4 chunks of the largest xorb "
+          f"({len(reader)} chunks), cap {cap} B, {int(lens.sum()):,} bytes; "
+          f"host LZ4 planar decode {1e3 * (t1 - t0):.1f} ms, stage_planar + "
+          f"H2D {1e3 * (t2 - t1):.1f} ms")
+    print(f"  bg4_regroup {rg_ms:.4f} ms ({rg_bytes / rg_ms / 1e9:.3f} TB/s), "
+          f"plain {rg_plain:.2f} ms, library {rg_lib:.4f} ms, bound "
+          f"{rg_bound:.4f} ms (bytes: {rg_bytes:,} B)")
+    print(f"  bg4_fused_verify {fu_ms:.4f} ms, plain {fu_plain:.2f} ms, bound "
+          f"{max(fu_byte_ms, fu_op_ms):.4f} ms (bytes {fu_byte_ms:.4f}: "
+          f"{fu_bytes:,} B; ops {fu_op_ms:.4f}: {fu_ops:,}); two-launch "
+          f"floor (regroup bytes + BLAKE3 ops) {pair_floor:.4f} ms")
+    return [
+        {"name": "bg4_regroup", "route": "cuda",
+         "source": "zest_tpu_torch/csrc/bg4.cu",
+         "replaces": "zest_tpu/ops/decode_pallas.py:103",
+         "max_abs_err": rg_err, "ms": rg_ms, "plain_ms": rg_plain,
+         "bound_ms": rg_bound, "bound_by": "bytes", "library_ms": rg_lib},
+        {"name": "bg4_fused_verify", "route": "cuda",
+         "source": "zest_tpu_torch/csrc/bg4.cu",
+         "replaces": "zest_tpu/ops/decode_pallas.py:121",
+         "max_abs_err": fused_err, "ms": fu_ms, "plain_ms": fu_plain,
+         "bound_ms": max(fu_byte_ms, fu_op_ms),
+         "bound_by": "bytes" if fu_byte_ms > fu_op_ms else "operations",
+         "library_ms": None},
+    ]
 
 
 def run(args, work: Path) -> dict:
@@ -144,8 +525,8 @@ def run(args, work: Path) -> dict:
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import load_checkpoint, params_digest
     from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
     from zest_tpu_torch.ops import blake3 as plain
-    from zest_tpu_torch.ops import blake3_cuda
     from zest_tpu_torch.transfer.pull import pull_model
     from zest_tpu_torch.transfer.push import push_checkpoint
 
@@ -153,16 +534,7 @@ def run(args, work: Path) -> dict:
     rng = np.random.default_rng(args.seed)
 
     # ── 1. build ──
-    t0 = time.monotonic()
-    ptxas = blake3_cuda.build()
-    t1 = time.monotonic()
-    native.build()
-    print(f"phase 1 build: kernel {t1 - t0:.2f} s "
-          f"({blake3_cuda.SOURCE.name}, nvcc {' '.join(blake3_cuda.NVCC_FLAGS)}); "
-          f"native host library {time.monotonic() - t1:.2f} s (g++)")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    build_all()
 
     # ── 2. kernel vs plain vs native host BLAKE3, on the card ──
     chunks = [rng.bytes(n) for n in KERNEL_LENGTHS]
@@ -189,6 +561,7 @@ def run(args, work: Path) -> dict:
     torch.cuda.synchronize()
     print(f"phase 2 kernel == plain == native on {len(chunks)} lengths "
           f"{list(KERNEL_LENGTHS)}, plain and keyed, garbage-tolerant")
+    bg4_phase(rng, dev)
 
     # ── 3. push (the kernel verifies every minted chunk) ──
     ckpt = work / "checkpoint"
@@ -199,9 +572,10 @@ def run(args, work: Path) -> dict:
     write_safetensors(ckpt / "model.safetensors", tensors)
     del tensors
     cfg_a = Config(hf_home=work / "a" / "hf", cache_dir=work / "a" / "zest")
-    blake3_cuda.COUNTER.reset()  # counts from here are the main path's
+    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER):
+        c.reset()  # counts from here are the push path's
     pushed = push_checkpoint(cfg_a, REPO, ckpt, device="cuda")
-    push_chunks = blake3_cuda.COUNTER.chunks
+    push_chunks = blake3_cuda.COUNTER.rows
     if blake3_cuda.COUNTER.launches < 1:
         fail("push never launched the BLAKE3 kernel")
     if push_chunks != pushed.minted_chunks:
@@ -212,52 +586,67 @@ def run(args, work: Path) -> dict:
           f"{pushed.minted_chunks} chunks, kernel launches "
           f"{blake3_cuda.COUNTER.launches}")
 
-    # ── 4. pull through node A's loopback publisher ──
-    cfg_b = Config(hf_home=work / "b" / "hf", cache_dir=work / "b" / "zest")
-    with PublisherServer(cfg_a) as server:
-        cfg_b.endpoint = server.url
+    publisher = PublisherServer(cfg_a).start()
+    try:
+        # ── 4. pull through node A's loopback publisher ──
+        cfg_b = Config(hf_home=work / "b" / "hf",
+                       cache_dir=work / "b" / "zest", endpoint=publisher.url)
         pulled = pull_model(cfg_b, REPO, device="cuda")
-    st = pulled.stats
-    if st["fallback_files"]:
-        fail(f"{st['fallback_files']} xet files fell back to a whole-file "
-             "download: the cache → CDN reconstruction failed")
-    if (st["fetch"]["bytes"]["cache"]
-            or st["fetch"]["bytes"]["cdn"] < pushed.new_xorb_bytes):
-        fail(f"node B started empty, so all {pushed.new_xorb_bytes:,} "
-             f"minted xorb bytes must cross the CDN tier: {st['fetch']}")
-    for f in sorted(ckpt.iterdir()):
-        if (pulled.snapshot_dir / f.name).read_bytes() != f.read_bytes():
-            fail(f"pulled {f.name} differs from the pushed file")
-    off = [n for n, t in pulled.params.items() if t.device != dev]
-    if off:
-        fail(f"{len(off)} tensors not on {dev}: {off[:3]}")
-    digest = params_digest(pulled.params)
-    if digest != params_digest(load_checkpoint(pulled.snapshot_dir, "cpu")):
-        fail("params_digest of the cuda landing != the CPU landing's")
-    print(f"phase 4 pull: time_to_hbm_s {st['time_to_hbm_s']} "
-          f"(elapsed_s {st['elapsed_s']}, stages {st['stages']}); "
-          f"{st['fetch']['bytes']['cdn']:,} bytes in "
-          f"{st['fetch']['xorbs']['cdn']} CDN fetches, 0 fallbacks; "
-          f"{st['hbm']['tensors']} tensors on {dev}, digest {digest[:16]}")
+        st = pulled.stats
+        if st["fallback_files"]:
+            fail(f"{st['fallback_files']} xet files fell back to a "
+                 "whole-file download: the cache → CDN reconstruction "
+                 "failed")
+        if (st["fetch"]["bytes"]["cache"]
+                or st["fetch"]["bytes"]["cdn"] < pushed.new_xorb_bytes):
+            fail(f"node B started empty, so all {pushed.new_xorb_bytes:,} "
+                 f"minted xorb bytes must cross the CDN tier: {st['fetch']}")
+        for f in sorted(ckpt.iterdir()):
+            if (pulled.snapshot_dir / f.name).read_bytes() != f.read_bytes():
+                fail(f"pulled {f.name} differs from the pushed file")
+        off = [n for n, t in pulled.params.items() if t.device != dev]
+        if off:
+            fail(f"{len(off)} tensors not on {dev}: {off[:3]}")
+        digest = params_digest(pulled.params)
+        if digest != params_digest(load_checkpoint(pulled.snapshot_dir,
+                                                   "cpu")):
+            fail("params_digest of the cuda landing != the CPU landing's")
+        print(f"phase 4 pull: time_to_hbm_s {st['time_to_hbm_s']} "
+              f"(elapsed_s {st['elapsed_s']}, stages {st['stages']}); "
+              f"{st['fetch']['bytes']['cdn']:,} bytes in "
+              f"{st['fetch']['xorbs']['cdn']} CDN fetches, 0 fallbacks; "
+              f"{st['hbm']['tensors']} tensors on {dev}, digest "
+              f"{digest[:16]}")
 
-    # ── 5. greedy decode from the landed tree vs the CPU float32 run ──
-    _, gen_cuda = load_generator(pulled.snapshot_dir, device="cuda",
-                                 tensors=pulled.params)
-    _, gen_cpu = load_generator(pulled.snapshot_dir, device="cpu")
-    prompts = rng.integers(0, GPT2_CONFIG["vocab_size"], (4, 8)).tolist()
-    for batch in ([prompts[0]], prompts):
-        gen_cuda(batch, 2, stop_at_eos=False)  # warm-up (cuBLAS init)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        out = gen_cuda(batch, args.steps, stop_at_eos=False)
-        dt = time.monotonic() - t0
-        ref = gen_cpu(batch, args.steps, stop_at_eos=False)
-        if not np.array_equal(out, ref):
-            fail(f"batch {len(batch)}: cuda tokens != cpu tokens")
-        print(f"phase 5 generate batch {len(batch)}: prefill 8 + "
-              f"{args.steps} steps in {dt:.3f} s, "
-              f"{len(batch) * args.steps / dt:.1f} tokens/s; equal to CPU")
-    launches = blake3_cuda.COUNTER.launches  # end of the main path
+        # ── 5. greedy decode from the landed tree vs the CPU float32 run ──
+        _, gen_cuda = load_generator(pulled.snapshot_dir, device="cuda",
+                                     tensors=pulled.params)
+        _, gen_cpu = load_generator(pulled.snapshot_dir, device="cpu")
+        prompts = rng.integers(0, GPT2_CONFIG["vocab_size"], (4, 8)).tolist()
+        for batch in ([prompts[0]], prompts):
+            gen_cuda(batch, 2, stop_at_eos=False)  # warm-up (cuBLAS init)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = gen_cuda(batch, args.steps, stop_at_eos=False)
+            dt = time.monotonic() - t0
+            ref = gen_cpu(batch, args.steps, stop_at_eos=False)
+            if not np.array_equal(out, ref):
+                fail(f"batch {len(batch)}: cuda tokens != cpu tokens")
+            print(f"phase 5 generate batch {len(batch)}: prefill 8 + "
+                  f"{args.steps} steps in {dt:.3f} s, "
+                  f"{len(batch) * args.steps / dt:.1f} tokens/s; equal to "
+                  "CPU")
+        push_launches = blake3_cuda.COUNTER.launches  # end of the push path
+        del pulled, gen_cuda, gen_cpu  # free phase 4/5's trees
+        shutil.rmtree(work / "b")
+        torch.cuda.empty_cache()
+
+        # ── 6. cooperative pull across in-process hosts ──
+        coop_launches = coop_phase(work, publisher.url, ckpt, pushed,
+                                   cfg_a, digest, dev)
+    finally:
+        publisher.close()
+    receipt_timing(cfg_a, pushed, dev)
 
     # ── kernel timing at the push path's shapes ──
     blob = max((cfg_a.xorb_cache_path(h).read_bytes()
@@ -274,8 +663,7 @@ def run(args, work: Path) -> dict:
     kernel_out = hasher.hash_device(words, lengths)
     plain_out = plain.hash_words(words, lengths, hasher.key_words,
                                  hasher.base_flags)
-    max_err = int((kernel_out.view(torch.int32).long() & 0xFFFFFFFF).sub(
-        plain_out.view(torch.int32).long() & 0xFFFFFFFF).abs().max())
+    max_err = max_abs_err(kernel_out, plain_out)
     if max_err:
         fail("kernel != plain at the push shapes")
     ms = cuda_ms(lambda: hasher.hash_device(words, lengths), 50)
@@ -293,19 +681,25 @@ def run(args, work: Path) -> dict:
           f"{n_compressions:,} compressions x {OPS_PER_COMPRESSION}; "
           f"{op_ms / OPS_PER_COMPRESSION * (7 * 8 * 14 + 8):.4f} at 14 "
           f"ops per G)")
-    return {"kernels": [{
+    kernels = [{
         "name": "blake3_chunks",
         "route": "cuda",
         "source": "zest_tpu_torch/csrc/blake3.cu",
         "replaces": "zest_tpu/ops/blake3_pallas.py:332",
-        "launches": launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(byte_ms, op_ms),
         "bound_by": "bytes" if byte_ms > op_ms else "operations",
         "library_ms": None,
-    }]}
+    }] + time_bg4(cfg_a, pushed, dev)
+    by_path = {"blake3_chunks": {"push": push_launches,
+                                 "coop": coop_launches["blake3_chunks"]}}
+    for k in kernels:
+        paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]]})
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
+    return {"kernels": kernels}
 
 
 def main(argv=None) -> int:

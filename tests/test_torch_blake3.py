@@ -21,7 +21,7 @@ from zest_tpu_torch import native
 from zest_tpu_torch.cas import blake3 as port_pure
 from zest_tpu_torch.ops import CudaHasher, DeviceHasher, unit_verify_hasher
 from zest_tpu_torch.ops import blake3 as plain
-from zest_tpu_torch.ops import blake3_cuda
+from zest_tpu_torch.ops import bg4_cuda, blake3_cuda, nvcc
 
 _RNG = np.random.default_rng(7)
 _KEY = bytes(range(32))
@@ -101,16 +101,28 @@ def test_cpu_tensor_never_launches_the_kernel():
     h = CudaHasher(CHUNK_KEY, device="cpu")
     assert h.hash_batch(chunks) == [jref.blake3_keyed(CHUNK_KEY, c)
                                     for c in chunks]
-    assert (blake3_cuda.COUNTER.launches, blake3_cuda.COUNTER.chunks) == (0, 0)
+    assert (blake3_cuda.COUNTER.launches, blake3_cuda.COUNTER.rows) == (0, 0)
+
+
+def _unbuildable(mod, tmp_path, monkeypatch) -> None:
+    """Give ``mod`` a fresh, unbuilt library whose nvcc always fails."""
+    monkeypatch.setattr(mod, "LIBRARY", nvcc.KernelLibrary(
+        mod.SOURCE.name, mod.LIBRARY.lib_name, lambda dll: None))
+    monkeypatch.setattr(nvcc, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(nvcc, "nvcc", lambda: "false")
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
     """A kernel that does not build raises; nothing falls back."""
-    monkeypatch.setattr(blake3_cuda, "_lib", None)
-    monkeypatch.setattr(blake3_cuda, "_BUILD_DIR", tmp_path)
-    monkeypatch.setattr(blake3_cuda, "_nvcc", lambda: "false")
-    with pytest.raises(RuntimeError, match="nvcc failed"):
+    _unbuildable(blake3_cuda, tmp_path, monkeypatch)
+    with pytest.raises(RuntimeError, match="nvcc failed on blake3.cu"):
         blake3_cuda.build()
+
+
+def test_failed_bg4_build_raises(tmp_path, monkeypatch):
+    _unbuildable(bg4_cuda, tmp_path, monkeypatch)
+    with pytest.raises(RuntimeError, match="nvcc failed on bg4.cu"):
+        bg4_cuda.build()
 
 
 def test_unit_verify_hasher_cpu_is_plain():

@@ -37,9 +37,19 @@ def _module_names() -> list[str]:
     return names
 
 
+SLICE_MODULES = [
+    "zest_tpu_torch.faults", "zest_tpu_torch.ops.bg4",
+    "zest_tpu_torch.ops.bg4_cuda", "zest_tpu_torch.ops.nvcc",
+    "zest_tpu_torch.parallel", "zest_tpu_torch.parallel.plan",
+    "zest_tpu_torch.transfer.coop", "zest_tpu_torch.transfer.dcn",
+    "zest_tpu_torch.transfer.federated", "zest_tpu_torch.transfer.pod",
+]
+
+
 def test_every_module_imports_without_jax_or_zest_tpu():
     names = _module_names()
-    assert len(names) >= 25
+    assert len(names) >= 35
+    assert set(SLICE_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         "before = set(sys.modules)\n"
@@ -88,6 +98,7 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     from zest_tpu_torch.config import Config, resolve_device
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
+    from zest_tpu_torch.transfer.pod import make_unit_verifier
     from zest_tpu_torch.transfer.pull import pull_model
     from zest_tpu_torch.transfer.push import push_checkpoint
 
@@ -97,11 +108,15 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     calls = [
         lambda: resolve_device(),
         lambda: ops.unit_verify_hasher(),
+        lambda: ops.fused_verifier_for_backend(),
+        lambda: make_unit_verifier(),
         lambda: push_checkpoint(cfg, "org/m", files={"a.bin": b"x"}),
         lambda: pull_model(cfg, "org/m"),
         lambda: stage_snapshot_to_hbm(tmp_path),
         lambda: load_generator(tmp_path),
         lambda: main(["pull", "org/m"]),
+        lambda: main(["pull", "org/m", "--coop", "--coop-hosts", "2",
+                      "--coop-index", "0", "--coop-addr", "1=127.0.0.1:9"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
@@ -122,3 +137,25 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         blake3_cuda.CudaHasher().hash_device(words, words[:, 0])
     assert seen == []
+
+
+def test_fused_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """The fused verifier routes a CUDA tensor to the kernel pair only;
+    on the CPU it never counts a launch."""
+    from zest_tpu_torch.ops import bg4, bg4_cuda
+
+    seen = []
+    monkeypatch.setattr(bg4_cuda, "launch_fused",
+                        lambda *a: seen.append("kernel"))
+    monkeypatch.setattr(bg4, "fused_regroup_hash",
+                        lambda *a: seen.append("plain"))
+    words = torch.zeros((1, 256), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bg4.FusedBg4Verifier().hash_planar_device(words, words[:, 0])
+    assert seen == []
+    monkeypatch.undo()
+    bg4_cuda.COUNTER.reset()
+    got = bg4.FusedBg4Verifier(device="cpu").hash_planar_batch(
+        [b"abcd"], [4])
+    assert len(got) == 1
+    assert bg4_cuda.COUNTER.launches == 0

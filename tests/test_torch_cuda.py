@@ -1,4 +1,4 @@
-"""The port on the card: the CUDA BLAKE3 kernel and the slice on ``cuda``.
+"""The port on the card: the CUDA kernels and the slice on ``cuda``.
 
 Every test here needs a CUDA device (``cuda`` marker) and skips with a
 reason where there is none. This file imports nothing of jax or the JAX
@@ -20,11 +20,12 @@ import pytest
 import torch
 
 from zest_tpu_torch import native
+from zest_tpu_torch.cas import compression
 from zest_tpu_torch.cas.hashing import CHUNK_KEY
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.ops import CudaHasher, DeviceHasher, unit_verify_hasher
+from zest_tpu_torch.ops import bg4, bg4_cuda, blake3_cuda
 from zest_tpu_torch.ops import blake3 as plain
-from zest_tpu_torch.ops import blake3_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +73,7 @@ def test_launch_count(cuda_device):
     assert h.hash_batch([]) == []
     h.hash_batch([b"abc", b"x" * 5000])
     torch.cuda.synchronize()
-    assert (blake3_cuda.COUNTER.launches, blake3_cuda.COUNTER.chunks) == (1, 2)
+    assert (blake3_cuda.COUNTER.launches, blake3_cuda.COUNTER.rows) == (1, 2)
 
 
 def test_kernel_rejects_bad_capacity_on_card(cuda_device):
@@ -82,6 +83,55 @@ def test_kernel_rejects_bad_capacity_on_card(cuda_device):
             torch.zeros((1, 129 * 256), dtype=torch.uint32,
                         device=cuda_device),
             torch.zeros(1, dtype=torch.int32, device=cuda_device))
+
+
+_BG4_LENGTHS = (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
+
+
+def _bg4_batch(device):
+    chunks = [(_RNG.standard_normal(-(-n // 4), dtype=np.float32) * 0.02)
+              .tobytes()[:n] for n in _BG4_LENGTHS]
+    words, lengths = bg4.stage_planar([compression._bg4(c) for c in chunks],
+                                      list(_BG4_LENGTHS), device)
+    return chunks, words, lengths
+
+
+def test_bg4_regroup_matches_plain(cuda_device):
+    chunks, words, _ = _bg4_batch(cuda_device)
+    bg4_cuda.COUNTER.reset()
+    got = bg4_cuda.launch(words)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bg4.regroup_words(words))
+    assert (bg4_cuda.COUNTER.launches, bg4_cuda.COUNTER.rows) == (
+        1, len(chunks))
+    rows = got.cpu().view(torch.uint8).numpy()
+    for row, c in zip(rows, chunks):
+        assert row[:len(c)].tobytes() == c
+    with pytest.raises(ValueError, match="16-byte multiple"):
+        bg4_cuda.launch(torch.zeros((1, 6), dtype=torch.uint32,
+                                    device=cuda_device))
+
+
+@pytest.mark.parametrize("key", [None, CHUNK_KEY], ids=["plain", "chunk_key"])
+def test_bg4_fused_matches_plain_and_native(cuda_device, key):
+    chunks, words, lengths = _bg4_batch(cuda_device)
+    raw = words.view(torch.uint8)
+    junk = torch.randint(0, 256, raw.shape, device=cuda_device,
+                         dtype=torch.uint8)
+    slot = raw.shape[1] // 4
+    keep = torch.zeros_like(raw, dtype=torch.bool)
+    for i, n in enumerate(_BG4_LENGTHS):
+        for k, size in enumerate(bg4.bg4_plane_sizes(n)):
+            keep[i, k * slot:k * slot + size] = True
+    dirty = torch.where(keep, raw, junk).contiguous().view(torch.uint32)
+    v = bg4.FusedBg4Verifier(key, cuda_device)
+    got = v.hash_planar_device(dirty, lengths)
+    assert torch.equal(got, v.hash_planar_device(words, lengths))
+    assert torch.equal(got, bg4.fused_regroup_hash(
+        words, lengths, v.key_words, v.base_flags))
+    assert plain.digests_to_bytes(got) == [
+        native.lib.blake3(c) if key is None
+        else native.lib.blake3_keyed(key, c) for c in chunks]
 
 
 def _tiny_gpt2(root):
@@ -123,7 +173,7 @@ def test_slice_on_card(cuda_device, tmp_path):
     blake3_cuda.COUNTER.reset()
     pushed = push_checkpoint(cfg_a, "org/tiny", ckpt)
     assert blake3_cuda.COUNTER.launches == pushed.new_xorbs > 1
-    assert blake3_cuda.COUNTER.chunks == pushed.minted_chunks
+    assert blake3_cuda.COUNTER.rows == pushed.minted_chunks
     with PublisherServer(cfg_a) as server:
         res = pull_model(Config(hf_home=tmp_path / "b" / "hf",
                                 cache_dir=tmp_path / "b" / "zest",
@@ -135,3 +185,62 @@ def test_slice_on_card(cuda_device, tmp_path):
     _, gen_cpu = load_generator(res.snapshot_dir, device="cpu")
     prompts = [[1, 2, 3], [4, 5, 6], [7, 8, 9], [10, 11, 12]]
     assert np.array_equal(gen(prompts, 16), gen_cpu(prompts, 16))
+
+
+def test_coop_pull_on_card(cuda_device, tmp_path):
+    """Four in-process hosts pull cooperatively on ``cuda``: every received
+    whole xorb's BG4 chunks go through the regroup kernel once."""
+    import threading
+
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    pushed = push_checkpoint(cfg_a, "org/tiny", ckpt)
+    bg4_chunks = sum(
+        int((XorbReader(cfg_a.xorb_cache_path(h).read_bytes()).chunk_schemes
+             == int(Scheme.BG4_LZ4)).sum()) for h in pushed.xorb_digests)
+    assert bg4_chunks > 0
+    n = 4
+    cfgs = [Config(hf_home=tmp_path / f"h{i}" / "hf",
+                   cache_dir=tmp_path / f"h{i}" / "zest", dcn_port=0)
+            for i in range(n)]
+    servers = [DcnServer(c) for c in cfgs]
+    addrs = {i: ("127.0.0.1", s.start()) for i, s in enumerate(servers)}
+    results, errors = [None] * n, []
+    bg4_cuda.COUNTER.reset()
+    with PublisherServer(cfg_a) as server:
+        for c in cfgs:
+            c.endpoint = server.url
+
+        def run(i):
+            try:
+                results[i] = pull_model(
+                    cfgs[i], "org/tiny", coop=True, coop_hosts=n,
+                    coop_index=i,
+                    coop_addrs={j: a for j, a in addrs.items() if j != i},
+                    coop_server=servers[i], log=lambda *a, **k: None)
+            except Exception as exc:  # noqa: BLE001 - asserted below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    for s in servers:
+        s.shutdown()
+    assert not errors, errors
+    want = params_digest(load_checkpoint(ckpt, "cpu"))
+    for res in results:
+        c = res.stats["coop"]
+        assert c["fallbacks"] == 0 and c["exchange"]["verify_rejected"] == 0
+        assert params_digest(res.params) == want
+    assert bg4_cuda.COUNTER.rows == (n - 1) * bg4_chunks

@@ -310,6 +310,35 @@ class XorbReader:
         entries list costs a ChunkEntry per frame)."""
         return self._unc_lens
 
+    @property
+    def chunk_schemes(self):
+        """Per-chunk compression.Scheme values as a numpy u8 column."""
+        return self._schemes
+
+    def extract_chunk_planar(self, index: int) -> bytes:
+        """A BG4 chunk's PLANAR bytes: the LZ4 frame decoded but the
+        byte-grouping inverse NOT applied — the staging form the device's
+        fused decode→verify pass takes (``ops/bg4.py``), so the host never
+        builds the interleaved bytes. Raises :class:`XorbFormatError` for
+        a chunk of another scheme."""
+        scheme = compression.Scheme(int(self._schemes[index]))
+        if scheme != compression.Scheme.BG4_LZ4:
+            raise XorbFormatError(
+                f"chunk {index} is scheme {scheme!s}, not BG4")
+        p0 = int(self._frame_offs[index]) + FRAME_HEADER_LEN
+        payload = bytes(self._data[p0:p0 + int(self._comp_lens[index])])
+        return compression.lz4_frame_decompress(
+            payload, int(self._unc_lens[index]))
+
+    def slice_range(self, start: int, end: int) -> bytes:
+        """Raw frame bytes for chunks [start, end) — what a server sends on
+        the wire and what lands in a partial cache entry."""
+        self._check_range(start, end)
+        first = int(self._frame_offs[start])
+        last_end = (int(self._frame_offs[end - 1]) + FRAME_HEADER_LEN
+                    + int(self._comp_lens[end - 1]))
+        return bytes(self._data[first:last_end])
+
     def decode_columns(self, start: int, end: int):
         """Columnar batch-decode descriptors for chunks [start, end):
         ``(src_offs u64, src_lens u64, schemes u8, dst_lens u64)`` numpy

@@ -1,9 +1,12 @@
-"""``python -m zest_tpu_torch {push,pull,generate}``.
+"""``python -m zest_tpu_torch {push,serve,pull,generate}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
 publisher endpoint that a second node's ``pull`` points at
-(``HF_ENDPOINT=http://host:port``).
+(``HF_ENDPOINT=http://host:port``). ``pull --coop --coop-hosts N
+--coop-index I --coop-addr J=HOST:PORT ...`` runs the cooperative pull:
+this host fetches its ~1/N of the xorbs and the others' shares come over
+the DCN chunk RPC (its listener is ``ZEST_DCN_PORT``, 6991 by default).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import json
 import sys
 import time
 
-from zest_tpu_torch.config import Config
+from zest_tpu_torch.config import Config, parse_host_addr
 
 
 def cmd_push(args) -> int:
@@ -56,8 +59,15 @@ def cmd_serve(args) -> int:
 def cmd_pull(args) -> int:
     from zest_tpu_torch.transfer.pull import pull_model
 
+    try:
+        coop_addrs = dict(parse_host_addr(a) for a in args.coop_addr or [])
+    except ValueError as exc:
+        print(f"error: --coop-addr: {exc}", file=sys.stderr)
+        return 2
     res = pull_model(Config.load(), args.repo, revision=args.revision,
-                     device=args.device)
+                     device=args.device, coop=args.coop,
+                     coop_hosts=args.coop_hosts, coop_index=args.coop_index,
+                     coop_addrs=coop_addrs)
     st = res.stats
     print(f"pulled {args.repo}@{st['revision'][:12]} → {res.snapshot_dir}")
     print(f"  {st['files_downloaded']} downloaded, {st['files_skipped']} "
@@ -65,6 +75,15 @@ def cmd_pull(args) -> int:
           f"({st['hbm']['bytes']:,} bytes) on {st['device']}")
     print(f"  elapsed {st['elapsed_s']} s, time to device "
           f"{st['time_to_hbm_s']} s")
+    coop = st.get("coop")
+    if coop and not coop.get("skipped"):
+        ex = coop["exchange"]
+        print(f"  coop host {coop['host']}/{coop['hosts']}: "
+              f"{coop['fetch']['units']} fetched, {ex['units']} over DCN "
+              f"({ex['wire_bytes']:,} wire bytes, {ex['unpacked_bytes']:,} "
+              f"unpacked), {coop['fallbacks']} fallback, "
+              f"{ex['verify_rejected']} rejected — peer-served "
+              f"{coop['peer_served_ratio']:.1%}")
     return 0
 
 
@@ -130,6 +149,23 @@ def build_parser() -> argparse.ArgumentParser:
     pull.add_argument("repo")
     pull.add_argument("--revision", default="main")
     pull.add_argument("--device", choices=devices, default="cuda")
+    coop = pull.add_mutually_exclusive_group()
+    coop.add_argument("--coop", dest="coop", action="store_true",
+                      default=None,
+                      help="cooperative pull: fetch ~1/N of the CDN bytes "
+                           "and exchange the rest with the other hosts "
+                           "over DCN (auto when more than one host is "
+                           "configured; also ZEST_COOP=1)")
+    coop.add_argument("--no-coop", dest="coop", action="store_false")
+    pull.add_argument("--coop-hosts", type=int, default=None,
+                      help="hosts in the cooperative pull "
+                           "(also ZEST_COOP_HOSTS)")
+    pull.add_argument("--coop-index", type=int, default=None,
+                      help="this host's index, 0-based "
+                           "(also ZEST_COOP_INDEX)")
+    pull.add_argument("--coop-addr", action="append", metavar="I=HOST:PORT",
+                      help="DCN endpoint of coop host I (repeatable; also "
+                           "ZEST_COOP_ADDRS)")
     pull.set_defaults(fn=cmd_pull)
 
     gen = sub.add_parser("generate", help="pull a model and greedy-decode")

@@ -1,10 +1,12 @@
 """Configuration: cache layout, token, endpoint, ports and device.
 
-The subset of ``zest_tpu/config.py`` that the push → pull → generate
-slice reads, with the same environment names (``HF_HOME``,
-``ZEST_CACHE_DIR``, ``HF_TOKEN``, ``HF_ENDPOINT``, ``ZEST_HTTP_PORT``,
-``ZEST_MAX_CONCURRENT``, ``ZEST_PUSH_CHUNKS_PER_XORB``) and the same HF
-cache layout, so a tree pulled by either package reads the same on disk.
+The subset of ``zest_tpu/config.py`` that the port reads, with the same
+environment names (``HF_HOME``, ``ZEST_CACHE_DIR``, ``HF_TOKEN``,
+``HF_ENDPOINT``, ``ZEST_HTTP_PORT``, ``ZEST_DCN_PORT``,
+``ZEST_MAX_CONCURRENT``, ``ZEST_PUSH_CHUNKS_PER_XORB``, ``ZEST_COOP``,
+``ZEST_COOP_HOSTS``, ``ZEST_COOP_INDEX``, ``ZEST_COOP_ADDRS``,
+``ZEST_COOP_INFLIGHT``), the same defaults and the same HF cache layout,
+so a tree pulled by either package reads the same on disk.
 
 :func:`resolve_device` is the one place the port turns a device name into
 a ``torch.device``: entry points run on ``cuda`` unless the caller asks
@@ -19,6 +21,8 @@ import re
 from pathlib import Path
 
 DEFAULT_HTTP_PORT = 9847            # localhost REST / publisher endpoint
+DEFAULT_DCN_PORT = 6991             # host-to-host chunk RPC listener
+DEFAULT_COOP_INFLIGHT_BYTES = 1 << 30
 DEFAULT_MAX_CONCURRENT_DOWNLOADS = 16
 DEFAULT_DEVICE = "cuda"
 
@@ -59,6 +63,26 @@ def _nonneg_int(env: dict[str, str], name: str, default: int) -> int:
     return value
 
 
+def parse_host_addr(spec: str) -> tuple[int, tuple[str, int]]:
+    """``"2=hostB:6991"`` -> ``(2, ("hostB", 6991))``."""
+    idx, sep, addr = spec.strip().partition("=")
+    host, _, port = addr.rpartition(":")
+    if not (sep and idx.strip().isdigit() and host and port.isdigit()):
+        raise ValueError(f"bad host-addr entry: {spec!r} "
+                         "(want IDX=HOST:PORT)")
+    return int(idx), (host, int(port))
+
+
+def _parse_coop_addrs(spec: str) -> dict[int, tuple[str, int]]:
+    """``"0=hostA:6991,1=hostB:6991"`` -> {0: ("hostA", 6991), ...}."""
+    out: dict[int, tuple[str, int]] = {}
+    for part in spec.split(","):
+        if part.strip():
+            idx, addr = parse_host_addr(part)
+            out[idx] = addr
+    return out
+
+
 @dataclasses.dataclass
 class Config:
     """Resolved runtime configuration. Build with :meth:`Config.load` so
@@ -68,10 +92,21 @@ class Config:
     cache_dir: Path                      # zest-private cache root
     hf_token: str | None = None
     http_port: int = DEFAULT_HTTP_PORT
+    dcn_port: int = DEFAULT_DCN_PORT
     max_concurrent_downloads: int = DEFAULT_MAX_CONCURRENT_DOWNLOADS
     # Caps chunks packed per minted xorb (0 = format caps only).
     push_chunks_per_xorb: int = 0
     endpoint: str = "https://huggingface.co"
+    # Cooperative pull (transfer/coop.py). ``coop_pull`` is tri-state:
+    # True/False force it on/off (ZEST_COOP=1/0), None = on when more
+    # than one host is known. ``coop_addrs`` maps host index -> (host,
+    # dcn_port) (ZEST_COOP_ADDRS="0=h:p,1=h:p").
+    coop_pull: bool | None = None
+    coop_hosts: int | None = None
+    coop_index: int | None = None
+    coop_addrs: dict[int, tuple[str, int]] = dataclasses.field(
+        default_factory=dict)
+    coop_inflight_bytes: int = DEFAULT_COOP_INFLIGHT_BYTES
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -90,12 +125,23 @@ class Config:
             cache_dir=_expand(env.get("ZEST_CACHE_DIR", "~/.cache/zest")),
             hf_token=token,
             http_port=_nonneg_int(env, "ZEST_HTTP_PORT", DEFAULT_HTTP_PORT),
+            dcn_port=_nonneg_int(env, "ZEST_DCN_PORT", DEFAULT_DCN_PORT),
             max_concurrent_downloads=max(1, _nonneg_int(
                 env, "ZEST_MAX_CONCURRENT",
                 DEFAULT_MAX_CONCURRENT_DOWNLOADS)),
             push_chunks_per_xorb=_nonneg_int(
                 env, "ZEST_PUSH_CHUNKS_PER_XORB", 0),
             endpoint=env.get("HF_ENDPOINT", "https://huggingface.co"),
+            coop_pull={"1": True, "0": False}.get(
+                env.get("ZEST_COOP", "").strip()),
+            coop_hosts=(int(env["ZEST_COOP_HOSTS"])
+                        if env.get("ZEST_COOP_HOSTS") else None),
+            coop_index=(int(env["ZEST_COOP_INDEX"])
+                        if env.get("ZEST_COOP_INDEX") else None),
+            coop_addrs=_parse_coop_addrs(env.get("ZEST_COOP_ADDRS", "")),
+            coop_inflight_bytes=max(1, int(
+                env.get("ZEST_COOP_INFLIGHT")
+                or DEFAULT_COOP_INFLIGHT_BYTES)),
         )
 
     # ── HF cache layout ──
@@ -121,3 +167,7 @@ class Config:
     def xorb_cache_path(self, hash_hex: str) -> Path:
         """``xorbs/{2-char prefix}/{hash}``."""
         return self.xorb_cache_dir() / hash_hex[:2] / hash_hex
+
+    def chunk_cache_path(self, hash_hex: str) -> Path:
+        """``chunks/{2-char prefix}/{hash}``."""
+        return self.cache_dir / "chunks" / hash_hex[:2] / hash_hex

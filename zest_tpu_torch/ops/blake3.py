@@ -52,6 +52,11 @@ def key_params(key: bytes | None) -> tuple[tuple[int, ...], int]:
     return tuple(int(w) for w in np.frombuffer(key, dtype="<u4")), KEYED_HASH
 
 
+class ChunkTooLarge(ValueError):
+    """A chunk over the verifiers' 128 KiB capacity: the one ``ValueError``
+    a well-framed but hostile blob can raise at the trust boundary."""
+
+
 def check_batch(words: torch.Tensor, lengths: torch.Tensor) -> None:
     """The capacity rules every hasher enforces (``ValueError``)."""
     if words.dim() != 2:
@@ -61,7 +66,8 @@ def check_batch(words: torch.Tensor, lengths: torch.Tensor) -> None:
     if words.shape[-1] % WORDS_PER_LEAF:
         raise ValueError("padded capacity must be a 1 KiB multiple")
     if words.shape[-1] > MAX_LEAVES * WORDS_PER_LEAF:
-        raise ValueError(f"chunks larger than {MAX_LEAVES} KiB unsupported")
+        raise ChunkTooLarge(
+            f"chunks larger than {MAX_LEAVES} KiB unsupported")
     if lengths.shape != (words.shape[0],):
         raise ValueError(f"lengths must be ({words.shape[0]},), "
                          f"got {tuple(lengths.shape)}")

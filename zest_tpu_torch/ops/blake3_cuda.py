@@ -2,106 +2,46 @@
 
 Counterpart of ``zest_tpu/ops/blake3_pallas.py`` (``PallasHasher``). The
 kernel is ``csrc/blake3.cu``; its source note says what it replaces, what
-bounds it and how it is laid out. It is compiled with ``nvcc`` for
-``sm_90a`` into ``csrc/build/`` (listed in ``.gitignore``) at first use and
-bound with ``ctypes`` — nothing is built when this module is imported.
+bounds it and how it is laid out. ``ops/nvcc.py`` compiles it for
+``sm_90a`` into ``csrc/build/`` at first use and binds it with ``ctypes``
+— nothing is built when this module is imported.
 
 :class:`CudaHasher` keeps the Pallas hasher's surface (``hash_device``,
 ``hash_batch``). A CUDA tensor launches the kernel on the current stream
 or raises; only a CPU tensor takes the plain PyTorch version
 (``ops/blake3.py``). :data:`COUNTER` counts kernel launches and the chunks
-they hashed, so a run can show that its main path went through the kernel.
+(rows) they hashed, so a run can show that its main path went through the
+kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
 from zest_tpu_torch.ops import blake3 as plain
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCE = _CSRC / "blake3.cu"
-_BUILD_DIR = _CSRC / "build"
-_LIB_NAME = "libzest_blake3.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from zest_tpu_torch.ops import nvcc
 
 
-@dataclasses.dataclass
-class LaunchCounter:
-    """Kernel launches, and the chunks those launches hashed."""
-
-    launches: int = 0
-    chunks: int = 0
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.chunks = 0
+def _bind(dll: ctypes.CDLL) -> None:
+    dll.zest_blake3_chunks.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
+        ctypes.c_void_p,
+    ]
+    dll.zest_blake3_chunks.restype = ctypes.c_int
 
 
-COUNTER = LaunchCounter()
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA BLAKE3 kernel cannot be "
-                       "built (put the CUDA toolkit's bin/ on PATH)")
+LIBRARY = nvcc.KernelLibrary("blake3.cu", "libzest_blake3.so", _bind)
+SOURCE = LIBRARY.source
+COUNTER = nvcc.LaunchCounter()
 
 
 def build() -> str:
-    """Compile and load the kernel library (once per process; an up-to-date
-    library on disk is reused). Returns the compiler's ``-Xptxas -v``
-    report. Raises ``RuntimeError`` when ``nvcc`` is missing or fails."""
-    global _lib, _build_log
-    with _lock:
-        if _lib is not None:
-            return _build_log
-        _BUILD_DIR.mkdir(exist_ok=True)
-        so_path = _BUILD_DIR / _LIB_NAME
-        stamp = _BUILD_DIR / (_LIB_NAME + ".stamp")
-        st = SOURCE.stat()
-        fingerprint = f"{st.st_mtime_ns}:{st.st_size}:{' '.join(NVCC_FLAGS)}"
-        if not (so_path.exists() and stamp.exists()
-                and stamp.read_text() == fingerprint):
-            fd, tmp = tempfile.mkstemp(dir=_BUILD_DIR, prefix=".tmp-",
-                                       suffix=".so")
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-            os.replace(tmp, so_path)
-            stamp.write_text(fingerprint)
-            _build_log = proc.stderr
-        lib = ctypes.CDLL(str(so_path))
-        lib.zest_blake3_chunks.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint32,
-            ctypes.c_void_p,
-        ]
-        lib.zest_blake3_chunks.restype = ctypes.c_int
-        _lib = lib
-        return _build_log
+    """Compile and load the kernel library (once per process); returns
+    the compiler's ``-Xptxas -v`` report."""
+    return LIBRARY.build()
 
 
 def launch(words: torch.Tensor, lengths: torch.Tensor,
@@ -122,17 +62,15 @@ def launch(words: torch.Tensor, lengths: torch.Tensor,
     out = torch.empty((B, 8), dtype=torch.uint32, device=words.device)
     if B == 0:
         return out
-    build()
+    lib = LIBRARY.get()
     key = (ctypes.c_uint32 * 8)(*key_words)
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream(words.device).cuda_stream
-        rc = _lib.zest_blake3_chunks(
+        rc = lib.zest_blake3_chunks(
             words.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, W,
             ctypes.addressof(key), base_flags, stream)
-    if rc != 0:
-        raise RuntimeError(f"BLAKE3 kernel launch failed: cudaError {rc}")
-    COUNTER.launches += 1
-    COUNTER.chunks += B
+    nvcc.check_launch(rc, "BLAKE3")
+    COUNTER.add(B)
     return out
 
 

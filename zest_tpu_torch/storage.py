@@ -1,8 +1,9 @@
 """Host-disk storage tier: atomic writes, HF refs and the xorb cache.
 
-The subset of ``zest_tpu/storage.py`` the slice runs, with the same
+The subset of ``zest_tpu/storage.py`` the port runs, with the same
 on-disk layout: full xorbs at ``xorbs/{prefix}/{hash}``, partial entries
-(a chunk sub-range fetched from the CDN) at ``{hash}.{range_start}``.
+(a chunk sub-range fetched from the CDN) at ``{hash}.{range_start}``, and
+single chunks at ``chunks/{prefix}/{hash}`` (read by the DCN server).
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ def write_ref(cfg: Config, repo_id: str, ref: str, commit_sha: str) -> None:
 def read_ref(cfg: Config, repo_id: str, ref: str) -> str | None:
     try:
         return (cfg.model_refs_dir(repo_id) / ref).read_text().strip()
+    except OSError:
+        return None
+
+
+def read_chunk(cfg: Config, chunk_hash: bytes) -> bytes | None:
+    """A chunk from the chunk cache, or None."""
+    try:
+        return cfg.chunk_cache_path(chunk_hash.hex()).read_bytes()
     except OSError:
         return None
 

@@ -1,10 +1,12 @@
 """XetBridge: the cache → CDN waterfall.
 
 The counterpart of ``zest_tpu/transfer/bridge.py`` with tier 1 (the local
-xorb cache, range-aware) and tier 3 (CDN byte ranges); the peer tier
-comes with the p2p slice. Every CDN fetch is cached — under the full key
-only with whole-xorb evidence, else as a partial entry keyed by its chunk
-offset — so this host can serve it on.
+xorb cache, range-aware) and tier 3 (CDN byte ranges); the swarm's peer
+tier comes with the p2p slice. Peer bytes come only from the cooperative
+exchange (``transfer/coop.py``), which books them under ``peer``. Every
+fetch is cached — under the full key only with whole-xorb evidence, else
+as a partial entry keyed by its chunk offset, and never over a wider
+entry — so this host can serve it on.
 
 Coordinate frames: a fetched blob's chunk 0 is absolute chunk
 ``chunk_offset``; a term extracts ``[term.start - chunk_offset,
@@ -19,7 +21,7 @@ from dataclasses import dataclass, field
 
 from zest_tpu_torch import storage
 from zest_tpu_torch.cas import reconstruction as recon
-from zest_tpu_torch.cas.client import CasClient
+from zest_tpu_torch.cas.client import CasClient, CasError
 from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.config import Config
@@ -29,14 +31,32 @@ class BridgeError(RuntimeError):
     pass
 
 
+# What a fetch through the waterfall can raise when a tier fails: the
+# callers that degrade a unit to a later tier catch exactly these.
+FETCH_ERRORS = (BridgeError, CasError, OSError)
+
+# Hash-striped locks for the never-narrower cache write: the clobber race
+# is between bridges (several hosts of one process share no bridge), so
+# the locks are process-wide.
+_WRITE_LOCKS = tuple(threading.Lock() for _ in range(64))
+
+
+def _write_lock(hash_hex: str) -> threading.Lock:
+    try:
+        return _WRITE_LOCKS[int(hash_hex[:2], 16) % len(_WRITE_LOCKS)]
+    except ValueError:
+        return _WRITE_LOCKS[0]
+
+
 @dataclass
 class FetchStats:
-    """Per-pull source accounting, in the JAX package's summary schema
-    (the peer tier reads 0 until the p2p slice)."""
+    """Per-pull source accounting, in the JAX package's summary schema."""
 
     xorbs_from_cache: int = 0
+    xorbs_from_peer: int = 0
     xorbs_from_cdn: int = 0
     bytes_from_cache: int = 0
+    bytes_from_peer: int = 0
     bytes_from_cdn: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
@@ -47,13 +67,20 @@ class FetchStats:
             setattr(self, f"bytes_from_{source}",
                     getattr(self, f"bytes_from_{source}") + nbytes)
 
+    @property
+    def p2p_ratio(self) -> float:
+        total = self.bytes_from_peer + self.bytes_from_cdn
+        return self.bytes_from_peer / total if total else 0.0
+
     def summary(self, cdn_retries: int = 0) -> dict:
         return {
-            "xorbs": {"cache": self.xorbs_from_cache, "peer": 0,
+            "xorbs": {"cache": self.xorbs_from_cache,
+                      "peer": self.xorbs_from_peer,
                       "cdn": self.xorbs_from_cdn},
-            "bytes": {"cache": self.bytes_from_cache, "peer": 0,
+            "bytes": {"cache": self.bytes_from_cache,
+                      "peer": self.bytes_from_peer,
                       "cdn": self.bytes_from_cdn},
-            "p2p_ratio": 0.0,
+            "p2p_ratio": round(self.p2p_ratio, 4),
             "resilience": {"cdn_retries": cdn_retries},
         }
 
@@ -94,6 +121,20 @@ class XetBridge:
         self.stats = FetchStats()
         self._recons: dict[str, recon.Reconstruction] = {}
         self._lock = threading.Lock()
+        # A DCN listener the cooperative round started for this pull
+        # (transfer/coop.py): peers still mid-exchange read from it after
+        # this host's round returned, so it lives until close().
+        self._coop_server = None
+
+    def adopt_coop_server(self, server) -> None:
+        """Own a coop-round DCN listener until :meth:`close`."""
+        self._coop_server = server
+
+    def close(self) -> None:
+        """Stop the coop-round DCN listener this bridge owns, if any."""
+        server, self._coop_server = self._coop_server, None
+        if server is not None:
+            server.shutdown()
 
     def authenticate(self, repo_id: str, revision: str = "main",
                      hub: HubClient | None = None) -> None:
@@ -147,10 +188,9 @@ class XetBridge:
         # also serves later terms that share this fetch_info.
         if self.cas is None:
             raise BridgeError("no CAS client and the xorb is not cached")
-        url = fi.url if fi.url.startswith(("http://", "https://")) \
-            else self.cas.cas_url + fi.url
         data = self.cas.fetch_xorb_from_url(
-            url, (fi.url_range_start, fi.url_range_end))
+            self._absolute_url(fi.url),
+            (fi.url_range_start, fi.url_range_end))
         self.stats.record("cdn", len(data))
         if not _blob_covers(data, term.range.start - fi.range.start,
                             term.range.end - fi.range.start):
@@ -174,19 +214,92 @@ class XetBridge:
 
     def _cache_fetched(self, rec: recon.Reconstruction, hash_hex: str,
                        chunk_offset: int, data: bytes) -> None:
-        """Persist a fetched blob, never over a wider existing entry."""
-        existing = self.cache.get_with_range(hash_hex, chunk_offset)
-        if existing is not None and existing.chunk_offset <= chunk_offset:
+        """Persist a fetched blob under the whole-xorb evidence of every
+        resolved reference to it."""
+        self.cache_blob(hash_hex, chunk_offset, data,
+                        whole=self.whole_xorb_provable(
+                            self._known_entries(rec, hash_hex), chunk_offset))
+
+    def whole_xorb_provable(self, entries, chunk_offset: int) -> bool:
+        """The whole-xorb evidence every cache-write site consults (the
+        JAX package also gates it on an evidence-integrity flag that only
+        its best-effort auxiliary resolves set; the port has none)."""
+        return provably_whole(entries, chunk_offset)
+
+    def cache_blob(self, hash_hex: str, chunk_offset: int, data: bytes,
+                   whole: bool) -> None:
+        """The one guarded cache write every blob-caching site uses: the
+        full key when ``whole``, else a partial key at ``chunk_offset`` —
+        skipped when an entry at that offset already covers at least this
+        blob's chunks (never narrower), checked and written under a
+        hash-striped lock."""
+        with _write_lock(hash_hex):
+            existing = self.cache.get_with_range(hash_hex, chunk_offset)
+            if existing is not None and existing.chunk_offset <= chunk_offset:
+                try:
+                    if (existing.chunk_offset + len(XorbReader(existing.data))
+                            >= chunk_offset + len(XorbReader(data))):
+                        return
+                except ValueError:
+                    pass  # corrupt entry: overwrite
+            if whole:
+                self.cache.put(hash_hex, data)
+            else:
+                self.cache.put_partial(hash_hex, chunk_offset, data)
+
+    # ── Fetch units (the cooperative round's currency) ──
+
+    def fetch_unit(self, hash_hex: str, fi: recon.FetchInfo) -> bytes:
+        """Raw blob for one fetch unit (a fetch_info chunk range) through
+        the waterfall, without term rebasing."""
+        return self.fetch_unit_tiered(hash_hex, fi)[0]
+
+    def fetch_unit_tiered(self, hash_hex: str,
+                          fi: recon.FetchInfo) -> tuple[bytes, str]:
+        """:meth:`fetch_unit` plus the serving tier (``cache`` | ``cdn``):
+        the cooperative round books its fallback bytes per tier."""
+        data = self._cached_unit(hash_hex, fi)
+        if data is not None:
+            self.stats.record("cache", len(data))
+            return data, "cache"
+        if self.cas is None:
+            raise BridgeError("no CAS client and the unit is not cached")
+        data = self.cas.fetch_xorb_from_url(
+            self._absolute_url(fi.url),
+            (fi.url_range_start, fi.url_range_end))
+        self.stats.record("cdn", len(data))
+        return data, "cdn"
+
+    def _cached_unit(self, hash_hex: str,
+                     fi: recon.FetchInfo) -> bytes | None:
+        """The unit's bytes from a covering cache entry, re-framed to
+        exactly the unit's chunk range, or None (miss or corrupt entry)."""
+        sliced: list[bytes] = []
+
+        def covers(res: storage.CacheResult) -> bool:
+            lo = fi.range.start - res.chunk_offset
+            hi = fi.range.end - res.chunk_offset
             try:
-                if (existing.chunk_offset + len(XorbReader(existing.data))
-                        >= chunk_offset + len(XorbReader(data))):
-                    return
+                reader = XorbReader(res.data)
             except ValueError:
-                pass  # corrupt entry: overwrite
-        if provably_whole(self._known_entries(rec, hash_hex), chunk_offset):
-            self.cache.put(hash_hex, data)
-        else:
-            self.cache.put_partial(hash_hex, chunk_offset, data)
+                return False  # corrupt entry: fall through, CDN heals
+            if not (0 <= lo < hi <= len(reader)):
+                return False
+            sliced.append(res.data if lo == 0 and len(reader) == hi
+                          else reader.slice_range(lo, hi))
+            return True
+
+        if self.cache.get_with_range(hash_hex, fi.range.start,
+                                     covers=covers) is None:
+            return None
+        return sliced[0]
+
+    def _absolute_url(self, url: str) -> str:
+        if url.startswith(("http://", "https://")):
+            return url
+        if self.cas is None:
+            raise BridgeError("relative fetch url without a CAS client")
+        return self.cas.cas_url + url
 
     # ── Term extraction + file reconstruction ──
 
