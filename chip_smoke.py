@@ -7,16 +7,18 @@ Drives the port's two main paths once each, through their entry points,
 at the full width of ``openai-community/gpt2`` (12 layers, 768 wide, 50257
 vocab; ~124 M f32 parameters, random weights from ``--seed``):
 
-1. build the CUDA kernels from ``zest_tpu_torch/csrc/blake3.cu`` and
-   ``csrc/bg4.cu`` (one nvcc each, side by side) and the native host
-   library from ``zest_tpu_torch/native/*.cc``;
+1. build the CUDA kernels from ``zest_tpu_torch/csrc/blake3.cu`` (the
+   BLAKE3 chunk kernel and the fused regroup → BLAKE3 kernel) and
+   ``csrc/bg4.cu`` (the standalone regroup; one nvcc each, side by side)
+   and the native host library from ``zest_tpu_torch/native/*.cc``;
 2. hold the BLAKE3 kernel bit-exact against its plain PyTorch version and
    the native host BLAKE3 on the card (plain and keyed, with garbage past
-   each row's length);
-   2b. hold the BG4 regroup kernel and the fused regroup → BLAKE3 pair
-   bit-exact against their plain versions and the native host decode +
-   BLAKE3, at every chunk length mod 4 up to 128 KiB, plain and keyed,
-   with garbage in every planar slot past its plane;
+   each row's length), at every leaf count 1–128 and each 32-leaf group
+   edge;
+   2b. hold the BG4 regroup kernel and the fused kernel bit-exact against
+   their plain versions and the native host decode + BLAKE3, at every
+   chunk length mod 4, every leaf count 1–128 and each group edge, plain
+   and keyed, with garbage in every planar slot past its plane;
 3. ``push_checkpoint`` into node A's cache — every minted chunk is
    re-verified by the BLAKE3 kernel;
 4. ``pull_model(device="cuda")`` into a fresh node B through node A's
@@ -30,18 +32,20 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    with its own cache and DCN server on loopback, run
    ``pull_model(coop=True)`` against node A's publisher. Each fetches its
    share from the CDN and receives the rest over DCN, every received whole
-   xorb verified on the card (BG4 chunks through the regroup → BLAKE3
-   pair); no fallbacks, no rejections, ≥ 60% peer-served, one copy of the
-   xorbs from the CDN in all, the files and landed digests equal to phase
-   4's, and the regroup kernel's rows equal to the BG4 chunks the hosts
-   received; then each host's receipt verification is timed again without
-   the network, once alone and once with every host's verifier running at
-   the same time;
+   xorb verified on the card (BG4 chunks through the fused kernel); no
+   fallbacks, no rejections, ≥ 60% peer-served, one copy of the xorbs from
+   the CDN in all, the files and landed digests equal to phase 4's, the
+   fused kernel's rows equal to the BG4 chunks the hosts received and no
+   standalone regroup launch; then each host's receipt verification is
+   timed again without the network, once alone and once with every
+   host's verifier running at the same time;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
-function. Every kernel's launch count is zeroed just before its path runs
-and read just after.
+function; the fused kernel also beside the two-launch pair it replaced
+(the regroup, then the BLAKE3 chunk kernel) in the same run. Every
+kernel's launch count is zeroed just before its path runs and read just
+after.
 
 Every phase is fatal. The last three lines of standard output are the
 kernels' JSON record, the card's name and power limit, and
@@ -71,8 +75,16 @@ GPT2_CONFIG = {  # openai-community/gpt2's published config.json
     "activation_function": "gelu_new", "bos_token_id": 50256,
     "eos_token_id": 50256,
 }
-KERNEL_LENGTHS = (0, 1, 63, 64, 1023, 1024, 1025, 2049, 65536, 131072)
-BG4_LENGTHS = (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
+# Every leaf count 1-128 (1024n - 1 bytes is n leaves), and both sides of
+# each 32-leaf group edge: the kernels fold a group in a warp and join a
+# chunk's groups across warps.
+LEAF_LENGTHS = tuple(1024 * n - 1 for n in range(1, 129)) + tuple(
+    min(32768 * k + d, 131072) for k in range(1, 5) for d in (0, 1))
+KERNEL_LENGTHS = tuple(sorted(set(
+    (0, 1, 63, 64, 1023, 1024, 1025, 2049, 65536, 131072) + LEAF_LENGTHS)))
+BG4_LENGTHS = tuple(sorted(set(
+    (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
+    + LEAF_LENGTHS)))
 COOP_HOSTS = 4
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3. Integer rate: 64 INT32
 # lanes per SM x 132 SMs x 1.98 GHz boost clock (the same data sheet's
@@ -164,8 +176,8 @@ def blake3_work(lengths: np.ndarray) -> tuple[int, int]:
 
 
 def build_all() -> None:
-    """Phase 1: both kernels (one nvcc each, side by side) and the native
-    host library; prints each kernel's registers and spills."""
+    """Phase 1: both kernel sources (one nvcc each, side by side) and the
+    native host library; prints each kernel's registers and spills."""
     from zest_tpu_torch import native
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda, nvcc
 
@@ -200,8 +212,8 @@ def build_all() -> None:
 
 
 def bg4_phase(rng, dev) -> None:
-    """Phase 2b: the regroup kernel and the fused pair against their plain
-    versions and the native host decode + BLAKE3."""
+    """Phase 2b: the regroup kernel and the fused kernel against their
+    plain versions and the native host decode + BLAKE3."""
     import torch
 
     from zest_tpu_torch import native
@@ -245,21 +257,26 @@ def bg4_phase(rng, dev) -> None:
             plain = bg4.fused_regroup_hash(w, lengths, v.key_words,
                                            v.base_flags)
             if max_abs_err(got, plain):
-                fail(f"fused pair != plain fused (keyed={key is not None})")
+                fail(f"fused kernel != plain fused "
+                     f"(keyed={key is not None})")
             if digests_to_bytes(got) != want:
-                fail(f"fused pair != native decode + BLAKE3 "
+                fail(f"fused kernel != native decode + BLAKE3 "
                      f"(keyed={key is not None})")
     torch.cuda.synchronize()
-    print(f"phase 2b bg4 regroup and fused pair == plain == native decode + "
-          f"BLAKE3 on {len(chunks)} lengths {list(BG4_LENGTHS)}, plain and "
-          f"keyed, garbage past every plane")
+    print(f"phase 2b bg4 regroup and fused kernel == plain == native decode "
+          f"+ BLAKE3 on {len(chunks)} lengths (0-5, every leaf count 1-128, "
+          f"the 32-leaf group edges, 64 and 128 KiB), plain and keyed, "
+          f"garbage past every plane")
 
 
-def bg4_chunks_of(blob: bytes) -> int:
+def bg4_chunks_of(blob: bytes) -> tuple[int, int]:
+    """``(BG4 chunks, other chunks)`` of a xorb."""
     from zest_tpu_torch.cas.compression import Scheme
     from zest_tpu_torch.cas.xorb import XorbReader
 
-    return int((XorbReader(blob).chunk_schemes == int(Scheme.BG4_LZ4)).sum())
+    schemes = XorbReader(blob).chunk_schemes
+    bg4 = int((schemes == int(Scheme.BG4_LZ4)).sum())
+    return bg4, len(schemes) - bg4
 
 
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
@@ -294,7 +311,8 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
-    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER)
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
+                bg4_cuda.FUSED_COUNTER)
     for c in counters:
         c.reset()  # counts from here are the coop path's
     threads = [threading.Thread(target=host, args=(i,)) for i in range(n)]
@@ -309,13 +327,14 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
             srv.shutdown()
     wall = time.monotonic() - t0
     launches = {name: (c.launches, c.rows) for name, c in zip(
-        ("blake3_chunks", "bg4_regroup"), counters)}
+        ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters)}
     if errors:
         raise errors[0]
 
     per_xorb = {h: bg4_chunks_of(cfg_a.xorb_cache_path(h).read_bytes())
                 for h in pushed.xorb_digests}
-    want_rows = (n - 1) * sum(per_xorb.values())
+    want_rows = (n - 1) * sum(b for b, _ in per_xorb.values())
+    want_rest = (n - 1) * sum(r for _, r in per_xorb.values())
     cdn_total = 0
     for i, res in enumerate(results):
         st = res.stats
@@ -348,17 +367,21 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
     if cdn_total > 1.05 * pushed.new_xorb_bytes:
         fail(f"{cdn_total:,} CDN bytes over {n} hosts > 1.05 x "
              f"{pushed.new_xorb_bytes:,}")
-    rg_launches, rg_rows = launches["bg4_regroup"]
-    if rg_rows != want_rows or not rg_launches:
-        fail(f"bg4_regroup covered {rg_rows} rows in {rg_launches} launches; "
-             f"the hosts received {want_rows} BG4 chunks")
-    if launches["blake3_chunks"][1] < want_rows:
-        fail(f"blake3_chunks hashed {launches['blake3_chunks'][1]} rows < "
-             f"{want_rows}")
+    fu_launches, fu_rows = launches["bg4_fused_verify"]
+    if fu_rows != want_rows or not fu_launches:
+        fail(f"bg4_fused_verify covered {fu_rows} rows in {fu_launches} "
+             f"launches; the hosts received {want_rows} BG4 chunks")
+    if launches["bg4_regroup"][0]:
+        fail(f"the coop path launched the standalone regroup "
+             f"{launches['bg4_regroup'][0]} times")
+    if launches["blake3_chunks"][1] != want_rest:
+        fail(f"blake3_chunks hashed {launches['blake3_chunks'][1]} rows; the "
+             f"hosts received {want_rest} chunks of other schemes")
     print(f"phase 6 coop pull: {n} hosts in {wall:.2f} s; {cdn_total:,} CDN "
           f"bytes in all ({pushed.new_xorb_bytes:,} pushed); "
-          f"{sum(per_xorb.values())} BG4 chunks in {len(per_xorb)} xorbs, "
-          f"x{n - 1} receivers = {want_rows} rows; launches (rows): "
+          f"{want_rows // (n - 1)} BG4 and {want_rest // (n - 1)} other "
+          f"chunks in {len(per_xorb)} xorbs, x{n - 1} receivers; launches "
+          f"(rows): "
           + ", ".join(f"{k} {v[0]} ({v[1]})" for k, v in launches.items()))
     for i, res in enumerate(results):
         st, c = res.stats, res.stats["coop"]
@@ -372,10 +395,7 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
               f"retries, peak in flight {ex['inflight_peak_bytes']:,}), "
               f"fallback {c['fallbacks']} ({ex['fallback_bytes']} bytes), "
               f"peer-served {c['peer_served_ratio']}")
-    # The regroup runs only inside the fused pair (``launch_fused``): its
-    # launches are the pair's.
-    return {"blake3_chunks": launches["blake3_chunks"][0],
-            "bg4_regroup": rg_launches, "bg4_fused_verify": rg_launches}
+    return {name: v[0] for name, v in launches.items()}
 
 
 def receipt_timing(cfg_a, pushed, dev) -> None:
@@ -426,13 +446,15 @@ def receipt_timing(cfg_a, pushed, dev) -> None:
 
 def time_bg4(cfg_a, pushed, dev) -> list[dict]:
     """Both BG4 kernels at the coop path's shapes: the largest minted
-    xorb's BG4 chunks, staged as ``hash_planar_batch`` stages them."""
+    xorb's BG4 chunks, staged as ``hash_planar_batch`` stages them. The
+    fused kernel is timed in turns with the two-launch design it replaced
+    (the regroup, then the BLAKE3 chunk kernel on its output)."""
     import torch
 
     from zest_tpu_torch.cas.compression import Scheme
     from zest_tpu_torch.cas.hashing import CHUNK_KEY
     from zest_tpu_torch.cas.xorb import XorbReader
-    from zest_tpu_torch.ops import bg4, bg4_cuda
+    from zest_tpu_torch.ops import bg4, bg4_cuda, blake3_cuda
 
     blob = max((cfg_a.xorb_cache_path(h).read_bytes()
                 for h in pushed.xorb_digests), key=len)
@@ -460,20 +482,29 @@ def time_bg4(cfg_a, pushed, dev) -> list[dict]:
     if rg_err or not torch.equal(out.view(torch.uint8),
                                  library().view(B, cap)):
         fail("regroup kernel != plain / library at the coop shapes")
-    fused_err = max_abs_err(bg4_cuda.launch_fused(words, lengths, kw, bf),
-                            bg4.fused_regroup_hash(words, lengths, kw, bf))
-    if fused_err:
-        fail("fused pair != plain fused at the coop shapes")
+    def fused():
+        return bg4_cuda.launch_fused(words, lengths, kw, bf)
+
+    def pair():
+        return blake3_cuda.launch(bg4_cuda.launch(words), lengths, kw, bf)
+
+    got = fused()
+    fused_err = max_abs_err(got, bg4.fused_regroup_hash(words, lengths, kw,
+                                                        bf))
+    if fused_err or not torch.equal(got, pair()):
+        fail("fused kernel != plain fused / the two-launch pair at the "
+             "coop shapes")
     rg_ms = cuda_ms(lambda: bg4_cuda.launch(words), 50)
     rg_plain = cuda_ms(lambda: bg4.regroup_words(words), 3)
     rg_lib = cuda_ms(library, 50)
-    fu_ms = cuda_ms(lambda: bg4_cuda.launch_fused(words, lengths, kw, bf), 50)
+    turns = [cuda_ms(fn, 50) for fn in (fused, pair, pair, fused)]
+    fu_ms, pair_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     fu_plain = cuda_ms(lambda: bg4.fused_regroup_hash(words, lengths, kw, bf),
                        3)
     # Regroup: it reads and writes each row's capacity once.
     rg_bytes = 2 * B * cap
     rg_bound = rg_bytes / HBM_BYTES_PER_S * 1e3
-    # Fused pair, as one function: its input read once up to each row's
+    # The fused function: its input read once up to each row's
     # length (64-byte blocks, as kernel #1 counts it) and its digests
     # written once; the operations are kernel #1's for these lengths plus
     # eight byte permutes per 16 regrouped bytes.
@@ -492,10 +523,14 @@ def time_bg4(cfg_a, pushed, dev) -> list[dict]:
     print(f"  bg4_regroup {rg_ms:.4f} ms ({rg_bytes / rg_ms / 1e9:.3f} TB/s), "
           f"plain {rg_plain:.2f} ms, library {rg_lib:.4f} ms, bound "
           f"{rg_bound:.4f} ms (bytes: {rg_bytes:,} B)")
-    print(f"  bg4_fused_verify {fu_ms:.4f} ms, plain {fu_plain:.2f} ms, bound "
-          f"{max(fu_byte_ms, fu_op_ms):.4f} ms (bytes {fu_byte_ms:.4f}: "
-          f"{fu_bytes:,} B; ops {fu_op_ms:.4f}: {fu_ops:,}); two-launch "
-          f"floor (regroup bytes + BLAKE3 ops) {pair_floor:.4f} ms")
+    print(f"  two-launch pair (bg4_regroup, then blake3_chunks) "
+          f"{turns[1]:.4f} / {turns[2]:.4f} ms, its floor (regroup bytes + "
+          f"BLAKE3 ops) {pair_floor:.4f} ms")
+    print(f"  bg4_fused_verify (one launch) {turns[0]:.4f} / {turns[3]:.4f} "
+          f"ms, {pair_ms / fu_ms:.2f}x faster than the pair; plain "
+          f"{fu_plain:.2f} ms, bound {max(fu_byte_ms, fu_op_ms):.4f} ms "
+          f"(bytes {fu_byte_ms:.4f}: {fu_bytes:,} B; ops {fu_op_ms:.4f}: "
+          f"{fu_ops:,})")
     return [
         {"name": "bg4_regroup", "route": "cuda",
          "source": "zest_tpu_torch/csrc/bg4.cu",
@@ -503,10 +538,10 @@ def time_bg4(cfg_a, pushed, dev) -> list[dict]:
          "max_abs_err": rg_err, "ms": rg_ms, "plain_ms": rg_plain,
          "bound_ms": rg_bound, "bound_by": "bytes", "library_ms": rg_lib},
         {"name": "bg4_fused_verify", "route": "cuda",
-         "source": "zest_tpu_torch/csrc/bg4.cu",
-         "replaces": "zest_tpu/ops/decode_pallas.py:121",
+         "source": "zest_tpu_torch/csrc/blake3.cu",
+         "replaces": "zest_tpu/ops/decode_pallas.py:124",
          "max_abs_err": fused_err, "ms": fu_ms, "plain_ms": fu_plain,
-         "bound_ms": max(fu_byte_ms, fu_op_ms),
+         "pair_ms": pair_ms, "bound_ms": max(fu_byte_ms, fu_op_ms),
          "bound_by": "bytes" if fu_byte_ms > fu_op_ms else "operations",
          "library_ms": None},
     ]
@@ -560,7 +595,8 @@ def run(args, work: Path) -> dict:
             fail("garbage past a length changed a digest")
     torch.cuda.synchronize()
     print(f"phase 2 kernel == plain == native on {len(chunks)} lengths "
-          f"{list(KERNEL_LENGTHS)}, plain and keyed, garbage-tolerant")
+          f"(0-2049, every leaf count 1-128, the 32-leaf group edges), "
+          f"plain and keyed, garbage-tolerant")
     bg4_phase(rng, dev)
 
     # ── 3. push (the kernel verifies every minted chunk) ──
@@ -572,7 +608,7 @@ def run(args, work: Path) -> dict:
     write_safetensors(ckpt / "model.safetensors", tensors)
     del tensors
     cfg_a = Config(hf_home=work / "a" / "hf", cache_dir=work / "a" / "zest")
-    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER):
+    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
         c.reset()  # counts from here are the push path's
     pushed = push_checkpoint(cfg_a, REPO, ckpt, device="cuda")
     push_chunks = blake3_cuda.COUNTER.rows

@@ -10,7 +10,10 @@ Inputs come from a numpy seed; every comparison is exact (integers):
 - the plain ``FusedBg4Verifier`` equals the JAX package's (interpret
   mode), plain and keyed, and the host BLAKE3 of the original bytes;
 - garbage written past every plane's size changes no regrouped byte
-  inside the chunk and no digest.
+  inside the chunk and no digest;
+- a message block gathered from the planar slots with the fused kernel's
+  index formula (``csrc/blake3.cu``, ``PlanarLoader``) equals the
+  regrouped words, and both equal the Pallas regroup.
 """
 
 from __future__ import annotations
@@ -172,3 +175,42 @@ def test_planar_extract_of_a_real_frame_feeds_the_verifier():
         [reader.extract_chunk_planar(i) for i in idx],
         [len(chunks[i]) for i in idx])
     assert got == [hashing.chunk_hash(chunks[i]) for i in idx]
+
+
+def _gather_block(row: np.ndarray, leaf: int, b: int) -> np.ndarray:
+    """Message block ``b`` of leaf ``leaf`` as the fused kernel loads it
+    from one row of planar words: a 16-byte piece of each plane ``k`` at
+    word ``k·W/4 + 64·leaf + 4·b``, then message word ``4t + s`` packs
+    byte ``s`` of word ``t`` of the four pieces, plane ``k`` in byte ``k``."""
+    pw = row.size // 4
+    pieces = np.stack([row[k * pw + 64 * leaf + 4 * b:][:4]
+                       for k in range(4)])               # (plane, word)
+    by = pieces.view(np.uint8).reshape(4, 4, 4)          # plane, word, byte
+    return by.transpose(1, 2, 0).copy().view("<u4").reshape(16)
+
+
+# Every length mod 4 around a block edge, two leaf edges and the capacity.
+GATHER_LENGTHS = (tuple(range(60, 69)) + tuple(range(1020, 1029))
+                  + tuple(range(2044, 2053)) + (3069, 3070, 3071, 3072))
+
+
+def test_fused_gather_matches_regroup_and_pallas():
+    chunks = _chunks(GATHER_LENGTHS, seed=18)
+    words, _ = bg4.stage_planar(_planar(chunks), list(GATHER_LENGTHS))
+    raw = _row_bytes(words).copy()
+    slot = raw.shape[1] // 4
+    rng = np.random.default_rng(19)
+    for i, n in enumerate(GATHER_LENGTHS):  # garbage past every plane
+        for k, size in enumerate(bg4.bg4_plane_sizes(n)):
+            tail = raw[i, k * slot + size:(k + 1) * slot]
+            tail[:] = rng.integers(0, 256, tail.shape, dtype=np.uint8)
+    rows = raw.view(np.uint32)
+    want = bg4.regroup_words(torch.from_numpy(raw).view(
+        torch.uint32)).numpy().view(np.uint32)
+    assert np.array_equal(
+        want, np.asarray(j_decode._regroup_pallas(rows, interpret=True)))
+    leaves = rows.shape[1] // 256
+    for row, regrouped in zip(rows, want):
+        got = np.concatenate([_gather_block(row, leaf, b)
+                              for leaf in range(leaves) for b in range(16)])
+        assert np.array_equal(got, regrouped)

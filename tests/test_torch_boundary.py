@@ -140,8 +140,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
 
 def test_fused_cuda_tensor_never_takes_the_plain_path(monkeypatch):
-    """The fused verifier routes a CUDA tensor to the kernel pair only;
-    on the CPU it never counts a launch."""
+    """The fused verifier routes a CUDA tensor to the fused kernel only;
+    on the CPU it counts no fused and no regroup launch."""
     from zest_tpu_torch.ops import bg4, bg4_cuda
 
     seen = []
@@ -155,7 +155,9 @@ def test_fused_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     assert seen == []
     monkeypatch.undo()
     bg4_cuda.COUNTER.reset()
+    bg4_cuda.FUSED_COUNTER.reset()
     got = bg4.FusedBg4Verifier(device="cpu").hash_planar_batch(
         [b"abcd"], [4])
     assert len(got) == 1
-    assert bg4_cuda.COUNTER.launches == 0
+    assert (bg4_cuda.FUSED_COUNTER.launches, bg4_cuda.COUNTER.launches) == (
+        0, 0)

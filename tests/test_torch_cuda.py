@@ -134,6 +134,66 @@ def test_bg4_fused_matches_plain_and_native(cuda_device, key):
         else native.lib.blake3_keyed(key, c) for c in chunks]
 
 
+# Every leaf count 1-128 at its last leaf's edges: one byte short of n
+# KiB, n KiB, and one byte over (the 32-leaf group edges among them).
+_EDGE_LENGTHS = tuple(sorted({max(1024 * n + d, 0) for n in range(1, 129)
+                              for d in (-1, 0, 1)} - {131073}))
+
+
+def _dirty_past(words, keep):
+    """``words`` with random bytes wherever ``keep`` is False."""
+    raw = words.view(torch.uint8)
+    junk = torch.randint(0, 256, raw.shape, device=raw.device,
+                         dtype=torch.uint8)
+    return torch.where(keep, raw, junk).contiguous().view(torch.uint32)
+
+
+@pytest.mark.parametrize("key", [None, CHUNK_KEY], ids=["plain", "chunk_key"])
+def test_kernel_every_leaf_count(cuda_device, key):
+    """Kernel #1 at every leaf count and group edge, garbage past every
+    length: equal to its plain version and the native host BLAKE3."""
+    chunks = [_RNG.bytes(n) for n in _EDGE_LENGTHS]
+    words, lengths = plain.stage_batch(chunks, cuda_device)
+    dirty = _dirty_past(words, torch.arange(
+        words.shape[1] * 4, device=cuda_device)[None, :] < lengths[:, None])
+    h = CudaHasher(key, cuda_device)
+    got = h.hash_device(dirty, lengths)
+    assert torch.equal(got, plain.hash_words(words, lengths, h.key_words,
+                                             h.base_flags))
+    assert plain.digests_to_bytes(got) == [
+        native.lib.blake3(c) if key is None
+        else native.lib.blake3_keyed(key, c) for c in chunks]
+
+
+@pytest.mark.parametrize("key", [None, CHUNK_KEY], ids=["plain", "chunk_key"])
+def test_fused_every_leaf_count(cuda_device, key):
+    """The fused kernel at every leaf count and group edge, garbage past
+    every plane: equal to the plain fused pass and the native host BLAKE3;
+    one fused launch, no regroup launch."""
+    chunks = [(_RNG.standard_normal(-(-n // 4), dtype=np.float32) * 0.02)
+              .tobytes()[:n] for n in _EDGE_LENGTHS]
+    words, lengths = bg4.stage_planar([compression._bg4(c) for c in chunks],
+                                      list(_EDGE_LENGTHS), cuda_device)
+    slot = words.shape[1]
+    keep = torch.zeros((len(chunks), 4 * slot), dtype=torch.bool)
+    for i, n in enumerate(_EDGE_LENGTHS):
+        for k, size in enumerate(bg4.bg4_plane_sizes(n)):
+            keep[i, k * slot:k * slot + size] = True
+    dirty = _dirty_past(words, keep.to(cuda_device))
+    v = bg4.FusedBg4Verifier(key, cuda_device)
+    bg4_cuda.COUNTER.reset()
+    bg4_cuda.FUSED_COUNTER.reset()
+    got = v.hash_planar_device(dirty, lengths)
+    torch.cuda.synchronize()
+    assert (bg4_cuda.FUSED_COUNTER.launches, bg4_cuda.FUSED_COUNTER.rows,
+            bg4_cuda.COUNTER.launches) == (1, len(chunks), 0)
+    assert torch.equal(got, bg4.fused_regroup_hash(
+        words, lengths, v.key_words, v.base_flags))
+    assert plain.digests_to_bytes(got) == [
+        native.lib.blake3(c) if key is None
+        else native.lib.blake3_keyed(key, c) for c in chunks]
+
+
 def _tiny_gpt2(root):
     from zest_tpu_torch.models.safetensors_io import write_safetensors
 
@@ -189,7 +249,8 @@ def test_slice_on_card(cuda_device, tmp_path):
 
 def test_coop_pull_on_card(cuda_device, tmp_path):
     """Four in-process hosts pull cooperatively on ``cuda``: every received
-    whole xorb's BG4 chunks go through the regroup kernel once."""
+    whole xorb's BG4 chunks go through the fused kernel once, and the
+    standalone regroup kernel never runs."""
     import threading
 
     from zest_tpu_torch.api.http_api import PublisherServer
@@ -216,6 +277,7 @@ def test_coop_pull_on_card(cuda_device, tmp_path):
     addrs = {i: ("127.0.0.1", s.start()) for i, s in enumerate(servers)}
     results, errors = [None] * n, []
     bg4_cuda.COUNTER.reset()
+    bg4_cuda.FUSED_COUNTER.reset()
     with PublisherServer(cfg_a) as server:
         for c in cfgs:
             c.endpoint = server.url
@@ -243,4 +305,5 @@ def test_coop_pull_on_card(cuda_device, tmp_path):
         c = res.stats["coop"]
         assert c["fallbacks"] == 0 and c["exchange"]["verify_rejected"] == 0
         assert params_digest(res.params) == want
-    assert bg4_cuda.COUNTER.rows == (n - 1) * bg4_chunks
+    assert bg4_cuda.FUSED_COUNTER.rows == (n - 1) * bg4_chunks
+    assert bg4_cuda.COUNTER.launches == 0

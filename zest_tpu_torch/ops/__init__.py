@@ -29,8 +29,8 @@ def unit_verify_hasher(key: bytes | None = None, device="cuda"):
 
 
 def fused_verifier_for_backend(key: bytes | None = None, device="cuda"):
-    """The BG4 decode→verify pass for whole-unit verification: the CUDA
-    regroup + BLAKE3 pair on ``cuda`` (the default; raises where there is
-    no card), the plain PyTorch pass on ``cpu`` — so the CPU tests drive
-    the same code path the card runs."""
+    """The BG4 decode→verify pass for whole-unit verification: the fused
+    CUDA regroup → BLAKE3 kernel on ``cuda`` (the default; raises where
+    there is no card), the plain PyTorch pass on ``cpu`` — so the CPU
+    tests drive the same code path the card runs."""
     return FusedBg4Verifier(key, resolve_device(device))

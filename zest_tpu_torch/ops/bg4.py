@@ -4,8 +4,9 @@ The counterpart of ``zest_tpu/ops/decode_pallas.py``. ByteGrouping4
 (``cas.compression``, the scheme tensor bytes take) stores a chunk as four
 byte planes; the receiver of a cooperative exchange decodes only the LZ4
 stage on the host (``XorbReader.extract_chunk_planar``) and leaves the
-regroup, ``out[4i+k] = plane_k[i]``, to the device, chained in front of
-the BLAKE3 verify kernel, so the host never builds the interleaved bytes.
+regroup, ``out[4i+k] = plane_k[i]``, to the device, fused into the BLAKE3
+verify kernel's loads, so the host never builds the interleaved bytes and
+the device never stores them.
 
 - :func:`stage_planar` lays each chunk's planes at word-aligned
   quarter-capacity slots, the static layout both regroups read;
@@ -13,10 +14,11 @@ the BLAKE3 verify kernel, so the host never builds the interleaved bytes.
   ``csrc/bg4.cu`` (``ops/bg4_cuda.py``), with the Pallas kernel's
   arithmetic: output word ``4g+s`` packs byte ``s`` of each plane's word
   ``g``;
-- :func:`fused_regroup_hash` is the plain fused pass: the regroup, then
-  ``ops/blake3.hash_words``;
-- :class:`FusedBg4Verifier` launches the CUDA pair for a CUDA tensor and
-  runs the plain pass only for a CPU one.
+- :func:`fused_regroup_hash` is the plain version of the fused kernel
+  (``csrc/blake3.cu``'s planar loader, ``ops/bg4_cuda.launch_fused``):
+  the regroup, then ``ops/blake3.hash_words``;
+- :class:`FusedBg4Verifier` launches the fused kernel for a CUDA tensor
+  and runs the plain pass only for a CPU one.
 
 PyTorch has no u32 shift, so the arithmetic runs in int64 on u32 values.
 """
@@ -122,8 +124,8 @@ class FusedBg4Verifier:
                            lengths: torch.Tensor) -> torch.Tensor:
         """``(B, cap/4)`` u32 plane-slotted words + ``(B,)`` original chunk
         lengths → ``(B, 8)`` u32 digests of the REGROUPED bytes. A CUDA
-        tensor launches the regroup kernel and then the BLAKE3 kernel on
-        one stream; a CPU tensor takes the plain pass."""
+        tensor launches the fused kernel once; a CPU tensor takes the
+        plain pass."""
         if words.dim() == 2 and words.shape[-1] % WORDS_PER_LEAF:
             raise ValueError("padded capacity must be a 1 KiB multiple")
         if words.device.type == "cuda":

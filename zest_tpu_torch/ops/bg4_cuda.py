@@ -1,20 +1,21 @@
-"""The CUDA BG4 regroup kernel and the fused regroup → BLAKE3 pair.
+"""The CUDA BG4 regroup kernel and the fused regroup → BLAKE3 kernel.
 
 Counterpart of ``zest_tpu/ops/decode_pallas.py`` (``_regroup_pallas`` and
-``_fused_regroup_hash``). The kernel is ``csrc/bg4.cu``; its source note
-says what it replaces, what bounds it and how it is laid out.
-``ops/nvcc.py`` compiles it for ``sm_90a`` into ``csrc/build/`` at first
-use with the same flags as the BLAKE3 kernel — nothing is built when this
-module is imported.
+``_fused_regroup_hash``).
 
-- :func:`launch` runs the regroup on a CUDA tensor or raises;
-  :data:`COUNTER` counts its launches and rows.
-- :func:`launch_fused` runs the regroup and then the BLAKE3 kernel
-  (``ops/blake3_cuda.py``) on the same stream: the regrouped words never
-  leave the card. On the main path the regroup runs only inside this
-  pair, so :data:`COUNTER` counts the pairs too.
+- :func:`launch` runs the standalone regroup, ``csrc/bg4.cu``, on a CUDA
+  tensor or raises; :data:`COUNTER` counts its launches and rows. The
+  main paths no longer run it: ``chip_smoke.py`` still holds it against
+  its plain version and times it.
+- :func:`launch_fused` runs the fused kernel, ``csrc/blake3.cu``'s
+  ``zest_blake3_bg4_chunks``: one launch that regroups the planar words in
+  registers as it loads each message block, so the regrouped bytes are
+  never written to device memory. :data:`FUSED_COUNTER` counts its
+  launches and rows.
 
-The plain versions are in ``ops/bg4.py``; only a CPU tensor takes them.
+``ops/nvcc.py`` compiles each source for ``sm_90a`` into ``csrc/build/``
+at first use — nothing is built when this module is imported. The plain
+versions are in ``ops/bg4.py``; only a CPU tensor takes them.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from zest_tpu_torch.ops import bg4 as plain
 from zest_tpu_torch.ops import blake3_cuda, nvcc
+from zest_tpu_torch.ops.blake3 import check_batch
 
 
 def _bind(dll: ctypes.CDLL) -> None:
@@ -38,11 +40,13 @@ def _bind(dll: ctypes.CDLL) -> None:
 LIBRARY = nvcc.KernelLibrary("bg4.cu", "libzest_bg4.so", _bind)
 SOURCE = LIBRARY.source
 COUNTER = nvcc.LaunchCounter()
+FUSED_COUNTER = nvcc.LaunchCounter()
 
 
 def build() -> str:
-    """Compile and load the kernel library (once per process); returns
-    the compiler's ``-Xptxas -v`` report."""
+    """Compile and load the regroup kernel's library (once per process);
+    returns the compiler's ``-Xptxas -v`` report. The fused kernel is in
+    ``blake3_cuda``'s library."""
     return LIBRARY.build()
 
 
@@ -75,7 +79,12 @@ def launch(words: torch.Tensor) -> torch.Tensor:
 def launch_fused(words: torch.Tensor, lengths: torch.Tensor,
                  key_words: tuple[int, ...],
                  base_flags: int) -> torch.Tensor:
-    """The fused pass on the card: :func:`launch`, then the BLAKE3 kernel
-    on its output, both on the current stream with no host copy between.
-    Returns (B, 8) u32 digests of the regrouped bytes."""
-    return blake3_cuda.launch(launch(words), lengths, key_words, base_flags)
+    """The fused pass on the card, one launch: CUDA ``words`` (B, cap/4)
+    u32 planar (plane ``k`` at word ``k·cap/16``) and the original (B,)
+    lengths → (B, 8) u32 digests of the regrouped bytes. Does not
+    synchronise; raises if the launch is refused."""
+    plain.check_planar(words)
+    check_batch(words, lengths)
+    blake3_cuda.check_device_words(words)
+    return blake3_cuda.run(blake3_cuda.PLANAR_ENTRY, words, lengths,
+                           key_words, base_flags, FUSED_COUNTER)

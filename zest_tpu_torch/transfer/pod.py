@@ -6,8 +6,8 @@ provably is a whole xorb is verified against its content address before
 it enters the cache: every chunk is hashed on the device (keyed, Xet
 chunk domain) and the Merkle fold over the digests runs on the host.
 BG4 chunks skip the host's byte regroup: only their LZ4 stage is decoded
-on the host, the planar bytes cross to the card, and the regroup and
-BLAKE3 kernels run there back to back (``ops.FusedBg4Verifier``).
+on the host, the planar bytes cross to the card, and one kernel regroups
+them as it loads them for BLAKE3 (``ops.FusedBg4Verifier``).
 
 Unlike the JAX package, which counts every exception as a failed
 verification, only a malformed blob fails here: bad framing
