@@ -10,7 +10,10 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
 1. build the CUDA kernels from ``zest_tpu_torch/csrc/blake3.cu`` (the
    BLAKE3 chunk kernel and the fused regroup → BLAKE3 kernel) and
    ``csrc/bg4.cu`` (the standalone regroup; one nvcc each, side by side)
-   and the native host library from ``zest_tpu_torch/native/*.cc``;
+   and the native host library from ``zest_tpu_torch/native/*.cc``, and
+   count the SASS instructions of one BLAKE3 compression (a probe kernel
+   around the source's ``compress``, read with ``cuobjdump``): the
+   operation bounds count them;
 2. hold the BLAKE3 kernel bit-exact against its plain PyTorch version and
    the native host BLAKE3 on the card (plain and keyed, with garbage past
    each row's length), at every leaf count 1–128 and each 32-leaf group
@@ -57,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -92,12 +96,28 @@ COOP_HOSTS = 4
 # 1.98 GHz).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-# One compression: 7 rounds x 8 G x 12 u32 instructions + 8 xors for the
-# 8 output words. A G as written is 14 ops (6 adds, 4 xors, 4 rotates),
-# but each ``a + b + m`` issues as one three-input add (IADD3), so 12 is
-# the instruction floor, and the bound, the least time, takes it.
-OPS_PER_G = 12
-OPS_PER_COMPRESSION = 7 * 8 * OPS_PER_G + 8
+# One compression as the source counts it: 7 rounds x 8 G x 12 u32
+# instructions + 8 xors for the 8 output words (a G as written is 14 ops,
+# but each ``a + b + m`` issues as one three-input add, IADD3). Printed
+# beside the bound; the bound itself counts the compiled instructions.
+SOURCE_OPS_PER_COMPRESSION = 7 * 8 * 12 + 8
+# What the bound counts instead: the SASS of one compression, from a probe
+# kernel built in phase 1 around csrc/blake3.cu's ``compress`` (its inputs
+# come from memory, so nothing folds to a constant). Integer adds, logic,
+# shifts, permutes and compares issue on the ALU pipe and IMAD on the FMA
+# pipe, 64 lanes an SM each, while the schedulers issue 128 lanes an SM a
+# clock: a compression takes the longest of the three.
+ALU_PIPE = ("IADD3", "LOP3", "SHF", "PRMT", "ISETP", "SEL", "LEA", "IMNMX")
+FMA_PIPE = ("IMAD",)
+PROBE = """#include "{source}"
+extern "C" __global__ void probe_compress(uint32_t* io) {{
+  uint32_t cv[8], m[16], out[8];
+  for (int i = 0; i < 8; ++i) cv[i] = io[i];
+  for (int i = 0; i < 16; ++i) m[i] = io[8 + i];
+  compress(cv, m, io[24], io[25], io[26], out);
+  for (int i = 0; i < 8; ++i) io[i] = out[i];
+}}
+"""
 
 
 def fail(msg: str) -> None:
@@ -175,23 +195,53 @@ def blake3_work(lengths: np.ndarray) -> tuple[int, int]:
     return nbytes, int(blocks.sum() + (leaves - 1).sum())
 
 
-def build_all() -> None:
-    """Phase 1: both kernel sources (one nvcc each, side by side) and the
-    native host library; prints each kernel's registers and spills."""
+def compression_sass(work: Path) -> dict[str, int]:
+    """Opcode counts of one compression: the probe kernel around
+    csrc/blake3.cu's ``compress``, compiled for sm_90a and read back with
+    ``cuobjdump -sass``."""
+    from zest_tpu_torch.ops import blake3_cuda, nvcc
+
+    work.mkdir(parents=True, exist_ok=True)
+    probe, cubin = work / "probe.cu", work / "probe.cubin"
+    probe.write_text(PROBE.format(source=blake3_cuda.SOURCE.as_posix()))
+    subprocess.run([nvcc.nvcc(), "-cubin", *nvcc.NVCC_FLAGS[:4], "-o",
+                    str(cubin), str(probe)], check=True, capture_output=True)
+    tool = Path(nvcc.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(cubin)], check=True,
+                          capture_output=True, text=True).stdout
+    counts: dict[str, int] = {}
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = "probe_compress" in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def build_all(work: Path) -> tuple[int, int]:
+    """Phase 1: both kernel sources and the compression probe (one nvcc
+    each, side by side) and the native host library; prints each kernel's
+    registers and spills and the probe's SASS. Returns one compression's
+    ``(ALU-pipe, FMA-pipe)`` instruction counts."""
     from zest_tpu_torch import native
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda, nvcc
 
     logs, errors = {}, []
 
-    def build(mod):
+    def build(name, fn):
         t0 = time.monotonic()
         try:
-            logs[mod.SOURCE.name] = (mod.build(), time.monotonic() - t0)
+            logs[name] = (fn(), time.monotonic() - t0)
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
-    threads = [threading.Thread(target=build, args=(m,))
-               for m in (blake3_cuda, bg4_cuda)]
+    jobs = [(m.SOURCE.name, m.build) for m in (blake3_cuda, bg4_cuda)]
+    jobs.append(("probe", lambda: compression_sass(work / "probe")))
+    threads = [threading.Thread(target=build, args=j) for j in jobs]
     t0 = time.monotonic()
     for t in threads:
         t.start()
@@ -204,11 +254,28 @@ def build_all() -> None:
     print(f"phase 1 build: kernels {t1 - t0:.2f} s in parallel "
           f"(nvcc {' '.join(nvcc.NVCC_FLAGS)}); native host library "
           f"{time.monotonic() - t1:.2f} s (g++)")
+    sass, _ = logs.pop("probe")
     for name, (ptxas, secs) in sorted(logs.items()):
         print(f"  {name}: {secs:.2f} s")
         for line in ptxas.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    alu = sum(sass.get(op, 0) for op in ALU_PIPE)
+    fma = sum(sass.get(op, 0) for op in FMA_PIPE)
+    if alu < 7 * 8 * 8:  # at least a xor and a rotate per G step
+        fail(f"the compression probe's SASS has {alu} ALU instructions: "
+             f"{sass}")
+    print(f"  SASS of one compression: ALU pipe {alu}, FMA pipe {fma} "
+          f"(source {SOURCE_OPS_PER_COMPRESSION}); "
+          + ", ".join(f"{k} {v}" for k, v in sorted(sass.items())))
+    return alu, fma
+
+
+def op_ms(alu: int, fma: int) -> float:
+    """Least device time of ``alu`` ALU-pipe and ``fma`` FMA-pipe integer
+    instructions (lanes): each pipe at 64 lanes an SM a clock, issue at
+    128."""
+    return max(alu, fma, (alu + fma) / 2) / INT32_OPS_PER_S * 1e3
 
 
 def bg4_phase(rng, dev) -> None:
@@ -444,11 +511,12 @@ def receipt_timing(cfg_a, pushed, dev) -> None:
           f"(wall {wall:.3f} s)")
 
 
-def time_bg4(cfg_a, pushed, dev) -> list[dict]:
+def time_bg4(cfg_a, pushed, dev, sass: tuple[int, int]) -> list[dict]:
     """Both BG4 kernels at the coop path's shapes: the largest minted
     xorb's BG4 chunks, staged as ``hash_planar_batch`` stages them. The
     fused kernel is timed in turns with the two-launch design it replaced
-    (the regroup, then the BLAKE3 chunk kernel on its output)."""
+    (the regroup, then the BLAKE3 chunk kernel on its output). ``sass``
+    is one compression's (ALU-pipe, FMA-pipe) instruction counts."""
     import torch
 
     from zest_tpu_torch.cas.compression import Scheme
@@ -507,15 +575,15 @@ def time_bg4(cfg_a, pushed, dev) -> list[dict]:
     # The fused function: its input read once up to each row's
     # length (64-byte blocks, as kernel #1 counts it) and its digests
     # written once; the operations are kernel #1's for these lengths plus
-    # eight byte permutes per 16 regrouped bytes.
+    # eight byte permutes (ALU pipe) per 16 regrouped bytes.
     lens = np.asarray(sizes, dtype=np.int64)
     fu_bytes, n_compressions = blake3_work(lens)
-    fu_ops = (n_compressions * OPS_PER_COMPRESSION
-              + 8 * int(((lens + 15) // 16).sum()))
+    permutes = 8 * int(((lens + 15) // 16).sum())
+    alu, fma = sass
     fu_byte_ms = fu_bytes / HBM_BYTES_PER_S * 1e3
-    fu_op_ms = fu_ops / INT32_OPS_PER_S * 1e3
-    pair_floor = rg_bound + n_compressions * OPS_PER_COMPRESSION \
-        / INT32_OPS_PER_S * 1e3
+    fu_op_ms = op_ms(n_compressions * alu + permutes, n_compressions * fma)
+    fu_src_ops = n_compressions * SOURCE_OPS_PER_COMPRESSION + permutes
+    pair_floor = rg_bound + op_ms(n_compressions * alu, n_compressions * fma)
     print(f"bg4 kernels at coop shapes: {B} BG4 chunks of the largest xorb "
           f"({len(reader)} chunks), cap {cap} B, {int(lens.sum()):,} bytes; "
           f"host LZ4 planar decode {1e3 * (t1 - t0):.1f} ms, stage_planar + "
@@ -530,7 +598,9 @@ def time_bg4(cfg_a, pushed, dev) -> list[dict]:
           f"ms, {pair_ms / fu_ms:.2f}x faster than the pair; plain "
           f"{fu_plain:.2f} ms, bound {max(fu_byte_ms, fu_op_ms):.4f} ms "
           f"(bytes {fu_byte_ms:.4f}: {fu_bytes:,} B; ops {fu_op_ms:.4f}: "
-          f"{fu_ops:,})")
+          f"{n_compressions:,} compressions x ({alu} ALU + {fma} FMA) + "
+          f"{permutes:,} permutes; {fu_src_ops / INT32_OPS_PER_S * 1e3:.4f} "
+          f"at the source's {SOURCE_OPS_PER_COMPRESSION} per compression)")
     return [
         {"name": "bg4_regroup", "route": "cuda",
          "source": "zest_tpu_torch/csrc/bg4.cu",
@@ -569,7 +639,7 @@ def run(args, work: Path) -> dict:
     rng = np.random.default_rng(args.seed)
 
     # ── 1. build ──
-    build_all()
+    sass = build_all(work)
 
     # ── 2. kernel vs plain vs native host BLAKE3, on the card ──
     chunks = [rng.bytes(n) for n in KERNEL_LENGTHS]
@@ -706,17 +776,19 @@ def run(args, work: Path) -> dict:
     plain_ms = cuda_ms(lambda: plain.hash_words(
         words, lengths, hasher.key_words, hasher.base_flags), 3)
     nbytes, n_compressions = blake3_work(sizes)
-    ops = n_compressions * OPS_PER_COMPRESSION
+    alu, fma = sass
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops / INT32_OPS_PER_S * 1e3
+    ops_ms = op_ms(n_compressions * alu, n_compressions * fma)
+    src_ms = (n_compressions * SOURCE_OPS_PER_COMPRESSION
+              / INT32_OPS_PER_S * 1e3)
     print(f"blake3 kernel at push shapes: {len(batch)} chunks, cap "
           f"{words.shape[1] * 4} B, {int(sizes.sum()):,} bytes: {ms:.4f} ms "
           f"({sizes.sum() / ms / 1e6:.1f} GB/s of chunk bytes), plain "
-          f"{plain_ms:.2f} ms, bound {max(byte_ms, op_ms):.4f} ms "
-          f"(bytes {byte_ms:.4f}: {nbytes:,} B; ops {op_ms:.4f}: "
-          f"{n_compressions:,} compressions x {OPS_PER_COMPRESSION}; "
-          f"{op_ms / OPS_PER_COMPRESSION * (7 * 8 * 14 + 8):.4f} at 14 "
-          f"ops per G)")
+          f"{plain_ms:.2f} ms, bound {max(byte_ms, ops_ms):.4f} ms "
+          f"(bytes {byte_ms:.4f}: {nbytes:,} B; ops {ops_ms:.4f}: "
+          f"{n_compressions:,} compressions x ({alu} ALU + {fma} FMA); "
+          f"{src_ms:.4f} at the source's {SOURCE_OPS_PER_COMPRESSION} per "
+          f"compression)")
     kernels = [{
         "name": "blake3_chunks",
         "route": "cuda",
@@ -725,10 +797,10 @@ def run(args, work: Path) -> dict:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(byte_ms, op_ms),
-        "bound_by": "bytes" if byte_ms > op_ms else "operations",
+        "bound_ms": max(byte_ms, ops_ms),
+        "bound_by": "bytes" if byte_ms > ops_ms else "operations",
         "library_ms": None,
-    }] + time_bg4(cfg_a, pushed, dev)
+    }] + time_bg4(cfg_a, pushed, dev, sass)
     by_path = {"blake3_chunks": {"push": push_launches,
                                  "coop": coop_launches["blake3_chunks"]}}
     for k in kernels:

@@ -21,17 +21,20 @@
 // What bounds it: integer ALU work. One 64-byte block compression is
 // 7 rounds x 8 G functions x 12 u32 instructions plus 8 output xors, 680
 // per 64 bytes (a G is 14 ops as written, but each `a + b + m` issues as
-// one three-input add, IADD3). A chunk of n bytes costs ceil(n/64) leaf
-// block compressions plus (leaves - 1) parent ones; the planar loader adds
-// 8 byte permutes (PRMT) per 16 bytes. The bytes (each row read once up to
-// its length) take less than half the integer time on an H100.
+// one three-input add, IADD3). Compiled for sm_90a, about a sixth of them
+// (the two-input adds) issue as IMAD on the FMA pipe, beside the ALU pipe,
+// so the ALU pipe's share (chip_smoke.py counts it from the SASS) is what
+// bounds the time. A chunk of n bytes costs ceil(n/64) leaf block
+// compressions plus (leaves - 1) parent ones; the planar loader adds 8
+// byte permutes (PRMT) per 16 bytes. The bytes (each row read once up to
+// its length) take about half the integer time on an H100.
 //
 // Design. The earlier version ran one block per chunk and one thread per
 // 1 KiB leaf. It reached 64% of its bound when every chunk was 64 KiB, but
 // 42% on CDC chunks (8-128 KiB): whole chunks placed statically left some
 // SMs with half again the mean work, and the lanes past a chunk's last
 // leaf idled inside live warps (PERF.md has the timed variants that
-// showed it, from scripts/torch_blake3_profile.py). Now:
+// showed it). Now:
 //   - work items are (chunk, 32-leaf group): one warp, one lane per leaf.
 //     Items are equal work but for a chunk's last group. 16 persistent
 //     warps an SM (2 blocks of 8) take item w, then items from a ticket
@@ -455,9 +458,12 @@ int launch(const uint32_t* words, const int32_t* lengths, uint32_t* out,
 }  // namespace
 
 // C interface, bound with ctypes by zest_tpu_torch/ops/blake3_cuda.py.
-// `scratch` holds 2 + 33 * batch u32 words (two work counters, then each
-// row's group counter and four group CVs), every counter zero before the
-// launch; the kernel leaves them zero again. Each entry point launches on
+// `scratch` holds kControlWords + batch * kJoinWords = 2 + 1025 * batch
+// u32 words (the work-ticket and warps-done counters, then per row the
+// counter that joins its 32-leaf groups and its 128 leaf CVs), every
+// counter zero before the launch; the kernel leaves them zero again. The
+// words (or planes) must be 16-byte aligned for the kernel's uint4 loads.
+// Each entry point launches on
 // `stream` and does not synchronise; returns the launch's cudaError_t (0
 // on success).
 extern "C" int zest_blake3_chunks(const uint32_t* words,

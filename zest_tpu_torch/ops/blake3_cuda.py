@@ -78,7 +78,7 @@ def _scratch_for(device: torch.device, stream: int,
 
 
 def check_device_words(words: torch.Tensor) -> None:
-    """What the kernels' 16-byte ``cp.async`` loads need (``ValueError``)."""
+    """What the kernels' 16-byte ``uint4`` loads need (``ValueError``)."""
     if words.device.type != "cuda":
         raise ValueError(f"kernel launch needs CUDA tensors, got "
                          f"{words.device}")
