@@ -25,10 +25,23 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
 3. ``push_checkpoint`` into node A's cache — every minted chunk is
    re-verified by the BLAKE3 kernel;
 4. ``pull_model(device="cuda")`` into a fresh node B through node A's
-   loopback publisher endpoint; every xet file must be rebuilt by the
-   cache → CDN waterfall (no whole-file fallback), the files must equal
-   the pushed ones and the landed tree must sit on ``cuda:0`` with the CPU
-   landing's digest;
+   loopback publisher endpoint. It lands directly: tensors decode from
+   the xorb cache into a pinned ring and commit to ``cuda:0`` in layer
+   order, embedding and layer 0 first, and the HF-cache files are written
+   from the same ring slots. Gates: one copy of the xorbs from the CDN
+   (no whole-file fallback), ``hbm.direct`` and ``hbm.streamed``,
+   ``0 < time_to_first_layer_s < time_to_hbm_s``, the ring within its
+   budget (or the oversized-alone bound), file bytes from the ``tensors``
+   lane, the files equal to the pushed ones and the landed tree on
+   ``cuda:0`` with the CPU landing's digest;
+   4b. the same tensors as a three-shard HF checkpoint (split in layer
+   order at 200 MB, as ``save_pretrained(max_shard_size="200MB")`` lays
+   it out, with ``model.safetensors.index.json``), pushed as a second repo
+   and pulled into a fresh node with a 64 MiB, 4-slot ring: phase 4's
+   gates and digest, ring slots reused, every shard warmed;
+   4c. phase 4's repo pulled again into node B: every file is complete,
+   so the landing stages from disk (``hbm.direct`` false), with phase 4's
+   digest;
 5. greedy KV-cached decoding at batch 1 and 4 from the landed tree, equal
    to the port's own CPU float32 run;
 6. the cooperative pull: ``COOP_HOSTS`` (4) fresh hosts in threads, each
@@ -37,7 +50,8 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    share from the CDN and receives the rest over DCN, every received whole
    xorb verified on the card (BG4 chunks through the fused kernel); no
    fallbacks, no rejections, ≥ 60% peer-served, one copy of the xorbs from
-   the CDN in all, the files and landed digests equal to phase 4's, the
+   the CDN in all, every host landing directly, the files and landed
+   digests equal to phase 4's, the
    fused kernel's rows equal to the BG4 chunks the hosts received and no
    standalone regroup launch; then each host's receipt verification is
    timed again without the network, once alone and once with every
@@ -72,6 +86,7 @@ from pathlib import Path
 import numpy as np
 
 REPO = "openai-community/gpt2"
+REPO_SHARDED = REPO + "-sharded"  # phase 4b's second repo
 GPT2_CONFIG = {  # openai-community/gpt2's published config.json
     "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"],
     "vocab_size": 50257, "n_positions": 1024, "n_ctx": 1024, "n_embd": 768,
@@ -90,6 +105,14 @@ BG4_LENGTHS = tuple(sorted(set(
     (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
     + LEAF_LENGTHS)))
 COOP_HOSTS = 4
+# Phase 4b: save_pretrained(max_shard_size="200MB") (decimal megabytes),
+# and a ring that the landing must reuse many times over.
+SHARD_BYTES = 200 * 1000 * 1000
+TIGHT_RING = {"land_ring_bytes": 64 * 1024 * 1024, "land_ring_slots": 4}
+# The header probe of a cooperative pull reads whole chunk frames until
+# the safetensors header is complete: at most the header and one more
+# chunk (128 KiB), twice over for the frames' own bytes.
+MAX_CHUNK_BYTES = 128 * 1024
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3. Integer rate: 64 INT32
 # lanes per SM x 132 SMs x 1.98 GHz boost clock (the same data sheet's
 # clock behind its 67 TFLOP/s float32 figure: 128 FP32 lanes x 2 x 132 x
@@ -346,12 +369,196 @@ def bg4_chunks_of(blob: bytes) -> tuple[int, int]:
     return bg4, len(schemes) - bg4
 
 
+def check_files(label: str, res, ckpt: Path) -> None:
+    for f in sorted(ckpt.iterdir()):
+        if (res.snapshot_dir / f.name).read_bytes() != f.read_bytes():
+            fail(f"{label}: pulled {f.name} differs from the pushed file")
+
+
+def check_tree(label: str, res, digest: str, dev) -> None:
+    from zest_tpu_torch.models.loader import params_digest
+
+    off = [n for n, t in res.params.items() if t.device != dev]
+    if off:
+        fail(f"{label}: {len(off)} tensors not on {dev}: {off[:3]}")
+    if params_digest(res.params) != digest:
+        fail(f"{label}: params_digest != the CPU landing's")
+
+
+def check_direct(label: str, res) -> None:
+    """The streaming landing's own gates: direct and streamed, the first
+    layer resident before the rest, the ring within its budget (a tensor
+    larger than the ring is admitted alone: then within that tensor and
+    its slot's 16-byte alignment), and the shards' files written from the
+    ring slots."""
+    st = res.stats
+    hbm = st["hbm"]
+    if not (hbm["direct"] and hbm.get("streamed")):
+        fail(f"{label}: the landing did not stream from the cache: "
+             f"direct {hbm['direct']}, streamed {hbm.get('streamed')}")
+    tfl, tth = st.get("time_to_first_layer_s"), st["time_to_hbm_s"]
+    if tfl is None or not 0 < tfl < tth:
+        fail(f"{label}: time_to_first_layer_s {tfl} vs time_to_hbm_s {tth}")
+    ring = hbm["ring"]
+    biggest = max(t.numel() * t.element_size() for t in res.params.values())
+    bound = max(ring["budget_bytes"], biggest + 15)
+    if ring["peak_bytes"] > bound:
+        fail(f"{label}: ring peak {ring['peak_bytes']:,} B > {bound:,} B "
+             f"(budget {ring['budget_bytes']:,} B)")
+    if not st["files_pipeline"]["lane_bytes"].get("tensors"):
+        fail(f"{label}: no file was written from the ring slots: "
+             f"{st['files_pipeline']}")
+
+
+def landing_summary(st: dict) -> str:
+    stages = st["stages"]
+    out = (f"time_to_hbm_s {st['time_to_hbm_s']}, elapsed_s "
+           f"{st['elapsed_s']}; stages "
+           + ", ".join(f"{k} {stages[k]}" for k in (
+               "resolve", "cas_metadata", "fetch", "decode", "first_layer",
+               "hbm_commit", "files") if k in stages)
+           + f"; files_after_hbm_s {st['files_after_hbm_s']}")
+    if "time_to_first_layer_s" in st:
+        out = f"time_to_first_layer_s {st['time_to_first_layer_s']}, " + out
+    return out
+
+
+def hf_shards(tensors: dict, max_bytes: int) -> list[dict]:
+    """``tensors`` split in their order into shards of at most
+    ``max_bytes`` (a larger tensor alone), as ``save_pretrained`` lays
+    out a sharded checkpoint."""
+    shards, size = [{}], 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        if shards[-1] and size + n > max_bytes:
+            shards.append({})
+            size = 0
+        shards[-1][name] = t
+        size += n
+    return shards
+
+
+def write_sharded(root: Path, tensors: dict, config: dict) -> list[str]:
+    """A sharded HF checkpoint of ``tensors``: ``model-0000i-of-0000n``
+    files plus ``model.safetensors.index.json``. Returns the shard names."""
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+
+    shards = hf_shards(tensors, SHARD_BYTES)
+    root.mkdir()
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    weight_map, names = {}, []
+    for i, shard in enumerate(shards, 1):
+        name = f"model-{i:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(root / name, shard)
+        weight_map.update(dict.fromkeys(shard, name))
+        names.append(name)
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    (root / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map},
+        indent=2))
+    return names
+
+
+def pull_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed, dev):
+    """Phase 4: the pull into a fresh node B through the direct streaming
+    landing. Returns the result, node B's config and the CPU landing's
+    digest."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    cfg_b = Config(hf_home=work / "b" / "hf",
+                   cache_dir=work / "b" / "zest", endpoint=url)
+    pulled = pull_model(cfg_b, REPO, device=dev)
+    st = pulled.stats
+    if st["fallback_files"]:
+        fail(f"{st['fallback_files']} xet files fell back to a "
+             "whole-file download: the cache → CDN reconstruction "
+             "failed")
+    cdn = st["fetch"]["bytes"]["cdn"]
+    if not pushed.new_xorb_bytes <= cdn <= 1.05 * pushed.new_xorb_bytes:
+        fail(f"node B started empty, so one copy of the "
+             f"{pushed.new_xorb_bytes:,} minted xorb bytes must cross "
+             f"the CDN tier: {st['fetch']}")
+    check_files("phase 4", pulled, ckpt)
+    digest = params_digest(load_checkpoint(pulled.snapshot_dir, "cpu"))
+    check_tree("phase 4", pulled, digest, dev)
+    check_direct("phase 4", pulled)
+    print(f"phase 4 pull: {landing_summary(st)}; ring "
+          f"{st['hbm']['ring']}; {cdn:,} bytes in "
+          f"{st['fetch']['xorbs']['cdn']} CDN fetches, 0 fallbacks; "
+          f"files by lane {st['files_pipeline']['lane_bytes']}; "
+          f"{st['hbm']['tensors']} tensors on {dev}, digest "
+          f"{digest[:16]}")
+    return pulled, cfg_b, digest
+
+
+def sharded_phase(work: Path, url: str, cfg_a, tensors: dict, digest: str,
+                  dev) -> int:
+    """Phase 4b: the three-shard checkpoint pushed as a second repo, then
+    pulled into a fresh node through a tight ring. Returns the push's
+    BLAKE3 kernel launches."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    ckpt = work / "checkpoint-sharded"
+    shards = write_sharded(ckpt, tensors, GPT2_CONFIG)
+    if len(shards) != 3:
+        fail(f"phase 4b: {len(shards)} shards at {SHARD_BYTES:,} B, not 3")
+    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
+        c.reset()  # counts from here are the sharded push's
+    pushed = push_checkpoint(cfg_a, REPO_SHARDED, ckpt, device=dev)
+    launches = blake3_cuda.COUNTER.launches
+    if blake3_cuda.COUNTER.rows != pushed.minted_chunks:
+        fail(f"phase 4b: kernel hashed {blake3_cuda.COUNTER.rows} chunks, "
+             f"push minted {pushed.minted_chunks}")
+    cfg = Config(hf_home=work / "d" / "hf", cache_dir=work / "d" / "zest",
+                 endpoint=url, **TIGHT_RING)
+    res = pull_model(cfg, REPO_SHARDED, device=dev)
+    st = res.stats
+    label = "phase 4b"
+    if st["fallback_files"]:
+        fail(f"{label}: {st['fallback_files']} whole-file fallbacks")
+    check_files(label, res, ckpt)
+    check_tree(label, res, digest, dev)
+    check_direct(label, res)
+    ring, warm = st["hbm"]["ring"], st["hbm"]["warm"]
+    if ring["buffer_reuses"] <= 0:
+        fail(f"{label}: the ring never reused a slot: {ring}")
+    if (warm["pipelined_shards"] != len(shards) or warm["failed"]
+            or warm.get("prefetch_errors")):
+        fail(f"{label}: not every shard was warmed: {warm}")
+    print(f"phase 4b sharded pull: {len(shards)} shards "
+          f"({', '.join(f'{(ckpt / s).stat().st_size:,} B' for s in shards)}"
+          f"; push {pushed.new_xorbs} new xorbs, {pushed.minted_chunks} "
+          f"chunks in {pushed.elapsed_s:.2f} s, kernel launches {launches}); "
+          f"{landing_summary(st)}; ring {ring}; warm {warm}; digest equal")
+    return launches
+
+
+def resume_phase(cfg_b, digest: str, dev) -> None:
+    """Phase 4c: phase 4's repo pulled again into node B. Every file is
+    complete, so the landing stages from disk."""
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    res = pull_model(cfg_b, REPO, device=dev)
+    st = res.stats
+    if st["hbm"]["direct"] or st["files_downloaded"]:
+        fail(f"phase 4c: direct {st['hbm']['direct']}, "
+             f"{st['files_downloaded']} files downloaded: the complete "
+             "snapshot must stage from disk")
+    check_tree("phase 4c", res, digest, dev)
+    print(f"phase 4c resumed pull: {st['files_skipped']} files complete, "
+          f"staged from disk; {landing_summary(st)}; digest equal")
+
+
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                digest: str, dev) -> dict:
     """Phase 6: ``COOP_HOSTS`` cooperative pulls in threads. Returns the
     launch counts of the coop path."""
     from zest_tpu_torch.config import Config
-    from zest_tpu_torch.models.loader import params_digest
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
     from zest_tpu_torch.transfer.dcn import DcnServer
     from zest_tpu_torch.transfer.pull import pull_model
@@ -402,7 +609,10 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                 for h in pushed.xorb_digests}
     want_rows = (n - 1) * sum(b for b, _ in per_xorb.values())
     want_rest = (n - 1) * sum(r for _, r in per_xorb.values())
-    cdn_total = 0
+    with open(ckpt / "model.safetensors", "rb") as f:
+        header_bytes = 8 + int.from_bytes(f.read(8), "little")
+    probe_bound = 2 * (header_bytes + MAX_CHUNK_BYTES)
+    cdn_total, probes = 0, []
     for i, res in enumerate(results):
         st = res.stats
         c = st.get("coop")
@@ -420,17 +630,19 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                  f"fallback_files {st['fallback_files']}")
         coop_cdn = (c["fetch"]["tiers"].get("cdn", 0)
                     + ex.get("fallback_tiers", {}).get("cdn", 0))
-        if st["fetch"]["bytes"]["cdn"] != coop_cdn:
-            fail(f"host {i}: the files stage fetched "
-                 f"{st['fetch']['bytes']['cdn'] - coop_cdn} CDN bytes")
+        # Outside the round, only the header probe that orders it by
+        # layer may reach the CDN; the landing and the files read the
+        # cache.
+        probe = st["fetch"]["bytes"]["cdn"] - coop_cdn
+        if not 0 < probe <= probe_bound:
+            fail(f"host {i}: {probe} CDN bytes outside the round (the "
+                 f"header probe reads at most {probe_bound})")
+        probes.append(probe)
         cdn_total += st["fetch"]["bytes"]["cdn"]
-        for f in sorted(ckpt.iterdir()):
-            if (res.snapshot_dir / f.name).read_bytes() != f.read_bytes():
-                fail(f"host {i}: pulled {f.name} differs from the pushed file")
-        if any(t.device != dev for t in res.params.values()):
-            fail(f"host {i}: tensors not all on {dev}")
-        if params_digest(res.params) != digest:
-            fail(f"host {i}: params_digest != phase 4's")
+        if not st["hbm"]["direct"]:
+            fail(f"host {i}: the landing staged from disk")
+        check_files(f"host {i}", res, ckpt)
+        check_tree(f"host {i}", res, digest, dev)
     if cdn_total > 1.05 * pushed.new_xorb_bytes:
         fail(f"{cdn_total:,} CDN bytes over {n} hosts > 1.05 x "
              f"{pushed.new_xorb_bytes:,}")
@@ -445,7 +657,8 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         fail(f"blake3_chunks hashed {launches['blake3_chunks'][1]} rows; the "
              f"hosts received {want_rest} chunks of other schemes")
     print(f"phase 6 coop pull: {n} hosts in {wall:.2f} s; {cdn_total:,} CDN "
-          f"bytes in all ({pushed.new_xorb_bytes:,} pushed); "
+          f"bytes in all ({pushed.new_xorb_bytes:,} pushed; header probes "
+          f"{probes} B); every host landed directly; "
           f"{want_rows // (n - 1)} BG4 and {want_rest // (n - 1)} other "
           f"chunks in {len(per_xorb)} xorbs, x{n - 1} receivers; launches "
           f"(rows): "
@@ -453,8 +666,8 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
     for i, res in enumerate(results):
         st, c = res.stats, res.stats["coop"]
         ex = c["exchange"]
-        print(f"  host {i}: time_to_hbm_s {st['time_to_hbm_s']} stages "
-              f"{st['stages']}; coop elapsed_s {c['elapsed_s']}, fetched "
+        print(f"  host {i}: {landing_summary(st)}; coop elapsed_s "
+              f"{c['elapsed_s']}, fetched "
               f"{c['fetch']['units']} units "
               f"({c['fetch']['tiers'].get('cdn', 0):,} CDN bytes), "
               f"exchanged {ex['units']} ({ex['wire_bytes']:,} wire / "
@@ -676,53 +889,34 @@ def run(args, work: Path) -> dict:
     tensors = gpt2_checkpoint(args.seed, GPT2_CONFIG)
     n_params = sum(t.numel() for t in tensors.values())
     write_safetensors(ckpt / "model.safetensors", tensors)
-    del tensors
     cfg_a = Config(hf_home=work / "a" / "hf", cache_dir=work / "a" / "zest")
     for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
         c.reset()  # counts from here are the push path's
     pushed = push_checkpoint(cfg_a, REPO, ckpt, device="cuda")
-    push_chunks = blake3_cuda.COUNTER.rows
-    if blake3_cuda.COUNTER.launches < 1:
+    push_launches = blake3_cuda.COUNTER.launches
+    if push_launches < 1:
         fail("push never launched the BLAKE3 kernel")
-    if push_chunks != pushed.minted_chunks:
-        fail(f"kernel hashed {push_chunks} chunks, push minted "
+    if blake3_cuda.COUNTER.rows != pushed.minted_chunks:
+        fail(f"kernel hashed {blake3_cuda.COUNTER.rows} chunks, push minted "
              f"{pushed.minted_chunks}")
     print(f"phase 3 push: {n_params:,} params, {pushed.total_bytes:,} bytes "
           f"in {pushed.elapsed_s:.2f} s; {pushed.new_xorbs} xorbs, "
-          f"{pushed.minted_chunks} chunks, kernel launches "
-          f"{blake3_cuda.COUNTER.launches}")
+          f"{pushed.minted_chunks} chunks, kernel launches {push_launches}")
 
     publisher = PublisherServer(cfg_a).start()
     try:
-        # ── 4. pull through node A's loopback publisher ──
-        cfg_b = Config(hf_home=work / "b" / "hf",
-                       cache_dir=work / "b" / "zest", endpoint=publisher.url)
-        pulled = pull_model(cfg_b, REPO, device="cuda")
-        st = pulled.stats
-        if st["fallback_files"]:
-            fail(f"{st['fallback_files']} xet files fell back to a "
-                 "whole-file download: the cache → CDN reconstruction "
-                 "failed")
-        if (st["fetch"]["bytes"]["cache"]
-                or st["fetch"]["bytes"]["cdn"] < pushed.new_xorb_bytes):
-            fail(f"node B started empty, so all {pushed.new_xorb_bytes:,} "
-                 f"minted xorb bytes must cross the CDN tier: {st['fetch']}")
-        for f in sorted(ckpt.iterdir()):
-            if (pulled.snapshot_dir / f.name).read_bytes() != f.read_bytes():
-                fail(f"pulled {f.name} differs from the pushed file")
-        off = [n for n, t in pulled.params.items() if t.device != dev]
-        if off:
-            fail(f"{len(off)} tensors not on {dev}: {off[:3]}")
-        digest = params_digest(pulled.params)
-        if digest != params_digest(load_checkpoint(pulled.snapshot_dir,
-                                                   "cpu")):
-            fail("params_digest of the cuda landing != the CPU landing's")
-        print(f"phase 4 pull: time_to_hbm_s {st['time_to_hbm_s']} "
-              f"(elapsed_s {st['elapsed_s']}, stages {st['stages']}); "
-              f"{st['fetch']['bytes']['cdn']:,} bytes in "
-              f"{st['fetch']['xorbs']['cdn']} CDN fetches, 0 fallbacks; "
-              f"{st['hbm']['tensors']} tensors on {dev}, digest "
-              f"{digest[:16]}")
+        # ── 4. pull through node A's loopback publisher: the direct
+        # streaming landing ──
+        pulled, cfg_b, digest = pull_phase(work, publisher.url, cfg_a, ckpt,
+                                           pushed, dev)
+
+        # ── 4b. the same tensors as a three-shard checkpoint, tight ring ──
+        sharded_launches = sharded_phase(work, publisher.url, cfg_a, tensors,
+                                         digest, dev)
+        del tensors
+        shutil.rmtree(work / "d")
+        # ── 4c. phase 4's repo again: complete files stage from disk ──
+        resume_phase(cfg_b, digest, dev)
 
         # ── 5. greedy decode from the landed tree vs the CPU float32 run ──
         _, gen_cuda = load_generator(pulled.snapshot_dir, device="cuda",
@@ -742,7 +936,6 @@ def run(args, work: Path) -> dict:
                   f"{args.steps} steps in {dt:.3f} s, "
                   f"{len(batch) * args.steps / dt:.1f} tokens/s; equal to "
                   "CPU")
-        push_launches = blake3_cuda.COUNTER.launches  # end of the push path
         del pulled, gen_cuda, gen_cpu  # free phase 4/5's trees
         shutil.rmtree(work / "b")
         torch.cuda.empty_cache()
@@ -802,6 +995,7 @@ def run(args, work: Path) -> dict:
         "library_ms": None,
     }] + time_bg4(cfg_a, pushed, dev, sass)
     by_path = {"blake3_chunks": {"push": push_launches,
+                                 "push_sharded": sharded_launches,
                                  "coop": coop_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]]})

@@ -238,6 +238,8 @@ def test_slice_on_card(cuda_device, tmp_path):
         res = pull_model(Config(hf_home=tmp_path / "b" / "hf",
                                 cache_dir=tmp_path / "b" / "zest",
                                 endpoint=server.url), "org/tiny")
+    hbm = res.stats["hbm"]
+    assert hbm["direct"] is hbm["streamed"] is True
     assert all(t.device == cuda_device for t in res.params.values())
     assert params_digest(res.params) == params_digest(
         load_checkpoint(res.snapshot_dir, "cpu"))
@@ -307,3 +309,109 @@ def test_coop_pull_on_card(cuda_device, tmp_path):
         assert params_digest(res.params) == want
     assert bg4_cuda.FUSED_COUNTER.rows == (n - 1) * bg4_chunks
     assert bg4_cuda.COUNTER.launches == 0
+
+
+# ── The streaming landing on the card ──
+
+
+def test_ring_slots_pinned_and_reused(cuda_device):
+    """Ring slots are page-locked, and a released slot's buffer serves the
+    next acquire that fits (no second pinned allocation)."""
+    from zest_tpu_torch.models.loader import HostRing
+
+    ring = HostRing(1 << 20, 4, pin=True)
+    a = ring.acquire(600_000)
+    assert a.tensor.is_pinned() and a.buffer.is_pinned()
+    ptr = a.buffer.data_ptr()
+    a.release()
+    b = ring.acquire(500_000)
+    assert b.buffer.data_ptr() == ptr
+    assert (ring.allocs, ring.reuses) == (1, 1)
+    b.release()
+    ring.close()
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["raw", "bf16"])
+def test_commit_orders_current_stream_after_copies(cuda_device, dtype):
+    """The side stream's copies run behind a ~50 ms spin; the landed
+    tensors read on the current stream after ``finish`` (with no device
+    sync) hold the slot's bytes, cast on the host where asked."""
+    from zest_tpu_torch.models.loader import (
+        HostRing, _DeviceCommit, cast_floating,
+    )
+    from zest_tpu_torch.models.safetensors_io import TensorInfo
+
+    rng = np.random.default_rng(3)
+    host = {"a": rng.standard_normal((256, 64), dtype=np.float32),
+            "b": rng.integers(0, 1 << 30, (1000,), dtype=np.int32)}
+    ring = HostRing(1 << 22, 4, pin=True)
+    slot = ring.acquire(sum(a.nbytes for a in host.values()))
+    items, off = [], 0
+    for name, arr in host.items():
+        raw = arr.reshape(-1).view(np.uint8)
+        slot.view[off:off + raw.nbytes] = raw
+        info = TensorInfo(name, "F32" if arr.dtype == np.float32 else "I32",
+                          arr.shape, (off, off + raw.nbytes))
+        items.append((name, info, slot, off, off + raw.nbytes))
+        off += raw.nbytes
+    committer = _DeviceCommit(cuda_device, dtype)
+    with torch.cuda.stream(committer.side):
+        torch.cuda._sleep(100_000_000)
+    landed, (done, _keep) = committer.commit(items)
+    committer.finish()
+    copies = {n: t.clone() for n, t in landed.items()}
+    torch.cuda.current_stream(cuda_device).synchronize()
+    assert done.query()
+    for name, arr in host.items():
+        want = cast_floating(torch.from_numpy(arr), dtype)
+        got = copies[name]
+        assert got.device == cuda_device and got.dtype == want.dtype
+        assert torch.equal(got.cpu().view(torch.uint8),
+                           want.contiguous().view(torch.uint8))
+    slot.release()
+    ring.close()
+
+
+def test_tight_ring_landing_on_card(cuda_device, tmp_path):
+    """The streaming landing on ``cuda`` straight from a warm cache
+    through a ring far smaller than the checkpoint (no file sink holds a
+    slot): slots are reused, the first layer is resident before the
+    landing returns, and the tree sits on ``cuda:0`` with the CPU
+    landing's digest, read on the current stream with no device sync."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.models.loader import (
+        load_checkpoint, params_digest, stage_cached_to_hbm,
+    )
+    from zest_tpu_torch.transfer.bridge import XetBridge
+    from zest_tpu_torch.transfer.federated import warm_units_parallel
+    from zest_tpu_torch.transfer.pod import fetch_file_header
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt)
+    first: list = []
+    with PublisherServer(cfg_a) as server:
+        cfg = Config(hf_home=tmp_path / "b" / "hf",
+                     cache_dir=tmp_path / "b" / "zest", endpoint=server.url)
+        bridge = XetBridge(cfg)
+        try:
+            bridge.authenticate("org/tiny")
+            entry = next(e for e in HubClient(cfg).list_files("org/tiny")
+                         if e.path == "model.safetensors")
+            rec = bridge.get_reconstruction(entry.xet_hash)
+            header = fetch_file_header(bridge, rec)
+            warm_units_parallel(bridge, [rec])
+            params, stats = stage_cached_to_hbm(
+                bridge, [(rec, header)], cuda_device, stream=True,
+                ring_bytes=256 * 1024, ring_slots=2,
+                on_first_layer=lambda: first.append(True))
+        finally:
+            bridge.close()
+    assert stats["streamed"] is True and first == [True]
+    assert stats["ring"]["buffer_reuses"] > 0
+    assert all(t.device == cuda_device for t in params.values())
+    assert params_digest(params) == params_digest(
+        load_checkpoint(ckpt, "cpu"))

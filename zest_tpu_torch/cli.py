@@ -73,8 +73,11 @@ def cmd_pull(args) -> int:
     print(f"  {st['files_downloaded']} downloaded, {st['files_skipped']} "
           f"skipped; {st['hbm']['tensors']} tensors "
           f"({st['hbm']['bytes']:,} bytes) on {st['device']}")
+    first = (f", first layer {st['time_to_first_layer_s']} s"
+             if "time_to_first_layer_s" in st else "")
     print(f"  elapsed {st['elapsed_s']} s, time to device "
-          f"{st['time_to_hbm_s']} s")
+          f"{st['time_to_hbm_s']} s{first} "
+          f"({'direct' if st['hbm']['direct'] else 'from disk'})")
     coop = st.get("coop")
     if coop and not coop.get("skipped"):
         ex = coop["exchange"]

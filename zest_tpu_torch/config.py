@@ -5,8 +5,12 @@ environment names (``HF_HOME``, ``ZEST_CACHE_DIR``, ``HF_TOKEN``,
 ``HF_ENDPOINT``, ``ZEST_HTTP_PORT``, ``ZEST_DCN_PORT``,
 ``ZEST_MAX_CONCURRENT``, ``ZEST_PUSH_CHUNKS_PER_XORB``, ``ZEST_COOP``,
 ``ZEST_COOP_HOSTS``, ``ZEST_COOP_INDEX``, ``ZEST_COOP_ADDRS``,
-``ZEST_COOP_INFLIGHT``), the same defaults and the same HF cache layout,
-so a tree pulled by either package reads the same on disk.
+``ZEST_COOP_INFLIGHT``, and the landing's ``ZEST_DECODE_WORKERS``,
+``ZEST_DECODE_CACHE``, ``ZEST_LAND_AHEAD``, ``ZEST_LAND_STREAM``,
+``ZEST_LAND_RING_BYTES``, ``ZEST_LAND_RING_SLOTS``, ``ZEST_FILES_ASYNC``,
+``ZEST_FILES_WORKERS``, ``ZEST_PULL_INFLIGHT`` and ``ZEST_TPU_DTYPE``),
+the same defaults and the same HF cache layout, so a tree pulled by either
+package reads the same on disk.
 
 :func:`resolve_device` is the one place the port turns a device name into
 a ``torch.device``: entry points run on ``cuda`` unless the caller asks
@@ -25,6 +29,26 @@ DEFAULT_DCN_PORT = 6991             # host-to-host chunk RPC listener
 DEFAULT_COOP_INFLIGHT_BYTES = 1 << 30
 DEFAULT_MAX_CONCURRENT_DOWNLOADS = 16
 DEFAULT_DEVICE = "cuda"
+DEFAULT_PULL_INFLIGHT_BYTES = 2 << 30  # in-flight file-write byte budget
+# Decode parallelism (ZEST_DECODE_WORKERS): 0 = auto, 1 = serial; sizes
+# the term-decode pool and the native batch decoder's threads.
+DEFAULT_DECODE_WORKERS = 0
+DEFAULT_LAND_DECODE_AHEAD = 1       # shards decoded ahead of the commit
+# Parsed cache-entry reader LRU of the landing's decode (ZEST_DECODE_CACHE,
+# bytes; 0 disables): one ~unit-sized entry serves many terms.
+DEFAULT_DECODE_CACHE_BYTES = 192 * 1024 * 1024
+# Write-behind handoff (ZEST_FILES_ASYNC): 1 never blocks the landing (a
+# full byte budget declines to the post-landing file lane); 0 blocks.
+DEFAULT_FILES_ASYNC = True
+DEFAULT_FILES_WORKERS = 0           # file writers at once; 0 = auto
+# Streaming landing (ZEST_LAND_STREAM, strictly 0 or 1): tensors decode
+# into a ring of reusable pinned host slots and commit in layer order;
+# 0 lands shard by shard. The ring holds ZEST_LAND_RING_BYTES in at most
+# ZEST_LAND_RING_SLOTS slots; a tensor larger than the ring is admitted
+# alone.
+DEFAULT_LAND_STREAM = True
+DEFAULT_LAND_RING_BYTES = 512 * 1024 * 1024
+DEFAULT_LAND_RING_SLOTS = 64
 
 _REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
 
@@ -61,6 +85,15 @@ def _nonneg_int(env: dict[str, str], name: str, default: int) -> int:
     if value < 0:
         raise ValueError(f"{name} must be >= 0, got {value}")
     return value
+
+
+def _strict_bool(name: str, value: str) -> bool:
+    """``"0"`` or ``"1"``; anything else raises, so a typo can never
+    leave a rollback knob silently on."""
+    v = value.strip()
+    if v not in ("0", "1"):
+        raise ValueError(f"{name} must be 0 or 1, got {value!r}")
+    return v == "1"
 
 
 def parse_host_addr(spec: str) -> tuple[int, tuple[str, int]]:
@@ -107,6 +140,20 @@ class Config:
     coop_addrs: dict[int, tuple[str, int]] = dataclasses.field(
         default_factory=dict)
     coop_inflight_bytes: int = DEFAULT_COOP_INFLIGHT_BYTES
+    # The landing (models/loader.py, models/direct.py) and the file
+    # pipeline (transfer/pull.py).
+    pull_inflight_bytes: int = DEFAULT_PULL_INFLIGHT_BYTES
+    decode_workers: int = DEFAULT_DECODE_WORKERS
+    land_decode_ahead: int = DEFAULT_LAND_DECODE_AHEAD
+    decode_cache_bytes: int = DEFAULT_DECODE_CACHE_BYTES
+    land_stream: bool = DEFAULT_LAND_STREAM
+    land_ring_bytes: int = DEFAULT_LAND_RING_BYTES
+    land_ring_slots: int = DEFAULT_LAND_RING_SLOTS
+    files_async: bool = DEFAULT_FILES_ASYNC
+    files_workers: int = DEFAULT_FILES_WORKERS
+    # Floating tensors land in this dtype (bf16, f16, f32; None keeps the
+    # checkpoint's). The variable keeps the JAX package's name.
+    land_dtype: str | None = None
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -142,6 +189,28 @@ class Config:
             coop_inflight_bytes=max(1, int(
                 env.get("ZEST_COOP_INFLIGHT")
                 or DEFAULT_COOP_INFLIGHT_BYTES)),
+            pull_inflight_bytes=max(1, int(
+                env.get("ZEST_PULL_INFLIGHT", DEFAULT_PULL_INFLIGHT_BYTES))),
+            decode_workers=max(0, int(
+                env.get("ZEST_DECODE_WORKERS", DEFAULT_DECODE_WORKERS))),
+            land_decode_ahead=max(0, int(
+                env.get("ZEST_LAND_AHEAD", DEFAULT_LAND_DECODE_AHEAD))),
+            decode_cache_bytes=max(0, int(
+                env.get("ZEST_DECODE_CACHE", DEFAULT_DECODE_CACHE_BYTES))),
+            land_stream=_strict_bool(
+                "ZEST_LAND_STREAM",
+                env.get("ZEST_LAND_STREAM",
+                        "1" if DEFAULT_LAND_STREAM else "0")),
+            land_ring_bytes=max(1, int(
+                env.get("ZEST_LAND_RING_BYTES", DEFAULT_LAND_RING_BYTES))),
+            land_ring_slots=max(1, int(
+                env.get("ZEST_LAND_RING_SLOTS", DEFAULT_LAND_RING_SLOTS))),
+            files_async=env.get(
+                "ZEST_FILES_ASYNC",
+                "1" if DEFAULT_FILES_ASYNC else "0").strip() != "0",
+            files_workers=max(0, int(
+                env.get("ZEST_FILES_WORKERS", DEFAULT_FILES_WORKERS))),
+            land_dtype=env.get("ZEST_TPU_DTYPE") or None,
         )
 
     # ── HF cache layout ──

@@ -1,29 +1,55 @@
 """Checkpoint landing: safetensors → tensors in device memory.
 
-The counterpart of ``zest_tpu/models/loader.py`` for the disk-staging
-landing (files first, then :func:`stage_snapshot_to_hbm`). Where the JAX
-package lays ``jax.Array``s out over a mesh, this lands ``torch.Tensor``s
-on one device; multi-GPU placement, the streaming landing and the direct
-landing come with later slices.
+The counterpart of ``zest_tpu/models/loader.py`` on one device. Where the
+JAX package lays ``jax.Array``s out over a mesh, this lands
+``torch.Tensor``s on one card (multi-GPU placement comes with a later
+slice). Two landings:
 
-:func:`commit_tensors` is one pinned, batched host→device copy per call:
-every tensor's bytes are packed into one pinned staging buffer (each
-tensor 16-byte aligned), copied in one transfer, and split back into
-typed views on the device. The copy moves raw bytes, so NaN payloads and
-sub-word float bits land unchanged; a landing ``dtype`` casts only
-floating tensors, never int or bool ones. The landed tensors are views
-of one device buffer per call, which lives while any of them does.
+- **Disk staging** (:func:`stage_snapshot_to_hbm`): read a pulled
+  snapshot's files and commit each with :func:`commit_tensors`, one
+  pinned, batched host→device copy per file.
+- **Direct** (:func:`stage_cached_to_hbm`): land straight from the cached
+  xorb units, with no file read. Streaming (the default) decodes runs of
+  tensors into a :class:`HostRing` of reusable pinned slots, in layer
+  order, and commits groups of them from the slots themselves on a side
+  stream: one device buffer per group, one asynchronous copy per slot
+  span, the landed tensors typed views of the buffer. A slot goes back to
+  the ring only after its group's CUDA event has completed. With
+  streaming off, whole shards decode one ahead of the commit.
+
+Every copy moves raw bytes, so NaN payloads and sub-word float bits land
+unchanged; a landing ``dtype`` casts only floating tensors, on the host,
+never int or bool ones (:func:`cast_floating`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from queue import Empty, SimpleQueue
 
 import torch
 
 from zest_tpu_torch.cas import hashing
-from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from zest_tpu_torch.config import (
+    DEFAULT_DEVICE,
+    DEFAULT_LAND_DECODE_AHEAD,
+    DEFAULT_LAND_RING_BYTES,
+    DEFAULT_LAND_RING_SLOTS,
+    DEFAULT_LAND_STREAM,
+    resolve_device,
+)
+from zest_tpu_torch.models.direct import (
+    StreamingShardReader,
+    land_tensors,
+    typed_view,
+)
+from zest_tpu_torch.models.registry import first_layer_names, order_names
 from zest_tpu_torch.models.safetensors_io import SafetensorsFile, tensor_bytes
 
 _ALIGN = 16
@@ -33,17 +59,52 @@ def snapshot_files(snapshot_dir: str | Path) -> list[Path]:
     return sorted(Path(snapshot_dir).glob("*.safetensors"))
 
 
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+           "f16": torch.float16, "float16": torch.float16,
+           "f32": torch.float32, "float32": torch.float32}
+
+
+def resolve_dtype(name: str | None) -> torch.dtype | None:
+    """Landing-dtype name (``Config.land_dtype``) → torch dtype; None
+    keeps each tensor's own."""
+    if name is None:
+        return None
+    try:
+        return _DTYPES[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown landing dtype {name!r} (supported: "
+                         f"{', '.join(sorted(_DTYPES))})") from None
+
+
+def cast_floating(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """``t`` in ``dtype`` when it is floating (int and bool tensors are
+    never cast), on the host. A float32 → bfloat16 cast rounds to nearest
+    even and turns every NaN into the quiet NaN of its sign (``0x7FC0`` /
+    ``0xFFC0``), as the JAX package's ``ml_dtypes`` cast does; torch's own
+    cast writes ``0xFFFF`` for any NaN."""
+    if dtype is None or not t.dtype.is_floating_point or t.dtype == dtype:
+        return t
+    out = t.to(dtype)
+    if t.dtype == torch.float32 and dtype == torch.bfloat16:
+        nan = torch.isnan(t)
+        if bool(nan.any()):
+            quiet = torch.where(torch.signbit(t[nan]),
+                                torch.tensor(-64, dtype=torch.int16),
+                                torch.tensor(0x7FC0, dtype=torch.int16))
+            out.view(torch.int16)[nan] = quiet
+    return out
+
+
 def commit_tensors(host: dict[str, torch.Tensor], device=DEFAULT_DEVICE,
                    dtype: torch.dtype | None = None
                    ) -> dict[str, torch.Tensor]:
-    """Land a name→CPU-tensor dict on ``device`` in one batched copy.
-
-    ``dtype`` casts floating tensors on the host first (fewer bytes to
-    move); int and bool tensors keep their dtype. Caller order is kept."""
+    """Land a name→CPU-tensor dict on ``device`` in one batched copy:
+    every tensor's bytes packed into one pinned staging buffer (each
+    16-byte aligned), one transfer, typed views of the device buffer.
+    ``dtype`` casts floating tensors on the host first. Caller order is
+    kept."""
     dev = resolve_device(device)
-    if dtype is not None:
-        host = {n: t.to(dtype) if t.dtype.is_floating_point else t
-                for n, t in host.items()}
+    host = {n: cast_floating(t, dtype) for n, t in host.items()}
     offsets, total = {}, 0
     for name, t in host.items():
         offsets[name] = total
@@ -67,15 +128,16 @@ def commit_tensors(host: dict[str, torch.Tensor], device=DEFAULT_DEVICE,
     return out
 
 
-def load_checkpoint(snapshot_dir: str | Path,
-                    device=DEFAULT_DEVICE) -> dict[str, torch.Tensor]:
+def load_checkpoint(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
+                    dtype: torch.dtype | None = None
+                    ) -> dict[str, torch.Tensor]:
     """All tensors of a snapshot as a flat name→tensor dict on ``device``,
     one batched commit per safetensors file."""
     out: dict[str, torch.Tensor] = {}
     for path in snapshot_files(snapshot_dir):
         with SafetensorsFile(path) as sf:
             host = {name: sf.tensor(name) for name in sf.names()}
-            out.update(commit_tensors(host, device))
+            out.update(commit_tensors(host, device, dtype))
             del host
     return out
 
@@ -97,7 +159,7 @@ def params_digest(params: dict[str, torch.Tensor]) -> str:
     return hashing.blake3_hash(b"".join(leaves)).hex()
 
 
-def _commit_stats(params: dict, dt: float) -> dict:
+def _commit_stats(params: dict, dt: float, direct: bool = False) -> dict:
     total = sum(t.numel() * t.element_size() for t in params.values())
     return {
         "tensors": len(params),
@@ -105,11 +167,12 @@ def _commit_stats(params: dict, dt: float) -> dict:
         "elapsed_s": round(dt, 3),
         "gbps": round(total / dt / 1e9, 3) if dt > 0 else 0.0,
         "sharded": False,
-        "direct": False,
+        "direct": direct,
     }
 
 
-def stage_snapshot_to_hbm(snapshot_dir: str | Path, device=DEFAULT_DEVICE
+def stage_snapshot_to_hbm(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
+                          dtype: torch.dtype | None = None
                           ) -> tuple[dict[str, torch.Tensor], dict]:
     """Disk-path commit of a pulled snapshot into device memory.
 
@@ -118,7 +181,619 @@ def stage_snapshot_to_hbm(snapshot_dir: str | Path, device=DEFAULT_DEVICE
     GB/s). The name keeps the JAX package's: "hbm" is the card's memory."""
     dev = resolve_device(device)
     t0 = time.monotonic()
-    params = load_checkpoint(snapshot_dir, dev)
+    params = load_checkpoint(snapshot_dir, dev, dtype)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return params, _commit_stats(params, time.monotonic() - t0)
+
+
+@contextlib.contextmanager
+def _gc_frozen():
+    """Suspend cyclic GC over the landing (a collection mid-commit walks
+    every live object at an arbitrary point). Afterwards one collection
+    of the youngest generation, which holds exactly the objects the
+    landing made (nothing is promoted while collection is off): a full
+    collection here walks the whole heap on the time-to-device path."""
+    was_enabled = gc.isenabled()
+    gc.freeze()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+        gc.unfreeze()
+        gc.collect(0)
+
+
+class RingClosed(RuntimeError):
+    """The ring was torn down (consumer error) while a producer waited."""
+
+
+class _RingSlot:
+    """One staging buffer in flight: decode writes it, the device copy
+    reads it, and the write-behind file sink may read it too. Reference
+    counted; it returns to the ring when every consumer is done.
+    ``tensor`` is the slot's uint8 tensor and ``view`` its numpy view."""
+
+    __slots__ = ("ring", "buffer", "tensor", "view", "acct", "refs",
+                 "detached")
+
+    def __init__(self, ring: "HostRing", buffer: torch.Tensor, nbytes: int):
+        self.ring = ring
+        self.buffer = buffer
+        self.tensor = buffer[:nbytes]
+        self.view = self.tensor.numpy()
+        self.acct = buffer.numel()   # capacity bytes charged to the ring
+        self.refs = 1
+        self.detached = False
+
+    def addref(self) -> "_RingSlot":
+        with self.ring._cv:
+            self.refs += 1
+        return self
+
+    def detach(self) -> None:
+        """Move this slot's bytes out of the ring's accounting (the file
+        sink keeps them past the commit, under its own byte budget). The
+        buffer rejoins the pool on its last release if the budget has
+        room then: a pull that writes its files still reuses the slots
+        its earlier shards' files are done with."""
+        with self.ring._cv:
+            if not self.detached:
+                self.detached = True
+                self.ring._in_use_bytes -= self.acct
+                self.ring._in_use -= 1
+                self.ring._cv.notify_all()
+
+    def release(self) -> None:
+        self.ring._unref(self)
+
+
+class HostRing:
+    """Fixed-capacity pool of reusable host staging buffers.
+
+    ``acquire(n)`` admits a slot while the bytes in flight stay within
+    ``budget_bytes`` and the slots within ``max_slots``, else waits (a
+    counted stall) until the consumer releases one. A slot larger than
+    the whole budget is admitted alone once nothing else is in flight.
+    Released buffers are kept (smallest adequate fit first) while ``in
+    use + free ≤ budget``. ``pin`` page-locks the buffers, so the device
+    copy reads them asynchronously.
+
+    ``reuse=False`` makes every slot single-use: needed where the landed
+    tensors alias the slot (the CPU landing), so a reused buffer would
+    rewrite landed parameters."""
+
+    def __init__(self, budget_bytes: int, max_slots: int,
+                 reuse: bool = True, pin: bool = False):
+        self.budget_bytes = max(1, int(budget_bytes))
+        self.max_slots = max(1, int(max_slots))
+        self.reuse = bool(reuse)
+        self.pin = bool(pin)
+        self._cv = threading.Condition()
+        self._free: list[torch.Tensor] = []
+        self._free_bytes = 0
+        self._in_use = 0
+        self._in_use_bytes = 0
+        self._closed = False
+        self._waiting = False
+        self.peak_bytes = 0
+        self.stalls = 0
+        self.stall_s = 0.0
+        self.oversized = 0
+        self.allocs = 0
+        self.reuses = 0
+        self.detached = 0
+
+    def _trim_free_locked(self, incoming: int) -> None:
+        while self._free and (self._in_use_bytes + self._free_bytes
+                              + incoming > self.budget_bytes):
+            self._free_bytes -= self._free.pop().numel()
+
+    def acquire(self, nbytes: int, block: bool = True) -> _RingSlot | None:
+        """Admit a slot of ``nbytes``; with ``block=False`` return None
+        instead of waiting (no stall counted)."""
+        nbytes = max(0, int(nbytes))
+        stalled_at = None
+        with self._cv:
+            try:
+                while True:
+                    if self._closed:
+                        raise RingClosed("landing ring closed")
+                    if self._in_use == 0:
+                        break  # oversized-alone admission
+                    if (self._in_use < self.max_slots
+                            and self._in_use_bytes + nbytes
+                            <= self.budget_bytes):
+                        break
+                    if not block:
+                        return None
+                    if stalled_at is None:
+                        stalled_at = time.monotonic()
+                        self.stalls += 1
+                    # Seen by the consumer (producer_waiting): a stalled
+                    # producer may need slots its half-built group pins.
+                    self._waiting = True
+                    self._cv.wait(0.05)
+            finally:
+                self._waiting = False
+            if stalled_at is not None:
+                self.stall_s += time.monotonic() - stalled_at
+            if nbytes > self.budget_bytes:
+                self.oversized += 1
+            # The smallest free buffer that fits, if its capacity also
+            # keeps the budget.
+            best = None
+            for i, b in enumerate(self._free):
+                if b.numel() >= nbytes and (
+                        best is None
+                        or b.numel() < self._free[best].numel()):
+                    best = i
+            buf = None
+            if best is not None:
+                cand = self._free[best]
+                if (self._in_use == 0 or self._in_use_bytes + cand.numel()
+                        <= self.budget_bytes):
+                    buf = self._free.pop(best)
+                    self._free_bytes -= buf.numel()
+                    self.reuses += 1
+            if buf is None:
+                self._trim_free_locked(nbytes)
+                buf = torch.empty(nbytes, dtype=torch.uint8,
+                                  pin_memory=self.pin)
+                self.allocs += 1
+            self._in_use += 1
+            self._in_use_bytes += buf.numel()
+            self.peak_bytes = max(self.peak_bytes, self._in_use_bytes)
+            return _RingSlot(self, buf, nbytes)
+
+    def _unref(self, slot: _RingSlot) -> None:
+        with self._cv:
+            slot.refs -= 1
+            if slot.refs > 0:
+                return
+            if slot.detached:
+                # Its accounting was surrendered at detach; the buffer
+                # rejoins the pool once the file sink is done with it.
+                self.detached += 1
+            else:
+                self._in_use -= 1
+                self._in_use_bytes -= slot.acct
+            if (self.reuse and not self._closed
+                    and self._in_use_bytes + self._free_bytes + slot.acct
+                    <= self.budget_bytes):
+                self._free.append(slot.buffer)
+                self._free_bytes += slot.acct
+            self._cv.notify_all()
+
+    @property
+    def producer_waiting(self) -> bool:
+        """True while a producer is parked inside :meth:`acquire`."""
+        with self._cv:
+            return self._waiting
+
+    def close(self) -> None:
+        """Wake any waiter with :class:`RingClosed` (the consumer's error
+        path) and drop the free buffers."""
+        with self._cv:
+            self._closed = True
+            self._free.clear()
+            self._free_bytes = 0
+            self._cv.notify_all()
+
+    def summary(self) -> dict:
+        with self._cv:
+            return {
+                "budget_bytes": self.budget_bytes,
+                "slots": self.max_slots,
+                "peak_bytes": self.peak_bytes,
+                "stalls": self.stalls,
+                "stall_s": round(self.stall_s, 4),
+                "buffers_allocated": self.allocs,
+                "buffer_reuses": self.reuses,
+                "oversized": self.oversized,
+                "detached": self.detached,
+            }
+
+
+# A streaming commit group flushes at this many bytes (or a quarter of the
+# ring's slots): batched copies without a commit per tensor.
+_STREAM_COMMIT_BYTES = 64 * 1024 * 1024
+
+
+class _DeviceCommit:
+    """The streaming landing's commit into device memory.
+
+    :meth:`commit` lands one group of ``(name, info, slot, lo, hi)``
+    items (the tensor's raw bytes are ``slot.tensor[lo:hi]``) and returns
+    ``(landed, done)``: the landed name→tensor dict and an event to wait
+    on before the group's slots may be reused (None when nothing is in
+    flight). On ``cuda`` it allocates one device buffer for the group and
+    copies each slot span (or each host-cast tensor) into it on a side
+    stream that waits for the current stream first; on ``cpu`` the landed
+    tensors are typed views of the slots themselves."""
+
+    def __init__(self, dev: torch.device, dtype: torch.dtype | None):
+        self.dev = dev
+        self.dtype = dtype
+        self.side = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                     else None)
+
+    def _casts(self, info) -> bool:
+        return (self.dtype is not None and info.torch_dtype.is_floating_point
+                and info.torch_dtype != self.dtype)
+
+    def commit(self, items) -> tuple[dict[str, torch.Tensor], object]:
+        if self.side is None:
+            return {name: cast_floating(typed_view(slot.tensor[lo:hi], info),
+                                        self.dtype)
+                    for name, info, slot, lo, hi in items}, None
+        # Device layout: a slot span keeps its offsets mod 16 (slot index
+        # i is file offset o + i with o ≡ 0 mod 16), a cast tensor starts
+        # 16-aligned.
+        spans: dict[int, list] = {}      # id(slot) -> [slot, lo, hi]
+        casts = []                       # (name, host tensor)
+        for name, info, slot, lo, hi in items:
+            if self._casts(info):
+                casts.append((name, cast_floating(
+                    typed_view(slot.tensor[lo:hi], info), self.dtype)))
+                continue
+            span = spans.setdefault(id(slot), [slot, lo, hi])
+            span[1], span[2] = min(span[1], lo), max(span[2], hi)
+        cursor, placed = 0, {}
+        for key, (slot, lo, hi) in spans.items():
+            off = -(-cursor // _ALIGN) * _ALIGN + lo % _ALIGN
+            placed[key] = off
+            cursor = off + hi - lo
+        cast_at = []
+        for _name, t in casts:
+            off = -(-cursor // _ALIGN) * _ALIGN
+            cast_at.append(off)
+            cursor = off + t.numel() * t.element_size()
+        buf = torch.empty(cursor, dtype=torch.uint8, device=self.dev)
+        self.side.wait_stream(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(self.side):
+            for key, (slot, lo, hi) in spans.items():
+                off = placed[key]
+                buf[off:off + hi - lo].copy_(slot.tensor[lo:hi],
+                                             non_blocking=True)
+            for (_name, t), off in zip(casts, cast_at):
+                raw = t.reshape(-1).view(torch.uint8)
+                buf[off:off + raw.numel()].copy_(raw, non_blocking=True)
+        buf.record_stream(self.side)
+        done = torch.cuda.Event()
+        done.record(self.side)
+        landed = {}
+        for name, info, slot, lo, hi in items:
+            if self._casts(info):
+                continue
+            off = placed[id(slot)] + lo - spans[id(slot)][1]
+            landed[name] = typed_view(buf[off:off + hi - lo], info)
+        for (name, t), off in zip(casts, cast_at):
+            n = t.numel() * t.element_size()
+            landed[name] = buf[off:off + n].view(t.dtype).reshape(t.shape)
+        # The host-cast tensors stay referenced by the event's holder
+        # until the copies are done.
+        return landed, (done, [t for _n, t in casts])
+
+    def finish(self) -> None:
+        """Order the current stream after every copy (callers then read
+        the landed tensors on it with no further sync)."""
+        if self.side is not None:
+            torch.cuda.current_stream(self.dev).wait_stream(self.side)
+
+
+def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
+                     decode_workers, clock, ring_bytes: int,
+                     ring_slots: int, tensor_gate=None, on_first_layer=None,
+                     stream_file_sink=None
+                     ) -> tuple[dict[str, torch.Tensor], dict]:
+    """The ring scheduler: decode of run N+k overlaps the device copy of
+    run N, in layer order. See :func:`stage_cached_to_hbm`."""
+    t0 = time.monotonic()
+    # On the CPU the landed tensors alias their slots: no slot is reused.
+    ring = HostRing(ring_bytes, ring_slots, reuse=dev.type == "cuda",
+                    pin=dev.type == "cuda")
+    committer = _DeviceCommit(dev, dtype)
+    group_bytes = max(1, min(_STREAM_COMMIT_BYTES, ring.budget_bytes // 4))
+    group_count = max(1, ring.max_slots // 4)
+    all_names = frozenset(
+        name for _r, h in recs_with_headers for name in h.tensors)
+    first_set = first_layer_names(all_names)
+    # Eager flushing only pays when the first-layer set is a proper
+    # subset; otherwise "first layer" is the whole landing anyway.
+    eager = bool(first_set) and first_set < all_names
+    q: SimpleQueue = SimpleQueue()
+    cancel = threading.Event()
+    done_marker = object()
+
+    def shard_runs(header):
+        """File-contiguous tensors in landing order, cut at the commit
+        group's size and at the first-layer set's edge."""
+        runs: list[list[str]] = []
+        run_lo = run_hi = None
+        prev_name = None
+        for name in order_names(header.tensors):
+            lo, hi = header.tensors[name].file_range(header.data_start)
+            if (runs and lo == run_hi and hi - run_lo <= group_bytes
+                    and not (prev_name in first_set
+                             and name not in first_set)):
+                runs[-1].append(name)
+                run_hi = hi
+            else:
+                runs.append([name])
+                run_lo, run_hi = lo, hi
+            prev_name = name
+        return runs
+
+    def decode_run(sr, slot, lo, hi):
+        with clock("decode") if clock is not None else contextlib.nullcontext():
+            sr.decode_range_into(lo, hi, memoryview(slot.view[lo % _ALIGN:]))
+        if clock is not None:
+            clock.note_bytes("decode", hi - lo)
+
+    def produce():
+        try:
+            for i, (rec, header) in enumerate(recs_with_headers):
+                if cancel.is_set():
+                    return
+                if prefetch_next is not None:
+                    prefetch_next(i)
+                sr = StreamingShardReader(bridge.cache, rec, header,
+                                          bridge=bridge,
+                                          workers=decode_workers)
+                sink = (stream_file_sink(i)
+                        if stream_file_sink is not None else None)
+                try:
+                    for run in shard_runs(header):
+                        if cancel.is_set():
+                            return
+                        if tensor_gate is not None:
+                            for name in run:
+                                tensor_gate(i, name, cancel)
+                        if cancel.is_set():
+                            return
+                        spans = [header.tensors[n].file_range(
+                            header.data_start) for n in run]
+                        lo, hi = spans[0][0], spans[-1][1]
+                        # The slot keeps the file's alignment mod 16, so
+                        # the typed views of it are aligned as the file's.
+                        origin = lo - lo % _ALIGN
+                        slot = ring.acquire(hi - origin)
+                        try:
+                            decode_run(sr, slot, lo, hi)
+                        except BaseException:
+                            slot.release()
+                            raise
+                        # One slot, len(run) consumers: the consumer
+                        # releases once per tensor.
+                        for _ in range(len(run) - 1):
+                            slot.addref()
+                        for name, (t_lo, t_hi) in zip(run, spans):
+                            info = header.tensors[name]
+                            a, b = t_lo - origin, t_hi - origin
+                            if sink is not None:
+                                sink.offer(name, info, slot.view[a:b], slot)
+                            q.put((name, info, slot, a, b))
+                finally:
+                    sr.close()
+                    if sink is not None:
+                        sink.done_decoding()
+            q.put(done_marker)
+        except BaseException as exc:  # noqa: BLE001 - consumer re-raises
+            q.put(exc)
+
+    params: dict[str, torch.Tensor] = {}
+    committed_names: set[str] = set()
+    fired = not first_set
+    batch: list = []
+    batch_bytes = 0
+    batch_slot_ids: set[int] = set()
+    pending: deque = deque()
+
+    def drain_one():
+        nonlocal fired
+        done, slots, names = pending.popleft()
+        if done is not None:
+            done[0].synchronize()
+        for s in slots:
+            s.release()
+        committed_names.update(names)
+        if not fired and first_set <= committed_names:
+            fired = True
+            if on_first_layer is not None:
+                on_first_layer()
+
+    def flush():
+        nonlocal batch, batch_bytes
+        if not batch:
+            return
+        landed, done = committer.commit(batch)
+        params.update(landed)
+        pending.append((done, [it[2] for it in batch],
+                        [it[0] for it in batch]))
+        batch, batch_bytes = [], 0
+        batch_slot_ids.clear()
+        # Keep one committed group in flight (its copy drains while the
+        # next decodes); older ones give their slots back.
+        while len(pending) > 1:
+            drain_one()
+
+    error: BaseException | None = None
+    with _gc_frozen():
+        with ThreadPoolExecutor(
+                1, thread_name_prefix="zest-land-stream") as staging:
+            staging.submit(produce)
+            try:
+                while True:
+                    try:
+                        item = q.get_nowait()
+                    except Empty:
+                        # Queue dry: recycle committed groups, then flush
+                        # the half-built group when the producer stalls on
+                        # the ring, after a 0.25 s quiet gap, or at once
+                        # until the first-layer set is in.
+                        while pending:
+                            drain_one()
+                        waited = 0.0
+                        while True:
+                            if batch and ((eager and not fired)
+                                          or ring.producer_waiting
+                                          or waited >= 0.25):
+                                flush()
+                                while pending:
+                                    drain_one()
+                            try:
+                                item = q.get(
+                                    timeout=0.05 if batch else None)
+                                break
+                            except Empty:
+                                waited += 0.05
+                    if item is done_marker:
+                        break
+                    if isinstance(item, BaseException):
+                        raise item
+                    batch.append(item)
+                    batch_bytes += item[4] - item[3]
+                    batch_slot_ids.add(id(item[2]))
+                    # Distinct slots bound how many ring buffers a group
+                    # pins (a run's tensors share one).
+                    if (batch_bytes >= group_bytes
+                            or len(batch_slot_ids) >= group_count):
+                        flush()
+                flush()
+                while pending:
+                    drain_one()
+            except BaseException as exc:
+                error = exc
+                cancel.set()
+                ring.close()
+                raise
+            finally:
+                if error is not None:
+                    # No slot goes back while a copy may still read it.
+                    if committer.side is not None:
+                        committer.side.synchronize()
+                    while pending:
+                        for s in pending.popleft()[1]:
+                            s.release()
+                    for it in batch:
+                        it[2].release()
+                    while True:
+                        try:
+                            item = q.get_nowait()
+                        except Empty:
+                            break
+                        if isinstance(item, tuple):
+                            item[2].release()
+                    params.clear()
+        committer.finish()
+        dt = time.monotonic() - t0
+    stats = _commit_stats(params, dt, direct=True)
+    stats["decode_ahead"] = True
+    stats["streamed"] = True
+    stats["ring"] = ring.summary()
+    return params, stats
+
+
+def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
+                        dtype: torch.dtype | None = None,
+                        prefetch_next=None, decode_ahead: int | None = None,
+                        decode_workers: int | None = None,
+                        on_host_ready=None, clock=None,
+                        stream: bool | None = None,
+                        ring_bytes: int | None = None,
+                        ring_slots: int | None = None, tensor_gate=None,
+                        on_first_layer=None, stream_file_sink=None
+                        ) -> tuple[dict[str, torch.Tensor], dict]:
+    """Direct landing: tensors straight from cached xorb units onto
+    ``device``, with no file read.
+
+    ``recs_with_headers`` is ``[(Reconstruction, SafetensorsHeader)]``,
+    one per safetensors file. Units missing from the cache come through
+    ``bridge``'s waterfall. ``prefetch_next(i)`` runs before shard ``i``
+    lands (the pull's warm fetch). ``decode_workers`` sizes the decode
+    pool. Knobs left None come from ``bridge.cfg``. ``clock`` (a
+    ``transfer.pull.StageClock``) records the decode under ``"decode"``
+    with its bytes.
+
+    **Streaming** (``stream``, default ``Config.land_stream``; needs
+    ``decode_ahead`` and no ``on_host_ready``): runs of tensors decode into
+    a :class:`HostRing` (``ring_bytes`` / ``ring_slots``) in layer order
+    and commit in groups from the slots. ``tensor_gate(i, name, cancel)``
+    blocks until tensor ``name``'s units are cached (``cancel``, a
+    ``threading.Event``, is the landing's abort); ``on_first_layer()``
+    fires once, when the embedding and the first layer are resident (their
+    copies done); ``stream_file_sink(i)`` returns shard ``i``'s
+    write-behind consumer or None, whose ``offer(name, info, raw, slot)``
+    may keep slot references (addref + detach).
+
+    **Shard by shard** (``stream`` off): shard ``i + 1`` decodes while
+    shard ``i`` commits (``decode_ahead``). ``on_host_ready(i, host)``
+    fires when shard ``i``'s CPU tensors are decoded, before its commit;
+    it may keep them.
+
+    Returns ``(params, stats)``, ``stats["direct"]`` true. On ``cuda`` the
+    current stream is ordered after every copy when this returns.
+    """
+    dev = resolve_device(device)
+    cfg = getattr(bridge, "cfg", None)
+    if decode_ahead is None:
+        decode_ahead = getattr(cfg, "land_decode_ahead",
+                               DEFAULT_LAND_DECODE_AHEAD)
+    if decode_workers is None:
+        decode_workers = getattr(cfg, "decode_workers", None)
+    if stream is None:
+        stream = getattr(cfg, "land_stream", DEFAULT_LAND_STREAM)
+    if ring_bytes is None:
+        ring_bytes = getattr(cfg, "land_ring_bytes", DEFAULT_LAND_RING_BYTES)
+    if ring_slots is None:
+        ring_slots = getattr(cfg, "land_ring_slots", DEFAULT_LAND_RING_SLOTS)
+    if (stream and decode_ahead and on_host_ready is None
+            and recs_with_headers):
+        return _stage_streaming(
+            bridge, recs_with_headers, dev, dtype, prefetch_next,
+            decode_workers, clock, ring_bytes, ring_slots,
+            tensor_gate=tensor_gate, on_first_layer=on_first_layer,
+            stream_file_sink=stream_file_sink)
+
+    t0 = time.monotonic()
+    params: dict[str, torch.Tensor] = {}
+    n = len(recs_with_headers)
+
+    def decode(i: int) -> dict:
+        if prefetch_next is not None:
+            prefetch_next(i)
+        rec, header = recs_with_headers[i]
+        with clock("decode") if clock is not None else contextlib.nullcontext():
+            host = land_tensors(bridge.cache, rec, header, bridge=bridge,
+                                workers=decode_workers)
+        if clock is not None:
+            clock.note_bytes("decode", sum(
+                t.numel() * t.element_size() for t in host.values()))
+        if on_host_ready is not None:
+            on_host_ready(i, host)
+        return host
+
+    pipelined = bool(decode_ahead) and n > 1
+    with _gc_frozen():
+        if pipelined:
+            with ThreadPoolExecutor(
+                    1, thread_name_prefix="zest-land-decode") as staging:
+                pending = staging.submit(decode, 0)
+                for i in range(n):
+                    host = pending.result()
+                    if i + 1 < n:
+                        pending = staging.submit(decode, i + 1)
+                    params.update(commit_tensors(host, dev, dtype))
+                    del host
+        else:
+            for i in range(n):
+                params.update(commit_tensors(decode(i), dev, dtype))
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        dt = time.monotonic() - t0
+    stats = _commit_stats(params, dt, direct=True)
+    stats["decode_ahead"] = pipelined
+    return params, stats

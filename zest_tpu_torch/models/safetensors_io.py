@@ -61,6 +61,12 @@ class TensorInfo:
     def torch_dtype(self) -> torch.dtype:
         return DTYPES[self.dtype]
 
+    def file_range(self, data_start: int) -> tuple[int, int]:
+        """Absolute byte range of this tensor within the file: what the
+        landing maps onto reconstruction terms."""
+        return (data_start + self.data_offsets[0],
+                data_start + self.data_offsets[1])
+
 
 @dataclass(frozen=True)
 class SafetensorsHeader:
@@ -74,13 +80,25 @@ class SafetensorsHeader:
 
 def parse_header(buf: bytes | memoryview) -> SafetensorsHeader:
     """Parse and validate a header (bounds, overlap, shape/size)."""
+    return _parse_tensors(buf, bounded=True)
+
+
+def parse_header_prefix(buf: bytes | memoryview) -> SafetensorsHeader:
+    """Parse a header from the file's head bytes only (the data section
+    absent): the same checks as :func:`parse_header` but the data
+    section's end bound."""
+    return _parse_tensors(buf, bounded=False)
+
+
+def _parse_tensors(buf: bytes | memoryview,
+                   bounded: bool) -> SafetensorsHeader:
     if len(buf) < 8:
         raise ValueError("truncated safetensors: missing header length")
     (hlen,) = struct.unpack_from("<Q", buf, 0)
     if hlen > _MAX_HEADER or 8 + hlen > len(buf):
         raise ValueError(f"safetensors header length {hlen} out of bounds "
                          f"for {len(buf)}-byte buffer")
-    data_len = len(buf) - 8 - hlen
+    data_len = len(buf) - 8 - hlen if bounded else None
     header = json.loads(bytes(buf[8:8 + hlen]).decode("utf-8"))
     metadata = header.pop("__metadata__", {})
     tensors: dict[str, TensorInfo] = {}
@@ -88,7 +106,8 @@ def parse_header(buf: bytes | memoryview) -> SafetensorsHeader:
         if spec["dtype"] not in DTYPES:
             raise ValueError(f"unsupported dtype {spec['dtype']} for {name}")
         begin, end = (int(v) for v in spec["data_offsets"])
-        if begin < 0 or end < begin or end > data_len:
+        if begin < 0 or end < begin or (data_len is not None
+                                        and end > data_len):
             raise ValueError(
                 f"{name}: data_offsets [{begin}, {end}) out of bounds")
         shape = tuple(int(d) for d in spec["shape"])

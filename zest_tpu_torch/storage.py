@@ -4,10 +4,14 @@ The subset of ``zest_tpu/storage.py`` the port runs, with the same
 on-disk layout: full xorbs at ``xorbs/{prefix}/{hash}``, partial entries
 (a chunk sub-range fetched from the CDN) at ``{hash}.{range_start}``, and
 single chunks at ``chunks/{prefix}/{hash}`` (read by the DCN server).
+The landing's decode reads entries through read-only maps
+(:meth:`XorbCache.get_with_range_mapped`) and, for stored chunks, straight
+from the entry file (:meth:`XorbCache.locate_with_range`).
 """
 
 from __future__ import annotations
 
+import mmap
 import os
 import tempfile
 from dataclasses import dataclass
@@ -30,6 +34,18 @@ def atomic_write(path: Path, data: bytes) -> None:
         except OSError:
             pass
         raise
+
+
+def durable_replace(tmp: str | Path, dest: Path) -> None:
+    """fsync ``tmp``, then rename it over ``dest``: the file pipeline's
+    commit barrier, so a pull killed mid-write leaves no complete-named
+    partial file."""
+    fd = os.open(tmp, os.O_RDWR)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+    os.replace(tmp, dest)
 
 
 def write_ref(cfg: Config, repo_id: str, ref: str, commit_sha: str) -> None:
@@ -92,6 +108,46 @@ class XorbCache:
                 result = CacheResult(data, offset)
                 if covers is None or covers(result):
                     return result
+        return None
+
+    def _get_mapped(self, key: str) -> memoryview | None:
+        """Read-only map of one entry, or None: the decoder reads the page
+        cache in place instead of a whole-file copy. The map lives as long
+        as the view; an entry overwritten by rename keeps its old inode
+        for existing maps."""
+        try:
+            with open(self._path(key), "rb") as f:
+                if os.fstat(f.fileno()).st_size == 0:
+                    return memoryview(b"")
+                mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+        except (OSError, ValueError):
+            return None
+        try:
+            mm.madvise(mmap.MADV_WILLNEED)
+        except (AttributeError, OSError):
+            pass  # advisory only
+        return memoryview(mm)
+
+    def get_with_range_mapped(self, hash_hex: str,
+                              range_start: int) -> CacheResult | None:
+        """:meth:`get_with_range` (no ``covers``) over read-only maps."""
+        for key, offset in ((hash_hex, 0),
+                            (f"{hash_hex}.{range_start}", range_start)):
+            data = self._get_mapped(key)
+            if data is not None:
+                return CacheResult(data, offset)
+        return None
+
+    def locate_with_range(self, hash_hex: str,
+                          range_start: int) -> tuple[Path, int] | None:
+        """``(path, chunk_offset)`` of the entry file serving this range,
+        full xorb first, or None. Writes go through a rename, so a path
+        seen here is a complete entry."""
+        for key, offset in ((hash_hex, 0),
+                            (f"{hash_hex}.{range_start}", range_start)):
+            p = self._path(key)
+            if p.exists():
+                return p, offset
         return None
 
     def put(self, hash_hex: str, data: bytes) -> None:

@@ -11,6 +11,12 @@ entry — so this host can serve it on.
 Coordinate frames: a fetched blob's chunk 0 is absolute chunk
 ``chunk_offset``; a term extracts ``[term.start - chunk_offset,
 term.end - chunk_offset)`` from it.
+
+:meth:`XetBridge.fetch_term` is the landing's per-term waterfall: a
+cached blob whose chunks fail to decode is refetched from the CDN and the
+term decodes from those bytes. Once any file's references could not be
+resolved (:meth:`XetBridge.mark_evidence_incomplete`), no blob is cached
+under a full key for the rest of the bridge's life.
 """
 
 from __future__ import annotations
@@ -125,6 +131,9 @@ class XetBridge:
         # (transfer/coop.py): peers still mid-exchange read from it after
         # this host's round returned, so it lives until close().
         self._coop_server = None
+        # Set when some file's reconstruction could not be resolved: the
+        # whole-xorb evidence is then incomplete for every xorb.
+        self.evidence_incomplete = False
 
     def adopt_coop_server(self, server) -> None:
         """Own a coop-round DCN listener until :meth:`close`."""
@@ -186,6 +195,13 @@ class XetBridge:
                                    term.range.end - hit.chunk_offset)
         # 3. CDN byte range — fi's whole chunk range, so the cached entry
         # also serves later terms that share this fetch_info.
+        return self._cdn_fetch_for_term(term, rec, fi)
+
+    def _cdn_fetch_for_term(self, term: recon.Term,
+                            rec: recon.Reconstruction,
+                            fi: recon.FetchInfo) -> XorbFetchResult:
+        """Tier 3 alone: the corruption heal forces it whatever the cache
+        holds."""
         if self.cas is None:
             raise BridgeError("no CAS client and the xorb is not cached")
         data = self.cas.fetch_xorb_from_url(
@@ -220,11 +236,16 @@ class XetBridge:
                         whole=self.whole_xorb_provable(
                             self._known_entries(rec, hash_hex), chunk_offset))
 
+    def mark_evidence_incomplete(self) -> None:
+        """Some file's references could not be resolved: from here on
+        every cache write uses a partial key."""
+        self.evidence_incomplete = True
+
     def whole_xorb_provable(self, entries, chunk_offset: int) -> bool:
-        """The whole-xorb evidence every cache-write site consults (the
-        JAX package also gates it on an evidence-integrity flag that only
-        its best-effort auxiliary resolves set; the port has none)."""
-        return provably_whole(entries, chunk_offset)
+        """The whole-xorb evidence every cache-write site consults,
+        gated on this bridge's evidence being complete."""
+        return (not self.evidence_incomplete
+                and provably_whole(entries, chunk_offset))
 
     def cache_blob(self, hash_hex: str, chunk_offset: int, data: bytes,
                    whole: bool) -> None:
@@ -314,6 +335,23 @@ class XetBridge:
         if n != term.unpacked_length:
             raise BridgeError(f"term decoded to {n} bytes, expected "
                               f"{term.unpacked_length}")
+
+    def fetch_term(self, term: recon.Term,
+                   rec: recon.Reconstruction) -> bytes:
+        """The term's bytes through the waterfall. A cached blob that
+        fails to decode is refetched once from the CDN and decoded from
+        those bytes; CDN bytes that fail raise."""
+        result = self.fetch_xorb_for_term(term, rec)
+        out = bytearray(term.unpacked_length)
+        try:
+            self.extract_term_into(term, result, out)
+        except (BridgeError, ValueError):
+            fi = rec.find_fetch_info(term)
+            if result.source == "cdn" or fi is None or self.cas is None:
+                raise
+            self.extract_term_into(
+                term, self._cdn_fetch_for_term(term, rec, fi), out)
+        return bytes(out)
 
     def reconstruct_to_file(self, file_hash_hex: str, out_path) -> int:
         """Fetch every term (in parallel, ``max_concurrent_downloads``

@@ -41,6 +41,7 @@ from zest_tpu_torch import faults
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.reconstruction import FetchInfo, Reconstruction
 from zest_tpu_torch.cas.xorb import XorbReader
+from zest_tpu_torch.models.direct import unit_priority_sort_key
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS
 from zest_tpu_torch.transfer.dcn import DcnPool, DcnResponse, DcnServer
@@ -92,6 +93,17 @@ class ByteBudget:
                 self._cv.wait()
             self._inflight += nbytes
             self.peak_bytes = max(self.peak_bytes, self._inflight)
+
+    def try_acquire(self, nbytes: int) -> bool:
+        """:meth:`acquire` without waiting: False when it would wait."""
+        nbytes = max(0, int(nbytes))
+        with self._cv:
+            if (self._inflight > 0
+                    and self._inflight + nbytes > self.budget_bytes):
+                return False
+            self._inflight += nbytes
+            self.peak_bytes = max(self.peak_bytes, self._inflight)
+            return True
 
     def release(self, nbytes: int) -> None:
         with self._cv:
@@ -264,7 +276,8 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                host_addrs: dict[int, tuple[str, int]] | None = None, *,
                device="cuda", budget_bytes: int | None = None,
                server: DcnServer | None = None, quarantined=None,
-               trace_id: str | None = None, clock=None, log=None) -> dict:
+               trace_id: str | None = None, priorities: dict | None = None,
+               clock=None, log=None) -> dict:
     """One cooperative round: plan → fetch my ~1/N → exchange the rest.
 
     Afterwards every unit of ``recs`` is in the local verified cache.
@@ -278,7 +291,10 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     ``device``. ``quarantined`` is a set of host indices to leave out of
     the plan. ``clock`` (the pull's ``StageClock``) times the fetch phase,
     the exchange phase and the receipt verification as ``coop_fetch``,
-    ``coop_exchange`` and ``coop_verify``. Raises :class:`CoopUnavailable`
+    ``coop_exchange`` and ``coop_verify``. ``priorities`` (unit key →
+    layer priority, ``models.direct.unit_layer_priorities``) orders both
+    phases so embedding and layer-0 units move first; the plan and its
+    fingerprint do not depend on it. Raises :class:`CoopUnavailable`
     when no peer is addressable.
     """
     t0 = time.monotonic()
@@ -319,7 +335,7 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     stage = clock or (lambda _name: contextlib.nullcontext())
 
     # ── Phase 1: fetch my share through the waterfall ──
-    mine = plan.for_host(host_index)
+    mine = _layer_order(plan.for_host(host_index), priorities)
     before = _tier_bytes(bridge.stats)
     with stage("coop_fetch"):
         fetch_stats = warm_units_parallel(bridge, recs,
@@ -340,8 +356,9 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     # the exchange's retry headroom.
     deadline = time.monotonic() + deadline_s
     foreign = {
-        h: [(hh, fi) for hh, fi in plan.for_host(h)
-            if not _already_cached(bridge, hh, fi)]
+        h: _layer_order([(hh, fi) for hh, fi in plan.for_host(h)
+                         if not _already_cached(bridge, hh, fi)],
+                        priorities)
         for h in plan.alive if h != host_index
     }
     jobs = [(h, units) for h, units in foreign.items() if units]
@@ -388,6 +405,14 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
             f"{ex.fallback_units} CDN-fallback, peer_served "
             f"{stats['peer_served_ratio']:.0%}")
     return stats
+
+
+def _layer_order(units, priorities):
+    """``[(hash_hex, fi)]`` units in layer-priority order (unknown units
+    last); unchanged without priorities."""
+    if not priorities:
+        return list(units)
+    return sorted(units, key=unit_priority_sort_key(priorities))
 
 
 def _exchange_from(bridge, entries_map, pool, peers, owner, units,

@@ -1,10 +1,11 @@
 """Unit-level cache helpers shared by the cooperative round.
 
 The helpers of ``zest_tpu/transfer/federated.py`` that the cooperative
-pull (``transfer/coop.py``) runs: the structural cover gate, the cache
-probe that never lets a narrower blob be re-written over a wider entry,
-the full-vs-partial cache write, and the parallel warm of a unit set
-through the waterfall. The federated round itself is not ported.
+pull (``transfer/coop.py``) and the direct landing's warm fetch
+(``transfer/pull.py``) run: the structural cover gate, the cache probe
+that never lets a narrower blob be re-written over a wider entry, the
+full-vs-partial cache write, and the parallel warm of a unit set through
+the waterfall. The federated round itself is not ported.
 """
 
 from __future__ import annotations
@@ -59,21 +60,31 @@ def _cache_unit(bridge, entries_map, hash_hex: str, fi: FetchInfo,
 
 def warm_units_parallel(bridge, recs: list[Reconstruction],
                         entries_map: dict[str, list[FetchInfo]] | None = None,
-                        units: list[tuple[str, FetchInfo]] | None = None
-                        ) -> dict:
+                        units: list[tuple[str, FetchInfo]] | None = None,
+                        on_unit=None) -> dict:
     """Fetch every uncached unit of ``recs`` (or of the ``units`` subset)
     into the local cache, ``cfg.max_concurrent_downloads`` waterfall
     fetches at once (fewer over loopback). Idempotent. ``entries_map``
     must span ALL files even when warming a subset: a xorb shared across
-    files can look whole from one file's references alone. Returns ``{"units", "bytes", "failed"}`` (plus
-    ``"retried"`` when the sequential retry pass rescued any); a unit that
-    still fails is left to the landing's per-term waterfall."""
+    files can look whole from one file's references alone. Units are
+    submitted in ``units`` order (the landing passes layer order).
+    ``on_unit(key)`` is called with a unit's ``(hash_hex, range_start)``
+    the moment it is resolved: at once when already cached, when its
+    fetch completes, or after its last failed attempt (the landing's
+    per-term waterfall is the last resort, so resolved does not mean
+    cached). Returns ``{"units", "bytes", "failed"}`` (plus ``"retried"``
+    when the sequential retry pass rescued any)."""
     if entries_map is None:
         entries_map = _entries_by_hash(recs)
     if units is None:
         units = [(hh, fi) for (hh, _s), fi in collect_units(recs)]
     wanted = [(hh, fi) for hh, fi in units
               if not _already_cached(bridge, hh, fi)]
+    if on_unit is not None:
+        wanted_keys = {(hh, fi.range.start) for hh, fi in wanted}
+        for hh, fi in units:
+            if (hh, fi.range.start) not in wanted_keys:
+                on_unit((hh, fi.range.start))
     max_concurrent = bridge.cfg.max_concurrent_downloads
     urls = {bridge._absolute_url(fi.url) for _h, fi in wanted[:8]}
     if urls and all("127.0.0.1" in u or "localhost" in u for u in urls):
@@ -104,6 +115,8 @@ def warm_units_parallel(bridge, recs: list[Reconstruction],
                 failed.append(futures[fut])
             else:
                 stats["bytes"] += n
+                if on_unit is not None:
+                    on_unit((futures[fut][0], futures[fut][1].range.start))
     # One sequential retry: under load a concurrent fetch can fail where
     # the same transfer alone succeeds.
     for unit in failed:
@@ -113,4 +126,6 @@ def warm_units_parallel(bridge, recs: list[Reconstruction],
         else:
             stats["retried"] = stats.get("retried", 0) + 1
             stats["bytes"] += n
+        if on_unit is not None:
+            on_unit((unit[0], unit[1].range.start))
     return stats
