@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--steps N]
 
-Drives the port's two main paths once each, through their entry points,
+Drives the port's main paths once each, through their entry points,
 at the full width of ``openai-community/gpt2`` (12 layers, 768 wide, 50257
 vocab; ~124 M f32 parameters, random weights from ``--seed``):
 
@@ -44,9 +44,22 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    digest;
 5. greedy KV-cached decoding at batch 1 and 4 from the landed tree, equal
    to the port's own CPU float32 run;
+   5b. the revision hot-swap: node B, holding phase 4's tree on ``cuda:0``,
+   subscribes to node A's publisher (``watch_and_swap``); node A pushes
+   revision B (A with the last block's MLP weights and the final norm
+   redrawn from ``--seed + 1``) with ``notify=True``, and the subscriber
+   delta-pulls B over A's tree. Gates: the push's BLAKE3 kernel rows equal
+   its minted chunks; the record names B; ``delta_bytes_ratio`` < 0.1 and
+   ``0 < fetched_bytes <= changed + stale bytes``; every tensor reused or
+   landed (148), the redrawn ones among at most 12 landed, every reused one
+   at A's ``data_ptr``; the base dict empty; the peak allocation above its
+   level before the pull at most the landed bytes plus one commit group;
+   the tree with the digest of B's CPU landing; B's files exact, from the
+   cache lane; greedy decode at batch 1 and 4 equal to the CPU's;
 6. the cooperative pull: ``COOP_HOSTS`` (4) fresh hosts in threads, each
    with its own cache and DCN server on loopback, run
-   ``pull_model(coop=True)`` against node A's publisher. Each fetches its
+   ``pull_model(coop=True)`` of revision A (by its sha: phase 5b moved
+   ``main`` to B) against node A's publisher. Each fetches its
    share from the CDN and receives the rest over DCN, every received whole
    xorb verified on the card (BG4 chunks through the fused kernel); no
    fallbacks, no rejections, ≥ 60% peer-served, one copy of the xorbs from
@@ -81,6 +94,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -105,6 +119,11 @@ BG4_LENGTHS = tuple(sorted(set(
     (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
     + LEAF_LENGTHS)))
 COOP_HOSTS = 4
+# Phase 5b's revision B: a fine-tune of the last block's MLP and the final
+# norm, 4,720,128 of GPT-2's 124,439,808 parameters.
+REDRAWN = ("h.11.mlp.c_fc.weight", "h.11.mlp.c_proj.weight", "ln_f.weight",
+           "ln_f.bias")
+MAX_LANDED = 12
 # Phase 4b: save_pretrained(max_shard_size="200MB") (decimal megabytes),
 # and a ring that the landing must reuse many times over.
 SHARD_BYTES = 200 * 1000 * 1000
@@ -509,7 +528,8 @@ def sharded_phase(work: Path, url: str, cfg_a, tensors: dict, digest: str,
         fail(f"phase 4b: {len(shards)} shards at {SHARD_BYTES:,} B, not 3")
     for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
         c.reset()  # counts from here are the sharded push's
-    pushed = push_checkpoint(cfg_a, REPO_SHARDED, ckpt, device=dev)
+    pushed = push_checkpoint(cfg_a, REPO_SHARDED, ckpt, device=dev,
+                             notify=False)
     launches = blake3_cuda.COUNTER.launches
     if blake3_cuda.COUNTER.rows != pushed.minted_chunks:
         fail(f"phase 4b: kernel hashed {blake3_cuda.COUNTER.rows} chunks, "
@@ -554,10 +574,163 @@ def resume_phase(cfg_b, digest: str, dev) -> None:
           f"staged from disk; {landing_summary(st)}; digest equal")
 
 
+def revision_b(tensors: dict, seed: int) -> dict:
+    """Phase 5b's revision: ``tensors`` with ``REDRAWN`` drawn again from
+    ``seed`` (weights N(0, 0.02), the norm's weight 1 + N(0, 0.02) and its
+    bias N(0, 0.02))."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = dict(tensors)
+    for name in REDRAWN:
+        shape = tuple(tensors[name].shape)
+        v = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+        if name == "ln_f.weight":
+            v += np.float32(1.0)
+        out[name] = torch.from_numpy(v)
+    return out
+
+
+def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
+               sha_a: str, tensors_b: dict, prompts, steps: int,
+               tth_a: float, dev) -> int:
+    """Phase 5b: node B's watcher delta-pulls and swaps revision B into
+    phase 4's tree. Returns the push's BLAKE3 kernel launches."""
+    import torch
+
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.ops import blake3_cuda
+    from zest_tpu_torch.transfer.push import push_checkpoint, watch_and_swap
+
+    ckpt_b = work / "checkpoint-b"
+    ckpt_b.mkdir()
+    (ckpt_b / "config.json").write_text(json.dumps(GPT2_CONFIG, indent=2))
+    write_safetensors(ckpt_b / "model.safetensors", tensors_b)
+    # The caller hands A's tree over: nothing else may hold it.
+    base = pulled.params
+    pulled.params = None
+    # Weak references: they tell a reused tensor from a landed one
+    # without keeping A's tensors alive.
+    refs = {n: weakref.ref(t) for n, t in base.items()}
+    ptrs = {n: t.data_ptr() for n, t in base.items()}
+    a_bytes = sum(t.numel() * t.element_size() for t in base.values())
+    mem: dict = {}
+    seen, errors = [], []
+
+    def log(*a, **k):
+        msg = " ".join(str(x) for x in a)
+        if msg.startswith("watch:"):
+            # The pull starts right after this line, in this thread.
+            torch.cuda.synchronize(dev)
+            mem["before"] = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        print(f"  [node B] {msg}", file=sys.stderr)
+
+    def watch():
+        try:
+            watch_and_swap(cfg_b, REPO, publisher_url=url, device=dev,
+                           base_params=base, base_revision=sha_a,
+                           max_events=1, timeout_s=600,
+                           on_swap=lambda rec, res: seen.append((rec, res)),
+                           log=log)
+            mem["peak"] = torch.cuda.max_memory_allocated(dev)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    watcher = threading.Thread(target=watch, name="phase-5b-watch")
+    watcher.start()
+    try:
+        deadline = time.monotonic() + 60
+        while publisher.hub.watchers() < 1:
+            if time.monotonic() > deadline or not watcher.is_alive():
+                fail("phase 5b: node B never subscribed to the publisher")
+            time.sleep(0.01)
+        blake3_cuda.COUNTER.reset()  # counts from here are the push's
+        pushed = push_checkpoint(cfg_a, REPO, ckpt_b, base_revision=sha_a,
+                                 notify=True, notify_url=url, device="cuda")
+        launches, rows = (blake3_cuda.COUNTER.launches,
+                          blake3_cuda.COUNTER.rows)
+    finally:
+        watcher.join(timeout=900)
+    if errors:
+        raise errors[0]
+    if watcher.is_alive() or len(seen) != 1:
+        fail(f"phase 5b: the watcher swapped {len(seen)} revisions")
+    if launches < 1 or rows != pushed.minted_chunks:
+        fail(f"phase 5b: the push's kernel hashed {rows} chunks in "
+             f"{launches} launches; it minted {pushed.minted_chunks}")
+    if not pushed.notified or pushed.notified.get("delivered") != 1:
+        fail(f"phase 5b: the push notified {pushed.notified}")
+    record, res = seen[0]
+    st = res.stats
+    if record["revision"] != pushed.revision or pushed.revision == sha_a:
+        fail(f"phase 5b: the record names {record['revision']}, the push "
+             f"{pushed.revision}")
+    d = st.get("delta")
+    if not d or not d["delta_bytes_ratio"] < 0.1:
+        fail(f"phase 5b: delta {d and {k: v for k, v in d.items() if k != 'files'}}")
+    stale = d.get("stale_bytes", 0)
+    if not 0 < d["fetched_bytes"] <= d["changed_bytes"] + stale:
+        fail(f"phase 5b: fetched {d['fetched_bytes']} B, changed "
+             f"{d['changed_bytes']} + stale {stale} B")
+    swap = st["hbm"]["swap"]
+    params = res.params
+    reused = {n for n, t in params.items()
+              if n in refs and refs[n]() is t}
+    landed = set(params) - reused
+    moved = sorted(n for n in reused if params[n].data_ptr() != ptrs[n])
+    if moved:
+        fail(f"phase 5b: reused tensors off A's data_ptr: {moved}")
+    if swap["reused_tensors"] + swap["landed_tensors"] != 148 \
+            or len(params) != 148 or len(landed) != swap["landed_tensors"]:
+        fail(f"phase 5b: swap {swap}, {len(landed)} tensors moved")
+    if not set(REDRAWN) <= landed or len(landed) > MAX_LANDED:
+        fail(f"phase 5b: landed {sorted(landed)}")
+    if base:
+        fail(f"phase 5b: {len(base)} tensors left in the base dict")
+    group = min(64 * 1024 * 1024, cfg_b.land_ring_bytes // 4)
+    rise = mem["peak"] - mem["before"]
+    if rise > swap["landed_bytes"] + group:
+        fail(f"phase 5b: the peak allocation rose {rise:,} B, above the "
+             f"landed {swap['landed_bytes']:,} B + one group {group:,} B")
+    want = params_digest(load_checkpoint(ckpt_b, "cpu"))
+    check_tree("phase 5b", res, want, dev)
+    check_files("phase 5b", res, ckpt_b)
+    lanes = st["files_pipeline"]["lane_bytes"]
+    if not lanes.get("copy", 0) + lanes.get("decode", 0):
+        fail(f"phase 5b: no file bytes from the cache lane: {lanes}")
+    _, gen_cuda = load_generator(res.snapshot_dir, device=dev,
+                                 tensors=params)
+    _, gen_cpu = load_generator(res.snapshot_dir, device="cpu")
+    for batch in ([prompts[0]], prompts):
+        out = gen_cuda(batch, steps, stop_at_eos=False)
+        if not np.array_equal(out, gen_cpu(batch, steps,
+                                           stop_at_eos=False)):
+            fail(f"phase 5b: batch {len(batch)}: cuda tokens != cpu tokens")
+    reused_bytes = sum(params[n].numel() * params[n].element_size()
+                       for n in reused)
+    print(f"phase 5b hot-swap: time_to_swap_s {st['time_to_swap_s']} "
+          f"(phase 4 time_to_hbm_s {tth_a}), propagation_s "
+          f"{record.get('propagation_s')}; push {pushed.new_xorbs} new "
+          f"xorbs, {pushed.minted_chunks} chunks in {pushed.elapsed_s:.2f} "
+          f"s, kernel launches {launches}; delta_bytes_ratio "
+          f"{d['delta_bytes_ratio']}, changed {d['changed_bytes']:,} B, "
+          f"fetched {d['fetched_bytes']:,} B, stale {stale:,} B; reused "
+          f"{len(reused)} tensors ({reused_bytes:,} B, A {a_bytes:,} B), "
+          f"landed {sorted(landed)} ({swap['landed_bytes']:,} B); peak "
+          f"allocation +{rise:,} B; {landing_summary(st)}; files by lane "
+          f"{lanes}; digest and decode at batch 1 and 4 equal to the CPU's")
+    del gen_cuda, gen_cpu, params
+    res.params = None
+    return launches
+
+
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
-               digest: str, dev) -> dict:
-    """Phase 6: ``COOP_HOSTS`` cooperative pulls in threads. Returns the
-    launch counts of the coop path."""
+               digest: str, dev, revision: str) -> dict:
+    """Phase 6: ``COOP_HOSTS`` cooperative pulls of ``revision`` in
+    threads. Returns the launch counts of the coop path."""
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
     from zest_tpu_torch.transfer.dcn import DcnServer
@@ -576,7 +749,8 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
     def host(i):
         try:
             results[i] = pull_model(
-                cfgs[i], REPO, device=dev, coop=True, coop_hosts=n,
+                cfgs[i], REPO, revision=revision, device=dev, coop=True,
+                coop_hosts=n,
                 coop_index=i,
                 coop_addrs={j: a for j, a in addrs.items() if j != i},
                 coop_server=servers[i],
@@ -892,7 +1066,7 @@ def run(args, work: Path) -> dict:
     cfg_a = Config(hf_home=work / "a" / "hf", cache_dir=work / "a" / "zest")
     for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
         c.reset()  # counts from here are the push path's
-    pushed = push_checkpoint(cfg_a, REPO, ckpt, device="cuda")
+    pushed = push_checkpoint(cfg_a, REPO, ckpt, device="cuda", notify=False)
     push_launches = blake3_cuda.COUNTER.launches
     if push_launches < 1:
         fail("push never launched the BLAKE3 kernel")
@@ -913,6 +1087,7 @@ def run(args, work: Path) -> dict:
         # ── 4b. the same tensors as a three-shard checkpoint, tight ring ──
         sharded_launches = sharded_phase(work, publisher.url, cfg_a, tensors,
                                          digest, dev)
+        tensors_b = revision_b(tensors, args.seed + 1)
         del tensors
         shutil.rmtree(work / "d")
         # ── 4c. phase 4's repo again: complete files stage from disk ──
@@ -936,13 +1111,20 @@ def run(args, work: Path) -> dict:
                   f"{args.steps} steps in {dt:.3f} s, "
                   f"{len(batch) * args.steps / dt:.1f} tokens/s; equal to "
                   "CPU")
-        del pulled, gen_cuda, gen_cpu  # free phase 4/5's trees
+        del gen_cuda, gen_cpu  # node B's tree is the swap's base now
+
+        # ── 5b. the revision hot-swap into phase 4's tree ──
+        delta_launches = swap_phase(
+            work, publisher.url, publisher, cfg_a, cfg_b, pulled,
+            pushed.revision, tensors_b, prompts, args.steps,
+            pulled.stats["time_to_hbm_s"], dev)
+        del pulled, tensors_b  # free phase 4/5's trees
         shutil.rmtree(work / "b")
         torch.cuda.empty_cache()
 
-        # ── 6. cooperative pull across in-process hosts ──
+        # ── 6. cooperative pull of revision A across in-process hosts ──
         coop_launches = coop_phase(work, publisher.url, ckpt, pushed,
-                                   cfg_a, digest, dev)
+                                   cfg_a, digest, dev, pushed.revision)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -996,6 +1178,7 @@ def run(args, work: Path) -> dict:
     }] + time_bg4(cfg_a, pushed, dev, sass)
     by_path = {"blake3_chunks": {"push": push_launches,
                                  "push_sharded": sharded_launches,
+                                 "push_delta": delta_launches,
                                  "coop": coop_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]]})

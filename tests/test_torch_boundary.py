@@ -100,7 +100,7 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
     from zest_tpu_torch.transfer.pod import make_unit_verifier
     from zest_tpu_torch.transfer.pull import pull_model
-    from zest_tpu_torch.transfer.push import push_checkpoint
+    from zest_tpu_torch.transfer.push import push_checkpoint, watch_and_swap
 
     cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest",
                  endpoint="http://127.0.0.1:9")
@@ -117,6 +117,10 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         lambda: main(["pull", "org/m"]),
         lambda: main(["pull", "org/m", "--coop", "--coop-hosts", "2",
                       "--coop-index", "0", "--coop-addr", "1=127.0.0.1:9"]),
+        lambda: watch_and_swap(cfg, "org/m",
+                               publisher_url="http://127.0.0.1:9"),
+        lambda: main(["watch", "org/m", "--publisher",
+                      "http://127.0.0.1:9"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -415,3 +415,152 @@ def test_tight_ring_landing_on_card(cuda_device, tmp_path):
     assert all(t.device == cuda_device for t in params.values())
     assert params_digest(params) == params_digest(
         load_checkpoint(ckpt, "cpu"))
+
+
+# ── The hot-swap on the card ──
+
+
+SWAP_REDRAWN = ("h.1.mlp.c_fc.weight", "h.1.mlp.c_proj.weight",
+                "ln_f.weight", "ln_f.bias")
+
+
+def _gpt2_revisions(root):
+    """Revisions A and B of a small GPT-2 (B redraws the last block's MLP
+    and the final norm), pushed to a publisher node; returns its config
+    and both shas."""
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    rng = np.random.default_rng(21)
+    E, L, V, C = 256, 2, 512, 64
+    cfg = dict(model_type="gpt2", vocab_size=V, n_positions=C, n_ctx=C,
+               n_embd=E, n_layer=L, n_head=4, layer_norm_epsilon=1e-5)
+    t = {"wte.weight": rng.normal(0, 0.02, (V, E)),
+         "wpe.weight": rng.normal(0, 0.01, (C, E)),
+         "ln_f.weight": np.ones(E), "ln_f.bias": np.zeros(E)}
+    for i in range(L):
+        for leaf, shape in (
+                ("ln_1.weight", (E,)), ("ln_1.bias", (E,)),
+                ("ln_2.weight", (E,)), ("ln_2.bias", (E,)),
+                ("attn.c_attn.weight", (E, 3 * E)),
+                ("attn.c_attn.bias", (3 * E,)),
+                ("attn.c_proj.weight", (E, E)), ("attn.c_proj.bias", (E,)),
+                ("mlp.c_fc.weight", (E, 4 * E)), ("mlp.c_fc.bias", (4 * E,)),
+                ("mlp.c_proj.weight", (4 * E, E)),
+                ("mlp.c_proj.bias", (E,))):
+            t[f"h.{i}.{leaf}"] = rng.normal(0, 0.02, shape)
+    fine = np.random.default_rng(22)
+    cfg_p = Config(hf_home=root / "p" / "hf", cache_dir=root / "p" / "zest")
+    shas = []
+    for rev in ("a", "b"):
+        if rev == "b":
+            for name in SWAP_REDRAWN:
+                t[name] = (t[name] + fine.normal(0, 0.02, t[name].shape))
+        ckpt = root / f"ckpt_{rev}"
+        ckpt.mkdir()
+        (ckpt / "config.json").write_text(json.dumps(cfg))
+        write_safetensors(ckpt / "model.safetensors",
+                          {k: v.astype(np.float32) for k, v in t.items()})
+        shas.append(push_checkpoint(
+            cfg_p, "org/swap", ckpt, notify=False,
+            base_revision=shas[0] if shas else None).revision)
+    return cfg_p, shas[0], shas[1]
+
+
+def test_hot_swap_on_card(cuda_device, tmp_path):
+    """A delta pull of B over A's tree on ``cuda``: reused tensors keep
+    A's ``data_ptr``, the allocated bytes stay within A's tree plus the
+    changed tensors (and one commit group at the peak), the base dict
+    empties, the tree equals B's CPU landing, and B's files come from
+    the cache lane."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    cfg_p, sha_a, sha_b = _gpt2_revisions(tmp_path)
+    torch.cuda.synchronize()
+    floor = torch.cuda.memory_allocated(cuda_device)
+    with PublisherServer(cfg_p) as server:
+        cfg = Config(hf_home=tmp_path / "n" / "hf",
+                     cache_dir=tmp_path / "n" / "zest", endpoint=server.url,
+                     land_ring_bytes=1 << 20, land_ring_slots=4)
+        tree = pull_model(cfg, "org/swap", revision=sha_a,
+                          log=lambda *a, **k: None).params
+        a_bytes = torch.cuda.memory_allocated(cuda_device) - floor
+        ptrs = {n: t.data_ptr() for n, t in tree.items()}
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        before = torch.cuda.memory_allocated(cuda_device)
+        res = pull_model(cfg, "org/swap", revision=sha_b, base_params=tree,
+                         base_revision=sha_a, log=lambda *a, **k: None)
+        peak = torch.cuda.max_memory_allocated(cuda_device) - before
+    swap = res.stats["hbm"]["swap"]
+    reused = {n for n, t in res.params.items() if ptrs[n] == t.data_ptr()}
+    assert len(reused) == swap["reused_tensors"] > 0
+    assert set(SWAP_REDRAWN) <= set(res.params) - reused
+    assert not tree
+    group = min(64 << 20, (1 << 20) // 4)
+    slack = 512 * (swap["landed_tensors"] + 2)  # allocator rounding
+    assert peak <= swap["landed_bytes"] + group + slack, (peak, swap)
+    after = torch.cuda.memory_allocated(cuda_device) - floor
+    assert after <= a_bytes + swap["landed_bytes"] + slack, (after, swap)
+    assert params_digest(res.params) == params_digest(
+        load_checkpoint(tmp_path / "ckpt_b", "cpu"))
+
+
+def test_copy_lane_writes_delta_shard_on_card(cuda_device, tmp_path):
+    """The swap's shard decodes only its changed tensors, so its file
+    comes from the cache lane (stored runs copied, the rest decoded in
+    place), byte for byte, while the tree lands on ``cuda``."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    cfg_p, sha_a, sha_b = _gpt2_revisions(tmp_path)
+    with PublisherServer(cfg_p) as server:
+        cfg = Config(hf_home=tmp_path / "n" / "hf",
+                     cache_dir=tmp_path / "n" / "zest", endpoint=server.url)
+        tree = pull_model(cfg, "org/swap", revision=sha_a,
+                          log=lambda *a, **k: None).params
+        res = pull_model(cfg, "org/swap", revision=sha_b, base_params=tree,
+                         base_revision=sha_a, log=lambda *a, **k: None)
+    lanes = res.stats["files_pipeline"]["lane_bytes"]
+    size = (tmp_path / "ckpt_b" / "model.safetensors").stat().st_size
+    assert "tensors" not in lanes
+    assert lanes.get("copy", 0) + lanes.get("decode", 0) == size, lanes
+    for f in ("model.safetensors", "config.json"):
+        assert (res.snapshot_dir / f).read_bytes() == (
+            tmp_path / "ckpt_b" / f).read_bytes()
+    assert all(t.device == cuda_device for t in res.params.values())
+
+
+def test_swap_waits_for_reads_of_superseded_tensors(cuda_device, tmp_path):
+    """A ~50 ms spin on the current stream, then a read of a base tensor
+    the swap supersedes, both queued before the swap runs; the caller
+    drops its own reference, so the swap's release frees the tensor's
+    block while the read is still queued. The new groups' copies wait
+    for the current stream: the read sees A's bytes."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    cfg_p, sha_a, sha_b = _gpt2_revisions(tmp_path)
+    with PublisherServer(cfg_p) as server:
+        cfg = Config(hf_home=tmp_path / "n" / "hf",
+                     cache_dir=tmp_path / "n" / "zest", endpoint=server.url,
+                     land_ring_bytes=1 << 20, land_ring_slots=4)
+        landed = pull_model(cfg, "org/swap", revision=sha_a,
+                            log=lambda *a, **k: None).params
+        # One block per tensor, as a trainer's tree holds them.
+        tree = {n: t.clone() for n, t in landed.items()}
+        del landed
+        torch.cuda.synchronize()
+        name = "h.1.mlp.c_fc.weight"
+        want = tree[name].cpu()
+        victim = tree[name]
+        torch.cuda._sleep(100_000_000)
+        seen = victim.clone()  # queued behind the spin
+        del victim
+        res = pull_model(cfg, "org/swap", revision=sha_b, base_params=tree,
+                         base_revision=sha_a, log=lambda *a, **k: None)
+        torch.cuda.synchronize()
+    assert not tree
+    assert torch.equal(seen.cpu(), want)
+    assert not torch.equal(res.params[name].cpu(), want)

@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,pull,generate}``.
+"""``python -m zest_tpu_torch {push,serve,pull,generate,watch,diff}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -7,6 +7,10 @@ publisher endpoint that a second node's ``pull`` points at
 --coop-index I --coop-addr J=HOST:PORT ...`` runs the cooperative pull:
 this host fetches its ~1/N of the xorbs and the others' shares come over
 the DCN chunk RPC (its listener is ``ZEST_DCN_PORT``, 6991 by default).
+``push`` notifies the publisher (``--publisher URL``, default the local
+``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
+delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
+prints the chunk-level delta from metadata alone.
 """
 
 from __future__ import annotations
@@ -24,7 +28,9 @@ def cmd_push(args) -> int:
 
     try:
         res = push_checkpoint(Config.load(), args.repo, args.checkpoint_dir,
-                              base_revision=args.base, device=args.device)
+                              base_revision=args.base, device=args.device,
+                              notify=not args.no_notify,
+                              notify_url=args.publisher)
     except (ValueError, OSError) as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
@@ -38,6 +44,12 @@ def cmd_push(args) -> int:
     print(f"  new xorbs {res.new_xorbs} ({res.new_xorb_bytes:,} bytes, "
           f"{res.minted_chunks} chunks verified on {args.device}), "
           f"dedup ratio {res.dedup_ratio:.4f}")
+    if res.notified:
+        print(f"  fan-out: {res.notified.get('delivered', 0)} watcher(s) "
+              "notified")
+    elif not args.no_notify:
+        print("  fan-out: no publisher reachable (revision still "
+              "published locally)")
     return 0
 
 
@@ -87,6 +99,81 @@ def cmd_pull(args) -> int:
               f"unpacked), {coop['fallbacks']} fallback, "
               f"{ex['verify_rejected']} rejected — peer-served "
               f"{coop['peer_served_ratio']:.1%}")
+    for line in _delta_lines(st):
+        print(line)
+    return 0
+
+
+def _delta_lines(st: dict) -> list[str]:
+    """The pull's delta and hot-swap lines, as the JAX package prints
+    them."""
+    out = []
+    if "delta" in st:
+        d = st["delta"]
+        line = (f"  Delta:      {d['changed_bytes']} of "
+                f"{d['total_bytes']} bytes changed vs "
+                f"{d['base_revision'][:12]} "
+                f"({d['delta_bytes_ratio']:.1%})")
+        if "fetched_bytes" in d:
+            line += f"; fetched {d['fetched_bytes']} bytes"
+        if "tensors" in d:
+            line += (f"; {d['tensors']['reused']} tensors reused, "
+                     f"{d['tensors']['landed']} landed")
+        out.append(line)
+    if st.get("time_to_swap_s") is not None:
+        out.append(f"  Hot swap:   tree swapped in {st['time_to_swap_s']}s")
+    return out
+
+
+def cmd_watch(args) -> int:
+    from zest_tpu_torch.transfer.push import watch_and_swap
+
+    cfg = Config.load()
+    try:
+        records = watch_and_swap(
+            cfg, args.repo, publisher_url=args.publisher,
+            device=args.device, base_revision=args.base,
+            max_events=args.count, timeout_s=args.timeout,
+            log=lambda *a, **k: print(*a, **{**k, "file": sys.stderr}))
+    except (ValueError, OSError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps({"swaps": records}, indent=2))
+        return 0 if records else 1
+    for r in records:
+        prop = r.get("propagation_s")
+        print(f"swapped to {r['revision'][:12]} in {r['time_to_swap_s']} s"
+              + (f", propagation {prop:.2f} s" if prop is not None else ""))
+    if not records:
+        print("watch ended with no revision events", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_diff(args) -> int:
+    from zest_tpu_torch.transfer import delta
+
+    def parse_spec(spec: str) -> tuple[str, str]:
+        repo, sep, rev = spec.partition("@")
+        return (repo, rev) if sep and rev else (repo, "main")
+
+    repo_a, rev_a = parse_spec(args.base)
+    if args.target is None:
+        repo_b, rev_b = repo_a, "main"
+    elif "/" in args.target.partition("@")[0]:
+        repo_b, rev_b = parse_spec(args.target)
+    else:
+        repo_b, rev_b = repo_a, args.target
+    cfg = Config.load()
+    try:
+        cfg.model_cache_dir(repo_a)
+        cfg.model_cache_dir(repo_b)
+        out = delta.diff_revisions(cfg, repo_a, rev_a, repo_b, rev_b)
+    except (ValueError, OSError, RuntimeError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps(out, indent=2) if args.json else delta.format_diff(out))
     return 0
 
 
@@ -138,6 +225,11 @@ def build_parser() -> argparse.ArgumentParser:
                            "refs/main)")
     push.add_argument("--device", choices=devices, default="cuda",
                       help="where minted chunks are re-verified")
+    push.add_argument("--publisher", metavar="URL", default=None,
+                      help="publisher to notify (default "
+                           "http://127.0.0.1:ZEST_HTTP_PORT)")
+    push.add_argument("--no-notify", action="store_true",
+                      help="publish locally only; notify no watcher")
     push.add_argument("--json", action="store_true")
     push.set_defaults(fn=cmd_push)
 
@@ -180,6 +272,36 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--device", choices=devices, default="cuda")
     gen.add_argument("--ignore-eos", action="store_true")
     gen.set_defaults(fn=cmd_generate)
+
+    watch = sub.add_parser("watch", help="subscribe to a publisher and "
+                                         "delta-pull + hot-swap each "
+                                         "pushed revision")
+    watch.add_argument("repo")
+    watch.add_argument("--publisher", metavar="URL", default=None,
+                       help="publisher base URL (default "
+                            "http://127.0.0.1:ZEST_HTTP_PORT)")
+    watch.add_argument("--device", choices=devices, default="cuda")
+    watch.add_argument("--base", metavar="REV", default=None,
+                       help="the revision already cached here (delta "
+                            "evidence for the first pull)")
+    watch.add_argument("--count", type=int, default=1,
+                       help="stop after N revisions (0: until the stream "
+                            "ends)")
+    watch.add_argument("--timeout", type=float, default=120.0,
+                       help="idle-stream timeout in seconds")
+    watch.add_argument("--json", action="store_true")
+    watch.set_defaults(fn=cmd_watch)
+
+    diff = sub.add_parser("diff", help="chunk-level delta between two "
+                                       "revisions (metadata only)")
+    diff.add_argument("base", metavar="REPO@REV",
+                      help="base revision (what is cached here)")
+    diff.add_argument("target", metavar="[REPO@]REV", nargs="?",
+                      default=None,
+                      help="target revision (default: the base repo's "
+                           "main)")
+    diff.add_argument("--json", action="store_true")
+    diff.set_defaults(fn=cmd_diff)
     return p
 
 

@@ -8,7 +8,8 @@ environment names (``HF_HOME``, ``ZEST_CACHE_DIR``, ``HF_TOKEN``,
 ``ZEST_COOP_INFLIGHT``, and the landing's ``ZEST_DECODE_WORKERS``,
 ``ZEST_DECODE_CACHE``, ``ZEST_LAND_AHEAD``, ``ZEST_LAND_STREAM``,
 ``ZEST_LAND_RING_BYTES``, ``ZEST_LAND_RING_SLOTS``, ``ZEST_FILES_ASYNC``,
-``ZEST_FILES_WORKERS``, ``ZEST_PULL_INFLIGHT`` and ``ZEST_TPU_DTYPE``),
+``ZEST_FILES_WORKERS``, ``ZEST_PULL_INFLIGHT`` and ``ZEST_TPU_DTYPE``,
+the delta pull's ``ZEST_DELTA`` and the watch fan-out's ``ZEST_WATCH``),
 the same defaults and the same HF cache layout, so a tree pulled by either
 package reads the same on disk.
 
@@ -49,6 +50,11 @@ DEFAULT_FILES_WORKERS = 0           # file writers at once; 0 = auto
 DEFAULT_LAND_STREAM = True
 DEFAULT_LAND_RING_BYTES = 512 * 1024 * 1024
 DEFAULT_LAND_RING_SLOTS = 64
+# Delta pulls (ZEST_DELTA, strictly 0 or 1): a pull of revision B over a
+# locally evidenced revision A fetches only changed chunks and, with a
+# resident tree, swaps it in place; 0 runs every pull in full and writes
+# no revision manifest.
+DEFAULT_DELTA = True
 
 _REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
 
@@ -154,6 +160,12 @@ class Config:
     # Floating tensors land in this dtype (bf16, f16, f32; None keeps the
     # checkpoint's). The variable keeps the JAX package's name.
     land_dtype: str | None = None
+    # Delta pulls (see DEFAULT_DELTA above).
+    delta_pull: bool = DEFAULT_DELTA
+    # ``POST /v1/watch`` and the ``/v1/push`` fan-out of the publisher
+    # (ZEST_WATCH, strict 0/1): 0 answers watch with 404 and notifies no
+    # one; pushes still publish.
+    watch_enabled: bool = True
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -211,6 +223,13 @@ class Config:
             files_workers=max(0, int(
                 env.get("ZEST_FILES_WORKERS", DEFAULT_FILES_WORKERS))),
             land_dtype=env.get("ZEST_TPU_DTYPE") or None,
+            # Strict like ZEST_LAND_STREAM: a typo must never leave the
+            # rollback knob silently on.
+            delta_pull=_strict_bool(
+                "ZEST_DELTA",
+                env.get("ZEST_DELTA", "1" if DEFAULT_DELTA else "0")),
+            watch_enabled=_strict_bool("ZEST_WATCH",
+                                       env.get("ZEST_WATCH", "1")),
         )
 
     # ── HF cache layout ──

@@ -186,7 +186,10 @@ class CachedFileReader:
         try:
             reader = XorbReader(entry.data)
         except ValueError as exc:  # XorbFormatError
-            self._malformed[key] = exc
+            # Kept without its traceback: the frames it links to (the
+            # caller's read, and its view of the caller's buffer) must
+            # not outlive the read.
+            self._malformed[key] = exc.with_traceback(None)
             return None
         if self._reader_cache_cap > 0:
             with self._readers_lock:

@@ -17,6 +17,11 @@ slice). Two landings:
   the ring only after its group's CUDA event has completed. With
   streaming off, whole shards decode one ahead of the commit.
 
+Both direct landings take a **hot-swap** (``preloaded`` / ``swap_from``):
+tensors a delta plan proved unchanged from the resident base revision
+enter the new tree as the very same tensors, and each superseded base
+tensor leaves the base dict once its replacement's copy is done.
+
 Every copy moves raw bytes, so NaN payloads and sub-word float bits land
 unchanged; a landing ``dtype`` casts only floating tensors, on the host,
 never int or bool ones (:func:`cast_floating`).
@@ -487,17 +492,20 @@ class _DeviceCommit:
 def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                      decode_workers, clock, ring_bytes: int,
                      ring_slots: int, tensor_gate=None, on_first_layer=None,
-                     stream_file_sink=None
+                     stream_file_sink=None, preloaded=None, swap_from=None
                      ) -> tuple[dict[str, torch.Tensor], dict]:
     """The ring scheduler: decode of run N+k overlaps the device copy of
     run N, in layer order. See :func:`stage_cached_to_hbm`."""
     t0 = time.monotonic()
+    preloaded = preloaded or {}
     # On the CPU the landed tensors alias their slots: no slot is reused.
     ring = HostRing(ring_bytes, ring_slots, reuse=dev.type == "cuda",
                     pin=dev.type == "cuda")
     committer = _DeviceCommit(dev, dtype)
     group_bytes = max(1, min(_STREAM_COMMIT_BYTES, ring.budget_bytes // 4))
     group_count = max(1, ring.max_slots // 4)
+    # Over every tensor, preloaded ones included: "first layer resident"
+    # is about what a forward pass can touch, not what this landing moved.
     all_names = frozenset(
         name for _r, h in recs_with_headers for name in h.tensors)
     first_set = first_layer_names(all_names)
@@ -515,6 +523,10 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         run_lo = run_hi = None
         prev_name = None
         for name in order_names(header.tensors):
+            if name in preloaded:
+                # Reused from the base revision: no gate, no decode, no
+                # copy. The gap it leaves cuts the run.
+                continue
             lo, hi = header.tensors[name].file_range(header.data_start)
             if (runs and lo == run_hi and hi - run_lo <= group_bytes
                     and not (prev_name in first_set
@@ -584,9 +596,12 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         except BaseException as exc:  # noqa: BLE001 - consumer re-raises
             q.put(exc)
 
-    params: dict[str, torch.Tensor] = {}
-    committed_names: set[str] = set()
-    fired = not first_set
+    params: dict[str, torch.Tensor] = dict(preloaded)
+    committed_names: set[str] = set(preloaded)
+    fired = not first_set or first_set <= committed_names
+    if fired and first_set and preloaded and on_first_layer is not None:
+        # The whole first-layer set was reused: it is resident now.
+        on_first_layer()
     batch: list = []
     batch_bytes = 0
     batch_slot_ids: set[int] = set()
@@ -600,6 +615,11 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         for s in slots:
             s.release()
         committed_names.update(names)
+        if swap_from:
+            # The replacements are resident: drop the superseded base
+            # tensors now, so the card holds about one tree, not two.
+            for n in names:
+                swap_from.pop(n, None)
         if not fired and first_set <= committed_names:
             fired = True
             if on_first_layer is not None:
@@ -609,6 +629,10 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         nonlocal batch, batch_bytes
         if not batch:
             return
+        # One rule for every landing, hot-swap included: the JAX package
+        # coalesces small tensors on its swap path to amortize the XLA
+        # compiles of its splitter, and a torch commit compiles nothing.
+        # Preloaded tensors never reach a commit.
         landed, done = committer.commit(batch)
         params.update(landed)
         pending.append((done, [it[2] for it in batch],
@@ -694,7 +718,23 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
     stats["decode_ahead"] = True
     stats["streamed"] = True
     stats["ring"] = ring.summary()
+    if preloaded or swap_from is not None:
+        # A consumed base tree is a swap even when nothing was reused.
+        stats["swap"] = _swap_stats(preloaded, params)
     return params, stats
+
+
+def _swap_stats(preloaded: dict, params: dict) -> dict:
+    """The hot-swap block under ``stats["hbm"]["swap"]``: what was reused
+    as it was and what was landed."""
+    reused_bytes = sum(int(t.nbytes) for t in preloaded.values())
+    return {
+        "reused_tensors": len(preloaded),
+        "reused_bytes": reused_bytes,
+        "landed_tensors": len(params) - len(preloaded),
+        "landed_bytes": sum(int(t.nbytes) for t in params.values())
+        - reused_bytes,
+    }
 
 
 def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
@@ -705,7 +745,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
                         stream: bool | None = None,
                         ring_bytes: int | None = None,
                         ring_slots: int | None = None, tensor_gate=None,
-                        on_first_layer=None, stream_file_sink=None
+                        on_first_layer=None, stream_file_sink=None,
+                        preloaded=None, swap_from=None
                         ) -> tuple[dict[str, torch.Tensor], dict]:
     """Direct landing: tensors straight from cached xorb units onto
     ``device``, with no file read.
@@ -734,6 +775,20 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
     fires when shard ``i``'s CPU tensors are decoded, before its commit;
     it may keep them.
 
+    **Hot-swap** (both modes): ``preloaded`` maps names to tensors
+    already resident on ``device`` whose bytes a delta plan proved
+    unchanged; they skip the gate, the decode and the copy, and enter the
+    returned tree as the same objects (never through
+    :func:`commit_tensors` or a cast). ``swap_from``, the base revision's
+    dict, is consumed in place: each changed tensor's superseded entry is
+    popped once its replacement's copy is done (the group's CUDA event in
+    streaming, the shard's commit otherwise), never earlier. The caller
+    hands its tree over: a popped tensor's memory returns to the caching
+    allocator only when nothing else refers to it (a ``PullResult``, a
+    generator, the caller's own names) and, since a landed tensor is a
+    view of its commit group's buffer, when every tensor of that buffer is
+    gone. ``stats["swap"]`` records the split.
+
     Returns ``(params, stats)``, ``stats["direct"]`` true. On ``cuda`` the
     current stream is ordered after every copy when this returns.
     """
@@ -756,18 +811,26 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
             bridge, recs_with_headers, dev, dtype, prefetch_next,
             decode_workers, clock, ring_bytes, ring_slots,
             tensor_gate=tensor_gate, on_first_layer=on_first_layer,
-            stream_file_sink=stream_file_sink)
+            stream_file_sink=stream_file_sink, preloaded=preloaded,
+            swap_from=swap_from)
 
     t0 = time.monotonic()
-    params: dict[str, torch.Tensor] = {}
+    preloaded = preloaded or {}
+    params: dict[str, torch.Tensor] = dict(preloaded)
     n = len(recs_with_headers)
+    predicate = None
+    if preloaded:
+        # Only changed tensors decode.
+        def predicate(name, _skip=frozenset(preloaded)):
+            return name not in _skip
 
     def decode(i: int) -> dict:
         if prefetch_next is not None:
             prefetch_next(i)
         rec, header = recs_with_headers[i]
         with clock("decode") if clock is not None else contextlib.nullcontext():
-            host = land_tensors(bridge.cache, rec, header, bridge=bridge,
+            host = land_tensors(bridge.cache, rec, header,
+                                predicate=predicate, bridge=bridge,
                                 workers=decode_workers)
         if clock is not None:
             clock.note_bytes("decode", sum(
@@ -775,6 +838,15 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         if on_host_ready is not None:
             on_host_ready(i, host)
         return host
+
+    def commit(host: dict) -> None:
+        if not host:
+            return
+        # commit_tensors returns with its copy done on the current stream.
+        params.update(commit_tensors(host, dev, dtype))
+        if swap_from:
+            for name in host:
+                swap_from.pop(name, None)
 
     pipelined = bool(decode_ahead) and n > 1
     with _gc_frozen():
@@ -786,14 +858,16 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
                     host = pending.result()
                     if i + 1 < n:
                         pending = staging.submit(decode, i + 1)
-                    params.update(commit_tensors(host, dev, dtype))
+                    commit(host)
                     del host
         else:
             for i in range(n):
-                params.update(commit_tensors(decode(i), dev, dtype))
+                commit(decode(i))
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
         dt = time.monotonic() - t0
     stats = _commit_stats(params, dt, direct=True)
     stats["decode_ahead"] = pipelined
+    if preloaded or swap_from is not None:
+        stats["swap"] = _swap_stats(preloaded, params)
     return params, stats

@@ -128,13 +128,21 @@ class CoopPlan:
 
     @staticmethod
     def build(recs: list[Reconstruction], n_hosts: int,
-              quarantined=frozenset()) -> "CoopPlan":
+              quarantined=frozenset(), units=None) -> "CoopPlan":
+        """``units`` restricts the plan to an explicit ``[(hash_hex,
+        FetchInfo)]`` subset: the delta pull's content-changed units,
+        which depend only on content-addressed metadata, so hosts with
+        differently warm caches build the same plan."""
         if n_hosts <= 0:
             raise ValueError("n_hosts must be positive")
         alive = tuple(h for h in range(n_hosts) if h not in set(quarantined))
         if not alive:
             raise CoopUnavailable("every host is quarantined")
-        units = tuple(collect_units(recs))
+        if units is not None:
+            units = tuple(sorted(
+                ((hh, fi.range.start), fi) for hh, fi in units))
+        else:
+            units = tuple(collect_units(recs))
         order = sorted(units, key=lambda u: (
             -(u[1].url_range_end - u[1].url_range_start), u[0]))
         load = {h: 0 for h in alive}
@@ -277,7 +285,7 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                device="cuda", budget_bytes: int | None = None,
                server: DcnServer | None = None, quarantined=None,
                trace_id: str | None = None, priorities: dict | None = None,
-               clock=None, log=None) -> dict:
+               units=None, clock=None, log=None) -> dict:
     """One cooperative round: plan → fetch my ~1/N → exchange the rest.
 
     Afterwards every unit of ``recs`` is in the local verified cache.
@@ -294,7 +302,9 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     ``coop_exchange`` and ``coop_verify``. ``priorities`` (unit key →
     layer priority, ``models.direct.unit_layer_priorities``) orders both
     phases so embedding and layer-0 units move first; the plan and its
-    fingerprint do not depend on it. Raises :class:`CoopUnavailable`
+    fingerprint do not depend on it. ``units`` restricts the round to a
+    unit subset (a delta pull's changed units): unchanged bytes never
+    cross the exchange. Raises :class:`CoopUnavailable`
     when no peer is addressable.
     """
     t0 = time.monotonic()
@@ -309,7 +319,7 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
             "(host_addrs empty)")
     q = set(quarantined or ())
     q.discard(host_index)  # we are demonstrably alive
-    plan = CoopPlan.build(recs, n_hosts, frozenset(q))
+    plan = CoopPlan.build(recs, n_hosts, frozenset(q), units=units)
     entries_map = _entries_by_hash(recs)
 
     own_server = False

@@ -12,7 +12,10 @@ the xorb cache (:func:`_try_direct_stage`), before any file is written:
 - the HF-cache file of each shard is written from the same ring slots
   (``_StreamFileSink``: no second decode), and every other file goes
   through a bounded file pipeline (``_FilePipeline``) whose writes commit
-  (fsync + rename) at the pull's end.
+  (fsync + rename) at the pull's end. A file whose units are cached is
+  written by the copy-range cache lane (:func:`_write_file_from_cache`:
+  stored runs move with ``copy_file_range``, the rest decodes in place);
+  the reconstruction waterfall writes the rest.
 
 The disk-staging landing (files first, then
 ``models.loader.stage_snapshot_to_hbm``) runs only where the JAX package
@@ -34,6 +37,18 @@ from the landing's slots, ``waterfall`` through the reconstruction),
 block). ``fallback_files`` counts xet files whose reconstruction failed
 and that came whole from ``resolve`` instead.
 
+**Delta pull and hot-swap** (``Config.delta_pull``, ``ZEST_DELTA``): a
+pull of revision B over a locally evidenced revision A diffs B's term
+lists against A's manifest before any byte moves
+(:mod:`~zest_tpu_torch.transfer.delta`), and the warm fetch and the
+cooperative round move only the changed units. With ``base_params`` (A's
+tree resident on ``device``) and ``base_revision``, every tensor whose
+chunk cover is unchanged is reused as the same tensor, only the changed
+tensors land, and the base dict is consumed as their replacements commit
+(``stats["hbm"]["swap"]``, ``stats["delta"]``, ``time_to_swap_s``).
+Missing evidence degrades to a full pull and says so on stderr (the JAX
+package's ``delta_degraded`` flight event, whose recorder is not ported).
+
 **Cooperative pull** (``coop=True`` with ``coop_hosts``, ``coop_index``
 and the other hosts' DCN addresses, or ``ZEST_COOP*``): before the
 landing, ``transfer/coop.coop_round`` fetches this host's share of the
@@ -44,13 +59,14 @@ the round's block and ``stats["peer_served_ratio"]`` its headline. Only a
 missing topology (:class:`~zest_tpu_torch.transfer.coop.CoopUnavailable`)
 or a connection failure degrades the pull to the per-host waterfall; any
 other error of the round — a kernel that does not build or launch — fails
-the pull. The pod round, mesh placement, the delta hot-swap and the
-copy-range cache lane come with later slices.
+the pull. The pod round, pull sessions and mesh placement are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import errno
+import mmap
 import os
 import sys
 import tempfile
@@ -68,10 +84,12 @@ import torch
 
 from zest_tpu_torch import storage
 from zest_tpu_torch.cas.client import CasError
+from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.config import DEFAULT_DEVICE, Config, resolve_device
 from zest_tpu_torch.models.direct import (
     CachedFileReader,
+    DirectLandingError,
     tensor_unit_keys,
     unit_layer_priorities,
     unit_priority_sort_key,
@@ -580,12 +598,26 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                device=DEFAULT_DEVICE, coop: bool | None = None,
                coop_hosts: int | None = None, coop_index: int | None = None,
                coop_addrs: dict[int, tuple[str, int]] | None = None,
-               coop_server=None, log=print) -> PullResult:
+               coop_server=None, base_params: dict | None = None,
+               base_revision: str | None = None, log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
     ``cfg``'s cache, which then answers the peers for as long as its
     caller keeps it up; without one the round starts its own listener,
-    which closes when this pull returns."""
+    which closes when this pull returns.
+
+    ``base_params`` is a tree of a previously pulled revision of this
+    repo, resident on ``device``, and ``base_revision`` (a ref or a sha,
+    required with it) names that revision: reuse is judged against its
+    manifest, and a guessed base could reuse wrong bytes. The caller
+    hands the tree over: the dict is emptied by a swap, and a superseded
+    tensor's memory goes back only once nothing else refers to it. A
+    degraded delta leaves the dict untouched."""
+    if base_params is not None and not base_revision:
+        raise ValueError(
+            "base_params requires base_revision: tensor reuse is only "
+            "sound against the manifest of the revision the resident "
+            "tree actually holds")
     dev = resolve_device(device)  # fail before any network work
     land_dtype = resolve_dtype(cfg.land_dtype)
     t0 = time.monotonic()
@@ -611,6 +643,15 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             return "skipped"
         if entry.is_xet:
             ensure_auth()
+            # The cache lane first: a file whose units the landing, the
+            # warm fetch or a base revision put in the cache is written
+            # without a fetch and without decoding its stored chunks.
+            tmp = _write_file_from_cache(bridge, entry.xet_hash, dest,
+                                         lane_note=file_pipeline.note_lane)
+            if tmp is not None:
+                file_pipeline.defer_commit(tmp, dest)
+                clock.note_bytes("files", entry.size)
+                return "downloaded"
             try:
                 bridge.reconstruct_to_file(entry.xet_hash, dest)
             except Exception as exc:  # noqa: BLE001 - reference chain
@@ -634,12 +675,25 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         async_handoff=cfg.files_async)
     hbm_params = hbm_stats = None
     time_to_hbm = hbm_done_at = time_to_first_layer = None
+    delta_plan = delta_base = delta_net_before = None
     try:
         coop_stats = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
                                  coop_addrs, log)
         pending = [e for e in files
                    if e.is_xet and not _is_complete(snapshot_dir, e)]
+        if cfg.delta_pull:
+            delta_base, delta_plan = _delta_stage(
+                cfg, bridge, repo_id, commit_sha, pending, base_params,
+                base_revision, clock, ensure_auth, log)
+            if delta_plan is not None:
+                delta_net_before = (bridge.stats.bytes_from_peer
+                                    + bridge.stats.bytes_from_cdn)
+        elif base_params is not None:
+            log("delta disabled (ZEST_DELTA=0); base params ignored, "
+                "running a full pull", file=sys.stderr)
+        if delta_plan is None:
+            base_params = None
         if coop_cfg and pending:
             try:
                 with clock("cas_metadata"):
@@ -648,10 +702,12 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                             for e in pending]
                     prio = _coop_priorities(cfg, bridge, pending, recs)
                 with clock("coop"):
-                    coop_stats = _coop_stage(bridge, recs, cfg, coop_cfg,
-                                             repo_id, commit_sha, dev,
-                                             coop_server, clock, log,
-                                             priorities=prio)
+                    coop_stats = _coop_stage(
+                        bridge, recs, cfg, coop_cfg, repo_id, commit_sha,
+                        dev, coop_server, clock, log, priorities=prio,
+                        units=(delta_plan.changed_units
+                               if delta_plan is not None
+                               and delta_plan.changed_units else None))
             except (CoopUnavailable, CasError, ConnectionError) as exc:
                 log(f"cooperative pull unavailable ({exc}); continuing "
                     "with the per-host waterfall", file=sys.stderr)
@@ -661,7 +717,9 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 file_pipeline.submit(entry)
         hbm_params, hbm_stats = _try_direct_stage(
             bridge, files, snapshot_dir, dev, land_dtype, log, clock,
-            file_pipeline, ensure_auth)
+            file_pipeline, ensure_auth,
+            delta_state=((delta_base, base_params, delta_plan)
+                         if delta_plan is not None else None))
         if hbm_stats is not None:
             hbm_done_at = time.monotonic()
             time_to_hbm = hbm_done_at - t0
@@ -681,10 +739,9 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         bridge.close()
 
     storage.write_ref(cfg, repo_id, revision, commit_sha)
-    # The revision manifest, complete or not at all (a fully skipped
-    # resume pull resolved no reconstruction; its first pull wrote it).
-    delta.save_manifest(cfg, repo_id, commit_sha, files,
-                        lambda e: bridge.known_reconstruction(e.xet_hash))
+    if cfg.delta_pull:
+        _save_manifest(cfg, bridge, repo_id, commit_sha, files, delta_base,
+                       log)
 
     if hbm_stats is None:
         # Disk staging: a resumed pull (complete files) or a shard that
@@ -720,21 +777,155 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     }
     if time_to_first_layer is not None:
         stats["time_to_first_layer_s"] = round(time_to_first_layer, 3)
+    if delta_plan is not None:
+        dsum = delta_plan.summary()
+        # Measured, not planned: the bytes that crossed the network
+        # (FetchStats' CDN and peer bytes; the cooperative exchange books
+        # its wire bytes as peer bytes there).
+        fetched = (bridge.stats.bytes_from_peer
+                   + bridge.stats.bytes_from_cdn) - delta_net_before
+        dsum["fetched_bytes"] = fetched
+        if delta_plan.total_bytes:
+            dsum["fetched_ratio"] = round(
+                fetched / delta_plan.total_bytes, 4)
+        swap = hbm_stats.get("swap")
+        if swap:
+            dsum["tensors"] = {"reused": swap["reused_tensors"],
+                               "landed": swap["landed_tensors"]}
+            stats["time_to_swap_s"] = stats["time_to_hbm_s"]
+            if base_params:
+                # Tensors the new revision dropped: the base dict is
+                # empty when a swap returns.
+                base_params.clear()
+        stats["delta"] = dsum
     if coop_stats is not None:
         stats["coop"] = coop_stats
         stats["peer_served_ratio"] = coop_stats.get("peer_served_ratio")
     return PullResult(snapshot_dir, stats, params=hbm_params)
 
 
+def _delta_stage(cfg, bridge, repo_id, commit_sha, pending, base_params,
+                 base_revision, clock, ensure_auth, log):
+    """The delta plan of this pull over its base manifest: ``(base
+    manifest, plan)``, the plan None when there is nothing to plan
+    against or the evidence cannot be read (the pull then runs in full
+    and says so). Only the errors that mean "no plan" degrade: a failed
+    metadata fetch or a manifest or plan that does not parse."""
+    base = delta.find_base_manifest(cfg, repo_id, commit_sha, base_revision)
+    if base is None:
+        if base_params is not None or base_revision:
+            log("delta: no base-revision manifest — running a full pull",
+                file=sys.stderr)
+        return None, None
+    if not pending:
+        if base_params is not None:
+            log("delta: snapshot already materialized — hot-swap skipped "
+                "(disk staging), base params left untouched",
+                file=sys.stderr)
+        return base, None
+    try:
+        with clock("cas_metadata"):
+            ensure_auth()
+            recs = _hdr_fan(lambda e: bridge.get_reconstruction(e.xet_hash),
+                            pending)
+        units = [(hh, fi) for (hh, _s), fi in collect_units(recs)]
+        plan = delta.build_plan(
+            base, [(e.path, delta.terms_of(r)) for e, r in zip(pending, recs)],
+            units=units, cache=bridge.cache)
+    except (*FETCH_ERRORS, ValueError) as exc:
+        log(f"delta plan unavailable ({exc}); running a full pull",
+            file=sys.stderr)
+        return base, None
+    return base, plan
+
+
+def _save_manifest(cfg, bridge, repo_id, commit_sha, files, delta_base,
+                   log) -> None:
+    """This revision's manifest, complete or not at all, with the
+    revision it diffed against as its ``parent``. A fully skipped resume
+    pull never authenticated (its first pull wrote the manifest); a
+    partly resumed one fetches the reconstructions it did not need."""
+    def rec_of(entry):
+        rec = bridge.known_reconstruction(entry.xet_hash)
+        if rec is not None or bridge.cas is None:
+            return rec
+        try:
+            return bridge.get_reconstruction(entry.xet_hash)
+        except FETCH_ERRORS:
+            return None
+
+    try:
+        delta.save_manifest(cfg, repo_id, commit_sha, files, rec_of,
+                            parent=(delta_base or {}).get("revision"))
+    except OSError as exc:
+        log(f"delta manifest not saved ({exc})", file=sys.stderr)
+
+
+def _landed_dtype(info, dtype: torch.dtype | None) -> torch.dtype:
+    """The dtype the landing commits a tensor at: ``cast_floating``'s rule
+    (floating tensors take the landing dtype; int and bool keep theirs)."""
+    src = info.torch_dtype
+    if dtype is None or not src.is_floating_point:
+        return src
+    return dtype
+
+
+def _chunk_table(cache, hash_hex: str):
+    """A cached xorb's chunk sizes (its full entry, or a partial one from
+    chunk 0), read from the frame headers; None when not cached."""
+    got = cache.get_with_range_mapped(hash_hex, 0)
+    if got is None:
+        return None
+    try:
+        return XorbReader(got.data).chunk_sizes.astype(np.int64)
+    except ValueError:
+        return None
+
+
+def _reused_tensors(cache, st, recs_with_headers, base_manifest,
+                    base_params, dev, dtype) -> dict:
+    """The tensors of the base tree that the landing reuses as they are:
+    bytes proven unchanged (the reference's fingerprints, and the chunk
+    alignment the cached xorbs' chunk tables show), and the shape, landed
+    dtype and device this landing would give them. A base tree landed at
+    another dtype or shape reuses nothing there, so the swapped tree
+    equals a cold landing."""
+    base_files = base_manifest.get("files") or {}
+    reused: dict = {}
+    for entry, (rec, header) in zip(st, recs_with_headers):
+        bf = base_files.get(entry.path)
+        if not bf:
+            continue
+        same = delta.unchanged_tensor_names(bf["terms"], rec, header)
+        same |= delta.aligned_tensor_names(
+            bf["terms"], rec, header, lambda hh: _chunk_table(cache, hh))
+        for name in same:
+            t = base_params.get(name)
+            if t is None:
+                continue
+            info = header.tensors[name]
+            if (tuple(t.shape) != tuple(info.shape)
+                    or t.dtype != _landed_dtype(info, dtype)
+                    or t.device != dev):
+                continue
+            reused[name] = t
+    return reused
+
+
 def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                       clock: StageClock, file_pipeline: _FilePipeline,
-                      ensure_auth):
+                      ensure_auth, delta_state=None):
     """Land every safetensors file straight from the cache, before any
     file write; the HF-cache files are written from the landing's decoded
     bytes. Returns ``(None, None)``, before any work, when ineligible: a
     shard that is not a xet file (nothing to land from) or a shard already
     complete on disk (reading it beats refetching). Any other error
-    raises."""
+    raises.
+
+    ``delta_state`` is ``(base manifest, base tree, plan)``: the warm
+    fetch skips the plan's ``reused_local_keys``, and with a base tree the
+    landing is a hot-swap. A delta shard decodes only its changed tensors,
+    so its file is left to the cache lane."""
     st = [e for e in files if e.path.endswith(".safetensors")]
     if not st or not all(e.is_xet for e in st):
         return None, None
@@ -762,6 +953,24 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                 except FETCH_ERRORS:
                     bridge.mark_evidence_incomplete()
     recs_only = [r for r, _h in recs_with_headers]
+    preloaded: dict = {}
+    swap_from = None
+    skip_keys: frozenset = frozenset()
+    if delta_state is not None:
+        d_base, d_params, d_plan = delta_state
+        skip_keys = d_plan.reused_local_keys
+        if d_params:
+            swap_from = d_params
+            preloaded = _reused_tensors(bridge.cache, st,
+                                        recs_with_headers, d_base,
+                                        d_params, dev, dtype)
+            for name in preloaded:
+                d_params.pop(name)  # moved into the new tree
+
+    def delta_shard(i) -> bool:
+        return bool(preloaded) and any(
+            n in preloaded for n in recs_with_headers[i][1].tensors)
+
     pipeline = None
     try:
         if cfg.land_stream and cfg.land_decode_ahead:
@@ -771,7 +980,8 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
             pipeline = _PipelinedWarm(bridge, recs_only,
                                       evidence_recs=evidence_recs,
                                       unit_priorities=priorities,
-                                      streaming=True, clock=clock)
+                                      streaming=True, clock=clock,
+                                      skip_keys=skip_keys)
 
             def tensor_gate(i, name, cancel=None):
                 keys = required[i].get(name)
@@ -781,6 +991,8 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
             first_layer_at: list[float] = []
 
             def stream_file_sink(i):
+                if delta_shard(i):
+                    return None
                 rec, header = recs_with_headers[i]
                 return _StreamFileSink(file_pipeline, bridge, st[i], rec,
                                        header, snapshot_dir, clock)
@@ -794,11 +1006,14 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                     tensor_gate=tensor_gate,
                     on_first_layer=lambda: first_layer_at.append(
                         time.monotonic()),
-                    stream_file_sink=stream_file_sink)
+                    stream_file_sink=stream_file_sink,
+                    preloaded=preloaded or None, swap_from=swap_from)
             if first_layer_at:
                 hbm_stats["first_layer_at"] = first_layer_at[0]
         else:
             def on_host_ready(i, host):
+                if delta_shard(i):
+                    return
                 rec, header = recs_with_headers[i]
                 entry = st[i]
                 if not file_pipeline.acquire_for(entry):
@@ -809,14 +1024,16 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                         snapshot_dir, e, clock))
 
             pipeline = _PipelinedWarm(bridge, recs_only,
-                                      evidence_recs=evidence_recs)
+                                      evidence_recs=evidence_recs,
+                                      skip_keys=skip_keys)
             with clock("fetch"):
                 pipeline.ensure(0)
             with clock("hbm_commit"):
                 params, hbm_stats = stage_cached_to_hbm(
                     bridge, recs_with_headers, dev, dtype=dtype,
                     prefetch_next=pipeline.ensure,
-                    on_host_ready=on_host_ready, clock=clock, stream=False)
+                    on_host_ready=on_host_ready, clock=clock, stream=False,
+                    preloaded=preloaded or None, swap_from=swap_from)
     finally:
         # Join the warm threads, on success before reading their stats and
         # on error before the pull tears down: none may keep writing cache
@@ -842,13 +1059,17 @@ class _PipelinedWarm:
     shard's fetch is clocked as ``fetch``, and a finished shard starts the
     next: at most one shard fetches at a time (two racing shards could
     both fetch a unit they share). A failed unit is left to the landing's
-    per-term waterfall."""
+    per-term waterfall. ``skip_keys`` (a delta plan's unchanged units
+    present in the cache) are never fetched or tested: their gates
+    release at once, and one evicted since the plan comes through the
+    landing's per-term waterfall."""
 
     _COUNTER_KEYS = ("units", "bytes", "failed", "retried")
 
     def __init__(self, bridge, recs, evidence_recs=None,
                  unit_priorities=None, streaming: bool = False,
-                 clock: StageClock | None = None):
+                 clock: StageClock | None = None,
+                 skip_keys: frozenset | None = None):
         self.bridge = bridge
         self.recs = recs
         # Built once over every known xet reconstruction: the whole-xorb
@@ -858,6 +1079,7 @@ class _PipelinedWarm:
         self.unit_priorities = unit_priorities
         self.streaming = streaming
         self.clock = clock
+        self.skip_keys = frozenset(skip_keys or ())
         self.threads: dict[int, threading.Thread] = {}
         self.stats: list[dict] = []
         self.cancelled = False
@@ -876,10 +1098,17 @@ class _PipelinedWarm:
             t.start()
 
     def _shard_units(self, i: int):
-        units = [(key[0], fi) for key, fi in collect_units([self.recs[i]])]
+        units = [(key[0], fi) for key, fi in collect_units([self.recs[i]])
+                 if key not in self.skip_keys]
         if self.unit_priorities:
             units.sort(key=unit_priority_sort_key(self.unit_priorities))
         return units
+
+    def _mark_skipped(self, i: int) -> None:
+        """Resolve shard ``i``'s skipped units without reading them."""
+        for key, _fi in collect_units([self.recs[i]]):
+            if key in self.skip_keys:
+                self._mark_unit(key)
 
     def _mark_unit(self, key) -> None:
         with self._cv:
@@ -889,6 +1118,8 @@ class _PipelinedWarm:
     def _run(self, i: int) -> None:
         try:
             if self.streaming:
+                if self.skip_keys:
+                    self._mark_skipped(i)
                 with self.clock("fetch") if self.clock is not None \
                         else contextlib.nullcontext():
                     self.stats.append(warm_units_parallel(
@@ -899,7 +1130,9 @@ class _PipelinedWarm:
             else:
                 self.stats.append(warm_units_parallel(
                     self.bridge, [self.recs[i]],
-                    entries_map=self.entries_map))
+                    entries_map=self.entries_map,
+                    units=(self._shard_units(i) if self.skip_keys
+                           else None)))
         except (*FETCH_ERRORS, ValueError):
             # The landing's per-term waterfall serves what is missing.
             self.stats.append({"units": 0, "bytes": 0, "failed": 0,
@@ -999,10 +1232,11 @@ def _coop_priorities(cfg, bridge, pending, recs):
 
 
 def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
-                server, clock, log, priorities=None) -> dict:
+                server, clock, log, priorities=None, units=None) -> dict:
     """Run the cooperative round over explicit peer addresses (address
     discovery over a KV store is not ported). The pull's trace id is
-    minted from ``repo@sha``, as every host of the pull mints it."""
+    minted from ``repo@sha``, as every host of the pull mints it.
+    ``units`` is a delta pull's changed set: only those are planned."""
     host_index, n_hosts, addrs = coop_cfg
     if not {h for h in addrs if h != host_index}:
         raise CoopUnavailable("no coop peer addresses: pass coop_addrs or "
@@ -1011,7 +1245,8 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
                       device=device, server=server,
                       budget_bytes=cfg.coop_inflight_bytes,
                       trace_id=mint_trace_id(f"{repo_id}@{commit_sha}"),
-                      priorities=priorities, clock=clock, log=log)
+                      priorities=priorities, units=units, clock=clock,
+                      log=log)
 
 
 # pwritev bounds: iovecs per call (below every Linux IOV_MAX) and bytes
@@ -1117,3 +1352,148 @@ def _write_head(bridge, rec, header, fd: int) -> None:
         _pwritev_all(fd, [reader.read(0, header.data_start)], 0)
     for term in rec.terms:
         bridge.stats.record("cache", term.unpacked_length)
+
+
+# After the first refusal of ``copy_file_range`` by the platform (ENOSYS
+# on old kernels, EXDEV across filesystems), every run takes the
+# pread/pwrite bounce: still no decode.
+_CFR_DISABLED = not hasattr(os, "copy_file_range")
+
+
+def _copy_run(src_fd: int, dst_fd: int, src_off: int, dst_off: int,
+              length: int) -> None:
+    """Move one contiguous payload run from a cache entry into the
+    destination, in the kernel where the platform allows. Short
+    transfers resume; a source that ends early (a truncated entry) raises
+    ValueError so the caller declines to the waterfall."""
+    global _CFR_DISABLED
+    remaining = length
+    while remaining:
+        if not _CFR_DISABLED:
+            try:
+                n = os.copy_file_range(src_fd, dst_fd, remaining,
+                                       src_off, dst_off)
+            except OSError as exc:
+                # Only a platform refusal downgrades; a real I/O error
+                # (EIO, ENOSPC) propagates and declines this file.
+                if exc.errno not in (errno.ENOSYS, errno.EXDEV,
+                                     errno.EOPNOTSUPP, errno.EINVAL):
+                    raise
+                _CFR_DISABLED = True
+                continue
+            if n == 0:
+                raise ValueError(
+                    f"cache entry ended {remaining} bytes early")
+        else:
+            data = os.pread(src_fd, min(remaining, 8 << 20), src_off)
+            if not data:
+                raise ValueError(
+                    f"cache entry ended {remaining} bytes early")
+            n = os.pwrite(dst_fd, data, dst_off)
+        src_off += n
+        dst_off += n
+        remaining -= n
+
+
+def _execute_copy_plan(copies, dst_fd: int) -> int:
+    """Run a :meth:`CachedFileReader.copy_plan` copy list into ``dst_fd``;
+    returns the bytes moved. Each distinct entry file opens once."""
+    fds: dict = {}
+    moved = 0
+    try:
+        for path, src_offs, dst_offs, lens in copies:
+            fd = fds.get(path)
+            if fd is None:
+                fd = fds[path] = os.open(path, os.O_RDONLY)
+            for s, d, n in zip(src_offs.tolist(), dst_offs.tolist(),
+                               lens.tolist()):
+                _copy_run(fd, dst_fd, s, d, n)
+                moved += n
+    finally:
+        for fd in fds.values():
+            os.close(fd)
+    return moved
+
+
+def _write_file_from_cache(bridge, xet_hash: str, dest: Path,
+                           lane_note=None) -> str | None:
+    """The copy-range cache lane: a file written from its cached units,
+    with no fetch. Stored-chunk runs move from the entry files with
+    ``copy_file_range`` (no decode, no user-space byte), and the rest
+    (compressed chunks, footer-hashed entries, boundary terms) decodes in
+    place into an mmap of the preallocated temp file. ``lane_note`` gets
+    the bytes of the ``copy`` and ``decode`` lanes.
+
+    Returns the temp file's path (its fsync and rename are the caller's
+    barrier's), or None to decline to the waterfall, which fetches and
+    heals: a unit missing from the cache or failing to decode, an entry
+    that vanished or was truncated (``OSError``, ``ValueError``), or a
+    reconstruction that cannot be resolved. Any other error raises."""
+    try:
+        rec = bridge.get_reconstruction(xet_hash)
+    except FETCH_ERRORS:
+        return None
+    # Cache only (no bridge: a miss declines instead of fetching), and a
+    # serial decode: a worker's traceback could pin a view of the mmap
+    # past its close.
+    reader = CachedFileReader(bridge.cache, rec, workers=1)
+    size = reader.size
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=dest.parent, prefix=f".tmp-{dest.name}.")
+    copied = decoded = 0
+    try:
+        ok = True
+        err: BaseException | None = None
+        if size:
+            _preallocate(fd, size)
+            os.ftruncate(fd, size)
+            try:
+                copies, leftovers = reader.copy_plan(0, size)
+            except DirectLandingError:
+                copies, leftovers = [], [(0, size)]
+            try:
+                copied = _execute_copy_plan(copies, fd)
+            except (OSError, ValueError):
+                ok = False
+            if ok and leftovers:
+                mm = mmap.mmap(fd, size)
+                try:
+                    view = memoryview(mm)
+                    try:
+                        for d_lo, d_hi in leftovers:
+                            decoded += reader.read_into(
+                                d_lo, d_hi, view[d_lo:d_hi])
+                    except (DirectLandingError, ValueError):
+                        # Handled inside the view's lifetime: a
+                        # propagating traceback would pin read_into's
+                        # frame and its cast of the view, and mm.close()
+                        # would raise BufferError.
+                        ok = False
+                    except BaseException as exc:
+                        # Anything else survives as itself once the mmap
+                        # is closed.
+                        err = exc.with_traceback(None)
+                    finally:
+                        view.release()
+                finally:
+                    mm.close()
+        if err is not None:
+            raise err
+        if not ok:
+            os.unlink(tmp)
+            return None
+    except BaseException:
+        with contextlib.suppress(OSError):
+            os.unlink(tmp)
+        raise
+    finally:
+        os.close(fd)
+    if lane_note is not None:
+        if copied:
+            lane_note("copy", copied)
+        if decoded:
+            lane_note("decode", decoded)
+    # One cache event per term, as the waterfall books it.
+    for term in rec.terms:
+        bridge.stats.record("cache", term.unpacked_length)
+    return tmp

@@ -18,14 +18,24 @@ shapes (revision, paths-info, xet-read-token, reconstructions, xorbs,
 resolve) from local manifests, snapshots and the xorb cache, so a normal
 pull on a second node, pointed at this publisher
 (:mod:`zest_tpu_torch.api.http_api`), reassembles the revision byte for
-byte. The daemon notification and ``/v1/watch`` fan-out of the JAX
-package are not part of this slice.
+byte.
+
+The continuous fan-out: a push notifies the publisher
+(:func:`notify_daemon`, ``POST /v1/push``), which wakes every ``POST
+/v1/watch`` subscriber; :func:`watch_and_swap` is the subscriber, which
+delta-pulls each pushed revision and swaps it into its resident tree. The
+serving pool's re-land and the timeline of the JAX package's watch are
+not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import sys
 import time
+import urllib.error
+import urllib.request
 from dataclasses import dataclass, field
 from pathlib import Path
 from types import SimpleNamespace
@@ -62,6 +72,9 @@ class PushResult:
     manifest_written: bool = False
     seeded_base_xorbs: int = 0
     xorb_digests: dict[str, str] = field(default_factory=dict)
+    # The publisher's answer to the push notification (None: not sent,
+    # or no publisher reachable).
+    notified: dict | None = None
 
     @property
     def dedup_ratio(self) -> float:
@@ -204,17 +217,37 @@ def _verify_minted(pub_xorbs: list[PublishedXorb],
     return digests
 
 
+def notify_daemon(cfg: Config, payload: dict, url: str | None = None,
+                  timeout_s: float = 5.0) -> dict | None:
+    """POST the push notification to a publisher's ``/v1/push``: ``url``
+    is its base URL (default ``http://127.0.0.1:{cfg.http_port}``; a
+    publisher on an ephemeral port must be named). Best effort: no
+    publisher returns None; the push itself has already landed."""
+    base = url or f"http://127.0.0.1:{cfg.http_port}"
+    req = urllib.request.Request(
+        base.rstrip("/") + "/v1/push", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            return json.loads(resp.read().decode() or "{}")
+    except (urllib.error.URLError, OSError, ValueError):
+        return None
+
+
 def push_checkpoint(cfg: Config, repo_id: str,
                     checkpoint_dir: str | Path | None = None,
                     files: dict[str, bytes] | None = None,
                     base_revision: str | None = None,
-                    device=DEFAULT_DEVICE,
+                    device=DEFAULT_DEVICE, notify: bool = True,
+                    notify_url: str | None = None,
                     log=print) -> PushResult:
     """Publish a checkpoint as a new revision of ``repo_id``.
 
     ``files`` may be passed directly; otherwise ``checkpoint_dir`` is
     read. ``device`` (``cuda`` by default, or ``cpu``) is where the minted
-    chunks are re-verified."""
+    chunks are re-verified. With ``notify`` the publisher at
+    ``notify_url`` (see :func:`notify_daemon`) is told, and wakes its
+    watchers; a no-op push notifies no one."""
     t0 = time.monotonic()
     cfg.model_cache_dir(repo_id)  # repo-id validation (raises ValueError)
     device = resolve_device(device)  # fail before the encode
@@ -286,8 +319,116 @@ def push_checkpoint(cfg: Config, repo_id: str,
         cfg, repo_id, result.revision, entries,
         lambda e: published[e.path].reconstruction, parent=result.parent)
     storage.write_ref(cfg, repo_id, "main", result.revision)
+    if notify:
+        result.notified = notify_daemon(cfg, {
+            "repo": repo_id,
+            "revision": result.revision,
+            "parent": result.parent,
+            "pushed_at": time.time(),
+            "dedup_ratio": round(result.dedup_ratio, 4),
+            "new_xorb_bytes": result.new_xorb_bytes,
+            "xorbs": [[px.hash_hex, len(px.blob)] for px in minted],
+        }, url=notify_url)
     result.elapsed_s = time.monotonic() - t0
     return result
+
+
+# ── The watch client: the subscriber side of the fan-out ──
+
+
+def watch_events(base_url: str, repos: list[str] | None = None,
+                 timeout_s: float | None = None):
+    """Generator over a publisher's ``POST /v1/watch`` SSE stream: the
+    ``hello`` event, then ``revision`` events (``ping`` keepalives are
+    swallowed). ``timeout_s`` bounds each read; its expiry ends the
+    stream, as the publisher closing it does."""
+    req = urllib.request.Request(
+        base_url.rstrip("/") + "/v1/watch",
+        data=json.dumps({"repos": repos or []}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    resp = urllib.request.urlopen(req, timeout=timeout_s)
+    try:
+        for raw in resp:
+            line = raw.decode("utf-8", "replace").strip()
+            if not line.startswith("data: "):
+                continue
+            try:
+                ev = json.loads(line[len("data: "):])
+            except ValueError:
+                continue
+            if ev.get("event") == "ping":
+                continue
+            yield ev
+    except TimeoutError:
+        return
+    finally:
+        resp.close()
+
+
+def watch_and_swap(cfg: Config, repo_id: str,
+                   publisher_url: str | None = None,
+                   device=DEFAULT_DEVICE,
+                   base_params: dict | None = None,
+                   base_revision: str | None = None,
+                   max_events: int = 1,
+                   timeout_s: float | None = 120.0,
+                   on_swap=None, log=print) -> list[dict]:
+    """The subscriber: delta-pull and hot-swap every pushed revision.
+
+    Subscribes to the publisher's ``/v1/watch`` (``publisher_url``,
+    default ``http://127.0.0.1:{cfg.http_port}``), and pulls from it:
+    each ``revision`` event of ``repo_id`` runs ``pull_model`` of the new
+    sha on ``device`` with the resident tree as its base
+    (``base_params`` of ``base_revision``, handed over and consumed), and
+    the pulled tree becomes the base of the next event. Stops after
+    ``max_events`` swaps (0: when the stream ends). ``on_swap(record,
+    result)`` sees each event's ``PullResult`` before the next event
+    consumes its tree. Returns one record per event: ``revision``,
+    ``parent``, ``dedup_ratio``, ``time_to_swap_s`` (the pull's
+    ``elapsed_s`` when it did not swap) and, when the push was stamped,
+    ``propagation_s`` (push → swap complete)."""
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    device = resolve_device(device)  # fail before subscribing
+    if publisher_url is None:
+        publisher_url = f"http://127.0.0.1:{cfg.http_port}"
+    publisher_url = publisher_url.rstrip("/")
+    if cfg.endpoint.rstrip("/") != publisher_url:
+        cfg = dataclasses.replace(cfg, endpoint=publisher_url)
+    records: list[dict] = []
+    for ev in watch_events(publisher_url, repos=[repo_id],
+                           timeout_s=timeout_s):
+        if ev.get("event") != "revision" or ev.get("repo") != repo_id:
+            continue
+        sha = ev.get("revision")
+        if not sha or sha == base_revision:
+            continue
+        log(f"watch: {repo_id} bumped to {sha[:12]} "
+            f"(parent {str(ev.get('parent'))[:12]}) — delta pulling",
+            file=sys.stderr)
+        result = pull_model(
+            cfg, repo_id, revision=sha, device=device,
+            base_params=base_params,
+            base_revision=base_revision if base_params else None, log=log)
+        record = {
+            "revision": sha,
+            "parent": ev.get("parent"),
+            "dedup_ratio": ev.get("dedup_ratio"),
+            "time_to_swap_s": result.stats.get(
+                "time_to_swap_s", result.stats.get("elapsed_s")),
+        }
+        pushed_at = ev.get("pushed_at")
+        if isinstance(pushed_at, (int, float)):
+            record["propagation_s"] = round(
+                max(0.0, time.time() - pushed_at), 4)
+        records.append(record)
+        if on_swap is not None:
+            on_swap(record, result)
+        base_params = result.params if result.params else base_params
+        base_revision = sha
+        if max_events and len(records) >= max_events:
+            break
+    return records
 
 
 # ── The publisher's read side: hub-shaped serving index ──
