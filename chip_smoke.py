@@ -69,6 +69,22 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    standalone regroup launch; then each host's receipt verification is
    timed again without the network, once alone and once with every
    host's verifier running at the same time;
+7. ``meta-llama/Llama-3.2-1B`` at its published width and depth
+   (``LLAMA_CONFIG``: 1,235,814,400 parameters, 146 bf16 tensors, one
+   2,471,628,800-byte ``model.safetensors``, tied embeddings, llama3 rope
+   scaling; random weights from ``--seed + 7``): pushed to node A (the
+   BLAKE3 kernel's rows equal the minted chunks), pulled onto ``cuda:0``
+   by the direct streaming landing (phase 4's gates, files and digest
+   exact, the tree bf16), then ``load_generator(tensors=...)`` decodes an
+   8-token prompt plus ``--steps`` at batch 1 and 4. Gates: the cached
+   path's logits at every position within ``LOGITS_TOL`` of the CPU's
+   uncached float32 forward (TF32 off; the error with TF32 on and with
+   the tree in bf16 printed beside it, the bf16 one beyond the tolerance);
+   greedy tokens, and sampled ones (``SAMPLING``, Gumbel noise drawn once
+   on the host and injected on both sides), equal to the CPU float32
+   run's, unless the CPU run's top-2 margin where a row first differs is
+   below the tolerance; one seed twice on the card gives one draw;
+   ``on_token`` sees each generated position once, in order;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -124,6 +140,34 @@ COOP_HOSTS = 4
 REDRAWN = ("h.11.mlp.c_fc.weight", "h.11.mlp.c_proj.weight", "ln_f.weight",
            "ln_f.bias")
 MAX_LANDED = 12
+# Phase 7: meta-llama/Llama-3.2-1B's published config.json, full width and
+# depth (1,235,814,400 parameters in 146 bf16 tensors, embeddings tied).
+LLAMA_REPO = "meta-llama/Llama-3.2-1B"
+LLAMA_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "attention_bias": False,
+    "attention_dropout": 0.0, "bos_token_id": 128000,
+    "eos_token_id": 128001, "head_dim": 64, "hidden_act": "silu",
+    "hidden_size": 2048, "initializer_range": 0.02,
+    "intermediate_size": 8192, "max_position_embeddings": 131072,
+    "mlp_bias": False, "model_type": "llama", "num_attention_heads": 32,
+    "num_hidden_layers": 16, "num_key_value_heads": 8, "pretraining_tp": 1,
+    "rms_norm_eps": 1e-05,
+    "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0,
+                     "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192,
+                     "rope_type": "llama3"},
+    "rope_theta": 500000.0, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256,
+}
+LLAMA_TENSORS, LLAMA_PARAMS = 146, 1_235_814_400
+# Phase 7's sampled decode.
+SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+# Phase 7's logits gate: the largest |card - CPU| over every position's
+# logits, both in float32 (TF32 off). Measured on an H100 (seed 0): 1.57e-5
+# in float32 (summation order only), 8.3e-3 with TF32 on, 0.17 with the
+# tree in bf16, for logits of standard deviation ~1. The gate sits ~6x
+# above the float32 error and ~80x below TF32's, so a TF32 product fails.
+LOGITS_TOL = 1e-4
 # Phase 4b: save_pretrained(max_shard_size="200MB") (decimal megabytes),
 # and a ring that the landing must reuse many times over.
 SHARD_BYTES = 200 * 1000 * 1000
@@ -1004,6 +1048,276 @@ def time_bg4(cfg_a, pushed, dev, sass: tuple[int, int]) -> list[dict]:
     ]
 
 
+def llama_checkpoint(seed: int, cfg: dict) -> dict:
+    """HF-named bf16 Llama tensors from a numpy seed: every matrix
+    N(0, 0.02), the norms 1 + N(0, 0.02), each drawn in float32 and
+    rounded to bf16 as the landing's cast rounds (nearest even). Tied
+    embeddings: no ``lm_head.weight``."""
+    import torch
+
+    from zest_tpu_torch.models.loader import cast_floating
+
+    rng = np.random.default_rng(seed)
+    E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    qE = cfg["num_attention_heads"] * cfg["head_dim"]
+    kvE = cfg["num_key_value_heads"] * cfg["head_dim"]
+
+    def w(*shape, one=False):
+        v = rng.standard_normal(shape, dtype=np.float32)
+        v *= np.float32(0.02)
+        if one:
+            v += np.float32(1.0)
+        return cast_floating(torch.from_numpy(v), torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(V, E)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = w(E, one=True)
+        t[p + "self_attn.q_proj.weight"] = w(qE, E)
+        t[p + "self_attn.k_proj.weight"] = w(kvE, E)
+        t[p + "self_attn.v_proj.weight"] = w(kvE, E)
+        t[p + "self_attn.o_proj.weight"] = w(E, qE)
+        t[p + "post_attention_layernorm.weight"] = w(E, one=True)
+        t[p + "mlp.gate_proj.weight"] = w(F, E)
+        t[p + "mlp.up_proj.weight"] = w(F, E)
+        t[p + "mlp.down_proj.weight"] = w(E, F)
+    t["model.norm.weight"] = w(E, one=True)
+    return t
+
+
+def cached_logits(llama, params, cfg, tokens, n0: int):
+    """The cached path's logits over token rows (B, T): the prompt's
+    prefill window, then one cached step per position, as the decode
+    runs them. Returns (B, T - 1, vocab) float32 logits on the card."""
+    import torch
+
+    B, T = tokens.shape
+    cache = llama.init_kv_cache(cfg, B, T, dtype=params["wte"].dtype,
+                                device=tokens.device)
+    logits, cache = llama.decode_window(params, cache, tokens[:, :n0], 0,
+                                        cfg)
+    out = [logits.float()]
+    for pos in range(n0, T - 1):
+        step, cache = llama.decode_step(params, cache, tokens[:, pos], pos,
+                                        cfg)
+        out.append(step[:, None].float())
+    return torch.cat(out, dim=1)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of a dict tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def top2_margin(scores) -> float:
+    """The gap between the two largest of a row of scores."""
+    top = scores.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def tokens_agree(label: str, got, want, margin_at, tol: float) -> str:
+    """Card tokens ``got`` against the CPU run's ``want`` (B, T): equal,
+    or each row's first difference at a position where the CPU run's
+    top-2 margin (``margin_at(row, pos)``) is below ``tol``. Returns a
+    note for the log."""
+    notes = []
+    for row, (g, w) in enumerate(zip(np.atleast_2d(got), np.atleast_2d(want))):
+        diff = np.nonzero(g != w)[0]
+        if diff.size == 0:
+            continue
+        pos = int(diff[0])
+        margin = margin_at(row, pos)
+        if not margin < tol:
+            fail(f"phase 7 {label}: row {row} differs from the CPU run at "
+                 f"position {pos} (CPU top-2 margin {margin:.3e} >= {tol:.1e})")
+        notes.append(f"row {row} from position {pos} (CPU top-2 margin "
+                     f"{margin:.3e} < {tol:.1e})")
+    return "equal" if not notes else "near-tie: " + "; ".join(notes)
+
+
+def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
+                dev) -> int:
+    """Phase 7: Llama-3.2-1B pushed, pulled onto the card through the
+    direct streaming landing, and decoded (greedy and sampled, batch 1
+    and 4) against the port's own CPU float32 run. Returns the push's
+    BLAKE3 kernel launches."""
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import llama
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.models.sampling import gumbel_noise, sample_scores
+    from zest_tpu_torch.ops import blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    wall0 = time.monotonic()
+    ckpt = work / "llama"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(LLAMA_CONFIG, indent=2))
+    t0 = time.monotonic()
+    tensors = llama_checkpoint(seed + 7, LLAMA_CONFIG)
+    n_params = sum(t.numel() for t in tensors.values())
+    if len(tensors) != LLAMA_TENSORS or n_params != LLAMA_PARAMS:
+        fail(f"phase 7: {len(tensors)} tensors, {n_params:,} parameters")
+    write_safetensors(ckpt / "model.safetensors", tensors)
+    del tensors
+    made_s = time.monotonic() - t0
+
+    # ── push: the kernel re-verifies every minted chunk ──
+    blake3_cuda.COUNTER.reset()  # counts from here are the push's
+    t0 = time.monotonic()
+    pushed = push_checkpoint(cfg_a, LLAMA_REPO, ckpt, device=dev,
+                             notify=False)
+    push_s = time.monotonic() - t0
+    launches = blake3_cuda.COUNTER.launches
+    if launches < 1 or blake3_cuda.COUNTER.rows != pushed.minted_chunks:
+        fail(f"phase 7: the push's kernel hashed {blake3_cuda.COUNTER.rows} "
+             f"chunks in {launches} launches; it minted "
+             f"{pushed.minted_chunks}")
+
+    # ── pull onto the card: the direct streaming landing ──
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg_l = Config(hf_home=work / "l" / "hf", cache_dir=work / "l" / "zest",
+                   endpoint=url)
+    res = pull_model(cfg_l, LLAMA_REPO, device=dev)
+    st = res.stats
+    if st["fallback_files"]:
+        fail(f"phase 7: {st['fallback_files']} whole-file fallbacks")
+    check_files("phase 7", res, ckpt)
+    host = load_checkpoint(res.snapshot_dir, "cpu")
+    digest = params_digest(host)
+    check_tree("phase 7", res, digest, dev)
+    check_direct("phase 7", res)
+    if any(t.dtype != torch.bfloat16 for t in res.params.values()):
+        fail("phase 7: the landed tree is not bf16")
+
+    # ── decode: the card's float32 tree against the CPU's ──
+    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    _, gen = load_generator(res.snapshot_dir, device=dev, tensors=res.params)
+    params = llama.params_from_hf(res.params, cfg)  # the logits gate's
+    res.params = None  # the landed bf16 tree is not kept
+    params_cpu = llama.params_from_hf(host, cfg)
+    del host
+    rng = np.random.default_rng(seed + 8)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 8)).tolist()
+    n0, total = 8, 8 + steps
+    rates, greedy = {}, {}
+    for batch in ([prompts[0]], prompts):
+        gen(batch, 2, stop_at_eos=False)  # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        out = gen(batch, steps, stop_at_eos=False)
+        dt = time.monotonic() - t0
+        rates[len(batch)] = len(batch) * steps / dt
+        greedy[len(batch)] = np.atleast_2d(out)
+
+    # Logits: every position of the cached path on the card against the
+    # CPU's uncached float32 forward over the same rows; beside it the
+    # same comparison with TF32 on, and with the tree in bf16.
+    errs = {"f32": 0.0, "tf32": 0.0, "bf16": 0.0}
+    cpu_logits = {}
+    params_bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    t0 = time.monotonic()
+    for b, rows in greedy.items():
+        toks = torch.from_numpy(rows).to(dev)
+        want = llama.forward(params_cpu, toks.cpu(), cfg)[:, :total - 1]
+        cpu_logits[b] = want
+        for mode in errs:
+            torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+            try:
+                got = cached_logits(llama, params_bf16 if mode == "bf16"
+                                    else params, cfg, toks, n0).cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            errs[mode] = max(errs[mode], float((got - want).abs().max()))
+    del params_bf16
+    cpu_fwd_s = time.monotonic() - t0
+    if not errs["f32"] <= LOGITS_TOL:
+        fail(f"phase 7: card logits off the CPU's by {errs['f32']:.3e} > "
+             f"{LOGITS_TOL:.1e}")
+    if not errs["bf16"] > LOGITS_TOL:
+        fail(f"phase 7: a bf16 decode passes the logits tolerance "
+             f"({errs['bf16']:.3e} <= {LOGITS_TOL:.1e})")
+
+    # Greedy tokens against the CPU float32 run.
+    t0 = time.monotonic()
+    notes = {}
+    for b, rows in greedy.items():
+        batch = prompts[:b]
+        want = np.atleast_2d(llama.generate_cached(params_cpu, cfg, batch,
+                                                   steps).numpy())
+        notes[f"greedy b{b}"] = tokens_agree(
+            f"greedy batch {b}", rows, want,
+            lambda r, pos, b=b: top2_margin(cpu_logits[b][r, pos - 1]),
+            LOGITS_TOL)
+
+    # Sampled tokens: Gumbel noise drawn once on the host, injected on
+    # both sides; the margin rule on the perturbed scores, whose logits
+    # error is the logits' over the temperature.
+    noise = gumbel_noise((total - 1, 4, cfg.vocab_size),
+                         torch.Generator().manual_seed(seed))
+    sampled_tol = LOGITS_TOL / SAMPLING["temperature"]
+    for b in (1, 4):
+        batch = prompts[:b]
+        got = np.atleast_2d(gen(batch, steps, stop_at_eos=False,
+                                noise=noise[:, :b].to(dev), **SAMPLING))
+        want = np.atleast_2d(llama.generate_cached(
+            params_cpu, cfg, batch, steps, noise=noise[:, :b],
+            **SAMPLING).numpy())
+
+        def margin(r, pos, got=got, b=b):
+            logits = llama.forward(params_cpu, torch.from_numpy(
+                got[r:r + 1, :pos]), cfg)[0, -1]
+            return top2_margin(sample_scores(logits, **SAMPLING)
+                               + noise[pos - 1, r])
+
+        notes[f"sampled b{b}"] = tokens_agree(f"sampled batch {b}", got,
+                                              want, margin, sampled_tol)
+    cpu_decode_s = time.monotonic() - t0
+
+    # Seeded on the card: one seed, one draw; on_token sees each
+    # generated position once, in order.
+    seen = []
+    one = gen(prompts, steps, stop_at_eos=False, seed=seed, **SAMPLING,
+              on_token=lambda pos, toks: seen.append((pos, toks.copy())))
+    two = gen(prompts, steps, stop_at_eos=False, seed=seed, **SAMPLING)
+    if not np.array_equal(one, two):
+        fail("phase 7: two card runs with one seed differ")
+    if [p for p, _ in seen] != list(range(n0, total)) or any(
+            not np.array_equal(one[:, p], t) for p, t in seen):
+        fail(f"phase 7: on_token saw positions {[p for p, _ in seen]}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    del gen, params, params_cpu
+    res = None
+    shutil.rmtree(work / "l")
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+    bound_ms = (LLAMA_PARAMS * 4 / HBM_BYTES_PER_S) * 1e3
+    print(f"phase 7 llama: {LLAMA_REPO} at its published width and depth "
+          f"({n_params:,} params, {LLAMA_TENSORS} bf16 tensors, "
+          f"{pushed.total_bytes:,} bytes; made in "
+          f"{made_s:.2f} s); push_s {push_s:.2f} ({pushed.new_xorbs} xorbs, "
+          f"{pushed.minted_chunks} chunks, kernel launches {launches}); "
+          f"{landing_summary(st)}; ring {st['hbm']['ring']}; digest equal")
+    print(f"  decode: tok/s batch 1 {rates[1]:.1f}, batch 4 {rates[4]:.1f} "
+          f"(8 + {steps} steps, greedy; bound at batch 1 "
+          f"{bound_ms:.3f} ms/token: the float32 tree read once); "
+          f"logits max |card - CPU| f32 {errs['f32']:.3e} (tolerance "
+          f"{LOGITS_TOL:.1e}), TF32 {errs['tf32']:.3e}, bf16 tree "
+          f"{errs['bf16']:.3e}; tokens vs CPU float32 {notes}; one seed "
+          f"twice on the card equal; on_token positions {n0}..{total - 1}")
+    print(f"  peak allocation {peak:,} B; CPU forward {cpu_fwd_s:.2f} s, "
+          f"CPU decodes {cpu_decode_s:.2f} s; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    return launches
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -1125,6 +1439,11 @@ def run(args, work: Path) -> dict:
         # ── 6. cooperative pull of revision A across in-process hosts ──
         coop_launches = coop_phase(work, publisher.url, ckpt, pushed,
                                    cfg_a, digest, dev, pushed.revision)
+        torch.cuda.empty_cache()  # phase 4's and 6's trees are gone
+
+        # ── 7. Llama-3.2-1B: push → pull → cached, sampled decode ──
+        llama_launches = llama_phase(work, publisher.url, cfg_a, args.seed,
+                                     args.steps, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -1179,6 +1498,7 @@ def run(args, work: Path) -> dict:
     by_path = {"blake3_chunks": {"push": push_launches,
                                  "push_sharded": sharded_launches,
                                  "push_delta": delta_launches,
+                                 "push_llama": llama_launches,
                                  "coop": coop_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]]})

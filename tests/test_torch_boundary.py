@@ -43,6 +43,8 @@ SLICE_MODULES = [
     "zest_tpu_torch.parallel", "zest_tpu_torch.parallel.plan",
     "zest_tpu_torch.transfer.coop", "zest_tpu_torch.transfer.dcn",
     "zest_tpu_torch.transfer.federated", "zest_tpu_torch.transfer.pod",
+    "zest_tpu_torch.models.llama", "zest_tpu_torch.models.sampling",
+    "zest_tpu_torch.models.generate", "zest_tpu_torch.cli",
 ]
 
 
@@ -105,6 +107,10 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest",
                  endpoint="http://127.0.0.1:9")
     (tmp_path / "config.json").write_text(json.dumps({"model_type": "gpt2"}))
+    llama_dir = tmp_path / "llama"
+    llama_dir.mkdir()
+    (llama_dir / "config.json").write_text(json.dumps(
+        {"model_type": "llama"}))
     calls = [
         lambda: resolve_device(),
         lambda: ops.unit_verify_hasher(),
@@ -114,6 +120,9 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         lambda: pull_model(cfg, "org/m"),
         lambda: stage_snapshot_to_hbm(tmp_path),
         lambda: load_generator(tmp_path),
+        lambda: load_generator(llama_dir),
+        lambda: main(["generate", "org/m", "--ids", "1,2", "--temperature",
+                      "0.8", "--top-k", "50", "--top-p", "0.9"]),
         lambda: main(["pull", "org/m"]),
         lambda: main(["pull", "org/m", "--coop", "--coop-hosts", "2",
                       "--coop-index", "0", "--coop-addr", "1=127.0.0.1:9"]),

@@ -564,3 +564,112 @@ def test_swap_waits_for_reads_of_superseded_tensors(cuda_device, tmp_path):
     assert not tree
     assert torch.equal(seen.cpu(), want)
     assert not torch.equal(res.params[name].cpu(), want)
+
+
+# ── The Llama family and the sampler on the card ──
+
+
+def _tiny_llama_tensors(seed: int = 0) -> tuple[dict, dict]:
+    """A small Llama-3.2-shaped config (GQA 4:1, llama3 rope scaling,
+    tied embeddings) and its HF-named float32 tensors from a seed."""
+    cfg = {"model_type": "llama", "vocab_size": 512, "hidden_size": 128,
+           "intermediate_size": 256, "num_hidden_layers": 2,
+           "num_attention_heads": 4, "num_key_value_heads": 1,
+           "head_dim": 32, "max_position_embeddings": 131072,
+           "rms_norm_eps": 1e-5, "rope_theta": 500000.0,
+           "tie_word_embeddings": True,
+           "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                            "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                            "original_max_position_embeddings": 8192}}
+    rng = np.random.default_rng(seed)
+    E, F, V = 128, 256, 512
+
+    def w(*shape):
+        return torch.from_numpy(rng.normal(0, 0.02, shape).astype(np.float32))
+
+    t = {"model.embed_tokens.weight": w(V, E), "model.norm.weight": 1 + w(E)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = 1 + w(E)
+        t[p + "post_attention_layernorm.weight"] = 1 + w(E)
+        for name, shape in (("q_proj", (E, E)), ("k_proj", (32, E)),
+                            ("v_proj", (32, E)), ("o_proj", (E, E))):
+            t[f"{p}self_attn.{name}.weight"] = w(*shape)
+        for name, shape in (("gate_proj", (F, E)), ("up_proj", (F, E)),
+                            ("down_proj", (E, F))):
+            t[f"{p}mlp.{name}.weight"] = w(*shape)
+    return cfg, t
+
+
+def test_llama_cached_decode_on_card_matches_cpu(cuda_device):
+    """Prefill and cached-step logits on ``cuda`` (TF32 off) within
+    rtol 1e-4 / atol 1e-5 of the CPU's float32 uncached forward at every
+    position; greedy tokens equal; the rotary embedding at positions near
+    131072 within atol 2e-5 of the CPU's."""
+    from zest_tpu_torch.models import llama
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg_json, host = _tiny_llama_tensors()
+    cfg = llama.LlamaConfig.from_hf(cfg_json)
+    params_cpu = llama.params_from_hf(host, cfg)
+    params = llama.params_from_hf(
+        {n: t.to(cuda_device) for n, t in host.items()}, cfg)
+    prompts = torch.from_numpy(_RNG.integers(0, 512, (4, 6)))
+    out = llama.generate_cached(params, cfg, prompts, 10)
+    assert torch.equal(out.cpu(), llama.generate_cached(params_cpu, cfg,
+                                                        prompts, 10))
+    toks = out.to(cuda_device)
+    cache = llama.init_kv_cache(cfg, 4, 16, device=cuda_device)
+    logits, cache = llama.decode_window(params, cache, toks[:, :6], 0, cfg)
+    got = [logits]
+    for pos in range(6, 15):
+        step, cache = llama.decode_step(params, cache, toks[:, pos], pos,
+                                        cfg)
+        got.append(step[:, None])
+    want = llama.forward(params_cpu, out.cpu(), cfg)[:, :15]
+    torch.testing.assert_close(torch.cat(got, 1).cpu(), want, rtol=1e-4,
+                               atol=1e-5)
+    far = torch.from_numpy(_RNG.normal(0, 1, (2, 8, 4, 32)).astype(
+        np.float32))
+    torch.testing.assert_close(
+        llama._rope(far.to(cuda_device), cfg, 131072 - 8).cpu(),
+        llama._rope(far, cfg, 131072 - 8), rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("settings", [
+    {"temperature": 0.8, "top_k": 50}, {"temperature": 1.0, "top_p": 0.9},
+    {"temperature": 0.8, "top_k": 50, "top_p": 0.9},
+    {"temperature": 3.0, "top_p": 1e-6}])
+def test_sampler_masks_on_card_match_cpu(cuda_device, settings):
+    """The top-k and nucleus masks, and the draw under one injected
+    noise, are the CPU's on the card."""
+    from zest_tpu_torch.models import sampling
+
+    logits = torch.from_numpy(_RNG.normal(0, 2, (8, 4096)).astype(
+        np.float32))
+    logits[0, :16] = 1.0  # ties at the boundary
+    cpu = sampling.sample_scores(logits, **settings)
+    card = sampling.sample_scores(logits.to(cuda_device), **settings).cpu()
+    assert torch.equal(torch.isinf(card), torch.isinf(cpu))
+    noise = sampling.gumbel_noise(logits.shape,
+                                  torch.Generator().manual_seed(1))
+    assert torch.equal(
+        sampling.sample_token(logits.to(cuda_device), noise=noise,
+                              **settings).cpu(),
+        sampling.sample_token(logits, noise=noise, **settings))
+
+
+def test_seeded_sampling_on_card_repeats(cuda_device):
+    from zest_tpu_torch.models import llama
+
+    cfg_json, host = _tiny_llama_tensors(1)
+    cfg = llama.LlamaConfig.from_hf(cfg_json)
+    params = llama.params_from_hf(
+        {n: t.to(cuda_device) for n, t in host.items()}, cfg)
+    kw = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+    prompts = [[1, 2, 3], [4, 5, 6]]
+    runs = [llama.generate_cached(params, cfg, prompts, 12, seed=s, **kw)
+            for s in (3, 3, 4)]
+    assert runs[0].device == cuda_device
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])

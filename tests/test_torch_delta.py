@@ -24,7 +24,11 @@ under ``JAX_PLATFORMS=cpu`` as the oracle:
 - a corrupt owner serving changed units over the cooperative exchange:
   rejected at receipt, healed from the CDN, the swap exact; the coop plan
   over the changed units agrees with the reference's fingerprint;
-- ``diff`` on the CLI fetches no payload and prints the reference's plan.
+- ``diff`` on the CLI fetches no payload and prints the reference's plan;
+- a swap whose commit fails after its first group (streamed, stream-off,
+  and through ``watch_and_swap``): the caller's dict holds every reused
+  tensor as the same object, and the ``DeltaSwapError`` names exactly the
+  base tensors a committed group superseded.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import time
 
 import pytest
 import torch
@@ -679,3 +684,138 @@ def test_swap_keeps_reused_tensors_without_a_copy(hub, tmp_path):
         else:
             assert t.data_ptr() != old.data_ptr()
             assert isinstance(t, torch.Tensor) and t.dtype == old.dtype
+
+
+# ── A swap whose landing fails gives the caller back what it still has ──
+
+
+class _PopLog(dict):
+    """A base dict that records every name popped from it."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.popped: list[str] = []
+
+    def pop(self, key, *default):
+        self.popped.append(key)
+        return super().pop(key, *default)
+
+
+def _fail_after_first_group(monkeypatch, land_stream: bool, base: _PopLog):
+    """Make the landing's commit raise at its first call after a committed
+    group superseded a base tensor. Returns ``(the reused names, the
+    names committed before the failure)``."""
+    reused: list[str] = []
+    committed: list[str] = []
+
+    def gate(names):
+        if not committed:  # the reused tensors left before any commit
+            reused.extend(base.popped)
+        elif len(base.popped) > len(reused):
+            raise RuntimeError("commit failed")
+        committed.extend(names)
+
+    if land_stream:
+        orig = loader._DeviceCommit.commit
+
+        def commit(self, items):
+            gate([it[0] for it in items])
+            return orig(self, items)
+
+        monkeypatch.setattr(loader._DeviceCommit, "commit", commit)
+    else:
+        orig_tensors = loader.commit_tensors
+
+        def commit_tensors(host, *a, **k):
+            gate(list(host))
+            return orig_tensors(host, *a, **k)
+
+        monkeypatch.setattr(loader, "commit_tensors", commit_tensors)
+    return reused, committed
+
+
+def _assert_base_kept(err, base: dict, before: dict, reused, committed):
+    """The caller's dict after a failed swap: every tensor still held is
+    A's object, every reused one among them; the error names exactly the
+    superseded tensors, each one a committed group had replaced."""
+    assert isinstance(err, delta.DeltaSwapError)
+    assert str(err.__cause__) == "commit failed"
+    assert 0 < err.restored == len(reused)
+    assert set(reused) <= set(base)
+    assert all(base[n] is before[n] for n in base)
+    gone = sorted(set(before) - set(base))
+    assert err.gone == gone and gone, "a committed group superseded none"
+    assert set(gone) <= set(committed) - set(reused)
+    assert set(base) | set(gone) == set(before)
+    for name in gone:
+        assert name in str(err)
+
+
+@pytest.mark.parametrize("land_stream", [True, False],
+                         ids=["streamed", "stream_off"])
+def test_failed_swap_keeps_the_base(hub, tmp_path, monkeypatch,
+                                    land_stream):
+    """A commit that fails after the first group: the caller's dict holds
+    every reused tensor (the same objects) and every base tensor not yet
+    superseded, and the error lists the superseded ones. The pull still
+    fails (no disk staging)."""
+    kw = {"land_stream": land_stream, "land_ring_slots": 4}
+    res_a = _pull(hub, tmp_path, SHA_A, cfg_kw=kw)
+    base = _PopLog(res_a.params)
+    before = dict(base)
+    reused, committed = _fail_after_first_group(monkeypatch, land_stream,
+                                                base)
+    disk = []
+    monkeypatch.setattr(loader, "load_checkpoint",
+                        lambda *a, **k: disk.append(a))
+    with pytest.raises(delta.DeltaSwapError, match="commit failed") as ei:
+        _pull(hub, tmp_path, SHA_B, cfg_kw=kw, base_params=base,
+              base_revision=SHA_A)
+    assert not disk
+    _assert_base_kept(ei.value, base, before, reused, committed)
+
+
+def test_failed_swap_through_watch_and_swap_keeps_the_base(tmp_path,
+                                                           monkeypatch):
+    """The watcher's swap fails after its first group: ``watch_and_swap``
+    raises the same error and the caller's tree is left as above."""
+    import threading
+
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.transfer.push import push_checkpoint, watch_and_swap
+
+    kw = {"land_ring_slots": 4}
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest")
+    sha_a = push_checkpoint(cfg_a, REPO, files=FILES_A, device="cpu",
+                            notify=False, log=_quiet).revision
+    errors: list = []
+    with PublisherServer(cfg_a) as server:
+        cfg_s = Config(hf_home=tmp_path / "s" / "hf",
+                       cache_dir=tmp_path / "s" / "zest",
+                       endpoint=server.url, **kw)
+        base = _PopLog(pull_model(cfg_s, REPO, device="cpu",
+                                  log=_quiet).params)
+        before = dict(base)
+        reused, committed = _fail_after_first_group(monkeypatch, True, base)
+
+        def watch():
+            try:
+                watch_and_swap(cfg_s, REPO, publisher_url=server.url,
+                               device="cpu", base_params=base,
+                               base_revision=sha_a, timeout_s=60,
+                               log=_quiet)
+            except Exception as exc:  # noqa: BLE001 - asserted below
+                errors.append(exc)
+
+        t = threading.Thread(target=watch)
+        t.start()
+        deadline = time.monotonic() + 30
+        while server.hub.watchers() < 1:
+            assert time.monotonic() < deadline and t.is_alive()
+            time.sleep(0.02)
+        push_checkpoint(cfg_a, REPO, files=FILES_B, base_revision=sha_a,
+                        device="cpu", notify_url=server.url, log=_quiet)
+        t.join(timeout=120)
+    assert not t.is_alive() and len(errors) == 1, errors
+    _assert_base_kept(errors[0], base, before, reused, committed)

@@ -3,7 +3,8 @@
 Both read the same seeded checkpoint (tests/fixtures.gpt2_checkpoint_files,
 4 heads, 2 layers, 64 wide). Logits agree within rtol 1e-4 / atol 1e-5:
 XLA and ATen sum the matrix products in different orders. Greedy tokens
-agree exactly.
+agree exactly, and so do sampled ones under the JAX package's own Gumbel
+noise (injected: the port draws its noise from a ``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -147,7 +148,29 @@ def test_trim_at_eos_matches_reference():
                               j_generate.trim_at_eos(out, n, 7))
 
 
+def _jax_gumbel(key, positions: int, batch: int, vocab: int) -> np.ndarray:
+    """The Gumbel noise the JAX package's decode loop draws with ``key``:
+    one (vocab,) draw per (position, row) of its key grid."""
+    keys = jax.random.split(key, positions * batch).reshape(positions, batch)
+    return np.array(jax.vmap(jax.vmap(
+        lambda k: jax.random.gumbel(k, (vocab,), jnp.float32)))(keys))
+
+
 def test_sampling_is_refused(models):
-    _, _, cfg, params = models
-    with pytest.raises(NotImplementedError):
-        gpt2.generate_cached(params, cfg, [1, 2], 3, temperature=0.7)
+    """Sampling is no longer refused: GPT-2 samples, and under the JAX
+    package's own Gumbel noise it picks the reference's tokens, single
+    and batched."""
+    jcfg, jparams, cfg, params = models
+    for prompt in (_ids(5, seed=4), _ids((2, 5), seed=4)):
+        batch = 1 if prompt.ndim == 1 else 2
+        key = jax.random.key(11)
+        kw = dict(temperature=0.7, top_k=40, top_p=0.9)
+        want = np.asarray(j_gpt2.generate_cached(jparams, jcfg, prompt, 9,
+                                                 rng=key, **kw))
+        noise = torch.from_numpy(_jax_gumbel(key, 5 + 9 - 1, batch,
+                                             cfg.vocab_size))
+        got = gpt2.generate_cached(params, cfg, prompt, 9, noise=noise,
+                                   **kw).numpy()
+        assert np.array_equal(got, want)
+        greedy = gpt2.generate_cached(params, cfg, prompt, 9).numpy()
+        assert not np.array_equal(got, greedy)

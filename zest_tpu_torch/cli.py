@@ -10,7 +10,10 @@ the DCN chunk RPC (its listener is ``ZEST_DCN_PORT``, 6991 by default).
 ``push`` notifies the publisher (``--publisher URL``, default the local
 ``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
 delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
-prints the chunk-level delta from metadata alone.
+prints the chunk-level delta from metadata alone. ``generate REPO --ids
+... | --prompt TEXT`` pulls and decodes a GPT-2 or Llama-family model,
+greedy or sampled (``--temperature``, ``--top-k``, ``--top-p``,
+``--seed``).
 """
 
 from __future__ import annotations
@@ -181,31 +184,54 @@ def cmd_generate(args) -> int:
     from zest_tpu_torch.models.generate import (
         UnsupportedModelError,
         load_generator,
+        try_tokenizer,
     )
     from zest_tpu_torch.transfer.pull import pull_model
 
+    # Flag validation needs no pull: done before a possibly large
+    # download (only the tokenizer lookup needs the snapshot).
+    prompt = None
     if args.steps < 1:
         print(f"error: --steps must be positive (got {args.steps})",
               file=sys.stderr)
         return 2
-    try:
-        prompt = [int(t) for t in args.ids.split(",")]
-    except ValueError:
-        print(f"error: --ids {args.ids!r} is not a comma-separated list "
-              "of ints", file=sys.stderr)
+    if args.ids:
+        try:
+            prompt = [int(t) for t in args.ids.split(",")]
+        except ValueError:
+            print(f"error: --ids {args.ids!r} is not a comma-separated list "
+                  "of ints", file=sys.stderr)
+            return 2
+    elif args.prompt is None:
+        print("error: one of --prompt or --ids is required", file=sys.stderr)
         return 2
     res = pull_model(Config.load(), args.repo, revision=args.revision,
                      device=args.device)
+    tok = try_tokenizer(res.snapshot_dir)
+    if prompt is None:
+        if tok is None:
+            print("error: snapshot has no tokenizer; pass token ids via "
+                  "--ids", file=sys.stderr)
+            return 2
+        prompt = tok.encode(args.prompt)
     try:
         model_type, generate = load_generator(
             res.snapshot_dir, device=args.device, tensors=res.params)
-        out = generate(prompt, args.steps, stop_at_eos=not args.ignore_eos)
+        res.params = None  # the generator holds the family's own tree
+        out = generate(prompt, args.steps, temperature=args.temperature,
+                       top_k=args.top_k, top_p=args.top_p, seed=args.seed,
+                       stop_at_eos=not args.ignore_eos)
     except (UnsupportedModelError, FileNotFoundError, ValueError) as exc:
+        # ValueError: a context overflow, a top_p outside (0, 1] and kin:
+        # a usage problem, not a crash.
         print(f"error: {exc}", file=sys.stderr)
         return 1
     print(f"[{model_type}] {len(prompt)} prompt + {len(out) - len(prompt)} "
           "new tokens")
-    print(",".join(str(int(t)) for t in out))
+    if tok is not None:
+        print(tok.decode(list(out)))
+    else:
+        print(",".join(str(int(t)) for t in out))
     return 0
 
 
@@ -263,14 +289,29 @@ def build_parser() -> argparse.ArgumentParser:
                            "ZEST_COOP_ADDRS)")
     pull.set_defaults(fn=cmd_pull)
 
-    gen = sub.add_parser("generate", help="pull a model and greedy-decode")
+    gen = sub.add_parser("generate", help="pull a model and decode with it")
     gen.add_argument("repo")
     gen.add_argument("--revision", default="main")
-    gen.add_argument("--ids", required=True,
+    gen.add_argument("--prompt", default=None,
+                     help="text prompt (needs a tokenizer in the snapshot)")
+    gen.add_argument("--ids", default=None,
                      help="comma-separated prompt token ids")
-    gen.add_argument("--steps", type=int, default=20)
+    gen.add_argument("--steps", type=int, default=20,
+                     help="new tokens to decode (default 20)")
+    gen.add_argument("--temperature", type=float, default=0.0,
+                     help="0 = greedy (default); >0 samples")
+    gen.add_argument("--top-k", type=int, default=None,
+                     help="restrict sampling to the k most likely tokens")
+    gen.add_argument("--top-p", type=float, default=None,
+                     help="nucleus sampling: restrict to the smallest set "
+                          "of tokens with cumulative probability top_p")
+    gen.add_argument("--seed", type=int, default=0,
+                     help="sampling seed (default 0; a torch.Generator, so "
+                          "not the JAX package's tokens for the same seed)")
     gen.add_argument("--device", choices=devices, default="cuda")
-    gen.add_argument("--ignore-eos", action="store_true")
+    gen.add_argument("--ignore-eos", action="store_true",
+                     help="decode all --steps tokens even past the "
+                          "model's eos_token_id")
     gen.set_defaults(fn=cmd_generate)
 
     watch = sub.add_parser("watch", help="subscribe to a publisher and "

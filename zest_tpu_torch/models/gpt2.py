@@ -94,9 +94,10 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
 
 def params_from_jax(tree: dict, device="cpu",
                     dtype: torch.dtype = torch.float32) -> dict:
-    """The JAX package's GPT-2 param tree (``zest_tpu.models.gpt2.
-    params_from_hf`` output, converted to numpy arrays) → this module's
-    params. Numpy only, so the port never imports jax."""
+    """A JAX package param tree (``zest_tpu.models.gpt2`` or ``llama``
+    ``params_from_hf`` or ``init_params`` output, converted to numpy
+    arrays) → the same tree of tensors. Numpy only, so the port never
+    imports jax."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     return torch.tensor(np.asarray(tree), dtype=dtype, device=device)
@@ -207,11 +208,17 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos: int,
 
 
 def generate_cached(params: dict, cfg: GPT2Config, prompt_ids, steps: int,
-                    temperature: float = 0.0,
-                    eos_id: int | tuple[int, ...] | None = None):
-    """KV-cached greedy decode (sampling.cached_decode_loop)."""
+                    temperature: float = 0.0, top_k: int | None = None,
+                    top_p: float | None = None, seed: int = 0,
+                    noise: torch.Tensor | None = None,
+                    eos_id: int | tuple[int, ...] | None = None,
+                    on_token=None) -> torch.Tensor:
+    """KV-cached decode (``sampling.cached_decode_loop``, the prompt in
+    one prefill window); greedy by default."""
     from zest_tpu_torch.models.sampling import cached_decode_loop
 
     return cached_decode_loop(
         init_kv_cache, decode_step, params, cfg, prompt_ids, steps,
-        temperature=temperature, eos_id=eos_id, prefill_step=decode_window)
+        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+        noise=noise, eos_id=eos_id, on_token=on_token,
+        prefill_step=decode_window)

@@ -45,6 +45,24 @@ from zest_tpu_torch.cas import reconstruction as recon
 MANIFEST_FORMAT = 1
 
 
+class DeltaSwapError(RuntimeError):
+    """A hot-swap's landing failed. The caller's base dict holds every
+    tensor the swap had taken to reuse (the same objects) and every base
+    tensor not yet superseded; ``gone`` names the base tensors that a
+    committed replacement had already superseded, ``restored`` counts the
+    reused ones put back. Raised from the landing's error."""
+
+    def __init__(self, cause: BaseException, gone: list[str],
+                 restored: int):
+        self.gone = gone
+        self.restored = restored
+        super().__init__(
+            f"hot-swap landing failed ({type(cause).__name__}: {cause}); "
+            f"{restored} reused tensor(s) restored to the base dict, "
+            f"{len(gone)} superseded base tensor(s) gone: "
+            f"{', '.join(gone) or '(none)'}")
+
+
 # ── Revision manifests: the persisted revision-A evidence ──
 
 

@@ -925,7 +925,13 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
     ``delta_state`` is ``(base manifest, base tree, plan)``: the warm
     fetch skips the plan's ``reused_local_keys``, and with a base tree the
     landing is a hot-swap. A delta shard decodes only its changed tensors,
-    so its file is left to the cache lane."""
+    so its file is left to the cache lane.
+
+    A landing that raises during a swap gives the caller back what it
+    still has: every reused tensor returns to the base dict (the same
+    objects), and the error, a :class:`delta.DeltaSwapError` raised from
+    the landing's, names the base tensors a committed replacement had
+    already superseded."""
     st = [e for e in files if e.path.endswith(".safetensors")]
     if not st or not all(e.is_xet for e in st):
         return None, None
@@ -955,12 +961,14 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
     recs_only = [r for r, _h in recs_with_headers]
     preloaded: dict = {}
     swap_from = None
+    base_names: frozenset = frozenset()
     skip_keys: frozenset = frozenset()
     if delta_state is not None:
         d_base, d_params, d_plan = delta_state
         skip_keys = d_plan.reused_local_keys
         if d_params:
             swap_from = d_params
+            base_names = frozenset(d_params)
             preloaded = _reused_tensors(bridge.cache, st,
                                         recs_with_headers, d_base,
                                         d_params, dev, dtype)
@@ -1034,6 +1042,15 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                     prefetch_next=pipeline.ensure,
                     on_host_ready=on_host_ready, clock=clock, stream=False,
                     preloaded=preloaded or None, swap_from=swap_from)
+    except BaseException as exc:
+        if swap_from is None:
+            raise
+        swap_from.update(preloaded)
+        if not isinstance(exc, Exception):
+            raise
+        raise delta.DeltaSwapError(
+            exc, sorted(base_names - swap_from.keys()),
+            len(preloaded)) from exc
     finally:
         # Join the warm threads, on success before reading their stats and
         # on error before the pull tears down: none may keep writing cache
