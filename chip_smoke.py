@@ -85,6 +85,24 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    run's, unless the CPU run's top-2 margin where a row first differs is
    below the tolerance; one seed twice on the card gives one draw;
    ``on_token`` sees each generated position once, in order;
+8. the swarm peer tier, revision A by its sha (phase 4's repo, every
+   tensor at full width and depth): node B, which holds A's xorbs from
+   phase 4, seeds its cache as its own process (``python -m
+   zest_tpu_torch serve --listen-port P --dcn-port 0 --port 0``: a
+   ``BtServer`` and a ``DcnServer`` beside the publisher), and a fresh
+   node pulls onto ``cuda:0`` with B as its direct peer.
+   8a. a clean seeder. Gates: ``p2p_ratio`` ≥ 0.9 and CDN bytes at most
+   10% of one copy of the xorbs; phase 4's landing gates (direct,
+   streamed); files and digest equal to phase 4's; no peer failure, no
+   corruption, no quarantine; the seeder served chunks; no kernel launch
+   on the path (the peer tier verifies on the host, as the JAX package's
+   does);
+   8b. the seeder restarted with ``ZEST_FAULTS=upload_corrupt:1.0``: every
+   upload is corrupt, and a fresh node pulls the same way. Gates: files
+   and digest still phase 4's; ``fetch.resilience.corrupt_from_peer`` ≥ 1;
+   the seeder quarantined; CDN bytes at most 1.05 × one copy; every
+   whole-xorb cache entry of the node hashes back to its key (no corrupt
+   blob under a full key);
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -103,8 +121,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -896,6 +916,176 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
     return {name: v[0] for name, v in launches.items()}
 
 
+class Seeder:
+    """``python -m zest_tpu_torch serve`` over a node's cache, as its own
+    process (an in-process seeder would share the puller's interpreter
+    lock). ``stop()`` sends SIGTERM, reaps it and returns the
+    ``ServerStats`` it prints; a seeder that fails to start, or dies,
+    fails the phase."""
+
+    def __init__(self, label: str, cfg, **env):
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            self.port = probe.getsockname()[1]
+        child_env = {k: v for k, v in os.environ.items()
+                     if k != "ZEST_FAULTS"}
+        child_env.update(HF_HOME=str(cfg.hf_home),
+                         ZEST_CACHE_DIR=str(cfg.cache_dir), **env)
+        self.label = label
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "zest_tpu_torch", "serve",
+             "--listen-port", str(self.port), "--dcn-port", "0",
+             "--port", "0"], cwd=Path(__file__).resolve().parent,
+            env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        lines = []
+        try:
+            deadline = time.monotonic() + 120
+            while not any(ln.startswith("publisher endpoint")
+                          for ln in lines):
+                line = self.proc.stdout.readline()
+                if not line or time.monotonic() > deadline:
+                    fail(f"{label}: the seeder did not start: "
+                         f"{lines} {self.stderr()}")
+                lines.append(line.strip())
+            if not any(ln.startswith(f"seeding on :{self.port} ")
+                       for ln in lines):
+                fail(f"{label}: the seeder is not on port {self.port}: "
+                     f"{lines}")
+        except BaseException:
+            self.kill()
+            raise
+
+    def stderr(self) -> str:
+        self.kill()
+        return self.proc.stderr.read()[-2000:]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+
+    def stop(self) -> dict:
+        if self.proc.poll() is not None:
+            fail(f"{self.label}: the seeder died (exit "
+                 f"{self.proc.returncode}): {self.proc.stderr.read()[-2000:]}")
+        self.proc.terminate()
+        try:
+            out, err = self.proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"{self.label}: the seeder did not stop on SIGTERM")
+        stats = [ln for ln in out.splitlines()
+                 if ln.startswith("seeder stats: ")]
+        if self.proc.returncode != 0 or not stats:
+            fail(f"{self.label}: the seeder exited {self.proc.returncode} "
+                 f"without its stats: {err[-2000:]}")
+        return json.loads(stats[-1][len("seeder stats: "):])
+
+
+def swarm_phase(work: Path, url: str, cfg_b, ckpt: Path, pushed,
+                digest: str, tth_a: float, tfl_a: float, dev) -> dict:
+    """Phase 8: node B seeds its cache in its own process; fresh nodes
+    pull revision A onto the card with B as their direct peer, first from
+    a clean seeder (8a), then from one whose every upload is corrupt
+    (8b). Returns each kernel's launches over both pulls (none expected:
+    the peer tier verifies on the host)."""
+    from zest_tpu_torch import storage
+    from zest_tpu_torch.cas import hashing
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    copy = pushed.new_xorb_bytes
+    counters = {"blake3_chunks": blake3_cuda.COUNTER,
+                "bg4_regroup": bg4_cuda.COUNTER,
+                "bg4_fused_verify": bg4_cuda.FUSED_COUNTER}
+    launches = dict.fromkeys(counters, 0)
+
+    def pull_from(label: str, seeder: Seeder, node: str):
+        cfg = Config(hf_home=work / node / "hf", cache_dir=work / node /
+                     "zest", endpoint=url, listen_port=0)
+        swarm = SwarmDownloader(cfg)
+        swarm.add_direct_peer("127.0.0.1", seeder.port)
+        for c in counters.values():
+            c.reset()  # counts from here are this pull's
+        try:
+            res = pull_model(cfg, REPO, revision=pushed.revision,
+                             device=dev, swarm=swarm)
+        finally:
+            swarm.close()
+        for name, c in counters.items():
+            launches[name] += c.launches
+        check_files(label, res, ckpt)
+        check_tree(label, res, digest, dev)
+        check_direct(label, res)
+        return cfg, res
+
+    wall0 = time.monotonic()
+    seeder = Seeder("phase 8a", cfg_b)
+    try:
+        _, res = pull_from("phase 8a", seeder, "c8")
+    finally:
+        served = seeder.stop()
+    st, sw = res.stats, res.stats["swarm"]
+    fetch = st["fetch"]
+    if fetch["p2p_ratio"] < 0.9 or fetch["bytes"]["cdn"] > 0.1 * copy:
+        fail(f"phase 8a: p2p_ratio {fetch['p2p_ratio']}, CDN "
+             f"{fetch['bytes']['cdn']:,} B of a {copy:,} B copy: {fetch}")
+    if sw["peer_failures"] or sw["corrupt_from_peer"] or             sw["health"]["quarantine_events"] or             fetch["resilience"]["corrupt_from_peer"]:
+        fail(f"phase 8a: a clean seeder failed or was struck: {sw}")
+    if served["chunks_served"] <= 0:
+        fail(f"phase 8a: the seeder served nothing: {served}")
+    print(f"phase 8a swarm pull: {landing_summary(st)}; phase 4's CDN "
+          f"pull time_to_hbm_s {tth_a}, time_to_first_layer_s {tfl_a}; "
+          f"p2p_ratio {fetch['p2p_ratio']}, {fetch['bytes']['peer']:,} B "
+          f"from the peer in {fetch['xorbs']['peer']} fetches, "
+          f"{fetch['bytes']['cdn']:,} B from the CDN; seeder served "
+          f"{served['chunks_served']} chunks, {served['bytes_served']:,} B; "
+          f"swarm {sw['peer_attempts']} attempts, {sw['peer_failures']} "
+          f"failures; files and digest equal to phase 4's")
+    del res
+
+    seeder = Seeder("phase 8b", cfg_b, ZEST_FAULTS="upload_corrupt:1.0")
+    try:
+        cfg_d, res = pull_from("phase 8b", seeder, "d8")
+    finally:
+        served_b = seeder.stop()
+    st, sw = res.stats, res.stats["swarm"]
+    fetch = st["fetch"]
+    if fetch["resilience"]["corrupt_from_peer"] < 1:
+        fail(f"phase 8b: no corruption detected: {fetch}")
+    if sw["peers_quarantined"] < 1 or sw["health"]["quarantine_events"] < 1:
+        fail(f"phase 8b: the corrupting seeder was not quarantined: {sw}")
+    if fetch["bytes"]["cdn"] > 1.05 * copy:
+        fail(f"phase 8b: CDN {fetch['bytes']['cdn']:,} B > 1.05 x "
+             f"{copy:,} B")
+    cache = storage.XorbCache(cfg_d)
+    full = storage.list_cached_xorbs(cfg_d)
+    for key in full:
+        if XorbReader(cache.get(key)).xorb_hash() != hashing.hex_to_hash(key):
+            fail(f"phase 8b: a corrupt blob is cached under the full key "
+                 f"{key[:16]}")
+    print(f"phase 8b corrupting seeder: {landing_summary(st)}; "
+          f"corrupt_from_peer {fetch['resilience']['corrupt_from_peer']}, "
+          f"{sw['peers_quarantined']} quarantine trip(s), peer bytes "
+          f"{fetch['bytes']['peer']:,}, CDN {fetch['bytes']['cdn']:,} B "
+          f"({fetch['bytes']['cdn'] / copy:.4f} of a copy); seeder served "
+          f"{served_b['chunks_served']} corrupt chunks; {len(full)} "
+          f"whole-xorb entries all hash to their keys; files and digest "
+          f"equal to phase 4's")
+    if any(launches.values()):
+        fail(f"phase 8: a kernel launched on the peer path: {launches}")
+    print(f"phase 8 wall {time.monotonic() - wall0:.2f} s; kernel launches "
+          f"on the peer path {launches}")
+    del res
+    shutil.rmtree(work / "c8")
+    shutil.rmtree(work / "d8")
+    return launches
+
+
 def receipt_timing(cfg_a, pushed, dev) -> None:
     """Each coop host's receipt verification without the network: host
     ``i`` verifies, through its own ``make_unit_verifier``, every minted
@@ -1397,6 +1587,8 @@ def run(args, work: Path) -> dict:
         # streaming landing ──
         pulled, cfg_b, digest = pull_phase(work, publisher.url, cfg_a, ckpt,
                                            pushed, dev)
+        tth_a = pulled.stats["time_to_hbm_s"]
+        tfl_a = pulled.stats["time_to_first_layer_s"]
 
         # ── 4b. the same tensors as a three-shard checkpoint, tight ring ──
         sharded_launches = sharded_phase(work, publisher.url, cfg_a, tensors,
@@ -1433,7 +1625,7 @@ def run(args, work: Path) -> dict:
             pushed.revision, tensors_b, prompts, args.steps,
             pulled.stats["time_to_hbm_s"], dev)
         del pulled, tensors_b  # free phase 4/5's trees
-        shutil.rmtree(work / "b")
+        shutil.rmtree(work / "b" / "hf")  # phase 8 seeds B's xorb cache
         torch.cuda.empty_cache()
 
         # ── 6. cooperative pull of revision A across in-process hosts ──
@@ -1444,6 +1636,10 @@ def run(args, work: Path) -> dict:
         # ── 7. Llama-3.2-1B: push → pull → cached, sampled decode ──
         llama_launches = llama_phase(work, publisher.url, cfg_a, args.seed,
                                      args.steps, dev)
+
+        # ── 8. the swarm: node B seeds, fresh nodes pull from it ──
+        swarm_launches = swarm_phase(work, publisher.url, cfg_b, ckpt,
+                                     pushed, digest, tth_a, tfl_a, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -1499,9 +1695,11 @@ def run(args, work: Path) -> dict:
                                  "push_sharded": sharded_launches,
                                  "push_delta": delta_launches,
                                  "push_llama": llama_launches,
-                                 "coop": coop_launches["blake3_chunks"]}}
+                                 "coop": coop_launches["blake3_chunks"],
+                                 "swarm": swarm_launches["blake3_chunks"]}}
     for k in kernels:
-        paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]]})
+        paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
+                                        "swarm": swarm_launches[k["name"]]})
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     return {"kernels": kernels}

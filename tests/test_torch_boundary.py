@@ -45,12 +45,19 @@ SLICE_MODULES = [
     "zest_tpu_torch.transfer.federated", "zest_tpu_torch.transfer.pod",
     "zest_tpu_torch.models.llama", "zest_tpu_torch.models.sampling",
     "zest_tpu_torch.models.generate", "zest_tpu_torch.cli",
+    "zest_tpu_torch.version", "zest_tpu_torch.shaping",
+    "zest_tpu_torch.resilience", "zest_tpu_torch.p2p",
+    "zest_tpu_torch.p2p.bencode", "zest_tpu_torch.p2p.peer_id",
+    "zest_tpu_torch.p2p.wire", "zest_tpu_torch.p2p.bep_xet",
+    "zest_tpu_torch.p2p.peer", "zest_tpu_torch.p2p.pool",
+    "zest_tpu_torch.p2p.health", "zest_tpu_torch.transfer.server",
+    "zest_tpu_torch.transfer.swarm",
 ]
 
 
 def test_every_module_imports_without_jax_or_zest_tpu():
     names = _module_names()
-    assert len(names) >= 35
+    assert len(names) >= 47
     assert set(SLICE_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
@@ -124,6 +131,11 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         lambda: main(["generate", "org/m", "--ids", "1,2", "--temperature",
                       "0.8", "--top-k", "50", "--top-p", "0.9"]),
         lambda: main(["pull", "org/m"]),
+        lambda: main(["pull", "org/m", "--peer", "127.0.0.1:9"]),
+        lambda: main(["pull", "org/m", "--no-p2p"]),
+        lambda: main(["generate", "org/m", "--ids", "1,2", "--peer",
+                      "127.0.0.1:9"]),
+        lambda: pull_model(cfg, "org/m", swarm=object()),
         lambda: main(["pull", "org/m", "--coop", "--coop-hosts", "2",
                       "--coop-index", "0", "--coop-addr", "1=127.0.0.1:9"]),
         lambda: watch_and_swap(cfg, "org/m",

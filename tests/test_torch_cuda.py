@@ -249,6 +249,48 @@ def test_slice_on_card(cuda_device, tmp_path):
     assert np.array_equal(gen(prompts, 16), gen_cpu(prompts, 16))
 
 
+def test_peer_pull_on_card(cuda_device, tmp_path):
+    """The peer tier on the card: node B pulls from the CDN and seeds its
+    cache over the BT wire; node C pulls with B as its direct peer onto
+    ``cuda:0``. Every xorb byte comes from the peer, the landing streams,
+    and the tree's digest equals a CPU landing of the same repo."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models.loader import params_digest
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+    from zest_tpu_torch.transfer.server import BtServer
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt)
+
+    def node(name):
+        return Config(hf_home=tmp_path / name / "hf",
+                      cache_dir=tmp_path / name / "zest",
+                      endpoint=server.url, listen_port=0)
+
+    with PublisherServer(cfg_a) as server:
+        cpu = pull_model(node("b"), "org/tiny", device="cpu", no_p2p=True)
+        seeder = BtServer(node("b"))
+        port = seeder.start()
+        swarm = SwarmDownloader(node("c"))
+        swarm.add_direct_peer("127.0.0.1", port)
+        try:
+            res = pull_model(node("c"), "org/tiny", swarm=swarm)
+        finally:
+            swarm.close()
+            seeder.shutdown()
+    fetch = res.stats["fetch"]
+    assert fetch["bytes"]["cdn"] == 0 and fetch["p2p_ratio"] == 1.0
+    assert res.stats["swarm"]["peer_failures"] == 0
+    hbm = res.stats["hbm"]
+    assert hbm["direct"] is hbm["streamed"] is True
+    assert all(t.device == cuda_device for t in res.params.values())
+    assert params_digest(res.params) == params_digest(cpu.params)
+
+
 def test_coop_pull_on_card(cuda_device, tmp_path):
     """Four in-process hosts pull cooperatively on ``cuda``: every received
     whole xorb's BG4 chunks go through the fused kernel once, and the

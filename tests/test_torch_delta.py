@@ -109,6 +109,7 @@ def _cfg(hub, root, **kw) -> Config:
 
 def _pull(hub, root, revision, cfg_kw=None, repo=REPO, **kw):
     kw.setdefault("log", _quiet)
+    kw.setdefault("no_p2p", True)  # as the reference pull below
     return pull_model(_cfg(hub, root, **(cfg_kw or {})), repo,
                       revision=revision, device="cpu", **kw)
 

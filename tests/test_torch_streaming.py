@@ -67,7 +67,8 @@ def _cfg(hub, root, **kw) -> Config:
 
 
 def _pull(hub, root, **kw):
-    return pull_model(_cfg(hub, root, **kw), REPO, device="cpu", log=_quiet)
+    return pull_model(_cfg(hub, root, **kw), REPO, device="cpu",
+                      no_p2p=True, log=_quiet)
 
 
 def _ref_pull(hub, root, **kw):

@@ -3,10 +3,15 @@
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
 publisher endpoint that a second node's ``pull`` points at
-(``HF_ENDPOINT=http://host:port``). ``pull --coop --coop-hosts N
---coop-index I --coop-addr J=HOST:PORT ...`` runs the cooperative pull:
-this host fetches its ~1/N of the xorbs and the others' shares come over
-the DCN chunk RPC (its listener is ``ZEST_DCN_PORT``, 6991 by default).
+(``HF_ENDPOINT=http://host:port``), and seeds this node's xorb cache: a
+BT-wire ``BtServer`` (``--listen-port``, ``ZEST_LISTEN_PORT``, 6881) and
+a ``DcnServer`` (``--dcn-port``) share one peer-health book with the
+node's swarm. ``pull --peer HOST:PORT`` (repeatable) asks those peers
+before the CDN; ``--no-p2p`` turns the peer tier off. ``pull --coop
+--coop-hosts N --coop-index I --coop-addr J=HOST:PORT ...`` runs the
+cooperative pull: this host fetches its ~1/N of the xorbs and the
+others' shares come over the DCN chunk RPC (its listener is
+``ZEST_DCN_PORT``, 6991 by default).
 ``push`` notifies the publisher (``--publisher URL``, default the local
 ``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
 delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
@@ -19,9 +24,11 @@ greedy or sampled (``--temperature``, ``--top-k``, ``--top-p``,
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import signal
 import sys
-import time
+import threading
 
 from zest_tpu_torch.config import Config, parse_host_addr
 
@@ -57,18 +64,83 @@ def cmd_push(args) -> int:
 
 
 def cmd_serve(args) -> int:
+    """The publisher endpoint and the seeding tier over this node's
+    cache, until SIGINT or SIGTERM; then the seeder drains and its
+    ``ServerStats`` print as one JSON line."""
     from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.p2p.health import HealthRegistry
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.server import BtServer
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
 
     cfg = Config.load()
+    if args.listen_port is not None:
+        cfg.listen_port = args.listen_port
+    if args.dcn_port is not None:
+        cfg.dcn_port = args.dcn_port
     port = cfg.http_port if args.port is None else args.port
-    with PublisherServer(cfg, host=args.host, port=port) as server:
-        print(f"publisher endpoint at {server.url}", flush=True)
+    # One health book for the node: the seeder's reciprocity ranking,
+    # stalled-reader strikes and quarantine oracle read what the node's
+    # swarm writes.
+    health = HealthRegistry()
+    swarm = SwarmDownloader(cfg, health=health)
+    bt = BtServer(cfg, health=health)
+    stop = threading.Event()
+    if threading.current_thread() is threading.main_thread():
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    dcn = None
+    try:
+        bt_port = bt.start()
+        shaped = ""
+        if cfg.seed_rate_bps or cfg.seed_peer_bps:
+            shaped = (f", shaped {cfg.seed_rate_bps or 'unlimited'} B/s "
+                      f"global / {cfg.seed_peer_bps or 'unlimited'} B/s "
+                      "per-peer")
+        print(f"seeding on :{bt_port} (BT wire, {cfg.seed_slots}+1 upload "
+              f"slots{shaped})", flush=True)
+        # Same cache, second transport; a taken port leaves BT-only
+        # seeding, not a dead node.
+        dcn = DcnServer(cfg, bt.cache)
         try:
-            while True:
-                time.sleep(3600)
-        except KeyboardInterrupt:
-            pass
+            print(f"seeding on :{dcn.start()} (DCN chunk RPC)", flush=True)
+        except OSError as exc:
+            dcn = None
+            print(f"DCN listener disabled (port {cfg.dcn_port}: {exc})",
+                  flush=True)
+        with PublisherServer(cfg, host=args.host, port=port) as server:
+            print(f"publisher endpoint at {server.url}", flush=True)
+            try:
+                stop.wait()
+            except KeyboardInterrupt:
+                pass
+    finally:
+        if dcn is not None:
+            dcn.shutdown()
+        bt.shutdown()
+        swarm.close()
+    print("seeder stats: " + json.dumps(dataclasses.asdict(bt.get_stats())),
+          flush=True)
     return 0
+
+
+def _swarm_for(args):
+    """The pull's peer tier from ``--peer``/``--no-p2p``: None for
+    ``--no-p2p``, else a swarm over the direct peers. A swarm that cannot
+    be built leaves the pull CDN-only, said on stderr."""
+    if args.no_p2p:
+        return None
+    from zest_tpu_torch.p2p.peer import parse_address
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    try:
+        swarm = SwarmDownloader(Config.load())
+        for spec in args.peer or []:
+            swarm.add_direct_peer(*parse_address(spec))
+    except (OSError, ValueError) as exc:
+        print(f"p2p unavailable ({exc}); continuing CDN-only",
+              file=sys.stderr)
+        return None
+    return swarm
 
 
 def cmd_pull(args) -> int:
@@ -79,10 +151,16 @@ def cmd_pull(args) -> int:
     except ValueError as exc:
         print(f"error: --coop-addr: {exc}", file=sys.stderr)
         return 2
-    res = pull_model(Config.load(), args.repo, revision=args.revision,
-                     device=args.device, coop=args.coop,
-                     coop_hosts=args.coop_hosts, coop_index=args.coop_index,
-                     coop_addrs=coop_addrs)
+    swarm = _swarm_for(args)
+    try:
+        res = pull_model(Config.load(), args.repo, revision=args.revision,
+                         device=args.device, coop=args.coop,
+                         coop_hosts=args.coop_hosts,
+                         coop_index=args.coop_index, coop_addrs=coop_addrs,
+                         swarm=swarm, no_p2p=args.no_p2p)
+    finally:
+        if swarm is not None:
+            swarm.close()
     st = res.stats
     print(f"pulled {args.repo}@{st['revision'][:12]} → {res.snapshot_dir}")
     print(f"  {st['files_downloaded']} downloaded, {st['files_skipped']} "
@@ -93,6 +171,11 @@ def cmd_pull(args) -> int:
     print(f"  elapsed {st['elapsed_s']} s, time to device "
           f"{st['time_to_hbm_s']} s{first} "
           f"({'direct' if st['hbm']['direct'] else 'from disk'})")
+    nbytes = st["fetch"]["bytes"]
+    print(f"  From cache: {nbytes['cache']} bytes")
+    print(f"  From peers: {nbytes['peer']} bytes")
+    print(f"  From CDN:   {nbytes['cdn']} bytes")
+    print(f"  P2P ratio:  {st['fetch']['p2p_ratio']:.1%}")
     coop = st.get("coop")
     if coop and not coop.get("skipped"):
         ex = coop["exchange"]
@@ -205,8 +288,14 @@ def cmd_generate(args) -> int:
     elif args.prompt is None:
         print("error: one of --prompt or --ids is required", file=sys.stderr)
         return 2
-    res = pull_model(Config.load(), args.repo, revision=args.revision,
-                     device=args.device)
+    swarm = _swarm_for(args)
+    try:
+        res = pull_model(Config.load(), args.repo, revision=args.revision,
+                         device=args.device, swarm=swarm,
+                         no_p2p=args.no_p2p)
+    finally:
+        if swarm is not None:
+            swarm.close()
     tok = try_tokenizer(res.snapshot_dir)
     if prompt is None:
         if tok is None:
@@ -259,11 +348,25 @@ def build_parser() -> argparse.ArgumentParser:
     push.add_argument("--json", action="store_true")
     push.set_defaults(fn=cmd_push)
 
-    serve = sub.add_parser("serve", help="serve pushed revisions to pulls")
+    serve = sub.add_parser("serve", help="serve pushed revisions to pulls "
+                                         "and seed the xorb cache")
     serve.add_argument("--host", default="127.0.0.1")
     serve.add_argument("--port", type=int, default=None,
                        help="default ZEST_HTTP_PORT (9847); 0 = ephemeral")
+    serve.add_argument("--listen-port", type=int, default=None,
+                       help="BT seeding port (default ZEST_LISTEN_PORT, "
+                            "6881; 0 = ephemeral)")
+    serve.add_argument("--dcn-port", type=int, default=None,
+                       help="DCN chunk-RPC port (default ZEST_DCN_PORT, "
+                            "6991; 0 = ephemeral)")
     serve.set_defaults(fn=cmd_serve)
+
+    def add_peer_flags(cmd) -> None:
+        cmd.add_argument("--peer", action="append", metavar="HOST:PORT",
+                         help="direct peer, asked before the CDN "
+                              "(repeatable)")
+        cmd.add_argument("--no-p2p", action="store_true",
+                         help="no peer tier: cache and CDN only")
 
     pull = sub.add_parser("pull", help="download a model and land it on "
                                        "the device")
@@ -287,6 +390,7 @@ def build_parser() -> argparse.ArgumentParser:
     pull.add_argument("--coop-addr", action="append", metavar="I=HOST:PORT",
                       help="DCN endpoint of coop host I (repeatable; also "
                            "ZEST_COOP_ADDRS)")
+    add_peer_flags(pull)
     pull.set_defaults(fn=cmd_pull)
 
     gen = sub.add_parser("generate", help="pull a model and decode with it")
@@ -312,6 +416,7 @@ def build_parser() -> argparse.ArgumentParser:
     gen.add_argument("--ignore-eos", action="store_true",
                      help="decode all --steps tokens even past the "
                           "model's eos_token_id")
+    add_peer_flags(gen)
     gen.set_defaults(fn=cmd_generate)
 
     watch = sub.add_parser("watch", help="subscribe to a publisher and "

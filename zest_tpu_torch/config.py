@@ -9,7 +9,11 @@ environment names (``HF_HOME``, ``ZEST_CACHE_DIR``, ``HF_TOKEN``,
 ``ZEST_DECODE_CACHE``, ``ZEST_LAND_AHEAD``, ``ZEST_LAND_STREAM``,
 ``ZEST_LAND_RING_BYTES``, ``ZEST_LAND_RING_SLOTS``, ``ZEST_FILES_ASYNC``,
 ``ZEST_FILES_WORKERS``, ``ZEST_PULL_INFLIGHT`` and ``ZEST_TPU_DTYPE``,
-the delta pull's ``ZEST_DELTA`` and the watch fan-out's ``ZEST_WATCH``),
+the delta pull's ``ZEST_DELTA``, the watch fan-out's ``ZEST_WATCH``, and
+the peer tier's ``ZEST_LISTEN_PORT``, ``ZEST_MAX_PEERS``,
+``ZEST_SEED_RATE_BPS``, ``ZEST_SEED_PEER_BPS``, ``ZEST_SEED_SLOTS``,
+``ZEST_SEED_DEADLINE_S``, ``ZEST_SEED_DRAIN_S`` and
+``ZEST_PULL_DEADLINE_S``),
 the same defaults and the same HF cache layout, so a tree pulled by either
 package reads the same on disk.
 
@@ -21,14 +25,24 @@ for ``cpu``, and asking for ``cuda`` where there is none raises.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import re
 from pathlib import Path
 
+DEFAULT_LISTEN_PORT = 6881          # BT seeding listener
 DEFAULT_HTTP_PORT = 9847            # localhost REST / publisher endpoint
 DEFAULT_DCN_PORT = 6991             # host-to-host chunk RPC listener
 DEFAULT_COOP_INFLIGHT_BYTES = 1 << 30
 DEFAULT_MAX_CONCURRENT_DOWNLOADS = 16
+DEFAULT_MAX_PEERS = 50              # peer connection-pool cap
+# Seeding-tier upload policy (transfer/server.py): SEED_SLOTS reciprocal
+# unchoke slots (+1 optimistic) bound concurrent uploads; a response must
+# finish within SEED_DEADLINE_S; shutdown drains in-flight uploads for
+# up to SEED_DRAIN_S. Rates are bytes/s, 0 = unshaped.
+DEFAULT_SEED_SLOTS = 8
+DEFAULT_SEED_DEADLINE_S = 30.0
+DEFAULT_SEED_DRAIN_S = 5.0
 DEFAULT_DEVICE = "cuda"
 DEFAULT_PULL_INFLIGHT_BYTES = 2 << 30  # in-flight file-write byte budget
 # Decode parallelism (ZEST_DECODE_WORKERS): 0 = auto, 1 = serial; sizes
@@ -91,6 +105,34 @@ def _nonneg_int(env: dict[str, str], name: str, default: int) -> int:
     if value < 0:
         raise ValueError(f"{name} must be >= 0, got {value}")
     return value
+
+
+def _strict_nonneg_int(env: dict[str, str], name: str,
+                       default: int = 0, floor: int = 0) -> int:
+    """Integer knob where a value below ``floor`` raises instead of being
+    clamped: a sign-slipped ``ZEST_SEED_RATE_BPS=-25000000`` silently
+    meaning "unshaped" would pass every test while uplinks saturate."""
+    raw = env.get(name)
+    if raw is None or not raw.strip():
+        return default
+    v = int(raw)
+    if v < floor:
+        raise ValueError(f"{name} must be an integer >= {floor}, "
+                         f"got {raw!r}")
+    return v
+
+
+def _strict_pos_float(env: dict[str, str], name: str,
+                      default: float, floor: float = 0.0) -> float:
+    """Float knob; values below ``floor`` (or non-finite) raise."""
+    raw = env.get(name)
+    if raw is None or not raw.strip():
+        return default
+    v = float(raw)
+    if v < floor or not math.isfinite(v):
+        raise ValueError(f"{name} must be a finite value >= {floor}, "
+                         f"got {raw!r}")
+    return v
 
 
 def _strict_bool(name: str, value: str) -> bool:
@@ -166,6 +208,22 @@ class Config:
     # (ZEST_WATCH, strict 0/1): 0 answers watch with 404 and notifies no
     # one; pushes still publish.
     watch_enabled: bool = True
+    # The peer tier: the BT seeding listener (``serve --listen-port``; the
+    # port a pull advertises in its handshake), the swarm's connection
+    # pool cap, and the seeding server's upload policy (see
+    # DEFAULT_SEED_* above).
+    listen_port: int = DEFAULT_LISTEN_PORT
+    max_peers: int = DEFAULT_MAX_PEERS
+    seed_rate_bps: int = 0
+    seed_peer_bps: int = 0
+    seed_slots: int = DEFAULT_SEED_SLOTS
+    seed_request_deadline_s: float = DEFAULT_SEED_DEADLINE_S
+    seed_drain_s: float = DEFAULT_SEED_DRAIN_S
+    # Per-pull wall-clock budget in seconds (ZEST_PULL_DEADLINE_S;
+    # None/0 = off). When armed, every tier's timeouts and retry sleeps
+    # are capped by the remaining budget and the bridge hedges slow peer
+    # fetches against the CDN.
+    pull_deadline_s: float | None = None
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -230,6 +288,24 @@ class Config:
                 env.get("ZEST_DELTA", "1" if DEFAULT_DELTA else "0")),
             watch_enabled=_strict_bool("ZEST_WATCH",
                                        env.get("ZEST_WATCH", "1")),
+            listen_port=int(env.get("ZEST_LISTEN_PORT",
+                                    DEFAULT_LISTEN_PORT)),
+            max_peers=int(env.get("ZEST_MAX_PEERS", DEFAULT_MAX_PEERS)),
+            # Malformed AND negative values raise: a sign-slipped rate
+            # silently meaning "unshaped" would pass every test.
+            seed_rate_bps=_strict_nonneg_int(env, "ZEST_SEED_RATE_BPS"),
+            seed_peer_bps=_strict_nonneg_int(env, "ZEST_SEED_PEER_BPS"),
+            seed_slots=_strict_nonneg_int(
+                env, "ZEST_SEED_SLOTS", DEFAULT_SEED_SLOTS, floor=1),
+            seed_request_deadline_s=_strict_pos_float(
+                env, "ZEST_SEED_DEADLINE_S", DEFAULT_SEED_DEADLINE_S,
+                floor=0.1),
+            seed_drain_s=_strict_pos_float(
+                env, "ZEST_SEED_DRAIN_S", DEFAULT_SEED_DRAIN_S),
+            pull_deadline_s=(
+                float(env["ZEST_PULL_DEADLINE_S"])
+                if float(env.get("ZEST_PULL_DEADLINE_S") or 0) > 0
+                else None),
         )
 
     # ── HF cache layout ──

@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's byte-level hot paths: BLAKE3
 (``blake3.cc``), gearhash CDC (``gearhash.cc``), the LZ4 block codec
-(``lz4.cc``) and the batch frame decoder (``decode.cc``). The p2p wire
-framer is not part of this slice. The library is required: there is no
+(``lz4.cc``), the batch frame decoder (``decode.cc``) and the BT wire's
+one-pass response framer (``wire.cc``). The library is required: there is no
 pure-Python path beside it, and a failed build raises with the compiler's
 error.
 
@@ -24,7 +24,7 @@ from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
 _BUILD_DIR = _HERE / "build"
-_SOURCES = ["blake3.cc", "decode.cc", "gearhash.cc", "lz4.cc"]
+_SOURCES = ["blake3.cc", "decode.cc", "gearhash.cc", "lz4.cc", "wire.cc"]
 
 _lock = threading.Lock()
 _dll: ctypes.CDLL | None = None
@@ -92,6 +92,22 @@ def _bind(dll: ctypes.CDLL) -> None:
     dll.zest_lz4_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
                                         ctypes.c_char_p, ctypes.c_size_t]
     dll.zest_lz4_decompress.restype = ctypes.c_size_t
+    dll.zest_wire_response_size.argtypes = [ctypes.c_size_t]
+    dll.zest_wire_response_size.restype = ctypes.c_size_t
+    dll.zest_wire_frame_chunk_response.argtypes = [
+        ctypes.c_uint8, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+    ]
+    dll.zest_wire_frame_chunk_response.restype = ctypes.c_size_t
+    dll.zest_wire_frame_chunk_request.argtypes = [
+        ctypes.c_uint8, ctypes.c_uint32, ctypes.c_char_p,
+        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_char_p,
+    ]
+    dll.zest_wire_frame_chunk_request.restype = ctypes.c_size_t
+    dll.zest_wire_frame_chunk_not_found.argtypes = [
+        ctypes.c_uint8, ctypes.c_uint32, ctypes.c_char_p, ctypes.c_char_p,
+    ]
+    dll.zest_wire_frame_chunk_not_found.restype = ctypes.c_size_t
     dll.zest_decode_batch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_uint64, ctypes.c_void_p, ctypes.c_uint64,
@@ -181,6 +197,33 @@ class lib:
         if n != expected_len:
             raise CompressionError("native lz4: malformed input")
         return ctypes.string_at(out, expected_len)
+
+    @staticmethod
+    def frame_chunk_response(ext_id: int, req_id: int, chunk_offset: int,
+                             data: bytes) -> bytes:
+        """Complete framed BEP 10 + XET CHUNK_RESPONSE in one pass."""
+        dll = build()
+        out = _scratch(dll.zest_wire_response_size(len(data)))
+        n = dll.zest_wire_frame_chunk_response(
+            ext_id, req_id, chunk_offset,
+            data if isinstance(data, bytes) else bytes(data), len(data), out)
+        return ctypes.string_at(out, n)
+
+    @staticmethod
+    def frame_chunk_request(ext_id: int, req_id: int, chunk_hash: bytes,
+                            range_start: int, range_end: int) -> bytes:
+        out = ctypes.create_string_buffer(51)
+        n = build().zest_wire_frame_chunk_request(
+            ext_id, req_id, chunk_hash, range_start, range_end, out)
+        return out.raw[:n]
+
+    @staticmethod
+    def frame_chunk_not_found(ext_id: int, req_id: int,
+                              chunk_hash: bytes) -> bytes:
+        out = ctypes.create_string_buffer(43)
+        n = build().zest_wire_frame_chunk_not_found(
+            ext_id, req_id, chunk_hash, out)
+        return out.raw[:n]
 
     @staticmethod
     def decode_batch(src_ptrs, src_lens, schemes, dst_offs, dst_lens,

@@ -156,3 +156,14 @@ class XorbCache:
     def put_partial(self, hash_hex: str, range_start: int,
                     data: bytes) -> None:
         atomic_write(self._path(f"{hash_hex}.{range_start}"), data)
+
+
+def list_cached_xorbs(cfg: Config) -> list[str]:
+    """Every full-xorb hex key in the cache, sorted. Partial entries
+    (``{hex}.{start}``) are left out: a seeder announces whole xorbs."""
+    root = cfg.xorb_cache_dir()
+    if not root.is_dir():
+        return []
+    return sorted(f.name for sub in root.iterdir() if sub.is_dir()
+                  for f in sub.iterdir()
+                  if len(f.name) == 64 and "." not in f.name)

@@ -1,20 +1,33 @@
-"""XetBridge: the cache → CDN waterfall.
+"""XetBridge: the cache → peer → CDN waterfall.
 
-The counterpart of ``zest_tpu/transfer/bridge.py`` with tier 1 (the local
-xorb cache, range-aware) and tier 3 (CDN byte ranges); the swarm's peer
-tier comes with the p2p slice. Peer bytes come only from the cooperative
-exchange (``transfer/coop.py``), which books them under ``peer``. Every
-fetch is cached — under the full key only with whole-xorb evidence, else
-as a partial entry keyed by its chunk offset, and never over a wider
-entry — so this host can serve it on.
+The counterpart of ``zest_tpu/transfer/bridge.py``: tier 1 is the local
+xorb cache (range-aware), tier 2 the swarm (``transfer/swarm.py``: a
+``SwarmDownloader`` with direct ``--peer`` candidates), tier 3 CDN byte
+ranges. The cooperative exchange (``transfer/coop.py``) books its bytes
+under ``peer`` too. Every fetch is cached — under the full key only with
+whole-xorb evidence, else as a partial entry keyed by its chunk offset,
+and never over a wider entry — so this host can serve it on.
+
+The peer tier's trust boundary: a peer blob that is, by the evidence of
+every resolved reconstruction, the whole xorb must hash back to the
+xorb's merkle root (on the host, as in the JAX package) before it is
+cached or used; anything else stays under the extraction-time checks. A
+blob that fails is never cached, its peer takes a strike
+(``SwarmDownloader.report_corrupt``) and the CDN serves. Peer bytes
+cached without a whole-xorb proof keep their source in
+``p2p.health.PROVENANCE``, so the seeding server can refuse them once
+that peer is quarantined. With a pull deadline (``cfg.pull_deadline_s``)
+or :meth:`XetBridge.arm_hedge`, a slow peer fetch is raced by the CDN
+after a bounded head start.
 
 Coordinate frames: a fetched blob's chunk 0 is absolute chunk
 ``chunk_offset``; a term extracts ``[term.start - chunk_offset,
 term.end - chunk_offset)`` from it.
 
 :meth:`XetBridge.fetch_term` is the landing's per-term waterfall: a
-cached blob whose chunks fail to decode is refetched from the CDN and the
-term decodes from those bytes. Once any file's references could not be
+cached or peer-served blob whose chunks fail to decode is refetched from
+the CDN and the term decodes from those bytes (a peer-served blob also
+strikes its peer). Once any file's references could not be
 resolved (:meth:`XetBridge.mark_evidence_incomplete`), no blob is cached
 under a full key for the rest of the bridge's life.
 """
@@ -23,14 +36,17 @@ from __future__ import annotations
 
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from dataclasses import dataclass, field
 
 from zest_tpu_torch import storage
+from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas import reconstruction as recon
 from zest_tpu_torch.cas.client import CasClient, CasError
 from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.config import Config
+from zest_tpu_torch.p2p.health import PROVENANCE
 
 
 class BridgeError(RuntimeError):
@@ -40,6 +56,16 @@ class BridgeError(RuntimeError):
 # What a fetch through the waterfall can raise when a tier fails: the
 # callers that degrade a unit to a later tier catch exactly these.
 FETCH_ERRORS = (BridgeError, CasError, OSError)
+
+# Hedging: with a pull deadline armed, the peer tier gets at most this
+# fraction of the remaining budget (capped) as a head start before a CDN
+# fetch races it — one slow peer costs a bounded head start, not a 60 s
+# stall. An evidence-armed hedge (arm_hedge) has no budget to take a
+# fraction of and gives the peer a fixed head start.
+_HEDGE_PEER_FRACTION = 0.3
+_HEDGE_PEER_WAIT_CAP_S = 10.0
+_HEDGE_PEER_WAIT_FLOOR_S = 0.05
+_HEDGE_EVIDENCE_WAIT_S = 1.0
 
 # Hash-striped locks for the never-narrower cache write: the clobber race
 # is between bridges (several hosts of one process share no bridge), so
@@ -64,6 +90,19 @@ class FetchStats:
     bytes_from_cache: int = 0
     bytes_from_peer: int = 0
     bytes_from_cdn: int = 0
+    # Resilience counters: CDN retry/backoff rounds, xet-token refreshes,
+    # hedges (won = the CDN racer delivered, lost = it failed and the
+    # peer tier finished after all), and corruption attributions (a
+    # peer-served blob failed structural or BLAKE3 verification and was
+    # refetched; healed = a term that failed to decode and decoded from
+    # the CDN's bytes).
+    cdn_retries: int = 0
+    token_refreshes: int = 0
+    hedges: int = 0
+    hedges_won: int = 0
+    hedges_lost: int = 0
+    corrupt_from_peer: int = 0
+    corrupt_healed: int = 0
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
 
     def record(self, source: str, nbytes: int) -> None:
@@ -73,12 +112,16 @@ class FetchStats:
             setattr(self, f"bytes_from_{source}",
                     getattr(self, f"bytes_from_{source}") + nbytes)
 
+    def bump(self, name: str, amount: int = 1) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + amount)
+
     @property
     def p2p_ratio(self) -> float:
         total = self.bytes_from_peer + self.bytes_from_cdn
         return self.bytes_from_peer / total if total else 0.0
 
-    def summary(self, cdn_retries: int = 0) -> dict:
+    def summary(self) -> dict:
         return {
             "xorbs": {"cache": self.xorbs_from_cache,
                       "peer": self.xorbs_from_peer,
@@ -87,18 +130,28 @@ class FetchStats:
                       "peer": self.bytes_from_peer,
                       "cdn": self.bytes_from_cdn},
             "p2p_ratio": round(self.p2p_ratio, 4),
-            "resilience": {"cdn_retries": cdn_retries},
+            "resilience": {
+                "cdn_retries": self.cdn_retries,
+                "token_refreshes": self.token_refreshes,
+                "hedges": self.hedges,
+                "hedges_won": self.hedges_won,
+                "hedges_lost": self.hedges_lost,
+                "corrupt_from_peer": self.corrupt_from_peer,
+                "corrupt_healed": self.corrupt_healed,
+            },
         }
 
 
 @dataclass(frozen=True)
 class XorbFetchResult:
-    """Blob + the term's chunk range rebased into it."""
+    """Blob + the term's chunk range rebased into it. ``source`` and
+    ``peer_addr`` route an extraction-time failure back to its origin."""
 
     data: bytes
     local_start: int
     local_end: int
-    source: str = "cache"                      # cache | cdn
+    source: str = "cache"                      # cache | peer | cdn
+    peer_addr: tuple[str, int] | None = None
 
 
 def _blob_covers(data: bytes, local_start: int, local_end: int) -> bool:
@@ -120,11 +173,22 @@ def provably_whole(entries, chunk_offset: int) -> bool:
 
 
 class XetBridge:
-    def __init__(self, cfg: Config, cache: storage.XorbCache | None = None):
+    def __init__(self, cfg: Config, swarm=None,
+                 cache: storage.XorbCache | None = None):
+        """``swarm`` is a ``transfer.swarm.SwarmDownloader`` (None: no
+        peer tier)."""
         self.cfg = cfg
         self.cache = cache or storage.XorbCache(cfg)
+        self.swarm = swarm
         self.cas: CasClient | None = None
         self.stats = FetchStats()
+        # Per-pull wall-clock budget (resilience.Deadline | None), set by
+        # the pull before authenticate(): it flows into the CAS client and
+        # into the swarm per call.
+        self.deadline = None
+        self._hedge_pool: ThreadPoolExecutor | None = None
+        self._hedge_lock = threading.Lock()
+        self._hedge_armed = False
         self._recons: dict[str, recon.Reconstruction] = {}
         self._lock = threading.Lock()
         # A DCN listener the cooperative round started for this pull
@@ -135,12 +199,27 @@ class XetBridge:
         # whole-xorb evidence is then incomplete for every xorb.
         self.evidence_incomplete = False
 
+    def arm_hedge(self, reason: str = "policy") -> dict:
+        """Arm hedging without a deadline: every later peer-tier fetch
+        gives the peer a fixed ``_HEDGE_EVIDENCE_WAIT_S`` head start,
+        then races the CDN, through the same hedge counters as the
+        deadline path. The primary fetch is never cancelled, only
+        raced."""
+        already = self._hedge_armed
+        self._hedge_armed = True
+        return {"armed": True, "already": already, "reason": reason}
+
     def adopt_coop_server(self, server) -> None:
         """Own a coop-round DCN listener until :meth:`close`."""
         self._coop_server = server
 
     def close(self) -> None:
-        """Stop the coop-round DCN listener this bridge owns, if any."""
+        """Release the hedge pool's threads and stop the coop-round DCN
+        listener this bridge owns, if any."""
+        with self._hedge_lock:
+            pool, self._hedge_pool = self._hedge_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
         server, self._coop_server = self._coop_server, None
         if server is not None:
             server.shutdown()
@@ -151,7 +230,8 @@ class XetBridge:
         cas_url, token = hub.xet_read_token(repo_id, revision)
         self.cas = CasClient(
             cas_url, token,
-            token_refresher=lambda: hub.xet_read_token(repo_id, revision))
+            token_refresher=lambda: hub.xet_read_token(repo_id, revision),
+            deadline=self.deadline, on_event=self.stats.bump)
 
     def get_reconstruction(self, file_hash_hex: str) -> recon.Reconstruction:
         """Memoized: reconstructions are content-addressed and immutable."""
@@ -193,35 +273,180 @@ class XetBridge:
             return XorbFetchResult(hit.data,
                                    term.range.start - hit.chunk_offset,
                                    term.range.end - hit.chunk_offset)
-        # 3. CDN byte range — fi's whole chunk range, so the cached entry
-        # also serves later terms that share this fetch_info.
-        return self._cdn_fetch_for_term(term, rec, fi)
+        return self._network_fetch_for_term(term, rec, fi, term.hash_hex)
+
+    def _network_fetch_for_term(self, term: recon.Term,
+                                rec: recon.Reconstruction,
+                                fi: recon.FetchInfo,
+                                hash_hex: str) -> XorbFetchResult:
+        # 2. Swarm — fi's whole chunk range, so the cached result serves
+        # later terms that share this fetch_info; hedged when armed.
+        if self.swarm is not None:
+            peer_result = self._peer_tier(term, rec, fi, hash_hex)
+            if isinstance(peer_result, XorbFetchResult):
+                return peer_result  # the CDN hedge won; already cached
+            if peer_result is not None:
+                local_start = term.range.start - peer_result.chunk_offset
+                local_end = term.range.end - peer_result.chunk_offset
+                if _blob_covers(peer_result.data, local_start, local_end) \
+                        and self._peer_blob_verifies(term, rec, hash_hex,
+                                                     peer_result):
+                    self.stats.record("peer", len(peer_result.data))
+                    # Cached for seeding: the full key only with
+                    # whole-xorb evidence, never a sliced prefix.
+                    self._cache_fetched(rec, hash_hex,
+                                        peer_result.chunk_offset,
+                                        peer_result.data)
+                    # Bytes admitted without a whole-xorb proof keep
+                    # their source on record (the seeding server refuses
+                    # them once it is quarantined); a proven whole-xorb
+                    # write clears the suspicion. Under incomplete
+                    # evidence even a root-verified blob is cached under
+                    # a partial key, so other peers' suspicion survives.
+                    if self.whole_xorb_provable(
+                            self._known_entries(rec, hash_hex),
+                            peer_result.chunk_offset):
+                        PROVENANCE.clear(hash_hex)
+                    else:
+                        PROVENANCE.record(hash_hex, peer_result.addr)
+                    return XorbFetchResult(
+                        peer_result.data, local_start, local_end,
+                        source="peer", peer_addr=peer_result.addr)
+                # Malformed, short or hash-mismatched: never cached; the
+                # peer takes the strike and the CDN serves.
+                if peer_result.addr is not None:
+                    self.stats.bump("corrupt_from_peer")
+                    self.swarm.report_corrupt(peer_result.addr)
+        # 3. CDN byte range.
+        return self._cdn_fetch_for_term(term, rec, fi, hash_hex)
+
+    def _peer_blob_verifies(self, term: recon.Term,
+                            rec: recon.Reconstruction, hash_hex: str,
+                            peer_result) -> bool:
+        """The trust boundary for a peer blob: one that is (by the
+        evidence of every resolved reference) the whole xorb must hash
+        back to the xorb's merkle root before it is cached or extracted —
+        wire blobs are footerless frame streams with no per-chunk hashes
+        for extraction to check. Partial blobs stay under the
+        extraction-time checks."""
+        if not provably_whole(self._known_entries(rec, hash_hex),
+                              peer_result.chunk_offset):
+            return True
+        try:
+            return XorbReader(peer_result.data).xorb_hash() == term.xorb_hash
+        except ValueError:
+            return False
+
+    def _unit_blob_verifies(self, xorb_hash: bytes, hash_hex: str,
+                            peer_result) -> bool:
+        """:meth:`_peer_blob_verifies` for the unit path (the landing's
+        warm and header fetch, the coop fallback): the same trust rule
+        across every resolved reconstruction."""
+        if not self.whole_xorb_provable(self._known_entries(None, hash_hex),
+                                        peer_result.chunk_offset):
+            return True
+        try:
+            return XorbReader(peer_result.data).xorb_hash() == xorb_hash
+        except ValueError:
+            return False
 
     def _cdn_fetch_for_term(self, term: recon.Term,
                             rec: recon.Reconstruction,
-                            fi: recon.FetchInfo) -> XorbFetchResult:
-        """Tier 3 alone: the corruption heal forces it whatever the cache
-        holds."""
+                            fi: recon.FetchInfo,
+                            hash_hex: str | None = None) -> XorbFetchResult:
+        """Tier 3 alone: the hedge racer and the corruption heal force it
+        whatever the cache and the peers hold (the cache write replaces a
+        poisoned entry)."""
+        hash_hex = hash_hex or term.hash_hex
         if self.cas is None:
-            raise BridgeError("no CAS client and the xorb is not cached")
+            raise BridgeError("no CAS client and no peer had the xorb")
         data = self.cas.fetch_xorb_from_url(
             self._absolute_url(fi.url),
             (fi.url_range_start, fi.url_range_end))
         self.stats.record("cdn", len(data))
         if not _blob_covers(data, term.range.start - fi.range.start,
                             term.range.end - fi.range.start):
-            raise BridgeError(f"CDN blob for {term.hash_hex[:12]} does not "
+            raise BridgeError(f"CDN blob for {hash_hex[:12]} does not "
                               "hold the term's chunks")
-        self._cache_fetched(rec, term.hash_hex, fi.range.start, data)
+        self._cache_fetched(rec, hash_hex, fi.range.start, data)
+        # Suspicion clears only when this write provably replaced the
+        # WHOLE xorb: a partial refetch leaves other peer-sourced ranges
+        # of it in the cache.
+        if self.whole_xorb_provable(self._known_entries(rec, hash_hex),
+                                    fi.range.start):
+            PROVENANCE.clear(hash_hex)
+        if self.swarm is not None:
+            self.swarm.announce_available(term.xorb_hash, hash_hex)
         return XorbFetchResult(data, term.range.start - fi.range.start,
                                term.range.end - fi.range.start, "cdn")
 
-    def _known_entries(self, rec: recon.Reconstruction,
+    def _peer_tier(self, term: recon.Term, rec: recon.Reconstruction,
+                   fi: recon.FetchInfo, hash_hex: str):
+        """The swarm attempt, hedged when armed by a deadline or by
+        :meth:`arm_hedge`: the peer fetch runs in a side thread with a
+        head start, then a CDN fetch races it from this thread and the
+        winner's :class:`XorbFetchResult` is returned. Unarmed, the
+        swarm's ``PeerResult`` (or None)."""
+        deadline = self.deadline
+        if (deadline is None and not self._hedge_armed) or self.cas is None:
+            return self.swarm.try_peer_download(
+                term.xorb_hash, hash_hex, fi.range.start, fi.range.end,
+                deadline=deadline)
+        if deadline is not None:
+            remaining = deadline.remaining()
+            if remaining <= 0:
+                return None  # budget gone: tier 3 fails fast on its own
+            wait_s = min(max(remaining * _HEDGE_PEER_FRACTION,
+                             _HEDGE_PEER_WAIT_FLOOR_S),
+                         _HEDGE_PEER_WAIT_CAP_S)
+        else:
+            wait_s = _HEDGE_EVIDENCE_WAIT_S
+        fut = self._ensure_hedge_pool().submit(
+            self.swarm.try_peer_download,
+            term.xorb_hash, hash_hex, fi.range.start, fi.range.end, deadline)
+        try:
+            # Peer errors are absorbed inside try_peer_download; anything
+            # surfacing here is a real fault and propagates as unhedged.
+            return fut.result(timeout=wait_s)
+        except FutureTimeoutError:
+            pass
+        self.stats.bump("hedges")
+        try:
+            result = self._cdn_fetch_for_term(term, rec, fi, hash_hex)
+        except FETCH_ERRORS:
+            # The CDN racer failed: the in-flight peer fetch is the last
+            # hope, waited out within the deadline when one is armed.
+            self.stats.bump("hedges_lost")
+            try:
+                timeout = (max(deadline.remaining(), 0.001)
+                           if deadline is not None else None)
+                return fut.result(timeout=timeout)
+            except FutureTimeoutError:
+                return None
+        self.stats.bump("hedges_won")
+        # A started straggler runs to completion (its result is dropped);
+        # a still-queued one is cancelled.
+        fut.cancel()
+        return result
+
+    def _ensure_hedge_pool(self) -> ThreadPoolExecutor:
+        with self._hedge_lock:
+            if self._hedge_pool is None:
+                # As wide as the term fetches: a narrower pool would queue
+                # hedged peer fetches, and a queued fetch that spends its
+                # head start counts as a hedge without the peer tried.
+                self._hedge_pool = ThreadPoolExecutor(
+                    max(4, self.cfg.max_concurrent_downloads),
+                    thread_name_prefix="zest-hedge")
+            return self._hedge_pool
+
+    def _known_entries(self, rec: recon.Reconstruction | None,
                        hash_hex: str) -> list[recon.FetchInfo]:
         """Every resolved reference to ``hash_hex``, across all memoized
         reconstructions (a xorb shared by two files may look whole from
-        one file's fetch_info alone)."""
-        entries = list(rec.fetch_info.get(hash_hex, []))
+        one file's fetch_info alone); ``rec=None`` for the unit path."""
+        entries = (list(rec.fetch_info.get(hash_hex, []))
+                   if rec is not None else [])
         with self._lock:
             others = [r for r in self._recons.values() if r is not rec]
         for other in others:
@@ -277,12 +502,32 @@ class XetBridge:
 
     def fetch_unit_tiered(self, hash_hex: str,
                           fi: recon.FetchInfo) -> tuple[bytes, str]:
-        """:meth:`fetch_unit` plus the serving tier (``cache`` | ``cdn``):
-        the cooperative round books its fallback bytes per tier."""
+        """:meth:`fetch_unit` plus the serving tier (``cache`` | ``peer``
+        | ``cdn``): the cooperative round books its fallback bytes per
+        tier. The caller caches what the network tiers return."""
         data = self._cached_unit(hash_hex, fi)
         if data is not None:
             self.stats.record("cache", len(data))
             return data, "cache"
+        if self.swarm is not None:
+            xorb_hash = hashing.hex_to_hash(hash_hex)
+            peer_result = self.swarm.try_peer_download(
+                xorb_hash, hash_hex, fi.range.start, fi.range.end,
+                deadline=self.deadline)
+            if peer_result is not None:
+                if (peer_result.chunk_offset == fi.range.start
+                        and _blob_covers(peer_result.data, 0,
+                                         fi.range.end - fi.range.start)
+                        and self._unit_blob_verifies(xorb_hash, hash_hex,
+                                                     peer_result)):
+                    self.stats.record("peer", len(peer_result.data))
+                    return peer_result.data, "peer"
+                if peer_result.chunk_offset == fi.range.start \
+                        and peer_result.addr is not None:
+                    # Right frame, bad bytes: attributable (an off-offset
+                    # blob may be a differently framed answer).
+                    self.stats.bump("corrupt_from_peer")
+                    self.swarm.report_corrupt(peer_result.addr)
         if self.cas is None:
             raise BridgeError("no CAS client and the unit is not cached")
         data = self.cas.fetch_xorb_from_url(
@@ -338,20 +583,33 @@ class XetBridge:
 
     def fetch_term(self, term: recon.Term,
                    rec: recon.Reconstruction) -> bytes:
-        """The term's bytes through the waterfall. A cached blob that
-        fails to decode is refetched once from the CDN and decoded from
-        those bytes; CDN bytes that fail raise."""
-        result = self.fetch_xorb_for_term(term, rec)
+        """The term's bytes through the waterfall, healed (see
+        :meth:`_term_into`)."""
         out = bytearray(term.unpacked_length)
+        self._term_into(term, rec, out)
+        return bytes(out)
+
+    def _term_into(self, term: recon.Term, rec: recon.Reconstruction,
+                   out) -> None:
+        """Fetch and decode one term into ``out``. A blob that fails to
+        decode is not trusted again: a peer-served one strikes its peer,
+        then the CDN's bytes are fetched (replacing the cached entry) and
+        decoded. CDN bytes that fail raise."""
+        result = self.fetch_xorb_for_term(term, rec)
         try:
             self.extract_term_into(term, result, out)
         except (BridgeError, ValueError):
+            if result.source == "cdn":
+                raise
+            if result.peer_addr is not None and self.swarm is not None:
+                self.stats.bump("corrupt_from_peer")
+                self.swarm.report_corrupt(result.peer_addr)
             fi = rec.find_fetch_info(term)
-            if result.source == "cdn" or fi is None or self.cas is None:
+            if fi is None or self.cas is None:
                 raise
             self.extract_term_into(
                 term, self._cdn_fetch_for_term(term, rec, fi), out)
-        return bytes(out)
+            self.stats.bump("corrupt_healed")
 
     def reconstruct_to_file(self, file_hash_hex: str, out_path) -> int:
         """Fetch every term (in parallel, ``max_concurrent_downloads``
@@ -367,9 +625,8 @@ class XetBridge:
         def work(i: int) -> None:
             term = rec.terms[i]
             start = offsets[i]
-            self.extract_term_into(
-                term, self.fetch_xorb_for_term(term, rec),
-                view[start:start + term.unpacked_length])
+            self._term_into(term, rec,
+                            view[start:start + term.unpacked_length])
 
         width = max(1, min(len(rec.terms), self.cfg.max_concurrent_downloads))
         with ThreadPoolExecutor(width, thread_name_prefix="zest-term") as pool:

@@ -451,8 +451,8 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
             wire_est += nbytes
         budget.acquire(wire_est)
         try:
-            if faults.fire("peer_timeout"):
-                raise TimeoutError("injected peer_timeout")
+            if faults.fire("peer_timeout", key=f"{host}:{port}"):
+                raise TimeoutError(f"injected peer_timeout for {host}:{port}")
             replies = pool.request_many(
                 host, port,
                 [(hashing.hex_to_hash(hh), fi.range.start, fi.range.end)

@@ -460,7 +460,8 @@ class DcnChannel:
                      range_end: int, tag: int = 0) -> _Waiter:
         """Fire one request; returns a waiter to collect later (send N,
         then wait N, to pipeline)."""
-        if faults.fire("dcn_reset"):
+        if faults.fire("dcn_reset",
+                       key=f"{self.address[0]}:{self.address[1]}"):
             self.dead = True
             raise ConnectionError("injected dcn_reset")
         if self.dead:

@@ -4,8 +4,8 @@ The counterpart of ``zest_tpu/transfer/pull.py`` for one host: resolve the
 revision, list files, then land the checkpoint on ``device`` straight from
 the xorb cache (:func:`_try_direct_stage`), before any file is written:
 
-- a warm fetch fills the cache through the cache → CDN waterfall, one
-  shard ahead, its units in layer order (``_PipelinedWarm``);
+- a warm fetch fills the cache through the cache → peer → CDN waterfall,
+  one shard ahead, its units in layer order (``_PipelinedWarm``);
 - the streaming landing (``models.loader.stage_cached_to_hbm``) decodes
   each tensor as soon as its units are cached into a pinned ring slot and
   commits embedding and layer 0 first (``time_to_first_layer_s``);
@@ -60,6 +60,15 @@ missing topology (:class:`~zest_tpu_torch.transfer.coop.CoopUnavailable`)
 or a connection failure degrades the pull to the per-host waterfall; any
 other error of the round — a kernel that does not build or launch — fails
 the pull. The pod round, pull sessions and mesh placement are not ported.
+
+**Peer tier** (``swarm=``): a ``transfer.swarm.SwarmDownloader`` whose
+direct peers (``--peer HOST:PORT``) the bridge asks before the CDN, for
+every unit the warm fetches, every head term of the header fetch and
+every term of the waterfall; each peer blob is checked at the trust
+boundary (``transfer/bridge.py``). Without one, the pull builds a swarm
+with no candidates (:func:`_default_swarm`) unless ``no_p2p``. The
+swarm's block is ``stats["swarm"]``; a pull with ``cfg.pull_deadline_s``
+also reports ``stats["deadline"]``.
 """
 
 from __future__ import annotations
@@ -101,6 +110,7 @@ from zest_tpu_torch.models.loader import (
 )
 from zest_tpu_torch.models.safetensors_io import tensor_bytes
 from zest_tpu_torch.parallel.plan import collect_units
+from zest_tpu_torch.resilience import Deadline
 from zest_tpu_torch.transfer import delta
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS, XetBridge
 from zest_tpu_torch.transfer.coop import (
@@ -599,7 +609,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                coop_hosts: int | None = None, coop_index: int | None = None,
                coop_addrs: dict[int, tuple[str, int]] | None = None,
                coop_server=None, base_params: dict | None = None,
-               base_revision: str | None = None, log=print) -> PullResult:
+               base_revision: str | None = None, swarm=None,
+               no_p2p: bool = False, log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
     ``cfg``'s cache, which then answers the peers for as long as its
@@ -612,7 +623,11 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     manifest, and a guessed base could reuse wrong bytes. The caller
     hands the tree over: the dict is emptied by a swap, and a superseded
     tensor's memory goes back only once nothing else refers to it. A
-    degraded delta leaves the dict untouched."""
+    degraded delta leaves the dict untouched.
+
+    ``swarm`` is the peer tier (a ``SwarmDownloader``; the caller keeps
+    and closes it). Without one the pull builds its own, with no
+    candidates, unless ``no_p2p``."""
     if base_params is not None and not base_revision:
         raise ValueError(
             "base_params requires base_revision: tensor reuse is only "
@@ -627,7 +642,14 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         commit_sha = hub.resolve_revision(repo_id, revision)
         files = hub.list_files(repo_id, revision)
     snapshot_dir = cfg.model_snapshot_dir(repo_id, commit_sha)
-    bridge = XetBridge(cfg)
+    own_swarm = None
+    if swarm is None and not no_p2p:
+        swarm = own_swarm = _default_swarm(cfg)
+    bridge = XetBridge(cfg, swarm=swarm)
+    # The pull's wall-clock budget, armed before authenticate() so the
+    # CAS client inherits it; the swarm gets it per call from the bridge.
+    deadline = Deadline.after(cfg.pull_deadline_s)
+    bridge.deadline = deadline
     auth_lock = threading.Lock()
     fallbacks = []
 
@@ -737,6 +759,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         raise
     finally:
         bridge.close()
+        if own_swarm is not None:
+            own_swarm.close()
 
     storage.write_ref(cfg, repo_id, revision, commit_sha)
     if cfg.delta_pull:
@@ -765,8 +789,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         "stages_gbps": clock.gbps_summary(),
         "files_pipeline": file_pipeline.summary(),
         "files_hbm_span_s": round(clock.span("files", "hbm_commit"), 4),
-        "fetch": bridge.stats.summary(
-            bridge.cas.retry_count if bridge.cas else 0),
+        "fetch": bridge.stats.summary(),
         "time_to_hbm_s": round(time_to_hbm, 3),
         # Files work after the tensors were resident; the disk staging
         # lands after the file barrier, so none.
@@ -801,7 +824,26 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if coop_stats is not None:
         stats["coop"] = coop_stats
         stats["peer_served_ratio"] = coop_stats.get("peer_served_ratio")
+    if deadline is not None:
+        stats["deadline"] = {
+            "budget_s": deadline.total_s,
+            "remaining_s": round(max(0.0, deadline.remaining()), 3),
+        }
+    if swarm is not None:
+        stats["swarm"] = swarm.summary()
     return PullResult(snapshot_dir, stats, params=hbm_params)
+
+
+def _default_swarm(cfg: Config):
+    """A swarm with no candidates (the tracker and DHT sources are not
+    ported): its stats block is the JAX package's; None when it cannot
+    start."""
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    try:
+        return SwarmDownloader(cfg)
+    except (OSError, ValueError):
+        return None
 
 
 def _delta_stage(cfg, bridge, repo_id, commit_sha, pending, base_params,
