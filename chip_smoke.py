@@ -103,6 +103,34 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    the seeder quarantined; CDN bytes at most 1.05 × one copy; every
    whole-xorb cache entry of the node hashes back to its key (no corrupt
    blob under a full key);
+9. the serving daemon. 9a: an ``HbmPool`` on ``cuda:0`` in this process
+   over fresh node pulls. Llama-3.2-1B from phase 7's snapshot: a cold
+   generate decodes from the first-layer commit, before the landing ends;
+   the pool's digest equals phase 7's landing; greedy and injected-noise
+   sampled tokens (bf16, batch 1 and 4) equal phase 7's float32 card
+   tokens, unless the float32 decision's margin where a row first
+   differs is below twice phase 7's bf16 logits error; an evict gives
+   back at least the tree's 2,471,628,800 B of ``memory_allocated``; a
+   re-land has the same digest and bit-equal tokens.
+   ``mistralai/Mixtral-8x7B-v0.1`` at its published width, its depth cut
+   to 1 layer (``MIXTRAL_CONFIG``: 1,713,418,240 bf16 parameters, random
+   from ``--seed + 9``) is pushed to node A (kernel rows = minted chunks)
+   and pulled files-only; the pool lands only its 608,264,192-byte dense
+   core and pages experts through a 3-group LRU (page-ins verified 3 each,
+   evictions, peak within the budget, residency < 0.5); its tokens at
+   batch 1 equal a float32 family decode on the card whose capacity drops
+   nothing (same margin rule, router gaps included), whose logits are
+   within ``LOGITS_TOL`` of the CPU's float32 forward at every position.
+   9b: ``python -m zest_tpu_torch serve --device cuda`` as its own process
+   on a fresh node C whose hub is node A's publisher, with
+   ``ZEST_HBM_POOL_BYTES=3221225472``: ``POST /v1/generate`` Llama cold
+   (9a's tokens), the same streamed (``token`` events, hot), Mixtral cold
+   (evicts Llama; 9a's tokens, residency < 0.5), Llama again (cold, the
+   same tokens), GPT-2 by sha (no ``pool`` key; phase 5's card tokens);
+   ``/v1/metrics`` has cold and hot TTFT and an eviction, ``/v1/status``
+   the ``hbm_pool`` block and the daemon's kernel launches (read before
+   the first request and after the last), and SIGTERM ends it with exit
+   code 0;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -112,7 +140,8 @@ kernel's launch count is zeroed just before its path runs and read just
 after.
 
 Every phase is fatal. The last three lines of standard output are the
-kernels' JSON record, the card's name and power limit, and
+kernels' JSON record (with each kernel's launches by path, the serving
+pool's (``serve``) and the daemon's (``serve_daemon``) among them), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
 """
@@ -180,6 +209,31 @@ LLAMA_CONFIG = {
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256,
 }
 LLAMA_TENSORS, LLAMA_PARAMS = 146, 1_235_814_400
+# Phase 9: mistralai/Mixtral-8x7B-v0.1's published config.json at its
+# width, its depth cut from 32 layers to 1 (the push encodes ~14-20 s a
+# GB on the host): 1,713,418,240 bf16 parameters, a 608,264,192-byte
+# dense core and eight 352,321,536-byte expert groups.
+MIXTRAL_REPO = "mistralai/Mixtral-8x7B-v0.1"
+MIXTRAL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0,
+    "bos_token_id": 1, "eos_token_id": 2, "hidden_act": "silu",
+    "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 14336, "max_position_embeddings": 32768,
+    "model_type": "mixtral", "num_attention_heads": 32,
+    "num_experts_per_tok": 2, "num_hidden_layers": 1,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "output_router_logits": False, "rms_norm_eps": 1e-05,
+    "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02,
+    "sliding_window": None, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
+}
+MIXTRAL_PARAMS = 1_713_418_240
+MIXTRAL_DENSE_BYTES, MIXTRAL_EXPERT_BYTES = 608_264_192, 2_818_572_288
+MIXTRAL_PAGER_BYTES = 1_056_964_608  # EXPERT_BUDGET_FRACTION: 3 groups
+# Phase 9b's pool watermark: each of the two trees fits alone (Llama
+# 2,471,628,800 B; Mixtral's core and pager budget 1,665,228,800 B), the
+# two together do not.
+DAEMON_POOL = 3 << 30
 # Phase 7's sampled decode.
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
 # Phase 7's logits gate: the largest |card - CPU| over every position's
@@ -228,6 +282,14 @@ extern "C" __global__ void probe_compress(uint32_t* io) {{
 
 def fail(msg: str) -> None:
     raise RuntimeError(msg)
+
+
+def card_label() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def gpt2_checkpoint(seed: int, cfg: dict) -> dict:
@@ -923,7 +985,7 @@ class Seeder:
     ``ServerStats`` it prints; a seeder that fails to start, or dies,
     fails the phase."""
 
-    def __init__(self, label: str, cfg, **env):
+    def __init__(self, label: str, cfg, args=(), **env):
         with socket.socket() as probe:
             probe.bind(("127.0.0.1", 0))
             self.port = probe.getsockname()[1]
@@ -935,7 +997,7 @@ class Seeder:
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "zest_tpu_torch", "serve",
              "--listen-port", str(self.port), "--dcn-port", "0",
-             "--port", "0"], cwd=Path(__file__).resolve().parent,
+             "--port", "0", *args], cwd=Path(__file__).resolve().parent,
             env=child_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
         lines = []
@@ -952,6 +1014,7 @@ class Seeder:
                        for ln in lines):
                 fail(f"{label}: the seeder is not on port {self.port}: "
                      f"{lines}")
+            self.url = lines[-1].rsplit(" ", 1)[-1]
         except BaseException:
             self.kill()
             raise
@@ -1328,11 +1391,14 @@ def tokens_agree(label: str, got, want, margin_at, tol: float) -> str:
 
 
 def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
-                dev) -> int:
+                dev) -> dict:
     """Phase 7: Llama-3.2-1B pushed, pulled onto the card through the
     direct streaming landing, and decoded (greedy and sampled, batch 1
     and 4) against the port's own CPU float32 run. Returns the push's
-    BLAKE3 kernel launches."""
+    BLAKE3 kernel launches and what phase 9 holds the pool to: the
+    pulled snapshot (node ``l`` stays), its digest, the prompts, the
+    card's float32 tokens and their logits, the noise and the bf16
+    tree's logits error."""
     import torch
 
     from zest_tpu_torch.config import Config
@@ -1453,10 +1519,12 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     noise = gumbel_noise((total - 1, 4, cfg.vocab_size),
                          torch.Generator().manual_seed(seed))
     sampled_tol = LOGITS_TOL / SAMPLING["temperature"]
+    sampled = {}
     for b in (1, 4):
         batch = prompts[:b]
-        got = np.atleast_2d(gen(batch, steps, stop_at_eos=False,
-                                noise=noise[:, :b].to(dev), **SAMPLING))
+        got = sampled[b] = np.atleast_2d(gen(
+            batch, steps, stop_at_eos=False, noise=noise[:, :b].to(dev),
+            **SAMPLING))
         want = np.atleast_2d(llama.generate_cached(
             params_cpu, cfg, batch, steps, noise=noise[:, :b],
             **SAMPLING).numpy())
@@ -1470,6 +1538,17 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
         notes[f"sampled b{b}"] = tokens_agree(f"sampled batch {b}", got,
                                               want, margin, sampled_tol)
     cpu_decode_s = time.monotonic() - t0
+
+    # Phase 9's reference: the card's float32 tokens (held to the CPU
+    # above) and the float32 logits along them.
+    ref = {"snapshot": res.snapshot_dir, "digest": digest,
+           "prompts": prompts, "noise": noise, "bf16_err": errs["bf16"],
+           "greedy": greedy, "sampled": sampled, "logits": {}}
+    for kind, rows_by_b in (("greedy", greedy), ("sampled", sampled)):
+        for b, rows in rows_by_b.items():
+            ref["logits"][kind, b] = cached_logits(
+                llama, params, cfg, torch.from_numpy(rows).to(dev),
+                n0).cpu()
 
     # Seeded on the card: one seed, one draw; on_token sees each
     # generated position once, in order.
@@ -1485,7 +1564,6 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     peak = torch.cuda.max_memory_allocated(dev)
     del gen, params, params_cpu
     res = None
-    shutil.rmtree(work / "l")
     shutil.rmtree(ckpt)
     torch.cuda.empty_cache()
     bound_ms = (LLAMA_PARAMS * 4 / HBM_BYTES_PER_S) * 1e3
@@ -1505,6 +1583,532 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     print(f"  peak allocation {peak:,} B; CPU forward {cpu_fwd_s:.2f} s, "
           f"CPU decodes {cpu_decode_s:.2f} s; phase wall "
           f"{time.monotonic() - wall0:.2f} s")
+    ref["launches"] = launches
+    return ref
+
+
+def mixtral_checkpoint(seed: int, cfg: dict) -> dict:
+    """HF-named bf16 Mixtral tensors from a numpy seed, as
+    :func:`llama_checkpoint` draws them (untied: ``lm_head.weight``)."""
+    import torch
+
+    from zest_tpu_torch.models.loader import cast_floating
+
+    rng = np.random.default_rng(seed)
+    E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
+    D = E // cfg["num_attention_heads"]
+    kvE = cfg["num_key_value_heads"] * D
+
+    def w(*shape, one=False):
+        v = rng.standard_normal(shape, dtype=np.float32)
+        v *= np.float32(0.02)
+        if one:
+            v += np.float32(1.0)
+        return cast_floating(torch.from_numpy(v), torch.bfloat16)
+
+    t = {"model.embed_tokens.weight": w(V, E)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = w(E, one=True)
+        t[p + "self_attn.q_proj.weight"] = w(E, E)
+        t[p + "self_attn.k_proj.weight"] = w(kvE, E)
+        t[p + "self_attn.v_proj.weight"] = w(kvE, E)
+        t[p + "self_attn.o_proj.weight"] = w(E, E)
+        t[p + "post_attention_layernorm.weight"] = w(E, one=True)
+        t[p + "block_sparse_moe.gate.weight"] = w(cfg["num_local_experts"],
+                                                  E)
+        for x in range(cfg["num_local_experts"]):
+            ep = f"{p}block_sparse_moe.experts.{x}."
+            t[ep + "w1.weight"] = w(F, E)
+            t[ep + "w2.weight"] = w(E, F)
+            t[ep + "w3.weight"] = w(F, E)
+    t["model.norm.weight"] = w(E, one=True)
+    t["lm_head.weight"] = w(V, E)
+    return t
+
+
+def router_gaps(moe, params, cfg, tokens):
+    """The float32 family path's routing margins over token rows (B, T):
+    for each token, the smallest gap between a layer's 2nd and 3rd router
+    logits (a bf16 error larger than it can swap an expert). Returns
+    (B, T) float32 on the host."""
+    import torch
+
+    x = params["wte"][tokens]
+    gap = torch.full(tokens.shape, float("inf"))
+    with torch.inference_mode():
+        for i in range(cfg.n_layer):
+            lp = moe._layer(params, i)
+            h = moe._rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
+            x = x + moe._attention(h, lp["attn"], cfg)
+            h = moe._rms_norm(x, lp["ln_moe"]["g"], cfg.rms_eps)
+            top = (h @ lp["moe"]["router_w"]).float().topk(3).values
+            gap = torch.minimum(gap, (top[..., 1] - top[..., 2]).cpu())
+            x = x + moe._moe_block(h, lp["moe"], cfg)[0]
+    return gap
+
+
+def sampled_margin(logits, noise, choice: int, temperature: float,
+                   top_k: int | None, top_p: float | None) -> float:
+    """Twice the smallest max-abs logit error (bisected) under which a
+    sampled decision of the float32 path, ``choice``, could change: its
+    perturbed top-2 gap can close, or the top-k or nucleus boundary can
+    move a token in or out. Scores are ``logits / temperature``; an
+    error ``e`` moves a difference of two scores by at most ``2e/T`` and
+    a probability by a factor within ``exp(±2e/T)``. Fails where the
+    decision flips at no error at all (the gate does not reproduce the
+    float32 choice) or only at the bisection floor."""
+    s = logits.double().numpy() / temperature
+    z = s + noise.double().numpy()
+    V = s.size
+    order = np.argsort(s, kind="stable")
+    asc = s[order]
+    k = min(top_k, V) if top_k else V
+
+    def suffix(p):
+        return np.concatenate([np.cumsum(p[order][::-1])[::-1], [0.0]])
+
+    def flips(e: float) -> bool:
+        d = 2 * e / temperature
+        ahead = np.searchsorted(asc, s + d, side="right")  # surely above
+        near = np.searchsorted(asc, s - d, side="left")    # maybe above
+        maybe, surely = V - ahead < k, V - near - 1 < k
+        if not surely[choice]:
+            return True
+        if top_p is not None and top_p < 1.0:
+            r = np.exp(d)
+            p = np.exp(s - s.max())
+            # Bounds of the top-k-renormalized mass ahead of a token:
+            # at least its surely-ahead tokens' share of the maybe-kept
+            # set, at most its maybe-ahead tokens' share of the
+            # surely-kept set.
+            kept = np.where(maybe, p, 0.0)
+            q = kept / max(p[surely].sum(), 1e-300)
+            maybe &= suffix(kept / kept.sum())[ahead] / r < top_p
+            surely &= (suffix(q)[near] - q) * r < top_p
+        if not surely[choice]:
+            return True
+        others = maybe.copy()
+        others[choice] = False
+        return bool(others.any() and z[others].max() >= z[choice] - d)
+
+    if flips(0.0):
+        # The gate does not reproduce the float32 choice from its own
+        # logits and noise: no error bound can forgive a difference there.
+        fail(f"the float32 choice {choice} is not the gate's pick from the "
+             f"recorded logits and noise (top-k {top_k}, top-p {top_p})")
+    lo, hi = 0.0, 16.0
+    if not flips(hi):
+        return 2 * hi
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        lo, hi = (lo, mid) if flips(mid) else (mid, hi)
+    if hi <= 16.0 / 2 ** 40:
+        fail(f"the float32 choice {choice} flips at the bisection floor "
+             f"({2 * hi:.3e}): the gate cannot tell it from a tie")
+    return 2 * hi
+
+
+def tokens_near(label: str, got, want, margin_at, tol: float) -> tuple:
+    """Pool tokens ``got`` against the float32 path's ``want`` (B, T):
+    equal, or each row's first difference where ``margin_at(row, pos)``
+    (the float32 run's own margin there) is below ``tol``. Returns
+    ``(note, positions compared)``."""
+    notes, compared = [], 0
+    for row, (g, w) in enumerate(zip(np.atleast_2d(got),
+                                     np.atleast_2d(want))):
+        diff = np.nonzero(g != w)[0]
+        if diff.size == 0:
+            compared += len(g)
+            continue
+        pos = int(diff[0])
+        compared += pos + 1
+        margin = margin_at(row, pos)
+        if not margin < tol:
+            fail(f"phase 9 {label}: row {row} differs from the float32 "
+                 f"path at position {pos} (its margin {margin:.3e} >= "
+                 f"{tol:.3e})")
+        notes.append(f"row {row} from position {pos} (margin "
+                     f"{margin:.3e} < {tol:.3e})")
+    return ("equal" if not notes else "near-tie: " + "; ".join(notes),
+            compared)
+
+
+def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
+               steps: int, dev) -> dict:
+    """Phase 9a: an ``HbmPool`` on the card in this process, over fresh
+    node pulls: Llama-3.2-1B from phase 7's snapshot (cold, hot, evicted,
+    re-landed) and Mixtral-8x7B at its published width, cut to one layer
+    (pushed here; dense core landed, experts paged). Returns the pool's
+    tokens, the Mixtral push's kernel launches and this path's launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import hbm_pool, moe
+    from zest_tpu_torch.models.loader import load_checkpoint
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    wall0 = time.monotonic()
+    card = card_label()
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
+                bg4_cuda.FUSED_COUNTER)
+    for c in counters:
+        c.reset()  # counts from here are the serving path's
+    n0, total = 8, 8 + steps
+    prompts = ref["prompts"]
+    # A decision flips only where the float32 path's own margin is below
+    # twice the bf16 tree's logits error (phase 7's).
+    tol = 2 * ref["bf16_err"]
+    cfg_p = Config(hf_home=work / "p" / "hf", cache_dir=work / "p" / "zest",
+                   endpoint=url)
+    pool = hbm_pool.HbmPool(cfg_p, dev)
+    snap = ref["snapshot"]
+    out = {}
+
+    # ── Llama-3.2-1B: cold (decode from the first-layer commit), hot ──
+    t0 = time.monotonic()
+    got, info = pool.generate_for(snap, LLAMA_REPO, [prompts[0]], steps,
+                                  stop_at_eos=False)
+    cold_s = time.monotonic() - t0
+    entry = pool._entries[str(Path(snap).resolve())]
+    if info["temp"] != "cold" or not info["decode_start_before_land_end"] \
+            or not entry.t_first_layer < entry.t_land_end:
+        fail(f"phase 9a: llama cold {info}, first layer "
+             f"{entry.t_first_layer} land end {entry.t_land_end}")
+    land_s = entry.t_land_end - entry.t_land_start
+    if pool.digest(snap) != ref["digest"]:
+        fail("phase 9a: the pool's llama digest != phase 7's landing")
+    if any(t.dtype != torch.bfloat16 for t in entry.params.values()):
+        fail("phase 9a: the pool's llama tree is not bf16")
+    cold_ids = np.atleast_2d(got)
+    notes, compared = {}, 0
+    runs = {}
+    for kind in ("greedy", "sampled"):
+        for b in (1, 4):
+            kw = {}
+            if kind == "sampled":
+                kw = dict(SAMPLING, noise=ref["noise"][:, :b])
+            t0 = time.monotonic()
+            ids, info_b = pool.generate_for(snap, LLAMA_REPO, prompts[:b],
+                                            steps, stop_at_eos=False, **kw)
+            runs[kind, b] = (time.monotonic() - t0, info_b)
+            ids = np.atleast_2d(ids)
+            out["llama", kind, b] = ids
+            logits = ref["logits"][kind, b]
+            if kind == "greedy":
+                def margin(r, pos, logits=logits):
+                    return top2_margin(logits[r, pos - 1])
+            else:
+                def margin(r, pos, logits=logits, b=b):
+                    return sampled_margin(
+                        logits[r, pos - 1], ref["noise"][pos - 1, r],
+                        int(ref["sampled"][b][r, pos]), **SAMPLING)
+            notes[kind, b], n = tokens_near(
+                f"llama {kind} batch {b}", ids, ref[kind][b], margin, tol)
+            compared += n
+    if not np.array_equal(cold_ids, out["llama", "greedy", 1]):
+        fail("phase 9a: the cold and hot llama runs differ")
+    if runs["greedy", 1][1]["temp"] != "hot":
+        fail(f"phase 9a: a second request ran {runs['greedy', 1][1]}")
+
+    # ── evict: the memory goes back; a re-land is the same tree ──
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    if not pool.evict(snap):
+        fail("phase 9a: the llama tree was not evictable")
+    gc.collect()
+    freed = before - torch.cuda.memory_allocated(dev)
+    if freed < LLAMA_PARAMS * 2:
+        fail(f"phase 9a: evict freed {freed:,} B < {LLAMA_PARAMS * 2:,} B")
+    t0 = time.monotonic()
+    again, info_r = pool.generate_for(snap, LLAMA_REPO, [prompts[0]], steps,
+                                      stop_at_eos=False)
+    reland_s = time.monotonic() - t0
+    if info_r["temp"] != "cold" or pool.digest(snap) != ref["digest"]:
+        fail(f"phase 9a: the re-land {info_r} or its digest is off")
+    if not np.array_equal(np.atleast_2d(again), cold_ids):
+        fail("phase 9a: the re-land's tokens differ from the cold run's")
+    out["llama_cold"] = cold_ids
+    pool.evict(snap)
+    print(f"phase 9a pool llama ({card}): cold ttft {info['ttft_s']} s "
+          f"(request {cold_s:.3f} s, land {land_s:.3f} s, first layer "
+          f"{entry.t_first_layer - entry.t_land_start:.3f} s, decode from "
+          f"the first-layer commit), hot ttft "
+          f"{runs['greedy', 1][1]['ttft_s']} s, re-land ttft "
+          f"{info_r['ttft_s']} s (request {reland_s:.3f} s); gate_stall_s "
+          f"{entry.gate_stall_s:.4f}; tok/s "
+          + ", ".join(f"{k} b{b} {b * steps / dt:.1f}"
+                      for (k, b), (dt, _) in runs.items())
+          + f"; evict freed {freed:,} B; digest = phase 7's before and "
+          f"after the re-land; tokens vs the float32 path {notes} "
+          f"({compared} positions; a difference is forgiven where the "
+          f"float32 decision's margin, twice the logit error that can flip "
+          f"it, is below {tol:.4f} = 2 x phase 7's bf16 logits error); "
+          f"re-land tokens bit-equal to the cold run's")
+    shutil.rmtree(work / "l")
+
+    # ── Mixtral-8x7B, one layer: push, pull, pool (paged experts) ──
+    ckpt = work / "mixtral"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(MIXTRAL_CONFIG, indent=2))
+    t0 = time.monotonic()
+    tensors = mixtral_checkpoint(seed + 9, MIXTRAL_CONFIG)
+    n_params = sum(t.numel() for t in tensors.values())
+    if n_params != MIXTRAL_PARAMS:
+        fail(f"phase 9: {n_params:,} Mixtral parameters")
+    write_safetensors(ckpt / "model.safetensors", tensors)
+    del tensors
+    made_s = time.monotonic() - t0
+    serve_launches = [c.launches for c in counters]
+    blake3_cuda.COUNTER.reset()
+    t0 = time.monotonic()
+    pushed = push_checkpoint(cfg_a, MIXTRAL_REPO, ckpt, device=dev,
+                             notify=False)
+    push_s = time.monotonic() - t0
+    push_launches = blake3_cuda.COUNTER.launches
+    if push_launches < 1 or blake3_cuda.COUNTER.rows != pushed.minted_chunks:
+        fail(f"phase 9: the push's kernel hashed {blake3_cuda.COUNTER.rows}"
+             f" chunks; it minted {pushed.minted_chunks}")
+    for c in counters:
+        c.reset()
+    t0 = time.monotonic()
+    res = pull_model(cfg_p, MIXTRAL_REPO, device=dev, land=False)
+    pull_s = time.monotonic() - t0
+    check_files("phase 9a", res, ckpt)
+    msnap = res.snapshot_dir
+    mcfg = moe.MoEConfig.from_hf(MIXTRAL_CONFIG)
+    mprompt = [t % mcfg.vocab_size for t in prompts[0]]
+    t0 = time.monotonic()
+    mids, minfo = pool.generate_for(msnap, MIXTRAL_REPO, [mprompt],
+                                    steps, stop_at_eos=False)
+    m_s = time.monotonic() - t0
+    mentry = pool._entries[str(Path(msnap).resolve())]
+    ex = minfo["experts"]
+    group = MIXTRAL_EXPERT_BYTES // 8
+    if (mentry.reserved != MIXTRAL_DENSE_BYTES
+            or mentry.bytes != MIXTRAL_DENSE_BYTES):
+        fail(f"phase 9a: mixtral reserved {mentry.reserved:,}, committed "
+             f"{mentry.bytes:,} B")
+    if not (ex["page_ins"] > 0 and ex["verified"] == 3 * ex["page_ins"]
+            and ex["evictions"] > 0 and ex["residency"] < 0.5
+            and ex["peak_bytes"] <= max(ex["budget_bytes"], group)
+            and ex["budget_bytes"] == MIXTRAL_PAGER_BYTES
+            and ex["total_expert_bytes"] == MIXTRAL_EXPERT_BYTES):
+        fail(f"phase 9a: pager {ex}")
+    mids = np.atleast_2d(mids)
+    dense = mentry.bytes
+    # One page-in by its parts: the host read, its BLAKE3, the commit.
+    from zest_tpu_torch.cas import hashing
+    from zest_tpu_torch.models import loader
+    from zest_tpu_torch.models.safetensors_io import tensor_bytes
+
+    t0 = time.monotonic()
+    page = {leaf: mentry.pager._reader(name)
+            for leaf, name in mentry.pager._names(0, 0).items()}
+    t1 = time.monotonic()
+    for view in page.values():
+        hashing.blake3_hash(tensor_bytes(view).tobytes())
+    t2 = time.monotonic()
+    page = loader.commit_tensors(page, dev)
+    page_s = (t1 - t0, t2 - t1, time.monotonic() - t2)
+    del page
+    out["mixtral"] = mids
+    out["mixtral_prompt"] = mprompt
+
+    # The family path: a float32 tree on the card whose capacity drops
+    # nothing, held to the CPU's float32 forward at every position.
+    fcfg = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts
+                               / mcfg.top_k)
+    host = load_checkpoint(msnap, "cpu")
+    params = moe.params_from_hf({n: t.to(dev) for n, t in host.items()},
+                                fcfg)
+    want = np.atleast_2d(moe.generate_cached(params, fcfg, [mprompt],
+                                             steps).cpu().numpy())
+    toks = torch.from_numpy(want).to(dev)
+    cache = moe.init_kv_cache(fcfg, 1, total, device=dev)
+    logits, cache = moe.decode_window(params, cache, toks[:, :n0], 0, fcfg)
+    parts = [logits.float()]
+    for pos in range(n0, total - 1):
+        step, cache = moe.decode_step(params, cache, toks[:, pos], pos,
+                                      fcfg)
+        parts.append(step[:, None].float())
+    card_logits = torch.cat(parts, dim=1).cpu()
+    gaps = router_gaps(moe, params, fcfg, toks[:, :total - 1])
+    del params, cache
+    t0 = time.monotonic()
+    params_cpu = moe.params_from_hf(host, fcfg)
+    del host
+    cpu_logits = moe.forward(params_cpu, toks[:, :total - 1].cpu(),
+                             fcfg)[0]
+    cpu_fwd_s = time.monotonic() - t0
+    del params_cpu
+    err = float((card_logits - cpu_logits).abs().max())
+    if not err <= LOGITS_TOL:
+        fail(f"phase 9a: mixtral family logits off the CPU's by {err:.3e} "
+             f"> {LOGITS_TOL:.1e}")
+
+    def mmargin(r, pos):
+        return min(top2_margin(card_logits[r, pos - 1]),
+                   float(gaps[r, :pos].min()))
+
+    mnote, mcompared = tokens_near("mixtral greedy batch 1", mids, want,
+                                   mmargin, tol)
+    pool.close()
+    torch.cuda.empty_cache()
+    launches = {name: n + c.launches for name, c, n in zip(
+        ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters,
+        serve_launches)}
+    print(f"phase 9a pool mixtral ({card}): {MIXTRAL_REPO} at its published "
+          f"width, 1 of 32 layers ({n_params:,} params, "
+          f"{pushed.total_bytes:,} bytes; made in {made_s:.2f} s); push_s "
+          f"{push_s:.2f} ({pushed.new_xorbs} xorbs, {pushed.minted_chunks} "
+          f"chunks, kernel launches {push_launches}); files-only pull "
+          f"{pull_s:.2f} s; cold ttft {minfo['ttft_s']} s (request "
+          f"{m_s:.3f} s, "
+          f"{(steps - 1) / (m_s - minfo['ttft_s']):.2f} tok/s after "
+          f"the first); dense core {dense:,} B committed; one page-in "
+          f"(352,321,536 B): read {page_s[0]:.3f} s, BLAKE3 "
+          f"{page_s[1]:.3f} s, commit {page_s[2]:.3f} s; pager "
+          f"{ex}; tokens vs the float32 family path {mnote} ({mcompared} "
+          f"positions, tolerance {tol:.4f}); family logits max |card - "
+          f"CPU| {err:.3e} (tolerance {LOGITS_TOL:.1e}; CPU forward "
+          f"{cpu_fwd_s:.2f} s); kernel launches on the serving path "
+          f"{launches}; phase wall {time.monotonic() - wall0:.2f} s")
+    shutil.rmtree(ckpt)
+    shutil.rmtree(work / "p")
+    out["push_launches"] = push_launches
+    out["launches"] = launches
+    return out
+
+
+def sse_post(url: str, body: dict) -> list[tuple[float, dict]]:
+    """POST /v1/generate; returns its SSE events, each with the seconds
+    from the request to its arrival (the daemon flushes each event as it
+    happens)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        url + "/v1/generate", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    t0 = time.monotonic()
+    events = []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        for line in r:
+            if line.startswith(b"data: "):
+                events.append((time.monotonic() - t0,
+                               json.loads(line[len(b"data: "):])))
+    return events
+
+
+def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
+                 gpt2_b1, gpt2_sha: str, steps: int) -> dict:
+    """Phase 9b: ``python -m zest_tpu_torch serve`` as its own process on
+    a fresh node C whose hub is node A's publisher, with a 3 GiB pool:
+    five generate requests (Llama cold, streamed hot, Mixtral cold
+    evicting Llama, Llama re-landed, GPT-2 on the single-model path),
+    then its metrics, status and a SIGTERM. Returns the daemon's kernel
+    launches over the five requests, by kernel, from its ``/v1/status``
+    before the first and after the last."""
+    import urllib.request
+
+    from zest_tpu_torch.config import Config
+
+    wall0 = time.monotonic()
+    cfg_c = Config(hf_home=work / "c9" / "hf",
+                   cache_dir=work / "c9" / "zest")
+    daemon = Seeder("phase 9b", cfg_c, args=("--device", "cuda"),
+                    HF_ENDPOINT=url, ZEST_HBM_POOL_BYTES=str(DAEMON_POOL))
+    lines = []
+    try:
+        def kernel_counts() -> dict:
+            return json.loads(urllib.request.urlopen(
+                daemon.url + "/v1/status", timeout=60).read())["kernels"]
+
+        counts0 = kernel_counts()
+        body = {"ids": list(llama_prompt), "steps": steps,
+                "stop_at_eos": False}
+
+        def ask(label, repo, stream=False, **extra):
+            timed = sse_post(daemon.url, {"repo_id": repo, **body,
+                                          "stream": stream, **extra})
+            kinds = [e["event"] for _, e in timed]
+            want = (["start", "pulled"] + ["token"] * (steps if stream
+                                                       else 0) + ["done"])
+            if kinds != want:
+                fail(f"phase 9b {label}: events {kinds}: {timed[-1]}")
+            (_, _), (t_pulled, _), *_, (t_done, done) = timed
+            pool = done.get("pool")
+            # The decode after its first token (the pool's TTFT runs from
+            # the pool call, right after the pull): steps - 1 tokens.
+            dt = t_done - t_pulled - (pool["ttft_s"] if pool else 0.0)
+            lines.append(f"{label}: pull {t_pulled:.3f} s, "
+                         + (f"ttft {pool['ttft_s']} s ({pool['temp']}), "
+                            f"gate_stall_s {pool['gate_stall_s']}, "
+                            f"{(steps - 1) / dt:.1f} tok/s after the first"
+                            if pool else f"load + decode {dt:.3f} s "
+                            "(single-model path)")
+                         + f", wall {t_done:.3f} s")
+            return done
+
+        d1 = ask("1 llama", LLAMA_REPO)
+        if d1["pool"]["temp"] != "cold" or \
+                d1["ids"] != pool_out["llama_cold"][0].tolist():
+            fail(f"phase 9b 1: {d1['pool']}, ids equal to 9a: "
+                 f"{d1['ids'] == pool_out['llama_cold'][0].tolist()}")
+        d2 = ask("2 llama streamed", LLAMA_REPO, stream=True)
+        if d2["pool"]["temp"] != "hot" or d2["ids"] != d1["ids"]:
+            fail(f"phase 9b 2: {d2['pool']}")
+        d3 = ask("3 mixtral", MIXTRAL_REPO, ids=pool_out["mixtral_prompt"])
+        ex = d3["pool"]["experts"]
+        resident = json.loads(urllib.request.urlopen(
+            daemon.url + "/v1/models", timeout=60).read())["resident"]
+        if d3["pool"]["temp"] != "cold" or not ex["residency"] < 0.5 or \
+                [r["repo"] for r in resident] != [MIXTRAL_REPO] or \
+                d3["ids"] != pool_out["mixtral"][0].tolist():
+            fail(f"phase 9b 3: {d3['pool']}, resident {resident}, ids "
+                 f"equal to 9a: "
+                 f"{d3['ids'] == pool_out['mixtral'][0].tolist()}")
+        lines.append(f"  pager {ex}; resident after: "
+                     f"{[(r['repo'], r['bytes']) for r in resident]}")
+        d4 = ask("4 llama again", LLAMA_REPO)
+        if d4["pool"]["temp"] != "cold" or d4["ids"] != d1["ids"]:
+            fail(f"phase 9b 4: {d4['pool']}")
+        d5 = ask("5 gpt2", REPO, revision=gpt2_sha,
+                 ids=list(gpt2_b1[0]))
+        if "pool" in d5 or d5["ids"] != list(gpt2_b1[1]):
+            fail(f"phase 9b 5: {d5}")
+        metrics = urllib.request.urlopen(daemon.url + "/v1/metrics",
+                                         timeout=60).read().decode()
+        status = json.loads(urllib.request.urlopen(
+            daemon.url + "/v1/status", timeout=60).read())
+        launches = {name: c["launches"] - counts0[name]["launches"]
+                    for name, c in status["kernels"].items()}
+        evictions = sum(float(ln.rsplit(" ", 1)[1]) for ln in
+                        metrics.splitlines() if ln.startswith(
+                            "zest_hbm_pool_evictions_total{"))
+        if not ('zest_ttft_seconds_count{temp="cold"}' in metrics
+                and 'zest_ttft_seconds_count{temp="hot"}' in metrics
+                and evictions >= 1 and "hbm_pool" in status):
+            fail(f"phase 9b: metrics/status: evictions {evictions}, "
+                 f"{sorted(status)}")
+    finally:
+        daemon.stop()
+    pool = status["hbm_pool"]
+    print(f"phase 9b daemon ({card_label()}): 5 requests over HTTP (pool "
+          f"watermark "
+          f"{DAEMON_POOL:,} B); " + "; ".join(lines)
+          + f"; pool evictions {pool['evictions']}, hits {pool['hits']}, "
+          f"misses {pool['misses']}, gate_stall_s {pool['gate_stall_s']}; "
+          f"kernel launches in the daemon over the five requests "
+          f"{launches}; SIGTERM exit 0; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    shutil.rmtree(work / "c9")
     return launches
 
 
@@ -1613,6 +2217,8 @@ def run(args, work: Path) -> dict:
             ref = gen_cpu(batch, args.steps, stop_at_eos=False)
             if not np.array_equal(out, ref):
                 fail(f"batch {len(batch)}: cuda tokens != cpu tokens")
+            if len(batch) == 1:
+                gpt2_b1 = (batch[0], out[0].tolist())  # for phase 9b
             print(f"phase 5 generate batch {len(batch)}: prefill 8 + "
                   f"{args.steps} steps in {dt:.3f} s, "
                   f"{len(batch) * args.steps / dt:.1f} tokens/s; equal to "
@@ -1634,12 +2240,19 @@ def run(args, work: Path) -> dict:
         torch.cuda.empty_cache()  # phase 4's and 6's trees are gone
 
         # ── 7. Llama-3.2-1B: push → pull → cached, sampled decode ──
-        llama_launches = llama_phase(work, publisher.url, cfg_a, args.seed,
-                                     args.steps, dev)
+        llama_ref = llama_phase(work, publisher.url, cfg_a, args.seed,
+                                args.steps, dev)
 
         # ── 8. the swarm: node B seeds, fresh nodes pull from it ──
         swarm_launches = swarm_phase(work, publisher.url, cfg_b, ckpt,
                                      pushed, digest, tth_a, tfl_a, dev)
+
+        # ── 9. the serving pool in-process, then the daemon over HTTP ──
+        pool_out = pool_phase(work, publisher.url, cfg_a, llama_ref,
+                              args.seed, args.steps, dev)
+        daemon_launches = daemon_phase(
+            work, publisher.url, pool_out, llama_ref["prompts"][0], gpt2_b1,
+            pushed.revision, args.steps)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -1694,12 +2307,21 @@ def run(args, work: Path) -> dict:
     by_path = {"blake3_chunks": {"push": push_launches,
                                  "push_sharded": sharded_launches,
                                  "push_delta": delta_launches,
-                                 "push_llama": llama_launches,
+                                 "push_llama": llama_ref["launches"],
+                                 "push_mixtral": pool_out["push_launches"],
+                                 "serve": pool_out["launches"][
+                                     "blake3_chunks"],
+                                 "serve_daemon": daemon_launches[
+                                     "blake3_chunks"],
                                  "coop": coop_launches["blake3_chunks"],
                                  "swarm": swarm_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
-                                        "swarm": swarm_launches[k["name"]]})
+                                        "swarm": swarm_launches[k["name"]],
+                                        "serve": pool_out["launches"][
+                                            k["name"]],
+                                        "serve_daemon": daemon_launches[
+                                            k["name"]]})
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     return {"kernels": kernels}
@@ -1722,10 +2344,7 @@ def main(argv=None) -> int:
         record = run(args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_label()
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

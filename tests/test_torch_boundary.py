@@ -51,13 +51,17 @@ SLICE_MODULES = [
     "zest_tpu_torch.p2p.wire", "zest_tpu_torch.p2p.bep_xet",
     "zest_tpu_torch.p2p.peer", "zest_tpu_torch.p2p.pool",
     "zest_tpu_torch.p2p.health", "zest_tpu_torch.transfer.server",
-    "zest_tpu_torch.transfer.swarm",
+    "zest_tpu_torch.transfer.swarm", "zest_tpu_torch.telemetry",
+    "zest_tpu_torch.telemetry.state", "zest_tpu_torch.telemetry.metrics",
+    "zest_tpu_torch.telemetry.trace", "zest_tpu_torch.telemetry.recorder",
+    "zest_tpu_torch.models.moe", "zest_tpu_torch.models.hbm_pool",
+    "zest_tpu_torch.api.http_api",
 ]
 
 
 def test_every_module_imports_without_jax_or_zest_tpu():
     names = _module_names()
-    assert len(names) >= 47
+    assert len(names) >= 54
     assert set(SLICE_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
@@ -147,6 +151,49 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert not (tmp_path / "zest").exists()  # nothing ran before the raise
+
+
+def test_serving_defaults_to_cuda_and_raises(no_card, tmp_path):
+    """The pool, its pager and the daemon's serving routes run on
+    ``cuda`` unless asked for the CPU; without a card they raise (a
+    generate request answers the raise as its ``error`` event) instead
+    of serving from the CPU."""
+    from zest_tpu_torch.api.http_api import HttpApi
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import hbm_pool
+
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest",
+                 endpoint="http://127.0.0.1:9")
+    llama_dir = tmp_path / "llama"
+    llama_dir.mkdir()
+    (llama_dir / "config.json").write_text(json.dumps(
+        {"model_type": "llama"}))
+    api = HttpApi(cfg)
+    hbm_pool.reset()
+    try:
+        for call in (lambda: hbm_pool.HbmPool(cfg),
+                     lambda: hbm_pool.pool(cfg),
+                     lambda: hbm_pool.ExpertPager(lambda n: None, 1),
+                     api.status_payload, api.models_payload,
+                     lambda: api._decode_path(llama_dir, "org/m")):
+            with pytest.raises(RuntimeError, match="cuda"):
+                call()
+        events = list(api.generate_events("org/m", {"ids": [1, 2]}))
+        assert [e["event"] for e in events] == ["start", "error"]
+        assert "cuda" in events[-1]["message"]
+        off = HttpApi(Config(hf_home=tmp_path / "hf",
+                             cache_dir=tmp_path / "zest",
+                             hbm_pool_enabled=False))
+        try:
+            assert "hbm_pool" not in off.status_payload()
+            with pytest.raises(RuntimeError, match="cuda"):
+                off._decode_path(llama_dir, "org/m")
+        finally:
+            off.close()
+    finally:
+        api.close()
+        hbm_pool.reset()
+    assert not (tmp_path / "zest").exists()
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):

@@ -715,3 +715,159 @@ def test_seeded_sampling_on_card_repeats(cuda_device):
     assert runs[0].device == cuda_device
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
+
+
+def _tiny_mixtral_tensors(seed: int = 0):
+    """A small Mixtral config (8 experts, top-2, GQA 4:2) and its
+    HF-named float32 tensors from a seed."""
+    cfg = {"model_type": "mixtral", "vocab_size": 512, "hidden_size": 128,
+           "intermediate_size": 256, "num_hidden_layers": 2,
+           "num_attention_heads": 4, "num_key_value_heads": 2,
+           "max_position_embeddings": 256, "num_local_experts": 8,
+           "num_experts_per_tok": 2, "rms_norm_eps": 1e-5,
+           "rope_theta": 1e6, "tie_word_embeddings": False}
+    rng = np.random.default_rng(seed)
+    E, F, V = 128, 256, 512
+
+    def w(*shape):
+        return torch.from_numpy(rng.normal(0, 0.05, shape).astype(np.float32))
+
+    t = {"model.embed_tokens.weight": w(V, E), "model.norm.weight": 1 + w(E),
+         "lm_head.weight": w(V, E)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        t[p + "input_layernorm.weight"] = 1 + w(E)
+        t[p + "post_attention_layernorm.weight"] = 1 + w(E)
+        for name, shape in (("q_proj", (E, E)), ("k_proj", (64, E)),
+                            ("v_proj", (64, E)), ("o_proj", (E, E))):
+            t[f"{p}self_attn.{name}.weight"] = w(*shape)
+        t[p + "block_sparse_moe.gate.weight"] = w(8, E)
+        for x in range(8):
+            ep = f"{p}block_sparse_moe.experts.{x}."
+            t[ep + "w1.weight"] = w(F, E)
+            t[ep + "w3.weight"] = w(F, E)
+            t[ep + "w2.weight"] = w(E, F)
+    return cfg, t
+
+
+def _snapshot(root, cfg, tensors):
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+
+    root.mkdir(parents=True)
+    (root / "config.json").write_text(json.dumps(cfg))
+    write_safetensors(root / "model.safetensors", tensors)
+    return root
+
+
+def test_pool_gated_decode_sees_every_commit(cuda_device, tmp_path):
+    """Cold decodes racing their landing (a commit group per layer, no
+    delay) read every tensor only after its copy completed: each cold
+    run's tokens equal the hot run's and the CPU pool's, over several
+    evict → re-land cycles, at batch 1 and 4."""
+    from zest_tpu_torch.models import hbm_pool
+
+    cfg_json, host = _tiny_llama_tensors(2)
+    snap = _snapshot(tmp_path / "llama", cfg_json, host)
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest")
+    card, cpu = hbm_pool.HbmPool(cfg, cuda_device), hbm_pool.HbmPool(cfg,
+                                                                     "cpu")
+    card.group_bytes = 1
+    prompts = _RNG.integers(0, 512, (4, 6)).tolist()
+    try:
+        for batch in (prompts[:1], prompts):
+            want, _ = cpu.generate_for(snap, "org/l", batch, 12)
+            for cycle in range(3):
+                got, info = card.generate_for(snap, "org/l", batch, 12)
+                assert info["temp"] == "cold"
+                np.testing.assert_array_equal(got, want)
+                hot, info = card.generate_for(snap, "org/l", batch, 12)
+                assert info["temp"] == "hot"
+                np.testing.assert_array_equal(hot, want)
+                assert card.evict(snap)
+        entry = card._entries[str(snap.resolve())]
+        assert entry.lands == 6
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_pool_evict_gives_the_memory_back(cuda_device, tmp_path):
+    """Evicting a Llama tree and a Mixtral tree (dense core and paged
+    experts) brings ``torch.cuda.memory_allocated`` back to where it was;
+    the digest survives the round trip."""
+    from zest_tpu_torch.models import hbm_pool
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest")
+    pool = hbm_pool.HbmPool(cfg, cuda_device)
+    try:
+        for name, (cfg_json, host) in (("llama", _tiny_llama_tensors(3)),
+                                       ("moe", _tiny_mixtral_tensors(3))):
+            snap = _snapshot(tmp_path / name, cfg_json, host)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(cuda_device)
+            out, info = pool.generate_for(snap, f"org/{name}", [[1, 2, 3]],
+                                          8, temperature=0.9, seed=1)
+            entry = pool._entries[str(snap.resolve())]
+            held = torch.cuda.memory_allocated(cuda_device) - base
+            assert held >= entry.bytes + (entry.pager.bytes
+                                          if entry.pager else 0) > 0
+            digest = pool.digest(snap)
+            if entry.pager is None:
+                assert digest == params_digest(load_checkpoint(snap, "cpu"))
+            assert pool.evict(snap)
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated(cuda_device) == base
+            again, _ = pool.generate_for(snap, f"org/{name}", [[1, 2, 3]],
+                                         8, temperature=0.9, seed=1)
+            np.testing.assert_array_equal(again, out)
+            assert pool.digest(snap) == digest
+            assert pool.evict(snap)
+            if entry.pager is not None:
+                ex = info["experts"]
+                assert ex["page_ins"] > 0 and ex["residency"] < 0.5
+    finally:
+        pool.close()
+
+
+def test_daemon_generate_on_card(cuda_device, tmp_path):
+    """``POST /v1/generate`` on a daemon serving from ``cuda``: a pushed
+    Llama and Mixtral pulled through the daemon's memo and decoded from
+    the pool, equal to the family paths on the card."""
+    import urllib.request
+
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models import hbm_pool
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest")
+    for name, (cfg_json, host) in (("llama", _tiny_llama_tensors(4)),
+                                   ("moe", _tiny_mixtral_tensors(4))):
+        push_checkpoint(cfg_a, f"org/{name}",
+                        _snapshot(tmp_path / name, cfg_json, host),
+                        notify=False)
+    hbm_pool.reset()
+    with PublisherServer(cfg_a) as hub:
+        cfg_c = Config(hf_home=tmp_path / "c" / "hf",
+                       cache_dir=tmp_path / "c" / "zest", endpoint=hub.url)
+        with PublisherServer(cfg_c) as daemon:
+            for name in ("llama", "moe"):
+                body = json.dumps({"repo_id": f"org/{name}",
+                                   "ids": [5, 6, 7], "steps": 6,
+                                   "stream": True}).encode()
+                req = urllib.request.Request(daemon.url + "/v1/generate",
+                                             data=body, method="POST")
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    events = [json.loads(ln[6:]) for ln in
+                              r.read().splitlines()
+                              if ln.startswith(b"data: ")]
+                done = events[-1]
+                assert done["event"] == "done", events
+                assert [e["event"] for e in events].count("token") == 6
+                assert done["pool"]["temp"] == "cold"
+                _, family = load_generator(events[1]["snapshot_dir"],
+                                           device=cuda_device)
+                assert done["ids"] == family([5, 6, 7], 6).tolist()
+    hbm_pool.reset()

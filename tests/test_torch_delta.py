@@ -51,6 +51,7 @@ from zest_tpu.storage import XorbCache as JXorbCache
 from zest_tpu.transfer import coop as j_coop
 from zest_tpu.transfer import delta as j_delta
 from zest_tpu.transfer import pull as j_pull
+from zest_tpu_torch import telemetry
 from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.models import loader
@@ -525,14 +526,21 @@ def test_base_params_without_base_revision_raises(hub, tmp_path):
     assert not (tmp_path / "zest").exists()
 
 
+def _degraded_events() -> list[dict]:
+    return [e for e in telemetry.recorder.tail()
+            if e["kind"] == "delta_degraded"]
+
+
 def test_missing_base_manifest_degrades(hub, tmp_path):
-    """The revision-A evidence is gone: a full pull that says so, and the
-    base tree left untouched."""
+    """The revision-A evidence is gone: a full pull that says so, records
+    a ``delta_degraded`` flight event as the JAX package does, and leaves
+    the base tree untouched."""
     import shutil
 
     res_a = _pull(hub, tmp_path, SHA_A)
     base = res_a.params
     shutil.rmtree(delta.manifest_dir(_cfg(hub, tmp_path)))
+    telemetry.reset_all()
     said = []
     res = _pull(hub, tmp_path, SHA_B, base_params=base, base_revision=SHA_A,
                 log=lambda *a, **k: said.append(" ".join(map(str, a))))
@@ -540,16 +548,21 @@ def test_missing_base_manifest_degrades(hub, tmp_path):
     assert "swap" not in res.stats["hbm"]
     assert base.keys() == res_a.params.keys() and len(base) == 30
     assert any("no base-revision manifest" in s for s in said), said
+    (ev,) = _degraded_events()
+    assert (ev["repo"], ev["revision"], ev["reason"]) == (
+        REPO, SHA_B, "missing rev-A manifest")
     _assert_files_exact(res)
 
 
 def test_complete_snapshot_degrades_loudly(hub, tmp_path):
     """Both snapshots complete on disk: the direct landing defers to disk
-    staging, so the pull says the swap was skipped and leaves the base
-    alone instead of returning a second tree silently."""
+    staging, so the pull says the swap was skipped (and records a
+    ``delta_degraded`` flight event) and leaves the base alone instead of
+    returning a second tree silently."""
     res_a = _pull(hub, tmp_path, SHA_A)
     _pull(hub, tmp_path, SHA_B).params = None  # materializes B
     base = res_a.params
+    telemetry.reset_all()
     said = []
     res = _pull(hub, tmp_path, SHA_B, base_params=base, base_revision=SHA_A,
                 log=lambda *a, **k: said.append(" ".join(map(str, a))))
@@ -557,6 +570,9 @@ def test_complete_snapshot_degrades_loudly(hub, tmp_path):
     assert "time_to_swap_s" not in res.stats
     assert res.stats["hbm"]["direct"] is False
     assert any("snapshot already materialized" in s for s in said), said
+    (ev,) = _degraded_events()
+    assert (ev["repo"], ev["revision"], ev["reason"]) == (
+        REPO, SHA_B, "snapshot already complete")
     assert loader.params_digest(res.params) == loader.params_digest(
         _pull(hub, tmp_path / "cold", SHA_B).params)
 

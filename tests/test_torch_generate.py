@@ -345,16 +345,48 @@ def test_sampled_decode_matches_reference_under_injected_noise(tiny):
                               noise=_jax_gumbel(key, 12, 1, 256), **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(temperature=0.8, top_k=50, top_p=0.9),
+    dict(temperature=1.3, top_k=20, top_p=0.5),
+    dict(temperature=0.5, top_k=None, top_p=0.95),
+])
+def test_chip_smoke_margin_gate_reproduces_sampled_choices(tiny, kw):
+    """``chip_smoke.sampled_margin``, the gate that forgives a bf16 token
+    only where the float32 decision is near a flip, reproduces every
+    float32 choice of a sampled decode from the cached path's logits and
+    the noise (it fails on a choice it does not reproduce), and refuses
+    a token that is not the pick."""
+    import chip_smoke
+
+    _, _, cfg, params = tiny
+    prompts = [[3, 7, 1, 4, 2, 8, 6, 5], [5, 2, 9, 1, 1, 3, 0, 7]]
+    n0, steps = 8, 16
+    noise = sampling.gumbel_noise((n0 + steps - 1, 2, cfg.vocab_size),
+                                  torch.Generator().manual_seed(0))
+    got = llama.generate_cached(params, cfg, prompts, steps, noise=noise,
+                                **kw)
+    logits = chip_smoke.cached_logits(llama, params, cfg, got, n0)
+    for r in range(2):
+        for pos in range(n0, n0 + steps):
+            assert chip_smoke.sampled_margin(
+                logits[r, pos - 1], noise[pos - 1, r], int(got[r, pos]),
+                **kw) > 0
+    least = int(logits[0, n0 - 1].argmin())
+    with pytest.raises(RuntimeError, match="not the gate's pick"):
+        chip_smoke.sampled_margin(logits[0, n0 - 1], noise[n0 - 1, 0],
+                                  least, **kw)
+
+
 # ── Errors, the tokenizer, the CLI ──
 
 
 def test_load_generator_unsupported_and_missing_weights(tmp_path):
-    for family in ("rwkv", "mixtral"):
+    for family in ("rwkv", "gpt_neox"):
         (tmp_path / "config.json").write_text(json.dumps(
             {"model_type": family}))
         with pytest.raises(UnsupportedModelError, match=family):
             load_generator(tmp_path, device="cpu")
-    for family in ("gpt2", "llama"):
+    for family in ("gpt2", "llama", "mixtral"):
         (tmp_path / "config.json").write_text(json.dumps(
             {"model_type": family}))
         with pytest.raises(FileNotFoundError, match="safetensors"):

@@ -1,7 +1,8 @@
-"""The publisher endpoint: Hub/CAS routes on stdlib ``http.server``.
+"""The daemon's HTTP API: publisher, control and serving routes on stdlib
+``http.server``.
 
-The publisher surface of ``zest_tpu/api/http_api.py``: a node that pushed
-a revision serves it to a second node's unmodified pull, answering from
+The counterpart of ``zest_tpu/api/http_api.py``'s routes that the port
+runs. The publisher surface answers a second node's unmodified pull from
 :class:`~zest_tpu_torch.transfer.push.PublisherIndex`:
 
     GET  /api/models/{org}/{name}/revision/{rev}       -> {"sha", "siblings"}
@@ -11,25 +12,50 @@ a revision serves it to a second node's unmodified pull, answering from
     GET  /xorbs/{xorb_hex}                             -> frame bytes (Range)
     GET  /{org}/{name}/resolve/{rev}/{file}            -> file bytes (Range)
 
-and the continuous fan-out of pushed revisions:
+the continuous fan-out of pushed revisions:
 
     POST /v1/push   {"repo", "revision", "parent"?, ...} -> {"ok", "watchers", "delivered"}
     POST /v1/watch  {"repos": [...]}  -> SSE: hello, then revision events, ping keepalives
 
+and the control and serving routes of :class:`HttpApi`:
+
+    GET  /v1/health   -> {"status": "ok"}
+    GET  /v1/status   -> node, seeding, swarm, telemetry, kernels and
+                         ``hbm_pool`` blocks
+    GET  /v1/models   -> {"models": [...], "resident": [...]}
+    GET  /v1/metrics  -> Prometheus text
+    POST /v1/generate {"repo_id", "ids" | "prompt", "steps", ...}
+                      -> SSE: start, pulled, [token...], done | error
+    POST /v1/stop     -> {"status": "stopping"}
+
+``/v1/generate`` pulls the repo through the node's swarm (memoized for
+30 s, see :meth:`HttpApi._pull_memo`) and decodes on the daemon's device
+(``cuda`` unless the daemon was started with ``device="cpu"``): Llama
+family and Mixtral models from the serving pool
+(:mod:`~zest_tpu_torch.models.hbm_pool`), whose facts the ``done`` event
+carries as ``pool``; GPT-2, and every model with ``ZEST_HBM_POOL=0``,
+from a per-snapshot generator. Any failure of the pull, the landing or
+the decode reaches the client as an ``error`` event.
+
 ``/v1/watch`` answers 404 when ``Config.watch_enabled`` is off
-(``ZEST_WATCH=0``); a push then notifies no one. The rest of the JAX
-package's daemon API (pull/generate/status, and the registry, swarm and
-gossip announce of a push) is not ported.
+(``ZEST_WATCH=0``); a push then notifies no one. Blocks and routes of
+subsystems the port does not run (pull sessions, tenancy, timelines,
+remediation, pod aggregation, the dashboard, ``/v1/pull``) are absent.
 """
 
 from __future__ import annotations
 
 import json
+import queue
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from zest_tpu_torch.config import Config
+import numpy as np
+
+from zest_tpu_torch import faults, storage, telemetry
+from zest_tpu_torch import __version__
+from zest_tpu_torch.config import DEFAULT_DEVICE, Config
 from zest_tpu_torch.transfer.push import PUBLISHER_TOKEN, PublisherIndex
 
 
@@ -118,15 +144,396 @@ def push_notify(hub: WatchHub, req: dict) -> dict:
     return {"ok": True, "watchers": hub.watchers(), "delivered": delivered}
 
 
+class HttpApi:
+    """The daemon's state behind the routes: the publisher index, the
+    watch fan-out, and the serving path over ``cfg``'s caches on
+    ``device``. ``swarm`` (the node's ``SwarmDownloader``) carries every
+    generate's pull; ``bt_server`` (its ``BtServer``) feeds ``/v1/status``
+    and the metrics."""
+
+    _PULL_TTL_S = 30.0
+
+    def __init__(self, cfg: Config, device=DEFAULT_DEVICE, swarm=None,
+                 bt_server=None):
+        self.cfg = cfg
+        self.device = device
+        self.swarm = swarm
+        self.bt_server = bt_server
+        self.index = PublisherIndex(cfg)
+        self.watch_hub = WatchHub()
+        self.port: int | None = None   # set by the server once bound
+        self.http_requests = 0
+        self.shutdown_event = threading.Event()
+        # Live-state gauges at scrape time; removed in close().
+        self._collector = self._collect_gauges
+        telemetry.REGISTRY.add_collector(self._collector)
+        # snapshot_dir → (model_type, generate); see _generator_for.
+        self._generators: dict = {}
+        self._gen_lock = threading.Lock()
+        self._gen_loading: dict = {}
+        # (repo_id, revision) → (snapshot_dir, expiry); see _pull_memo.
+        # A streaming generate pins its key (a pinned entry never
+        # expires, so no re-pull rewrites the snapshot under it), and
+        # concurrent misses of one key share one pull.
+        self._pulled: dict = {}
+        self._snapshot_pins: dict = {}
+        self._pull_inflight: dict = {}
+
+    def trigger_shutdown(self) -> None:
+        self.shutdown_event.set()
+
+    def close(self) -> None:
+        telemetry.REGISTRY.remove_collector(self._collector)
+        self.watch_hub.close()
+
+    def _collect_gauges(self, registry) -> None:
+        """Scrape-time gauges from the live objects this daemon owns."""
+        health = getattr(self.swarm, "health", None)
+        if health is not None:
+            s = health.summary()
+            registry.gauge("zest_peers_tracked",
+                           "Peers with recorded health").set(s["tracked"])
+            registry.gauge("zest_peers_quarantined",
+                           "Peers currently quarantined"
+                           ).set(s["quarantined_now"])
+        if self.bt_server is not None:
+            bt = self.bt_server.get_stats()
+            registry.gauge("zest_bt_active_peers",
+                           "Active inbound BT-wire connections"
+                           ).set(bt.active_peers)
+            registry.gauge("zest_seed_active_leechers",
+                           "Leechers connected to the seeding server"
+                           ).set(bt.active_peers)
+            registry.gauge("zest_seed_choked_peers",
+                           "Leechers currently choked by the upload policy"
+                           ).set(bt.choked_peers)
+            registry.gauge("zest_seed_unchoked_peers",
+                           "Leechers currently holding unchoke slots"
+                           ).set(bt.unchoked_peers)
+
+    # ── Payloads ──
+
+    def status_payload(self) -> dict:
+        from zest_tpu_torch.models import hbm_pool
+
+        bt = self.bt_server.get_stats() if self.bt_server else None
+        payload = {
+            "version": __version__,
+            "bt_peers": bt.active_peers if bt else 0,
+            "chunks_served": bt.chunks_served if bt else 0,
+            "xorbs_cached": len(storage.list_cached_xorbs(self.cfg)),
+            "http_requests": self.http_requests,
+            "listen_port": self.cfg.listen_port,
+            "http_port": self.port,
+        }
+        if bt is not None:
+            payload["seeding"] = {
+                "active_leechers": bt.active_peers,
+                "unchoked": bt.unchoked_peers,
+                "choked": bt.choked_peers,
+                "chunks_served": bt.chunks_served,
+                "bytes_served": bt.bytes_served,
+                "choke_events": bt.choke_events,
+                "refused_quarantined": bt.refused_quarantined,
+                "uploads_expired": bt.uploads_expired,
+                "rate_bps": self.cfg.seed_rate_bps or None,
+                "peer_bps": self.cfg.seed_peer_bps or None,
+                "slots": self.cfg.seed_slots,
+            }
+        if self.swarm is not None:
+            payload["swarm"] = self.swarm.summary()
+            health = getattr(self.swarm, "health", None)
+            if health is not None:
+                payload["peers"] = health.detail()
+        payload["telemetry"] = telemetry.status_snapshot()
+        payload["kernels"] = kernel_launches()
+        fired = faults.counters()
+        if fired:
+            payload["faults"] = dict(sorted(fired.items()))
+        # The serving pool: absent with ZEST_HBM_POOL=0.
+        hp = hbm_pool.pool(self.cfg, self.device)
+        if hp is not None:
+            payload["hbm_pool"] = hp.summary()
+        return payload
+
+    def models_payload(self) -> dict:
+        """Pulled models in the HF hub cache and, with the pool on, the
+        trees resident or landing on the device (``resident`` rows; a
+        disk row whose repo matches gains ``pool_state``). Pool off: the
+        ``models`` key alone."""
+        from zest_tpu_torch.models import hbm_pool
+
+        doc: dict = {"models": storage.list_models(self.cfg)}
+        hp = hbm_pool.pool(self.cfg, self.device)
+        if hp is not None:
+            rows = hp.resident()
+            doc["resident"] = rows
+            states = {r["repo"]: r["state"] for r in rows}
+            for m in doc["models"]:
+                state = states.get(m.get("repo_id"))
+                if state is not None:
+                    m["pool_state"] = state
+        return doc
+
+    # ── Serving ──
+
+    def _generator_for(self, snapshot_dir):
+        """Memoized ``(model_type, generate)`` per snapshot: one loader a
+        key (latecomers wait for it rather than build a second tree), an
+        LRU of four."""
+        from zest_tpu_torch.models.generate import load_generator
+
+        key = str(snapshot_dir)
+        while True:
+            with self._gen_lock:
+                cached = self._generators.get(key)
+                if cached is not None:
+                    self._generators.pop(key)          # LRU: to the end
+                    self._generators[key] = cached
+                    return cached
+                pending = self._gen_loading.get(key)
+                if pending is None:
+                    pending = self._gen_loading[key] = threading.Event()
+                    loading = True
+                else:
+                    loading = False
+            if not loading:
+                pending.wait()
+                continue  # the loader finished or failed: look again
+            try:
+                cached = load_generator(snapshot_dir, device=self.device)
+                with self._gen_lock:
+                    self._generators[key] = cached
+                    while len(self._generators) > 4:
+                        self._generators.pop(next(iter(self._generators)))
+                return cached
+            finally:
+                with self._gen_lock:
+                    self._gen_loading.pop(key, None)
+                pending.set()
+
+    def generate_events(self, repo_id: str, req: dict):
+        """SSE events of one pull + decode: ``start`` → ``pulled`` →
+        [``token``…] → ``done`` with the output ids (and text with a
+        tokenizer), or ``error``. ``"stream": true`` sends each generated
+        token as its own event."""
+        from zest_tpu_torch.models.generate import try_tokenizer
+
+        yield {"event": "start", "repo_id": repo_id}
+        memo_key = (repo_id, req.get("revision", "main"))
+        self._pin_snapshot(memo_key)
+        try:
+            snapshot_dir = self._pull_memo(repo_id,
+                                           req.get("revision", "main"))
+            yield {"event": "pulled", "snapshot_dir": str(snapshot_dir)}
+            tok = try_tokenizer(snapshot_dir)
+            if "ids" in req:
+                prompt = [int(t) for t in req["ids"]]
+            elif "prompt" in req and tok is not None:
+                prompt = tok.encode(req["prompt"])
+            else:
+                yield {"event": "error",
+                       "message": "need ids, or prompt + a tokenizer "
+                                  "in the snapshot"}
+                return
+            model_type, generate, pool_info = self._decode_path(
+                snapshot_dir, repo_id)
+            top_k = req.get("top_k")
+            top_p = req.get("top_p")
+            kwargs = dict(
+                temperature=float(req.get("temperature", 0.0)),
+                top_k=None if top_k is None else int(top_k),
+                top_p=None if top_p is None else float(top_p),
+                seed=int(req.get("seed", 0)),
+                stop_at_eos=bool(req.get("stop_at_eos", True)),
+            )
+            steps = int(req.get("steps", 20))
+            if req.get("stream"):
+                yield from self._streamed_decode(
+                    generate, model_type, prompt, steps, tok, kwargs,
+                    pool_info=pool_info)
+                return
+            out = generate(prompt, steps, **kwargs)
+            ev = self._done_event(model_type, out, tok)
+            if pool_info:
+                ev["pool"] = dict(pool_info)
+            yield ev
+        except Exception as exc:  # noqa: BLE001 - reported to the client
+            yield {"event": "error", "message": str(exc)}
+        finally:
+            self._unpin_snapshot(memo_key)
+
+    def _decode_path(self, snapshot_dir, repo_id: str):
+        """Route one generate to the pool or the single-model path.
+        Returns ``(model_type, generate, pool_info)``: on the pool path
+        ``generate`` wraps ``HbmPool.generate_for`` and fills
+        ``pool_info`` (the ``done`` event's ``pool``); otherwise
+        ``pool_info`` is None."""
+        from zest_tpu_torch.models import hbm_pool
+
+        pool = hbm_pool.pool(self.cfg, self.device)
+        if pool is not None:
+            model_type, eos_ids = hbm_pool.snapshot_meta(snapshot_dir)
+            if pool.supports(model_type):
+                pool_info: dict = {}
+
+                def generate(prompt, steps, on_token=None, **kw):
+                    out, info = pool.generate_for(
+                        snapshot_dir, repo_id, prompt, steps,
+                        on_token=on_token, **kw)
+                    pool_info.update(info)
+                    return out
+
+                generate.eos_ids = eos_ids  # _streamed_decode reads it
+                return model_type, generate, pool_info
+        model_type, generate = self._generator_for(snapshot_dir)
+        return model_type, generate, None
+
+    def _pin_snapshot(self, key) -> None:
+        with self._gen_lock:
+            self._snapshot_pins[key] = self._snapshot_pins.get(key, 0) + 1
+
+    def _unpin_snapshot(self, key) -> None:
+        with self._gen_lock:
+            n = self._snapshot_pins.get(key, 0) - 1
+            if n <= 0:
+                self._snapshot_pins.pop(key, None)
+            else:
+                self._snapshot_pins[key] = n
+
+    def _pull_memo(self, repo_id: str, revision: str):
+        """Snapshot dir of (repo, revision), memoized for ``_PULL_TTL_S``.
+
+        Even a fully cached pull asks the hub for the revision and file
+        list; serving remembers the answer briefly (a vanished snapshot
+        dir is a miss regardless). A key pinned by a live generate never
+        expires, and concurrent misses of one key share one
+        ``pull_model`` call (the others wait on its event, then read the
+        memo or lead a retry). The pull writes the snapshot's files and
+        lands nothing: the pool and the generators land from them."""
+        from zest_tpu_torch.transfer.pull import pull_model
+
+        key = (repo_id, revision)
+        while True:
+            with self._gen_lock:
+                hit = self._pulled.get(key)
+                now = time.monotonic()
+                if hit is not None and hit[0].is_dir() and (
+                        hit[1] > now or self._snapshot_pins.get(key)):
+                    return hit[0]
+                pending = self._pull_inflight.get(key)
+                if pending is None:
+                    pending = self._pull_inflight[key] = threading.Event()
+                    leading = True
+                else:
+                    leading = False
+            if not leading:
+                pending.wait()
+                continue
+            try:
+                res = pull_model(self.cfg, repo_id, revision=revision,
+                                 device=self.device, swarm=self.swarm,
+                                 land=False, log=lambda *a, **k: None)
+                with self._gen_lock:
+                    now = time.monotonic()
+                    # Expired, unpinned entries go on insert.
+                    self._pulled = {
+                        k: v for k, v in self._pulled.items()
+                        if v[1] > now or self._snapshot_pins.get(k)}
+                    self._pulled[key] = (res.snapshot_dir,
+                                         now + self._PULL_TTL_S)
+                return res.snapshot_dir
+            finally:
+                with self._gen_lock:
+                    self._pull_inflight.pop(key, None)
+                pending.set()
+
+    @staticmethod
+    def _done_event(model_type: str, out, tok) -> dict:
+        payload = {"event": "done", "model_type": model_type,
+                   "ids": [int(t) for t in out]}
+        if tok is not None:
+            payload["text"] = tok.decode(list(out))
+        return payload
+
+    def _streamed_decode(self, generate, model_type: str, prompt, steps,
+                         tok, kwargs: dict, pool_info: dict | None = None):
+        """Run the decode in a worker and relay its tokens as SSE events:
+        prompt positions are filtered, and token events stop at the
+        first generated stop id. A disconnected client sets the cancel
+        flag; later tokens are dropped and the bounded decode runs out."""
+        q: queue.Queue = queue.Queue()
+        n0 = len(prompt)
+        cancelled = threading.Event()
+
+        def on_token(pos, toks):
+            if cancelled.is_set():
+                return
+            q.put(("tok", int(pos), int(np.asarray(toks).ravel()[0])))
+
+        def worker():
+            try:
+                out = generate(prompt, steps, on_token=on_token, **kwargs)
+                q.put(("done", out))
+            except Exception as exc:  # noqa: BLE001 - relayed as SSE
+                q.put(("error", exc))
+
+        threading.Thread(target=worker, daemon=True,
+                         name="zest-generate-stream").start()
+        eos_ids = getattr(generate, "eos_ids", None)
+        if not kwargs.get("stop_at_eos", True):
+            eos_ids = None
+        ended = False
+        gen_ids: list[int] = []
+        sent_text = ""
+        try:
+            while True:
+                item = q.get()
+                if item[0] == "done":
+                    out = item[1]
+                    break
+                if item[0] == "error":
+                    yield {"event": "error", "message": str(item[1])}
+                    return
+                _, pos, tid = item
+                if pos >= n0 and not ended:
+                    ev = {"event": "token", "pos": pos, "id": tid}
+                    if tok is not None:
+                        # A diff of whole decodes: merges and multi-byte
+                        # UTF-8 render only in context (a trailing
+                        # replacement char waits for its other bytes).
+                        gen_ids.append(tid)
+                        full = tok.decode(gen_ids)
+                        if not full.endswith("�"):
+                            ev["text"] = full[len(sent_text):]
+                            sent_text = full
+                    yield ev
+                    ended = bool(eos_ids) and tid in eos_ids
+        finally:
+            cancelled.set()
+        ev = self._done_event(model_type, out, tok)
+        if pool_info:
+            ev["pool"] = dict(pool_info)
+        yield ev
+
+
+def kernel_launches() -> dict:
+    """The hand-written kernels' launch and row counts in this process,
+    by kernel: what a daemon's requests launched on the card."""
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+
+    return {name: {"launches": c.launches, "rows": c.rows}
+            for name, c in (("blake3_chunks", blake3_cuda.COUNTER),
+                            ("bg4_regroup", bg4_cuda.COUNTER),
+                            ("bg4_fused_verify", bg4_cuda.FUSED_COUNTER))}
+
+
 class _Handler(BaseHTTPRequestHandler):
     # Keep-alive (HTTP/1.1): every response sets Content-Length, or is
-    # chunked (the SSE stream).
+    # chunked (the SSE streams).
     protocol_version = "HTTP/1.1"
     timeout = 120
-    # Bound per server by PublisherServer.
-    index: PublisherIndex
-    hub: WatchHub
-    cfg: Config
+    api: HttpApi  # bound per server by PublisherServer
 
     def log_message(self, *args) -> None:  # quiet
         pass
@@ -135,6 +542,13 @@ class _Handler(BaseHTTPRequestHandler):
         body = json.dumps(payload).encode()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _text(self, body: bytes, content_type: str) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -176,12 +590,23 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self) -> None:  # noqa: N802
+        self.api.http_requests += 1
+        index = self.api.index
         path = self.path.split("?", 1)[0]
-        if path.startswith("/api/models/"):
+        if path == "/v1/health":
+            self._json({"status": "ok"})
+        elif path == "/v1/status":
+            self._json(self.api.status_payload())
+        elif path == "/v1/models":
+            self._json(self.api.models_payload())
+        elif path == "/v1/metrics":
+            self._text(telemetry.render_prometheus().encode(),
+                       "text/plain; version=0.0.4; charset=utf-8")
+        elif path.startswith("/api/models/"):
             parts = path[len("/api/models/"):].strip("/").split("/")
             if len(parts) >= 4 and parts[2] == "revision":
-                doc = self.index.revision_doc(f"{parts[0]}/{parts[1]}",
-                                              "/".join(parts[3:]))
+                doc = index.revision_doc(f"{parts[0]}/{parts[1]}",
+                                         "/".join(parts[3:]))
                 if doc is None:
                     self._json({"error": "unknown revision"}, 404)
                 else:
@@ -193,7 +618,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._json({"error": "not found"}, 404)
         elif path.startswith("/v1/reconstructions/"):
-            doc = self.index.reconstruction_doc(
+            doc = index.reconstruction_doc(
                 path[len("/v1/reconstructions/"):].strip("/"),
                 self.headers.get("Range"), self._base_url())
             if doc is None:
@@ -203,7 +628,7 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._json(doc)
         elif path.startswith("/xorbs/"):
-            blob = self.index.xorb_blob(path[len("/xorbs/"):].strip("/"))
+            blob = index.xorb_blob(path[len("/xorbs/"):].strip("/"))
             if blob is None:
                 self._json({"error": "unknown xorb"}, 404)
             else:
@@ -212,15 +637,16 @@ class _Handler(BaseHTTPRequestHandler):
             parts = path.strip("/").split("/")
             data = None
             if len(parts) >= 5 and parts[2] == "resolve":
-                data = self.index.resolve_file(f"{parts[0]}/{parts[1]}",
-                                               parts[3], "/".join(parts[4:]))
+                data = index.resolve_file(f"{parts[0]}/{parts[1]}",
+                                          parts[3], "/".join(parts[4:]))
             if data is None:
                 self._json({"error": "not found"}, 404)
             else:
                 self._bytes_ranged(data, self.headers.get("Range"))
 
     def _stream_sse(self, events) -> None:
-        """Answer with an event generator as chunked SSE, then close it."""
+        """Answer with an event generator as chunked SSE, then close it
+        (a disconnected client's generator runs its cleanup now)."""
         self.send_response(200)
         self.send_header("Content-Type", "text/event-stream")
         self.send_header("Cache-Control", "no-cache")
@@ -234,7 +660,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.flush()
             self.wfile.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
-            pass  # the subscriber went away
+            pass  # the client went away
         finally:
             events.close()
 
@@ -250,10 +676,24 @@ class _Handler(BaseHTTPRequestHandler):
         return req
 
     def do_POST(self) -> None:  # noqa: N802
+        self.api.http_requests += 1
         n = int(self.headers.get("Content-Length") or 0)
         raw = self.rfile.read(n) if n else b""
+        if self.path == "/v1/stop":
+            self._json({"status": "stopping"})
+            self.api.trigger_shutdown()
+            return
+        if self.path == "/v1/generate":
+            req = self._json_body(raw)
+            if req is None:
+                return
+            if not isinstance(req.get("repo_id"), str):
+                self._json({"error": "body must be JSON with repo_id"}, 400)
+                return
+            self._stream_sse(self.api.generate_events(req["repo_id"], req))
+            return
         if self.path == "/v1/watch":
-            if not self.cfg.watch_enabled:
+            if not self.api.cfg.watch_enabled:
                 self._json({"error": "watch disabled"}, 404)
                 return
             req = self._json_body(raw)
@@ -264,14 +704,14 @@ class _Handler(BaseHTTPRequestHandler):
             except TypeError:
                 self._json({"error": "repos must be a list"}, 400)
                 return
-            self._stream_sse(self.hub.subscribe(repos=repos))
+            self._stream_sse(self.api.watch_hub.subscribe(repos=repos))
             return
         if self.path == "/v1/push":
             req = self._json_body(raw)
             if req is None:
                 return
             try:
-                self._json(push_notify(self.hub, req))
+                self._json(push_notify(self.api.watch_hub, req))
             except ValueError as exc:
                 self._json({"error": str(exc)}, 400)
             return
@@ -288,8 +728,8 @@ class _Handler(BaseHTTPRequestHandler):
         except TypeError:
             self._json({"error": "paths must be a list"}, 400)
             return
-        info = self.index.paths_info(f"{parts[0]}/{parts[1]}",
-                                     "/".join(parts[3:]), paths)
+        info = self.api.index.paths_info(f"{parts[0]}/{parts[1]}",
+                                         "/".join(parts[3:]), paths)
         if info is None:
             self._json({"error": "unknown revision"}, 404)
         else:
@@ -297,19 +737,25 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class PublisherServer:
-    """Threaded loopback publisher over ``cfg``'s cache. ``port=0`` binds
-    an ephemeral port; use as a context manager or call :meth:`start` /
-    :meth:`close`. ``hub`` is its watch fan-out."""
+    """Threaded loopback daemon over ``cfg``'s caches. ``port=0`` binds an
+    ephemeral port; use as a context manager or call :meth:`start` /
+    :meth:`close`. ``api`` is its :class:`HttpApi` (``device``, ``swarm``
+    and ``bt_server`` go to it), ``hub`` its watch fan-out."""
 
-    def __init__(self, cfg: Config, host: str = "127.0.0.1", port: int = 0):
-        self.hub = WatchHub()
-        handler = type("PublisherHandler", (_Handler,),
-                       {"index": PublisherIndex(cfg), "hub": self.hub,
-                        "cfg": cfg})
+    def __init__(self, cfg: Config, host: str = "127.0.0.1", port: int = 0,
+                 device=DEFAULT_DEVICE, swarm=None, bt_server=None):
+        self.api = HttpApi(cfg, device=device, swarm=swarm,
+                           bt_server=bt_server)
+        handler = type("DaemonHandler", (_Handler,), {"api": self.api})
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True
+        self.api.port = self._httpd.server_address[1]
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         name="zest-publisher", daemon=True)
+
+    @property
+    def hub(self) -> WatchHub:
+        return self.api.watch_hub
 
     @property
     def url(self) -> str:
@@ -321,7 +767,7 @@ class PublisherServer:
         return self
 
     def close(self) -> None:
-        self.hub.close()  # ends the watchers' streams
+        self.api.close()  # ends the watchers' streams
         if self._thread.is_alive():
             self._httpd.shutdown()
             self._thread.join(timeout=10)

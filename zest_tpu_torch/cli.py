@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,pull,generate,watch,diff}``.
+"""``python -m zest_tpu_torch {push,serve,pull,generate,watch,diff,models}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -18,7 +18,11 @@ delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
 prints the chunk-level delta from metadata alone. ``generate REPO --ids
 ... | --prompt TEXT`` pulls and decodes a GPT-2 or Llama-family model,
 greedy or sampled (``--temperature``, ``--top-k``, ``--top-p``,
-``--seed``).
+``--seed``). ``serve`` also answers ``POST /v1/generate`` from the
+serving pool on ``--device`` (``cuda`` by default), with ``/v1/health``,
+``/v1/status``, ``/v1/models``, ``/v1/metrics`` and ``/v1/stop``;
+``models [--resident] [--json]`` lists the pulled models, through the
+running daemon's ``/v1/models`` when there is one.
 """
 
 from __future__ import annotations
@@ -63,10 +67,27 @@ def cmd_push(args) -> int:
     return 0
 
 
+def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
+    """GET a local daemon endpoint (``cfg.effective_http_port()``); None
+    on any failure: no daemon, or an answer that is not a JSON object."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{cfg.effective_http_port()}{path}"
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            payload = json.loads(r.read().decode())
+    except (OSError, urllib.error.URLError, ValueError):
+        return None
+    return payload if isinstance(payload, dict) else None
+
+
 def cmd_serve(args) -> int:
-    """The publisher endpoint and the seeding tier over this node's
-    cache, until SIGINT or SIGTERM; then the seeder drains and its
-    ``ServerStats`` print as one JSON line."""
+    """The daemon over this node's cache until SIGINT, SIGTERM or
+    ``POST /v1/stop``: the publisher endpoint, the serving routes and
+    the seeding tier. Then the seeder drains and its ``ServerStats``
+    print as one JSON line."""
+    from zest_tpu_torch import storage
     from zest_tpu_torch.api.http_api import PublisherServer
     from zest_tpu_torch.p2p.health import HealthRegistry
     from zest_tpu_torch.transfer.dcn import DcnServer
@@ -89,6 +110,7 @@ def cmd_serve(args) -> int:
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
     dcn = None
+    server = None
     try:
         bt_port = bt.start()
         shaped = ""
@@ -107,19 +129,94 @@ def cmd_serve(args) -> int:
             dcn = None
             print(f"DCN listener disabled (port {cfg.dcn_port}: {exc})",
                   flush=True)
-        with PublisherServer(cfg, host=args.host, port=port) as server:
-            print(f"publisher endpoint at {server.url}", flush=True)
-            try:
-                stop.wait()
-            except KeyboardInterrupt:
+        # The serving routes pull through this node's swarm.
+        server = PublisherServer(cfg, host=args.host, port=port,
+                                 device=args.device, swarm=swarm,
+                                 bt_server=bt).start()
+        bound = server.api.port
+        try:
+            storage.atomic_write(cfg.http_port_file(), str(bound).encode())
+        except OSError:
+            pass  # only `models` of a port-0 daemon reads it
+        print(f"publisher endpoint at {server.url}", flush=True)
+        print(f"serving /v1/generate on {args.device}", flush=True)
+        try:
+            # SIGTERM, or POST /v1/stop.
+            while not (stop.wait(0.5) or server.api.shutdown_event.is_set()):
                 pass
+        except KeyboardInterrupt:
+            pass
     finally:
+        if server is not None:
+            server.close()
+        pool_mod = sys.modules.get("zest_tpu_torch.models.hbm_pool")
+        if pool_mod is not None:
+            pool_mod.reset()  # evict what the pool holds
         if dcn is not None:
             dcn.shutdown()
         bt.shutdown()
         swarm.close()
     print("seeder stats: " + json.dumps(dataclasses.asdict(bt.get_stats())),
           flush=True)
+    return 0
+
+
+def cmd_models(args) -> int:
+    """Pulled models and the xorb cache's totals, through the running
+    daemon's ``/v1/models`` when there is one (else from the caches).
+    ``--resident`` lists the trees the daemon's serving pool holds on
+    its device."""
+    from zest_tpu_torch import storage
+
+    cfg = Config.load()
+    payload = _daemon_get(cfg, "/v1/models")
+    if args.resident:
+        resident = (payload.get("resident")
+                    if isinstance(payload, dict) else None)
+        if not isinstance(resident, list):
+            print("no HBM pool state (daemon not running, or "
+                  "ZEST_HBM_POOL=0)", file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps({"resident": resident}))
+            return 0
+        if not resident:
+            print("HBM pool empty")
+        for r in resident:
+            line = (f"{r.get('repo')}  {r.get('state')}  "
+                    f"{r.get('bytes', 0) / 1e6:.1f} MB  "
+                    f"pins {r.get('pins', 0)}  lands {r.get('lands', 0)}")
+            ex = r.get("experts")
+            if isinstance(ex, dict):
+                line += (f"  experts {ex.get('residency', 0) * 100:.0f}%"
+                         " resident")
+            print(line)
+        return 0
+    models = payload.get("models") if payload is not None else None
+    if not isinstance(models, list) or any(
+            not isinstance(m, dict) or not m.get("repo_id")
+            for m in models):
+        # A foreign service on the recorded port: scan the caches.
+        models = storage.list_models(cfg)
+    xorbs = storage.list_cached_xorbs(cfg)
+    xorb_bytes = 0
+    for hex_key in xorbs:
+        try:
+            xorb_bytes += cfg.xorb_cache_path(hex_key).stat().st_size
+        except OSError:
+            pass
+    if args.json:
+        print(json.dumps({"models": models, "xorbs": len(xorbs),
+                          "xorb_bytes": xorb_bytes}))
+        return 0
+    if not models:
+        print("no models pulled")
+    for m in models:
+        rev = (m.get("revision") or "?")[:12]
+        pool = f"  [hbm:{m['pool_state']}]" if m.get("pool_state") else ""
+        print(f"{m.get('repo_id')}  rev {rev}  "
+              f"{m.get('files', 0)} files{pool}")
+    print(f"xorb cache: {len(xorbs)} xorbs, {xorb_bytes / 1e6:.1f} MB")
     return 0
 
 
@@ -359,7 +456,18 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--dcn-port", type=int, default=None,
                        help="DCN chunk-RPC port (default ZEST_DCN_PORT, "
                             "6991; 0 = ephemeral)")
+    serve.add_argument("--device", choices=devices, default="cuda",
+                       help="where /v1/generate decodes")
     serve.set_defaults(fn=cmd_serve)
+
+    models = sub.add_parser("models", help="pulled models (and, with "
+                                           "--resident, the daemon's "
+                                           "device-resident trees)")
+    models.add_argument("--resident", action="store_true",
+                        help="the trees the running daemon's serving pool "
+                             "holds on its device")
+    models.add_argument("--json", action="store_true")
+    models.set_defaults(fn=cmd_models)
 
     def add_peer_flags(cmd) -> None:
         cmd.add_argument("--peer", action="append", metavar="HOST:PORT",

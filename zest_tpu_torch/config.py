@@ -13,7 +13,8 @@ the delta pull's ``ZEST_DELTA``, the watch fan-out's ``ZEST_WATCH``, and
 the peer tier's ``ZEST_LISTEN_PORT``, ``ZEST_MAX_PEERS``,
 ``ZEST_SEED_RATE_BPS``, ``ZEST_SEED_PEER_BPS``, ``ZEST_SEED_SLOTS``,
 ``ZEST_SEED_DEADLINE_S``, ``ZEST_SEED_DRAIN_S`` and
-``ZEST_PULL_DEADLINE_S``),
+``ZEST_PULL_DEADLINE_S``, and the serving pool's ``ZEST_HBM_POOL``,
+``ZEST_HBM_POOL_BYTES`` and ``ZEST_SLO_TTFT_S``),
 the same defaults and the same HF cache layout, so a tree pulled by either
 package reads the same on disk.
 
@@ -69,6 +70,14 @@ DEFAULT_LAND_RING_SLOTS = 64
 # resident tree, swaps it in place; 0 runs every pull in full and writes
 # no revision manifest.
 DEFAULT_DELTA = True
+# The serving pool (models/hbm_pool.py; ZEST_HBM_POOL, strictly 0 or 1):
+# with 1 the daemon's /v1/generate serves Llama-family and Mixtral models
+# from a process-wide pool of resident trees held under the
+# ZEST_HBM_POOL_BYTES watermark (0 = unbounded); 0 serves every model on
+# the single-model path. ZEST_SLO_TTFT_S arms a time-to-first-token
+# budget (unset or 0: unarmed).
+DEFAULT_HBM_POOL = True
+DEFAULT_HBM_POOL_BYTES = 2 << 30
 
 _REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
 
@@ -133,6 +142,20 @@ def _strict_pos_float(env: dict[str, str], name: str,
         raise ValueError(f"{name} must be a finite value >= {floor}, "
                          f"got {raw!r}")
     return v
+
+
+def _opt_pos_float(env: dict[str, str], name: str) -> float | None:
+    """Optional positive float knob: unset, empty or 0 = unarmed (None);
+    a malformed or negative value raises (a mistyped budget must not
+    silently disarm it)."""
+    raw = env.get(name)
+    if raw is None or not raw.strip():
+        return None
+    v = float(raw)
+    if v < 0 or not math.isfinite(v):
+        raise ValueError(f"{name} must be a finite value >= 0 "
+                         f"(0 = unarmed), got {raw!r}")
+    return v if v > 0 else None
 
 
 def _strict_bool(name: str, value: str) -> bool:
@@ -224,6 +247,10 @@ class Config:
     # are capped by the remaining budget and the bridge hedges slow peer
     # fetches against the CDN.
     pull_deadline_s: float | None = None
+    # The serving pool (see DEFAULT_HBM_POOL above).
+    hbm_pool_enabled: bool = DEFAULT_HBM_POOL
+    hbm_pool_bytes: int = DEFAULT_HBM_POOL_BYTES
+    slo_ttft_s: float | None = None
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -306,6 +333,14 @@ class Config:
                 float(env["ZEST_PULL_DEADLINE_S"])
                 if float(env.get("ZEST_PULL_DEADLINE_S") or 0) > 0
                 else None),
+            # Strict: ZEST_HBM_POOL is the pool's rollback knob, and a
+            # sign-slipped watermark must not mean "unbounded".
+            hbm_pool_enabled=_strict_bool(
+                "ZEST_HBM_POOL",
+                env.get("ZEST_HBM_POOL", "1" if DEFAULT_HBM_POOL else "0")),
+            hbm_pool_bytes=_strict_nonneg_int(
+                env, "ZEST_HBM_POOL_BYTES", DEFAULT_HBM_POOL_BYTES),
+            slo_ttft_s=_opt_pos_float(env, "ZEST_SLO_TTFT_S"),
         )
 
     # ── HF cache layout ──
@@ -331,6 +366,21 @@ class Config:
     def xorb_cache_path(self, hash_hex: str) -> Path:
         """``xorbs/{2-char prefix}/{hash}``."""
         return self.xorb_cache_dir() / hash_hex[:2] / hash_hex
+
+    def http_port_file(self) -> Path:
+        """Where a ``serve`` daemon records the HTTP port it bound (its
+        ``http_port`` may be 0, "bind ephemeral")."""
+        return self.cache_dir / "zest.http_port"
+
+    def effective_http_port(self) -> int:
+        """The daemon's HTTP port: a concrete ``http_port`` wins; with 0
+        the port the daemon recorded, else 0."""
+        if self.http_port != 0:
+            return self.http_port
+        try:
+            return int(self.http_port_file().read_text().strip())
+        except (OSError, ValueError):
+            return self.http_port
 
     def chunk_cache_path(self, hash_hex: str) -> Path:
         """``chunks/{2-char prefix}/{hash}``."""

@@ -1,9 +1,9 @@
 """Snapshot → running model: build a family model from a pulled snapshot
 and decode.
 
-The counterpart of ``zest_tpu/models/generate.py`` for GPT-2 and the
-Llama family (``llama``, ``mistral``, ``qwen2``; MoE comes with a later
-slice), on ``cuda`` unless the caller passes ``device="cpu"``. The JAX
+The counterpart of ``zest_tpu/models/generate.py`` for GPT-2, the Llama
+family (``llama``, ``mistral``, ``qwen2``) and Mixtral, on ``cuda``
+unless the caller passes ``device="cpu"``. The JAX
 package also arms jax's persistent compile cache here
 (``enable_compile_cache``); a torch decode compiles nothing, so there is
 no counterpart.
@@ -25,7 +25,7 @@ class UnsupportedModelError(ValueError):
     """config.json names a family with no generation support."""
 
 
-GENERATE_FAMILIES = ("gpt2", "llama", "mistral", "qwen2")
+GENERATE_FAMILIES = ("gpt2", "llama", "mistral", "qwen2", "mixtral")
 
 
 def snapshot_tensors(snapshot_dir: str | Path) -> dict[str, torch.Tensor]:
@@ -91,13 +91,17 @@ def load_generator(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
         from zest_tpu_torch.models import gpt2 as fam
 
         cfg = fam.GPT2Config.from_hf(cfg_json)
+    elif model_type == "mixtral":
+        from zest_tpu_torch.models import moe as fam
+
+        cfg = fam.MoEConfig.from_hf(cfg_json)
     else:  # the llama family
         from zest_tpu_torch.models import llama as fam
 
         cfg = fam.LlamaConfig.from_hf(cfg_json)
     params = fam.params_from_hf(tensors, cfg)
     del tensors
-    eos_ids = normalize_eos(cfg_json.get("eos_token_id"))
+    eos_ids = eos_token_ids(cfg_json)
 
     def generate(prompt_ids, steps, temperature=0.0, top_k=None, top_p=None,
                  seed=0, stop_at_eos=True, on_token=None, noise=None):
@@ -112,6 +116,12 @@ def load_generator(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
 
     generate.eos_ids = eos_ids  # callers filter streamed stop ids on it
     return model_type, generate
+
+
+def eos_token_ids(cfg_json: dict) -> tuple[int, ...] | None:
+    """The stop ids config.json names (``eos_token_id``: one int or a
+    list), or None."""
+    return normalize_eos(cfg_json.get("eos_token_id"))
 
 
 def trim_at_eos(out: np.ndarray, n_prompt: int,

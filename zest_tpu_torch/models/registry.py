@@ -1,7 +1,7 @@
 """Model-family detection and the landing order of tensor names.
 
-The counterpart of ``zest_tpu/models/registry.py``'s ``detect_model_type``
-and its landing order: the streaming landing (``models/loader.py``)
+The counterpart of ``zest_tpu/models/registry.py``'s expert-sharded
+family set, ``detect_model_type`` and its landing order: the streaming landing (``models/loader.py``)
 commits tensors in "usefulness" order, so a decoder can start once the
 embedding and layer 0 are resident while later layers are still on the
 wire. The priority is a pure function of the tensor name, so every host
@@ -15,6 +15,16 @@ import json
 import re
 from pathlib import Path
 from typing import Iterable
+
+
+# Families whose checkpoints carry per-expert weight tensors (Mixtral;
+# Mistral and Qwen2 dense share the Llama layout): the serving pool lands
+# their dense core and pages the experts in on demand.
+_EXPERT_SHARDED = frozenset({"mixtral"})
+
+
+def is_expert_sharded(model_type: str | None) -> bool:
+    return (model_type or "") in _EXPERT_SHARDED
 
 
 def detect_model_type(snapshot_dir: str | Path) -> str | None:

@@ -60,6 +60,34 @@ def read_ref(cfg: Config, repo_id: str, ref: str) -> str | None:
         return None
 
 
+def list_models(cfg: Config) -> list[dict]:
+    """Pulled models in the HF hub cache: one row per ``models--*`` dir
+    with its newest snapshot revision and file count (``repo_id``,
+    ``revision``, ``files``), for the daemon's ``/v1/models`` and the
+    ``models`` command."""
+    models = []
+    hub = cfg.hf_home / "hub"
+    if hub.is_dir():
+        for d in sorted(hub.iterdir()):
+            if not d.name.startswith("models--") or not d.is_dir():
+                continue
+            repo_id = d.name[len("models--"):].replace("--", "/", 1)
+            snapshots = d / "snapshots"
+            n_files = 0
+            revision = None
+            if snapshots.is_dir():
+                # Dirs only: a file beside the snapshots is no revision.
+                revs = sorted((p for p in snapshots.iterdir() if p.is_dir()),
+                              key=lambda p: p.stat().st_mtime)
+                if revs:
+                    revision = revs[-1].name
+                    n_files = sum(1 for f in revs[-1].rglob("*")
+                                  if f.is_file())
+            models.append({"repo_id": repo_id, "revision": revision,
+                           "files": n_files})
+    return models
+
+
 def read_chunk(cfg: Config, chunk_hash: bytes) -> bytes | None:
     """A chunk from the chunk cache, or None."""
     try:

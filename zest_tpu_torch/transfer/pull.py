@@ -46,8 +46,8 @@ tree resident on ``device``) and ``base_revision``, every tensor whose
 chunk cover is unchanged is reused as the same tensor, only the changed
 tensors land, and the base dict is consumed as their replacements commit
 (``stats["hbm"]["swap"]``, ``stats["delta"]``, ``time_to_swap_s``).
-Missing evidence degrades to a full pull and says so on stderr (the JAX
-package's ``delta_degraded`` flight event, whose recorder is not ported).
+Missing evidence degrades to a full pull, says so on stderr and records a
+``delta_degraded`` flight event (``telemetry.record``).
 
 **Cooperative pull** (``coop=True`` with ``coop_hosts``, ``coop_index``
 and the other hosts' DCN addresses, or ``ZEST_COOP*``): before the
@@ -91,7 +91,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from zest_tpu_torch import storage
+from zest_tpu_torch import storage, telemetry
 from zest_tpu_torch.cas.client import CasError
 from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.cas.hub import HubClient
@@ -610,7 +610,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                coop_addrs: dict[int, tuple[str, int]] | None = None,
                coop_server=None, base_params: dict | None = None,
                base_revision: str | None = None, swarm=None,
-               no_p2p: bool = False, log=print) -> PullResult:
+               no_p2p: bool = False, land: bool = True,
+               log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
     ``cfg``'s cache, which then answers the peers for as long as its
@@ -627,7 +628,14 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
 
     ``swarm`` is the peer tier (a ``SwarmDownloader``; the caller keeps
     and closes it). Without one the pull builds its own, with no
-    candidates, unless ``no_p2p``."""
+    candidates, unless ``no_p2p``.
+
+    ``land=False`` writes the snapshot's files and lands nothing (the
+    serving pool lands from the snapshot itself): the stats then carry no
+    ``hbm``, ``time_to_hbm_s`` or ``time_to_first_layer_s`` and
+    ``params`` is None."""
+    if not land and base_params is not None:
+        raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
         raise ValueError(
             "base_params requires base_revision: tensor reuse is only "
@@ -737,11 +745,12 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         for entry in files:
             if not entry.path.endswith(".safetensors"):
                 file_pipeline.submit(entry)
-        hbm_params, hbm_stats = _try_direct_stage(
-            bridge, files, snapshot_dir, dev, land_dtype, log, clock,
-            file_pipeline, ensure_auth,
-            delta_state=((delta_base, base_params, delta_plan)
-                         if delta_plan is not None else None))
+        if land:
+            hbm_params, hbm_stats = _try_direct_stage(
+                bridge, files, snapshot_dir, dev, land_dtype, log, clock,
+                file_pipeline, ensure_auth,
+                delta_state=((delta_base, base_params, delta_plan)
+                             if delta_plan is not None else None))
         if hbm_stats is not None:
             hbm_done_at = time.monotonic()
             time_to_hbm = hbm_done_at - t0
@@ -767,7 +776,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         _save_manifest(cfg, bridge, repo_id, commit_sha, files, delta_base,
                        log)
 
-    if hbm_stats is None:
+    if land and hbm_stats is None:
         # Disk staging: a resumed pull (complete files) or a shard that
         # is not a xet file; the files are on disk now.
         with clock("hbm_commit"):
@@ -790,14 +799,15 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         "files_pipeline": file_pipeline.summary(),
         "files_hbm_span_s": round(clock.span("files", "hbm_commit"), 4),
         "fetch": bridge.stats.summary(),
-        "time_to_hbm_s": round(time_to_hbm, 3),
         # Files work after the tensors were resident; the disk staging
         # lands after the file barrier, so none.
         "files_after_hbm_s": (round(clock.coverage_after("files",
                                                          hbm_done_at), 4)
                               if hbm_done_at is not None else 0.0),
-        "hbm": hbm_stats,
     }
+    if land:
+        stats["time_to_hbm_s"] = round(time_to_hbm, 3)
+        stats["hbm"] = hbm_stats
     if time_to_first_layer is not None:
         stats["time_to_first_layer_s"] = round(time_to_first_layer, 3)
     if delta_plan is not None:
@@ -811,7 +821,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         if delta_plan.total_bytes:
             dsum["fetched_ratio"] = round(
                 fetched / delta_plan.total_bytes, 4)
-        swap = hbm_stats.get("swap")
+        swap = hbm_stats.get("swap") if hbm_stats else None
         if swap:
             dsum["tensors"] = {"reused": swap["reused_tensors"],
                                "landed": swap["landed_tensors"]}
@@ -856,11 +866,17 @@ def _delta_stage(cfg, bridge, repo_id, commit_sha, pending, base_params,
     base = delta.find_base_manifest(cfg, repo_id, commit_sha, base_revision)
     if base is None:
         if base_params is not None or base_revision:
+            telemetry.record("delta_degraded", repo=repo_id,
+                             revision=commit_sha,
+                             reason="missing rev-A manifest")
             log("delta: no base-revision manifest — running a full pull",
                 file=sys.stderr)
         return None, None
     if not pending:
         if base_params is not None:
+            telemetry.record("delta_degraded", repo=repo_id,
+                             revision=commit_sha,
+                             reason="snapshot already complete")
             log("delta: snapshot already materialized — hot-swap skipped "
                 "(disk staging), base params left untouched",
                 file=sys.stderr)

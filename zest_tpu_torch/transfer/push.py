@@ -23,9 +23,9 @@ byte.
 The continuous fan-out: a push notifies the publisher
 (:func:`notify_daemon`, ``POST /v1/push``), which wakes every ``POST
 /v1/watch`` subscriber; :func:`watch_and_swap` is the subscriber, which
-delta-pulls each pushed revision and swaps it into its resident tree. The
-serving pool's re-land and the timeline of the JAX package's watch are
-not ported.
+delta-pulls each pushed revision and swaps it into its resident tree, and
+into the serving pool when the pool holds the old revision. The timeline
+of the JAX package's watch is not ported.
 """
 
 from __future__ import annotations
@@ -386,7 +386,17 @@ def watch_and_swap(cfg: Config, repo_id: str,
     consumes its tree. Returns one record per event: ``revision``,
     ``parent``, ``dedup_ratio``, ``time_to_swap_s`` (the pull's
     ``elapsed_s`` when it did not swap) and, when the push was stamped,
-    ``propagation_s`` (push → swap complete)."""
+    ``propagation_s`` (push → swap complete).
+
+    When the process's serving pool holds the old revision's tree, the
+    new snapshot is swapped in there too (``HbmPool.swap_to``: the new
+    tree lands pinned, then the old one is evicted) and the record gains
+    ``pool_swap_s``. A swap that fails on the checkpoint or the disk
+    (a ``ValueError`` or ``OSError``, also as a landing's cause) is
+    recorded as ``pool_swap_error`` (its type name) and the watch goes
+    on; any other error, a device error among them, raises. (The JAX
+    package records every exception there.)"""
+    from zest_tpu_torch.models import hbm_pool
     from zest_tpu_torch.transfer.pull import pull_model
 
     device = resolve_device(device)  # fail before subscribing
@@ -406,6 +416,8 @@ def watch_and_swap(cfg: Config, repo_id: str,
         log(f"watch: {repo_id} bumped to {sha[:12]} "
             f"(parent {str(ev.get('parent'))[:12]}) — delta pulling",
             file=sys.stderr)
+        old_snap = (cfg.model_snapshot_dir(repo_id, base_revision)
+                    if base_revision else None)
         result = pull_model(
             cfg, repo_id, revision=sha, device=device,
             base_params=base_params,
@@ -417,6 +429,22 @@ def watch_and_swap(cfg: Config, repo_id: str,
             "time_to_swap_s": result.stats.get(
                 "time_to_swap_s", result.stats.get("elapsed_s")),
         }
+        pool = hbm_pool.pool(cfg, device)
+        if pool is not None and old_snap is not None \
+                and pool.digest(old_snap) is not None:
+            try:
+                entry, swap_s = pool.swap_to(
+                    old_snap, cfg.model_snapshot_dir(repo_id, sha),
+                    repo=repo_id)
+                pool.release(entry)
+                record["pool_swap_s"] = round(swap_s, 4)
+            except (OSError, ValueError, hbm_pool.PoolLandError) as exc:
+                if isinstance(exc, hbm_pool.PoolLandError) and not \
+                        isinstance(exc.__cause__, (OSError, ValueError)):
+                    raise
+                record["pool_swap_error"] = type(
+                    exc.__cause__ if isinstance(
+                        exc, hbm_pool.PoolLandError) else exc).__name__
         pushed_at = ev.get("pushed_at")
         if isinstance(pushed_at, (int, float)):
             record["propagation_s"] = round(
