@@ -59,7 +59,8 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
 6. the cooperative pull: ``COOP_HOSTS`` (4) fresh hosts in threads, each
    with its own cache and DCN server on loopback, run
    ``pull_model(coop=True)`` of revision A (by its sha: phase 5b moved
-   ``main`` to B) against node A's publisher. Each fetches its
+   ``main`` to B) against node A's publisher, with the point-to-point
+   exchange (``coop_collective=False``). Each fetches its
    share from the CDN and receives the rest over DCN, every received whole
    xorb verified on the card (BG4 chunks through the fused kernel); no
    fallbacks, no rejections, ≥ 60% peer-served, one copy of the xorbs from
@@ -69,6 +70,24 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    standalone regroup launch; then each host's receipt verification is
    timed again without the network, once alone and once with every
    host's verifier running at the same time;
+   6c. four fresh hosts the same way with the collective exchange (the
+   default ``dcn`` backend): phase 6's gates, and a ``collective`` block
+   on every host, a hypercube in 2 phases, not aborted;
+   6d. again with ``collective_backend="jax"`` (the device lane) and
+   ``coop_topology=(0, 0, 1, 1)``: a hierarchical schedule in 2 phases,
+   intra-slice windows through lanes on ``cuda:0`` (``ici_windows`` > 0)
+   and both ici and dcn bytes > 0, with phase 6c's other gates;
+10. (run after 6d) the pod round: a fresh node runs ``pod_round`` of
+   revision A over ``pod_mesh(["cuda:0"] * 4)`` into a
+   ``TieredCache(HbmStagingCache(cuda:0), disk)`` under a 256 MiB budget:
+   every unit filled, none rejected, ≥ 2 waves, the peak pool within the
+   budget or the single-unit bound, the BLAKE3 and fused kernels' rows
+   equal to the units' chunks; then a default ``pull_model(device="cuda")``
+   reports ``stats["pod"]["skipped"]`` (one card) and lands with 0 CDN
+   bytes, files and digest equal to phase 4's; a second fresh node's round
+   with one owned unit corrupted in flight rejects it (``verify_rejected``
+   1) and the next pull heals it with exactly that unit's CDN bytes;
+   ``all_gather_throughput`` over the four slots is printed;
 7. ``meta-llama/Llama-3.2-1B`` at its published width and depth
    (``LLAMA_CONFIG``: 1,235,814,400 parameters, 146 bf16 tensors, one
    2,471,628,800-byte ``model.safetensors``, tied embeddings, llama3 rope
@@ -140,8 +159,10 @@ kernel's launch count is zeroed just before its path runs and read just
 after.
 
 Every phase is fatal. The last three lines of standard output are the
-kernels' JSON record (with each kernel's launches by path, the serving
-pool's (``serve``) and the daemon's (``serve_daemon``) among them), the card's name and power limit, and
+kernels' JSON record (with each kernel's launches by path: the serving
+pool's (``serve``), the daemon's (``serve_daemon``), the collective's
+(``coop_collective``, ``coop_collective_lane``) and the pod round's
+(``pod``) among them), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
 """
@@ -184,6 +205,10 @@ BG4_LENGTHS = tuple(sorted(set(
     (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
     + LEAF_LENGTHS)))
 COOP_HOSTS = 4
+# Phase 10: four slots on cuda:0 (one card), and a pool budget below two
+# of GPT-2's ~67 MB units per slot, so the round takes several waves.
+POD_SLOTS = 4
+POD_BUDGET = 256 * 1024 * 1024
 # Phase 5b's revision B: a fine-tune of the last block's MLP and the final
 # norm, 4,720,128 of GPT-2's 124,439,808 parameters.
 REDRAWN = ("h.11.mlp.c_fc.weight", "h.11.mlp.c_proj.weight", "ln_f.weight",
@@ -854,18 +879,25 @@ def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
 
 
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
-               digest: str, dev, revision: str) -> dict:
-    """Phase 6: ``COOP_HOSTS`` cooperative pulls of ``revision`` in
-    threads. Returns the launch counts of the coop path."""
+               digest: str, dev, revision: str, label: str = "phase 6",
+               schedule: str | None = None, **cfg_kw) -> dict:
+    """Phase 6 (the point-to-point exchange) and, with ``schedule``, 6c
+    and 6d (the collective, expected to run that schedule in 2 phases):
+    ``COOP_HOSTS`` cooperative pulls of ``revision`` in threads, their
+    configs given ``cfg_kw``. Returns the launch counts of the path; the
+    counters of the transports the hosts' collectives built are printed
+    and, for the device lane, gated."""
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer import collective
     from zest_tpu_torch.transfer.dcn import DcnServer
     from zest_tpu_torch.transfer.pull import pull_model
 
     n = COOP_HOSTS
-    cfgs = [Config(hf_home=work / f"c{i}" / "hf",
-                   cache_dir=work / f"c{i}" / "zest", endpoint=url,
-                   dcn_port=0) for i in range(n)]
+    tag = label.split()[-1]
+    cfgs = [Config(hf_home=work / f"c{tag}-{i}" / "hf",
+                   cache_dir=work / f"c{tag}-{i}" / "zest", endpoint=url,
+                   dcn_port=0, **cfg_kw) for i in range(n)]
     # Each host's listener outlives its own pull: the peers still behind
     # it read from it until every host is done.
     servers = [DcnServer(c) for c in cfgs]
@@ -885,11 +917,19 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
+    # Every transport the hosts' collectives build, for their counters.
+    made, real_make = [], collective.make_transport
+
+    def make_transport(*a, **k):
+        made.append(real_make(*a, **k))
+        return made[-1]
+
     counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
                 bg4_cuda.FUSED_COUNTER)
     for c in counters:
-        c.reset()  # counts from here are the coop path's
+        c.reset()  # counts from here are this path's
     threads = [threading.Thread(target=host, args=(i,)) for i in range(n)]
+    collective.make_transport = make_transport
     t0 = time.monotonic()
     try:
         for t in threads:
@@ -897,6 +937,7 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         for t in threads:
             t.join()
     finally:
+        collective.make_transport = real_make
         for srv in servers:
             srv.shutdown()
     wall = time.monotonic() - t0
@@ -913,20 +954,35 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         header_bytes = 8 + int.from_bytes(f.read(8), "little")
     probe_bound = 2 * (header_bytes + MAX_CHUNK_BYTES)
     cdn_total, probes = 0, []
+    lanes = {k: sum(t.counters.get(k, 0) for t in made)
+             for k in ("windows", "ici_windows", "ici_lane_bytes",
+                       "lane_overflows")}
     for i, res in enumerate(results):
         st = res.stats
         c = st.get("coop")
         if not c or c.get("skipped"):
-            fail(f"host {i}: no cooperative round ran: {st.get('coop')}")
+            fail(f"{label} host {i}: no cooperative round ran: "
+                 f"{st.get('coop')}")
+        cx = c.get("collective")
+        if schedule is None and cx is not None:
+            fail(f"{label} host {i}: the collective ran: {cx}")
+        if schedule is not None and (
+                not cx or (cx["schedule"], cx["phases"]) != (schedule, 2)
+                or cx.get("aborted") is not None):
+            fail(f"{label} host {i}: collective {cx}, not {schedule} in 2 "
+                 "phases, unaborted")
+        if cx and cx.get("backend") == "jax" and not (
+                cx["link_bytes"]["ici"] > 0 and cx["link_bytes"]["dcn"] > 0):
+            fail(f"{label} host {i}: link bytes {cx['link_bytes']}")
         ex = c["exchange"]
         if c["fallbacks"] or ex["verify_rejected"] or not ex["units"]:
-            fail(f"host {i}: fallbacks {c['fallbacks']}, rejected "
+            fail(f"{label} host {i}: fallbacks {c['fallbacks']}, rejected "
                  f"{ex['verify_rejected']}, exchanged {ex['units']}")
         if not 0 < ex["wire_bytes"] < ex["unpacked_bytes"]:
-            fail(f"host {i}: wire {ex['wire_bytes']} vs unpacked "
+            fail(f"{label} host {i}: wire {ex['wire_bytes']} vs unpacked "
                  f"{ex['unpacked_bytes']}")
         if c["peer_served_ratio"] < 0.6 or st["fallback_files"]:
-            fail(f"host {i}: peer-served {c['peer_served_ratio']}, "
+            fail(f"{label} host {i}: peer-served {c['peer_served_ratio']}, "
                  f"fallback_files {st['fallback_files']}")
         coop_cdn = (c["fetch"]["tiers"].get("cdn", 0)
                     + ex.get("fallback_tiers", {}).get("cdn", 0))
@@ -935,28 +991,35 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         # cache.
         probe = st["fetch"]["bytes"]["cdn"] - coop_cdn
         if not 0 < probe <= probe_bound:
-            fail(f"host {i}: {probe} CDN bytes outside the round (the "
+            fail(f"{label} host {i}: {probe} CDN bytes outside the round (the "
                  f"header probe reads at most {probe_bound})")
         probes.append(probe)
         cdn_total += st["fetch"]["bytes"]["cdn"]
         if not st["hbm"]["direct"]:
-            fail(f"host {i}: the landing staged from disk")
-        check_files(f"host {i}", res, ckpt)
-        check_tree(f"host {i}", res, digest, dev)
+            fail(f"{label} host {i}: the landing staged from disk")
+        check_files(f"{label} host {i}", res, ckpt)
+        check_tree(f"{label} host {i}", res, digest, dev)
     if cdn_total > 1.05 * pushed.new_xorb_bytes:
-        fail(f"{cdn_total:,} CDN bytes over {n} hosts > 1.05 x "
+        fail(f"{label}: {cdn_total:,} CDN bytes over {n} hosts > 1.05 x "
              f"{pushed.new_xorb_bytes:,}")
     fu_launches, fu_rows = launches["bg4_fused_verify"]
     if fu_rows != want_rows or not fu_launches:
-        fail(f"bg4_fused_verify covered {fu_rows} rows in {fu_launches} "
+        fail(f"{label}: bg4_fused_verify covered {fu_rows} rows in "
+             f"{fu_launches} "
              f"launches; the hosts received {want_rows} BG4 chunks")
     if launches["bg4_regroup"][0]:
-        fail(f"the coop path launched the standalone regroup "
+        fail(f"{label}: the coop path launched the standalone regroup "
              f"{launches['bg4_regroup'][0]} times")
     if launches["blake3_chunks"][1] != want_rest:
-        fail(f"blake3_chunks hashed {launches['blake3_chunks'][1]} rows; the "
+        fail(f"{label}: blake3_chunks hashed "
+             f"{launches['blake3_chunks'][1]} rows; the "
              f"hosts received {want_rest} chunks of other schemes")
-    print(f"phase 6 coop pull: {n} hosts in {wall:.2f} s; {cdn_total:,} CDN "
+    if schedule is not None and cfg_kw.get("collective_backend") == "jax" \
+            and not lanes["ici_windows"]:
+        fail(f"{label}: no window crossed the device lane: {lanes}")
+    print(f"{label} coop pull ({card_label()}): {n} hosts in {wall:.2f} s "
+          f"({', '.join(f'{k}={v}' for k, v in cfg_kw.items()) or 'defaults'}"
+          f"); {cdn_total:,} CDN "
           f"bytes in all ({pushed.new_xorb_bytes:,} pushed; header probes "
           f"{probes} B); every host landed directly; "
           f"{want_rows // (n - 1)} BG4 and {want_rest // (n - 1)} other "
@@ -975,6 +1038,154 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
               f"retries, peak in flight {ex['inflight_peak_bytes']:,}), "
               f"fallback {c['fallbacks']} ({ex['fallback_bytes']} bytes), "
               f"peer-served {c['peer_served_ratio']}")
+        cx = c.get("collective")
+        if cx:
+            print(f"    collective: {cx['schedule']} {cx['phases']} phases, "
+                  f"walls {cx['phase_wall_s']} s, elapsed {cx['elapsed_s']} "
+                  f"s, barrier {cx['barrier_wait_s']} s, windows "
+                  f"{cx['windows']} ({cx['retry_windows']} retries), links "
+                  f"{cx['link_bytes']}, clock offsets "
+                  f"{c.get('clock_offsets')}")
+    if schedule is not None:
+        print(f"  {label} transports: {lanes}")
+    for i in range(n):
+        shutil.rmtree(work / f"c{tag}-{i}")
+    return {name: v[0] for name, v in launches.items()}
+
+
+def pod_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
+              digest: str, dev, revision: str) -> dict:
+    """Phase 10: the pod round of ``revision`` over ``POD_SLOTS`` slots on
+    ``cuda:0`` into a fresh node's ``TieredCache`` (HBM staging over the
+    disk cache), then a default pull that lands from the cache; a second
+    fresh node's round with one owned unit corrupted in flight. Returns
+    the launch counts of the first round."""
+    import torch
+
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.parallel import (
+        DistributionPlan,
+        HbmStagingCache,
+        PoolLayout,
+        TieredCache,
+        all_gather_throughput,
+        pod_mesh,
+    )
+    from zest_tpu_torch.storage import XorbCache
+    from zest_tpu_torch.transfer.bridge import XetBridge
+    from zest_tpu_torch.transfer.pod import pod_round
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    wall0 = time.monotonic()
+    mesh = pod_mesh([dev] * POD_SLOTS)
+    quiet = lambda *a, **k: print("  [pod]", *a, file=sys.stderr)  # noqa: E731
+
+    def node(name: str, corrupt: str | None = None):
+        cfg = Config(hf_home=work / name / "hf",
+                     cache_dir=work / name / "zest", endpoint=url,
+                     hbm_staging_bytes=POD_BUDGET)
+        hbm = HbmStagingCache(cfg.hbm_staging_bytes, device=dev)
+        bridge = XetBridge(cfg, cache=TieredCache(XorbCache(cfg), hbm))
+        bridge.authenticate(REPO, revision)
+        recs = [bridge.get_reconstruction(e.xet_hash)
+                for e in HubClient(cfg).list_files(REPO, revision)
+                if e.is_xet]
+        if corrupt is not None:
+            real = bridge.fetch_unit
+
+            def fetch_unit(hash_hex, fi):
+                data = real(hash_hex, fi)
+                if hash_hex != corrupt:
+                    return data
+                bad = bytearray(data)
+                bad[len(bad) // 2] ^= 0xFF
+                return bytes(bad)
+
+            bridge.fetch_unit = fetch_unit
+        return cfg, hbm, bridge, recs
+
+    cfg, hbm, bridge, recs = node("p10")
+    plan = DistributionPlan.build(recs, POD_SLOTS)
+    single = max(PoolLayout.from_plan(DistributionPlan(POD_SLOTS, [a]))
+                 .pool_bytes for a in plan.assignments)
+    per_xorb = {h: bg4_chunks_of(cfg_a.xorb_cache_path(h).read_bytes())
+                for h in pushed.xorb_digests}
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
+                bg4_cuda.FUSED_COUNTER)
+    for c in counters:
+        c.reset()  # counts from here are the pod round's
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    st = pod_round(bridge, recs, mesh=mesh, log=quiet)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {name: (c.launches, c.rows) for name, c in zip(
+        ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters)}
+    bridge.close()
+    want_bg4 = sum(b for b, _ in per_xorb.values())
+    want_rest = sum(r for _, r in per_xorb.values())
+    if st.get("skipped") or st["filled"] != st["units"] \
+            or st["verify_rejected"]:
+        fail(f"phase 10: {st}")
+    if st["waves"] < 2 or not (st["pool_bytes"] <= POD_BUDGET
+                               or st["pool_bytes"] <= single):
+        fail(f"phase 10: {st['waves']} waves, peak pool "
+             f"{st['pool_bytes']:,} B over the budget {POD_BUDGET:,} B and "
+             f"the single-unit bound {single:,} B")
+    if launches["bg4_fused_verify"][1] != want_bg4 \
+            or launches["blake3_chunks"][1] != want_rest \
+            or launches["bg4_regroup"][0]:
+        fail(f"phase 10: launches (rows) {launches}; the units hold "
+             f"{want_bg4} BG4 and {want_rest} other chunks")
+    gbps = all_gather_throughput(mesh)
+    print(f"phase 10 pod round ({card_label()}): {POD_SLOTS} slots on "
+          f"{dev}, budget {POD_BUDGET:,} B: {st}; single-unit pool "
+          f"{single:,} B; peak allocation +{peak:,} B during the round; HBM "
+          f"staging {hbm.summary()}; launches (rows): "
+          + ", ".join(f"{k} {v[0]} ({v[1]})" for k, v in launches.items())
+          + f"; all_gather_throughput {gbps:.1f} GB/s (64 MiB a slot)")
+    del hbm, bridge
+
+    # A default pull: the pre-pass skips on one card, the landing reads
+    # the cache the round filled.
+    res = pull_model(cfg, REPO, revision=revision, device=dev, log=quiet)
+    pst = res.stats
+    if pst["fetch"]["bytes"]["cdn"] or not pst.get("pod", {}).get("skipped"):
+        fail(f"phase 10: the pull after the round: CDN "
+             f"{pst['fetch']['bytes']['cdn']} B, pod {pst.get('pod')}")
+    check_files("phase 10", res, ckpt)
+    check_tree("phase 10", res, digest, dev)
+    print(f"  phase 10 pull after the round: {landing_summary(pst)}; 0 CDN "
+          f"bytes; pod {pst['pod']}; files and digest equal to phase 4's")
+    del res
+
+    # One owned unit corrupted in flight: rejected at the fill, healed by
+    # the next pull from the CDN.
+    victim = sorted(a.hash_hex for a in plan.assignments)[0]
+    cfg2, hbm2, bridge2, recs2 = node("p10b", corrupt=victim)
+    st2 = pod_round(bridge2, recs2, mesh=mesh, log=quiet)
+    bridge2.close()
+    del hbm2, bridge2
+    if st2["verify_rejected"] != 1 or st2["filled"] != st2["units"] - 1:
+        fail(f"phase 10: the corrupted unit: {st2}")
+    res = pull_model(cfg2, REPO, revision=revision, device=dev, log=quiet)
+    victim_bytes = next(a.est_bytes for a in plan.assignments
+                        if a.hash_hex == victim)
+    if res.stats["fetch"]["bytes"]["cdn"] != victim_bytes:
+        fail(f"phase 10: the heal fetched {res.stats['fetch']['bytes']['cdn']}"
+             f" CDN bytes, the corrupted unit is {victim_bytes}")
+    check_files("phase 10 heal", res, ckpt)
+    check_tree("phase 10 heal", res, digest, dev)
+    print(f"  phase 10 corrupted unit {victim[:12]}: verify_rejected "
+          f"{st2['verify_rejected']}, filled {st2['filled']}/{st2['units']}; "
+          f"the next pull healed it with {victim_bytes:,} CDN bytes; digest "
+          f"equal; phase wall {time.monotonic() - wall0:.2f} s")
+    del res
+    shutil.rmtree(work / "p10")
+    shutil.rmtree(work / "p10b")
     return {name: v[0] for name, v in launches.items()}
 
 
@@ -2234,10 +2445,25 @@ def run(args, work: Path) -> dict:
         shutil.rmtree(work / "b" / "hf")  # phase 8 seeds B's xorb cache
         torch.cuda.empty_cache()
 
-        # ── 6. cooperative pull of revision A across in-process hosts ──
+        # ── 6. cooperative pull of revision A across in-process hosts:
+        # the point-to-point exchange, then the collective over the wire
+        # (6c) and through the device lane (6d) ──
         coop_launches = coop_phase(work, publisher.url, ckpt, pushed,
-                                   cfg_a, digest, dev, pushed.revision)
+                                   cfg_a, digest, dev, pushed.revision,
+                                   coop_collective=False)
+        collective_launches = coop_phase(
+            work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
+            pushed.revision, label="phase 6c", schedule="hypercube")
+        lane_launches = coop_phase(
+            work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
+            pushed.revision, label="phase 6d", schedule="hierarchical",
+            collective_backend="jax", coop_topology=(0, 0, 1, 1))
         torch.cuda.empty_cache()  # phase 4's and 6's trees are gone
+
+        # ── 10. the pod round over four slots on cuda:0 ──
+        pod_launches = pod_phase(work, publisher.url, ckpt, pushed, cfg_a,
+                                 digest, dev, pushed.revision)
+        torch.cuda.empty_cache()
 
         # ── 7. Llama-3.2-1B: push → pull → cached, sampled decode ──
         llama_ref = llama_phase(work, publisher.url, cfg_a, args.seed,
@@ -2314,9 +2540,19 @@ def run(args, work: Path) -> dict:
                                  "serve_daemon": daemon_launches[
                                      "blake3_chunks"],
                                  "coop": coop_launches["blake3_chunks"],
+                                 "coop_collective": collective_launches[
+                                     "blake3_chunks"],
+                                 "coop_collective_lane": lane_launches[
+                                     "blake3_chunks"],
+                                 "pod": pod_launches["blake3_chunks"],
                                  "swarm": swarm_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
+                                        "coop_collective":
+                                            collective_launches[k["name"]],
+                                        "coop_collective_lane":
+                                            lane_launches[k["name"]],
+                                        "pod": pod_launches[k["name"]],
                                         "swarm": swarm_launches[k["name"]],
                                         "serve": pool_out["launches"][
                                             k["name"]],

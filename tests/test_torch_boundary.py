@@ -55,13 +55,17 @@ SLICE_MODULES = [
     "zest_tpu_torch.telemetry.state", "zest_tpu_torch.telemetry.metrics",
     "zest_tpu_torch.telemetry.trace", "zest_tpu_torch.telemetry.recorder",
     "zest_tpu_torch.models.moe", "zest_tpu_torch.models.hbm_pool",
-    "zest_tpu_torch.api.http_api",
+    "zest_tpu_torch.api.http_api", "zest_tpu_torch.parallel.mesh",
+    "zest_tpu_torch.parallel.collectives", "zest_tpu_torch.parallel.hbm",
+    "zest_tpu_torch.parallel.coordinator",
+    "zest_tpu_torch.transfer.transport", "zest_tpu_torch.transfer.collective",
+    "zest_tpu_torch.telemetry.timeline", "zest_tpu_torch.telemetry.remediate",
 ]
 
 
 def test_every_module_imports_without_jax_or_zest_tpu():
     names = _module_names()
-    assert len(names) >= 54
+    assert len(names) >= 62
     assert set(SLICE_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
@@ -111,7 +115,10 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     from zest_tpu_torch.config import Config, resolve_device
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
-    from zest_tpu_torch.transfer.pod import make_unit_verifier
+    from zest_tpu_torch.parallel import HbmStagingCache, pod_mesh
+    from zest_tpu_torch.transfer.dcn import DcnPool
+    from zest_tpu_torch.transfer.pod import make_unit_verifier, pod_round
+    from zest_tpu_torch.transfer.transport import make_transport
     from zest_tpu_torch.transfer.pull import pull_model
     from zest_tpu_torch.transfer.push import push_checkpoint, watch_and_swap
 
@@ -146,6 +153,11 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
                                publisher_url="http://127.0.0.1:9"),
         lambda: main(["watch", "org/m", "--publisher",
                       "http://127.0.0.1:9"]),
+        lambda: pod_mesh(),
+        lambda: HbmStagingCache(1 << 20),
+        lambda: make_transport("jax", DcnPool()),
+        lambda: pod_round(None, []),
+        lambda: main(["pull", "org/m", "--pod"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -3,9 +3,9 @@
 Mirrors tests/test_coop.py on the same ``FixtureHub`` fixture (1.5 MB
 low-entropy payload, two chunks per xorb: half the chunks take BG4, so
 receipt verification runs through the plain fused verifier as well as
-the plain BLAKE3), with ``device="cpu"``; the JAX package runs with its
-collective tier off (``coop_collective=False``), the exchange the port
-carries:
+the plain BLAKE3), with ``device="cpu"``; both packages run with the
+collective tier off (``coop_collective=False``: the point-to-point
+exchange; tests/test_torch_collective.py holds the collective):
 
 - plan parity: the same fingerprint, ownership sets and summary as the
   reference's ``CoopPlan``, the skew bound, the exactly-once re-shard;
@@ -74,7 +74,8 @@ def _no_faults():
 
 def _bridge(hub, root):
     cfg = Config(hf_home=root / "hf", cache_dir=root / "zest",
-                 hf_token="hf_test", endpoint=hub.url, dcn_port=0)
+                 hf_token="hf_test", endpoint=hub.url, dcn_port=0,
+                 coop_collective=False)
     b = XetBridge(cfg)
     b.authenticate(REPO_ID)
     return b
@@ -217,10 +218,8 @@ def test_coop_round_end_to_end_matches_reference(hub, tmp_path):
         assert r["peer_served_ratio"] >= 0.6, r
         assert r["plan"] == ref[i]["plan"]
         assert r["trace_id"] == ref[i]["trace_id"]
-        # The reference adds its hello clock-offset estimates; the port
-        # keeps none (it has no telemetry to normalise).
-        ref_i = {k: v for k, v in ref[i].items() if k != "clock_offsets"}
-        assert _keys(r) == _keys(ref_i)
+        assert _keys(r) == _keys(ref[i])
+        assert sorted(r["clock_offsets"]) == sorted(ref[i]["clock_offsets"])
         for key in ("units", "wire_bytes", "unpacked_bytes"):
             assert r["exchange"][key] == ref[i]["exchange"][key]
         _assert_fully_cached(b, tmp_path / f"h{i}")

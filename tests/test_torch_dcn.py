@@ -157,7 +157,8 @@ def test_port_channel_sees_reference_hello(served):
     ports, wants, _chunks = served
     ch = dcn.DcnChannel("127.0.0.1", ports["ref"])
     try:
-        assert ch.hello_subversion == 2
+        assert ch.hello.subversion == 2
+        assert isinstance(ch.hello.clock_offset_s, float)
         assert isinstance(ch.request_many(wants[:1])[0], dcn.DcnResponse)
     finally:
         ch.close()

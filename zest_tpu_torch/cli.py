@@ -11,7 +11,10 @@ before the CDN; ``--no-p2p`` turns the peer tier off. ``pull --coop
 --coop-hosts N --coop-index I --coop-addr J=HOST:PORT ...`` runs the
 cooperative pull: this host fetches its ~1/N of the xorbs and the
 others' shares come over the DCN chunk RPC (its listener is
-``ZEST_DCN_PORT``, 6991 by default).
+``ZEST_DCN_PORT``, 6991 by default), the collective exchange first
+(``ZEST_COOP_COLLECTIVE=0`` keeps to the point-to-point one); ``--pod``
+/ ``--no-pod`` force the pod round over every CUDA device on or off (on
+by default with ``--device cuda``).
 ``push`` notifies the publisher (``--publisher URL``, default the local
 ``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
 delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
@@ -254,7 +257,7 @@ def cmd_pull(args) -> int:
                          device=args.device, coop=args.coop,
                          coop_hosts=args.coop_hosts,
                          coop_index=args.coop_index, coop_addrs=coop_addrs,
-                         swarm=swarm, no_p2p=args.no_p2p)
+                         swarm=swarm, no_p2p=args.no_p2p, pod=args.pod)
     finally:
         if swarm is not None:
             swarm.close()
@@ -282,6 +285,22 @@ def cmd_pull(args) -> int:
               f"unpacked), {coop['fallbacks']} fallback, "
               f"{ex['verify_rejected']} rejected — peer-served "
               f"{coop['peer_served_ratio']:.1%}")
+        cx = coop.get("collective")
+        if cx:
+            links = " ".join(f"{lk}={b}" for lk, b in
+                             sorted(cx["link_bytes"].items()) if b)
+            line = (f"  Collective: {cx['schedule']} {cx['phases']} "
+                    f"phase(s), {cx['windows']} window(s)")
+            if links:
+                line += f" [{links}]"
+            if cx.get("aborted"):
+                line += (f" — aborted ({cx['aborted']}), degraded to "
+                         "point-to-point")
+            print(line)
+    pod = st.get("pod")
+    if pod and not pod.get("skipped"):
+        print(f"  Pod round:  {pod['filled']}/{pod['units']} units over "
+              f"{pod['slots']} slots, gather {pod['gather_s']}s")
     for line in _delta_lines(st):
         print(line)
     return 0
@@ -498,6 +517,12 @@ def build_parser() -> argparse.ArgumentParser:
     pull.add_argument("--coop-addr", action="append", metavar="I=HOST:PORT",
                       help="DCN endpoint of coop host I (repeatable; also "
                            "ZEST_COOP_ADDRS)")
+    pod = pull.add_mutually_exclusive_group()
+    pod.add_argument("--pod", dest="pod", action="store_true", default=None,
+                     help="run the pod round over every CUDA device "
+                          "(default with --device cuda; also ZEST_TPU_POD)")
+    pod.add_argument("--no-pod", dest="pod", action="store_false",
+                     help="skip the pod round")
     add_peer_flags(pull)
     pull.set_defaults(fn=cmd_pull)
 

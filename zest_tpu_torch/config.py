@@ -5,7 +5,10 @@ environment names (``HF_HOME``, ``ZEST_CACHE_DIR``, ``HF_TOKEN``,
 ``HF_ENDPOINT``, ``ZEST_HTTP_PORT``, ``ZEST_DCN_PORT``,
 ``ZEST_MAX_CONCURRENT``, ``ZEST_PUSH_CHUNKS_PER_XORB``, ``ZEST_COOP``,
 ``ZEST_COOP_HOSTS``, ``ZEST_COOP_INDEX``, ``ZEST_COOP_ADDRS``,
-``ZEST_COOP_INFLIGHT``, and the landing's ``ZEST_DECODE_WORKERS``,
+``ZEST_COOP_INFLIGHT``, the collective exchange's ``ZEST_COOP_COLLECTIVE``,
+``ZEST_COOP_TOPOLOGY``, ``ZEST_COOP_PODS``, ``ZEST_COLLECTIVE_BACKEND`` and
+``ZEST_COLLECTIVE_LOSSY``, the pod round's ``ZEST_TPU_HBM_STAGING``, and the
+landing's ``ZEST_DECODE_WORKERS``,
 ``ZEST_DECODE_CACHE``, ``ZEST_LAND_AHEAD``, ``ZEST_LAND_STREAM``,
 ``ZEST_LAND_RING_BYTES``, ``ZEST_LAND_RING_SLOTS``, ``ZEST_FILES_ASYNC``,
 ``ZEST_FILES_WORKERS``, ``ZEST_PULL_INFLIGHT`` and ``ZEST_TPU_DTYPE``,
@@ -34,6 +37,7 @@ from pathlib import Path
 DEFAULT_LISTEN_PORT = 6881          # BT seeding listener
 DEFAULT_HTTP_PORT = 9847            # localhost REST / publisher endpoint
 DEFAULT_DCN_PORT = 6991             # host-to-host chunk RPC listener
+DEFAULT_HBM_STAGING_BYTES = 2 << 30  # the pod round's per-wave pool budget
 DEFAULT_COOP_INFLIGHT_BYTES = 1 << 30
 DEFAULT_MAX_CONCURRENT_DOWNLOADS = 16
 DEFAULT_MAX_PEERS = 50              # peer connection-pool cap
@@ -78,6 +82,8 @@ DEFAULT_DELTA = True
 # budget (unset or 0: unarmed).
 DEFAULT_HBM_POOL = True
 DEFAULT_HBM_POOL_BYTES = 2 << 30
+
+COLLECTIVE_BACKENDS = ("dcn", "jax", "loopback")
 
 _REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
 
@@ -167,6 +173,43 @@ def _strict_bool(name: str, value: str) -> bool:
     return v == "1"
 
 
+def _strict_choice(env: dict[str, str], name: str, default: str,
+                   choices: tuple[str, ...]) -> str:
+    """An enumerated knob: unset or empty is ``default``; anything outside
+    ``choices`` raises (a mistyped backend must not fall back quietly)."""
+    raw = env.get(name)
+    if raw is None or not raw.strip():
+        return default
+    v = raw.strip()
+    if v not in choices:
+        raise ValueError(
+            f"{name} must be one of {'|'.join(choices)}, got {raw!r}")
+    return v
+
+
+def parse_topology(spec: str) -> tuple[int, ...]:
+    """``"0,0,1,1"`` -> ``(0, 0, 1, 1)``: the slice id per coop host index
+    (``ZEST_COOP_TOPOLOGY``; ``transfer/collective.py`` classes each
+    exchange link ici or dcn from it). Malformed or negative entries
+    raise: a dropped host would misclass every one of its links."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part.isdigit():
+            raise ValueError(
+                f"bad ZEST_COOP_TOPOLOGY entry {part!r} "
+                "(want comma-separated slice ids, e.g. 0,0,1,1)")
+        out.append(int(part))
+    if not out:
+        raise ValueError("ZEST_COOP_TOPOLOGY is empty")
+    return tuple(out)
+
+
+def _opt_topology(env: dict[str, str], name: str) -> tuple[int, ...] | None:
+    raw = env.get(name, "")
+    return parse_topology(raw) if raw.strip() else None
+
+
 def parse_host_addr(spec: str) -> tuple[int, tuple[str, int]]:
     """``"2=hostB:6991"`` -> ``(2, ("hostB", 6991))``."""
     idx, sep, addr = spec.strip().partition("=")
@@ -211,6 +254,23 @@ class Config:
     coop_addrs: dict[int, tuple[str, int]] = dataclasses.field(
         default_factory=dict)
     coop_inflight_bytes: int = DEFAULT_COOP_INFLIGHT_BYTES
+    # The collective exchange (transfer/collective.py). ``coop_collective``
+    # (ZEST_COOP_COLLECTIVE, strict 0/1) runs it before the point-to-point
+    # exchange, which 0 alone restores; ``coop_topology`` and
+    # ``coop_pods`` are the slice and pod id per coop host (None: one
+    # flat slice, one pod); ``collective_backend`` (dcn|jax|loopback)
+    # picks how its phase windows move ("jax" is the device-lane
+    # transport, the JAX package's name kept so a node's environment
+    # carries across). ``collective_lossy`` must stay "0": the lossy tier
+    # (transfer/lossy.py) is not ported.
+    coop_collective: bool = True
+    coop_topology: tuple[int, ...] | None = None
+    coop_pods: tuple[int, ...] | None = None
+    collective_backend: str = "dcn"
+    collective_lossy: str = "0"
+    # The pod round (transfer/pod.py): each wave's staged pool fits this
+    # many bytes (ZEST_TPU_HBM_STAGING; 0 = one wave).
+    hbm_staging_bytes: int = DEFAULT_HBM_STAGING_BYTES
     # The landing (models/loader.py, models/direct.py) and the file
     # pipeline (transfer/pull.py).
     pull_inflight_bytes: int = DEFAULT_PULL_INFLIGHT_BYTES
@@ -252,6 +312,18 @@ class Config:
     hbm_pool_bytes: int = DEFAULT_HBM_POOL_BYTES
     slo_ttft_s: float | None = None
 
+    def __post_init__(self) -> None:
+        if self.collective_backend not in COLLECTIVE_BACKENDS:
+            raise ValueError(
+                f"collective_backend must be one of "
+                f"{'|'.join(COLLECTIVE_BACKENDS)}, got "
+                f"{self.collective_backend!r}")
+        if self.collective_lossy != "0":
+            raise ValueError(
+                f"collective_lossy={self.collective_lossy!r}: the lossy "
+                "tier (transfer/lossy.py) is not ported; only '0' "
+                "(byte-exact) runs")
+
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
         """Resolve config from the environment. Token order: ``HF_TOKEN``,
@@ -286,6 +358,19 @@ class Config:
             coop_inflight_bytes=max(1, int(
                 env.get("ZEST_COOP_INFLIGHT")
                 or DEFAULT_COOP_INFLIGHT_BYTES)),
+            coop_collective=_strict_bool(
+                "ZEST_COOP_COLLECTIVE",
+                env.get("ZEST_COOP_COLLECTIVE", "1")),
+            coop_topology=_opt_topology(env, "ZEST_COOP_TOPOLOGY"),
+            coop_pods=_opt_topology(env, "ZEST_COOP_PODS"),
+            collective_backend=_strict_choice(
+                env, "ZEST_COLLECTIVE_BACKEND", "dcn", COLLECTIVE_BACKENDS),
+            # The JAX package's values parse; __post_init__ refuses the
+            # lossy ones.
+            collective_lossy=_strict_choice(
+                env, "ZEST_COLLECTIVE_LOSSY", "0", ("0", "dcn", "wan")),
+            hbm_staging_bytes=_nonneg_int(
+                env, "ZEST_TPU_HBM_STAGING", DEFAULT_HBM_STAGING_BYTES),
             pull_inflight_bytes=max(1, int(
                 env.get("ZEST_PULL_INFLIGHT", DEFAULT_PULL_INFLIGHT_BYTES))),
             decode_workers=max(0, int(

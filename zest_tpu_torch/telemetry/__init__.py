@@ -4,8 +4,11 @@ The core of ``zest_tpu/telemetry``: the switch (:mod:`.state`,
 ``ZEST_TELEMETRY``), metrics (:mod:`.metrics`: counters, gauges and
 histograms rendered as Prometheus text on the daemon's ``GET
 /v1/metrics``), spans (:mod:`.trace`, Chrome trace JSON under
-``ZEST_TRACE``) and the flight recorder (:mod:`.recorder`). Pull
-sessions, critical-path analysis, timelines, remediation and fleet
+``ZEST_TRACE``), the flight recorder (:mod:`.recorder`), and of
+timelines and remediation the parts the collective exchange reaches
+(:mod:`.timeline`: posted cells and clock offsets; :mod:`.remediate`:
+the action-target registry). Pull sessions, critical-path analysis, the
+timeline sampler and anomaly detector, the remediation engine and fleet
 aggregation are not ported.
 
 This package imports nothing from the rest of ``zest_tpu_torch``, so
@@ -35,6 +38,8 @@ from zest_tpu_torch.telemetry.trace import (  # noqa: F401
 from zest_tpu_torch.telemetry import state as _state
 from zest_tpu_torch.telemetry import trace as trace  # noqa: PLC0414
 from zest_tpu_torch.telemetry import recorder as recorder  # noqa: PLC0414
+from zest_tpu_torch.telemetry import timeline as timeline  # noqa: PLC0414
+from zest_tpu_torch.telemetry import remediate as remediate  # noqa: PLC0414
 from zest_tpu_torch.telemetry.recorder import record  # noqa: F401
 
 __all__ = [
@@ -53,12 +58,14 @@ __all__ = [
     "histogram",
     "record",
     "recorder",
+    "remediate",
     "render_prometheus",
     "reset_all",
     "set_enabled",
     "span",
     "status_snapshot",
     "sum_allowlisted",
+    "timeline",
     "trace",
 ]
 
@@ -86,3 +93,5 @@ def reset_all() -> None:
     trace.clear_context()
     REGISTRY.reset()
     recorder.reset()
+    timeline.reset()
+    remediate.reset()

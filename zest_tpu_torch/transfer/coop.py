@@ -1,11 +1,19 @@
 """Cooperative pull: shard the CDN fetch across hosts, then swap units.
 
-The counterpart of ``zest_tpu/transfer/coop.py``'s point-to-point tier.
-N hosts agree — with no coordination — on a byte-balanced ownership plan
-over the deduplicated fetch units; each host fetches only its ~1/N share
-through the waterfall, then an **exchange** pulls every other unit from its
-owner over the DCN chunk RPC (``transfer/dcn.py``), so every host ends
-fully cached and its per-file reconstruction runs from the cache.
+The counterpart of ``zest_tpu/transfer/coop.py``. N hosts agree — with no
+coordination — on a byte-balanced ownership plan over the deduplicated
+fetch units; each host fetches only its ~1/N share through the waterfall,
+then an **exchange** moves every other unit from its owner, so every host
+ends fully cached and its per-file reconstruction runs from the cache.
+
+The exchange is a ladder. The **collective** (``transfer/collective.py``:
+plan-derived hypercube/ring phases, one pre-sized window a phase, ici/dcn
+link classes) runs first (``Config.coop_collective``); what a dead or
+lagging partner leaves undelivered goes to the **point-to-point**
+exchange, which pulls each unit from its owner over the DCN chunk RPC
+(``transfer/dcn.py``) and degrades per unit to the CDN.
+``ZEST_COOP_COLLECTIVE=0`` runs the point-to-point exchange alone, with
+its stats schema.
 
 - **Compressed on the wire**: the exchange moves xorb frame streams, BG4
   and LZ4 payloads still compressed. A unit that provably is a whole xorb
@@ -20,12 +28,13 @@ fully cached and its per-file reconstruction runs from the cache.
   ``fallbacks`` counts; a blob that fails verification is never cached and
   heals from the CDN (``verify_rejected``).
 
-``stats["coop"]`` keeps the JAX package's keys and meaning with its
-collective tier off (``ZEST_COOP_COLLECTIVE=0``). Not ported: the
-collective-native schedule, the lossy tier, address discovery over a KV
-store, swarm health and telemetry spans. An error that is not a transfer
-failure — a kernel that does not build or launch — leaves the round as
-an exception.
+``stats["coop"]`` keeps the JAX package's keys and meaning:
+``collective`` when the collective ran, ``clock_offsets`` (host index →
+the peer's hello clock offset and round trip) when a channel measured
+one. Not ported: the lossy tier, address discovery over a KV store and
+the point-to-point exchange's use of swarm health. An error that is not a
+transfer failure — a kernel that does not build or launch — leaves the
+round as an exception, from either tier.
 """
 
 from __future__ import annotations
@@ -37,7 +46,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.reconstruction import FetchInfo, Reconstruction
 from zest_tpu_torch.cas.xorb import XorbReader
@@ -64,6 +73,9 @@ _RETRY_SLEEP_CAP_S = 2.0
 # without staging more than this (and never past the ByteBudget).
 _WINDOW_TARGET_BYTES = 32 * 1024 * 1024
 _WINDOW_MAX_UNITS = 64
+# How long the round waits for the hello dials that measure the clock
+# offsets of peers the exchange never dialed.
+_CLK_HELLO_TIMEOUT_S = 2.0
 
 
 class CoopUnavailable(RuntimeError):
@@ -220,14 +232,18 @@ def _derive_trace_id(recs) -> str:
 
 
 class _ExchangeStats:
-    """Thread-safe attribution of the exchange phase: every delivered unit
-    is booked once, under the exchange wire or under the fallback tier that
-    served it, so ``wire_bytes + fallback_bytes`` tiles what the round
-    delivered. (The JAX package also re-books a unit delivered twice after
-    a cache eviction; the port's cache evicts nothing.)"""
+    """Thread-safe per-unit ledger of the exchange: every delivered unit
+    is booked under exactly one tier — the exchange wire (with its link
+    class) or the fallback tier that served it — and a unit delivered
+    again replaces its earlier booking (``reattributed``), so
+    ``wire_bytes + fallback_bytes`` always tiles what the round
+    delivered."""
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
+        # key -> (kind, tier or link, bytes, unpacked)
+        self._booked: dict[tuple[str, int], tuple] = {}
+        self.reattributed = 0
         self.units = 0
         self.wire_bytes = 0
         self.unpacked_bytes = 0
@@ -238,18 +254,43 @@ class _ExchangeStats:
         self.retries = 0
         self.dead_hosts: set[int] = set()
 
-    def book_exchange(self, wire: int, unpacked: int) -> None:
+    def book_exchange(self, key: tuple[str, int], wire: int,
+                      unpacked: int, link: str = "dcn") -> None:
         with self.lock:
+            self._unbook(key)
+            self._booked[key] = ("x", link, wire, unpacked)
             self.units += 1
             self.wire_bytes += wire
             self.unpacked_bytes += unpacked
 
-    def book_fallback(self, source: str, nbytes: int) -> None:
+    def book_fallback(self, key: tuple[str, int], source: str,
+                      nbytes: int) -> None:
         with self.lock:
+            self._unbook(key)
+            self._booked[key] = ("f", source, nbytes, 0)
             self.fallback_units += 1
             self.fallback_bytes += nbytes
             self.fallback_tiers[source] = (
                 self.fallback_tiers.get(source, 0) + nbytes)
+
+    def _unbook(self, key: tuple[str, int]) -> None:
+        prev = self._booked.pop(key, None)
+        if prev is None:
+            return
+        kind, tier, nbytes, unpacked = prev
+        self.reattributed += 1
+        if kind == "x":
+            self.units -= 1
+            self.wire_bytes -= nbytes
+            self.unpacked_bytes -= unpacked
+            return
+        self.fallback_units -= 1
+        self.fallback_bytes -= nbytes
+        left = self.fallback_tiers.get(tier, 0) - nbytes
+        if left > 0:
+            self.fallback_tiers[tier] = left
+        else:
+            self.fallback_tiers.pop(tier, None)
 
     def summary(self) -> dict:
         out = {
@@ -263,6 +304,8 @@ class _ExchangeStats:
         }
         if self.fallback_tiers:
             out["fallback_tiers"] = dict(sorted(self.fallback_tiers.items()))
+        if self.reattributed:
+            out["reattributed"] = self.reattributed
         if self.dead_hosts:
             out["dead_hosts"] = sorted(self.dead_hosts)
         return out
@@ -285,7 +328,8 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                device="cuda", budget_bytes: int | None = None,
                server: DcnServer | None = None, quarantined=None,
                trace_id: str | None = None, priorities: dict | None = None,
-               units=None, clock=None, log=None) -> dict:
+               units=None, clock=None, dcn_pool: DcnPool | None = None,
+               log=None) -> dict:
     """One cooperative round: plan → fetch my ~1/N → exchange the rest.
 
     Afterwards every unit of ``recs`` is in the local verified cache.
@@ -304,8 +348,9 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     phases so embedding and layer-0 units move first; the plan and its
     fingerprint do not depend on it. ``units`` restricts the round to a
     unit subset (a delta pull's changed units): unchanged bytes never
-    cross the exchange. Raises :class:`CoopUnavailable`
-    when no peer is addressable.
+    cross the exchange. ``dcn_pool`` is a ``DcnPool`` of the caller's
+    (kept open; tests read its wire-tag counters). Raises
+    :class:`CoopUnavailable` when no peer is addressable.
     """
     t0 = time.monotonic()
     if trace_id is None:
@@ -352,10 +397,10 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                                           entries_map=entries_map, units=mine)
     fetch_tiers = _tier_delta(before, _tier_bytes(bridge.stats))
 
-    # ── Phase 2: pull every foreign-owned unit from its owner ──
+    # ── Phase 2: the exchange, collective first ──
     budget = ByteBudget(budget_bytes)
     ex = _ExchangeStats()
-    pool = DcnPool()
+    pool = dcn_pool or DcnPool()
     unit_verify = make_unit_verifier(device=device)
 
     def verify(hash_hex: str, data: bytes) -> bool:
@@ -371,9 +416,16 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                         priorities)
         for h in plan.alive if h != host_index
     }
-    jobs = [(h, units) for h, units in foreign.items() if units]
+    clock_offsets: dict = {}
+    collective_stats: dict | None = None
     try:
         with stage("coop_exchange"):
+            if bridge.cfg.coop_collective and any(foreign.values()):
+                collective_stats, foreign = _collective_tier(
+                    bridge, plan, host_index, n_hosts, peers, pool, budget,
+                    ex, verify, deadline, priorities, entries_map, device,
+                    foreign)
+            jobs = [(h, units) for h, units in foreign.items() if units]
             if jobs:
                 with ThreadPoolExecutor(
                         len(jobs), thread_name_prefix="zest-coop-x") as tp:
@@ -383,8 +435,11 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                                for h, units in jobs]
                 for fut in futures:
                     fut.result()  # a worker's error is the round's error
+        _collect_clock_offsets(pool, peers, clock_offsets)
+        telemetry.timeline.set_clock_offsets(clock_offsets)
     finally:
-        pool.close()
+        if dcn_pool is None:
+            pool.close()
 
     # Headline ratio over network bytes (cache hits excluded), fallback
     # bytes booked under the tier that actually served them.
@@ -409,12 +464,87 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
         "peer_served_ratio": round(ratio, 4),
         "elapsed_s": round(time.monotonic() - t0, 3),
     }
+    if collective_stats is not None:
+        stats["collective"] = collective_stats
+    if clock_offsets:
+        stats["clock_offsets"] = clock_offsets
     if log is not None:
         log(f"coop round host {host_index}/{n_hosts}: {len(mine)} fetched, "
             f"{ex.units} over DCN ({ex.wire_bytes} wire bytes), "
             f"{ex.fallback_units} CDN-fallback, peer_served "
             f"{stats['peer_served_ratio']:.0%}")
     return stats
+
+
+def _collective_tier(bridge, plan, host_index, n_hosts, peers, pool, budget,
+                     ex, verify, deadline, priorities, entries_map, device,
+                     foreign):
+    """Run the collective exchange. Returns ``(stats or None, left)``: the
+    units left for the point-to-point exchange by true owner, all of
+    ``foreign`` when the collective cannot run (recorded, not raised: the
+    point-to-point exchange needs no topology). A partner the
+    remediation target condemned mid-round is not asked again: its units
+    degrade through the waterfall at once."""
+    from zest_tpu_torch.transfer.collective import (
+        CollectiveUnavailable,
+        pod_topology,
+        run_collective,
+        slice_topology,
+    )
+
+    health = bridge.swarm.health if bridge.swarm is not None else None
+    try:
+        stats, left = run_collective(
+            bridge, plan, host_index, peers, pool, budget, ex, verify,
+            deadline, slice_topology(n_hosts, cfg=bridge.cfg),
+            priorities=priorities, entries_map=entries_map, health=health,
+            pods=pod_topology(n_hosts, cfg=bridge.cfg), device=device)
+    except (CollectiveUnavailable, ValueError) as exc:
+        telemetry.record("collective_unavailable", error=str(exc))
+        return None, foreign
+    if stats.get("aborted") == "remediation" \
+            and stats.get("dead_host") is not None:
+        condemned = left.pop(stats["dead_host"], None)
+        if condemned:
+            telemetry.record("exchange_condemned", owner=stats["dead_host"],
+                             units=len(condemned))
+            _fallback(bridge, entries_map, condemned, ex,
+                      owner=stats["dead_host"])
+    return stats, left
+
+
+def _collect_clock_offsets(pool, peers, out: dict,
+                           timeout_s: float = _CLK_HELLO_TIMEOUT_S) -> None:
+    """Per-peer hello clock offsets keyed by host index into ``out``.
+    Peers the exchange never dialed (a collective talks to its log N
+    partners only) get a hello dialed here, in named threads joined under
+    one bounded deadline; a hello that hangs is left to its daemon
+    thread, and its channel, should it complete, closes with the pool."""
+    by_addr = pool.clock_offsets()
+    missing = [(idx, addr) for idx, addr in sorted(peers.items())
+               if addr not in by_addr]
+    if missing:
+        def dial(addr):
+            try:
+                pool.channel(*addr)  # the hello runs as the channel opens
+            except (ConnectionError, TimeoutError, OSError):
+                pass  # offsets are best effort
+
+        workers = [threading.Thread(target=dial, args=(addr,),
+                                    name=f"zest-coop-clk-{idx}", daemon=True)
+                   for idx, addr in missing]
+        for w in workers:
+            w.start()
+        join_deadline = time.monotonic() + timeout_s
+        for w in workers:
+            w.join(timeout=max(0.0, join_deadline - time.monotonic()))
+        by_addr = pool.clock_offsets()
+    addr_to_idx = {addr: idx for idx, addr in peers.items()}
+    for addr, row in by_addr.items():
+        idx = row.get("host", addr_to_idx.get(addr))
+        if idx is not None:
+            out[int(idx)] = {"offset_s": row["offset_s"],
+                             "rtt_s": row["rtt_s"]}
 
 
 def _layer_order(units, priorities):
@@ -432,7 +562,7 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
     deadline degrades the rest to the per-host CDN fallback."""
     addr = peers.get(owner)
     if addr is None:
-        _fallback(bridge, entries_map, units, ex)
+        _fallback(bridge, entries_map, units, ex, owner=owner)
         return
     host, port = addr
     pending = list(units)
@@ -463,7 +593,7 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
             budget.release(wire_est)
             with ex.lock:
                 ex.dead_hosts.add(owner)
-            _fallback(bridge, entries_map, window + pending, ex)
+            _fallback(bridge, entries_map, window + pending, ex, owner=owner)
             return
         missing = []
         try:
@@ -472,20 +602,24 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
                                                   fi, reply, verify)
                 if admitted:
                     bridge.stats.record("peer", wire)
-                    ex.book_exchange(wire, unpacked)
+                    ex.book_exchange((hh, fi.range.start), wire, unpacked)
                 elif isinstance(reply, DcnResponse):
                     # Bad bytes from a live owner: the same bytes would
                     # come back, so do not retry; the CDN heals the key.
                     with ex.lock:
                         ex.verify_rejected += 1
-                    _fallback(bridge, entries_map, [(hh, fi)], ex)
+                    telemetry.record("verify_rejected", unit=hh[:16],
+                                     owner=owner)
+                    _fallback(bridge, entries_map, [(hh, fi)], ex,
+                              owner=owner)
                 else:
                     missing.append((hh, fi))  # NOT_FOUND: owner behind
         finally:
             budget.release(wire_est)
         if missing:
             if time.monotonic() + sleep_s > deadline:
-                _fallback(bridge, entries_map, missing + pending, ex)
+                _fallback(bridge, entries_map, missing + pending, ex,
+                          owner=owner)
                 return
             with ex.lock:
                 ex.retries += 1
@@ -515,7 +649,8 @@ def _admit(bridge, entries_map, hh, fi, reply, verify):
     return True, len(reply.data), _unpacked_bytes(reply.data)
 
 
-def _fallback(bridge, entries_map, units, ex: _ExchangeStats) -> None:
+def _fallback(bridge, entries_map, units, ex: _ExchangeStats,
+              owner=None) -> None:
     """Per-host fallback for units the exchange could not deliver,
     through the whole waterfall; a unit whose fetch fails too is left to
     the landing's per-term waterfall."""
@@ -527,4 +662,6 @@ def _fallback(bridge, entries_map, units, ex: _ExchangeStats) -> None:
         except FETCH_ERRORS:
             continue
         _cache_unit(bridge, entries_map, hh, fi, fi.range.start, data)
-        ex.book_fallback(source, len(data))
+        ex.book_fallback((hh, fi.range.start), source, len(data))
+        telemetry.record("cdn_fallback", unit=hh[:16], owner=owner,
+                         tier=source, bytes=len(data))

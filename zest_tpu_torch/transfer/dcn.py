@@ -20,14 +20,16 @@ on connect, then messages flow in either direction):
     NOT_FOUND (3): 32B xorb hash
     ERROR     (4): utf-8 message
 
-The port has no telemetry yet, so its trace block is empty (zero trace id,
-no host index) apart from its wall clock, and it reads the peer's block
-only to keep the stream in step. It serves byte-exact cache data only
-(response flags 0, which every request accepts): the JAX package's lossy
-tier, gossip messages, link shaping, clock offsets and server counters
-are not ported. Ranges are chunk-index ranges within a xorb and a response
-carries the ``chunk_offset`` its frames start at — the same coordinate
-frames as the cache.
+The port's trace block carries no trace id and no host index, only its
+wall clock; from the peer's block a channel estimates the peer's clock
+offset (the single-exchange NTP estimate, error within half the hello's
+round trip), which :meth:`DcnPool.clock_offsets` reports. Request flags
+(``FLAG_LOSSY_OK``, ``FLAG_QUANT_OK``) are carried on the wire, but the
+port serves byte-exact cache data only (response flags 0, which every
+request accepts): the JAX package's lossy tier, gossip messages, link
+shaping and server counters are not ported. Ranges are chunk-index ranges
+within a xorb and a response carries the ``chunk_offset`` its frames
+start at — the same coordinate frames as the cache.
 """
 
 from __future__ import annotations
@@ -65,6 +67,14 @@ MSG_RESPONSE = 2
 MSG_NOT_FOUND = 3
 MSG_ERROR = 4
 
+# Per-message flag bits. On a REQUEST, FLAG_LOSSY_OK accepts a lossy
+# payload and FLAG_QUANT_OK invites the server to quantize fresh data; on
+# a RESPONSE, FLAG_LOSSY marks a quantized container. The port never
+# sends FLAG_LOSSY: it serves byte-exact data whatever a request allows.
+FLAG_LOSSY_OK = 0x01
+FLAG_QUANT_OK = 0x02
+FLAG_LOSSY = 0x01
+
 # A silent peer releases its serving thread after this long; an expired
 # client channel just reconnects.
 IDLE_TIMEOUT_S = 300.0
@@ -81,7 +91,7 @@ class DcnRequest:
     range_start: int
     range_end: int
     tag: int = 0        # the requester's window tag (0 = untagged)
-    flags: int = 0      # per-message flag bits; the port sends 0
+    flags: int = 0      # per-message flag bits (FLAG_LOSSY_OK, ...)
 
 
 @dataclass(frozen=True)
@@ -197,11 +207,22 @@ def _recv_message(sock: socket.socket) -> DcnMessage:
 # ── Hello ──
 
 
-def _exchange_hello(sock: socket.socket) -> int:
+@dataclass
+class HelloInfo:
+    """What one connection's hello negotiated."""
+
+    subversion: int = 1
+    peer_host: int | None = None        # the peer's coop host index
+    rtt_s: float | None = None
+    # Estimated peer wall clock minus ours; error within ±rtt/2.
+    clock_offset_s: float | None = None
+
+
+def _exchange_hello(sock: socket.socket) -> HelloInfo:
     """Send-then-read hello (symmetric, so it cannot deadlock), then the
     trace-context blocks when both sides advertised sub-version >= 2.
-    Returns the negotiated sub-version; raises on a non-zest or
-    wrong-version peer."""
+    Raises on a non-zest or wrong-version peer."""
+    t0 = time.monotonic()
     sock.sendall(_HELLO)
     magic, version, _flags, their_sub = _HELLO_STRUCT.unpack(
         _recv_exact(sock, _HELLO_STRUCT.size))
@@ -209,11 +230,18 @@ def _exchange_hello(sock: socket.socket) -> int:
         raise DcnProtocolError("peer is not a zest DCN endpoint")
     if version != VERSION:
         raise DcnProtocolError(f"unsupported DCN version {version}")
-    subversion = min(HELLO_SUBVERSION, their_sub or 1)
-    if subversion >= 2:
-        sock.sendall(_TRACE_BLOCK.pack(b"\0" * 16, _NO_HOST, 0, time.time()))
-        _recv_exact(sock, _TRACE_BLOCK.size)
-    return subversion
+    info = HelloInfo(subversion=min(HELLO_SUBVERSION, their_sub or 1))
+    if info.subversion < 2:
+        return info
+    sock.sendall(_TRACE_BLOCK.pack(b"\0" * 16, _NO_HOST, 0, time.time()))
+    _tid, host, _bflags, peer_epoch = _TRACE_BLOCK.unpack(
+        _recv_exact(sock, _TRACE_BLOCK.size))
+    if host != _NO_HOST:
+        info.peer_host = host
+    info.rtt_s = max(0.0, time.monotonic() - t0)
+    # The peer stamped its clock about half a round trip before we read it.
+    info.clock_offset_s = peer_epoch - (time.time() - info.rtt_s / 2.0)
+    return info
 
 
 # ── Cache lookup ──
@@ -242,6 +270,22 @@ def lookup_chunk_range(cfg: Config, cache: XorbCache, chunk_hash: bytes,
     except XorbFormatError:
         pass  # serve the whole entry; the requester re-slices
     return offset, blob
+
+
+def serve_chunk_range(cfg: Config, cache: XorbCache, chunk_hash: bytes,
+                      range_start: int, range_end: int, flags: int = 0
+                      ) -> tuple[int, bytes, int] | None:
+    """What a server answers to one request: ``(chunk_offset, blob,
+    response flags)`` or None. The socket server and the in-process
+    transports (``transfer/transport.py``) share it, so every backend
+    answers alike. Byte-exact cache data only: a request's lossy flags
+    are accepted and never acted on, and a miss stays a miss."""
+    found = lookup_chunk_range(cfg, cache, chunk_hash, range_start,
+                               range_end)
+    if found is None:
+        return None
+    offset, blob = found
+    return offset, blob, 0
 
 
 # ── Server ──
@@ -359,13 +403,13 @@ class DcnServer:
                 req.request_id,
                 f"invalid range [{req.range_start},{req.range_end})")))
             return
-        found = lookup_chunk_range(self.cfg, self.cache, req.chunk_hash,
-                                   req.range_start, req.range_end)
+        found = serve_chunk_range(self.cfg, self.cache, req.chunk_hash,
+                                  req.range_start, req.range_end, req.flags)
         if found is None:
             conn.sendall(encode_message(
                 DcnNotFound(req.request_id, req.chunk_hash)))
             return
-        offset, blob = found
+        offset, blob, resp_flags = found
         if _OFFSET.size + len(blob) > MAX_MESSAGE_SIZE:
             conn.sendall(encode_message(DcnError(
                 req.request_id, f"entry of {len(blob)} bytes over cap")))
@@ -373,7 +417,7 @@ class DcnServer:
         # Scatter-gather: a whole xorb is up to 64 MiB, not to be joined
         # into one bytestring.
         _sendmsg_all(conn, [encode_response_prefix(
-            req.request_id, offset, len(blob)), blob])
+            req.request_id, offset, len(blob), resp_flags), blob])
 
 
 # ── Client ──
@@ -408,7 +452,7 @@ class DcnChannel:
         self._sock = socket.create_connection((host, port), timeout=timeout)
         try:
             self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self.hello_subversion = _exchange_hello(self._sock)
+            self.hello = _exchange_hello(self._sock)
         except (ConnectionError, OSError):
             self._sock.close()
             raise
@@ -457,7 +501,8 @@ class DcnChannel:
                 self._fail_all(exc)
 
     def send_request(self, chunk_hash: bytes, range_start: int,
-                     range_end: int, tag: int = 0) -> _Waiter:
+                     range_end: int, tag: int = 0,
+                     flags: int = 0) -> _Waiter:
         """Fire one request; returns a waiter to collect later (send N,
         then wait N, to pipeline)."""
         if faults.fire("dcn_reset",
@@ -474,7 +519,8 @@ class DcnChannel:
                 self._pending[req_id] = waiter
             try:
                 self._sock.sendall(encode_message(DcnRequest(
-                    req_id, chunk_hash, range_start, range_end, tag)))
+                    req_id, chunk_hash, range_start, range_end, tag,
+                    flags)))
             except OSError as exc:
                 with self._pending_lock:
                     self._pending.pop(req_id, None)
@@ -482,12 +528,13 @@ class DcnChannel:
         return waiter
 
     def request_many(self, wants: list[tuple[bytes, int, int]],
-                     timeout: float | None = None,
-                     tag: int = 0) -> list[DcnMessage]:
+                     timeout: float | None = None, tag: int = 0,
+                     flags: int = 0) -> list[DcnMessage]:
         """Pipelined batch: every request goes out before any response is
         awaited; results come back in ``wants`` order. ``timeout`` caps
         each wait for this call only."""
-        waiters = [self.send_request(*w, tag=tag) for w in wants]
+        waiters = [self.send_request(*w, tag=tag, flags=flags)
+                   for w in wants]
         t = self.timeout if timeout is None else timeout
         return [w.wait(t) for w in waiters]
 
@@ -500,12 +547,38 @@ class DcnPool:
         self._channels: dict[tuple[str, int], DcnChannel] = {}
         self._lock = threading.Lock()
         self._next_tag = 0
+        # Wire-tag accounting: request windows sent, the REQUESTs they
+        # carried, and how many went out with a window tag and without
+        # (the collective exchange tags every window it sends).
+        self.counters = {"windows": 0, "requests": 0,
+                         "tagged_windows": 0, "untagged_windows": 0}
 
     def window_tag(self) -> int:
         """Next nonzero u16 window tag (wraps; 0 stays "untagged")."""
         with self._lock:
             self._next_tag = (self._next_tag % 0xFFFF) + 1
             return self._next_tag
+
+    def clock_offsets(self) -> dict:
+        """``{(host, port): {"offset_s", "rtt_s"[, "host"]}}`` from the
+        hello of every live channel that measured one."""
+        with self._lock:
+            channels = dict(self._channels)
+        out = {}
+        for addr, ch in channels.items():
+            hello = ch.hello
+            if hello.clock_offset_s is None:
+                continue
+            row = {"offset_s": round(hello.clock_offset_s, 6),
+                   "rtt_s": round(hello.rtt_s or 0.0, 6)}
+            if hello.peer_host is not None:
+                row["host"] = hello.peer_host
+            out[addr] = row
+        return out
+
+    def channel(self, host: str, port: int) -> DcnChannel:
+        """The pooled channel to ``(host, port)``, dialed if need be."""
+        return self._lease(host, port)[0]
 
     def _lease(self, host: str, port: int) -> tuple[DcnChannel, bool]:
         """``(channel, reused)``. A reused channel may be stale (the
@@ -531,21 +604,29 @@ class DcnPool:
 
     def request_many(self, host: str, port: int,
                      wants: list[tuple[bytes, int, int]],
-                     timeout: float | None = None,
-                     tag: int = 0) -> list[DcnMessage]:
+                     timeout: float | None = None, tag: int = 0,
+                     flags: int = 0) -> list[DcnMessage]:
         """Pipelined batch through a pooled channel, reconnecting and
         retrying ONCE when a pooled channel turns out to be dead; a fresh
-        connection's failure propagates."""
+        connection's failure propagates. ``tag`` stamps every REQUEST of
+        the batch with a window tag, ``flags`` with the flag byte."""
+        with self._lock:
+            self.counters["windows"] += 1
+            self.counters["requests"] += len(wants)
+            self.counters["tagged_windows" if tag
+                          else "untagged_windows"] += 1
         ch, reused = self._lease(host, port)
         try:
-            return ch.request_many(wants, timeout=timeout, tag=tag)
+            return ch.request_many(wants, timeout=timeout, tag=tag,
+                                   flags=flags)
         except (ConnectionError, TimeoutError, OSError):
             self.drop(host, port)
             if not reused:
                 raise
         ch, _ = self._lease(host, port)
         try:
-            return ch.request_many(wants, timeout=timeout, tag=tag)
+            return ch.request_many(wants, timeout=timeout, tag=tag,
+                                   flags=flags)
         except (ConnectionError, TimeoutError, OSError):
             self.drop(host, port)
             raise

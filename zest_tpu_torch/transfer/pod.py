@@ -1,9 +1,17 @@
-"""Safetensors headers from the head terms, and the receipt check of peer
-blobs on the device.
+"""The pod round, safetensors headers from the head terms, and the
+receipt check of peer blobs on the device.
 
-The parts of ``zest_tpu/transfer/pod.py`` that the direct landing and the
-cooperative exchange run (the pod round itself comes with the multi-GPU
-slice). :func:`fetch_file_header` decodes a file's head terms through the
+The counterpart of ``zest_tpu/transfer/pod.py`` without its expert-routed
+round. :func:`pod_round` distributes a pull's fetch units over a slot mesh
+(``parallel/mesh.py``): each slot's owner fetches only its units through
+the waterfall, the gather gives every slot every blob
+(``parallel/collectives.py``), each provably whole xorb is verified on the
+mesh's device, and every blob that passes lands in the cache — so the
+per-file landing that follows reads the cache. The round only speeds the
+waterfall up: a unit it misses (a failed fetch, a rejected blob) is
+fetched by the landing as usual.
+
+:func:`fetch_file_header` decodes a file's head terms through the
 waterfall; :func:`fetch_header_probe` reads only the head frames, for
 callers that need the header before the units are fetched. A blob that
 provably is a whole xorb is verified against its content address before
@@ -24,13 +32,18 @@ pull can never look right while no kernel verified anything.
 from __future__ import annotations
 
 import struct
+import time
 
+from zest_tpu_torch import telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.compression import CompressionError, Scheme
 from zest_tpu_torch.cas.xorb import FRAME_HEADER_LEN, XorbFormatError, XorbReader
 from zest_tpu_torch.models.safetensors_io import parse_header_prefix
 from zest_tpu_torch.ops import fused_verifier_for_backend, unit_verify_hasher
 from zest_tpu_torch.ops.blake3 import ChunkTooLarge
+from zest_tpu_torch.parallel.collectives import PodDistributor, split_waves
+from zest_tpu_torch.parallel.mesh import num_slots, pod_mesh
+from zest_tpu_torch.parallel.plan import DistributionPlan
 
 MALFORMED = (XorbFormatError, CompressionError, ChunkTooLarge)
 
@@ -141,3 +154,73 @@ def make_unit_verifier(key: bytes | None = None, device="cuda"):
         return _device_verify_full_xorb(data, hash_hex, hasher, fused)
 
     return verify
+
+
+def local_slice_groups(n_hosts: int) -> tuple[int, ...] | None:
+    """The slice id per coop host index as the runtime knows it, for the
+    collective's link classes. The JAX package reads each TPU process's
+    ``slice_index``; CUDA exposes no slice notion, so this is None and
+    ``Config.coop_topology`` (``ZEST_COOP_TOPOLOGY``) is the only source
+    of a multi-slice map."""
+    return None
+
+
+def pod_round(bridge, recs, mesh=None, log=None, budget_bytes=None) -> dict:
+    """One distribution round for ``recs`` over ``mesh`` (default
+    ``pod_mesh()``, every CUDA device). A one-slot mesh skips the round:
+    the waterfall alone is optimal there. The plan splits into waves whose
+    staged pool fits ``budget_bytes`` (default
+    ``cfg.hbm_staging_bytes``); each wave is gathered, verified on the
+    first slot's device and drained into ``bridge.cache`` before the next
+    is staged. Returns the ``stats["pod"]`` block. A verifier that fails
+    to build or launch raises."""
+    with telemetry.span("pod.round", files=len(recs)):
+        return _pod_round(bridge, recs, mesh, log, budget_bytes)
+
+
+def _pod_round(bridge, recs, mesh, log, budget_bytes) -> dict:
+    mesh = pod_mesh() if mesh is None else mesh
+    n = num_slots(mesh)
+    plan = DistributionPlan.build(recs, n)
+    if not plan.assignments or n <= 1:
+        return {"slots": n, "units": len(plan.assignments), "skipped": True}
+    if budget_bytes is None:
+        budget_bytes = bridge.cfg.hbm_staging_bytes
+    waves = split_waves(plan, budget_bytes)
+    dist = PodDistributor(mesh)
+    verifier = make_unit_verifier(device=mesh[0])
+    filled = rejected = 0
+    gather_s = fill_s = 0.0
+    peak_pool = 0
+    for wave in waves:
+        tw = time.monotonic()
+        pool = dist.distribute(
+            wave, lambda a: bridge.fetch_unit(a.hash_hex, a.fetch_info))
+        t_gather = time.monotonic()
+        f, r = pool.fill_cache(bridge.cache, verify=verifier)
+        filled += f
+        rejected += r
+        if r:
+            telemetry.record("verify_rejected", tier="pod", count=r)
+        peak_pool = max(peak_pool, pool.layout.pool_bytes)
+        gather_s += t_gather - tw
+        fill_s += time.monotonic() - t_gather
+        del pool  # free the wave's replicas before staging the next
+    stats = {
+        "slots": n,
+        "units": len(plan.assignments),
+        "planned_bytes": plan.total_bytes,
+        "waves": len(waves),
+        "pool_bytes": peak_pool,
+        "budget_bytes": budget_bytes,
+        "balance": plan.summary()["balance"],
+        "filled": filled,
+        "verify_rejected": rejected,
+        "gather_s": round(gather_s, 3),
+        "fill_s": round(fill_s, 3),
+    }
+    if log is not None:
+        log(f"pod round: {filled}/{stats['units']} units cached over {n} "
+            f"slots in {len(waves)} wave(s) ({stats['planned_bytes']} "
+            f"bytes, gather {stats['gather_s']}s)")
+    return stats

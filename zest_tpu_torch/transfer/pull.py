@@ -53,13 +53,23 @@ Missing evidence degrades to a full pull, says so on stderr and records a
 and the other hosts' DCN addresses, or ``ZEST_COOP*``): before the
 landing, ``transfer/coop.coop_round`` fetches this host's share of the
 deduplicated xorb units and pulls the rest from their owners over the DCN
-chunk RPC, verifying every received whole xorb on ``device``, both phases
-in layer order; the landing then reads the cache. ``stats["coop"]`` is
-the round's block and ``stats["peer_served_ratio"]`` its headline. Only a
-missing topology (:class:`~zest_tpu_torch.transfer.coop.CoopUnavailable`)
-or a connection failure degrades the pull to the per-host waterfall; any
-other error of the round — a kernel that does not build or launch — fails
-the pull. The pod round, pull sessions and mesh placement are not ported.
+chunk RPC (the collective exchange first), verifying every received
+whole xorb on ``device``, both phases in layer order; the landing then
+reads the cache. ``stats["coop"]`` is the round's block and
+``stats["peer_served_ratio"]`` its headline. Only a missing topology
+(:class:`~zest_tpu_torch.transfer.coop.CoopUnavailable`) or a connection
+failure degrades the pull to the per-host waterfall; any other error of
+the round — a kernel that does not build or launch — fails the pull.
+
+**Pod round** (``pod``; on by default for ``cuda``, forced with
+``ZEST_TPU_POD=1/0``): after the cooperative round,
+``transfer/pod.pod_round`` distributes the units over the slot mesh of
+every CUDA device and fills the cache before the landing
+(``stats["pod"]``; on one card ``{"slots": 1, ..., "skipped": true}``).
+Expert routing is not ported: every family takes the plain round. With
+several processes they agree first, over ``torch.distributed``, that
+every one has its reconstructions. Pull sessions and mesh placement of
+the landing are not ported.
 
 **Peer tier** (``swarm=``): a ``transfer.swarm.SwarmDownloader`` whose
 direct peers (``--peer HOST:PORT``) the bridge asks before the CDN, for
@@ -109,6 +119,7 @@ from zest_tpu_torch.models.loader import (
     stage_snapshot_to_hbm,
 )
 from zest_tpu_torch.models.safetensors_io import tensor_bytes
+from zest_tpu_torch.parallel.mesh import num_slots, pod_mesh, world_size
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.resilience import Deadline
 from zest_tpu_torch.transfer import delta
@@ -123,7 +134,11 @@ from zest_tpu_torch.transfer.federated import (
     _entries_by_hash,
     warm_units_parallel,
 )
-from zest_tpu_torch.transfer.pod import fetch_file_header, fetch_header_probe
+from zest_tpu_torch.transfer.pod import (
+    fetch_file_header,
+    fetch_header_probe,
+    pod_round,
+)
 
 
 class PullResult:
@@ -611,7 +626,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                coop_server=None, base_params: dict | None = None,
                base_revision: str | None = None, swarm=None,
                no_p2p: bool = False, land: bool = True,
-               log=print) -> PullResult:
+               pod: bool | None = None, log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
     ``cfg``'s cache, which then answers the peers for as long as its
@@ -633,7 +648,10 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     ``land=False`` writes the snapshot's files and lands nothing (the
     serving pool lands from the snapshot itself): the stats then carry no
     ``hbm``, ``time_to_hbm_s`` or ``time_to_first_layer_s`` and
-    ``params`` is None."""
+    ``params`` is None.
+
+    ``pod`` runs the pod round before the landing (None: on for ``cuda``
+    unless ``ZEST_TPU_POD`` says otherwise)."""
     if not land and base_params is not None:
         raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
@@ -706,8 +724,11 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     hbm_params = hbm_stats = None
     time_to_hbm = hbm_done_at = time_to_first_layer = None
     delta_plan = delta_base = delta_net_before = None
+    if pod is None:
+        env = os.environ.get("ZEST_TPU_POD")
+        pod = env == "1" if env in ("0", "1") else dev.type == "cuda"
     try:
-        coop_stats = None
+        coop_stats = pod_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
                                  coop_addrs, log)
         pending = [e for e in files
@@ -724,12 +745,18 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 "running a full pull", file=sys.stderr)
         if delta_plan is None:
             base_params = None
-        if coop_cfg and pending:
+        if (coop_cfg or pod) and pending:
             try:
                 with clock("cas_metadata"):
                     ensure_auth()
                     recs = [bridge.get_reconstruction(e.xet_hash)
                             for e in pending]
+            except FETCH_ERRORS as exc:
+                log(f"distribution rounds unavailable ({exc}); continuing "
+                    "with the per-host waterfall", file=sys.stderr)
+        if coop_cfg and recs:
+            try:
+                with clock("cas_metadata"):
                     prio = _coop_priorities(cfg, bridge, pending, recs)
                 with clock("coop"):
                     coop_stats = _coop_stage(
@@ -741,6 +768,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             except (CoopUnavailable, CasError, ConnectionError) as exc:
                 log(f"cooperative pull unavailable ({exc}); continuing "
                     "with the per-host waterfall", file=sys.stderr)
+        if pod and pending:
+            pod_stats = _pod_stage(bridge, recs, dev, log)
         # Files the landing does not write ride the pipeline under it.
         for entry in files:
             if not entry.path.endswith(".safetensors"):
@@ -834,6 +863,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if coop_stats is not None:
         stats["coop"] = coop_stats
         stats["peer_served_ratio"] = coop_stats.get("peer_served_ratio")
+    if pod_stats is not None:
+        stats["pod"] = pod_stats
     if deadline is not None:
         stats["deadline"] = {
             "budget_s": deadline.total_s,
@@ -1322,6 +1353,32 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
                       trace_id=mint_trace_id(f"{repo_id}@{commit_sha}"),
                       priorities=priorities, units=units, clock=clock,
                       log=log)
+
+
+def _pod_stage(bridge, recs, dev, log) -> dict | None:
+    """The pod pre-pass over the slot mesh of ``dev`` (every CUDA device;
+    the one CPU device otherwise, so the round skips). With several
+    processes every one must have its reconstructions (``recs`` not
+    None) before any gathers: they agree on that bit first, and one
+    without takes the whole pod to the per-host waterfall instead of
+    stranding the others in the gather."""
+    import torch.distributed as dist
+
+    mesh = pod_mesh(None if dev.type == "cuda" else [dev])
+    ready = recs is not None
+    if world_size() > 1:
+        flags = [None] * world_size()
+        dist.all_gather_object(flags, ready)
+        if ready and not all(flags):
+            log("pod round skipped: another host has no reconstructions",
+                file=sys.stderr)
+        ready = all(flags)
+    if not ready:
+        return None
+    if num_slots(mesh) > 1:
+        log("pod round: expert routing is not ported; every family takes "
+            "the plain round", file=sys.stderr)
+    return pod_round(bridge, recs, mesh=mesh, log=log)
 
 
 # pwritev bounds: iovecs per call (below every Linux IOV_MAX) and bytes
