@@ -150,6 +150,23 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    the ``hbm_pool`` block and the daemon's kernel launches (read before
    the first request and after the last), and SIGTERM ends it with exit
    code 0;
+11. the mesh landing on four slots of ``cuda:0``. 11a: phase 7's Llama
+   repo pulled into a fresh node with ``mesh=model_mesh({"model": 4},
+   [cuda:0] * 4)``: ``hbm.sharded``, every shard byte-equal to the same
+   slice of the file's tensor, the digest phase 7's, the peak allocation
+   rise within the landed bytes and two commit groups; the
+   tensor-parallel float32 tree (``llama.params_from_hf`` of the sharded
+   tree) decodes greedy and injected-noise sampled at batch 1 and 4 with
+   logits within ``LOGITS_TOL`` of phase 7's CPU forward and phase 7's
+   tokens (a near-tie below twice the tolerance printed). 11b: phase 9's
+   Mixtral repo pulled with ``mesh=model_mesh({"expert": 4}, [cuda:0] *
+   4)``: the expert-routed pod round (``expert_routed``, 8 experts, the
+   routed plan's expert units fetched, 0 failed, gather bytes saved > 0;
+   the shared round's kernel #3 and #1 launches and rows as its plan
+   predicts), then ``land_moe_expert_sharded`` (slot ``s`` holds experts
+   ``2s`` and ``2s + 1`` byte-equal to the file's) and an expert-parallel
+   bf16 greedy decode held to phase 9's float32 family tokens by its
+   margin rule;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -161,8 +178,8 @@ after.
 Every phase is fatal. The last three lines of standard output are the
 kernels' JSON record (with each kernel's launches by path: the serving
 pool's (``serve``), the daemon's (``serve_daemon``), the collective's
-(``coop_collective``, ``coop_collective_lane``) and the pod round's
-(``pod``) among them), the card's name and power limit, and
+(``coop_collective``, ``coop_collective_lane``), the pod round's
+(``pod``) and the mesh landing's expert round (``mesh``) among them), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
 """
@@ -570,7 +587,7 @@ def check_direct(label: str, res) -> None:
     if tfl is None or not 0 < tfl < tth:
         fail(f"{label}: time_to_first_layer_s {tfl} vs time_to_hbm_s {tth}")
     ring = hbm["ring"]
-    biggest = max(t.numel() * t.element_size() for t in res.params.values())
+    biggest = max(int(t.nbytes) for t in res.params.values())
     bound = max(ring["budget_bytes"], biggest + 15)
     if ring["peak_bytes"] > bound:
         fail(f"{label}: ring peak {ring['peak_bytes']:,} B > {bound:,} B "
@@ -1555,15 +1572,16 @@ def cached_logits(llama, params, cfg, tokens, n0: int):
     runs them. Returns (B, T - 1, vocab) float32 logits on the card."""
     import torch
 
+    from zest_tpu_torch.models.tensor_parallel import decode_fns
+
+    init, decode_step, decode_window = decode_fns(
+        params, llama.init_kv_cache, llama.decode_step, llama.decode_window)
     B, T = tokens.shape
-    cache = llama.init_kv_cache(cfg, B, T, dtype=params["wte"].dtype,
-                                device=tokens.device)
-    logits, cache = llama.decode_window(params, cache, tokens[:, :n0], 0,
-                                        cfg)
+    cache = init(cfg, B, T, dtype=params["wte"].dtype, device=tokens.device)
+    logits, cache = decode_window(params, cache, tokens[:, :n0], 0, cfg)
     out = [logits.float()]
     for pos in range(n0, T - 1):
-        step, cache = llama.decode_step(params, cache, tokens[:, pos], pos,
-                                        cfg)
+        step, cache = decode_step(params, cache, tokens[:, pos], pos, cfg)
         out.append(step[:, None].float())
     return torch.cat(out, dim=1)
 
@@ -1594,7 +1612,7 @@ def tokens_agree(label: str, got, want, margin_at, tol: float) -> str:
         pos = int(diff[0])
         margin = margin_at(row, pos)
         if not margin < tol:
-            fail(f"phase 7 {label}: row {row} differs from the CPU run at "
+            fail(f"{label}: row {row} differs from the CPU run at "
                  f"position {pos} (CPU top-2 margin {margin:.3e} >= {tol:.1e})")
         notes.append(f"row {row} from position {pos} (CPU top-2 margin "
                      f"{margin:.3e} < {tol:.1e})")
@@ -1720,7 +1738,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
         want = np.atleast_2d(llama.generate_cached(params_cpu, cfg, batch,
                                                    steps).numpy())
         notes[f"greedy b{b}"] = tokens_agree(
-            f"greedy batch {b}", rows, want,
+            f"phase 7 greedy batch {b}", rows, want,
             lambda r, pos, b=b: top2_margin(cpu_logits[b][r, pos - 1]),
             LOGITS_TOL)
 
@@ -1746,15 +1764,16 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
             return top2_margin(sample_scores(logits, **SAMPLING)
                                + noise[pos - 1, r])
 
-        notes[f"sampled b{b}"] = tokens_agree(f"sampled batch {b}", got,
-                                              want, margin, sampled_tol)
+        notes[f"sampled b{b}"] = tokens_agree(f"phase 7 sampled batch {b}",
+                                              got, want, margin, sampled_tol)
     cpu_decode_s = time.monotonic() - t0
 
     # Phase 9's reference: the card's float32 tokens (held to the CPU
     # above) and the float32 logits along them.
     ref = {"snapshot": res.snapshot_dir, "digest": digest,
            "prompts": prompts, "noise": noise, "bf16_err": errs["bf16"],
-           "greedy": greedy, "sampled": sampled, "logits": {}}
+           "greedy": greedy, "sampled": sampled, "logits": {},
+           "cpu_logits": cpu_logits, "rates": rates}
     for kind, rows_by_b in (("greedy", greedy), ("sampled", sampled)):
         for b, rows in rows_by_b.items():
             ref["logits"][kind, b] = cached_logits(
@@ -1936,7 +1955,7 @@ def tokens_near(label: str, got, want, margin_at, tol: float) -> tuple:
         compared += pos + 1
         margin = margin_at(row, pos)
         if not margin < tol:
-            fail(f"phase 9 {label}: row {row} differs from the float32 "
+            fail(f"{label}: row {row} differs from the float32 "
                  f"path at position {pos} (its margin {margin:.3e} >= "
                  f"{tol:.3e})")
         notes.append(f"row {row} from position {pos} (margin "
@@ -2021,7 +2040,8 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
                         logits[r, pos - 1], ref["noise"][pos - 1, r],
                         int(ref["sampled"][b][r, pos]), **SAMPLING)
             notes[kind, b], n = tokens_near(
-                f"llama {kind} batch {b}", ids, ref[kind][b], margin, tol)
+                f"phase 9 llama {kind} batch {b}", ids, ref[kind][b], margin,
+                tol)
             compared += n
     if not np.array_equal(cold_ids, out["llama", "greedy", 1]):
         fail("phase 9a: the cold and hot llama runs differ")
@@ -2168,8 +2188,9 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
         return min(top2_margin(card_logits[r, pos - 1]),
                    float(gaps[r, :pos].min()))
 
-    mnote, mcompared = tokens_near("mixtral greedy batch 1", mids, want,
-                                   mmargin, tol)
+    mnote, mcompared = tokens_near("phase 9 mixtral greedy batch 1", mids,
+                                   want, mmargin, tol)
+    out["mixtral_family"] = (want, mmargin, tol)
     pool.close()
     torch.cuda.empty_cache()
     launches = {name: n + c.launches for name, c, n in zip(
@@ -2321,6 +2342,297 @@ def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
           f"{time.monotonic() - wall0:.2f} s")
     shutil.rmtree(work / "c9")
     return launches
+
+
+def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
+               pool_out: dict, steps: int, dev) -> dict:
+    """Phase 11: the mesh landing and the tensor-parallel decode on four
+    slots of ``cuda:0``. 11a: Llama-3.2-1B (phase 7's push) pulled over
+    ``{"model": 4}``: every shard byte-equal to the same slice of the
+    file's tensor, the digest phase 7's, the peak allocation rise within
+    the landed bytes and one commit group; float32 tensor-parallel greedy
+    and injected-noise sampled decodes at batch 1 and 4 held to phase 7
+    (logits to the CPU's forward within ``LOGITS_TOL``, tokens equal but
+    for a printed near-tie). 11b: Mixtral (phase 9's push) pulled over
+    ``{"expert": 4}`` through the expert-routed pod round (its shared
+    units verified by kernels #3 and #1 as the routed plan predicts); a
+    bf16 greedy decode from that landing in place (every slot its columns
+    of every expert, no expert byte gathered), then
+    ``land_moe_expert_sharded`` (slot ``s`` holds experts ``2s, 2s+1``
+    byte-equal to the file's) and an expert-parallel bf16 greedy decode,
+    both held to phase 9's float32 family tokens by the margin rule. Returns
+    the kernels' launches on this phase's path."""
+    import torch
+
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import llama, moe
+    from zest_tpu_torch.models import tensor_parallel as tp
+    from zest_tpu_torch.models.direct import land_moe_expert_sharded
+    from zest_tpu_torch.models.loader import (
+        _STREAM_COMMIT_BYTES,
+        load_checkpoint,
+        params_digest,
+    )
+    from zest_tpu_torch.models.sampling import sample_scores
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.parallel.expert import (
+        ExpertPlacement,
+        ExpertRoutedPlan,
+        classify_file,
+    )
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.bridge import XetBridge
+    from zest_tpu_torch.transfer.pod import fetch_file_header
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    wall0 = time.monotonic()
+    card = card_label()
+    n0, total = 8, 8 + steps
+
+    def int_view(t):
+        return t.contiguous().view(torch.int16)
+
+    # ── 11a: Llama-3.2-1B over {"model": 4} ──
+    mesh = model_mesh({"model": 4}, [dev] * 4)
+    cfg_m = Config(hf_home=work / "m" / "hf", cache_dir=work / "m" / "zest",
+                   endpoint=url)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    res = pull_model(cfg_m, LLAMA_REPO, device=dev, mesh=mesh, pod=False)
+    torch.cuda.synchronize(dev)
+    rise = torch.cuda.max_memory_allocated(dev) - base
+    st = res.stats
+    hbm = st["hbm"]
+    if not hbm["sharded"] or st["mesh"] != {"model": 4}:
+        fail(f"phase 11a: sharded {hbm['sharded']}, mesh {st.get('mesh')}")
+    check_direct("phase 11a", res)
+    # Phase 5b's rule: beside the shards, at most one commit group (the
+    # commit size, or one larger tensor alone) is held at a time.
+    landed = hbm["bytes"]
+    biggest = max(int(t.nbytes) for t in res.params.values())
+    allowed = landed + max(_STREAM_COMMIT_BYTES, biggest)
+    if rise > allowed:
+        fail(f"phase 11a: the peak allocation rose {rise:,} B, above the "
+             f"landed {landed:,} B and one commit group")
+    host = load_checkpoint(res.snapshot_dir, "cpu")
+    t0 = time.monotonic()
+    for name, sh in res.params.items():
+        for slot in range(4):
+            got = sh.shard(slot)
+            if got.device != dev or not torch.equal(
+                    int_view(got.cpu()), int_view(host[name][sh.index(slot)])):
+                fail(f"phase 11a: slot {slot}'s shard of {name} differs "
+                     "from the file's slice")
+    del host
+    cmp_s = time.monotonic() - t0
+    if params_digest(res.params) != llama_ref["digest"]:
+        fail("phase 11a: the sharded tree's digest != phase 7's")
+    specs = {str(tuple(t.spec)) for t in res.params.values()}
+
+    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    t0 = time.monotonic()
+    params = llama.params_from_hf(res.params, cfg)
+    build_s = time.monotonic() - t0
+    res.params = None  # the float32 tree holds its own casts
+    if not isinstance(params, tp.TPParams):
+        fail("phase 11a: params_from_hf of the sharded tree is not a "
+             "tensor-parallel tree")
+    prompts = llama_ref["prompts"]
+    rates, notes, errs = {}, {}, {}
+    tol = 2 * LOGITS_TOL  # the TP logits' error plus phase 7's
+    for b in (1, 4):
+        batch = prompts[:b]
+        llama.generate_cached(params, cfg, batch, 2)  # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        got = np.atleast_2d(llama.generate_cached(params, cfg, batch,
+                                                  steps).cpu().numpy())
+        rates[b] = b * steps / (time.monotonic() - t0)
+        card_logits = llama_ref["logits"]["greedy", b]
+        notes[f"greedy b{b}"] = tokens_agree(
+            f"phase 11a greedy batch {b}", got, llama_ref["greedy"][b],
+            lambda r, pos, lg=card_logits: top2_margin(lg[r, pos - 1]), tol)
+        rows = torch.from_numpy(llama_ref["greedy"][b]).to(dev)
+        tp_logits = cached_logits(llama, params, cfg, rows, n0).cpu()
+        errs[b] = float((tp_logits - llama_ref["cpu_logits"][b]).abs().max())
+        if not errs[b] <= LOGITS_TOL:
+            fail(f"phase 11a: tensor-parallel logits off the CPU's by "
+                 f"{errs[b]:.3e} > {LOGITS_TOL:.1e} (batch {b})")
+        noise = llama_ref["noise"][:, :b]
+        sampled = np.atleast_2d(llama.generate_cached(
+            params, cfg, batch, steps, noise=noise.to(dev),
+            **SAMPLING).cpu().numpy())
+        slog = llama_ref["logits"]["sampled", b]
+
+        def smargin(r, pos, slog=slog, noise=noise):
+            return top2_margin(sample_scores(slog[r, pos - 1], **SAMPLING)
+                               + noise[pos - 1, r])
+
+        notes[f"sampled b{b}"] = tokens_agree(
+            f"phase 11a sampled batch {b}", sampled,
+            llama_ref["sampled"][b], smargin, tol / SAMPLING["temperature"])
+    gather = params.gather_bytes
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 11a mesh llama ({card}): {LLAMA_REPO} over "
+          f"{{'model': 4}} on [{dev}] * 4: {landing_summary(st)}; sharded, "
+          f"specs {sorted(specs)}; peak allocation rise {rise:,} B (landed "
+          f"{landed:,} B, allowed {allowed:,}); every shard byte-equal to "
+          f"the file's slice ({cmp_s:.2f} s), digest = phase 7's; "
+          f"tensor-parallel float32 tree built in {build_s:.2f} s, "
+          f"gathered {gather:,} B (tensors off the Megatron layout: the "
+          f"vocab-sharded embedding, the norms); tok/s tensor-parallel "
+          f"b1 {rates[1]:.1f}, b4 {rates[4]:.1f} against unsharded "
+          f"(phase 7, same card) b1 {llama_ref['rates'][1]:.1f}, b4 "
+          f"{llama_ref['rates'][4]:.1f}; logits max |TP - CPU| b1 "
+          f"{errs[1]:.3e}, b4 {errs[4]:.3e} (tolerance {LOGITS_TOL:.1e}); "
+          f"tokens vs phase 7 {notes}")
+
+    # ── 11b: Mixtral over {"expert": 4}: the expert-routed round ──
+    mesh = model_mesh({"expert": 4}, [dev] * 4)
+    cfg_x = Config(hf_home=work / "x" / "hf", cache_dir=work / "x" / "zest",
+                   endpoint=url)
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
+                bg4_cuda.FUSED_COUNTER)
+    for c in counters:
+        c.reset()  # counts from here are phase 11b's pull
+    t0 = time.monotonic()
+    res = pull_model(cfg_x, MIXTRAL_REPO, device=dev, mesh=mesh, pod=True)
+    pull_s = time.monotonic() - t0
+    torch.cuda.synchronize(dev)
+    launches = {name: (c.launches, c.rows) for name, c in zip(
+        ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters)}
+    st = res.stats
+    pod = st.get("pod") or {}
+    bridge = XetBridge(cfg_x)
+    bridge.authenticate(MIXTRAL_REPO)
+    entry = next(e for e in HubClient(cfg_x).list_files(MIXTRAL_REPO)
+                 if e.path.endswith(".safetensors"))
+    rec = bridge.get_reconstruction(entry.xet_hash)
+    header = fetch_file_header(bridge, rec)
+    placement = ExpertPlacement(8, 4)
+    routed = ExpertRoutedPlan.build(
+        [classify_file(rec, header, moe.expert_of_tensor)], placement)
+    summary = routed.summary()
+    if not (pod.get("expert_routed") and pod.get("n_experts") == 8
+            and pod["expert_units_fetched"] == summary["expert_units"]
+            and pod["expert_units_failed"] == 0
+            and pod["ici_bytes_saved"] == summary["ici_bytes_saved"] > 0):
+        fail(f"phase 11b: pod {pod}, routed plan {summary}")
+    shared = pod["shared"]
+    if shared.get("skipped") or shared["filled"] != shared["units"] \
+            or shared["verify_rejected"]:
+        fail(f"phase 11b: the shared round {shared}")
+    # The fill hashes each provably whole shared xorb on the card: its
+    # BG4 chunks in one kernel #3 launch, the rest in one kernel #1 launch.
+    want = {"blake3_chunks": [0, 0], "bg4_regroup": [0, 0],
+            "bg4_fused_verify": [0, 0]}
+    for a in routed.shared.assignments:
+        bg4, rest = bg4_chunks_of(
+            cfg_a.xorb_cache_path(a.hash_hex).read_bytes())
+        if a.fetch_info.range.start != 0 or \
+                a.fetch_info.range.end != bg4 + rest:
+            continue  # a partial unit: its frames are checked, not hashed
+        for name, n in (("bg4_fused_verify", bg4), ("blake3_chunks", rest)):
+            if n:
+                want[name][0] += 1
+                want[name][1] += n
+    if any(list(launches[k]) != want[k] for k in want):
+        fail(f"phase 11b: kernel launches (rows) {launches}, the shared "
+             f"plan predicts {want}")
+    if not st["hbm"]["sharded"]:
+        fail("phase 11b: the landing is not sharded")
+    host = load_checkpoint(res.snapshot_dir, "cpu")
+    if params_digest(res.params) != params_digest(host):
+        fail("phase 11b: the sharded tree's digest != the file's")
+
+    # The raw landing decodes in place: each expert's FFN stays
+    # tensor-parallel as the rules landed it, and only the tensors off the
+    # rules' layout (embedding, norms, head) are gathered.
+    mcfg = moe.MoEConfig.from_hf(MIXTRAL_CONFIG)
+    fam_want, mmargin, mtol = pool_out["mixtral_family"]
+    prompt = pool_out["mixtral_prompt"]
+    off_layout = sum(t.nbytes for n, t in res.params.items()
+                     if "experts." not in n and "self_attn." not in n
+                     and any(a is not None for a in t.spec))
+    t0 = time.monotonic()
+    params = moe.params_from_hf(res.params, mcfg, dtype=torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    raw_build_s = time.monotonic() - t0
+    res.params = None
+    raw_gather = params.gather_bytes
+    if params.experts != [range(8)] * 4 or raw_gather != off_layout:
+        fail(f"phase 11b: the raw landing's tree holds experts "
+             f"{params.experts}, gathered {raw_gather:,} B (off-layout "
+             f"tensors {off_layout:,} B)")
+    moe.generate_cached(params, mcfg, [prompt], 2)  # warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    raw = np.atleast_2d(moe.generate_cached(params, mcfg, [prompt],
+                                            steps).cpu().numpy())
+    raw_rate = steps / (time.monotonic() - t0)
+    raw_note, raw_compared = tokens_near(
+        "phase 11b mixtral tensor-parallel greedy batch 1", raw, fam_want,
+        mmargin, mtol)
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    tree = land_moe_expert_sharded(bridge.cache, [(rec, header)], mcfg,
+                                   mesh, placement, dtype=torch.bfloat16)
+    land_s = time.monotonic() - t0
+    bridge.close()
+    for leaf in ("w1", "w3", "w2"):
+        stacked = tree["blocks"]["moe"][leaf]
+        for slot in range(4):
+            shard = stacked.shard(slot)
+            experts = placement.experts_of_host(slot)
+            if experts != [2 * slot, 2 * slot + 1] or shard.shape[1] != 2:
+                fail(f"phase 11b: slot {slot} holds {shard.shape}, "
+                     f"placement {experts}")
+            for j, e in enumerate(experts):
+                name = (f"model.layers.0.block_sparse_moe.experts.{e}."
+                        f"{leaf}.weight")
+                if not torch.equal(int_view(shard[0, j].cpu()),
+                                   int_view(host[name].T)):
+                    fail(f"phase 11b: slot {slot}'s expert {e} {leaf} "
+                         "differs from the file's")
+    del host
+    params = tp.moe_params(tree, mcfg)
+    moe.generate_cached(params, mcfg, [prompt], 2)  # warm-up
+    torch.cuda.synchronize(dev)
+    t0 = time.monotonic()
+    got = np.atleast_2d(moe.generate_cached(params, mcfg, [prompt],
+                                            steps).cpu().numpy())
+    rate = steps / (time.monotonic() - t0)
+    mnote, mcompared = tokens_near("phase 11b mixtral greedy batch 1", got,
+                                   fam_want, mmargin, mtol)
+    del params, tree
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "m")
+    shutil.rmtree(work / "x")
+    print(f"phase 11b mesh mixtral ({card}): {MIXTRAL_REPO} (1 layer) over "
+          f"{{'expert': 4}} on [{dev}] * 4: pull {pull_s:.2f} s, "
+          f"{landing_summary(st)}; pod: expert_routed, {pod['n_experts']} "
+          f"experts, {pod['expert_units_fetched']} expert units "
+          f"({pod['expert_bytes']:,} B) fetched by their slots = the routed "
+          f"plan's, 0 failed, ici_bytes_saved {pod['ici_bytes_saved']:,}; "
+          f"shared round {shared['filled']}/{shared['units']} units, "
+          f"kernel launches (rows) {launches} = the shared plan's; "
+          f"digest = the file's; tensor-parallel tree from the raw "
+          f"landing built in {raw_build_s:.2f} s, gathered {raw_gather:,} B "
+          f"(no expert byte), bf16 greedy {raw_rate:.2f} tok/s, tokens vs "
+          f"phase 9's {raw_note} "
+          f"({raw_compared} positions); "
+          f"land_moe_expert_sharded {land_s:.2f} s, "
+          f"slot s holds experts 2s, 2s+1 byte-equal to the file's; "
+          f"expert-parallel bf16 greedy {rate:.2f} tok/s, tokens vs phase "
+          f"9's float32 family path {mnote} ({mcompared} positions, "
+          f"tolerance {mtol:.4f}); phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    return {name: n for name, (n, _rows) in launches.items()}
 
 
 def run(args, work: Path) -> dict:
@@ -2479,6 +2791,10 @@ def run(args, work: Path) -> dict:
         daemon_launches = daemon_phase(
             work, publisher.url, pool_out, llama_ref["prompts"][0], gpt2_b1,
             pushed.revision, args.steps)
+
+        # ── 11. the mesh landing and the tensor-parallel decode ──
+        mesh_launches = mesh_phase(work, publisher.url, cfg_a, llama_ref,
+                                   pool_out, args.steps, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -2545,6 +2861,7 @@ def run(args, work: Path) -> dict:
                                  "coop_collective_lane": lane_launches[
                                      "blake3_chunks"],
                                  "pod": pod_launches["blake3_chunks"],
+                                 "mesh": mesh_launches["blake3_chunks"],
                                  "swarm": swarm_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
@@ -2553,6 +2870,7 @@ def run(args, work: Path) -> dict:
                                         "coop_collective_lane":
                                             lane_launches[k["name"]],
                                         "pod": pod_launches[k["name"]],
+                                        "mesh": mesh_launches[k["name"]],
                                         "swarm": swarm_launches[k["name"]],
                                         "serve": pool_out["launches"][
                                             k["name"]],

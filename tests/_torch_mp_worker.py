@@ -1,12 +1,21 @@
-"""One process of tests/test_torch_parallel.py's two-process gloo round.
+"""One process of a two-process gloo test.
 
-    python tests/_torch_mp_worker.py RANK WORLD PORT DIR
+    python tests/_torch_mp_worker.py RANK WORLD PORT DIR [tp]
 
-Joins a gloo process group on 127.0.0.1:PORT, announces a made-up DCN
-endpoint through ``CoordinatorRegistry`` and reads the other's back, then
-runs one ``PodDistributor`` round over two CPU slots per process (a fetch
-that serves only this process's owned units from DIR/blobs.json) and
-writes its gathered rows and discovered peers into DIR.
+Joins a gloo process group on 127.0.0.1:PORT. By default (for
+tests/test_torch_parallel.py) it announces a made-up DCN endpoint through
+``CoordinatorRegistry`` and reads the other's back, then runs one
+``PodDistributor`` round over two CPU slots per process (a fetch that
+serves only this process's owned units from DIR/blobs.json) and writes
+its gathered rows and discovered peers into DIR.
+
+With ``tp`` (for tests/test_torch_tp_decode.py) it joins the group
+through ``mesh_from_config`` from ``ZEST_TPU_*`` mesh settings, lands
+DIR/ckpt.npz's Llama tensors over that ``{"model": WORLD}`` mesh of one
+CPU slot per process, keeps only its own shards, builds the tensor-parallel tree
+(the replicated tensors gathered over the group, the row-parallel sums
+all-reduced) and writes the prefill logits of DIR/ids.npy and a greedy
+decode into DIR.
 """
 
 from __future__ import annotations
@@ -63,6 +72,41 @@ def main(rank: int, world: int, port: int, root: Path) -> None:
         dist.destroy_process_group()
 
 
+def tp_main(rank: int, world: int, port: int, root: Path) -> None:
+    import torch
+
+    from zest_tpu_torch.config import MeshConfig
+    from zest_tpu_torch.models import llama, loader
+    from zest_tpu_torch.models import tensor_parallel as tp
+    from zest_tpu_torch.parallel.mesh import mesh_from_config
+
+    # The process group comes from the mesh settings, as a pull's does.
+    mesh = mesh_from_config(MeshConfig.from_env({
+        "ZEST_TPU_MESH": f"model={world}",
+        "ZEST_TPU_COORDINATOR": f"127.0.0.1:{port}",
+        "ZEST_TPU_PROCESS_ID": str(rank),
+        "ZEST_TPU_NUM_PROCESSES": str(world)}), ["cpu"])
+    try:
+        assert dist.get_backend() == "gloo" and dist.get_rank() == rank
+        assert mesh.local_slots() == [rank]
+        spec = json.loads((root / "cfg.json").read_text())
+        cfg = llama.LlamaConfig.tiny(**spec)
+        host = {n: torch.from_numpy(a) for n, a in
+                np.load(root / "ckpt.npz").items()}
+        tree = loader.commit_tensors(host, mesh=mesh,
+                                     rules=llama.checkpoint_shard_rules())
+        assert all(set(t.shards) == {rank} for t in tree.values())
+        params = llama.params_from_hf(tree, cfg)
+        ids = torch.from_numpy(np.load(root / "ids.npy"))
+        np.save(root / f"logits_{rank}.npy",
+                tp.forward(params, ids, cfg).numpy())
+        np.save(root / f"greedy_{rank}.npy", llama.generate_cached(
+            params, cfg, ids.tolist(), 4).numpy())
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-         Path(sys.argv[4]))
+    run = tp_main if sys.argv[5:] == ["tp"] else main
+    run(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+        Path(sys.argv[4]))

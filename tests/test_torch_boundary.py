@@ -60,6 +60,9 @@ SLICE_MODULES = [
     "zest_tpu_torch.parallel.coordinator",
     "zest_tpu_torch.transfer.transport", "zest_tpu_torch.transfer.collective",
     "zest_tpu_torch.telemetry.timeline", "zest_tpu_torch.telemetry.remediate",
+    "zest_tpu_torch.parallel.sharding", "zest_tpu_torch.parallel.expert",
+    "zest_tpu_torch.models.tensor_parallel", "zest_tpu_torch.models.registry",
+    "zest_tpu_torch.models.direct", "zest_tpu_torch.models.loader",
 ]
 
 
@@ -112,10 +115,11 @@ def no_card():
 def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     from zest_tpu_torch import ops
     from zest_tpu_torch.cli import main
-    from zest_tpu_torch.config import Config, resolve_device
+    from zest_tpu_torch.config import Config, MeshConfig, resolve_device
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
     from zest_tpu_torch.parallel import HbmStagingCache, pod_mesh
+    from zest_tpu_torch.parallel.mesh import mesh_from_config, model_mesh
     from zest_tpu_torch.transfer.dcn import DcnPool
     from zest_tpu_torch.transfer.pod import make_unit_verifier, pod_round
     from zest_tpu_torch.transfer.transport import make_transport
@@ -154,6 +158,13 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         lambda: main(["watch", "org/m", "--publisher",
                       "http://127.0.0.1:9"]),
         lambda: pod_mesh(),
+        lambda: model_mesh(),
+        lambda: model_mesh({"model": 1}),
+        lambda: mesh_from_config(cfg.mesh),
+        lambda: pull_model(Config(hf_home=tmp_path / "hf",
+                                  cache_dir=tmp_path / "zest",
+                                  mesh=MeshConfig(mesh_axes={"model": 1})),
+                           "org/m"),
         lambda: HbmStagingCache(1 << 20),
         lambda: make_transport("jax", DcnPool()),
         lambda: pod_round(None, []),

@@ -871,3 +871,70 @@ def test_daemon_generate_on_card(cuda_device, tmp_path):
                                            device=cuda_device)
                 assert done["ids"] == family([5, 6, 7], 6).tolist()
     hbm_pool.reset()
+
+
+def test_mesh_pull_and_tensor_parallel_decode_on_card(cuda_device,
+                                                     tmp_path):
+    """A Llama and a Mixtral repo pulled onto ``["cuda:0"] * 4`` slot
+    meshes (``{"model": 4}``, ``{"expert": 4}``): every shard equals the
+    same slice of the CPU landing, the digests are the unsharded
+    landing's, the Mixtral pull takes the expert-routed round, and the
+    tensor- and expert-parallel decodes give the CPU's tokens."""
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models import moe, tensor_parallel
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    cfg_json, host = _tiny_llama_tensors(6)
+    cfg_json = dict(cfg_json, num_key_value_heads=4)
+    rng = np.random.default_rng(6)
+    for i in range(2):
+        for name in ("k_proj", "v_proj"):
+            host[f"model.layers.{i}.self_attn.{name}.weight"] = \
+                torch.from_numpy(rng.normal(0, 0.02, (128, 128)).astype(
+                    np.float32))
+    mix_json, mix_host = _tiny_mixtral_tensors(6)
+    mix_json = dict(mix_json, num_key_value_heads=4)
+    for i in range(2):
+        for name in ("k_proj", "v_proj"):
+            mix_host[f"model.layers.{i}.self_attn.{name}.weight"] = \
+                torch.from_numpy(rng.normal(0, 0.05, (128, 128)).astype(
+                    np.float32))
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest")
+    for name, cj, h in (("llama", cfg_json, host),
+                        ("moe", mix_json, mix_host)):
+        push_checkpoint(cfg_a, f"org/{name}",
+                        _snapshot(tmp_path / name, cj, h), notify=False)
+    prompts = _RNG.integers(0, 512, (4, 6)).tolist()
+    with PublisherServer(cfg_a) as hub:
+        for name, axes in (("llama", {"model": 4}), ("moe", {"expert": 4})):
+            mesh = model_mesh(axes, ["cuda:0"] * 4)
+            res = pull_model(Config(hf_home=tmp_path / name / "n" / "hf",
+                                    cache_dir=tmp_path / name / "n" / "z",
+                                    endpoint=hub.url),
+                             f"org/{name}", mesh=mesh)
+            assert res.stats["hbm"]["sharded"] is True
+            cpu = load_checkpoint(res.snapshot_dir, "cpu")
+            for tname, st in res.params.items():
+                for slot in range(4):
+                    shard = st.shard(slot)
+                    assert shard.device == cuda_device
+                    assert torch.equal(shard.cpu(),
+                                       cpu[tname][st.index(slot)])
+            assert params_digest(res.params) == params_digest(cpu)
+            if name == "moe":
+                pod = res.stats["pod"]
+                assert pod["expert_routed"] and pod["n_experts"] == 8
+            _, gen = load_generator(res.snapshot_dir, tensors=res.params)
+            _, gen_cpu = load_generator(res.snapshot_dir, device="cpu")
+            assert np.array_equal(gen(prompts, 8, stop_at_eos=False),
+                                  gen_cpu(prompts, 8, stop_at_eos=False))
+            if name == "moe":
+                params = moe.params_from_hf(res.params,
+                                            moe.MoEConfig.from_hf(mix_json))
+                assert isinstance(params, tensor_parallel.TPParams)
+                assert params.experts == [range(8)] * 4  # columns in place

@@ -14,7 +14,9 @@ others' shares come over the DCN chunk RPC (its listener is
 ``ZEST_DCN_PORT``, 6991 by default), the collective exchange first
 (``ZEST_COOP_COLLECTIVE=0`` keeps to the point-to-point one); ``--pod``
 / ``--no-pod`` force the pod round over every CUDA device on or off (on
-by default with ``--device cuda``).
+by default with ``--device cuda``). ``pull --device=cuda`` lands the tree
+sharded over ``ZEST_TPU_MESH`` (e.g. ``data=2,model=4``) over every CUDA
+device when it is set, and its summary says so.
 ``push`` notifies the publisher (``--publisher URL``, default the local
 ``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
 delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
@@ -297,8 +299,21 @@ def cmd_pull(args) -> int:
                 line += (f" — aborted ({cx['aborted']}), degraded to "
                          "point-to-point")
             print(line)
+    if st["hbm"].get("sharded"):
+        shape = ",".join(f"{a}={n}" for a, n in st["mesh"].items())
+        print(f"  Sharded:    over the mesh {shape}")
     pod = st.get("pod")
-    if pod and not pod.get("skipped"):
+    if pod and pod.get("expert_routed"):
+        sh = pod["shared"]
+        print(f"  Expert routed: {pod['n_experts']} experts; "
+              f"{pod['expert_units_fetched']} expert units "
+              f"({pod['expert_bytes']:,} bytes) fetched by their slots, "
+              f"{pod['expert_units_failed']} failed; "
+              f"{pod['ici_bytes_saved']:,} gather bytes saved; shared "
+              + ("skipped" if sh.get("skipped") else
+                 f"{sh['filled']}/{sh['units']} units over "
+                 f"{sh['slots']} slots"))
+    elif pod and not pod.get("skipped"):
         print(f"  Pod round:  {pod['filled']}/{pod['units']} units over "
               f"{pod['slots']} slots, gather {pod['gather_s']}s")
     for line in _delta_lines(st):

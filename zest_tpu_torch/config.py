@@ -17,7 +17,9 @@ the peer tier's ``ZEST_LISTEN_PORT``, ``ZEST_MAX_PEERS``,
 ``ZEST_SEED_RATE_BPS``, ``ZEST_SEED_PEER_BPS``, ``ZEST_SEED_SLOTS``,
 ``ZEST_SEED_DEADLINE_S``, ``ZEST_SEED_DRAIN_S`` and
 ``ZEST_PULL_DEADLINE_S``, and the serving pool's ``ZEST_HBM_POOL``,
-``ZEST_HBM_POOL_BYTES`` and ``ZEST_SLO_TTFT_S``),
+``ZEST_HBM_POOL_BYTES`` and ``ZEST_SLO_TTFT_S``, and the landing mesh's
+``ZEST_TPU_MESH``, ``ZEST_TPU_COORDINATOR``, ``ZEST_TPU_PROCESS_ID`` and
+``ZEST_TPU_NUM_PROCESSES``),
 the same defaults and the same HF cache layout, so a tree pulled by either
 package reads the same on disk.
 
@@ -231,6 +233,41 @@ def _parse_coop_addrs(spec: str) -> dict[int, tuple[str, int]]:
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """The landing mesh of this process (``parallel/mesh.py``): the
+    coordinator address, this process's index and the process count (for
+    ``torch.distributed``), and the named mesh axes a pull lands its tree
+    over, e.g. ``{"data": 2, "model": 4}``. Parsed as the JAX package
+    parses it, with the same errors on bad input."""
+
+    coordinator: str | None = None       # "host:port"
+    process_id: int = 0
+    num_processes: int = 1
+    # Named mesh axes, in order: earlier axes are the slower dimension.
+    mesh_axes: dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @property
+    def is_distributed(self) -> bool:
+        return self.num_processes > 1
+
+    @staticmethod
+    def from_env(env: dict[str, str]) -> "MeshConfig":
+        axes: dict[str, int] = {}
+        spec = env.get("ZEST_TPU_MESH", "")
+        # Format: "data=2,model=4" (axis order is significant).
+        if spec:
+            for part in spec.split(","):
+                name, _, n = part.partition("=")
+                axes[name.strip()] = int(n)
+        return MeshConfig(
+            coordinator=env.get("ZEST_TPU_COORDINATOR") or None,
+            process_id=int(env.get("ZEST_TPU_PROCESS_ID", "0")),
+            num_processes=int(env.get("ZEST_TPU_NUM_PROCESSES", "1")),
+            mesh_axes=axes,
+        )
+
+
+@dataclasses.dataclass
 class Config:
     """Resolved runtime configuration. Build with :meth:`Config.load` so
     environment overrides apply; construct directly in tests."""
@@ -311,6 +348,8 @@ class Config:
     hbm_pool_enabled: bool = DEFAULT_HBM_POOL
     hbm_pool_bytes: int = DEFAULT_HBM_POOL_BYTES
     slo_ttft_s: float | None = None
+    # The landing mesh (ZEST_TPU_MESH and the process topology).
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def __post_init__(self) -> None:
         if self.collective_backend not in COLLECTIVE_BACKENDS:
@@ -426,6 +465,7 @@ class Config:
             hbm_pool_bytes=_strict_nonneg_int(
                 env, "ZEST_HBM_POOL_BYTES", DEFAULT_HBM_POOL_BYTES),
             slo_ttft_s=_opt_pos_float(env, "ZEST_SLO_TTFT_S"),
+            mesh=MeshConfig.from_env(env),
         )
 
     # ── HF cache layout ──

@@ -21,9 +21,11 @@ landing path are the content-addressed cache entries.
 - :func:`tensor_unit_keys`, :func:`unit_layer_priorities`,
   :func:`unit_priority_sort_key`: which fetch units each tensor needs, and
   the layer order in which units are fetched and exchanged.
+- :func:`land_moe_expert_sharded`: a Mixtral checkpoint stacked into the
+  family tree and laid out expert-parallel over a slot mesh.
 
 Not ported: the lossy staging overlay (``allow_lossy=True`` raises
-:class:`DirectLandingError`) and the expert-sharded MoE landing.
+:class:`DirectLandingError`).
 """
 
 from __future__ import annotations
@@ -734,3 +736,35 @@ def unit_priority_sort_key(priorities):
         return (priorities.get((u[0], u[1].range.start), (9, 0)),
                 u[0], u[1].range.start)
     return key
+
+
+def land_moe_expert_sharded(cache, recs_with_headers, moe_cfg, mesh,
+                            placement, dtype: torch.dtype | None = None
+                            ) -> dict:
+    """A Mixtral-family checkpoint, decoded from the cache, stacked into
+    the ``models.moe`` tree (in ``dtype``, default float32) and laid out
+    over ``mesh`` under ``moe.param_specs``: the stacked expert leaves are
+    cut over the ``expert`` axis in the blocks ``ExpertPlacement`` routed
+    bytes for, so expert ``e`` lands on slot ``placement.host_of_expert(e)``.
+    Returns the tree with ``ShardedTensor`` leaves
+    (``tensor_parallel.moe_params`` decodes it)."""
+    from zest_tpu_torch.models import moe as moe_mod
+    from zest_tpu_torch.parallel.sharding import shard_tensor
+
+    if placement.n_experts != moe_cfg.n_experts:
+        raise DirectLandingError(
+            f"placement has {placement.n_experts} experts, "
+            f"config has {moe_cfg.n_experts}")
+    tensors: dict = {}
+    for rec, header in recs_with_headers:
+        tensors.update(land_tensors(cache, rec, header))
+    params = moe_mod.params_from_hf(tensors, moe_cfg,
+                                    dtype=dtype or torch.float32)
+    del tensors
+
+    def place(tree, specs):
+        if isinstance(tree, dict):
+            return {k: place(tree[k], specs[k]) for k in tree}
+        return shard_tensor(tree, mesh, specs)
+
+    return place(params, moe_mod.param_specs(moe_cfg))

@@ -19,6 +19,7 @@ import torch
 
 from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from zest_tpu_torch.models.sampling import normalize_eos
+from zest_tpu_torch.parallel.sharding import is_sharded_tree
 
 
 class UnsupportedModelError(ValueError):
@@ -53,7 +54,9 @@ def load_generator(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
 
     ``tensors`` is an already-landed name→tensor tree (a pull's
     ``PullResult.params``); without it the snapshot's safetensors are
-    landed on ``device`` here. The family's float32 tree is built from
+    landed on ``device`` here. A tree sharded over a mesh stays on its
+    slots: Llama-family and Mixtral trees decode tensor- and
+    expert-parallel from it, GPT-2 is gathered once. The family's float32 tree is built from
     it on ``device``; the landed dict is not kept (a caller that drops
     its own reference frees it).
 
@@ -85,7 +88,7 @@ def load_generator(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
         if not tensors:
             raise FileNotFoundError(
                 f"no .safetensors files under {snapshot_dir}")
-    else:
+    elif not is_sharded_tree(tensors):
         tensors = {n: t.to(dev) for n, t in tensors.items()}
     if model_type == "gpt2":
         from zest_tpu_torch.models import gpt2 as fam

@@ -10,6 +10,13 @@ MLP uses the tanh GELU.
 
 The KV cache is updated in place (the JAX version returns a new cache);
 :func:`decode_window` still returns it so the two read alike.
+
+:func:`checkpoint_shard_rules` lays a raw checkpoint out over a named mesh
+as the JAX package's do. GPT-2 does not decode tensor-parallel from that
+layout: ``attn.c_attn.weight`` shards the fused q|k|v columns, so no
+slot holds the q, k and v of the same heads (at ``model=4``, 576 of 2304
+columns a slot, across the q/k/v borders). :func:`params_from_hf` gathers
+a sharded tree once.
 """
 
 from __future__ import annotations
@@ -21,6 +28,11 @@ import re
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from zest_tpu_torch.parallel.sharding import P, gather_tree
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +78,10 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
                    dtype: torch.dtype = torch.float32) -> dict:
     """Map an HF gpt2 checkpoint (flat name→tensor) onto the param tree,
     on the tensors' device. Accepts bare or ``transformer.``-prefixed
-    names; skips ``lm_head.weight`` (tied) and the ``attn.bias`` buffers."""
+    names; skips ``lm_head.weight`` (tied) and the ``attn.bias`` buffers.
+    A tree of ``ShardedTensor``s is gathered first, each tensor once onto
+    its first slot's device."""
+    tensors = gather_tree(tensors)
     flat = {(n[len("transformer."):] if n.startswith("transformer.")
              else n): t for n, t in tensors.items()}
     stacks: dict[tuple[str, str], list] = {
@@ -90,6 +105,51 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
         out["blocks"].setdefault(group, {})[leaf] = torch.stack(
             layers).to(dtype)
     return out
+
+
+# ── Sharding rules (data + tensor parallel) ──
+
+
+def param_specs(cfg: GPT2Config) -> dict:
+    """The spec tree matching the param tree (Megatron-style TP), as the
+    JAX package's."""
+    rep1 = {"g": P(), "b": P()}
+    return {
+        # wte stays replicated: GPT-2's vocab (50257) divides no mesh axis.
+        "wte": P(),
+        "wpe": P(),
+        "ln_f": dict(rep1),
+        "blocks": {
+            "ln_1": dict(rep1),
+            "ln_2": dict(rep1),
+            "attn": {
+                "qkv_w": P(None, None, MODEL_AXIS),
+                "qkv_b": P(None, MODEL_AXIS),
+                "proj_w": P(None, MODEL_AXIS, None),
+                "proj_b": P(),
+            },
+            "mlp": {
+                "fc_w": P(None, None, MODEL_AXIS),
+                "fc_b": P(None, MODEL_AXIS),
+                "proj_w": P(None, MODEL_AXIS, None),
+                "proj_b": P(),
+            },
+        },
+    }
+
+
+def checkpoint_shard_rules() -> list[tuple[str, P]]:
+    """Name-pattern rules for landing a raw HF gpt2 checkpoint
+    (``models.loader``); wte, wpe and the norms take the loader's
+    fallback."""
+    return [
+        (r"attn\.c_attn\.weight$", P(None, MODEL_AXIS)),
+        (r"attn\.c_attn\.bias$", P(MODEL_AXIS)),
+        (r"attn\.c_proj\.weight$", P(MODEL_AXIS, None)),
+        (r"mlp\.c_fc\.weight$", P(None, MODEL_AXIS)),
+        (r"mlp\.c_fc\.bias$", P(MODEL_AXIS)),
+        (r"mlp\.c_proj\.weight$", P(MODEL_AXIS, None)),
+    ]
 
 
 def params_from_jax(tree: dict, device="cpu",

@@ -397,9 +397,16 @@ class PoolEntry:
 
 class HbmPool:
     """Process-wide managed device pool on ``device``; construct via
-    :func:`pool`."""
+    :func:`pool`. The pool stays on one device: it does not read
+    ``cfg.mesh``, and a ``mesh`` raises ``MeshUnsupported``."""
 
-    def __init__(self, cfg, device=DEFAULT_DEVICE):
+    def __init__(self, cfg, device=DEFAULT_DEVICE, mesh=None):
+        if mesh is not None:
+            from zest_tpu_torch.parallel.sharding import MeshUnsupported
+
+            raise MeshUnsupported(
+                "the serving pool holds its trees on one device; a "
+                "sharded pool is not ported")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.budget = int(getattr(cfg, "hbm_pool_bytes", 0))

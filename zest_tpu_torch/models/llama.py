@@ -12,8 +12,15 @@ kernel (the JAX package computes none of this in a Pallas kernel).
 
 The KV cache, ``(L, B, max_len, KV, head_dim)``, is updated in place
 (the JAX version returns a new cache); :func:`decode_window` still
-returns it so the two read alike. Training, tensor/context parallelism
-and the shard rules are not ported here.
+returns it so the two read alike.
+
+:func:`checkpoint_shard_rules` lays a raw checkpoint out Megatron-style
+over a named mesh, as the JAX package's; :func:`params_from_hf` of such a
+tree (``ShardedTensor`` values) builds a tensor-parallel tree that
+:func:`generate_cached` runs with each slot's local heads and FFN columns
+(``models/tensor_parallel.py``, whose ``forward`` and ``decode_window``
+take the tree directly). Training and context parallelism are not ported
+here.
 """
 
 from __future__ import annotations
@@ -26,8 +33,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from zest_tpu_torch.models import tensor_parallel as tp
 # The JAX package's trees (as numpy arrays) carry over as GPT-2's do.
 from zest_tpu_torch.models.gpt2 import params_from_jax  # noqa: F401
+from zest_tpu_torch.parallel.sharding import P, is_sharded_tree
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +188,13 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
     into the ``x @ W`` layout. A tied config maps onto a tree without the
     ``lm_head`` leaf (the logits reuse ``wte``, as a view); an untied one
     without ``lm_head.weight`` raises, as any missing tensor does, with
-    its name."""
+    its name.
+
+    A tree of ``ShardedTensor``s (a landing over a mesh) gives the
+    tensor-parallel tree of ``models/tensor_parallel.py`` over the
+    ``model`` axis."""
+    if is_sharded_tree(tensors):
+        return tp.llama_params(tensors, cfg, dtype)
 
     def take(name):
         t = tensors.get(name)
@@ -218,6 +236,56 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
                            for leaf, layers in leaves.items()}
                      for grp, leaves in blocks.items()}
     return out
+
+
+# ── Sharding rules (data + tensor parallel) ──
+
+
+def param_specs(cfg: LlamaConfig) -> dict:
+    """The spec tree matching the param tree (Megatron-style TP), as the
+    JAX package's."""
+    out = {
+        "wte": P(),
+        "ln_f": {"g": P()},
+        "blocks": {
+            "ln_attn": {"g": P()},
+            "ln_mlp": {"g": P()},
+            "attn": {
+                "q_w": P(None, None, MODEL_AXIS),
+                "k_w": P(None, None, MODEL_AXIS),
+                "v_w": P(None, None, MODEL_AXIS),
+                "o_w": P(None, MODEL_AXIS, None),
+                **({"q_b": P(None, MODEL_AXIS),
+                    "k_b": P(None, MODEL_AXIS),
+                    "v_b": P(None, MODEL_AXIS)} if cfg.attn_bias else {}),
+                # o_b adds after the row-parallel o_w reduce: replicated.
+                **({"o_b": P()} if cfg.o_bias else {}),
+            },
+            "mlp": {
+                "gate_w": P(None, None, MODEL_AXIS),
+                "up_w": P(None, None, MODEL_AXIS),
+                "down_w": P(None, MODEL_AXIS, None),
+            },
+        },
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = P(None, MODEL_AXIS)
+    return out
+
+
+def checkpoint_shard_rules() -> list[tuple[str, P]]:
+    """Name-pattern rules for landing a raw HF Llama checkpoint
+    (``models.loader``). HF stores ``[out, in]``: column-parallel tensors
+    shard dim 0, row-parallel ones dim 1."""
+    return [
+        (r"self_attn\.[qkv]_proj\.weight$", P(MODEL_AXIS, None)),
+        (r"self_attn\.[qkv]_proj\.bias$", P(MODEL_AXIS)),
+        (r"self_attn\.o_proj\.bias$", P(None)),
+        (r"self_attn\.o_proj\.weight$", P(None, MODEL_AXIS)),
+        (r"mlp\.(gate|up)_proj\.weight$", P(MODEL_AXIS, None)),
+        (r"mlp\.down_proj\.weight$", P(None, MODEL_AXIS)),
+        (r"^lm_head\.weight$", P(MODEL_AXIS, None)),
+    ]
 
 
 def params_to_hf(params: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
@@ -442,7 +510,8 @@ def generate_cached(params: dict, cfg: LlamaConfig, prompt_ids, steps: int,
     from zest_tpu_torch.models.sampling import cached_decode_loop
 
     return cached_decode_loop(
-        init_kv_cache, decode_step, params, cfg, prompt_ids, steps,
+        init_kv_cache, decode_step, params, cfg,
+        prompt_ids, steps,
         temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
         noise=noise, eos_id=eos_id, on_token=on_token,
         prefill_step=decode_window)

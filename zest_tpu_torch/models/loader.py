@@ -1,9 +1,14 @@
 """Checkpoint landing: safetensors → tensors in device memory.
 
-The counterpart of ``zest_tpu/models/loader.py`` on one device. Where the
-JAX package lays ``jax.Array``s out over a mesh, this lands
-``torch.Tensor``s on one card (multi-GPU placement comes with a later
-slice). Two landings:
+The counterpart of ``zest_tpu/models/loader.py``: tensors land on one
+device, or, given a named slot mesh (``parallel/mesh.model_mesh``), as
+:class:`~zest_tpu_torch.parallel.sharding.ShardedTensor`s laid out by
+the family's shard rules: an ordered list of ``(name regex, P)`` pairs,
+first match wins, a rule that does not fit the mesh or the shape falling
+back to sharding the largest evenly divisible dim over the mesh's last
+axis (:func:`spec_for`). A sharded commit copies each group's bytes once
+to each distinct device and cuts every slot's shard there into its own
+allocation. Two landings:
 
 - **Disk staging** (:func:`stage_snapshot_to_hbm`): read a pulled
   snapshot's files and commit each with :func:`commit_tensors`, one
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import re
 import threading
 import time
 from collections import deque
@@ -56,8 +62,70 @@ from zest_tpu_torch.models.direct import (
 )
 from zest_tpu_torch.models.registry import first_layer_names, order_names
 from zest_tpu_torch.models.safetensors_io import SafetensorsFile, tensor_bytes
+from zest_tpu_torch.parallel.sharding import (
+    P,
+    ShardedTensor,
+    shard_index,
+    shard_tensor,
+)
 
 _ALIGN = 16
+
+ShardRules = list[tuple[str, P]]
+
+
+def infer_spec(shape: tuple[int, ...], mesh, axis: str) -> P:
+    """Default policy: shard the largest dim divisible by the axis size."""
+    n = int(mesh.shape[axis])
+    if n <= 1 or not shape:
+        return P()
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for i in order:
+        if shape[i] % n == 0 and shape[i] >= n:
+            spec = [None] * len(shape)
+            spec[i] = axis
+            return P(*spec)
+    return P()
+
+
+def _spec_fits(shape: tuple[int, ...], mesh, spec: P) -> bool:
+    """A rule's spec is usable when every axis it names is in the mesh and
+    divides its dim: rules are written against a family's own mesh, and on
+    another one (Mixtral's on a mesh without ``expert``) the landing
+    degrades to :func:`infer_spec` instead of failing."""
+    if len(spec) > len(shape):
+        return False
+    for dim, axes in zip(shape, spec):
+        if axes is None:
+            continue
+        for ax in axes if isinstance(axes, tuple) else (axes,):
+            if ax not in mesh.shape:
+                return False
+            if dim % int(mesh.shape[ax]):
+                return False
+            dim //= int(mesh.shape[ax])
+    return True
+
+
+def spec_for(name: str, shape: tuple[int, ...], mesh,
+             rules: ShardRules | None = None,
+             default_axis: str | None = None) -> P:
+    """The spec ``name`` lands under: the first matching rule if it fits,
+    else :func:`infer_spec` over ``default_axis`` (the mesh's last)."""
+    for pattern, spec in rules or []:
+        if re.search(pattern, name):
+            if _spec_fits(shape, mesh, spec):
+                return spec
+            break  # first match wins; unusable → generic fallback
+    axis = default_axis or mesh.axis_names[-1]
+    return infer_spec(shape, mesh, axis)
+
+
+def land_tensor(t: torch.Tensor, mesh, spec: P) -> ShardedTensor:
+    """One tensor laid out over ``mesh`` under ``spec``. With several
+    processes each process holds the whole tensor and keeps its slots'
+    shards."""
+    return shard_tensor(t, mesh, spec)
 
 
 def snapshot_files(snapshot_dir: str | Path) -> list[Path]:
@@ -101,13 +169,20 @@ def cast_floating(t: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
 
 
 def commit_tensors(host: dict[str, torch.Tensor], device=DEFAULT_DEVICE,
-                   dtype: torch.dtype | None = None
-                   ) -> dict[str, torch.Tensor]:
+                   dtype: torch.dtype | None = None, mesh=None,
+                   rules: ShardRules | None = None) -> dict:
     """Land a name→CPU-tensor dict on ``device`` in one batched copy:
     every tensor's bytes packed into one pinned staging buffer (each
     16-byte aligned), one transfer, typed views of the device buffer.
     ``dtype`` casts floating tensors on the host first. Caller order is
-    kept."""
+    kept.
+
+    With a ``mesh`` (``device`` is then unused) every tensor lands as a
+    :class:`ShardedTensor` under :func:`spec_for`: the batch is copied
+    once to each distinct device of the mesh, and each slot's shard is cut
+    from it into its own allocation."""
+    if mesh is not None:
+        return _commit_sharded(host, mesh, rules, dtype)
     dev = resolve_device(device)
     host = {n: cast_floating(t, dtype) for n, t in host.items()}
     offsets, total = {}, 0
@@ -133,29 +208,69 @@ def commit_tensors(host: dict[str, torch.Tensor], device=DEFAULT_DEVICE,
     return out
 
 
+def _cut_shards(full: dict[str, torch.Tensor], specs: dict, mesh,
+                slots: list[int], shards: dict) -> None:
+    """Each slot's shard of every tensor of ``full`` (landed on the slots'
+    device), cloned into its own allocation."""
+    for name, t in full.items():
+        for slot in slots:
+            piece = t[shard_index(tuple(t.shape), mesh, specs[name], slot)]
+            shards[name][slot] = piece.clone(
+                memory_format=torch.contiguous_format)
+
+
+def _by_device(mesh) -> dict[torch.device, list[int]]:
+    out: dict[torch.device, list[int]] = {}
+    for slot in mesh.local_slots():
+        out.setdefault(mesh.device_of(slot), []).append(slot)
+    return out
+
+
+def _commit_sharded(host: dict, mesh, rules, dtype) -> dict:
+    host = {n: cast_floating(t, dtype) for n, t in host.items()}
+    specs = {n: spec_for(n, tuple(t.shape), mesh, rules)
+             for n, t in host.items()}
+    shards: dict[str, dict] = {n: {} for n in host}
+    for dev, slots in _by_device(mesh).items():
+        if dev.type == "cpu":
+            _cut_shards(host, specs, mesh, slots, shards)
+            continue
+        landed = commit_tensors(host, dev)
+        _cut_shards(landed, specs, mesh, slots, shards)
+        del landed
+    return {n: ShardedTensor(shards[n], t.shape, t.dtype, specs[n], mesh)
+            for n, t in host.items()}
+
+
 def load_checkpoint(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
-                    dtype: torch.dtype | None = None
-                    ) -> dict[str, torch.Tensor]:
-    """All tensors of a snapshot as a flat name→tensor dict on ``device``,
-    one batched commit per safetensors file."""
-    out: dict[str, torch.Tensor] = {}
+                    dtype: torch.dtype | None = None, mesh=None,
+                    rules: ShardRules | None = None) -> dict:
+    """All tensors of a snapshot as a flat name→tensor dict on ``device``
+    (or sharded over ``mesh`` by ``rules``), one batched commit per
+    safetensors file."""
+    out: dict = {}
     for path in snapshot_files(snapshot_dir):
         with SafetensorsFile(path) as sf:
             host = {name: sf.tensor(name) for name in sf.names()}
-            out.update(commit_tensors(host, device, dtype))
+            out.update(commit_tensors(host, device, dtype, mesh=mesh,
+                                      rules=rules))
             del host
     return out
 
 
-def params_digest(params: dict[str, torch.Tensor]) -> str:
+def params_digest(params: dict) -> str:
     """Order-independent BLAKE3 digest of a landed tree: name, dtype,
-    shape and raw bytes of every tensor, fetched back to the host.
+    shape and raw bytes of every tensor, fetched back to the host. A
+    :class:`ShardedTensor` hashes its global bytes, so a sharded landing's
+    digest equals the unsharded one's.
 
     Hashes dtype and shape in numpy's spelling (``float32``, ``(768,)``),
     so it equals the JAX package's ``params_digest`` of the same tensors."""
     leaves = []
     for name in sorted(params):
         t = params[name]
+        if isinstance(t, ShardedTensor):
+            t = t.full("cpu")
         dtype_name = str(t.dtype).removeprefix("torch.")
         leaves.append(hashing.blake3_hash(
             name.encode() + b"\x00" + dtype_name.encode()
@@ -164,32 +279,42 @@ def params_digest(params: dict[str, torch.Tensor]) -> str:
     return hashing.blake3_hash(b"".join(leaves)).hex()
 
 
-def _commit_stats(params: dict, dt: float, direct: bool = False) -> dict:
-    total = sum(t.numel() * t.element_size() for t in params.values())
+def _commit_stats(params: dict, dt: float, direct: bool = False,
+                  mesh=None) -> dict:
+    total = sum(int(t.nbytes) for t in params.values())
     return {
         "tensors": len(params),
         "bytes": total,
         "elapsed_s": round(dt, 3),
         "gbps": round(total / dt / 1e9, 3) if dt > 0 else 0.0,
-        "sharded": False,
+        "sharded": mesh is not None,
         "direct": direct,
     }
 
 
+def _sync(dev, mesh) -> None:
+    """Wait for every copy onto the landing's devices."""
+    for d in (mesh.distinct_devices() if mesh is not None else [dev]):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def stage_snapshot_to_hbm(snapshot_dir: str | Path, device=DEFAULT_DEVICE,
-                          dtype: torch.dtype | None = None
-                          ) -> tuple[dict[str, torch.Tensor], dict]:
-    """Disk-path commit of a pulled snapshot into device memory.
+                          dtype: torch.dtype | None = None, mesh=None,
+                          rules: ShardRules | None = None
+                          ) -> tuple[dict, dict]:
+    """Disk-path commit of a pulled snapshot into device memory (sharded
+    over ``mesh`` by ``rules`` when given).
 
     Returns ``(params, stats)``; ``stats`` is the block reported under
     the pull's ``stats["hbm"]`` (tensors, bytes, wall time, host→device
     GB/s). The name keeps the JAX package's: "hbm" is the card's memory."""
-    dev = resolve_device(device)
+    dev = None if mesh is not None else resolve_device(device)
     t0 = time.monotonic()
-    params = load_checkpoint(snapshot_dir, dev, dtype)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return params, _commit_stats(params, time.monotonic() - t0)
+    params = load_checkpoint(snapshot_dir, dev, dtype, mesh=mesh,
+                             rules=rules)
+    _sync(dev, mesh)
+    return params, _commit_stats(params, time.monotonic() - t0, mesh=mesh)
 
 
 @contextlib.contextmanager
@@ -488,12 +613,84 @@ class _DeviceCommit:
         if self.side is not None:
             torch.cuda.current_stream(self.dev).wait_stream(self.side)
 
+    def synchronize(self) -> None:
+        """Wait for every copy in flight (the error path)."""
+        if self.side is not None:
+            self.side.synchronize()
+
+
+class _Events(list):
+    """The copy events of one group over several devices."""
+
+    def synchronize(self) -> None:
+        for e in self:
+            e.synchronize()
+
+
+class _ShardedCommit:
+    """The streaming landing's commit over a mesh: each group lands once
+    on each distinct device through that device's :class:`_DeviceCommit`,
+    and every slot's shard is cut from it into its own allocation on the
+    same side stream, so the group buffer is garbage once the cuts are
+    queued. ``commit`` returns the name→:class:`ShardedTensor` dict and the
+    group's events."""
+
+    def __init__(self, mesh, rules, dtype: torch.dtype | None):
+        self.mesh = mesh
+        self.rules = rules
+        self.slots = _by_device(mesh)
+        self.commits = {d: _DeviceCommit(d, dtype) for d in self.slots}
+
+    def commit(self, items) -> tuple[dict, object]:
+        shards: dict[str, dict] = {}
+        meta: dict[str, tuple] = {}
+        events, keep = _Events(), []
+        for dev, slots in self.slots.items():
+            c = self.commits[dev]
+            landed, done = c.commit(items)
+            cut = []
+            for name, t in landed.items():
+                if name not in meta:
+                    meta[name] = (t.shape, t.dtype, spec_for(
+                        name, tuple(t.shape), self.mesh, self.rules))
+                spec = meta[name][2]
+                for slot in slots:
+                    piece = t[shard_index(tuple(t.shape), self.mesh, spec,
+                                          slot)]
+                    out = torch.empty(piece.shape, dtype=piece.dtype,
+                                      device=dev)
+                    shards.setdefault(name, {})[slot] = out
+                    cut.append((out, piece))
+            if c.side is None:
+                for out, piece in cut:
+                    out.copy_(piece)
+                continue
+            with torch.cuda.stream(c.side):
+                for out, piece in cut:
+                    out.copy_(piece)
+                    out.record_stream(c.side)
+            event = torch.cuda.Event()
+            event.record(c.side)
+            events.append(event)
+            keep.append(done[1])
+        tree = {n: ShardedTensor(shards[n], *meta[n][:2], meta[n][2],
+                                 self.mesh) for n in meta}
+        return tree, ((events, keep) if events else None)
+
+    def finish(self) -> None:
+        for c in self.commits.values():
+            c.finish()
+
+    def synchronize(self) -> None:
+        for c in self.commits.values():
+            c.synchronize()
+
 
 def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                      decode_workers, clock, ring_bytes: int,
                      ring_slots: int, tensor_gate=None, on_first_layer=None,
-                     stream_file_sink=None, preloaded=None, swap_from=None
-                     ) -> tuple[dict[str, torch.Tensor], dict]:
+                     stream_file_sink=None, preloaded=None, swap_from=None,
+                     mesh=None, rules=None) -> tuple[dict, dict]:
     """The ring scheduler: decode of run N+k overlaps the device copy of
     run N, in layer order. See :func:`stage_cached_to_hbm`."""
     t0 = time.monotonic()
@@ -501,7 +698,8 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
     # On the CPU the landed tensors alias their slots: no slot is reused.
     ring = HostRing(ring_bytes, ring_slots, reuse=dev.type == "cuda",
                     pin=dev.type == "cuda")
-    committer = _DeviceCommit(dev, dtype)
+    committer = (_ShardedCommit(mesh, rules, dtype) if mesh is not None
+                 else _DeviceCommit(dev, dtype))
     group_bytes = max(1, min(_STREAM_COMMIT_BYTES, ring.budget_bytes // 4))
     group_count = max(1, ring.max_slots // 4)
     # Over every tensor, preloaded ones included: "first layer resident"
@@ -697,8 +895,7 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
             finally:
                 if error is not None:
                     # No slot goes back while a copy may still read it.
-                    if committer.side is not None:
-                        committer.side.synchronize()
+                    committer.synchronize()
                     while pending:
                         for s in pending.popleft()[1]:
                             s.release()
@@ -714,7 +911,7 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                     params.clear()
         committer.finish()
         dt = time.monotonic() - t0
-    stats = _commit_stats(params, dt, direct=True)
+    stats = _commit_stats(params, dt, direct=True, mesh=mesh)
     stats["decode_ahead"] = True
     stats["streamed"] = True
     stats["ring"] = ring.summary()
@@ -746,8 +943,9 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
                         ring_bytes: int | None = None,
                         ring_slots: int | None = None, tensor_gate=None,
                         on_first_layer=None, stream_file_sink=None,
-                        preloaded=None, swap_from=None
-                        ) -> tuple[dict[str, torch.Tensor], dict]:
+                        preloaded=None, swap_from=None, mesh=None,
+                        rules: ShardRules | None = None
+                        ) -> tuple[dict, dict]:
     """Direct landing: tensors straight from cached xorb units onto
     ``device``, with no file read.
 
@@ -789,10 +987,19 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
     view of its commit group's buffer, when every tensor of that buffer is
     gone. ``stats["swap"]`` records the split.
 
+    **Mesh** (both modes): with ``mesh`` every tensor lands as a
+    :class:`ShardedTensor` under :func:`spec_for` with ``rules``
+    (``device`` is then unused); a hot-swap does not take a mesh.
+
     Returns ``(params, stats)``, ``stats["direct"]`` true. On ``cuda`` the
     current stream is ordered after every copy when this returns.
     """
-    dev = resolve_device(device)
+    if mesh is not None and (preloaded or swap_from is not None):
+        from zest_tpu_torch.parallel.sharding import MeshUnsupported
+
+        raise MeshUnsupported("a hot-swap does not take a sharded tree")
+    dev = (resolve_device(device) if mesh is None
+           else mesh.distinct_devices()[0])
     cfg = getattr(bridge, "cfg", None)
     if decode_ahead is None:
         decode_ahead = getattr(cfg, "land_decode_ahead",
@@ -812,7 +1019,7 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
             decode_workers, clock, ring_bytes, ring_slots,
             tensor_gate=tensor_gate, on_first_layer=on_first_layer,
             stream_file_sink=stream_file_sink, preloaded=preloaded,
-            swap_from=swap_from)
+            swap_from=swap_from, mesh=mesh, rules=rules)
 
     t0 = time.monotonic()
     preloaded = preloaded or {}
@@ -843,7 +1050,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         if not host:
             return
         # commit_tensors returns with its copy done on the current stream.
-        params.update(commit_tensors(host, dev, dtype))
+        params.update(commit_tensors(host, dev, dtype, mesh=mesh,
+                                     rules=rules))
         if swap_from:
             for name in host:
                 swap_from.pop(name, None)
@@ -863,10 +1071,11 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         else:
             for i in range(n):
                 commit(decode(i))
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
+        for d in (mesh.distinct_devices() if mesh is not None else [dev]):
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
         dt = time.monotonic() - t0
-    stats = _commit_stats(params, dt, direct=True)
+    stats = _commit_stats(params, dt, direct=True, mesh=mesh)
     stats["decode_ahead"] = pipelined
     if preloaded or swap_from is not None:
         stats["swap"] = _swap_stats(preloaded, params)

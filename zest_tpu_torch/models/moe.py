@@ -16,8 +16,12 @@ the residual path, as the JAX package's does. :func:`forward` dispatches
 the whole batch as one group; :func:`decode_window` dispatches every
 token as its own group, so no token ever drops while decoding.
 
-The KV cache is updated in place. Training (``init_params``,
-``loss_fn``, ``train_step``) and the shard rules are not ported here.
+The KV cache is updated in place. :func:`checkpoint_shard_rules` and
+:func:`param_specs` are the JAX package's; a tree sharded over the
+``expert`` axis decodes through :func:`generate_cached` with each slot's
+experts and attention heads (``models/tensor_parallel.py``, whose
+``forward`` and ``decode_window`` take the tree directly). Training
+(``init_params``, ``loss_fn``, ``train_step``) is not ported here.
 """
 
 from __future__ import annotations
@@ -29,9 +33,14 @@ import re
 import torch
 import torch.nn.functional as F
 
+from zest_tpu_torch.models import tensor_parallel as tp
 # The JAX package's trees (as numpy arrays) carry over as GPT-2's do.
 from zest_tpu_torch.models.gpt2 import params_from_jax  # noqa: F401
 from zest_tpu_torch.models.llama import _rms_norm  # noqa: F401 - same math
+from zest_tpu_torch.parallel.sharding import P, is_sharded_tree
+
+DATA_AXIS = "data"
+EXPERT_AXIS = "expert"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,7 +139,11 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: MoEConfig,
     """Map a Mixtral-family HF checkpoint (flat name→tensor) onto the
     stacked tree, on the tensors' device. Every Linear is transposed to
     ``x @ W``; per-(layer, expert) tensors stack into ``[L, X, ...]``
-    leaves. A missing tensor raises with its name."""
+    leaves. A missing tensor raises with its name. A tree of
+    ``ShardedTensor``s gives the expert-parallel tree of
+    ``models/tensor_parallel.py`` over the ``expert`` axis."""
+    if is_sharded_tree(tensors):
+        return tp.moe_params_from_hf(tensors, cfg, dtype)
 
     def take(name):
         t = tensors.get(name)
@@ -164,6 +177,54 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: MoEConfig,
                            for leaf, items in leaves.items()}
                      for grp, leaves in blocks.items()}
     return out
+
+
+# ── Sharding (data + expert parallel; the expert axis doubles as TP) ──
+
+
+def param_specs(cfg: MoEConfig) -> dict:
+    """The spec tree matching the stacked tree, as the JAX package's:
+    experts shard over ``EXPERT_AXIS`` on their stacked axis (slot ``s``
+    holds ``n_experts / axis size`` of them, the blocks
+    ``parallel/expert.ExpertPlacement`` routes bytes to), attention rides
+    the same axis Megatron-style."""
+    return {
+        "wte": P(),
+        "ln_f": {"g": P()},
+        "lm_head": P(None, EXPERT_AXIS),
+        "blocks": {
+            "ln_attn": {"g": P()},
+            "ln_moe": {"g": P()},
+            "attn": {
+                "q_w": P(None, None, EXPERT_AXIS),
+                "k_w": P(None, None, EXPERT_AXIS),
+                "v_w": P(None, None, EXPERT_AXIS),
+                "o_w": P(None, EXPERT_AXIS, None),
+            },
+            "moe": {
+                "router_w": P(),
+                "w1": P(None, EXPERT_AXIS, None, None),
+                "w3": P(None, EXPERT_AXIS, None, None),
+                "w2": P(None, EXPERT_AXIS, None, None),
+            },
+        },
+    }
+
+
+def checkpoint_shard_rules() -> list[tuple[str, P]]:
+    """Name-pattern rules for landing a raw HF Mixtral checkpoint
+    (``models.loader``, HF ``[out, in]``): a raw landing balances bytes,
+    each expert's feature dims sharded TP-style; the expert-parallel
+    layout comes from :func:`param_specs`
+    (``direct.land_moe_expert_sharded``)."""
+    return [
+        (r"self_attn\.[qkv]_proj\.weight$", P(EXPERT_AXIS, None)),
+        (r"self_attn\.o_proj\.weight$", P(None, EXPERT_AXIS)),
+        (r"experts\.\d+\.w[13]\.weight$", P(EXPERT_AXIS, None)),
+        (r"experts\.\d+\.w2\.weight$", P(None, EXPERT_AXIS)),
+        (r"block_sparse_moe\.gate\.weight$", P()),
+        (r"^lm_head\.weight$", P(EXPERT_AXIS, None)),
+    ]
 
 
 def _layer(params: dict, i: int) -> dict:
@@ -227,14 +288,14 @@ def _route(flat, router_w, cfg: MoEConfig):
     return probs, gate_vals, gate_idx
 
 
-def _dispatch(flat, p, cfg: MoEConfig):
-    """The GShard dispatch over (G, N, E): G independent groups of N
-    tokens, each with capacity ``_capacity(N)`` per expert. Returns the
-    (G, N, E) expert output and the (G,) load-balance aux loss."""
+def _combine(flat, router_w, cfg: MoEConfig):
+    """The GShard combine weights over (G, N, E): G independent groups of
+    N tokens, each with capacity ``_capacity(N)`` per expert. Returns the
+    (G, N, X, C) weights and the (G,) load-balance aux loss."""
     G, N, E = flat.shape
     X, k = cfg.n_experts, cfg.top_k
     C = _capacity(N, cfg)
-    probs, gate_vals, gate_idx = _route(flat, p["router_w"], cfg)
+    probs, gate_vals, gate_idx = _route(flat, router_w, cfg)
     # Load-balance aux loss (Switch §2.2): X * Σ_e fraction_e * prob_e.
     sel = F.one_hot(gate_idx[..., 0], X).float()
     aux = X * (sel.mean(dim=1) * probs.mean(dim=1)).sum(dim=-1)
@@ -248,13 +309,26 @@ def _dispatch(flat, p, cfg: MoEConfig):
     combine = torch.einsum(
         "gnk,gnkxc->gnxc", gate_vals.to(flat.dtype),
         (pos_oh * in_cap[..., None]).to(flat.dtype))
+    return combine, aux
+
+
+def _experts(combine, flat, w1, w3, w2):
+    """The expert FFN of the experts ``combine``'s X axis names (the
+    stacked ``w1``, ``w3``, ``w2`` hold the same experts): (G, N, E)."""
     dispatch = (combine > 0).to(flat.dtype)
     expert_in = torch.einsum("gnxc,gne->gxce", dispatch, flat)
-    h = torch.einsum("gxce,xef->gxcf", expert_in, p["w1"])
-    up = torch.einsum("gxce,xef->gxcf", expert_in, p["w3"])
+    h = torch.einsum("gxce,xef->gxcf", expert_in, w1)
+    up = torch.einsum("gxce,xef->gxcf", expert_in, w3)
     h = F.silu(h) * up                                      # SwiGLU
-    expert_out = torch.einsum("gxcf,xfe->gxce", h, p["w2"])
-    return torch.einsum("gnxc,gxce->gne", combine, expert_out), aux
+    expert_out = torch.einsum("gxcf,xfe->gxce", h, w2)
+    return torch.einsum("gnxc,gxce->gne", combine, expert_out)
+
+
+def _dispatch(flat, p, cfg: MoEConfig):
+    """The GShard dispatch over (G, N, E) (:func:`_combine`). Returns the
+    (G, N, E) expert output and the (G,) load-balance aux loss."""
+    combine, aux = _combine(flat, p["router_w"], cfg)
+    return _experts(combine, flat, p["w1"], p["w3"], p["w2"]), aux
 
 
 def _moe_block(x, p, cfg: MoEConfig):
@@ -316,7 +390,7 @@ def _attention_cached(h, p, cfg: MoEConfig, cache_k, cache_v, pos: int):
                                 torch.finfo(scores.dtype).min)
     att = torch.softmax(scores.float(), dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", att.to(h.dtype), vv)
-    return out.reshape(B, S, cfg.n_embd) @ p["o_w"]
+    return out.reshape(B, S, H * D) @ p["o_w"]
 
 
 @torch.inference_mode()
@@ -362,7 +436,8 @@ def generate_cached(params: dict, cfg: MoEConfig, prompt_ids, steps: int,
     from zest_tpu_torch.models.sampling import cached_decode_loop
 
     return cached_decode_loop(
-        init_kv_cache, decode_step, params, cfg, prompt_ids, steps,
+        init_kv_cache, decode_step, params, cfg,
+        prompt_ids, steps,
         temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
         noise=noise, eos_id=eos_id, on_token=on_token,
         prefill_step=decode_window)

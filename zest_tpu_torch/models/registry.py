@@ -1,12 +1,16 @@
-"""Model-family detection and the landing order of tensor names.
+"""Model-family dispatch: config.json → landing shard rules, and the
+landing order of tensor names.
 
-The counterpart of ``zest_tpu/models/registry.py``'s expert-sharded
-family set, ``detect_model_type`` and its landing order: the streaming landing (``models/loader.py``)
-commits tensors in "usefulness" order, so a decoder can start once the
-embedding and layer 0 are resident while later layers are still on the
-wire. The priority is a pure function of the tensor name, so every host
-(and the cooperative round's fetch order) computes the same order with no
-coordination. Shard rules come with the multi-GPU slice.
+The counterpart of ``zest_tpu/models/registry.py``. A landing over a mesh
+must know how a family shards before any file is written: this reads the
+snapshot's ``model_type`` and returns the family's
+``checkpoint_shard_rules`` (None for an unknown family, which the
+loader's ``infer_spec`` fallback still lands balanced). The streaming
+landing (``models/loader.py``) commits tensors in "usefulness" order, so a
+decoder can start once the embedding and layer 0 are resident while later
+layers are still on the wire. The priority is a pure function of the
+tensor name, so every host (and the cooperative round's fetch order)
+computes the same order with no coordination.
 """
 
 from __future__ import annotations
@@ -14,17 +18,54 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
-from typing import Iterable
+from typing import TYPE_CHECKING, Callable, Iterable
+
+if TYPE_CHECKING:
+    from zest_tpu_torch.models.loader import ShardRules
 
 
-# Families whose checkpoints carry per-expert weight tensors (Mixtral;
-# Mistral and Qwen2 dense share the Llama layout): the serving pool lands
-# their dense core and pages the experts in on demand.
+def _gpt2_rules() -> ShardRules:
+    from zest_tpu_torch.models import gpt2
+
+    return gpt2.checkpoint_shard_rules()
+
+
+def _llama_rules() -> ShardRules:
+    from zest_tpu_torch.models import llama
+
+    return llama.checkpoint_shard_rules()
+
+
+def _moe_rules() -> ShardRules:
+    from zest_tpu_torch.models import moe
+
+    return moe.checkpoint_shard_rules()
+
+
+# model_type (HF config.json) → rules factory. Mistral and Qwen2 dense
+# share the Llama tensor layout; Mixtral is the expert-sharded family.
+_FAMILIES: dict[str, Callable[[], ShardRules]] = {
+    "gpt2": _gpt2_rules,
+    "llama": _llama_rules,
+    "mistral": _llama_rules,
+    "qwen2": _llama_rules,
+    "mixtral": _moe_rules,
+}
+
+# Families whose checkpoints carry per-expert weight tensors: a pull over
+# several slots routes each expert's private xorbs to the slot that owns
+# it (``transfer.pod.expert_pod_round``), and the serving pool lands their
+# dense core and pages the experts in on demand.
 _EXPERT_SHARDED = frozenset({"mixtral"})
 
 
 def is_expert_sharded(model_type: str | None) -> bool:
     return (model_type or "") in _EXPERT_SHARDED
+
+
+def shard_rules_for_model_type(model_type: str | None) -> ShardRules | None:
+    factory = _FAMILIES.get(model_type or "")
+    return factory() if factory else None
 
 
 def detect_model_type(snapshot_dir: str | Path) -> str | None:
@@ -34,6 +75,10 @@ def detect_model_type(snapshot_dir: str | Path) -> str | None:
     except (OSError, ValueError):
         return None
     return cfg.get("model_type") if isinstance(cfg, dict) else None
+
+
+def shard_rules_for_snapshot(snapshot_dir: str | Path) -> ShardRules | None:
+    return shard_rules_for_model_type(detect_model_type(snapshot_dir))
 
 
 # Per-layer tensors: Llama-style ``model.layers.N.``, GPT-2 ``h.N.``

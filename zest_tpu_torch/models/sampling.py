@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from zest_tpu_torch.models import tensor_parallel as tp
 
 def normalize_eos(eos) -> tuple[int, ...] | None:
     """HF's ``eos_token_id`` (one int, a list, or None) → tuple or None."""
@@ -135,8 +136,13 @@ def cached_decode_loop(init_kv_cache: Callable, decode_step: Callable,
     just written and its (B,) tokens as a numpy array: on the prefill path
     only generated positions, on the sequential path the prompt replay
     positions too (filter on ``pos >= T0`` either way). An exception it
-    raises is printed and dropped; the decode goes on."""
+    raises is printed and dropped; the decode goes on.
+
+    A tree sharded over a mesh (``tensor_parallel.TPParams``) decodes
+    through that module's cache and steps in place of the family's."""
     check_top_p(top_p)
+    init_kv_cache, decode_step, prefill_step = tp.decode_fns(
+        params, init_kv_cache, decode_step, prefill_step)
     device = params["wte"].device
     prompt = torch.as_tensor(prompt_ids, dtype=torch.long, device=device)
     batched = prompt.dim() == 2

@@ -1,4 +1,5 @@
-"""The slot mesh: the devices a pod round distributes bytes over.
+"""Slot meshes: the devices a pod round distributes bytes over, and the
+named mesh a pull lands its tree on.
 
 The counterpart of ``zest_tpu/parallel/mesh.py``'s 1-D ``pod`` mesh. A
 slot mesh is an ordered list of ``torch.device``s, one a slot: a slot owns
@@ -11,12 +12,26 @@ With several processes (``torch.distributed`` initialised), each process
 passes its own slots and every process passes the same number: the round
 spans ``world_size × len(mesh)`` slots, process ``r`` owning slots
 ``r*k .. r*k + k - 1``.
+
+:class:`SlotMesh` is the counterpart of the JAX package's N-D
+``model_mesh``: named axes (``{"data": 2, "model": 4}``, order
+significant: the last axis is the tensor-parallel one) over the same
+slots, laid out row-major. ``parallel/sharding.py`` lays tensors out over
+it. As in the 1-D mesh, one device may stand in several slots.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from zest_tpu_torch.config import MeshConfig
+
+POD_AXIS = "pod"
 
 
 def pod_mesh(devices=None) -> list[torch.device]:
@@ -24,16 +39,147 @@ def pod_mesh(devices=None) -> list[torch.device]:
     default every CUDA device of this process. Without a card the default
     raises: pass ``devices`` (``["cpu"] * 8``) for a CPU round."""
     if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "pod_mesh() spans every cuda device, and "
-                "torch.cuda.is_available() is False; pass devices= (for "
-                "example ['cpu'] * 8) for a CPU round")
-        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        devices = _cuda_devices("pod_mesh()")
     mesh = [torch.device(d) for d in devices]
     if not mesh:
         raise ValueError("a slot mesh needs at least one device")
     return mesh
+
+
+def _cuda_devices(what: str) -> list[str]:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} spans every cuda device, and "
+            "torch.cuda.is_available() is False; pass devices= (for "
+            "example ['cpu'] * 8) for a CPU mesh")
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SlotMesh:
+    """A named N-D mesh of slots. ``devices`` is an object array of the
+    mesh's shape: slot ``i`` (row-major) holds its ``torch.device`` where
+    this process owns it, None where another process does."""
+
+    axis_names: tuple[str, ...]
+    devices: np.ndarray
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name → size, in axis order (as a jax ``Mesh.shape``)."""
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def local_slots(self) -> list[int]:
+        """The flat slot indices this process owns, ascending."""
+        return [i for i, d in enumerate(self.devices.flat) if d is not None]
+
+    def device_of(self, slot: int) -> torch.device:
+        d = self.devices.flat[slot]
+        if d is None:
+            raise ValueError(f"slot {slot} belongs to another process")
+        return d
+
+    def local_devices(self) -> list[torch.device]:
+        """This process's slot devices in slot order (a device repeats
+        where it stands in several slots): the 1-D slot mesh of the pod
+        pre-pass."""
+        return [self.devices.flat[i] for i in self.local_slots()]
+
+    def distinct_devices(self) -> list[torch.device]:
+        """Each local device once, in first-slot order."""
+        out: list[torch.device] = []
+        for d in self.local_devices():
+            if d not in out:
+                out.append(d)
+        return out
+
+    def coords(self, slot: int) -> dict[str, int]:
+        """The slot's index along each axis."""
+        return dict(zip(self.axis_names,
+                        np.unravel_index(slot, self.devices.shape)))
+
+    def __repr__(self) -> str:
+        return (f"SlotMesh({self.shape}, "
+                f"{[str(d) for d in self.local_devices()]})")
+
+
+def model_mesh(axes: dict[str, int] | None = None, devices=None):
+    """The named mesh ``axes`` (e.g. ``{"data": 2, "model": 4}``) over
+    ``devices`` (names or ``torch.device``s; default every CUDA device,
+    which raises without a card). Without axes it is the 1-D
+    :func:`pod_mesh`. With several processes each passes its own devices
+    and the mesh spans ``world_size() * len(devices)`` slots. Raises the
+    JAX package's ``ValueError`` when the axes' product differs from the
+    slot count."""
+    if devices is None:
+        devices = _cuda_devices("model_mesh()")
+    if not axes:
+        return pod_mesh(devices)
+    local = [torch.device(d) for d in devices]
+    sizes = [int(n) for n in axes.values()]
+    n = math.prod(sizes)
+    have = len(local) * world_size()
+    if n != have:
+        raise ValueError(f"mesh axes {axes} need {n} devices, have {have}")
+    flat = np.empty(n, dtype=object)
+    base = host_index() * len(local)
+    flat[base:base + len(local)] = local
+    return SlotMesh(tuple(axes), flat.reshape(sizes))
+
+
+def mesh_from_config(mesh_cfg: MeshConfig, devices=None):
+    """The landing mesh ``ZEST_TPU_MESH`` names over this process's
+    ``devices`` (default every CUDA device, which raises without a card).
+
+    With ``ZEST_TPU_NUM_PROCESSES`` above 1 the mesh spans the processes:
+    a process not yet in a ``torch.distributed`` group first joins the one
+    at ``ZEST_TPU_COORDINATOR`` (``host:port``, rendezvous over TCP) as
+    rank ``ZEST_TPU_PROCESS_ID``, over ``nccl`` for CUDA slots and
+    ``gloo`` otherwise; a process already in a group must be that rank of
+    that many. Either miss raises ``ValueError``."""
+    if devices is None:
+        devices = _cuda_devices("mesh_from_config()")
+    if mesh_cfg.is_distributed:
+        _join_process_group(mesh_cfg, devices)
+    return model_mesh(mesh_cfg.mesh_axes or None, devices)
+
+
+def _join_process_group(mesh_cfg: MeshConfig, devices) -> None:
+    n, rank = mesh_cfg.num_processes, mesh_cfg.process_id
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (n, rank):
+            raise ValueError(
+                f"the mesh config names process {rank} of {n}, but this "
+                f"process is rank {dist.get_rank()} of "
+                f"{dist.get_world_size()} in its torch.distributed group")
+        return
+    if not mesh_cfg.coordinator:
+        raise ValueError(f"{n} processes need a coordinator address "
+                         "(ZEST_TPU_COORDINATOR=host:port)")
+    if not 0 <= rank < n:
+        raise ValueError(f"process id {rank} is not in 0..{n - 1}")
+    cuda = any(torch.device(d).type == "cuda" for d in devices)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://{mesh_cfg.coordinator}",
+                            rank=rank, world_size=n)
+
+
+def replicated(mesh: SlotMesh):
+    """The spec of a tensor every slot holds whole."""
+    from zest_tpu_torch.parallel.sharding import P
+
+    return P()
+
+
+def row_sharded(mesh: SlotMesh, axis: str = POD_AXIS):
+    """First-dimension sharding over ``axis``: the pool layout."""
+    from zest_tpu_torch.parallel.sharding import P
+
+    return P(axis)
 
 
 def world_size() -> int:

@@ -1,15 +1,18 @@
-"""The pod round, safetensors headers from the head terms, and the
-receipt check of peer blobs on the device.
+"""The pod round and its expert-routed form, safetensors headers from the
+head terms, and the receipt check of peer blobs on the device.
 
-The counterpart of ``zest_tpu/transfer/pod.py`` without its expert-routed
-round. :func:`pod_round` distributes a pull's fetch units over a slot mesh
+The counterpart of ``zest_tpu/transfer/pod.py``. :func:`pod_round`
+distributes a pull's fetch units over a slot mesh
 (``parallel/mesh.py``): each slot's owner fetches only its units through
 the waterfall, the gather gives every slot every blob
 (``parallel/collectives.py``), each provably whole xorb is verified on the
 mesh's device, and every blob that passes lands in the cache — so the
 per-file landing that follows reads the cache. The round only speeds the
 waterfall up: a unit it misses (a failed fetch, a rejected blob) is
-fetched by the landing as usual.
+fetched by the landing as usual. :func:`expert_pod_round` runs the
+shared (dense) units through that round and has each expert's private
+units fetched only by the slots that own the expert
+(``parallel/expert.py``).
 
 :func:`fetch_file_header` decodes a file's head terms through the
 waterfall; :func:`fetch_header_probe` reads only the head frames, for
@@ -26,7 +29,9 @@ verification, only a malformed blob fails here: bad framing
 (``XorbFormatError``), a payload that does not decode
 (``CompressionError``) or a chunk over the verifiers' 128 KiB capacity
 (``ChunkTooLarge``). A kernel that does not build or launch raises, so a
-pull can never look right while no kernel verified anything.
+pull can never look right while no kernel verified anything. In the
+same way an expert unit counts as failed only on a fetch error
+(``FETCH_ERRORS``), where the JAX package counts any exception.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from zest_tpu_torch.ops.blake3 import ChunkTooLarge
 from zest_tpu_torch.parallel.collectives import PodDistributor, split_waves
 from zest_tpu_torch.parallel.mesh import num_slots, pod_mesh
 from zest_tpu_torch.parallel.plan import DistributionPlan
+from zest_tpu_torch.transfer.bridge import FETCH_ERRORS
 
 MALFORMED = (XorbFormatError, CompressionError, ChunkTooLarge)
 
@@ -165,7 +171,69 @@ def local_slice_groups(n_hosts: int) -> tuple[int, ...] | None:
     return None
 
 
-def pod_round(bridge, recs, mesh=None, log=None, budget_bytes=None) -> dict:
+def expert_pod_round(bridge, file_maps, placement, mesh=None,
+                     log=None) -> dict:
+    """The expert-routed round over ``mesh`` (default ``pod_mesh()``):
+    the shared units go through :func:`pod_round` (its fill verifies them
+    with the kernels), each expert unit is fetched through the waterfall
+    and cached by the process that owns its slot, never gathered. Returns
+    the JAX package's stats keys. A verifier that fails to build or launch
+    raises; a unit whose fetch fails is counted and left to the
+    landing."""
+    from zest_tpu_torch.parallel.expert import ExpertRoutedPlan
+
+    with telemetry.span("pod.expert_round", files=len(file_maps)):
+        return _expert_pod_round(bridge, file_maps, placement, mesh, log,
+                                 ExpertRoutedPlan)
+
+
+def _expert_pod_round(bridge, file_maps, placement, mesh, log,
+                      ExpertRoutedPlan) -> dict:
+    from zest_tpu_torch.transfer.federated import _entries_by_hash
+
+    mesh = pod_mesh() if mesh is None else mesh
+    routed = ExpertRoutedPlan.build(file_maps, placement)
+    t0 = time.monotonic()
+    shared_stats = pod_round(bridge, [], mesh=mesh, log=None,
+                             _plan=routed.shared)
+    # Placement hosts are the round's slots: this process fetches for the
+    # slots its mesh stands for.
+    my_hosts = [s for s in PodDistributor(mesh).local_slots()
+                if s < placement.num_hosts]
+    entries_map = _entries_by_hash([fm.rec for fm in file_maps])
+    fetched = failed = expert_bytes = 0
+    for h in my_hosts:
+        for a in routed.expert_units.get(h, []):
+            try:
+                data = bridge.fetch_unit(a.hash_hex, a.fetch_info)
+            except FETCH_ERRORS:
+                failed += 1
+                continue
+            fi = a.fetch_info
+            bridge.cache_blob(
+                a.hash_hex, fi.range.start, data,
+                whole=bridge.whole_xorb_provable(
+                    entries_map.get(a.hash_hex, []), fi.range.start))
+            fetched += 1
+            expert_bytes += len(data)
+    s = routed.summary()
+    stats = {
+        "shared": shared_stats,
+        "expert_units_fetched": fetched,
+        "expert_units_failed": failed,
+        "expert_bytes": expert_bytes,
+        "ici_bytes_saved": s["ici_bytes_saved"],
+        "elapsed_s": round(time.monotonic() - t0, 3),
+    }
+    if log is not None:
+        log(f"expert-routed pod round: {fetched} expert unit(s) "
+            f"({expert_bytes} bytes) fetched by their owning slots, "
+            f"{failed} failed; {s['ici_bytes_saved']} gather bytes saved")
+    return stats
+
+
+def pod_round(bridge, recs, mesh=None, log=None, budget_bytes=None,
+              _plan=None) -> dict:
     """One distribution round for ``recs`` over ``mesh`` (default
     ``pod_mesh()``, every CUDA device). A one-slot mesh skips the round:
     the waterfall alone is optimal there. The plan splits into waves whose
@@ -173,15 +241,16 @@ def pod_round(bridge, recs, mesh=None, log=None, budget_bytes=None) -> dict:
     ``cfg.hbm_staging_bytes``); each wave is gathered, verified on the
     first slot's device and drained into ``bridge.cache`` before the next
     is staged. Returns the ``stats["pod"]`` block. A verifier that fails
-    to build or launch raises."""
+    to build or launch raises. ``_plan`` replaces the plan of ``recs``
+    (the expert round's shared units)."""
     with telemetry.span("pod.round", files=len(recs)):
-        return _pod_round(bridge, recs, mesh, log, budget_bytes)
+        return _pod_round(bridge, recs, mesh, log, budget_bytes, _plan)
 
 
-def _pod_round(bridge, recs, mesh, log, budget_bytes) -> dict:
+def _pod_round(bridge, recs, mesh, log, budget_bytes, _plan=None) -> dict:
     mesh = pod_mesh() if mesh is None else mesh
     n = num_slots(mesh)
-    plan = DistributionPlan.build(recs, n)
+    plan = _plan if _plan is not None else DistributionPlan.build(recs, n)
     if not plan.assignments or n <= 1:
         return {"slots": n, "units": len(plan.assignments), "skipped": True}
     if budget_bytes is None:

@@ -66,10 +66,24 @@ the round — a kernel that does not build or launch — fails the pull.
 ``transfer/pod.pod_round`` distributes the units over the slot mesh of
 every CUDA device and fills the cache before the landing
 (``stats["pod"]``; on one card ``{"slots": 1, ..., "skipped": true}``).
-Expert routing is not ported: every family takes the plain round. With
-several processes they agree first, over ``torch.distributed``, that
-every one has its reconstructions. Pull sessions and mesh placement of
-the landing are not ported.
+An expert-sharded family (Mixtral, ``models.registry``) takes the
+expert-routed round instead (``transfer/pod.expert_pod_round``): the
+shared units through the plain round, each expert's private units fetched
+only by the slots that own it (``stats["pod"]["expert_routed"]``). Its
+pre-pass (the safetensors headers) degrades to the plain round only on a
+fetch or header-parse error. With several processes they agree first,
+over ``torch.distributed``, that every one has its reconstructions and
+its expert pre-pass. Pull sessions are not ported.
+
+**Mesh landing** (``mesh=``, a ``parallel.mesh.SlotMesh``; without it on
+``cuda``, ``Config.mesh`` (``ZEST_TPU_MESH``) over every CUDA device):
+every tensor lands as a ``ShardedTensor`` laid out by the family's shard
+rules (``models.registry``; config.json is fetched before the landing),
+through the direct landing and the disk staging alike, and the pod
+pre-pass runs over the mesh's slots. ``stats["hbm"]["sharded"]`` is true
+and ``stats["mesh"]`` the mesh's shape; ``params_digest`` of the tree is
+the unsharded landing's. A sharded tree takes no hot-swap
+(``base_params`` raises ``MeshUnsupported``).
 
 **Peer tier** (``swarm=``): a ``transfer.swarm.SwarmDownloader`` whose
 direct peers (``--peer HOST:PORT``) the bridge asks before the CDN, for
@@ -104,7 +118,7 @@ import torch
 from zest_tpu_torch import storage, telemetry
 from zest_tpu_torch.cas.client import CasError
 from zest_tpu_torch.cas.xorb import XorbReader
-from zest_tpu_torch.cas.hub import HubClient
+from zest_tpu_torch.cas.hub import HubClient, HubError
 from zest_tpu_torch.config import DEFAULT_DEVICE, Config, resolve_device
 from zest_tpu_torch.models.direct import (
     CachedFileReader,
@@ -119,7 +133,14 @@ from zest_tpu_torch.models.loader import (
     stage_snapshot_to_hbm,
 )
 from zest_tpu_torch.models.safetensors_io import tensor_bytes
-from zest_tpu_torch.parallel.mesh import num_slots, pod_mesh, world_size
+from zest_tpu_torch.parallel.mesh import (
+    SlotMesh,
+    mesh_from_config,
+    num_slots,
+    pod_mesh,
+    world_size,
+)
+from zest_tpu_torch.parallel.sharding import MeshUnsupported
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.resilience import Deadline
 from zest_tpu_torch.transfer import delta
@@ -135,6 +156,7 @@ from zest_tpu_torch.transfer.federated import (
     warm_units_parallel,
 )
 from zest_tpu_torch.transfer.pod import (
+    expert_pod_round,
     fetch_file_header,
     fetch_header_probe,
     pod_round,
@@ -626,7 +648,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                coop_server=None, base_params: dict | None = None,
                base_revision: str | None = None, swarm=None,
                no_p2p: bool = False, land: bool = True,
-               pod: bool | None = None, log=print) -> PullResult:
+               pod: bool | None = None, mesh: SlotMesh | None = None,
+               log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
     ``cfg``'s cache, which then answers the peers for as long as its
@@ -651,7 +674,13 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     ``params`` is None.
 
     ``pod`` runs the pod round before the landing (None: on for ``cuda``
-    unless ``ZEST_TPU_POD`` says otherwise)."""
+    unless ``ZEST_TPU_POD`` says otherwise).
+
+    ``mesh`` (a ``SlotMesh``, e.g. ``model_mesh({"model": 4},
+    ["cuda:0"] * 4)``) lands the tree sharded over it, by the family's
+    shard rules; without it a ``cuda`` pull lands over ``cfg.mesh``'s
+    axes when they are set. The pod pre-pass then runs over the mesh's
+    slots."""
     if not land and base_params is not None:
         raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
@@ -660,6 +689,14 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             "sound against the manifest of the revision the resident "
             "tree actually holds")
     dev = resolve_device(device)  # fail before any network work
+    if mesh is None and cfg.mesh.mesh_axes and dev.type == "cuda":
+        mesh = mesh_from_config(cfg.mesh)
+    if mesh is not None and not isinstance(mesh, SlotMesh):
+        raise TypeError(f"mesh must be a SlotMesh (model_mesh), got "
+                        f"{type(mesh).__name__}")
+    if mesh is not None and base_params is not None:
+        raise MeshUnsupported(
+            "a hot-swap (base_params) does not take a sharded tree")
     land_dtype = resolve_dtype(cfg.land_dtype)
     t0 = time.monotonic()
     hub = HubClient(cfg)
@@ -716,6 +753,16 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         clock.note_bytes("files", entry.size)
         return "downloaded"
 
+    early: list = []
+
+    def early_cfg() -> dict | None:
+        """config.json, fetched once before the landing (the family
+        dispatch of the rules and the expert round needs it first)."""
+        if not early:
+            early.append(_early_config(hub, repo_id, revision, files,
+                                       snapshot_dir))
+        return early[0]
+
     file_pipeline = _FilePipeline(
         1, cfg.pull_inflight_bytes, clock, file_work,
         skip_check=lambda e: _is_complete(snapshot_dir, e),
@@ -769,7 +816,9 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 log(f"cooperative pull unavailable ({exc}); continuing "
                     "with the per-host waterfall", file=sys.stderr)
         if pod and pending:
-            pod_stats = _pod_stage(bridge, recs, dev, log)
+            pod_stats = _pod_stage(bridge, pending, recs, dev, log,
+                                   early_cfg, mesh)
+        rules = _landing_rules(early_cfg) if mesh is not None else None
         # Files the landing does not write ride the pipeline under it.
         for entry in files:
             if not entry.path.endswith(".safetensors"):
@@ -779,7 +828,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 bridge, files, snapshot_dir, dev, land_dtype, log, clock,
                 file_pipeline, ensure_auth,
                 delta_state=((delta_base, base_params, delta_plan)
-                             if delta_plan is not None else None))
+                             if delta_plan is not None else None),
+                mesh=mesh, rules=rules)
         if hbm_stats is not None:
             hbm_done_at = time.monotonic()
             time_to_hbm = hbm_done_at - t0
@@ -810,7 +860,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         # is not a xet file; the files are on disk now.
         with clock("hbm_commit"):
             hbm_params, hbm_stats = stage_snapshot_to_hbm(
-                snapshot_dir, dev, land_dtype)
+                snapshot_dir, dev, land_dtype, mesh=mesh, rules=rules)
         clock.note_bytes("hbm_commit", hbm_stats["bytes"])
         time_to_hbm = time.monotonic() - t0
     elapsed = time.monotonic() - t0
@@ -837,6 +887,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if land:
         stats["time_to_hbm_s"] = round(time_to_hbm, 3)
         stats["hbm"] = hbm_stats
+        if mesh is not None:
+            stats["mesh"] = mesh.shape
     if time_to_first_layer is not None:
         stats["time_to_first_layer_s"] = round(time_to_first_layer, 3)
     if delta_plan is not None:
@@ -1003,7 +1055,7 @@ def _reused_tensors(cache, st, recs_with_headers, base_manifest,
 
 def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                       clock: StageClock, file_pipeline: _FilePipeline,
-                      ensure_auth, delta_state=None):
+                      ensure_auth, delta_state=None, mesh=None, rules=None):
     """Land every safetensors file straight from the cache, before any
     file write; the HF-cache files are written from the landing's decoded
     bytes. Returns ``(None, None)``, before any work, when ineligible: a
@@ -1104,7 +1156,8 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                     on_first_layer=lambda: first_layer_at.append(
                         time.monotonic()),
                     stream_file_sink=stream_file_sink,
-                    preloaded=preloaded or None, swap_from=swap_from)
+                    preloaded=preloaded or None, swap_from=swap_from,
+                    mesh=mesh, rules=rules)
             if first_layer_at:
                 hbm_stats["first_layer_at"] = first_layer_at[0]
         else:
@@ -1130,7 +1183,8 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                     bridge, recs_with_headers, dev, dtype=dtype,
                     prefetch_next=pipeline.ensure,
                     on_host_ready=on_host_ready, clock=clock, stream=False,
-                    preloaded=preloaded or None, swap_from=swap_from)
+                    preloaded=preloaded or None, swap_from=swap_from,
+                    mesh=mesh, rules=rules)
     except BaseException as exc:
         if swap_from is None:
             raise
@@ -1355,30 +1409,120 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
                       log=log)
 
 
-def _pod_stage(bridge, recs, dev, log) -> dict | None:
-    """The pod pre-pass over the slot mesh of ``dev`` (every CUDA device;
-    the one CPU device otherwise, so the round skips). With several
-    processes every one must have its reconstructions (``recs`` not
-    None) before any gathers: they agree on that bit first, and one
-    without takes the whole pod to the per-host waterfall instead of
-    stranding the others in the gather."""
+def _early_config(hub, repo_id, revision, files, snapshot_dir
+                  ) -> dict | None:
+    """config.json, downloaded into the snapshot before the file loop
+    (which then skips it) and parsed; None on any miss: the callers
+    degrade to the family-agnostic path."""
+    import json
+
+    dest = snapshot_dir / "config.json"
+    if not dest.exists():
+        entry = next((e for e in files if e.path == "config.json"), None)
+        if entry is None:
+            return None
+        try:
+            dest.parent.mkdir(parents=True, exist_ok=True)
+            hub.download_regular_file(repo_id, revision, entry.path, dest)
+        except (HubError, OSError):
+            return None
+    try:
+        cfg = json.loads(dest.read_text())
+    except (OSError, ValueError):
+        return None
+    return cfg if isinstance(cfg, dict) else None
+
+
+def _landing_rules(early_cfg):
+    """The family's shard rules (``models.registry``); None for an
+    unknown family, which the loader's ``infer_spec`` fallback lands."""
+    from zest_tpu_torch.models.registry import shard_rules_for_model_type
+
+    return shard_rules_for_model_type((early_cfg() or {}).get("model_type"))
+
+
+def _pod_stage(bridge, pending, recs, dev, log, early_cfg,
+               mesh=None) -> dict | None:
+    """The pod pre-pass over the slots of ``mesh`` (the landing mesh),
+    else of ``dev`` (every CUDA device; the one CPU device otherwise, so
+    the round skips), family-dispatched: an expert-sharded family takes
+    the expert-routed round, every other the plain one.
+
+    With several processes every one must have its reconstructions
+    (``recs`` not None) and agree on the expert pre-pass before any
+    gathers: they agree on both bits first. One without reconstructions
+    takes the whole pod to the per-host waterfall, and one whose pre-pass
+    failed takes it to the plain round, instead of stranding the others
+    in a gather of another plan."""
     import torch.distributed as dist
 
-    mesh = pod_mesh(None if dev.type == "cuda" else [dev])
+    from zest_tpu_torch.models.registry import is_expert_sharded
+
+    if mesh is not None:
+        slots = mesh.local_devices()
+    else:
+        slots = pod_mesh(None if dev.type == "cuda" else [dev])
     ready = recs is not None
+    prepped = None
+    cfg_json = early_cfg() if ready and num_slots(slots) > 1 else None
+    n_experts = int((cfg_json or {}).get("num_local_experts") or 0)
+    if (cfg_json and is_expert_sharded(cfg_json.get("model_type"))
+            and n_experts > 0):
+        try:
+            prepped = _expert_prep(bridge, pending, recs, n_experts, slots)
+        except (*FETCH_ERRORS, ValueError) as exc:
+            log(f"expert routing unavailable ({exc}); falling back to the "
+                "plain pod round", file=sys.stderr)
     if world_size() > 1:
         flags = [None] * world_size()
-        dist.all_gather_object(flags, ready)
-        if ready and not all(flags):
+        dist.all_gather_object(flags, (ready, prepped is not None))
+        if ready and not all(f[0] for f in flags):
             log("pod round skipped: another host has no reconstructions",
                 file=sys.stderr)
-        ready = all(flags)
+        ready = all(f[0] for f in flags)
+        if prepped is not None and not all(f[1] for f in flags):
+            log("expert routing disabled: another host's pre-pass failed; "
+                "taking the plain pod round", file=sys.stderr)
+            prepped = None
     if not ready:
         return None
-    if num_slots(mesh) > 1:
-        log("pod round: expert routing is not ported; every family takes "
-            "the plain round", file=sys.stderr)
-    return pod_round(bridge, recs, mesh=mesh, log=log)
+    if prepped is not None:
+        return _expert_stage(bridge, prepped, slots, log)
+    return pod_round(bridge, recs, mesh=slots, log=log)
+
+
+def _expert_prep(bridge, pending, recs, n_experts, slots):
+    """The expert round's inputs, fetched before any gather: each
+    safetensors file's header (through the waterfall) and tensor → expert
+    map, and the placement. Returns (file_maps, other_recs, placement)."""
+    from zest_tpu_torch.models import moe
+    from zest_tpu_torch.parallel.expert import ExpertPlacement, classify_file
+
+    placement = ExpertPlacement(n_experts, num_hosts=num_slots(slots))
+    file_maps, other = [], []
+    for entry, rec in zip(pending, recs):
+        if entry.path.endswith(".safetensors"):
+            header = fetch_file_header(bridge, rec)
+            file_maps.append(classify_file(rec, header,
+                                           moe.expert_of_tensor))
+        else:
+            other.append(rec)
+    if not file_maps:
+        raise ValueError("no safetensors files to expert-route")
+    return file_maps, other, placement
+
+
+def _expert_stage(bridge, prepped, slots, log) -> dict:
+    """The expert-routed round for the safetensors files; any other xet
+    files still ride the plain round, reported under ``"other"``."""
+    file_maps, other, placement = prepped
+    stats = expert_pod_round(bridge, file_maps, placement, mesh=slots,
+                             log=log)
+    stats["expert_routed"] = True
+    stats["n_experts"] = placement.n_experts
+    if other:
+        stats["other"] = pod_round(bridge, other, mesh=slots, log=log)
+    return stats
 
 
 # pwritev bounds: iovecs per call (below every Linux IOV_MAX) and bytes
