@@ -167,6 +167,26 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    ``2s`` and ``2s + 1`` byte-equal to the file's) and an expert-parallel
    bf16 greedy decode held to phase 9's float32 family tokens by its
    margin rule;
+12. the training plane, after every earlier tree is freed (TF32 off).
+   12a: GPT-2 at its published width from phase 3's checkpoint: three
+   AdamW steps (``models.training``), ``save_train_state``,
+   ``restore_train_state`` onto ``cuda:0``, two more; parameters and
+   moments bit-equal to an uninterrupted five-step run, the first loss
+   within 1e-4 of the port's CPU float32 ``loss_fn``. 12b: Llama-3.2-1B
+   at its published width and depth from phase 7's snapshot (node ``l``,
+   kept since phase 7) as a float32 tree on ``cuda:0``: five AdamW steps
+   on one seeded (2, 129) batch (the first loss within ``LOGITS_TOL`` of
+   the CPU float32 loss, the fifth below the first, no NaN),
+   ``export_hf_safetensors``, ``push_checkpoint`` as a new revision of
+   phase 7's repo (kernel rows = minted chunks), a delta pull on node
+   ``l`` with revision A's tree on ``cuda:0`` as ``base_params``: its
+   digest the export's, its greedy tokens at batch 1 and 4 the trainer's
+   own tree's. 12c: Llama-3.2-1B's width cut to 2 layers:
+   ``cp_train_step`` over ``{"data": 2, "seq": 4}`` on ``[cuda:0] * 8``
+   against ``train_step`` (loss within 1e-5, params within
+   ``CP_PARAM_TOL``), and ``pipeline_blocks`` over ``{"pipe": 2}`` (4
+   microbatches of a batch of 4) against the plain layer loop, output and
+   gradients within ``PIPE_TOL``;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -179,7 +199,9 @@ Every phase is fatal. The last three lines of standard output are the
 kernels' JSON record (with each kernel's launches by path: the serving
 pool's (``serve``), the daemon's (``serve_daemon``), the collective's
 (``coop_collective``, ``coop_collective_lane``), the pod round's
-(``pod``) and the mesh landing's expert round (``mesh``) among them), the card's name and power limit, and
+(``pod``), the mesh landing's expert round (``mesh``) and the fine-tune's
+push (``push_finetune``) among them), the card's name and power limit,
+and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
 """
@@ -1814,6 +1836,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
           f"CPU decodes {cpu_decode_s:.2f} s; phase wall "
           f"{time.monotonic() - wall0:.2f} s")
     ref["launches"] = launches
+    ref["revision"] = pushed.revision  # phase 12b's base revision
     return ref
 
 
@@ -2082,7 +2105,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
           f"float32 decision's margin, twice the logit error that can flip "
           f"it, is below {tol:.4f} = 2 x phase 7's bf16 logits error); "
           f"re-land tokens bit-equal to the cold run's")
-    shutil.rmtree(work / "l")
+    # Node l stays: phase 12b delta-pulls its fine-tune there.
 
     # ── Mixtral-8x7B, one layer: push, pull, pool (paged experts) ──
     ckpt = work / "mixtral"
@@ -2635,6 +2658,365 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     return {name: n for name, (n, _rows) in launches.items()}
 
 
+# ── Phase 12: the training plane ──
+
+# Phase 12's recipe: examples/finetune_and_export.py's AdamW (lr 1e-4,
+# 1000 total steps) with one warmup step, on one fixed seeded (2, 129)
+# batch.
+FT_BATCH = (2, 129)
+FT_ADAMW = {"lr": 1e-4, "warmup_steps": 1, "total_steps": 1000}
+FT_STEPS = 5
+# 12c: Llama-3.2-1B's width with its depth cut to 2 layers.
+CP_LAYERS = 2
+CP_MESH = {"data": 2, "seq": 4}
+PIPE_MESH, PIPE_MICROBATCHES, PIPE_BATCH = {"pipe": 2}, 4, 4
+# 12c's tolerances, stated before the first card run. The context-
+# parallel loss within 1e-5 of train_step's (the VERIFY skill's bar); its
+# SGD-updated params (lr 1e-3) within 1e-6 of train_step's, a gradient
+# difference of 1e-3 (the two sum the same products in other orders;
+# measured on the CPU at a tiny width: 4e-9). The pipeline's output and
+# every gradient within 1e-5 of the largest magnitude of the plain layer
+# loop's (a microbatch of one row may take another cuBLAS algorithm).
+CP_LOSS_TOL, CP_PARAM_TOL, PIPE_TOL = 1e-5, 1e-6, 1e-5
+
+
+def step_ms(dev, fn) -> tuple[float, object]:
+    """``fn()``'s wall on ``dev`` in ms (CUDA events on a card) and its
+    result."""
+    import torch
+
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return (time.perf_counter() - t0) * 1e3, out
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end), out
+
+
+def ft_batch(vocab: int, seed: int, dev, shape=FT_BATCH):
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, shape)).to(dev)
+
+
+def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> None:
+    """Phase 12a: GPT-2 at its published width from phase 3's checkpoint:
+    three AdamW steps, ``save_train_state``, ``restore_train_state`` onto
+    ``dev``, two more steps; the parameters and moments bit-equal to an
+    uninterrupted five-step run, the first loss within 1e-4 of the port's
+    CPU float32 ``loss_fn`` on the same tree."""
+    import functools
+
+    import torch
+
+    from zest_tpu_torch.models import gpt2, training
+    from zest_tpu_torch.models.checkpoint import (restore_train_state,
+                                                  save_train_state)
+    from zest_tpu_torch.models.loader import load_checkpoint
+
+    wall0 = time.monotonic()
+    cfg = gpt2.GPT2Config.from_hf(GPT2_CONFIG)
+    params_cpu = gpt2.params_from_hf(load_checkpoint(ckpt, "cpu"), cfg)
+    n_params = sum(t.numel() for t in training.tree_leaves(params_cpu))
+    batch = ft_batch(cfg.vocab_size, seed + 12, dev)
+    with torch.no_grad():
+        cpu_loss = float(gpt2.loss_fn(params_cpu, batch.cpu(), cfg))
+    tx = training.adamw(**FT_ADAMW)
+    step = training.make_train_step(tx, functools.partial(gpt2.loss_fn,
+                                                          cfg=cfg))
+
+    def fresh():
+        return training.create_state(training.tree_map(
+            lambda t: t.to(dev, copy=True), params_cpu), tx)
+
+    state, losses, times = fresh(), [], []
+    for _ in range(FT_STEPS):
+        ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
+        times.append(ms)
+        losses.append(float(loss))
+    first = losses[0]
+    if not abs(first - cpu_loss) <= 1e-4:
+        fail(f"phase 12a: first loss {first} off the CPU's {cpu_loss} by "
+             f"more than 1e-4")
+    if not all(np.isfinite(losses)):
+        fail(f"phase 12a: losses {losses}")
+    part = fresh()
+    for _ in range(3):
+        part, _ = step(part, batch)
+    path = work / "gpt2-train-state" / "step_000003"
+    t0 = time.monotonic()
+    save_train_state(path, part)
+    save_s = time.monotonic() - t0
+    state_bytes = (path / "arrays.safetensors").stat().st_size
+    like = fresh()
+    del part
+    t0 = time.monotonic()
+    part = restore_train_state(path, like)
+    restore_s = time.monotonic() - t0
+    del like
+    if part.step != 3 or part.params["wte"].device != dev:
+        fail(f"phase 12a: restored step {part.step} on "
+             f"{part.params['wte'].device}")
+    for _ in range(2):
+        part, _ = step(part, batch)
+    for name, tree in (("params", lambda s: s.params),
+                       ("mu", lambda s: s.opt_state.mu),
+                       ("nu", lambda s: s.opt_state.nu)):
+        for (p, a), (_, b) in zip(training.tree_paths(tree(part)),
+                                  training.tree_paths(tree(state))):
+            if not torch.equal(a, b):
+                fail(f"phase 12a: resumed {name} {'/'.join(p)} differs from "
+                     "the uninterrupted run's")
+    if part.step != state.step or part.opt_state.count != FT_STEPS:
+        fail(f"phase 12a: steps {part.step}/{state.step}")
+    shutil.rmtree(work / "gpt2-train-state")
+    del state, part
+    torch.cuda.empty_cache()
+    print(f"phase 12a gpt2 finetune ({card_label()}): {n_params:,} params, "
+          f"AdamW {FT_ADAMW}, batch {FT_BATCH}: losses "
+          f"{[round(x, 6) for x in losses]}; first {first:.6f} vs CPU "
+          f"float32 {cpu_loss:.6f} (|d| {abs(first - cpu_loss):.2e} <= "
+          f"1e-4); step ms {[round(t, 2) for t in times]}; save_train_state "
+          f"{save_s:.2f} s ({state_bytes:,} B), restore {restore_s:.2f} s; "
+          f"3 + restore + 2 steps bit-equal to 5 (params, mu, nu); phase "
+          f"wall {time.monotonic() - wall0:.2f} s")
+
+
+def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
+                         seed: int, steps: int, dev) -> int:
+    """Phase 12b: Llama-3.2-1B at its published width and depth from
+    phase 7's push (node ``l``'s snapshot): the float32 tree on ``dev``,
+    five AdamW steps, ``export_hf_safetensors``, ``push_checkpoint`` as a
+    new revision of phase 7's repo (the kernel re-verifies every minted
+    chunk), a delta pull on node ``l`` over revision A's landed tree, and
+    greedy decode from the swapped tree. Returns the push's kernel
+    launches."""
+    import functools
+
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import llama, training
+    from zest_tpu_torch.models.checkpoint import export_hf_safetensors
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.ops import blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    wall0 = time.monotonic()
+    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem0 = torch.cuda.memory_allocated(dev)
+    # Revision A's tree on the card: the delta pull's base. The trainer's
+    # float32 tree is its own allocation (params_from_hf casts bf16).
+    base = load_checkpoint(llama_ref["snapshot"], dev)
+    params = llama.params_from_hf(base, cfg, torch.float32)
+    n_params = sum(t.numel() for t in training.tree_leaves(params))
+    batch = ft_batch(cfg.vocab_size, seed + 13, dev)
+    t0 = time.monotonic()
+    with torch.no_grad():
+        cpu_loss = float(llama.loss_fn(llama.params_from_hf(
+            load_checkpoint(llama_ref["snapshot"], "cpu"), cfg), batch.cpu(),
+            cfg))
+    cpu_s = time.monotonic() - t0
+    tx = training.adamw(**FT_ADAMW)
+    step = training.make_train_step(tx, functools.partial(llama.loss_fn,
+                                                          cfg=cfg))
+    state = training.create_state(params, tx)
+    del params
+    losses, times = [], []
+    for _ in range(FT_STEPS):
+        ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
+        times.append(ms)
+        losses.append(float(loss))
+    peak = (torch.cuda.max_memory_allocated(dev) - mem0
+            if dev.type == "cuda" else 0)
+    # Where a step's time goes: the forward and backward alone (the
+    # state unchanged); the rest of a step is the clip and the update.
+    grad_ms, _ = step_ms(dev, lambda: training.value_and_grad(
+        llama.loss_fn, state.params, batch, cfg))
+    if not all(np.isfinite(losses)):
+        fail(f"phase 12b: losses {losses}")
+    if not abs(losses[0] - cpu_loss) <= LOGITS_TOL:
+        fail(f"phase 12b: first loss {losses[0]} off the CPU float32 "
+             f"loss {cpu_loss} by more than {LOGITS_TOL:.0e}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 12b: the loss did not fall: {losses}")
+    step_s = sum(times[1:]) / (len(times) - 1) / 1e3
+    tokens = FT_BATCH[0] * (FT_BATCH[1] - 1)
+
+    # ── export, push as a new revision of phase 7's repo ──
+    trained = state.params
+    state = None  # the moments go; the trained tree stays for the tokens
+    ck = work / "llama-finetuned"
+    ck.mkdir()
+    (ck / "config.json").write_text(json.dumps(
+        dict(LLAMA_CONFIG, torch_dtype="float32"), indent=2))
+    t0 = time.monotonic()
+    export_hf_safetensors(ck / "model.safetensors", trained, cfg)
+    export_s = time.monotonic() - t0
+    export_bytes = (ck / "model.safetensors").stat().st_size
+    want_digest = params_digest(load_checkpoint(ck, "cpu"))
+    blake3_cuda.COUNTER.reset()  # counts from here are the push's
+    t0 = time.monotonic()
+    pushed = push_checkpoint(cfg_a, LLAMA_REPO, ck,
+                             base_revision=llama_ref["revision"],
+                             device=dev, notify=False)
+    push_s = time.monotonic() - t0
+    launches, rows = blake3_cuda.COUNTER.launches, blake3_cuda.COUNTER.rows
+    if launches < 1 or rows != pushed.minted_chunks:
+        fail(f"phase 12b: the push's kernel hashed {rows} chunks in "
+             f"{launches} launches; it minted {pushed.minted_chunks}")
+
+    # ── the delta pull on node l over revision A's tree ──
+    cfg_l = Config(hf_home=work / "l" / "hf", cache_dir=work / "l" / "zest",
+                   endpoint=url)
+    n_base = len(base)
+    t0 = time.monotonic()
+    res = pull_model(cfg_l, LLAMA_REPO, revision=pushed.revision,
+                     device=dev, base_params=base,
+                     base_revision=llama_ref["revision"])
+    pull_s = time.monotonic() - t0
+    st = res.stats
+    d, swap = st.get("delta"), st["hbm"].get("swap", {})
+    if not d or d.get("base_revision") != llama_ref["revision"]:
+        fail(f"phase 12b: no delta over revision A: {d}")
+    if len(res.params) != n_base:
+        fail(f"phase 12b: {len(res.params)} tensors swapped in, A had "
+             f"{n_base}")
+    got_digest = params_digest(res.params)
+    if got_digest != want_digest:
+        fail("phase 12b: the swapped tree's digest is not the export's")
+    swapped = llama.params_from_hf(res.params, cfg, torch.float32)
+    res.params = None
+    prompts = llama_ref["prompts"]
+    notes = []
+    for b in (1, 4):
+        mine = llama.generate_cached(trained, cfg, prompts[:b], steps)
+        theirs = llama.generate_cached(swapped, cfg, prompts[:b], steps)
+        if not torch.equal(mine, theirs):
+            fail(f"phase 12b: batch {b}: tokens from the swapped tree "
+                 "differ from the trainer's")
+        notes.append(f"b{b} {mine.shape[-1] - 8} tokens equal")
+    del trained, swapped, base
+    shutil.rmtree(ck)
+    shutil.rmtree(work / "l")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    d_print = {k: v for k, v in d.items() if k != "files"}
+    print(f"phase 12b llama finetune ({card_label()}): {LLAMA_REPO} at its "
+          f"published width and depth, float32 ({n_params:,} params), AdamW "
+          f"{FT_ADAMW}, batch {FT_BATCH}: losses "
+          f"{[round(x, 6) for x in losses]}; first vs CPU float32 "
+          f"{cpu_loss:.6f} (|d| {abs(losses[0] - cpu_loss):.2e} <= "
+          f"{LOGITS_TOL:.0e}; CPU forward {cpu_s:.2f} s); step ms "
+          f"{[round(t, 2) for t in times]}: train_step_s {step_s:.4f} "
+          f"(steps 2-5), {tokens / step_s:.1f} tokens/s; forward+backward "
+          f"alone {grad_ms:.2f} ms (the clip and update the rest); peak "
+          f"allocation rise {peak:,} B")
+    print(f"  export {export_s:.2f} s ({export_bytes:,} B); push_s "
+          f"{push_s:.2f} ({pushed.new_xorbs} xorbs, {pushed.minted_chunks} "
+          f"chunks, kernel launches {launches}); delta pull on node l "
+          f"{pull_s:.2f} s, time_to_swap_s {st.get('time_to_swap_s')}, "
+          f"delta {d_print}, swap {swap}; digest = the export's; greedy "
+          f"from the swapped tree = the trainer's ({', '.join(notes)}); "
+          f"phase wall {time.monotonic() - wall0:.2f} s")
+    return launches
+
+
+def parallel_train_phase(seed: int, dev) -> None:
+    """Phase 12c: context and pipeline parallelism at Llama-3.2-1B's
+    width, 2 layers, on slots of ``dev``: ``cp_train_step`` over
+    ``{"data": 2, "seq": 4}`` against ``train_step``, and
+    ``pipeline_blocks`` over ``{"pipe": 2}`` (4 microbatches of a batch of
+    4) against the plain layer loop, output and gradients."""
+    import torch
+
+    from zest_tpu_torch.models import llama, training
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.parallel.pipeline import pipeline_blocks
+
+    wall0 = time.monotonic()
+    cfg = llama.LlamaConfig.from_hf(dict(LLAMA_CONFIG,
+                                         num_hidden_layers=CP_LAYERS))
+    params = llama.init_params(torch.Generator().manual_seed(seed + 14),
+                               cfg, device=dev)
+    n_params = sum(t.numel() for t in training.tree_leaves(params))
+    batch = ft_batch(cfg.vocab_size, seed + 14, dev)
+    mesh = model_mesh(CP_MESH, [dev] * 8)
+    llama.train_step(params, batch, cfg)  # warm-ups: timed calls only
+    llama.cp_train_step(params, batch, cfg, mesh)
+    ms, (want, loss) = step_ms(dev, lambda: llama.train_step(params, batch,
+                                                             cfg))
+    cp_ms, (got, cp_loss) = step_ms(dev, lambda: llama.cp_train_step(
+        params, batch, cfg, mesh))
+    loss_d = abs(float(cp_loss) - float(loss))
+    param_d = max(float((a - b).abs().max()) for a, b in zip(
+        training.tree_leaves(got), training.tree_leaves(want)))
+    if not loss_d <= CP_LOSS_TOL or not param_d <= CP_PARAM_TOL:
+        fail(f"phase 12c: cp_train_step loss off by {loss_d:.2e}, params "
+             f"by {param_d:.2e}")
+    del got, want
+
+    pmesh = model_mesh(PIPE_MESH, [dev] * 2)
+    ids = ft_batch(cfg.vocab_size, seed + 15, dev,
+                   (PIPE_BATCH, FT_BATCH[1] - 1))
+
+    def block(x, lp):
+        return llama._block(x, lp, cfg,
+                            lambda h, p: llama._attention(h, p, cfg)), None
+
+    def run(fn):
+        blocks = training.tree_map(
+            lambda t: t.detach().requires_grad_(), params["blocks"])
+        x = params["wte"][ids].detach().requires_grad_()
+        with torch.enable_grad():
+            out = fn(blocks, x)
+            (out.float() ** 2).sum().backward()
+        return out.detach(), [t.grad for t in training.tree_leaves(
+            blocks)] + [x.grad]
+
+    def loop(blocks, x):
+        for i in range(cfg.n_layer):
+            x, _ = block(x, training.tree_map(lambda t: t[i], blocks))
+        return x
+
+    def pipe(b, x):
+        return pipeline_blocks(block, b, x, pmesh, PIPE_MICROBATCHES)
+
+    run(loop), run(pipe)  # warm-ups
+    loop_ms, (want_out, want_g) = step_ms(dev, lambda: run(loop))
+    pipe_ms, (got_out, got_g) = step_ms(dev, lambda: run(pipe))
+    errs = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip([got_out] + got_g, [want_out] + want_g)]
+    if not max(errs) <= PIPE_TOL:
+        fail(f"phase 12c: pipeline_blocks off the layer loop by "
+             f"{max(errs):.2e} (relative)")
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase 12c parallel ({card_label()}): Llama-3.2-1B width, "
+          f"{CP_LAYERS} layers ({n_params:,} params), batch {FT_BATCH}: "
+          f"cp_train_step over {CP_MESH} on [{dev}] * 8 loss "
+          f"{float(cp_loss):.6f}, |d| vs train_step {loss_d:.2e} (<= "
+          f"{CP_LOSS_TOL:.0e}), params max |d| {param_d:.2e} (<= "
+          f"{CP_PARAM_TOL:.0e}); step {cp_ms:.1f} ms vs train_step "
+          f"{ms:.1f} ms; pipeline_blocks over {PIPE_MESH}, "
+          f"{PIPE_MICROBATCHES} microbatches of batch {PIPE_BATCH}: output "
+          f"and {len(errs) - 1} gradients within {max(errs):.2e} of the "
+          f"layer loop (relative, <= {PIPE_TOL:.0e}); forward+backward "
+          f"{pipe_ms:.1f} ms vs loop {loop_ms:.1f} ms; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -2795,6 +3177,17 @@ def run(args, work: Path) -> dict:
         # ── 11. the mesh landing and the tensor-parallel decode ──
         mesh_launches = mesh_phase(work, publisher.url, cfg_a, llama_ref,
                                    pool_out, args.steps, dev)
+
+        # ── 12. the training plane: GPT-2 AdamW with a train-state
+        # checkpoint, the Llama-3.2-1B fine-tune pushed back and
+        # delta-pulled, context and pipeline parallelism ──
+        torch.cuda.empty_cache()  # every earlier phase's tree is gone
+        print(f"phase 12 starts with {torch.cuda.memory_allocated(dev):,} B "
+              "allocated on the card")
+        gpt2_finetune_phase(ckpt, work, args.seed, dev)
+        finetune_launches = llama_finetune_phase(
+            work, publisher.url, cfg_a, llama_ref, args.seed, args.steps, dev)
+        parallel_train_phase(args.seed, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -2850,6 +3243,7 @@ def run(args, work: Path) -> dict:
                                  "push_sharded": sharded_launches,
                                  "push_delta": delta_launches,
                                  "push_llama": llama_ref["launches"],
+                                 "push_finetune": finetune_launches,
                                  "push_mixtral": pool_out["push_launches"],
                                  "serve": pool_out["launches"][
                                      "blake3_chunks"],

@@ -938,3 +938,74 @@ def test_mesh_pull_and_tensor_parallel_decode_on_card(cuda_device,
                                             moe.MoEConfig.from_hf(mix_json))
                 assert isinstance(params, tensor_parallel.TPParams)
                 assert params.experts == [range(8)] * 4  # columns in place
+
+
+def test_adamw_step_on_card_matches_cpu(cuda_device):
+    """One AdamW step of Llama (tiny, float32, TF32 off) on the card
+    against the same step on the CPU: the loss within 1e-5, the params
+    within 1e-5 (Adam's eps-scale gradients amplify the last-ulp
+    differences of a few elements; tests/test_torch_training.py has
+    why), the moments within 1e-6. Skips without a card."""
+    import functools
+
+    from zest_tpu_torch.models import llama, training
+
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    batch = torch.from_numpy(_RNG.integers(0, cfg.vocab_size, (2, 17)))
+    out = []
+    for dev in ("cpu", cuda_device):
+        tx = training.adamw(lr=1e-3, warmup_steps=0, total_steps=10)
+        step = training.make_train_step(
+            tx, functools.partial(llama.loss_fn, cfg=cfg))
+        # The step updates in place: each run takes its own copy.
+        state = training.create_state(
+            training.tree_map(lambda t: t.to(dev, copy=True), params), tx)
+        state, loss = step(state, batch.to(dev))
+        assert state.params["wte"].device.type == torch.device(dev).type
+        out.append((state, float(loss)))
+    (cpu, cpu_loss), (card, card_loss) = out
+    assert abs(card_loss - cpu_loss) <= 1e-5
+    for tree, tol in ((lambda s: s.params, 1e-5),
+                      (lambda s: s.opt_state.mu, 1e-6)):
+        for a, b in zip(training.tree_leaves(tree(cpu)),
+                        training.tree_leaves(tree(card))):
+            assert float((a - b.cpu()).abs().max()) <= tol
+
+
+def test_ring_gradient_on_card_slots(cuda_device):
+    """Ring attention over ``["cuda:0"] * 4``: the output and the
+    gradients of the reverse ring equal dense attention on the card, no
+    NaN under causal masking. Skips without a card."""
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.parallel.ring import ring_attention
+
+    mesh = model_mesh({"seq": 4}, [cuda_device] * 4)
+    rng = np.random.default_rng(5)
+    shapes = ((2, 32, 4, 16), (2, 32, 2, 16), (2, 32, 2, 16))
+
+    def run(fn):
+        q, k, v = (torch.tensor(rng_arr, device=cuda_device,
+                                requires_grad=True)
+                   for rng_arr in arrays)
+        out = fn(q, k, v)
+        (out ** 2).sum().backward()
+        return out.detach(), [t.grad for t in (q, k, v)]
+
+    def dense(q, k, v):
+        kk = k.repeat_interleave(2, dim=2).transpose(1, 2)
+        vv = v.repeat_interleave(2, dim=2).transpose(1, 2)
+        scores = q.transpose(1, 2) @ kk.transpose(-1, -2) / 4.0
+        mask = torch.ones(32, 32, dtype=torch.bool,
+                          device=cuda_device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+        return (torch.softmax(scores, -1) @ vv).transpose(1, 2)
+
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    got, g_ring = run(lambda q, k, v: ring_attention(q, k, v, mesh))
+    want, g_dense = run(dense)
+    assert float((got - want).abs().max()) <= 1e-5
+    for a, b in zip(g_ring, g_dense):
+        assert not torch.isnan(a).any()
+        assert torch.allclose(a, b, atol=1e-5, rtol=1e-4)

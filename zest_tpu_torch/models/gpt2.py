@@ -17,6 +17,13 @@ layout: ``attn.c_attn.weight`` shards the fused q|k|v columns, so no
 slot holds the q, k and v of the same heads (at ``model=4``, 576 of 2304
 columns a slot, across the q/k/v borders). :func:`params_from_hf` gathers
 a sharded tree once.
+
+The training half (:func:`init_params`, :func:`loss_fn`,
+:func:`train_step`, ``remat``) runs the same body as :func:`forward`
+through ``_forward``, outside inference mode; ``forward`` and the decode
+keep it. ``init_params`` draws from a ``torch.Generator``: the JAX
+package's ``jax.random`` draws cannot be matched bit for bit, so only
+the shapes, dtypes and scales are.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ import re
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from zest_tpu_torch.models.training import (cross_entropy, sgd,
+                                            value_and_grad)
 from zest_tpu_torch.parallel.sharding import P, gather_tree
 
 DATA_AXIS = "data"
@@ -45,6 +56,14 @@ class GPT2Config:
     layer_norm_eps: float = 1e-5
 
     @staticmethod
+    def tiny(**over) -> "GPT2Config":
+        """Test-sized config."""
+        base = dict(vocab_size=256, n_ctx=64, n_embd=64, n_layer=2,
+                    n_head=4)
+        base.update(over)
+        return GPT2Config(**base)
+
+    @staticmethod
     def from_hf(cfg_json: dict) -> "GPT2Config":
         return GPT2Config(
             vocab_size=cfg_json["vocab_size"],
@@ -57,6 +76,55 @@ class GPT2Config:
 
 
 # ── Parameters ──
+
+
+def normal(gen: torch.Generator, shape, scale: float, dtype: torch.dtype,
+           device) -> torch.Tensor:
+    """N(0, scale²) drawn on the CPU from ``gen``, then cast and moved:
+    the families' random init (``jax.random`` draws cannot be matched bit
+    for bit; the shapes, dtypes and scales are the JAX package's)."""
+    return (torch.randn(shape, generator=gen) * scale).to(device, dtype)
+
+
+def init_params(gen: torch.Generator, cfg: GPT2Config,
+                dtype: torch.dtype = torch.float32,
+                device=DEFAULT_DEVICE) -> dict:
+    """Random-init param tree with stacked per-layer leaves (L leading):
+    weights N(0, 0.02), ``wpe`` N(0, 0.01), the output projections
+    N(0, 0.02/sqrt(2L)), norm gains 1, biases 0; on ``device`` (``cuda``
+    by default, which raises without a card)."""
+    device = resolve_device(device)
+    E, L = cfg.n_embd, cfg.n_layer
+    out_scale = 0.02 / math.sqrt(2 * L)
+
+    def dense(shape, scale=0.02):
+        return normal(gen, shape, scale, dtype, device)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return {
+        "wte": dense((cfg.vocab_size, E)),
+        "wpe": dense((cfg.n_ctx, E), 0.01),
+        "ln_f": {"g": const((E,), 1.0), "b": const((E,), 0.0)},
+        "blocks": {
+            "ln_1": {"g": const((L, E), 1.0), "b": const((L, E), 0.0)},
+            "ln_2": {"g": const((L, E), 1.0), "b": const((L, E), 0.0)},
+            "attn": {
+                "qkv_w": dense((L, E, 3 * E)),
+                "qkv_b": const((L, 3 * E), 0.0),
+                "proj_w": dense((L, E, E), out_scale),
+                "proj_b": const((L, E), 0.0),
+            },
+            "mlp": {
+                "fc_w": dense((L, E, 4 * E)),
+                "fc_b": const((L, 4 * E), 0.0),
+                "proj_w": dense((L, 4 * E, E), out_scale),
+                "proj_b": const((L, E), 0.0),
+            },
+        },
+    }
+
 
 _HF_BLOCK = re.compile(r"^h\.(\d+)\.(.+)$")
 
@@ -200,17 +268,43 @@ def _block(x, p, cfg: GPT2Config):
     return _mlp(x, p, cfg)
 
 
+def _forward(params: dict, input_ids: torch.Tensor, cfg: GPT2Config,
+             remat: bool = False) -> torch.Tensor:
+    """:func:`forward` outside inference mode: the training core.
+    ``remat=True`` recomputes each block's activations in the backward
+    instead of saving them."""
+    T = input_ids.shape[1]
+    x = params["wte"][input_ids] + params["wpe"][:T]
+    for i in range(cfg.n_layer):
+        if remat:
+            x = checkpoint(_block, x, _layer(params, i), cfg,
+                           use_reentrant=False)
+        else:
+            x = _block(x, _layer(params, i), cfg)
+    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"],
+                    cfg.layer_norm_eps)
+    return x @ params["wte"].T
+
+
 @torch.inference_mode()
 def forward(params: dict, input_ids: torch.Tensor,
             cfg: GPT2Config) -> torch.Tensor:
     """(B, T) token ids → (B, T, vocab) logits."""
-    T = input_ids.shape[1]
-    x = params["wte"][input_ids] + params["wpe"][:T]
-    for i in range(cfg.n_layer):
-        x = _block(x, _layer(params, i), cfg)
-    x = _layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"],
-                    cfg.layer_norm_eps)
-    return x @ params["wte"].T
+    return _forward(params, input_ids, cfg)
+
+
+def loss_fn(params: dict, batch: torch.Tensor, cfg: GPT2Config,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy over ``batch`` (B, T+1) ids, float32."""
+    return cross_entropy(_forward(params, batch[:, :-1], cfg, remat),
+                         batch[:, 1:])
+
+
+def train_step(params: dict, batch: torch.Tensor, cfg: GPT2Config,
+               lr: float = 1e-3, remat: bool = False):
+    """One SGD step: ``(new params, loss)``; ``params`` is not changed."""
+    loss, grads = value_and_grad(loss_fn, params, batch, cfg, remat)
+    return sgd(params, grads, lr), loss
 
 
 def init_kv_cache(cfg: GPT2Config, batch: int, max_len: int,

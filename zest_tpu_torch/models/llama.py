@@ -19,8 +19,19 @@ over a named mesh, as the JAX package's; :func:`params_from_hf` of such a
 tree (``ShardedTensor`` values) builds a tensor-parallel tree that
 :func:`generate_cached` runs with each slot's local heads and FFN columns
 (``models/tensor_parallel.py``, whose ``forward`` and ``decode_window``
-take the tree directly). Training and context parallelism are not ported
-here.
+take the tree directly).
+
+The training half (:func:`init_params`, :func:`loss_fn`,
+:func:`train_step`, ``remat``) runs the same body as :func:`forward`
+through ``_forward``, outside inference mode; ``forward`` and the decode
+keep it. Context parallelism (:func:`cp_forward`, :func:`cp_loss_fn`,
+:func:`cp_train_step`) shards the sequence over the ``seq`` axis of a
+slot mesh and the batch over its ``data`` axis: every slot runs the layer
+body on its block with its RoPE offset, attention is the K/V ring of
+``parallel/ring.py``, and each slot reads the one tree through ``.to``
+its device, so autograd sums every replica's gradient into it. A mesh
+with a ``model`` axis (the JAX package's TP×CP) raises
+``MeshUnsupported``.
 """
 
 from __future__ import annotations
@@ -32,11 +43,17 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from zest_tpu_torch.models import tensor_parallel as tp
 # The JAX package's trees (as numpy arrays) carry over as GPT-2's do.
-from zest_tpu_torch.models.gpt2 import params_from_jax  # noqa: F401
-from zest_tpu_torch.parallel.sharding import P, is_sharded_tree
+from zest_tpu_torch.models.gpt2 import normal, params_from_jax  # noqa: F401
+from zest_tpu_torch.models.training import (cross_entropy, sgd, tree_map,
+                                            value_and_grad)
+from zest_tpu_torch.parallel.ring import SEQ_AXIS, ring_self_attention
+from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
+                                              is_sharded_tree)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -150,6 +167,56 @@ class LlamaConfig:
 
 
 # ── Parameters ──
+
+
+def init_params(gen: torch.Generator, cfg: LlamaConfig,
+                dtype: torch.dtype = torch.float32,
+                device=DEFAULT_DEVICE) -> dict:
+    """Random-init tree with stacked per-layer leaves (L leading): weights
+    N(0, 0.02), the output projections N(0, 0.02/sqrt(2L)), norm gains 1,
+    biases 0; drawn from ``gen`` (``gpt2.normal``) onto ``device``
+    (``cuda`` by default, which raises without a card)."""
+    device = resolve_device(device)
+    E, L, F_ = cfg.n_embd, cfg.n_layer, cfg.d_ff
+    qE = cfg.n_head * cfg.head_dim  # == E unless head_dim_override
+    kvE = cfg.n_kv_head * cfg.head_dim
+    out_scale = 0.02 / math.sqrt(2 * L)
+
+    def dense(shape, scale=0.02):
+        return normal(gen, shape, scale, dtype, device)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    attn = {
+        "q_w": dense((L, E, qE)),
+        "k_w": dense((L, E, kvE)),
+        "v_w": dense((L, E, kvE)),
+        "o_w": dense((L, qE, E), out_scale),
+    }
+    if cfg.attn_bias:
+        attn.update(q_b=const((L, qE), 0.0), k_b=const((L, kvE), 0.0),
+                    v_b=const((L, kvE), 0.0))
+    if cfg.o_bias:
+        attn["o_b"] = const((L, E), 0.0)
+    out = {
+        "wte": dense((cfg.vocab_size, E)),
+        "ln_f": {"g": const((E,), 1.0)},
+        "blocks": {
+            "ln_attn": {"g": const((L, E), 1.0)},
+            "ln_mlp": {"g": const((L, E), 1.0)},
+            "attn": attn,
+            "mlp": {
+                "gate_w": dense((L, E, F_)),
+                "up_w": dense((L, E, F_)),
+                "down_w": dense((L, F_, E), out_scale),
+            },
+        },
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = dense((E, cfg.vocab_size))
+    return out
+
 
 _HF_ATTN = {
     "self_attn.q_proj": ("attn", "q_w"),
@@ -410,23 +477,171 @@ def _unembed(params, x):
     return x @ (head if head is not None else params["wte"].T)
 
 
-def _body(params, x, cfg: LlamaConfig, attn_fn):
+def _block(x, lp, cfg: LlamaConfig, attn_fn):
+    """One layer over (B, T, E); ``lp`` holds this layer's slice."""
+    h = _rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
+    x = x + attn_fn(h, lp["attn"])
+    h = _rms_norm(x, lp["ln_mlp"]["g"], cfg.rms_eps)
+    return x + _mlp(h, lp["mlp"])
+
+
+def _body(params, x, cfg: LlamaConfig, attn_fn, remat: bool = False):
     for i in range(cfg.n_layer):
-        lp = _layer(params, i)
-        h = _rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
-        x = x + attn_fn(h, lp["attn"])
-        h = _rms_norm(x, lp["ln_mlp"]["g"], cfg.rms_eps)
-        x = x + _mlp(h, lp["mlp"])
+        if remat:
+            # Per-layer rematerialization: a block's activations are
+            # recomputed in the backward instead of saved.
+            x = checkpoint(_block, x, _layer(params, i), cfg, attn_fn,
+                           use_reentrant=False)
+        else:
+            x = _block(x, _layer(params, i), cfg, attn_fn)
     x = _rms_norm(x, params["ln_f"]["g"], cfg.rms_eps)
     return _unembed(params, x)
+
+
+def _forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
+             remat: bool = False) -> torch.Tensor:
+    """:func:`forward` outside inference mode: the training core."""
+    x = params["wte"][input_ids]
+    return _body(params, x, cfg, lambda h, p: _attention(h, p, cfg), remat)
 
 
 @torch.inference_mode()
 def forward(params: dict, input_ids: torch.Tensor,
             cfg: LlamaConfig) -> torch.Tensor:
     """(B, T) token ids → (B, T, vocab) logits."""
-    x = params["wte"][input_ids]
-    return _body(params, x, cfg, lambda h, p: _attention(h, p, cfg))
+    return _forward(params, input_ids, cfg)
+
+
+def loss_fn(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy over ``batch`` (B, T+1) ids."""
+    return cross_entropy(_forward(params, batch[:, :-1], cfg, remat),
+                         batch[:, 1:])
+
+
+def train_step(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
+               lr: float = 1e-3, remat: bool = False):
+    """One SGD step: ``(new params, loss)``; ``params`` is not changed.
+    ``remat=True`` recomputes each layer's activations in the backward."""
+    loss, grads = value_and_grad(loss_fn, params, batch, cfg, remat)
+    return sgd(params, grads, lr), loss
+
+
+# ── Context parallelism (sequence sharded, ring attention) ──
+
+
+def _cp_grid(mesh, seq_axis: str, data_axis: str) -> list[list]:
+    """The mesh's slots as rows of the data axis, each the devices along
+    the seq axis. A ``model`` axis (TP×CP) is not ported."""
+    if MODEL_AXIS in mesh.axis_names:
+        raise MeshUnsupported(
+            "context parallelism with a model axis (TP×CP) is not ported")
+    n_data = mesh.shape.get(data_axis, 1)
+    return [mesh.axis_devices(seq_axis, {data_axis: d})
+            for d in range(n_data)]
+
+
+def _ring_attention(hs: list, ps: list, cfg: LlamaConfig, t: int) -> list:
+    """Ring GQA for one data row's sequence slots: ``hs[s]`` (b, t, E) on
+    slot ``s``, whose RoPE phases start at ``s * t``."""
+    qkv = [_qkv(h, p, cfg, pos0=s * t) for s, (h, p) in enumerate(zip(hs, ps))]
+    outs = ring_self_attention(*zip(*qkv), causal=True)
+    return [_out_proj(o.reshape(*o.shape[:2], -1), p)
+            for o, p in zip(outs, ps)]
+
+
+def _cp_layer(xs: list, lps: list, cfg: LlamaConfig, t: int) -> list:
+    """One layer over every slot's block, rows of the data axis in turn
+    (``xs`` and ``lps`` are grids like :func:`_cp_grid`'s)."""
+    out = []
+    for row, lrow in zip(xs, lps):
+        hs = [_rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
+              for x, lp in zip(row, lrow)]
+        row = [x + a for x, a in zip(
+            row, _ring_attention(hs, [lp["attn"] for lp in lrow], cfg, t))]
+        out.append([x + _mlp(_rms_norm(x, lp["ln_mlp"]["g"], cfg.rms_eps),
+                             lp["mlp"]) for x, lp in zip(row, lrow)])
+    return out
+
+
+def _cp_logits(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
+               mesh, seq_axis: str, data_axis: str,
+               remat: bool) -> list[list[torch.Tensor]]:
+    """Every slot's (B/D, T/S, vocab) logits, as a data × seq grid."""
+    grid = _cp_grid(mesh, seq_axis, data_axis)
+    n_data, n_seq = len(grid), len(grid[0])
+    B, T = input_ids.shape
+    if B % n_data or T % n_seq:
+        raise ValueError(f"batch ({B}, {T}) does not divide over "
+                         f"{data_axis}={n_data}, {seq_axis}={n_seq}")
+    b, t = B // n_data, T // n_seq
+    # One replica of the tree a device; on the tree's own device .to is
+    # the identity, so every slot there reads (and grads into) the tree.
+    replicas = {d: tree_map(lambda v, d=d: v.to(d), params)
+                for d in {dev for row in grid for dev in row}}
+    xs = [[replicas[dev]["wte"][
+        input_ids[r * b:(r + 1) * b, s * t:(s + 1) * t].to(dev)]
+        for s, dev in enumerate(row)] for r, row in enumerate(grid)]
+    for i in range(cfg.n_layer):
+        lps = [[_layer(replicas[dev], i) for dev in row] for row in grid]
+        if remat:
+            xs = checkpoint(_cp_layer, xs, lps, cfg, t, use_reentrant=False)
+        else:
+            xs = _cp_layer(xs, lps, cfg, t)
+    return [[_unembed(replicas[dev], _rms_norm(
+        x, replicas[dev]["ln_f"]["g"], cfg.rms_eps))
+        for x, dev in zip(xrow, row)] for xrow, row in zip(xs, grid)]
+
+
+def cp_forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
+               mesh, seq_axis: str = SEQ_AXIS, data_axis: str = DATA_AXIS,
+               remat: bool = False) -> torch.Tensor:
+    """(B, T) ids → (B, T, vocab) logits with T cut over ``mesh``'s
+    ``seq_axis`` and B over its ``data_axis`` (a ``SlotMesh``; both must
+    divide). Token and RoPE work is local to each slot (phases offset by
+    the slot's global start), attention is the K/V ring; the logits are
+    joined on the first slot's device."""
+    grid = _cp_logits(params, input_ids, cfg, mesh, seq_axis, data_axis,
+                      remat)
+    lead = grid[0][0].device
+    return torch.cat([torch.cat([x.to(lead) for x in row], dim=1)
+                      for row in grid], dim=0)
+
+
+def cp_loss_fn(params: dict, inputs: torch.Tensor, targets: torch.Tensor,
+               cfg: LlamaConfig, mesh, seq_axis: str = SEQ_AXIS,
+               data_axis: str = DATA_AXIS, remat: bool = False):
+    """Cross entropy with ``inputs``/``targets`` (B, T) aligned: the
+    next-token shift crosses slot boundaries, so the caller shifts
+    globally (:func:`cp_train_step`). Each slot sums its tokens' NLL; the
+    sums meet on the first slot's device."""
+    grid = _cp_logits(params, inputs, cfg, mesh, seq_axis, data_axis, remat)
+    n_data, n_seq = len(grid), len(grid[0])
+    B, T = targets.shape
+    b, t = B // n_data, T // n_seq
+    lead = grid[0][0].device
+    total = 0.0
+    for r, row in enumerate(grid):
+        for s, logits in enumerate(row):
+            tgt = targets[r * b:(r + 1) * b, s * t:(s + 1) * t]
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            nll = -logp.gather(-1, tgt.to(logits.device)[..., None]).sum()
+            total = total + nll.to(lead)
+    return total / (B * T)
+
+
+def cp_train_step(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
+                  mesh, lr: float = 1e-3, seq_axis: str = SEQ_AXIS,
+                  data_axis: str = DATA_AXIS, remat: bool = False):
+    """Context-parallel SGD step on ``batch`` (B, T+1) ids: the shift on
+    the global array, then forward and backward through the ring (its
+    backward is the reverse ring). Every slot's gradient, of every data
+    replica, is summed into the one tree: the result is the single-device
+    mean's. Returns ``(new params, loss)``."""
+    loss, grads = value_and_grad(cp_loss_fn, params, batch[:, :-1],
+                                 batch[:, 1:], cfg, mesh, seq_axis,
+                                 data_axis, remat)
+    return sgd(params, grads, lr), loss
 
 
 # ── Decoding ──

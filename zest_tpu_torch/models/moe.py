@@ -20,8 +20,12 @@ The KV cache is updated in place. :func:`checkpoint_shard_rules` and
 :func:`param_specs` are the JAX package's; a tree sharded over the
 ``expert`` axis decodes through :func:`generate_cached` with each slot's
 experts and attention heads (``models/tensor_parallel.py``, whose
-``forward`` and ``decode_window`` take the tree directly). Training
-(``init_params``, ``loss_fn``, ``train_step``) is not ported here.
+``forward`` and ``decode_window`` take the tree directly).
+
+The training half (:func:`init_params`, :func:`loss_fn` with its
+``aux_loss_weight`` × aux term, :func:`train_step`, ``remat``) runs the
+same body as :func:`forward` through ``_forward``, outside inference
+mode; ``forward`` and the decode keep it.
 """
 
 from __future__ import annotations
@@ -32,11 +36,15 @@ import re
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
 from zest_tpu_torch.models import tensor_parallel as tp
 # The JAX package's trees (as numpy arrays) carry over as GPT-2's do.
-from zest_tpu_torch.models.gpt2 import params_from_jax  # noqa: F401
+from zest_tpu_torch.models.gpt2 import normal, params_from_jax  # noqa: F401
 from zest_tpu_torch.models.llama import _rms_norm  # noqa: F401 - same math
+from zest_tpu_torch.models.training import (cross_entropy, sgd,
+                                            value_and_grad)
 from zest_tpu_torch.parallel.sharding import P, is_sharded_tree
 
 DATA_AXIS = "data"
@@ -92,6 +100,51 @@ class MoEConfig:
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+
+# ── Parameters ──
+
+
+def init_params(gen: torch.Generator, cfg: MoEConfig,
+                dtype: torch.dtype = torch.float32,
+                device=DEFAULT_DEVICE) -> dict:
+    """Random-init tree; MoE leaves are stacked [layer, expert, ...]:
+    weights N(0, 0.02), the output projections N(0, 0.02/sqrt(2L)), norm
+    gains 1; drawn from ``gen`` (``gpt2.normal``) onto ``device``
+    (``cuda`` by default, which raises without a card)."""
+    device = resolve_device(device)
+    E, L, X, F_ = cfg.n_embd, cfg.n_layer, cfg.n_experts, cfg.d_ff
+    kvE = cfg.n_kv_head * cfg.head_dim
+    out_scale = 0.02 / math.sqrt(2 * L)
+
+    def dense(shape, scale=0.02):
+        return normal(gen, shape, scale, dtype, device)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    return {
+        "wte": dense((cfg.vocab_size, E)),
+        "ln_f": {"g": ones((E,))},
+        "lm_head": dense((E, cfg.vocab_size)),
+        "blocks": {
+            "ln_attn": {"g": ones((L, E))},
+            "ln_moe": {"g": ones((L, E))},
+            "attn": {
+                "q_w": dense((L, E, E)),
+                "k_w": dense((L, E, kvE)),
+                "v_w": dense((L, E, kvE)),
+                "o_w": dense((L, E, E), out_scale),
+            },
+            "moe": {
+                "router_w": dense((L, E, X)),
+                # SwiGLU expert FFN: w1 gate, w3 up, w2 down (HF names)
+                "w1": dense((L, X, E, F_)),
+                "w3": dense((L, X, E, F_)),
+                "w2": dense((L, X, F_, E), out_scale),
+            },
+        },
+    }
 
 
 # ── HF checkpoint mapping (Mixtral tensor names) ──
@@ -340,21 +393,52 @@ def _moe_block(x, p, cfg: MoEConfig):
     return out.reshape(B, T, E), aux[0]
 
 
-@torch.inference_mode()
-def forward(params: dict, input_ids: torch.Tensor, cfg: MoEConfig):
-    """(B, T) ids → ((B, T, vocab) logits, scalar aux loss)."""
+def _block(x, lp, cfg: MoEConfig):
+    """One layer over (B, T, E): ``(x, the layer's aux loss)``."""
+    h = _rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
+    x = x + _attention(h, lp["attn"], cfg)
+    h = _rms_norm(x, lp["ln_moe"]["g"], cfg.rms_eps)
+    moe_out, layer_aux = _moe_block(h, lp["moe"], cfg)
+    return x + moe_out, layer_aux
+
+
+def _forward(params: dict, input_ids: torch.Tensor, cfg: MoEConfig,
+             remat: bool = False):
+    """:func:`forward` outside inference mode: the training core.
+    ``remat=True`` recomputes each layer's activations (the dispatch
+    tensors dominate them) in the backward instead of saving them."""
     x = params["wte"][input_ids]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layer):
-        lp = _layer(params, i)
-        h = _rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
-        x = x + _attention(h, lp["attn"], cfg)
-        h = _rms_norm(x, lp["ln_moe"]["g"], cfg.rms_eps)
-        moe_out, layer_aux = _moe_block(h, lp["moe"], cfg)
-        x = x + moe_out
+        if remat:
+            x, layer_aux = checkpoint(_block, x, _layer(params, i), cfg,
+                                      use_reentrant=False)
+        else:
+            x, layer_aux = _block(x, _layer(params, i), cfg)
         aux = aux + layer_aux
     x = _rms_norm(x, params["ln_f"]["g"], cfg.rms_eps)
     return x @ params["lm_head"], aux / cfg.n_layer
+
+
+@torch.inference_mode()
+def forward(params: dict, input_ids: torch.Tensor, cfg: MoEConfig):
+    """(B, T) ids → ((B, T, vocab) logits, scalar aux loss)."""
+    return _forward(params, input_ids, cfg)
+
+
+def loss_fn(params: dict, batch: torch.Tensor, cfg: MoEConfig,
+            remat: bool = False) -> torch.Tensor:
+    """Next-token cross entropy over ``batch`` (B, T+1) ids plus
+    ``aux_loss_weight`` × the load-balance aux loss."""
+    logits, aux = _forward(params, batch[:, :-1], cfg, remat)
+    return cross_entropy(logits, batch[:, 1:]) + cfg.aux_loss_weight * aux
+
+
+def train_step(params: dict, batch: torch.Tensor, cfg: MoEConfig,
+               lr: float = 1e-3, remat: bool = False):
+    """One SGD step: ``(new params, loss)``; ``params`` is not changed."""
+    loss, grads = value_and_grad(loss_fn, params, batch, cfg, remat)
+    return sgd(params, grads, lr), loss
 
 
 # ── Incremental decode (serving) ──

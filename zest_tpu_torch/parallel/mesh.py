@@ -97,6 +97,21 @@ class SlotMesh:
                 out.append(d)
         return out
 
+    def axis_devices(self, axis: str,
+                     at: dict[str, int] | None = None) -> list[torch.device]:
+        """The devices of the slots along ``axis``, in axis order, every
+        other axis at its index in ``at`` (0 where ``at`` names none)."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {axis!r}")
+        at = at or {}
+        index = tuple(slice(None) if a == axis else at.get(a, 0)
+                      for a in self.axis_names)
+        row = self.devices[index]
+        if any(d is None for d in row):
+            raise ValueError(f"the {axis!r} axis spans other processes' "
+                             "slots")
+        return list(row)
+
     def coords(self, slot: int) -> dict[str, int]:
         """The slot's index along each axis."""
         return dict(zip(self.axis_names,
