@@ -187,6 +187,29 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    ``CP_PARAM_TOL``), and ``pipeline_blocks`` over ``{"pipe": 2}`` (4
    microbatches of a batch of 4) against the plain layer loop, output and
    gradients within ``PIPE_TOL``;
+13. the sharded tree's life cycle, on four slots of ``cuda:0``. 13a:
+   phase 3's GPT-2 revision A pulled into a fresh node over
+   ``model_mesh({"model": 4}, [cuda:0] * 4)`` with the pod pre-pass, then
+   ``pull_model(..., mesh=, base_params=, base_revision=)`` to phase 5b's
+   revision B: reused shards > 0 and the plan's count, every reused
+   ``ShardedTensor`` A's object, the base consumed, the digest a cold
+   mesh pull's and 5b's, every slot's shard the file's slice, the
+   landing's peak allocation rise within the landed shards and one commit
+   group, the pod round's kernel #3/#1 launches and rows those of the
+   plan's whole-xorb units (a unit that is only a prefix of its xorb is
+   rejected, as predicted), greedy tokens at batch 1 and 4 5b's. 13b:
+   phase 7's push pulled at float32 over ``{"data": 2, "model": 2}``,
+   ``llama.params_from_hf(..., train=True)``, three AdamW steps with 12b's
+   recipe on 12b's batch cut over ``data``: step-1 loss 12b's within 1e-4
+   relative, layer 0's first moments and parameters after step 2 12b's
+   (``SHARD_MU_TOL``, ``SHARD_PARAM_BOUND``), the data replicas bit-equal
+   after every step, the loss falling, the peak rise within its
+   reckoning. 13c: ``cp_train_step`` over ``{"seq": 2, "model": 2}`` at
+   12c's cut against ``train_step`` (loss and ``down_w``). 13d: Mixtral
+   at its published width, 1 layer, float32, under ``moe.param_specs``
+   over ``{"expert": 4}``: the step-1 loss the CPU float32 loss's within
+   ``LOGITS_TOL``, each expert's gradient on its slot, the loss falling,
+   the peak rise within its reckoning;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -199,8 +222,9 @@ Every phase is fatal. The last three lines of standard output are the
 kernels' JSON record (with each kernel's launches by path: the serving
 pool's (``serve``), the daemon's (``serve_daemon``), the collective's
 (``coop_collective``, ``coop_collective_lane``), the pod round's
-(``pod``), the mesh landing's expert round (``mesh``) and the fine-tune's
-push (``push_finetune``) among them), the card's name and power limit,
+(``pod``), the mesh landing's expert round (``mesh``), the sharded swap's
+round (``mesh_swap``) and the fine-tune's push (``push_finetune``) among
+them), the card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
@@ -783,9 +807,11 @@ def revision_b(tensors: dict, seed: int) -> dict:
 
 def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
                sha_a: str, tensors_b: dict, prompts, steps: int,
-               tth_a: float, dev) -> int:
+               tth_a: float, dev) -> dict:
     """Phase 5b: node B's watcher delta-pulls and swaps revision B into
-    phase 4's tree. Returns the push's BLAKE3 kernel launches."""
+    phase 4's tree. Returns the push's BLAKE3 kernel launches and what
+    phase 13a holds its sharded swap to: B's sha and digest, the swap's
+    time and the greedy tokens at batch 1 and 4."""
     import torch
 
     from zest_tpu_torch.models.generate import load_generator
@@ -894,11 +920,13 @@ def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
     _, gen_cuda = load_generator(res.snapshot_dir, device=dev,
                                  tensors=params)
     _, gen_cpu = load_generator(res.snapshot_dir, device="cpu")
+    tokens = {}
     for batch in ([prompts[0]], prompts):
         out = gen_cuda(batch, steps, stop_at_eos=False)
         if not np.array_equal(out, gen_cpu(batch, steps,
                                            stop_at_eos=False)):
             fail(f"phase 5b: batch {len(batch)}: cuda tokens != cpu tokens")
+        tokens[len(batch)] = out
     reused_bytes = sum(params[n].numel() * params[n].element_size()
                        for n in reused)
     print(f"phase 5b hot-swap: time_to_swap_s {st['time_to_swap_s']} "
@@ -914,7 +942,9 @@ def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
           f"{lanes}; digest and decode at batch 1 and 4 equal to the CPU's")
     del gen_cuda, gen_cpu, params
     res.params = None
-    return launches
+    return {"launches": launches, "revision": pushed.revision,
+            "digest": want, "time_to_swap_s": st["time_to_swap_s"],
+            "tokens": tokens, "prompts": prompts, "steps": steps}
 
 
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
@@ -2789,14 +2819,18 @@ def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> None:
 
 
 def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
-                         seed: int, steps: int, dev) -> int:
+                         seed: int, steps: int, dev) -> dict:
     """Phase 12b: Llama-3.2-1B at its published width and depth from
     phase 7's push (node ``l``'s snapshot): the float32 tree on ``dev``,
     five AdamW steps, ``export_hf_safetensors``, ``push_checkpoint`` as a
     new revision of phase 7's repo (the kernel re-verifies every minted
     chunk), a delta pull on node ``l`` over revision A's landed tree, and
     greedy decode from the swapped tree. Returns the push's kernel
-    launches."""
+    launches and what phase 13b holds its sharded steps to: the losses,
+    the step times, layer 0's ``q_w`` and ``down_w`` after the second
+    step (the first that moves a parameter: one warmup step makes the
+    first learning rate 0) on the host, and the step's memory beyond the
+    parameters, gradients and moments."""
     import functools
 
     import torch
@@ -2832,13 +2866,27 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
                                                           cfg=cfg))
     state = training.create_state(params, tx)
     del params
-    losses, times = [], []
-    for _ in range(FT_STEPS):
+    losses, times, after2 = [], [], {}
+    for k in range(FT_STEPS):
         ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
         times.append(ms)
         losses.append(float(loss))
+        if k == 1:
+            blocks = state.params["blocks"]
+            mu = state.opt_state.mu["blocks"]
+            after2 = {name: t[0].to("cpu", copy=True) for name, t in (
+                ("q_w", blocks["attn"]["q_w"]),
+                ("down_w", blocks["mlp"]["down_w"]),
+                ("mu q_w", mu["attn"]["q_w"]),
+                ("mu down_w", mu["mlp"]["down_w"]))}
     peak = (torch.cuda.max_memory_allocated(dev) - mem0
             if dev.type == "cuda" else 0)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in training.tree_leaves(state.params))
+    base_bytes = sum(t.numel() * t.element_size() for t in base.values())
+    # Beyond the base tree, the float32 parameters, their gradients and
+    # both moments: the activations and the update's temporaries.
+    overhead = peak - base_bytes - 4 * param_bytes
     # Where a step's time goes: the forward and backward alone (the
     # state unchanged); the rest of a step is the clip and the update.
     grad_ms, _ = step_ms(dev, lambda: training.value_and_grad(
@@ -2921,7 +2969,8 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
           f"{[round(t, 2) for t in times]}: train_step_s {step_s:.4f} "
           f"(steps 2-5), {tokens / step_s:.1f} tokens/s; forward+backward "
           f"alone {grad_ms:.2f} ms (the clip and update the rest); peak "
-          f"allocation rise {peak:,} B")
+          f"allocation rise {peak:,} B ({overhead:,} B beyond A's bf16 "
+          f"tree and 4 x the float32 parameters)")
     print(f"  export {export_s:.2f} s ({export_bytes:,} B); push_s "
           f"{push_s:.2f} ({pushed.new_xorbs} xorbs, {pushed.minted_chunks} "
           f"chunks, kernel launches {launches}); delta pull on node l "
@@ -2929,7 +2978,9 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
           f"delta {d_print}, swap {swap}; digest = the export's; greedy "
           f"from the swapped tree = the trainer's ({', '.join(notes)}); "
           f"phase wall {time.monotonic() - wall0:.2f} s")
-    return launches
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "times": times, "after2": after2, "overhead": overhead,
+            "batch_seed": seed + 13}
 
 
 def parallel_train_phase(seed: int, dev) -> None:
@@ -3015,6 +3066,507 @@ def parallel_train_phase(seed: int, dev) -> None:
           f"layer loop (relative, <= {PIPE_TOL:.0e}); forward+backward "
           f"{pipe_ms:.1f} ms vs loop {loop_ms:.1f} ms; phase wall "
           f"{time.monotonic() - wall0:.2f} s")
+
+
+# ── Phase 13: the sharded tree's life cycle ──
+
+SWAP_MESH = {"model": 4}
+TRAIN_MESH = {"data": 2, "model": 2}
+TP_CP_MESH = {"seq": 2, "model": 2}
+EP_MESH = {"expert": 4}
+SHARD_STEPS = 3
+# 13b against 12b: the step-1 loss within 1e-4 relative (the same start
+# and batch; the sharded sums run in other orders). Layer 0's q_w and
+# down_w after step 2, the first that moves a parameter: their first
+# moments (0.09 g1 + 0.1 g2, linear in the gradients) within 1e-5 of the
+# leaf's largest; the parameters within 2 lr of 12b's, and at most 1e-3
+# of their elements beyond 1e-6. Adam's update at step 2 is lr times
+# mu_hat / (sqrt(nu_hat) + eps), at most ~1 in size, and an element whose
+# gradient sits near eps = 1e-8 turns a last-ulp gradient difference into
+# an O(lr) one (the first card run: 1.561e-05 on q_w, past the reference's
+# SGD tolerance of 1e-5 abs / 1e-4 rel that was first stated here).
+SHARD_LOSS_RTOL, SHARD_MU_TOL = 1e-4, 1e-5
+SHARD_PARAM_BOUND, SHARD_PARAM_SHARE = 2 * FT_ADAMW["lr"], 1e-3
+# 13c: cp_train_step with a model axis against train_step (the reference's
+# tolerances): the loss 1e-5, down_w after one SGD step 1e-5 abs / 1e-4 rel.
+TP_CP_TOL, TP_CP_ATOL, TP_CP_RTOL = 1e-5, 1e-5, 1e-4
+# 13d: Mixtral at its published width, 1 layer, float32, on a (2, 65)
+# batch (128 tokens routed as one group).
+EP_BATCH = (2, 65)
+GIB = 1 << 30
+
+
+def _replicas_equal(tree) -> bool:
+    """Every replica of every block of a sharded tree bit-equal."""
+    from zest_tpu_torch.models.training import tree_leaves
+
+    import torch
+
+    return all(torch.equal(t.shards[g[0]], t.shards[s])
+               for t in tree_leaves(tree) for g in t.replica_groups()
+               for s in g[1:])
+
+
+def _slot_bytes(tree) -> int:
+    """Bytes a sharded tree holds on its slots (replicas counted)."""
+    from zest_tpu_torch.models.training import tree_leaves
+
+    return sum(x.numel() * x.element_size() for t in tree_leaves(tree)
+               for x in t.shards.values())
+
+
+def mesh_swap_phase(work: Path, url: str, sha_a: str, swap_ref: dict,
+                    dev) -> dict:
+    """Phase 13a: the hot-swap of a sharded tree. A fresh node pulls
+    phase 3's GPT-2 revision A over ``SWAP_MESH`` on four slots of ``dev``
+    with the pod pre-pass, then ``pull_model(..., mesh=, base_params=,
+    base_revision=)`` to phase 5b's revision B: reused shards > 0 and the
+    plan's count, the digest a cold mesh pull's and 5b's, every slot's
+    shard the file's slice, the base consumed, the landing's peak
+    allocation rise within 5b's rule, the round's kernel #3/#1 launches
+    and rows those of the units it filled, and GPT-2's greedy tokens from
+    the swapped tree 5b's. Returns the kernels' launches in the swap."""
+    import torch
+
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.loader import (_STREAM_COMMIT_BYTES,
+                                              load_checkpoint, params_digest)
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.parallel import DistributionPlan, PoolLayout
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer import pull as pull_mod
+    from zest_tpu_torch.transfer.bridge import XetBridge
+
+    wall0 = time.monotonic()
+    sha_b = swap_ref["revision"]
+    mesh = model_mesh(SWAP_MESH, [dev] * 4)
+    n = mesh.size
+
+    def node(name):
+        return Config(hf_home=work / name / "hf",
+                      cache_dir=work / name / "zest", endpoint=url,
+                      hbm_staging_bytes=POD_BUDGET)
+
+    cfg_s = node("s13")
+    t0 = time.monotonic()
+    res_a = pull_mod.pull_model(cfg_s, REPO, revision=sha_a, device=dev,
+                                mesh=mesh, pod=True)
+    pull_a_s = time.monotonic() - t0
+    base = res_a.params
+    res_a.params = None
+    if not res_a.stats["hbm"]["sharded"] or len(base) != 148:
+        fail(f"phase 13a: revision A landed {len(base)} tensors, sharded "
+             f"{res_a.stats['hbm']['sharded']}")
+    refs = {name: weakref.ref(t) for name, t in base.items()}
+    counters = (blake3_cuda.COUNTER, bg4_cuda.COUNTER,
+                bg4_cuda.FUSED_COUNTER)
+    mem: dict = {}
+    stage = pull_mod.stage_cached_to_hbm
+
+    def landing(*a, **k):
+        # The swap's own landing, after the pod round freed its pool.
+        torch.cuda.synchronize(dev)
+        mem["before"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = stage(*a, **k)
+        torch.cuda.synchronize(dev)
+        mem["peak"] = torch.cuda.max_memory_allocated(dev)
+        return out
+
+    for c in counters:
+        c.reset()  # counts from here are the swap's
+    pull_mod.stage_cached_to_hbm = landing
+    try:
+        res = pull_mod.pull_model(cfg_s, REPO, revision=sha_b, device=dev,
+                                  mesh=mesh, pod=True, base_params=base,
+                                  base_revision=sha_a)
+    finally:
+        pull_mod.stage_cached_to_hbm = stage
+    launches = {name: (c.launches, c.rows) for name, c in zip(
+        ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters)}
+    st = res.stats
+    swap, d, pod = st["hbm"].get("swap"), st.get("delta"), st.get("pod")
+    if not swap or not d or not pod or pod.get("skipped"):
+        fail(f"phase 13a: swap {swap}, delta {d and d.get('tensors')}, "
+             f"pod {pod}")
+    params = res.params
+    reused = {name for name, t in params.items()
+              if name in refs and refs[name]() is t}
+    if not 0 < len(reused) == swap["reused_tensors"] \
+            == d["tensors"]["reused"]:
+        fail(f"phase 13a: {len(reused)} shards reused in place, swap "
+             f"{swap}, plan {d['tensors']}")
+    if base:
+        fail(f"phase 13a: {len(base)} tensors left in the base dict")
+    landed = [t for name, t in params.items() if name not in reused]
+    landed_alloc = sum(x.numel() * x.element_size() for t in landed
+                       for x in t.shards.values())
+    group = max([_STREAM_COMMIT_BYTES] + [int(t.nbytes) for t in landed])
+    rise = mem["peak"] - mem["before"]
+    if rise > landed_alloc + group:
+        fail(f"phase 13a: the landing's peak allocation rose {rise:,} B, "
+             f"above the landed shards {landed_alloc:,} B + one commit "
+             f"group {group:,} B")
+    # The round verifies on the card each unit its layout takes for a
+    # whole xorb (the one planned range of its hash starts at chunk 0):
+    # the unit's BG4 chunks in one kernel #3 launch, the rest in one
+    # kernel #1 launch. A unit that is only a prefix of its xorb (B reads
+    # A's last xorb up to the chunks it replaced) hashes to another xorb
+    # hash and is rejected, as the JAX package's rule rejects it; the
+    # landing then reads that xorb from the cache A's pull filled.
+    bridge = XetBridge(cfg_s)
+    bridge.authenticate(REPO, sha_b)
+    recs = [bridge.get_reconstruction(e.xet_hash)
+            for e in HubClient(cfg_s).list_files(REPO, sha_b) if e.is_xet]
+    bridge.close()
+    plan = DistributionPlan.build(recs, n)
+    layout = PoolLayout.from_plan(plan)
+    want = {"blake3_chunks": [0, 0], "bg4_regroup": [0, 0],
+            "bg4_fused_verify": [0, 0]}
+    prefixes = 0
+    for a in plan.assignments:
+        if a.hash_hex not in layout.full_xorbs:
+            continue
+        lo, hi = a.fetch_info.range.start, a.fetch_info.range.end
+        schemes = XorbReader(cfg_s.xorb_cache_path(
+            a.hash_hex).read_bytes()).chunk_schemes
+        bg4 = int((schemes[lo:hi] == int(Scheme.BG4_LZ4)).sum())
+        prefixes += hi < len(schemes)
+        for name, k in (("bg4_fused_verify", bg4),
+                        ("blake3_chunks", hi - lo - bg4)):
+            if k:
+                want[name][0] += 1
+                want[name][1] += k
+    if pod["units"] != len(plan.assignments) \
+            or pod["filled"] + pod["verify_rejected"] != pod["units"] \
+            or pod["verify_rejected"] != prefixes \
+            or any(list(launches[k]) != want[k] for k in want):
+        fail(f"phase 13a: pod {pod}; kernel launches (rows) {launches}, "
+             f"the plan's whole-xorb units predict {want} and {prefixes} "
+             "rejected prefixes")
+    digest = params_digest(params)
+    cold = pull_mod.pull_model(node("c13"), REPO, revision=sha_b, device=dev,
+                               mesh=mesh, pod=False)
+    if not digest == params_digest(cold.params) == swap_ref["digest"]:
+        fail("phase 13a: the swapped tree's digest != a cold mesh pull's "
+             "or phase 5b's")
+    cold.params = None
+    host = load_checkpoint(res.snapshot_dir, "cpu")
+    for name, t in params.items():
+        for slot in range(n):
+            got = t.shard(slot)
+            if got.device != dev or not torch.equal(
+                    got.cpu().view(torch.uint8),
+                    host[name][t.index(slot)].contiguous().view(
+                        torch.uint8)):
+                fail(f"phase 13a: slot {slot}'s shard of {name} differs "
+                     "from the file's slice")
+    del host
+    _, gen = load_generator(res.snapshot_dir, device=dev, tensors=params)
+    prompts = swap_ref["prompts"]
+    for batch in ([prompts[0]], prompts):
+        out = gen(batch, swap_ref["steps"], stop_at_eos=False)
+        if not np.array_equal(out, swap_ref["tokens"][len(batch)]):
+            fail(f"phase 13a: batch {len(batch)}: tokens from the swapped "
+                 "tree differ from phase 5b's")
+    specs = sorted({str(tuple(t.spec)) for t in params.values()})
+    del gen, params, refs
+    res.params = None
+    shutil.rmtree(work / "s13")
+    shutil.rmtree(work / "c13")
+    torch.cuda.empty_cache()
+    print(f"phase 13a sharded hot-swap ({card_label()}): GPT-2 (148 "
+          f"tensors) over {SWAP_MESH} on [{dev}] * {n}: revision A pulled "
+          f"in {pull_a_s:.2f} s; the swap to B: time_to_swap_s "
+          f"{st['time_to_swap_s']} (phase 5b, one device: "
+          f"{swap_ref['time_to_swap_s']}); reused {len(reused)} sharded "
+          f"tensors in place (= the plan's), landed "
+          f"{swap['landed_tensors']} ({landed_alloc:,} B over the slots); "
+          f"the landing's peak allocation +{rise:,} B (<= landed + one "
+          f"group {group:,} B); pod round {pod} ({prefixes} prefix "
+          f"unit(s) rejected, as predicted); kernel launches (rows) "
+          f"{launches} = the plan's whole-xorb units'; specs {specs}; "
+          f"digest = a cold "
+          f"mesh pull's = phase 5b's; every shard the file's slice; "
+          f"greedy at batch 1 and 4 = phase 5b's; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    return {name: k for name, (k, _rows) in launches.items()}
+
+
+def sharded_train_phase(work: Path, url: str, llama_ref: dict,
+                        ft_ref: dict, dev) -> None:
+    """Phase 13b: AdamW on a sharded tree at Llama-3.2-1B's published
+    width and depth. Phase 7's push is pulled at float32 over
+    ``TRAIN_MESH`` on four slots of ``dev``, turned into the training tree
+    (``params_from_hf(..., train=True)``: every leaf under
+    ``param_specs``), and trained ``SHARD_STEPS`` steps with 12b's recipe
+    on 12b's batch cut over ``data``: the step-1 loss 12b's, layer 0's
+    q_w and down_w after step 2 12b's, the data replicas bit-equal after
+    every step, the loss falling, the peak allocation rise within the
+    written reckoning."""
+    import functools
+
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import llama, training
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    wall0 = time.monotonic()
+    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    mesh = model_mesh(TRAIN_MESH, [dev] * 4)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    cfg_t = Config(hf_home=work / "t13" / "hf",
+                   cache_dir=work / "t13" / "zest", endpoint=url,
+                   land_dtype="f32")
+    t0 = time.monotonic()
+    res = pull_model(cfg_t, LLAMA_REPO, revision=llama_ref["revision"],
+                     device=dev, mesh=mesh, pod=False)
+    pull_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    tree = llama.params_from_hf(res.params, cfg, torch.float32, train=True)
+    torch.cuda.synchronize(dev)
+    build_s = time.monotonic() - t0
+    res.params = None
+    shutil.rmtree(work / "t13")
+    torch.cuda.empty_cache()
+    held = _slot_bytes(tree)
+    largest = max(x.numel() * x.element_size()
+                  for t in training.tree_leaves(tree)
+                  for x in t.shards.values())
+    # The reckoning, written before the first card run: the parameters,
+    # their gradients and both moments on the slots (4 x held), the
+    # update's temporaries (3 x the largest shard), and 12b's activations
+    # and temporaries beyond its 4 x parameters.
+    reckoning = 4 * held + 3 * largest + max(ft_ref["overhead"], 0)
+    batch = ft_batch(cfg.vocab_size, ft_ref["batch_seed"], dev)
+    tx = training.adamw(**FT_ADAMW)
+    step = training.make_train_step(tx, functools.partial(llama.loss_fn,
+                                                          cfg=cfg))
+    state = training.create_state(tree, tx)
+    del tree
+    specs_ok = all(m.spec == p.spec for m, p in zip(
+        training.tree_leaves(state.opt_state.mu),
+        training.tree_leaves(state.params)))
+    losses, times, after2 = [], [], {}
+    for k in range(SHARD_STEPS):
+        ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
+        times.append(ms)
+        losses.append(float(loss))
+        if not (_replicas_equal(state.params)
+                and _replicas_equal(state.opt_state.mu)
+                and _replicas_equal(state.opt_state.nu)):
+            fail(f"phase 13b: the data replicas differ after step {k + 1}")
+        if k == 1:
+            blocks = state.params["blocks"]
+            mu = state.opt_state.mu["blocks"]
+            after2 = {name: t.full()[0].cpu() for name, t in (
+                ("q_w", blocks["attn"]["q_w"]),
+                ("down_w", blocks["mlp"]["down_w"]),
+                ("mu q_w", mu["attn"]["q_w"]),
+                ("mu down_w", mu["mlp"]["down_w"]))}
+    peak = torch.cuda.max_memory_allocated(dev) - mem0
+    held_state = 3 * held  # params and both moments, the grads gone
+    del state
+    torch.cuda.empty_cache()
+    want = ft_ref["losses"][0]
+    if not specs_ok:
+        fail("phase 13b: a moment's spec is not its parameter's")
+    if not abs(losses[0] - want) <= SHARD_LOSS_RTOL * abs(want):
+        fail(f"phase 13b: step-1 loss {losses[0]} off 12b's {want} by more "
+             f"than {SHARD_LOSS_RTOL:.0e} relative")
+    errs, shares = {}, {}
+    for name, got in after2.items():
+        ref = ft_ref["after2"][name]
+        d = (got - ref).abs()
+        errs[name] = float(d.max())
+        if name.startswith("mu "):
+            bound = SHARD_MU_TOL * float(ref.abs().max())
+            if not errs[name] <= bound:
+                fail(f"phase 13b: layer 0's {name} after step 2 off 12b's "
+                     f"by {errs[name]:.3e} > {bound:.3e}")
+            continue
+        shares[name] = float((d > 1e-6).float().mean())
+        if not (errs[name] <= SHARD_PARAM_BOUND
+                and shares[name] <= SHARD_PARAM_SHARE):
+            fail(f"phase 13b: layer 0's {name} after step 2 off 12b's by "
+                 f"{errs[name]:.3e} (bound {SHARD_PARAM_BOUND:.0e}), "
+                 f"{shares[name]:.2e} of it beyond 1e-6")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        fail(f"phase 13b: losses {losses}")
+    if peak > reckoning:
+        fail(f"phase 13b: the peak allocation rose {peak:,} B, above the "
+             f"reckoning {reckoning:,} B")
+    step_s = sum(times[1:]) / (len(times) - 1) / 1e3
+    print(f"phase 13b sharded AdamW ({card_label()}): {LLAMA_REPO} at its "
+          f"published width and depth, float32, over {TRAIN_MESH} on "
+          f"[{dev}] * 4: pulled in {pull_s:.2f} s, training tree built in "
+          f"{build_s:.2f} s ({held:,} B on the slots; the state "
+          f"{held_state:,} B); AdamW {FT_ADAMW} on 12b's batch {FT_BATCH} "
+          f"cut over data: losses {[round(x, 6) for x in losses]} (12b "
+          f"{[round(x, 6) for x in ft_ref['losses'][:SHARD_STEPS]]}; step 1 "
+          f"|d| {abs(losses[0] - want):.2e}); layer 0 after step 2 vs 12b: "
+          f"max |d| {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}; "
+          f"share beyond 1e-6 q_w {shares['q_w']:.2e}, down_w "
+          f"{shares['down_w']:.2e}; "
+          f"replicas bit-equal after every step; moments in the params' "
+          f"specs; step ms {[round(t, 2) for t in times]}: train_step_s "
+          f"{step_s:.4f} (steps 2-{SHARD_STEPS}) vs 12b's unsharded "
+          f"{ft_ref['step_s']:.4f}; peak allocation rise {peak:,} B "
+          f"(reckoning {reckoning:,} B = 4 x {held:,} + 3 x {largest:,} + "
+          f"12b's {ft_ref['overhead']:,}); phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+
+
+def tp_cp_phase(seed: int, dev) -> None:
+    """Phase 13c: TP×CP at Llama-3.2-1B's width, depth cut to
+    ``CP_LAYERS`` as in 12c: ``cp_train_step`` over ``TP_CP_MESH`` on four
+    slots of ``dev`` (local heads in the ring, the o/down sums on each
+    model row's lead) against the dense ``train_step``."""
+    import torch
+
+    from zest_tpu_torch.models import llama, training
+    from zest_tpu_torch.parallel.mesh import model_mesh
+
+    wall0 = time.monotonic()
+    cfg = llama.LlamaConfig.from_hf(dict(LLAMA_CONFIG,
+                                         num_hidden_layers=CP_LAYERS))
+    params = llama.init_params(torch.Generator().manual_seed(seed + 14),
+                               cfg, device=dev)
+    n_params = sum(t.numel() for t in training.tree_leaves(params))
+    batch = ft_batch(cfg.vocab_size, seed + 14, dev)
+    mesh = model_mesh(TP_CP_MESH, [dev] * 4)
+    llama.cp_train_step(params, batch, cfg, mesh)  # warm-up
+    ms, (want, loss) = step_ms(dev, lambda: llama.train_step(params, batch,
+                                                             cfg))
+    cp_ms, (got, cp_loss) = step_ms(dev, lambda: llama.cp_train_step(
+        params, batch, cfg, mesh))
+    loss_d = abs(float(cp_loss) - float(loss))
+    g, w = got["blocks"]["mlp"]["down_w"], want["blocks"]["mlp"]["down_w"]
+    down_d = float((g - w).abs().max())
+    if not loss_d <= TP_CP_TOL + TP_CP_TOL * abs(float(loss)) \
+            or not torch.allclose(g, w, atol=TP_CP_ATOL, rtol=TP_CP_RTOL):
+        fail(f"phase 13c: cp_train_step over {TP_CP_MESH} loss off by "
+             f"{loss_d:.2e}, down_w by {down_d:.2e}")
+    del params, got, want
+    torch.cuda.empty_cache()
+    print(f"phase 13c TP x CP ({card_label()}): Llama-3.2-1B width, "
+          f"{CP_LAYERS} layers ({n_params:,} params), batch {FT_BATCH}: "
+          f"cp_train_step over {TP_CP_MESH} on [{dev}] * 4 loss "
+          f"{float(cp_loss):.6f}, |d| vs train_step {loss_d:.2e} (atol "
+          f"and rtol {TP_CP_TOL:.0e}), down_w max |d| {down_d:.2e} (atol "
+          f"{TP_CP_ATOL:.0e}, rtol {TP_CP_RTOL:.0e}); step {cp_ms:.1f} ms vs "
+          f"train_step {ms:.1f} ms; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+
+
+def expert_train_phase(seed: int, dev) -> None:
+    """Phase 13d: expert-parallel AdamW at Mixtral-8x7B's published width,
+    depth cut to 1 layer (phase 9's cut), float32, over ``EP_MESH`` on
+    four slots of ``dev``: random weights from ``--seed + 16`` laid out by
+    ``moe.param_specs`` (slot ``s`` holds experts ``2s, 2s + 1`` only);
+    the step-1 loss against the port's CPU float32 ``moe.loss_fn`` within
+    ``LOGITS_TOL``, the loss falling over ``SHARD_STEPS`` steps, each
+    expert's gradient and update on its owning slot's shard, the peak
+    allocation rise within its reckoning."""
+    import functools
+
+    import torch
+
+    from zest_tpu_torch.models import moe, training
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.parallel.sharding import shard_tree
+
+    wall0 = time.monotonic()
+    cfg = moe.MoEConfig.from_hf(MIXTRAL_CONFIG)
+    t0 = time.monotonic()
+    params = moe.init_params(torch.Generator().manual_seed(seed + 16), cfg,
+                             device="cpu")
+    init_s = time.monotonic() - t0
+    n_params = sum(t.numel() for t in training.tree_leaves(params))
+    batch = ft_batch(cfg.vocab_size, seed + 16, torch.device("cpu"),
+                     EP_BATCH)
+    t0 = time.monotonic()
+    with torch.no_grad():
+        cpu_loss = float(moe.loss_fn(params, batch, cfg))
+    cpu_s = time.monotonic() - t0
+    mesh = model_mesh(EP_MESH, [dev] * 4)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev)
+    tree = shard_tree(params, moe.param_specs(cfg), mesh)
+    w1_0 = {s: t.to("cpu", copy=True)
+            for s, t in tree["blocks"]["moe"]["w1"].shards.items()}
+    del params
+    held = _slot_bytes(tree)
+    experts = sum(_slot_bytes(tree["blocks"]["moe"][k])
+                  for k in ("w1", "w2", "w3"))
+    largest = max(x.numel() * x.element_size()
+                  for t in training.tree_leaves(tree)
+                  for x in t.shards.values())
+    # Parameters, gradients and both moments (4 x held), the update's
+    # temporaries (3 x the largest shard) and 1 GiB for the activations
+    # and the backward's buffers (128 tokens), as written before the
+    # first card run.
+    reckoning = 4 * held + 3 * largest + GIB
+    batch = batch.to(dev)
+    _, grads = training.value_and_grad(moe.loss_fn, tree, batch, cfg)
+    for leaf in ("w1", "w2", "w3"):
+        g, p = grads["blocks"]["moe"][leaf], tree["blocks"]["moe"][leaf]
+        if g.spec != p.spec or any(
+                g.shards[s].shape != p.shards[s].shape
+                or g.shards[s].shape[1] != cfg.n_experts // mesh.size
+                or g.shards[s].device != dev for s in p.shards):
+            fail(f"phase 13d: {leaf}'s gradient is not laid out as its "
+                 "experts are")
+    del grads, g, p
+    tx = training.adamw(**FT_ADAMW)
+    step = training.make_train_step(tx, functools.partial(moe.loss_fn,
+                                                          cfg=cfg))
+    state = training.create_state(tree, tx)
+    del tree
+    losses, times = [], []
+    for _ in range(SHARD_STEPS):
+        ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
+        times.append(ms)
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated(dev) - mem0
+    moved = []
+    for s, t in state.params["blocks"]["moe"]["w1"].shards.items():
+        changed = (t.cpu() != w1_0[s]).transpose(0, 1)
+        moved.append(int(changed.reshape(changed.shape[0], -1).any(
+            dim=1).sum()))
+    del state
+    torch.cuda.empty_cache()
+    if not abs(losses[0] - cpu_loss) <= LOGITS_TOL:
+        fail(f"phase 13d: step-1 loss {losses[0]} off the CPU float32 loss "
+             f"{cpu_loss} by more than {LOGITS_TOL:.0e}")
+    if not losses[-1] < losses[0] or not all(np.isfinite(losses)):
+        fail(f"phase 13d: losses {losses}")
+    if not all(m == cfg.n_experts // mesh.size for m in moved):
+        fail(f"phase 13d: experts updated on each slot {moved}")
+    if peak > reckoning:
+        fail(f"phase 13d: the peak allocation rose {peak:,} B, above the "
+             f"reckoning {reckoning:,} B")
+    print(f"phase 13d expert-parallel AdamW ({card_label()}): "
+          f"{MIXTRAL_REPO} at its published width, 1 layer, float32 "
+          f"({n_params:,} params; init on the host {init_s:.2f} s) over "
+          f"{EP_MESH} on [{dev}] * 4: {held:,} B on the slots, experts "
+          f"{experts:,} B (each slot its 2), batch {EP_BATCH}: losses "
+          f"{[round(x, 6) for x in losses]}; step 1 vs CPU float32 "
+          f"{cpu_loss:.6f} (|d| {abs(losses[0] - cpu_loss):.2e} <= "
+          f"{LOGITS_TOL:.0e}; CPU loss {cpu_s:.2f} s); gradients in the "
+          f"experts' layout, experts updated per slot {moved}; step ms "
+          f"{[round(t, 2) for t in times]}; peak allocation rise {peak:,} B "
+          f"(reckoning {reckoning:,} B = 4 x {held:,} + 3 x {largest:,} + "
+          f"1 GiB); phase wall {time.monotonic() - wall0:.2f} s")
 
 
 def run(args, work: Path) -> dict:
@@ -3131,10 +3683,11 @@ def run(args, work: Path) -> dict:
         del gen_cuda, gen_cpu  # node B's tree is the swap's base now
 
         # ── 5b. the revision hot-swap into phase 4's tree ──
-        delta_launches = swap_phase(
+        swap_ref = swap_phase(
             work, publisher.url, publisher, cfg_a, cfg_b, pulled,
             pushed.revision, tensors_b, prompts, args.steps,
             pulled.stats["time_to_hbm_s"], dev)
+        delta_launches = swap_ref["launches"]
         del pulled, tensors_b  # free phase 4/5's trees
         shutil.rmtree(work / "b" / "hf")  # phase 8 seeds B's xorb cache
         torch.cuda.empty_cache()
@@ -3185,9 +3738,21 @@ def run(args, work: Path) -> dict:
         print(f"phase 12 starts with {torch.cuda.memory_allocated(dev):,} B "
               "allocated on the card")
         gpt2_finetune_phase(ckpt, work, args.seed, dev)
-        finetune_launches = llama_finetune_phase(
+        ft_ref = llama_finetune_phase(
             work, publisher.url, cfg_a, llama_ref, args.seed, args.steps, dev)
+        finetune_launches = ft_ref["launches"]
         parallel_train_phase(args.seed, dev)
+
+        # ── 13. the sharded tree's life cycle: the hot-swap over a slot
+        # mesh, and tensor-, data-, context- and expert-parallel AdamW ──
+        torch.cuda.empty_cache()
+        print(f"phase 13 starts with {torch.cuda.memory_allocated(dev):,} B "
+              "allocated on the card")
+        mesh_swap_launches = mesh_swap_phase(work, publisher.url,
+                                             pushed.revision, swap_ref, dev)
+        sharded_train_phase(work, publisher.url, llama_ref, ft_ref, dev)
+        tp_cp_phase(args.seed, dev)
+        expert_train_phase(args.seed, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -3256,6 +3821,8 @@ def run(args, work: Path) -> dict:
                                      "blake3_chunks"],
                                  "pod": pod_launches["blake3_chunks"],
                                  "mesh": mesh_launches["blake3_chunks"],
+                                 "mesh_swap": mesh_swap_launches[
+                                     "blake3_chunks"],
                                  "swarm": swarm_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
@@ -3265,6 +3832,8 @@ def run(args, work: Path) -> dict:
                                             lane_launches[k["name"]],
                                         "pod": pod_launches[k["name"]],
                                         "mesh": mesh_launches[k["name"]],
+                                        "mesh_swap": mesh_swap_launches[
+                                            k["name"]],
                                         "swarm": swarm_launches[k["name"]],
                                         "serve": pool_out["launches"][
                                             k["name"]],

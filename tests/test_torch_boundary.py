@@ -219,6 +219,39 @@ def test_serving_defaults_to_cuda_and_raises(no_card, tmp_path):
     assert not (tmp_path / "zest").exists()
 
 
+def test_sharded_paths_default_to_cuda_and_raise(no_card, tmp_path):
+    """The sharded swap and sharded training start on ``cuda``: the mesh
+    over every CUDA device, a hot-swap pull over ``Config.mesh``, the
+    watcher over it, and the families' random trees; without a card each
+    raises before any work instead of running on the CPU."""
+    import torch as _torch
+
+    from zest_tpu_torch.config import Config, MeshConfig
+    from zest_tpu_torch.models import llama, moe
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import watch_and_swap
+
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest",
+                 endpoint="http://127.0.0.1:9",
+                 mesh=MeshConfig(mesh_axes={"data": 2, "model": 2}))
+    gen = _torch.Generator().manual_seed(0)
+    for call in (
+            lambda: model_mesh({"data": 2, "model": 2}),
+            lambda: model_mesh({"seq": 2, "model": 2}),
+            lambda: model_mesh({"expert": 4}),
+            lambda: pull_model(cfg, "org/m", base_params={},
+                               base_revision="a" * 40),
+            lambda: watch_and_swap(cfg, "org/m",
+                                   publisher_url="http://127.0.0.1:9",
+                                   base_params={}, base_revision="a" * 40),
+            lambda: llama.init_params(gen, llama.LlamaConfig.tiny()),
+            lambda: moe.init_params(gen, moe.MoEConfig.tiny())):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "zest").exists()
+
+
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """The wrapper routes a CUDA tensor to the kernel launch only."""
     from zest_tpu_torch.ops import blake3_cuda

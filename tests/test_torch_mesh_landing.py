@@ -10,8 +10,8 @@ landings of ``pull_model(mesh=...)``, the disk staging of a resumed pull,
 every tensor equals the reference's ``addressable_shards`` entry on the
 device of the same index, ``params_digest`` equals the reference's and
 the unsharded landing's, and the ``hbm`` keys are the reference's. A
-sharded commit that raises fails the pull, and a hot-swap over a mesh
-raises ``MeshUnsupported``.
+sharded commit that raises fails the pull, the serving pool refuses a
+mesh, and the loader takes a hot-swap over one.
 """
 
 from __future__ import annotations
@@ -206,16 +206,23 @@ def test_raising_sharded_commit_fails_the_pull(hub, tmp_path, monkeypatch,
 
 
 def test_sharded_tree_refuses_hot_swap_and_the_pool(hub, tmp_path):
-    with pytest.raises(MeshUnsupported, match="hot-swap"):
-        pull_model(_cfg(hub, tmp_path), LLAMA, device="cpu",
-                   mesh=_mesh(DM), base_params={}, base_revision="main",
-                   no_p2p=True, log=_quiet)
+    """The pool lands on one device and refuses a mesh; the hot-swap over
+    a mesh is no longer refused (tests/test_torch_mesh_swap.py holds it to
+    the reference): the loader takes sharded ``preloaded`` tensors as the
+    same objects and counts them by their global bytes."""
     with pytest.raises(MeshUnsupported, match="one device"):
         hbm_pool.HbmPool(_cfg(hub, tmp_path), device="cpu",
                          mesh=_mesh(DM))
     with pytest.raises(TypeError, match="SlotMesh"):
         pull_model(_cfg(hub, tmp_path), LLAMA, device="cpu",
                    mesh=["cpu"] * 8, no_p2p=True, log=_quiet)
-    with pytest.raises(MeshUnsupported, match="hot-swap"):
-        loader.stage_cached_to_hbm(None, [], mesh=_mesh(DM), preloaded={
-            "x": torch.zeros(1)})
+    mesh = _mesh(DM)
+    base = loader.land_tensor(torch.arange(32.0).reshape(8, 4), mesh,
+                              loader.spec_for("x", (8, 4), mesh))
+    swap_from = {"x": base, "gone": base}
+    params, stats = loader.stage_cached_to_hbm(
+        None, [], mesh=mesh, preloaded={"x": base}, swap_from=swap_from,
+        stream=False)
+    assert params["x"] is base
+    assert stats["swap"] == {"reused_tensors": 1, "reused_bytes": 128,
+                             "landed_tensors": 0, "landed_bytes": 0}

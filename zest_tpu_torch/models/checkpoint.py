@@ -7,6 +7,12 @@ and both AdamW moments, named by tree path: ``params/blocks/attn/q_w``,
 ``mu/...``, ``nu/...``) and ``train_state.json`` (the step and the
 optimizer count). Both are read back through the port's own safetensors
 reader, so nothing is unpickled.
+
+A sharded state (``ShardedTensor`` leaves, ``models/training.py``) saves
+each leaf gathered once (``ShardedTensor.full``), so its files equal
+those of the same state unsharded; a restore lays every array out again
+under its counterpart's mesh and spec in ``state_like``. An export of a
+sharded tree equals the export of the gathered tree, byte for byte.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from zest_tpu_torch.models.safetensors_io import (SafetensorsFile,
                                                   write_safetensors)
 from zest_tpu_torch.models.training import (AdamWState, TrainState,
                                             tree_map, tree_paths)
+from zest_tpu_torch.parallel.sharding import ShardedTensor, shard_tensor
 
 FORMAT = "zest-train-state/1"
 ARRAYS = "arrays.safetensors"
@@ -47,7 +54,9 @@ def save_train_state(path: str | Path, state: TrainState) -> None:
                               "never overwritten")
     tmp = path.with_name(f".{path.name}.tmp-{os.getpid()}")
     tmp.mkdir(parents=True)
-    write_safetensors(tmp / ARRAYS, dict(_named(state)))
+    write_safetensors(tmp / ARRAYS, {
+        name: t.full("cpu") if isinstance(t, ShardedTensor) else t
+        for name, t in _named(state)})
     (tmp / SCALARS).write_text(json.dumps(
         {"format": FORMAT, "step": int(state.step),
          "count": int(state.opt_state.count)}))
@@ -58,8 +67,9 @@ def restore_train_state(path: str | Path, state_like: TrainState
                         ) -> TrainState:
     """Read a state written by :func:`save_train_state`. ``state_like``
     (``create_state(params, tx)``) gives the structure; each tensor lands
-    in a fresh allocation on its counterpart's device and dtype. A
-    missing, extra or misshapen array raises."""
+    in a fresh allocation on its counterpart's device and dtype (a sharded
+    counterpart's mesh and spec, every local slot its shard). A missing,
+    extra or misshapen array raises."""
     path = Path(path)
     meta = json.loads((path / SCALARS).read_text())
     if meta.get("format") != FORMAT:
@@ -77,7 +87,10 @@ def restore_train_state(path: str | Path, state_like: TrainState
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{path}: {name} is {tuple(src.shape)}, "
                                  f"the state's {tuple(t.shape)}")
-            got[name] = torch.empty_like(t).copy_(src)
+            if isinstance(t, ShardedTensor):
+                got[name] = shard_tensor(src.to(t.dtype), t.mesh, t.spec)
+            else:
+                got[name] = torch.empty_like(t).copy_(src)
 
     def rebuild(root, tree):
         pairs = iter(tree_paths(tree))
@@ -93,7 +106,10 @@ def restore_train_state(path: str | Path, state_like: TrainState
 def export_hf_safetensors(path: str | Path, params: dict, cfg) -> None:
     """Trained Llama-family params → one HF-format safetensors file
     (``llama.params_to_hf``: HF names, ``[out, in]`` Linears), byte for
-    byte the JAX package's export of the same tree."""
+    byte the JAX package's export of the same tree. A sharded tree is
+    gathered leaf by leaf first."""
     from zest_tpu_torch.models import llama
 
+    params = tree_map(
+        lambda t: t.full() if isinstance(t, ShardedTensor) else t, params)
     write_safetensors(path, llama.params_to_hf(params, cfg))

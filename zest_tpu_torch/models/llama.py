@@ -29,9 +29,17 @@ keep it. Context parallelism (:func:`cp_forward`, :func:`cp_loss_fn`,
 slot mesh and the batch over its ``data`` axis: every slot runs the layer
 body on its block with its RoPE offset, attention is the K/V ring of
 ``parallel/ring.py``, and each slot reads the one tree through ``.to``
-its device, so autograd sums every replica's gradient into it. A mesh
-with a ``model`` axis (the JAX package's TP×CP) raises
-``MeshUnsupported``.
+its device, so autograd sums every replica's gradient into it. A
+``model`` axis beside ``seq`` (the JAX package's TP×CP) cuts each slot's
+share of the tree Megatron-style by :func:`param_specs`: the ring
+carries the slot's local heads, and the o/down partial sums meet on the
+lead slot of the ``model`` row.
+
+A tree of ``ShardedTensor``s laid out by :func:`param_specs`
+(``sharding.shard_tree``, or :func:`params_from_hf` with ``train=True``
+of a mesh landing) trains through :func:`loss_fn` and
+:func:`train_step` (and ``training.make_train_step``) tensor- and
+data-parallel: ``models/tensor_parallel.llama_loss``.
 """
 
 from __future__ import annotations
@@ -51,7 +59,7 @@ from zest_tpu_torch.models import tensor_parallel as tp
 from zest_tpu_torch.models.gpt2 import normal, params_from_jax  # noqa: F401
 from zest_tpu_torch.models.training import (cross_entropy, sgd, tree_map,
                                             value_and_grad)
-from zest_tpu_torch.parallel.ring import SEQ_AXIS, ring_self_attention
+from zest_tpu_torch.parallel.ring import SEQ_AXIS
 from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
                                               is_sharded_tree)
 
@@ -247,7 +255,8 @@ def _stack(layers: list[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
 
 
 def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
-                   dtype: torch.dtype = torch.float32) -> dict:
+                   dtype: torch.dtype = torch.float32,
+                   train: bool = False) -> dict:
     """Map an HF Llama-family checkpoint (flat name→tensor) onto the tree,
     on the tensors' device.
 
@@ -258,9 +267,13 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
     its name.
 
     A tree of ``ShardedTensor``s (a landing over a mesh) gives the
-    tensor-parallel tree of ``models/tensor_parallel.py`` over the
-    ``model`` axis."""
+    tensor-parallel decode tree of ``models/tensor_parallel.py`` over the
+    ``model`` axis, or with ``train=True`` the nested training tree: every
+    leaf a ``ShardedTensor`` under :func:`param_specs` on the landing's
+    mesh (``tensor_parallel.stack_sharded``)."""
     if is_sharded_tree(tensors):
+        if train:
+            return _sharded_tree(tensors, cfg, dtype)
         return tp.llama_params(tensors, cfg, dtype)
 
     def take(name):
@@ -302,6 +315,51 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
     out["blocks"] = {grp: {leaf: _stack(layers, dtype)
                            for leaf, layers in leaves.items()}
                      for grp, leaves in blocks.items()}
+    return out
+
+
+def _sharded_tree(tensors: dict, cfg: LlamaConfig, dtype) -> dict:
+    """The training tree of a landing over a mesh, leaf by leaf under
+    :func:`param_specs`."""
+    specs = param_specs(cfg)
+
+    def take(name):
+        t = tensors.get(name)
+        if t is None:
+            raise ValueError(f"checkpoint missing {name}")
+        return t
+
+    def per_layer(hf, spec, transpose):
+        return tp.stack_sharded(
+            [take(f"model.layers.{i}.{hf}") for i in range(cfg.n_layer)],
+            spec, dtype, transpose=transpose)
+
+    b = specs["blocks"]
+    out = {
+        "wte": tp.stack_sharded([take("model.embed_tokens.weight")],
+                                specs["wte"], dtype, stacked=False),
+        "ln_f": {"g": tp.stack_sharded([take("model.norm.weight")],
+                                       specs["ln_f"]["g"], dtype,
+                                       stacked=False)},
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = tp.stack_sharded([take("lm_head.weight")],
+                                          specs["lm_head"], dtype,
+                                          transpose=True, stacked=False)
+    blocks: dict = {grp: {leaf: per_layer(f"{hf}.weight", b[grp][leaf],
+                                          False)}
+                    for hf, (grp, leaf) in _HF_NORM.items()}
+    for hf, (grp, leaf) in {**_HF_ATTN, **_HF_MLP}.items():
+        blocks.setdefault(grp, {})[leaf] = per_layer(
+            f"{hf}.weight", b[grp][leaf], True)
+    if cfg.attn_bias:
+        for proj, leaf in (("q", "q_b"), ("k", "k_b"), ("v", "v_b")):
+            blocks["attn"][leaf] = per_layer(f"self_attn.{proj}_proj.bias",
+                                             b["attn"][leaf], False)
+    if cfg.o_bias:
+        blocks["attn"]["o_b"] = per_layer("self_attn.o_proj.bias",
+                                          b["attn"]["o_b"], False)
+    out["blocks"] = blocks
     return out
 
 
@@ -451,21 +509,25 @@ def _out_proj(out, p):
     return out + p["o_b"] if "o_b" in p else out
 
 
-def _attention(x, p, cfg: LlamaConfig):
-    """Dense causal GQA over the whole sequence."""
-    B, T, _ = x.shape
-    H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    q, k, v = _qkv(x, p, cfg)
+def _causal(q, k, v, cfg: LlamaConfig):
+    """Dense causal GQA: q (B, T, H, D), k and v (B, T, KV, D) →
+    (B, T, H·D), before the o projection."""
+    B, T, H, D = q.shape
+    KV = cfg.n_kv_head
     if KV != H:
         k = k.repeat_interleave(H // KV, dim=2)
         v = v.repeat_interleave(H // KV, dim=2)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(D)
-    mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
     scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-    att = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    out = (att @ v).transpose(1, 2).reshape(B, T, H * D)
-    return _out_proj(out, p)
+    att = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return (att @ v).transpose(1, 2).reshape(B, T, H * D)
+
+
+def _attention(x, p, cfg: LlamaConfig):
+    """Dense causal GQA over the whole sequence."""
+    return _out_proj(_causal(*_qkv(x, p, cfg), cfg), p)
 
 
 def _mlp(x, p):
@@ -514,7 +576,11 @@ def forward(params: dict, input_ids: torch.Tensor,
 
 def loss_fn(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
             remat: bool = False) -> torch.Tensor:
-    """Next-token cross entropy over ``batch`` (B, T+1) ids."""
+    """Next-token cross entropy over ``batch`` (B, T+1) ids. A tree of
+    ``ShardedTensor``s runs tensor-parallel over its mesh's ``model`` axis
+    with the batch cut over ``data`` (``tensor_parallel.llama_loss``)."""
+    if tp.is_sharded_train_tree(params):
+        return tp.llama_loss(params, batch, cfg, remat)
     return cross_entropy(_forward(params, batch[:, :-1], cfg, remat),
                          batch[:, 1:])
 
@@ -522,7 +588,8 @@ def loss_fn(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
 def train_step(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
                lr: float = 1e-3, remat: bool = False):
     """One SGD step: ``(new params, loss)``; ``params`` is not changed.
-    ``remat=True`` recomputes each layer's activations in the backward."""
+    ``remat=True`` recomputes each layer's activations in the backward. A
+    sharded tree steps in its layout (its replicas equal after it)."""
     loss, grads = value_and_grad(loss_fn, params, batch, cfg, remat)
     return sgd(params, grads, lr), loss
 
@@ -530,46 +597,72 @@ def train_step(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
 # ── Context parallelism (sequence sharded, ring attention) ──
 
 
-def _cp_grid(mesh, seq_axis: str, data_axis: str) -> list[list]:
-    """The mesh's slots as rows of the data axis, each the devices along
-    the seq axis. A ``model`` axis (TP×CP) is not ported."""
-    if MODEL_AXIS in mesh.axis_names:
-        raise MeshUnsupported(
-            "context parallelism with a model axis (TP×CP) is not ported")
+def _cp_grid(mesh, seq_axis: str, data_axis: str) -> list[list[list]]:
+    """The mesh's slot devices as a data × seq grid of ``model`` rows: cell
+    ``[r][s]`` lists the devices along the ``model`` axis (one device
+    without one) at data index ``r`` and seq index ``s``."""
     n_data = mesh.shape.get(data_axis, 1)
-    return [mesh.axis_devices(seq_axis, {data_axis: d})
-            for d in range(n_data)]
+    n_seq = mesh.shape[seq_axis]
+    if MODEL_AXIS not in mesh.axis_names:
+        return [[[d] for d in mesh.axis_devices(seq_axis, {data_axis: r})]
+                for r in range(n_data)]
+    return [[mesh.axis_devices(MODEL_AXIS, {data_axis: r, seq_axis: s})
+             for s in range(n_seq)] for r in range(n_data)]
 
 
-def _ring_attention(hs: list, ps: list, cfg: LlamaConfig, t: int) -> list:
-    """Ring GQA for one data row's sequence slots: ``hs[s]`` (b, t, E) on
-    slot ``s``, whose RoPE phases start at ``s * t``."""
-    qkv = [_qkv(h, p, cfg, pos0=s * t) for s, (h, p) in enumerate(zip(hs, ps))]
-    outs = ring_self_attention(*zip(*qkv), causal=True)
-    return [_out_proj(o.reshape(*o.shape[:2], -1), p)
-            for o, p in zip(outs, ps)]
+def _model_cut(params: dict, cfg: LlamaConfig, m: int, n: int) -> dict:
+    """Slot ``m`` of ``n`` along the ``model`` axis: every leaf
+    :func:`param_specs` cuts over it narrowed to the slot's block (local
+    heads, FFN columns, head columns), the rest whole. Views of
+    ``params``, so gradients flow back into it."""
+    if n == 1:
+        return params
+    if cfg.d_ff % n:
+        raise MeshUnsupported(f"{cfg.d_ff} FFN columns do not divide over "
+                              f"the {n} slots of the {MODEL_AXIS!r} axis")
+
+    def cut(t, spec):
+        for dim, axis in enumerate(spec):
+            if axis == MODEL_AXIS:
+                size = t.shape[dim] // n
+                return t.narrow(dim, m * size, size)
+        return t
+
+    return tree_map(cut, params, param_specs(cfg))
 
 
-def _cp_layer(xs: list, lps: list, cfg: LlamaConfig, t: int) -> list:
+def _cp_cell(replicas: dict, local: dict, cell: list, i: int,
+             cfg: LlamaConfig) -> dict:
+    """Layer ``i``'s leaves for one grid cell (its devices along
+    ``model``), as ``tensor_parallel.llama_layer`` takes them. Attention
+    runs whole on the cell's lead when the heads do not divide over the
+    cell, as the sharded train step's does."""
+    lead = cell[0]
+    whole = _layer(replicas[lead], i)
+    cols = [(_layer(local[(d, m)], i), d) for m, d in enumerate(cell)]
+    cols_attn = (cols if tp.heads_divide(cfg, len(cell))
+                 else [(whole, lead)])
+    return {"ln_attn": whole["ln_attn"]["g"], "ln_mlp": whole["ln_mlp"]["g"],
+            "o_b": whole["attn"].get("o_b"),
+            "attn": [({k: v for k, v in lp["attn"].items() if k != "o_b"}, d)
+                     for lp, d in cols_attn],
+            "mlp": [(lp["mlp"], d) for lp, d in cols]}
+
+
+def _cp_layer(xs: list, cells: list, cfg: LlamaConfig, t: int) -> list:
     """One layer over every slot's block, rows of the data axis in turn
-    (``xs`` and ``lps`` are grids like :func:`_cp_grid`'s)."""
-    out = []
-    for row, lrow in zip(xs, lps):
-        hs = [_rms_norm(x, lp["ln_attn"]["g"], cfg.rms_eps)
-              for x, lp in zip(row, lrow)]
-        row = [x + a for x, a in zip(
-            row, _ring_attention(hs, [lp["attn"] for lp in lrow], cfg, t))]
-        out.append([x + _mlp(_rms_norm(x, lp["ln_mlp"]["g"], cfg.rms_eps),
-                             lp["mlp"]) for x, lp in zip(row, lrow)])
-    return out
+    (``xs[r][s]`` on the lead of cell ``[r][s]``, ``cells[r][s]`` its
+    leaves from :func:`_cp_cell`)."""
+    return [tp.llama_layer(row, crow, cfg, t) for row, crow in zip(xs, cells)]
 
 
 def _cp_logits(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
                mesh, seq_axis: str, data_axis: str,
                remat: bool) -> list[list[torch.Tensor]]:
-    """Every slot's (B/D, T/S, vocab) logits, as a data × seq grid."""
+    """Every cell's (B/D, T/S, vocab) logits on its lead, as a data × seq
+    grid."""
     grid = _cp_grid(mesh, seq_axis, data_axis)
-    n_data, n_seq = len(grid), len(grid[0])
+    n_data, n_seq, n_model = len(grid), len(grid[0]), len(grid[0][0])
     B, T = input_ids.shape
     if B % n_data or T % n_seq:
         raise ValueError(f"batch ({B}, {T}) does not divide over "
@@ -578,19 +671,34 @@ def _cp_logits(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     # One replica of the tree a device; on the tree's own device .to is
     # the identity, so every slot there reads (and grads into) the tree.
     replicas = {d: tree_map(lambda v, d=d: v.to(d), params)
-                for d in {dev for row in grid for dev in row}}
-    xs = [[replicas[dev]["wte"][
-        input_ids[r * b:(r + 1) * b, s * t:(s + 1) * t].to(dev)]
-        for s, dev in enumerate(row)] for r, row in enumerate(grid)]
+                for d in {dev for row in grid for cell in row
+                          for dev in cell}}
+    local = {(d, m): _model_cut(replicas[d], cfg, m, n_model)
+             for d in replicas for m in range(n_model)}
+    xs = [[replicas[cell[0]]["wte"][
+        input_ids[r * b:(r + 1) * b, s * t:(s + 1) * t].to(cell[0])]
+        for s, cell in enumerate(row)] for r, row in enumerate(grid)]
     for i in range(cfg.n_layer):
-        lps = [[_layer(replicas[dev], i) for dev in row] for row in grid]
+        cells = [[_cp_cell(replicas, local, cell, i, cfg) for cell in row]
+                 for row in grid]
         if remat:
-            xs = checkpoint(_cp_layer, xs, lps, cfg, t, use_reentrant=False)
+            xs = checkpoint(_cp_layer, xs, cells, cfg, t,
+                            use_reentrant=False)
         else:
-            xs = _cp_layer(xs, lps, cfg, t)
-    return [[_unembed(replicas[dev], _rms_norm(
-        x, replicas[dev]["ln_f"]["g"], cfg.rms_eps))
-        for x, dev in zip(xrow, row)] for xrow, row in zip(xs, grid)]
+            xs = _cp_layer(xs, cells, cfg, t)
+    out = []
+    for xrow, row in zip(xs, grid):
+        cells = []
+        for x, cell in zip(xrow, row):
+            x = _rms_norm(x, replicas[cell[0]]["ln_f"]["g"], cfg.rms_eps)
+            if replicas[cell[0]].get("lm_head") is None:
+                cells.append(_unembed(replicas[cell[0]], x))
+                continue
+            cells.append(torch.cat(
+                [(x.to(d) @ local[(d, m)]["lm_head"]).to(x.device)
+                 for m, d in enumerate(cell)], dim=-1))
+        out.append(cells)
+    return out
 
 
 def cp_forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
@@ -600,7 +708,10 @@ def cp_forward(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     ``seq_axis`` and B over its ``data_axis`` (a ``SlotMesh``; both must
     divide). Token and RoPE work is local to each slot (phases offset by
     the slot's global start), attention is the K/V ring; the logits are
-    joined on the first slot's device."""
+    joined on the first slot's device. With a ``model`` axis too (a
+    ``{data, seq, model}`` mesh) each slot computes its local heads and
+    FFN columns (an untied head its vocabulary columns), and the partial
+    sums meet on the lead of each ``model`` row: TP×CP."""
     grid = _cp_logits(params, input_ids, cfg, mesh, seq_axis, data_axis,
                       remat)
     lead = grid[0][0].device

@@ -22,9 +22,10 @@ allocation. Two landings:
   the ring only after its group's CUDA event has completed. With
   streaming off, whole shards decode one ahead of the commit.
 
-Both direct landings take a **hot-swap** (``preloaded`` / ``swap_from``):
-tensors a delta plan proved unchanged from the resident base revision
-enter the new tree as the very same tensors, and each superseded base
+Both direct landings take a **hot-swap** (``preloaded`` / ``swap_from``),
+on one device or over a mesh: tensors a delta plan proved unchanged from
+the resident base revision enter the new tree as the very same tensors
+(or ``ShardedTensor``s, every shard in place), and each superseded base
 tensor leaves the base dict once its replacement's copy is done.
 
 Every copy moves raw bytes, so NaN payloads and sub-word float bits land
@@ -989,15 +990,15 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
 
     **Mesh** (both modes): with ``mesh`` every tensor lands as a
     :class:`ShardedTensor` under :func:`spec_for` with ``rules``
-    (``device`` is then unused); a hot-swap does not take a mesh.
+    (``device`` is then unused). A hot-swap over a mesh takes
+    ``preloaded`` ``ShardedTensor``s of that layout; a superseded base
+    entry, all its shards, leaves ``swap_from`` once the event of the
+    group that replaced it has completed on every device, and
+    ``stats["swap"]`` counts each tensor by its global bytes.
 
     Returns ``(params, stats)``, ``stats["direct"]`` true. On ``cuda`` the
     current stream is ordered after every copy when this returns.
     """
-    if mesh is not None and (preloaded or swap_from is not None):
-        from zest_tpu_torch.parallel.sharding import MeshUnsupported
-
-        raise MeshUnsupported("a hot-swap does not take a sharded tree")
     dev = (resolve_device(device) if mesh is None
            else mesh.distinct_devices()[0])
     cfg = getattr(bridge, "cfg", None)

@@ -25,7 +25,9 @@ experts and attention heads (``models/tensor_parallel.py``, whose
 The training half (:func:`init_params`, :func:`loss_fn` with its
 ``aux_loss_weight`` × aux term, :func:`train_step`, ``remat``) runs the
 same body as :func:`forward` through ``_forward``, outside inference
-mode; ``forward`` and the decode keep it.
+mode; ``forward`` and the decode keep it. A tree of ``ShardedTensor``s
+laid out by :func:`param_specs` trains expert-parallel over a
+``{data, expert}`` mesh through :func:`loss_fn` and :func:`train_step`.
 """
 
 from __future__ import annotations
@@ -307,8 +309,9 @@ def _rope(x, theta: float, pos0: int = 0):
 
 
 def _attention(x, p, cfg: MoEConfig):
-    """Dense causal GQA over the whole sequence."""
-    B, T, E = x.shape
+    """Dense causal GQA over the whole sequence (over a slot's share of
+    the heads when ``cfg`` counts only those)."""
+    B, T, _ = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     q = (x @ p["q_w"]).reshape(B, T, H, D)
     k = (x @ p["k_w"]).reshape(B, T, KV, D)
@@ -322,7 +325,7 @@ def _attention(x, p, cfg: MoEConfig):
     mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
     scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     att = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-    out = (att @ v).transpose(1, 2).reshape(B, T, E)
+    out = (att @ v).transpose(1, 2).reshape(B, T, H * D)
     return out @ p["o_w"]
 
 
@@ -429,7 +432,13 @@ def forward(params: dict, input_ids: torch.Tensor, cfg: MoEConfig):
 def loss_fn(params: dict, batch: torch.Tensor, cfg: MoEConfig,
             remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy over ``batch`` (B, T+1) ids plus
-    ``aux_loss_weight`` × the load-balance aux loss."""
+    ``aux_loss_weight`` × the load-balance aux loss. A tree of
+    ``ShardedTensor``s (:func:`param_specs`) runs expert-parallel over
+    its mesh's ``expert`` axis with the batch cut over ``data``
+    (``tensor_parallel.moe_loss``): one dispatch group over the whole
+    batch, as here."""
+    if tp.is_sharded_train_tree(params):
+        return tp.moe_loss(params, batch, cfg, remat)
     logits, aux = _forward(params, batch[:, :-1], cfg, remat)
     return cross_entropy(logits, batch[:, 1:]) + cfg.aux_loss_weight * aux
 

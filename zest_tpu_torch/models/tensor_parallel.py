@@ -34,6 +34,28 @@ A :class:`TPParams` tree decodes through the families' ``generate_cached``
 :func:`decode_window`. The KV cache is per slot, each holding its local kv
 heads. Row-parallel sums change the float32 summation order, so logits
 agree with the unsharded forward to a tolerance, not bit for bit.
+
+**Training** (:func:`llama_loss`, :func:`moe_loss`, reached through the
+families' ``loss_fn``) runs over the nested training tree itself: the
+family's stacked tree with a ``ShardedTensor`` at every leaf, laid out by
+its ``param_specs`` (``sharding.shard_tree``, or the family's
+``params_from_hf(..., train=True)`` of a mesh landing). The batch is cut
+into rows over the ``data`` axis; each row runs on its slots along the
+tensor-parallel axis (``model`` for Llama, ``expert`` for Mixtral) with
+each slot's shards in place: q/k/v and gate/up column-parallel, o and
+down row-parallel, their partial sums reduced on the row's lead slot,
+where the residual stream and the replicated leaves (embeddings, norms)
+are read; an untied head is column-parallel over the vocabulary. Llama's
+layer body, :func:`llama_layer`, is also ``llama.cp_forward``'s under
+TP×CP, where each seq slot's columns run the K/V ring. Heads that do not
+divide the axis run whole on the lead in both. Every
+hop is a ``.to`` of an autograd graph outside inference mode, so the
+backward gives each shard its own gradient across the slot devices
+(``training.value_and_grad`` then sums the replicas). Mixtral routes the
+whole batch as one dispatch group on the first row's lead slot, as the
+reference's global einsums do, and each row's tokens go to the slots that
+own their experts and come back combined (the counterpart of the
+all-to-alls GSPMD puts around the dispatch einsums).
 """
 
 from __future__ import annotations
@@ -42,9 +64,12 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
 from zest_tpu_torch.parallel.mesh import world_size
-from zest_tpu_torch.parallel.sharding import MeshUnsupported, ShardedTensor
+from zest_tpu_torch.parallel.ring import ring_self_attention
+from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
+                                              ShardedTensor)
 
 
 class TPGroup:
@@ -433,3 +458,358 @@ def forward(params: TPParams, input_ids: torch.Tensor, cfg) -> torch.Tensor:
     B, T = input_ids.shape
     cache = params.init_kv_cache(B, T, params["wte"].dtype)
     return decode_window(params, cache, input_ids, 0, cfg)[0]
+
+
+# ── Training over the nested sharded tree ──
+
+
+def _first_sharded(tree) -> ShardedTensor | None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            found = _first_sharded(v)
+            if found is not None:
+                return found
+        return None
+    return tree if isinstance(tree, ShardedTensor) else None
+
+
+def is_sharded_train_tree(tree) -> bool:
+    """A nested family tree with ``ShardedTensor`` leaves (a
+    :class:`TPParams` decode tree is not one)."""
+    return (isinstance(tree, dict) and not isinstance(tree, TPParams)
+            and _first_sharded(tree) is not None)
+
+
+def _train_rows(mesh, axis: str, data_axis: str = "data") -> list[list[int]]:
+    """The mesh's slots as rows of ``data_axis``, each row the slots along
+    ``axis`` in axis order (one slot when the mesh has no ``axis``). Every
+    other axis must have size 1, and every slot be this process's."""
+    extra = [a for a, n in mesh.shape.items()
+             if a not in (axis, data_axis) and n > 1]
+    if extra:
+        raise MeshUnsupported(
+            f"a sharded train step runs over {data_axis!r} and {axis!r}; "
+            f"the mesh {mesh.shape} has {extra} too")
+    if len(mesh.local_slots()) < mesh.size:
+        raise MeshUnsupported("a sharded train step needs every slot of "
+                              "the mesh in this process")
+    rows: dict[int, list] = {}
+    for s in range(mesh.size):
+        c = mesh.coords(s)
+        rows.setdefault(int(c.get(data_axis, 0)), []).append(
+            (int(c.get(axis, 0)), s))
+    return [[s for _, s in sorted(r)] for _, r in sorted(rows.items())]
+
+
+def _cut(t: ShardedTensor, dim: int, axis: str) -> bool:
+    """True when ``t`` is cut on ``dim`` over ``axis`` alone, False when
+    every slot holds it whole; another layout raises."""
+    spec = list(t.spec) + [None] * (len(t.shape) - len(t.spec))
+    if all(a is None for a in spec):
+        return False
+    if spec[dim] == axis and all(a is None for i, a in enumerate(spec)
+                                 if i != dim):
+        return True
+    raise MeshUnsupported(
+        f"a {tuple(t.shape)} leaf under {t.spec!r}: the sharded train step "
+        f"takes it whole (P()) or cut on dim {dim} over {axis!r}")
+
+
+def _whole(t, slot: int) -> torch.Tensor:
+    """Slot ``slot``'s replica of a leaf every slot holds whole."""
+    if not isinstance(t, ShardedTensor):
+        raise MeshUnsupported("a sharded train tree holds a ShardedTensor "
+                              "at every leaf")
+    if any(a is not None for a in t.spec):
+        raise MeshUnsupported(
+            f"a {tuple(t.shape)} leaf under {t.spec!r} where the sharded "
+            "train step reads it whole: lay it out under P()")
+    return t.shard(slot)
+
+
+def _columns(leaves: dict, dims: dict, row: list[int], axis: str, mesh,
+             split: bool = True):
+    """``(cols, devices)``: each column's leaves of one parallel group
+    (attention, MLP, experts), a column a slot of ``row`` when the group's
+    leaves are cut over ``axis`` on ``dims``, else the row's lead slot
+    alone with them whole. A cut group that may not run split (``split``
+    false: its heads do not divide over the slots) runs on the lead with
+    the slots' blocks joined there, so each block still gets its own
+    gradient."""
+    cut = {_cut(leaves[k], dims[k], axis) for k in dims}
+    if len(cut) > 1:
+        raise MeshUnsupported(f"the leaves {sorted(dims)} mix whole and cut "
+                              f"layouts over {axis!r}")
+    lead = mesh.device_of(row[0])
+    if not cut.pop():
+        return [{k: leaves[k].shard(row[0]) for k in dims}], [lead]
+    if not split:
+        return [{k: torch.cat([leaves[k].shard(s).to(lead) for s in row],
+                              dim=dims[k]) for k in dims}], [lead]
+    return ([{k: leaves[k].shard(s) for k in dims} for s in row],
+            [mesh.device_of(s) for s in row])
+
+
+def heads_divide(cfg, n: int) -> bool:
+    """Whether attention may run split over ``n`` slots (whole heads and
+    kv heads on each); else it runs whole on the lead."""
+    return cfg.n_head % n == 0 and cfg.n_kv_head % n == 0
+
+
+def _sum_on(parts: list[torch.Tensor], dev) -> torch.Tensor:
+    out = parts[0].to(dev)
+    for p in parts[1:]:
+        out = out + p.to(dev)
+    return out
+
+
+def _at(col: dict, i: int) -> dict:
+    return {k: v[i] for k, v in col.items()}
+
+
+def _head_logits(params: dict, x: torch.Tensor, row: list[int], axis: str,
+                 mesh, lead) -> torch.Tensor:
+    """The unembedding of the row's final hidden states on its lead: an
+    untied head column-parallel over the vocabulary (each slot its
+    columns, joined on the lead), a tied one ``wte.T``."""
+    head = params.get("lm_head")
+    if head is None:
+        return x @ _whole(params["wte"], row[0]).T
+    cols, devs = _columns({"w": head}, {"w": 1}, row, axis, mesh)
+    return torch.cat([(x.to(d) @ c["w"]).to(lead)
+                      for c, d in zip(cols, devs)], dim=-1)
+
+
+def _nll_sum(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.to(logits.device)[..., None]).sum()
+
+
+def _split_batch(batch: torch.Tensor, rows: list) -> int:
+    if batch.shape[0] % len(rows):
+        raise ValueError(f"batch of {batch.shape[0]} rows does not divide "
+                         f"over the {len(rows)} rows of the data axis")
+    return batch.shape[0] // len(rows)
+
+
+def _local_cfg(cfg, n: int):
+    """The config of one column's share of the heads (the head width
+    stays the tree's)."""
+    if hasattr(cfg, "head_dim_override"):
+        return dataclasses.replace(cfg, n_head=cfg.n_head // n,
+                                   n_kv_head=cfg.n_kv_head // n,
+                                   head_dim_override=cfg.head_dim)
+    return _moe_local_cfg(cfg, n)
+
+
+_LLAMA_ATTN = {"q_w": 2, "k_w": 2, "v_w": 2, "o_w": 1,
+               "q_b": 1, "k_b": 1, "v_b": 1}
+_LLAMA_MLP = {"gate_w": 2, "up_w": 2, "down_w": 1}
+
+
+def llama_layer(xs: list, cells: list, cfg, t: int = 0) -> list:
+    """One Llama layer over one data row's seq slots: ``xs[s]`` (b, t, E)
+    the residual stream of seq slot ``s`` on its lead; ``cells[s]`` its
+    leaves for the layer: ``ln_attn``, ``ln_mlp`` and ``o_b`` (or None)
+    on the lead, and ``attn`` and ``mlp`` lists of ``(leaves, device)``
+    columns along the tensor-parallel axis (one column for a group that
+    runs whole on the lead). Each attention column's local heads attend
+    causally over the row: in place for one seq slot, else by the K/V
+    ring, slot ``s``'s RoPE phases from ``s * t``. The o and down partial
+    sums meet on each lead. The body of the sharded train step (one seq
+    slot) and of ``llama.cp_forward`` (TP×CP)."""
+    from zest_tpu_torch.models import llama
+
+    a_cfg = _local_cfg(cfg, len(cells[0]["attn"]))
+    hs = [llama._rms_norm(x, c["ln_attn"], cfg.rms_eps)
+          for x, c in zip(xs, cells)]
+    parts: list[list] = [[] for _ in xs]
+    for m in range(len(cells[0]["attn"])):
+        cols = [c["attn"][m] for c in cells]
+        qkv = [llama._qkv(h.to(d), p, a_cfg, pos0=s * t)
+               for s, (h, (p, d)) in enumerate(zip(hs, cols))]
+        outs = ([llama._causal(*qkv[0], a_cfg)] if len(xs) == 1
+                else ring_self_attention(*zip(*qkv), causal=True))
+        for part, o, (p, _) in zip(parts, outs, cols):
+            part.append(o.reshape(*o.shape[:2], -1) @ p["o_w"])
+    out = []
+    for x, part, c in zip(xs, parts, cells):
+        a = _sum_on(part, x.device)
+        x = x + (a if c["o_b"] is None else a + c["o_b"])
+        h = llama._rms_norm(x, c["ln_mlp"], cfg.rms_eps)
+        out.append(x + _sum_on([llama._mlp(h.to(d), p)
+                                for p, d in c["mlp"]], x.device))
+    return out
+
+
+def _llama_row(params: dict, ids: torch.Tensor, cfg, row: list[int],
+               mesh, remat: bool) -> torch.Tensor:
+    """One data row's (b, T, vocab) logits on its lead slot."""
+    from zest_tpu_torch.models import llama
+
+    lead_slot = row[0]
+    lead = mesh.device_of(lead_slot)
+    blocks = params["blocks"]
+    attn = blocks["attn"]
+    a_cols, a_devs = _columns(attn, {k: d for k, d in _LLAMA_ATTN.items()
+                                     if k in attn}, row, "model", mesh,
+                              heads_divide(cfg, len(row)))
+    m_cols, m_devs = _columns(blocks["mlp"], _LLAMA_MLP, row, "model", mesh)
+    o_b = _whole(attn["o_b"], lead_slot) if "o_b" in attn else None
+    ln_attn = _whole(blocks["ln_attn"]["g"], lead_slot)
+    ln_mlp = _whole(blocks["ln_mlp"]["g"], lead_slot)
+
+    def layer(x, i):
+        cell = {"ln_attn": ln_attn[i], "ln_mlp": ln_mlp[i],
+                "o_b": None if o_b is None else o_b[i],
+                "attn": [(_at(c, i), d) for c, d in zip(a_cols, a_devs)],
+                "mlp": [(_at(c, i), d) for c, d in zip(m_cols, m_devs)]}
+        return llama_layer([x], [cell], cfg)[0]
+
+    x = _whole(params["wte"], lead_slot)[ids.to(lead)]
+    for i in range(cfg.n_layer):
+        x = (checkpoint(layer, x, i, use_reentrant=False) if remat
+             else layer(x, i))
+    x = llama._rms_norm(x, _whole(params["ln_f"]["g"], lead_slot),
+                        cfg.rms_eps)
+    return _head_logits(params, x, row, "model", mesh, lead)
+
+
+def llama_loss(params: dict, batch: torch.Tensor, cfg,
+               remat: bool = False) -> torch.Tensor:
+    """Llama's next-token cross entropy over ``batch`` (B, T+1) ids on a
+    nested tree of ``ShardedTensor``s (``llama.param_specs``): B cut over
+    the ``data`` axis, each row tensor-parallel over ``model``; the rows'
+    NLL sums meet on the first row's lead slot."""
+    mesh = _first_sharded(params).mesh
+    rows = _train_rows(mesh, "model")
+    b = _split_batch(batch, rows)
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    lead = mesh.device_of(rows[0][0])
+    total = 0.0
+    for r, row in enumerate(rows):
+        logits = _llama_row(params, inputs[r * b:(r + 1) * b], cfg, row,
+                            mesh, remat)
+        total = total + _nll_sum(logits, targets[r * b:(r + 1) * b]).to(lead)
+    return total / targets.numel()
+
+
+_MOE_ATTN = {"q_w": 2, "k_w": 2, "v_w": 2, "o_w": 1}
+_MOE_EXPERTS = {"w1": 1, "w3": 1, "w2": 1}
+
+
+def moe_loss(params: dict, batch: torch.Tensor, cfg,
+             remat: bool = False) -> torch.Tensor:
+    """Mixtral's loss (cross entropy + ``aux_loss_weight`` × the aux
+    loss) over ``batch`` (B, T+1) ids on a nested tree of
+    ``ShardedTensor``s (``moe.param_specs``): B cut over ``data``,
+    attention tensor-parallel over ``expert`` within each row, and the
+    whole batch routed as one dispatch group on the first row's lead slot
+    (capacity and aux loss as the unsharded step counts them); each row's
+    tokens run on the row's slots that own their experts. ``remat`` is
+    accepted for the family signature; the sharded step saves its
+    activations."""
+    from zest_tpu_torch.models import llama, moe
+
+    mesh = _first_sharded(params).mesh
+    rows = _train_rows(mesh, "expert")
+    b = _split_batch(batch, rows)
+    inputs, targets = batch[:, :-1], batch[:, 1:]
+    T = inputs.shape[1]
+    leads = [r[0] for r in rows]
+    ldevs = [mesh.device_of(s) for s in leads]
+    glead = ldevs[0]
+    blocks = params["blocks"]
+    per_row = []
+    for row in rows:
+        a_cols, a_devs = _columns(blocks["attn"], _MOE_ATTN, row, "expert",
+                                  mesh, heads_divide(cfg, len(row)))
+        e_cols, e_devs = _columns(blocks["moe"], _MOE_EXPERTS, row,
+                                  "expert", mesh)
+        per = cfg.n_experts // len(e_cols)
+        if cfg.n_experts % len(e_cols):
+            raise MeshUnsupported(f"{cfg.n_experts} experts do not divide "
+                                  f"over {len(e_cols)} slots")
+        per_row.append((a_cols, a_devs, _local_cfg(cfg, len(a_cols)),
+                        e_cols, e_devs,
+                        [range(j * per, (j + 1) * per)
+                         for j in range(len(e_cols))]))
+    router = _whole(blocks["moe"]["router_w"], leads[0])
+    xs = [_whole(params["wte"], s)[inputs[r * b:(r + 1) * b].to(d)]
+          for r, (s, d) in enumerate(zip(leads, ldevs))]
+    aux = torch.zeros((), dtype=torch.float32, device=glead)
+    for i in range(cfg.n_layer):
+        hs = []
+        for r, (s, d) in enumerate(zip(leads, ldevs)):
+            a_cols, a_devs, a_cfg = per_row[r][:3]
+            h = llama._rms_norm(xs[r], _whole(blocks["ln_attn"]["g"], s)[i],
+                                cfg.rms_eps)
+            xs[r] = xs[r] + _sum_on([moe._attention(h.to(ad), _at(c, i),
+                                                    a_cfg)
+                                     for c, ad in zip(a_cols, a_devs)], d)
+            hs.append(llama._rms_norm(
+                xs[r], _whole(blocks["ln_moe"]["g"], s)[i], cfg.rms_eps))
+        E = hs[0].shape[-1]
+        flat = torch.cat([h.to(glead).reshape(-1, E) for h in hs])[None]
+        combine, layer_aux = moe._combine(flat, router[i], cfg)
+        aux = aux + layer_aux[0]
+        n = b * T
+        for r, d in enumerate(ldevs):
+            e_cols, e_devs, ranges = per_row[r][3:]
+            comb = combine[:, r * n:(r + 1) * n]
+            tokens = hs[r].reshape(1, n, E)
+            out = _sum_on([moe._experts(
+                comb[:, :, rng.start:rng.stop].to(ed), tokens.to(ed),
+                c["w1"][i], c["w3"][i], c["w2"][i])
+                for c, ed, rng in zip(e_cols, e_devs, ranges)], d)
+            xs[r] = xs[r] + out.reshape(b, T, E)
+    total = 0.0
+    for r, (row, s, d) in enumerate(zip(rows, leads, ldevs)):
+        x = llama._rms_norm(xs[r], _whole(params["ln_f"]["g"], s),
+                            cfg.rms_eps)
+        logits = _head_logits(params, x, row, "expert", mesh, d)
+        total = total + _nll_sum(logits,
+                                 targets[r * b:(r + 1) * b]).to(glead)
+    return total / targets.numel() + cfg.aux_loss_weight * (
+        aux / cfg.n_layer)
+
+
+def _padded(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def stack_sharded(pieces: list, spec, dtype: torch.dtype,
+                  transpose: bool = False, stacked: bool = True
+                  ) -> ShardedTensor:
+    """A training-tree leaf from landed HF tensors (``ShardedTensor``s of
+    one mesh): the pieces, each transposed to the ``x @ W`` layout when
+    ``transpose``, stacked on a new leading layer axis when ``stacked``
+    (else the one piece), laid out under ``spec`` in ``dtype``. A slot's
+    block comes from its own landed shard where the landing cut the piece
+    as ``spec`` wants it, else from the piece gathered once
+    (``ShardedTensor.full``) onto the slot's device."""
+    from zest_tpu_torch.parallel.sharding import shard_index
+
+    mesh = pieces[0].mesh
+    hf_shape = tuple(pieces[0].shape)
+    leaf = hf_shape[::-1] if transpose else hf_shape
+    shape = (len(pieces), *leaf) if stacked else leaf
+    per = _padded(spec, len(shape))[1 if stacked else 0:]
+    want = P(*(per[::-1] if transpose else per))
+    gathered: dict = {}
+    shards = {}
+    for slot in mesh.local_slots():
+        dev = mesh.device_of(slot)
+        out = torch.empty([i.stop - i.start for i in shard_index(
+            shape, mesh, spec, slot)], dtype=dtype, device=dev)
+        for k, t in enumerate(pieces):
+            if _padded(t.spec, len(hf_shape)) == tuple(want):
+                blk = t.shard(slot)
+            else:
+                if (k, dev) not in gathered:
+                    gathered[(k, dev)] = t.full(dev)
+                blk = gathered[(k, dev)][shard_index(hf_shape, mesh, want,
+                                                     slot)]
+            (out[k] if stacked else out).copy_(blk.T if transpose else blk)
+        shards[slot] = out
+    return ShardedTensor(shards, shape, dtype, spec, mesh)

@@ -32,6 +32,9 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from zest_tpu_torch.parallel.sharding import (ShardedTensor, map_shards,
+                                              sum_replicas, zeros_like)
+
 
 # ── Dict trees ──
 
@@ -59,21 +62,52 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _inputs(leaf) -> list[torch.Tensor]:
+    """The tensors autograd differentiates for one leaf: a sharded leaf's
+    shards, in slot order."""
+    if isinstance(leaf, ShardedTensor):
+        return [leaf.shards[s] for s in sorted(leaf.shards)]
+    return [leaf]
+
+
 def value_and_grad(loss_fn: Callable, params: dict, *args, **kwargs):
     """``(loss, grads)`` of ``loss_fn(params, *args, **kwargs)`` with
     respect to every leaf of ``params`` (the counterpart of
     ``jax.value_and_grad``). The leaves are not changed; the loss comes
-    back detached."""
+    back detached.
+
+    A sharded leaf's gradient is a ``ShardedTensor`` of its layout whose
+    every replica holds the sum of the replicas' gradients
+    (:func:`~zest_tpu_torch.parallel.sharding.sum_replicas`): the
+    gradient of the global tensor, cut as the leaf is."""
     if any(t.is_inference() for t in tree_leaves(params)):
         raise ValueError(
             "the tree was built under torch.inference_mode and cannot be "
             "trained: copy it out first (training.create_state does)")
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    sharded = any(isinstance(t, ShardedTensor) for t in leaves)
     with torch.enable_grad():
         loss = loss_fn(live, *args, **kwargs)
-        grads = torch.autograd.grad(loss, tree_leaves(live))
-    it = iter(grads)
-    return loss.detach(), tree_map(lambda _: next(it), params)
+        # A replica the forward never read (a norm gain off the row's
+        # lead slot) has no gradient (None): it takes the others' sum.
+        grads = list(torch.autograd.grad(
+            loss, [x for t in leaves for x in _inputs(t)],
+            allow_unused=sharded))
+    grads.reverse()
+
+    def take(leaf):
+        if not isinstance(leaf, ShardedTensor):
+            return grads.pop()
+        # Popped leaf by leaf: a replica's raw gradient is freed once its
+        # group's sum is formed, so the sums never sit beside every raw
+        # gradient at once.
+        shards = {s: grads.pop() for s in sorted(leaf.shards)}
+        return sum_replicas(ShardedTensor(shards, leaf.shape, leaf.dtype,
+                                          leaf.spec, leaf.mesh),
+                            like=leaf)
+
+    return loss.detach(), tree_map(take, params)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
@@ -85,8 +119,37 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
 
 
 def sgd(params: dict, grads: dict, lr: float) -> dict:
-    """``p - lr * g`` over the tree: the families' inline SGD update."""
-    return tree_map(lambda p, g: p - lr * g.to(p.dtype), params, grads)
+    """``p - lr * g`` over the tree: the families' inline SGD update (a
+    sharded leaf shard by shard, in its layout)."""
+    def step(p, g):
+        return p - lr * g.to(p.dtype)
+
+    return tree_map(lambda p, g: map_shards(step, p, g)
+                    if isinstance(p, ShardedTensor) else step(p, g),
+                    params, grads)
+
+
+def _square_sum(g) -> torch.Tensor:
+    """The float32 sum of squares of a gradient leaf, each block of a
+    sharded one once (replicas are not counted again), on its first
+    block's device."""
+    if not isinstance(g, ShardedTensor):
+        return torch.sum(g.float() * g.float())
+    parts = [g.shards[s] for s in g.distinct_slots()]
+    dev = parts[0].device
+    total = torch.sum(parts[0].float() * parts[0].float())
+    for t in parts[1:]:
+        total = total + torch.sum(t.float() * t.float()).to(dev)
+    return total
+
+
+def _pairs(*leaves):
+    """The matching tensors of a parameter, its gradient and moments: the
+    leaves themselves, or each slot's shards of sharded ones."""
+    if not isinstance(leaves[0], ShardedTensor):
+        return [leaves]
+    return [tuple(t.shards[s] for t in leaves)
+            for s in sorted(leaves[0].shards)]
 
 
 # ── The optimizer ──
@@ -154,17 +217,20 @@ class AdamW:
                              self.total_steps)
 
     def init(self, params) -> AdamWState:
-        return AdamWState(0, tree_map(torch.zeros_like, params),
-                          tree_map(torch.zeros_like, params))
+        return AdamWState(0, tree_map(zeros_like, params),
+                          tree_map(zeros_like, params))
 
     @torch.no_grad()
     def update_(self, grads, state: AdamWState, params) -> AdamWState:
-        """One step: ``params``, ``state.mu`` and ``state.nu`` in place;
-        returns the state with its count advanced."""
+        """One step: ``params``, ``state.mu`` and ``state.nu`` in place
+        (a sharded leaf on every shard, so replicas stay equal); returns
+        the state with its count advanced."""
         gs = tree_leaves(grads)
         # optax: the square root of the sum of every leaf's sum of squares;
         # at or above clip_norm each leaf becomes (g / norm) * clip_norm.
-        norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in gs))
+        squares = [_square_sum(g) for g in gs]
+        lead = squares[0].device
+        norm = torch.sqrt(sum(x.to(lead) for x in squares))
         clip = not bool(norm < self.clip_norm)
         lr = self.schedule(state.count)
         count = state.count + 1
@@ -172,17 +238,21 @@ class AdamW:
         bc1 = float(f32(1) - f32(self.b1) ** f32(count))
         bc2 = float(f32(1) - f32(self.b2) ** f32(count))
         mask = tree_leaves(decay_mask(params))
-        for g, p, mu, nu, decay in zip(
-                gs, tree_leaves(params), tree_leaves(state.mu),
-                tree_leaves(state.nu), mask):
-            if clip:
-                g = (g / norm.to(g.dtype)) * self.clip_norm
-            mu.mul_(self.b1).add_((1 - self.b1) * g)
-            nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if decay:
-                u = u + self.weight_decay * p
-            p.add_(u * -lr)
+        for leaf, decay in zip(zip(gs, tree_leaves(params),
+                                   tree_leaves(state.mu),
+                                   tree_leaves(state.nu)), mask):
+            for g, p, mu, nu in _pairs(*leaf):
+                if clip:
+                    g = (g / norm.to(g.device, g.dtype)) * self.clip_norm
+                mu.mul_(self.b1).add_((1 - self.b1) * g)
+                # The temporaries are updated in place (the same products
+                # in the same order): a leaf's update holds about two of
+                # its size at a time.
+                nu.mul_(self.b2).add_((g * g).mul_(1 - self.b2))
+                u = (mu / bc1).div_((nu / bc2).sqrt_().add_(self.eps))
+                if decay:
+                    u.add_(self.weight_decay * p)
+                p.add_(u.mul_(-lr))
         return AdamWState(count, state.mu, state.nu)
 
 
@@ -196,8 +266,8 @@ def adamw(lr: float = 3e-4, weight_decay: float = 0.01,
 
 def create_state(params, tx: AdamW) -> TrainState:
     """A fresh state; the moments are zeros on each leaf's device and
-    dtype. Leaves made under ``torch.inference_mode`` are copied out of
-    it, once."""
+    dtype (a sharded leaf's in its mesh and spec, shard for shard). Leaves
+    made under ``torch.inference_mode`` are copied out of it, once."""
     params = tree_map(
         lambda t: t.clone() if t.is_inference() else t.detach(), params)
     return TrainState(0, params, tx.init(params))

@@ -14,7 +14,9 @@ The JAX package runs one program per device under ``shard_map``; here
 one process holds every slot's block in a list (slot order along the
 axis) and runs the ring's steps slot by slot: :func:`ring_self_attention`
 takes those lists, :func:`ring_attention` cuts global (B, T, H, D) arrays
-over a mesh axis and joins the result.
+over a mesh axis and joins the result. On a ``{data, seq, model}`` grid
+(Llama's TP×CP) each ``(data, model)`` row of seq slots runs its own ring
+over that ``model`` slot's local heads, under the same shapes contract.
 
 Masking is the reference's exactly: causality by global positions (block
 index × block length + offset), whole future blocks at -inf; a row that

@@ -11,6 +11,13 @@ slot's shard leaves every other slot's unchanged.
 With several processes (``torch.distributed`` initialised) a process
 holds only its own slots' shards; :meth:`ShardedTensor.full` gathers the
 rest over the process group.
+
+A sharded tree trains as a plain one does (``models/training.py``): the
+shards carry ``requires_grad`` and a ``.grad``, :func:`zeros_like` and
+:func:`map_shards` keep the layout, :func:`sum_replicas` gives every
+replica of a block the sum of the replicas' gradients (so the replicas
+stay bit-equal through an update), and :meth:`ShardedTensor.distinct_slots`
+names each block once (a global norm counts every element once).
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ class ShardedTensor:
     """One tensor over a :class:`SlotMesh`: ``shards`` maps each local
     slot to its shard (on that slot's device)."""
 
-    __slots__ = ("shape", "dtype", "spec", "mesh", "shards")
+    __slots__ = ("shape", "dtype", "spec", "mesh", "shards", "__weakref__")
 
     def __init__(self, shards: dict[int, torch.Tensor], shape, dtype,
                  spec: P, mesh: SlotMesh):
@@ -117,6 +124,48 @@ class ShardedTensor:
             out[idx].copy_(shards[slot])
         return out
 
+    def replica_groups(self) -> list[list[int]]:
+        """The local slots grouped by the block they hold (a group's slots
+        are replicas), each group in slot order, the groups in the order
+        of their first slot."""
+        groups: dict[tuple, list[int]] = {}
+        for slot in sorted(self.shards):
+            key = tuple((s.start, s.stop) for s in self.index(slot))
+            groups.setdefault(key, []).append(slot)
+        return list(groups.values())
+
+    def distinct_slots(self) -> list[int]:
+        """One local slot of each block (the first of its replicas)."""
+        return [g[0] for g in self.replica_groups()]
+
+    # Autograd and the tensor methods a training tree's leaves need.
+
+    def requires_grad_(self, flag: bool = True) -> "ShardedTensor":
+        for t in self.shards.values():
+            t.requires_grad_(flag)
+        return self
+
+    @property
+    def grad(self) -> "ShardedTensor | None":
+        """Each shard's ``.grad`` (zeros where autograd gave that shard
+        none: a replica the forward did not read), or None when no shard
+        has one. Replicas are not summed: :func:`sum_replicas` does."""
+        if all(t.grad is None for t in self.shards.values()):
+            return None
+        return ShardedTensor(
+            {s: t.grad if t.grad is not None else torch.zeros_like(t)
+             for s, t in self.shards.items()},
+            self.shape, self.dtype, self.spec, self.mesh)
+
+    def detach(self) -> "ShardedTensor":
+        return map_shards(torch.Tensor.detach, self)
+
+    def clone(self) -> "ShardedTensor":
+        return map_shards(torch.Tensor.clone, self)
+
+    def is_inference(self) -> bool:
+        return any(t.is_inference() for t in self.shards.values())
+
     def _gather_remote(self, shards: dict) -> dict:
         """Every process's shards, over the default process group (each
         process owns the same number of slots, so the stacks agree)."""
@@ -149,6 +198,79 @@ def shard_tensor(t: torch.Tensor, mesh: SlotMesh, spec: P
                         if piece.device == dev else
                         piece.to(dev).contiguous())
     return ShardedTensor(shards, t.shape, t.dtype, spec, mesh)
+
+
+def map_shards(fn, first: ShardedTensor, *rest: ShardedTensor
+               ) -> ShardedTensor:
+    """``fn`` over the matching shards of ``first`` and ``rest`` (one
+    layout: the same mesh, spec and shape), slot by slot: a
+    :class:`ShardedTensor` of the results in ``first``'s layout, its
+    dtype the results'."""
+    for other in rest:
+        if (other.spec != first.spec or other.shape != first.shape
+                or not same_mesh(other.mesh, first.mesh)):
+            raise ValueError(f"map_shards over unlike layouts: {first!r} "
+                             f"and {other!r}")
+    out = {s: fn(t, *(o.shards[s] for o in rest))
+           for s, t in first.shards.items()}
+    dtype = next(iter(out.values())).dtype
+    return ShardedTensor(out, first.shape, dtype, first.spec, first.mesh)
+
+
+def zeros_like(t):
+    """Zeros in ``t``'s layout: a :class:`ShardedTensor` of zero shards in
+    its spec over its mesh, or ``torch.zeros_like`` of a plain tensor."""
+    if isinstance(t, ShardedTensor):
+        return map_shards(torch.zeros_like, t)
+    return torch.zeros_like(t)
+
+
+def sum_replicas(t: ShardedTensor, like: ShardedTensor | None = None
+                 ) -> ShardedTensor:
+    """Every replica of a block given the sum of that block's replicas:
+    the sum is formed once, in slot order on the group's first device (it
+    becomes the first replica's shard), and each other replica takes its
+    own copy of it, so replicas stay bit-equal. A sharded leaf's gradient
+    is the sum of the gradients its replicas got (a ``data`` replica each
+    row of the batch, say). A None shard (no gradient reached that
+    replica) adds nothing; a group of None shards sums to zeros of
+    ``like``'s shards. Slots of other processes are not summed over."""
+    ref = like if like is not None else t
+    out = {}
+    for group in t.replica_groups():
+        dev = ref.shards[group[0]].device
+        total = None
+        for slot in group:
+            g = t.shards[slot]
+            if g is not None:
+                total = g.to(dev) if total is None else total + g.to(dev)
+        if total is None:
+            total = torch.zeros_like(ref.shards[group[0]])
+        out[group[0]] = total
+        for slot in group[1:]:
+            d = ref.shards[slot].device
+            out[slot] = total.clone() if d == dev else total.to(d)
+    return ShardedTensor(out, t.shape, t.dtype, t.spec, t.mesh)
+
+
+def same_mesh(a: SlotMesh, b: SlotMesh) -> bool:
+    """Two slot meshes with the same axes in the same order, the same
+    sizes and the same device in every slot (two ``model_mesh`` calls of
+    one layout are the same mesh)."""
+    if a is b:
+        return True
+    return (a.axis_names == b.axis_names
+            and a.devices.shape == b.devices.shape
+            and all(x == y for x, y in zip(a.devices.flat, b.devices.flat)))
+
+
+def shard_tree(tree, specs, mesh: SlotMesh):
+    """A dict tree of tensors laid out over ``mesh`` by a matching tree of
+    specs (``param_specs``): the counterpart of ``jax.device_put`` of each
+    leaf with ``NamedSharding(mesh, spec)``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_tensor(tree, mesh, specs)
 
 
 def is_sharded_tree(tensors: dict) -> bool:

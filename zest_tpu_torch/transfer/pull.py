@@ -82,8 +82,13 @@ rules (``models.registry``; config.json is fetched before the landing),
 through the direct landing and the disk staging alike, and the pod
 pre-pass runs over the mesh's slots. ``stats["hbm"]["sharded"]`` is true
 and ``stats["mesh"]`` the mesh's shape; ``params_digest`` of the tree is
-the unsharded landing's. A sharded tree takes no hot-swap
-(``base_params`` raises ``MeshUnsupported``).
+the unsharded landing's. A sharded tree hot-swaps in place as a plain
+one does (``base_params`` a tree landed over the mesh): a base
+``ShardedTensor`` is reused only when its mesh, its spec (what the
+family's rules give the tensor over this mesh now), its global shape and
+its landed dtype are this landing's, and a delta pull runs the pod
+pre-pass over the mesh's slots, so the kernels verify the units the round
+fills.
 
 **Peer tier** (``swarm=``): a ``transfer.swarm.SwarmDownloader`` whose
 direct peers (``--peer HOST:PORT``) the bridge asks before the CDN, for
@@ -129,6 +134,7 @@ from zest_tpu_torch.models.direct import (
 )
 from zest_tpu_torch.models.loader import (
     resolve_dtype,
+    spec_for,
     stage_cached_to_hbm,
     stage_snapshot_to_hbm,
 )
@@ -140,7 +146,7 @@ from zest_tpu_torch.parallel.mesh import (
     pod_mesh,
     world_size,
 )
-from zest_tpu_torch.parallel.sharding import MeshUnsupported
+from zest_tpu_torch.parallel.sharding import ShardedTensor, same_mesh
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.resilience import Deadline
 from zest_tpu_torch.transfer import delta
@@ -680,7 +686,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     ["cuda:0"] * 4)``) lands the tree sharded over it, by the family's
     shard rules; without it a ``cuda`` pull lands over ``cfg.mesh``'s
     axes when they are set. The pod pre-pass then runs over the mesh's
-    slots."""
+    slots. With ``base_params`` too (a tree landed over an equal mesh)
+    the swap reuses base shards in place."""
     if not land and base_params is not None:
         raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
@@ -694,9 +701,6 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if mesh is not None and not isinstance(mesh, SlotMesh):
         raise TypeError(f"mesh must be a SlotMesh (model_mesh), got "
                         f"{type(mesh).__name__}")
-    if mesh is not None and base_params is not None:
-        raise MeshUnsupported(
-            "a hot-swap (base_params) does not take a sharded tree")
     land_dtype = resolve_dtype(cfg.land_dtype)
     t0 = time.monotonic()
     hub = HubClient(cfg)
@@ -1023,14 +1027,29 @@ def _chunk_table(cache, hash_hex: str):
         return None
 
 
+def _fits_landing(t, name: str, info, dev, dtype, mesh, rules) -> bool:
+    """Whether base tensor ``t`` is what this landing would give ``name``:
+    the global shape and landed dtype, and the device (without a mesh) or
+    the mesh and spec (with one: an equal mesh, and the spec the family's
+    rules give the tensor over it now)."""
+    if (tuple(t.shape) != tuple(info.shape)
+            or t.dtype != _landed_dtype(info, dtype)):
+        return False
+    if mesh is None:
+        return not isinstance(t, ShardedTensor) and t.device == dev
+    return (isinstance(t, ShardedTensor) and same_mesh(t.mesh, mesh)
+            and t.spec == spec_for(name, tuple(info.shape), mesh, rules))
+
+
 def _reused_tensors(cache, st, recs_with_headers, base_manifest,
-                    base_params, dev, dtype) -> dict:
+                    base_params, dev, dtype, mesh=None, rules=None) -> dict:
     """The tensors of the base tree that the landing reuses as they are:
     bytes proven unchanged (the reference's fingerprints, and the chunk
-    alignment the cached xorbs' chunk tables show), and the shape, landed
-    dtype and device this landing would give them. A base tree landed at
-    another dtype or shape reuses nothing there, so the swapped tree
-    equals a cold landing."""
+    alignment the cached xorbs' chunk tables show), and the layout this
+    landing would give them (:func:`_fits_landing`). A base tree landed at
+    another dtype or shape, on another device, or over another mesh or
+    spec reuses nothing there, so the swapped tree equals a cold
+    landing."""
     base_files = base_manifest.get("files") or {}
     reused: dict = {}
     for entry, (rec, header) in zip(st, recs_with_headers):
@@ -1044,12 +1063,9 @@ def _reused_tensors(cache, st, recs_with_headers, base_manifest,
             t = base_params.get(name)
             if t is None:
                 continue
-            info = header.tensors[name]
-            if (tuple(t.shape) != tuple(info.shape)
-                    or t.dtype != _landed_dtype(info, dtype)
-                    or t.device != dev):
-                continue
-            reused[name] = t
+            if _fits_landing(t, name, header.tensors[name], dev, dtype,
+                             mesh, rules):
+                reused[name] = t
     return reused
 
 
@@ -1112,7 +1128,7 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
             base_names = frozenset(d_params)
             preloaded = _reused_tensors(bridge.cache, st,
                                         recs_with_headers, d_base,
-                                        d_params, dev, dtype)
+                                        d_params, dev, dtype, mesh, rules)
             for name in preloaded:
                 d_params.pop(name)  # moved into the new tree
 
