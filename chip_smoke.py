@@ -210,6 +210,32 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    over ``{"expert": 4}``: the step-1 loss the CPU float32 loss's within
    ``LOGITS_TOL``, each expert's gradient on its slot, the loss falling,
    the peak rise within its reckoning;
+14. the multi-pod pull of phase 3's GPT-2 revision A. 14a: two pods, each
+   ``pull_model(..., pods=2, pod_index=i, mesh=model_mesh({"model": 2},
+   [cuda:0] * 2))`` into a fresh node; pod 0 first, then pod 1 with pod
+   0's cache behind a ``DcnServer`` (``pod_addrs``) and a ``BtServer``
+   (pod 1's swarm peer): both digests and files the CPU landing's, pod
+   1's ``federated.dcn_units`` the units ``pod_owned_units`` gives pod 0
+   with no fallback or failure and their bytes, pod 1's own units from
+   the swarm (no CDN byte), CDN bytes over both pods ≤ 1.05 × one
+   copy, each pod pre-pass's kernel #3/#1 launches and rows those of its
+   plan's whole-xorb units with none rejected, pod 1's greedy tokens at
+   batch 1 and 4 phase 5's CPU float32 run's. 14b:
+   ``HierarchicalPlan.build(recs, 2, 2)`` distributed over
+   ``hier_mesh(2, 2, [cuda:0] * 4)``: every slot's rows byte-equal to a
+   CPU distribute of the plan, a fill of a fresh cache through the
+   kernels (one launch each per whole-xorb unit, every unit filled), and a
+   round with one unit corrupted in flight rejecting it; ``stage_stats()``
+   printed. 14c: four coop hosts, pod map ``(0, 0, 1, 1)`` (each pod one
+   slice), ``collective_lossy="dcn"``: lossy bytes and ``0 <
+   bits_saved_ratio < 1`` on every host, no ZQLS container in any xorb
+   cache, the receipt kernels' rows those of the whole xorbs received
+   byte-exact, a tree landed through host 1's overlay different from the
+   exact tree, each chunk that moved staged quantized and within its
+   blocks' bound at the tensors' float grid (at its container's phase
+   where the grid's reading overflows float32, the codec fault the JAX
+   package shares), every host's file byte-identical once healed through
+   the waterfall;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -223,8 +249,10 @@ kernels' JSON record (with each kernel's launches by path: the serving
 pool's (``serve``), the daemon's (``serve_daemon``), the collective's
 (``coop_collective``, ``coop_collective_lane``), the pod round's
 (``pod``), the mesh landing's expert round (``mesh``), the sharded swap's
-round (``mesh_swap``) and the fine-tune's push (``push_finetune``) among
-them), the card's name and power limit,
+round (``mesh_swap``), the fine-tune's push (``push_finetune``), the
+federated pull's pre-passes (``federated``), the hierarchical fill
+(``hier``) and the lossy round's receipts (``lossy``) among them), the
+card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 where ``torch.cuda.is_available()`` is false. Needs one card, no network.
@@ -3071,6 +3099,12 @@ def parallel_train_phase(seed: int, dev) -> None:
 # ── Phase 13: the sharded tree's life cycle ──
 
 SWAP_MESH = {"model": 4}
+# Phase 14: each pod of the federated pull lands over two slots of the
+# card; the lossy round's four coop hosts are two pods of two, each pod
+# one slice.
+FED_MESH = {"model": 2}
+FED_SLOTS = 2
+LOSSY_PODS = (0, 0, 1, 1)
 TRAIN_MESH = {"data": 2, "model": 2}
 TP_CP_MESH = {"seq": 2, "model": 2}
 EP_MESH = {"expert": 4}
@@ -3128,18 +3162,14 @@ def mesh_swap_phase(work: Path, url: str, sha_a: str, swap_ref: dict,
     the swapped tree 5b's. Returns the kernels' launches in the swap."""
     import torch
 
-    from zest_tpu_torch.cas.hub import HubClient
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import (_STREAM_COMMIT_BYTES,
                                               load_checkpoint, params_digest)
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
-    from zest_tpu_torch.cas.compression import Scheme
-    from zest_tpu_torch.cas.xorb import XorbReader
-    from zest_tpu_torch.parallel import DistributionPlan, PoolLayout
+    from zest_tpu_torch.parallel import DistributionPlan
     from zest_tpu_torch.parallel.mesh import model_mesh
     from zest_tpu_torch.transfer import pull as pull_mod
-    from zest_tpu_torch.transfer.bridge import XetBridge
 
     wall0 = time.monotonic()
     sha_b = swap_ref["revision"]
@@ -3218,29 +3248,8 @@ def mesh_swap_phase(work: Path, url: str, sha_a: str, swap_ref: dict,
     # A's last xorb up to the chunks it replaced) hashes to another xorb
     # hash and is rejected, as the JAX package's rule rejects it; the
     # landing then reads that xorb from the cache A's pull filled.
-    bridge = XetBridge(cfg_s)
-    bridge.authenticate(REPO, sha_b)
-    recs = [bridge.get_reconstruction(e.xet_hash)
-            for e in HubClient(cfg_s).list_files(REPO, sha_b) if e.is_xet]
-    bridge.close()
-    plan = DistributionPlan.build(recs, n)
-    layout = PoolLayout.from_plan(plan)
-    want = {"blake3_chunks": [0, 0], "bg4_regroup": [0, 0],
-            "bg4_fused_verify": [0, 0]}
-    prefixes = 0
-    for a in plan.assignments:
-        if a.hash_hex not in layout.full_xorbs:
-            continue
-        lo, hi = a.fetch_info.range.start, a.fetch_info.range.end
-        schemes = XorbReader(cfg_s.xorb_cache_path(
-            a.hash_hex).read_bytes()).chunk_schemes
-        bg4 = int((schemes[lo:hi] == int(Scheme.BG4_LZ4)).sum())
-        prefixes += hi < len(schemes)
-        for name, k in (("bg4_fused_verify", bg4),
-                        ("blake3_chunks", hi - lo - bg4)):
-            if k:
-                want[name][0] += 1
-                want[name][1] += k
+    plan = DistributionPlan.build(gpt2_recs(cfg_s, sha_b), n)
+    want, prefixes = plan_launches(plan, cfg_s)
     if pod["units"] != len(plan.assignments) \
             or pod["filled"] + pod["verify_rejected"] != pod["units"] \
             or pod["verify_rejected"] != prefixes \
@@ -3569,6 +3578,509 @@ def expert_train_phase(seed: int, dev) -> None:
           f"1 GiB); phase wall {time.monotonic() - wall0:.2f} s")
 
 
+def plan_launches(plan, cache_cfg) -> tuple[dict, int]:
+    """What a fill of ``plan``'s pool owes the receipt kernels, per kernel
+    ``[launches, rows]``: for each unit the layout takes for a whole xorb
+    (the one planned range of its hash starts at chunk 0), one kernel #3
+    launch over its BG4 chunks and one kernel #1 launch over the rest (the
+    chunk schemes read from ``cache_cfg``'s copy of the xorb). Also the
+    count of those units that are only a prefix of their xorb: their hash
+    is another xorb's, so the fill rejects them."""
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.parallel import PoolLayout
+
+    layout = PoolLayout.from_plan(plan)
+    want = {"blake3_chunks": [0, 0], "bg4_regroup": [0, 0],
+            "bg4_fused_verify": [0, 0]}
+    prefixes = 0
+    for a in plan.assignments:
+        if a.hash_hex not in layout.full_xorbs:
+            continue
+        lo, hi = a.fetch_info.range.start, a.fetch_info.range.end
+        schemes = XorbReader(cache_cfg.xorb_cache_path(
+            a.hash_hex).read_bytes()).chunk_schemes
+        bg4 = int((schemes[lo:hi] == int(Scheme.BG4_LZ4)).sum())
+        prefixes += hi < len(schemes)
+        for name, k in (("bg4_fused_verify", bg4),
+                        ("blake3_chunks", hi - lo - bg4)):
+            if k:
+                want[name][0] += 1
+                want[name][1] += k
+    return want, prefixes
+
+
+def reset_counters() -> None:
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+
+    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
+        c.reset()
+
+
+def read_counters() -> dict:
+    """Each kernel's ``[launches, rows]`` since the last reset."""
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+
+    return {name: [c.launches, c.rows] for name, c in (
+        ("blake3_chunks", blake3_cuda.COUNTER),
+        ("bg4_regroup", bg4_cuda.COUNTER),
+        ("bg4_fused_verify", bg4_cuda.FUSED_COUNTER))}
+
+
+def gpt2_recs(cfg, revision: str) -> list:
+    """GPT-2's reconstructions at ``revision``, as a node over ``cfg``
+    reads them."""
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.transfer.bridge import XetBridge
+
+    bridge = XetBridge(cfg)
+    try:
+        bridge.authenticate(REPO, revision)
+        return [bridge.get_reconstruction(e.xet_hash)
+                for e in HubClient(cfg).list_files(REPO, revision)
+                if e.is_xet]
+    finally:
+        bridge.close()
+
+
+def federated_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed,
+                    digest: str, gpt2_ref: dict, dev) -> dict:
+    """Phase 14a: the federated pull of revision A by two pods, each
+    ``FED_MESH`` over ``dev``. Pod 0 pulls first: its own units and, with
+    no address for pod 1, pod 1's from the CDN. Then, with pod 0's cache
+    behind a ``DcnServer`` and a ``BtServer`` (pod 1's swarm peer), pod 1
+    pulls with ``pod_addrs={0: ...}``: pod 0's units over DCN, its own from
+    pod 0's seeder. Returns each kernel's launches over both pulls."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.parallel import DistributionPlan
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.federated import pod_owned_units
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.server import BtServer
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    wall0 = time.monotonic()
+    mesh = model_mesh(FED_MESH, [dev] * FED_SLOTS)
+    quiet = lambda *a, **k: print("  [fed]", *a, file=sys.stderr)  # noqa: E731
+
+    def node(name):
+        return Config(hf_home=work / name / "hf",
+                      cache_dir=work / name / "zest", endpoint=url,
+                      dcn_port=0, listen_port=0)
+
+    recs = gpt2_recs(node("f14"), pushed.revision)
+    plan = DistributionPlan.build(recs, FED_SLOTS)
+    want, prefixes = plan_launches(plan, cfg_a)
+    mine0, _ = pod_owned_units(recs, 0, 2)
+    launches = dict.fromkeys(want, 0)
+    stats, cdn = [], []
+    servers, swarm = [], None
+    try:
+        for i in range(2):
+            addrs = None
+            if i == 1:
+                servers = [DcnServer(node("f0")), BtServer(node("f0"))]
+                addrs = {0: ("127.0.0.1", servers[0].start())}
+                swarm = SwarmDownloader(node("f1"))
+                swarm.add_direct_peer("127.0.0.1", servers[1].start())
+            reset_counters()
+            res = pull_model(node(f"f{i}"), REPO, revision=pushed.revision,
+                             device=dev, pods=2, pod_index=i,
+                             pod_addrs=addrs, mesh=mesh, pod=True,
+                             swarm=swarm, log=quiet)
+            got = read_counters()
+            label = f"phase 14a pod {i}"
+            pod = res.stats.get("pod") or {}
+            if pod.get("skipped") \
+                    or pod.get("units") != len(plan.assignments) \
+                    or pod["verify_rejected"] != prefixes \
+                    or pod["filled"] + prefixes != pod["units"]:
+                fail(f"{label}: pod pre-pass {pod}, {prefixes} prefix "
+                     "units")
+            if got != want:
+                fail(f"{label}: kernel launches (rows) {got}; the plan's "
+                     f"whole-xorb units predict {want}")
+            check_files(label, res, ckpt)
+            check_tree(label, res, digest, dev)
+            for k, v in got.items():
+                launches[k] += v[0]
+            stats.append(res.stats)
+            cdn.append(res.stats["fetch"]["bytes"]["cdn"])
+            if i == 0:
+                del res  # pod 1's tree decodes below
+    finally:
+        for srv in servers:
+            srv.shutdown()
+        if swarm is not None:
+            swarm.close()
+    fed0, fed1 = (s["federated"] for s in stats)
+    if fed1["dcn_units"] != len(mine0) or fed1["fallback_units"] \
+            or fed1["failed_units"] or not fed1["dcn_bytes"]:
+        fail(f"phase 14a: pod 1's federated block {fed1}; pod 0 owns "
+             f"{len(mine0)} units")
+    # The split between the tiers: pod 0's units reach pod 1 whole over
+    # DCN, pod 1's own units from pod 0's swarm seeder, none from the CDN
+    # (the two pods run in turn, so without the peer tier pod 1's own
+    # units would be a second CDN copy of them).
+    mine0_bytes = sum(fi.url_range_end - fi.url_range_start
+                      for _, fi in mine0)
+    peer1 = stats[1]["fetch"]["bytes"]["peer"]
+    if cdn[1] or fed1["dcn_bytes"] != mine0_bytes \
+            or peer1 != fed1["own_bytes"] + fed1["dcn_bytes"]:
+        fail(f"phase 14a: pod 1 took {cdn[1]:,} CDN bytes and {peer1:,} "
+             f"peer bytes; its federated block {fed1}; pod 0's units hold "
+             f"{mine0_bytes:,} bytes")
+    copy = pushed.new_xorb_bytes
+    if sum(cdn) > 1.05 * copy:
+        fail(f"phase 14a: CDN bytes {cdn} over both pods > 1.05 x {copy:,}")
+    _, gen = load_generator(res.snapshot_dir, device=dev, tensors=res.params)
+    for batch, tokens in gpt2_ref["tokens"]:
+        if not np.array_equal(gen(batch, gpt2_ref["steps"],
+                                  stop_at_eos=False), tokens):
+            fail(f"phase 14a: batch {len(batch)}: pod 1's tokens differ "
+                 "from the CPU float32 run's")
+    del gen, res
+    print(f"phase 14a federated pull ({card_label()}): GPT-2 revision A by "
+          f"2 pods, each {FED_MESH} on [{dev}] * {FED_SLOTS}, pod 0 first; "
+          f"pod 0 {fed0}; pod 1 {fed1} (pod 0 owns {len(mine0)} units, "
+          f"{mine0_bytes:,} B, all over DCN); "
+          f"CDN bytes {cdn} ({sum(cdn) / copy:.4f} x one copy); pod 1 peer "
+          f"bytes {peer1:,} = own (swarm) + DCN; each pre-pass "
+          f"{want} launches (rows) = the plan's whole-xorb units', "
+          f"{prefixes} rejected; time_to_hbm_s "
+          f"{[s['time_to_hbm_s'] for s in stats]}; files, digests and "
+          f"greedy tokens (batch 1 and 4) the CPU's; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    for name in ("f0", "f1", "f14"):
+        shutil.rmtree(work / name, ignore_errors=True)
+    return launches
+
+
+def hierarchy_phase(work: Path, url: str, cfg_a, pushed, dev) -> dict:
+    """Phase 14b: the hierarchical distributor over GPT-2's units on
+    ``hier_mesh(2, 2, [dev] * 4)``: every slot's gathered rows byte-equal
+    to a CPU distribute of the same plan, then a fill of a fresh cache
+    through the receipt kernels (one launch each per whole-xorb unit); a
+    second round with one unit corrupted in flight rejects it. Returns the
+    first fill's launches."""
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.parallel import (
+        HierarchicalDistributor,
+        HierarchicalPlan,
+        hier_mesh,
+    )
+    from zest_tpu_torch.storage import XorbCache
+    from zest_tpu_torch.transfer.pod import make_unit_verifier
+
+    wall0 = time.monotonic()
+    plan = HierarchicalPlan.build(gpt2_recs(Config(
+        hf_home=work / "h14" / "hf", cache_dir=work / "h14" / "zest",
+        endpoint=url), pushed.revision), 2, 2)
+    want, prefixes = plan_launches(plan.flat, cfg_a)
+
+    def fetch(a, corrupt=None):
+        data = cfg_a.xorb_cache_path(a.hash_hex).read_bytes()[
+            a.fetch_info.url_range_start:a.fetch_info.url_range_end]
+        if a.hash_hex != corrupt:
+            return data
+        bad = bytearray(data)
+        bad[len(bad) // 2] ^= 0xFF
+        return bytes(bad)
+
+    hd = HierarchicalDistributor(hier_mesh(2, 2, [dev] * 4))
+    pool = hd.distribute(plan, fetch)
+    stage = hd.stage_stats()
+    cpu = HierarchicalDistributor(hier_mesh(2, 2, ["cpu"] * 4)).distribute(
+        plan, fetch).replicas[0]
+    for slot, replica in enumerate(pool.replicas):
+        if replica.device != dev or not torch.equal(replica.cpu(), cpu):
+            fail(f"phase 14b: slot {slot}'s rows differ from the CPU "
+                 "distribute's")
+    del cpu
+    verify = make_unit_verifier(device=dev)
+    victim = sorted(h for h in pool.layout.full_xorbs)[0]
+    fills = []
+    for name, corrupt in (("h14a", None), ("h14b", victim)):
+        if corrupt is not None:
+            del pool
+            pool = hd.distribute(plan, lambda a: fetch(a, corrupt))
+        cache = XorbCache(Config(hf_home=work / name / "hf",
+                                 cache_dir=work / name / "zest"))
+        reset_counters()
+        fills.append((*pool.fill_cache(cache, verify=verify),
+                      read_counters()))
+    del pool
+    torch.cuda.empty_cache()
+    n = len(plan.flat.assignments)
+    (f0, r0, launches), (f1, r1, _) = fills
+    if (f0 + prefixes, r0) != (n, prefixes) or launches != want:
+        fail(f"phase 14b: filled {f0}/{n}, rejected {r0} ({prefixes} "
+             f"prefixes), launches (rows) {launches}; the plan's whole-xorb "
+             f"units predict {want}")
+    if (f1, r1) != (f0 - 1, r0 + 1):
+        fail(f"phase 14b: the corrupted unit: filled {f1}/{n}, rejected "
+             f"{r1}")
+    print(f"phase 14b hierarchical distributor ({card_label()}): GPT-2's "
+          f"{n} units over hier_mesh(2, 2, [{dev}] * 4), plan "
+          f"{plan.summary()}; every slot's rows = the CPU distribute's; "
+          f"fill {f0}/{n}, launches (rows) {launches} = the plan's "
+          f"whole-xorb units'; one unit corrupted in flight: filled {f1}, "
+          f"rejected {r1}; stage_stats (copies between slots of one card, "
+          f"not a link) {stage}; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    for name in ("h14", "h14a", "h14b"):
+        shutil.rmtree(work / name, ignore_errors=True)
+    return {k: v[0] for k, v in launches.items()}
+
+
+def within_block_bound(exact: bytes, got: bytes, phase: int) -> bool:
+    """Whether ``got`` keeps the lossy tier's promise for the chunk
+    ``exact`` (``transfer/lossy.py``) when both are read as float32 from
+    byte ``phase``: the sub-float head and tail bytes verbatim and every
+    value within its 256-value block's absmax / 127."""
+    n = len(exact)
+    nvals = (n - phase) // 4
+    tail = phase + 4 * nvals
+    if len(got) != n or exact[:phase] != got[:phase] \
+            or exact[tail:] != got[tail:]:
+        return False
+    x = np.frombuffer(exact, "<f4", offset=phase, count=nvals)
+    y = np.frombuffer(got, "<f4", offset=phase, count=nvals)
+    if not (np.isfinite(x).all() and np.isfinite(y).all()):
+        return False
+    nb = -(-nvals // 256)
+    pad = np.zeros((2, nb * 256), np.float64)
+    pad[0, :nvals], pad[1, :nvals] = x, y
+    blocks = pad.reshape(2, nb, 256)
+    bound = np.abs(blocks[0]).max(axis=1, keepdims=True) / 127.0
+    return bool((np.abs(blocks[1] - blocks[0]) <= bound * (1 + 1e-6)).all())
+
+
+def squares_overflow(exact: bytes, phase: int) -> bool:
+    """Whether the chunk ``exact`` read as float32 from byte ``phase`` has
+    a sum of squares past float32's range: the codec then scores that
+    reading's SNR infinite (or NaN) and can pick it over the float grid,
+    a fault of the JAX package's codec that the port keeps."""
+    x = np.frombuffer(exact, "<f4", offset=phase,
+                      count=(len(exact) - phase) // 4)
+    with np.errstate(over="ignore"):
+        return bool(np.isinf(np.square(x).sum(dtype=np.float32)))
+
+
+def container_phases(container: bytes) -> list:
+    """Each chunk's byte phase in a ZQLS container as the codec recorded
+    it, None for a chunk that rides verbatim."""
+    from zest_tpu_torch.transfer.lossy import _CHDR, _HDR, KIND_QUANT
+
+    pos, out = _HDR.size, []
+    for _ in range(_HDR.unpack_from(container)[3]):
+        kind, plen, _raw = _CHDR.unpack_from(container, pos)
+        pos += _CHDR.size
+        out.append(container[pos] if kind == KIND_QUANT else None)
+        pos += plen
+    return out
+
+
+def overlay_faults(data: bytes, landed, data_start: int, rec,
+                   staging) -> tuple[list, int, int]:
+    """Holds a landing through the lossy overlay to the tier's promise,
+    chunk by chunk (the push's content-defined cuts, in ``rec``'s order):
+    each chunk of ``landed`` that differs from the file's ``data`` must be
+    one that ``staging`` holds quantized, and must be within the block
+    bound read at the byte phase its container records. That phase must
+    be the file's float grid, but where the codec's SNR pick overflowed
+    there (``squares_overflow``). Returns the file ranges of the chunks
+    that break these rules, the count of chunks that moved, and the count
+    of those whose container is off the grid."""
+    from zest_tpu_torch.cas.chunking import cut_points
+
+    phases, tables = [], {}
+    for term in rec.terms:
+        for c in range(term.range.start, term.range.end):
+            hit = staging.get_with_range(term.hash_hex, c)
+            phase = None
+            if hit is not None:
+                key = (term.hash_hex, hit[1])
+                if key not in tables:
+                    tables[key] = container_phases(hit[0])
+                if c - hit[1] < len(tables[key]):
+                    phase = tables[key][c - hit[1]]
+            phases.append(phase)
+    cuts = cut_points(data)
+    if len(cuts) != len(phases):
+        return [(0, len(data))], 0, 0
+    faults, moved, off_grid, start = [], 0, 0, 0
+    for end, phase in zip(cuts, phases):
+        if landed[start:end] != data[start:end]:
+            moved += 1
+            if phase is None or not within_block_bound(
+                    data[start:end], bytes(landed[start:end]), phase):
+                faults.append((start, end))
+            elif phase != (data_start - start) % 4:
+                off_grid += 1
+                if not squares_overflow(data[start:end], phase):
+                    faults.append((start, end))
+        start = end
+    return faults, moved, off_grid
+
+
+def lossy_phase(work: Path, url: str, ckpt: Path, pushed, dev) -> dict:
+    """Phase 14c: the lossy tier. Four coop hosts of revision A's
+    ``model.safetensors``, pod map ``LOSSY_PODS`` (each pod one slice),
+    ``collective_lossy="dcn"``: quantized float units cross the pods into
+    the staging overlays. Gates: lossy bytes and a bits-saved ratio in
+    (0, 1) on every host, no ZQLS container in any xorb cache, the receipt
+    kernels' rows those of the whole xorbs each host received byte-exact,
+    a tree landed through host 1's overlay different from the exact tree,
+    each chunk that moved staged quantized and within the block bound at
+    the float grid (at its container's phase where the codec read it off
+    the grid), and every host's file byte-identical once healed through
+    the waterfall. Returns each kernel's launches in the round."""
+    import torch
+
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import stage_cached_to_hbm
+    from zest_tpu_torch.models.safetensors_io import parse_header_prefix
+    from zest_tpu_torch.transfer import lossy
+    from zest_tpu_torch.transfer.bridge import XetBridge
+    from zest_tpu_torch.transfer.coop import CoopPlan, coop_round
+    from zest_tpu_torch.transfer.dcn import DcnServer
+
+    wall0 = time.monotonic()
+    n = len(LOSSY_PODS)
+    bridges, servers, addrs = [], [], {}
+    for i in range(n):
+        cfg = Config(hf_home=work / f"l14-{i}" / "hf",
+                     cache_dir=work / f"l14-{i}" / "zest", endpoint=url,
+                     dcn_port=0, coop_pods=LOSSY_PODS,
+                     coop_topology=LOSSY_PODS, collective_lossy="dcn")
+        b = XetBridge(cfg)
+        b.authenticate(REPO, pushed.revision)
+        bridges.append(b)
+        servers.append(DcnServer(cfg, b.cache))
+        addrs[i] = ("127.0.0.1", servers[-1].start())
+    entry = next(e for e in HubClient(bridges[0].cfg).list_files(
+        REPO, pushed.revision) if e.path == "model.safetensors")
+    rec = bridges[0].get_reconstruction(entry.xet_hash)
+    results, errors = [None] * n, []
+
+    def host(i):
+        try:
+            results[i] = coop_round(bridges[i], [rec], i, n, addrs,
+                                    server=servers[i], device=dev)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    reset_counters()
+    threads = [threading.Thread(target=host, args=(i,)) for i in range(n)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    round_s = time.monotonic() - t0
+    launches = read_counters()
+    for s in servers:
+        s.shutdown()
+    if errors:
+        raise errors[0]
+
+    # The whole xorbs each host received byte-exact from a peer (owned by
+    # another host, cached under the full key): their receipts' rows.
+    plan = CoopPlan.build([rec], n)
+    want = {"blake3_chunks": 0, "bg4_fused_verify": 0}
+    for i, (b, r) in enumerate(zip(bridges, results)):
+        ex, cx = r["exchange"], r.get("collective") or {}
+        if cx.get("lossy") != "dcn" or cx.get("aborted") or r["fallbacks"] \
+                or ex["verify_rejected"] or not ex.get("lossy_bytes") \
+                or not 0 < ex.get("bits_saved_ratio", 0) < 1:
+            fail(f"phase 14c host {i}: collective {cx}, fallbacks "
+                 f"{r['fallbacks']}, exchange {ex}")
+        for path in (b.cfg.cache_dir / "xorbs").rglob("*"):
+            if path.is_file() and lossy.is_lossy_container(
+                    path.read_bytes()[:64]):
+                fail(f"phase 14c host {i}: a ZQLS container in the cache: "
+                     f"{path}")
+        mine = {hh for hh, _fi in plan.for_host(i)}
+        for hh in rec.fetch_info:
+            full = b.cfg.xorb_cache_path(hh)
+            if hh in mine or not full.exists():
+                continue
+            schemes = XorbReader(full.read_bytes()).chunk_schemes
+            bg4 = int((schemes == int(Scheme.BG4_LZ4)).sum())
+            want["bg4_fused_verify"] += bg4
+            want["blake3_chunks"] += len(schemes) - bg4
+    if {k: launches[k][1] for k in want} != want \
+            or launches["bg4_regroup"][0] \
+            or not sum(launches[k][0] for k in want):
+        fail(f"phase 14c: kernel launches (rows) {launches}; the whole "
+             f"xorbs received byte-exact hold {want} chunks")
+
+    # A landing with no file sink reads host 1's overlay; the header
+    # comes from the file itself. Its bytes in file order against the
+    # file's: every chunk that moved is one host 1 holds quantized, within
+    # the block bound at the phase its container records, which is the
+    # float grid but for the codec's overflowed picks (counted).
+    data = (ckpt / "model.safetensors").read_bytes()
+    header = parse_header_prefix(data)
+    tree, _ = stage_cached_to_hbm(bridges[1], [(rec, header)], dev)
+    landed = bytearray(data)
+    for name, t in tree.items():
+        lo, hi = header.tensors[name].file_range(header.data_start)
+        landed[lo:hi] = t.cpu().contiguous().view(torch.uint8).numpy() \
+            .tobytes()
+    n_vals = sum(t.numel() for t in tree.values())
+    del tree
+    torch.cuda.empty_cache()
+    faults, moved, off_grid = overlay_faults(
+        data, landed, header.data_start, rec,
+        lossy.staging_for(bridges[1].cfg.cache_dir))
+    if faults:
+        fail(f"phase 14c: {len(faults)} moved chunks not staged "
+             "quantized, past the block bound at their container's phase, "
+             "or read off the float grid with no overflow there: the "
+             f"first {faults[:4]}")
+    if not moved:
+        fail("phase 14c: the overlay landing is the exact tree: the lossy "
+             "tier never engaged")
+    diff = np.frombuffer(landed, np.uint8) != np.frombuffer(data, np.uint8)
+    del landed
+    staged = [lossy.staging_for(b.cfg.cache_dir).units() for b in bridges]
+    for i, b in enumerate(bridges):
+        out = work / f"l14-{i}" / "model.safetensors"
+        b.reconstruct_to_file(entry.xet_hash, out)
+        if out.read_bytes() != data:
+            fail(f"phase 14c host {i}: the healed file differs")
+        b.close()
+    lossy.reset_stagings()
+    ex = [r["exchange"] for r in results]
+    print(f"phase 14c lossy tier ({card_label()}): {n} coop hosts, pods "
+          f"{LOSSY_PODS}, collective_lossy=dcn, round {round_s:.2f} s; "
+          f"lossy_bytes {[e['lossy_bytes'] for e in ex]}, bits_saved_ratio "
+          f"{[e['bits_saved_ratio'] for e in ex]}, wire "
+          f"{[e['wire_bytes'] for e in ex]}, links "
+          f"{[r['collective']['link_bytes'] for r in results]}; staged "
+          f"units {staged}; no ZQLS container in any cache; receipt "
+          f"launches (rows) {launches} = the byte-exact whole xorbs'; host "
+          f"1's overlay landing ({n_vals:,} values) moved "
+          f"{int(diff.sum()):,} bytes in {moved} chunks, each staged "
+          "quantized and within its block bound at its container's phase, "
+          f"{off_grid} of them off the float grid where that reading "
+          "overflows float32; every host's file byte-identical once "
+          "healed; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
+    for i in range(n):
+        shutil.rmtree(work / f"l14-{i}", ignore_errors=True)
+    return {k: v[0] for k, v in launches.items()}
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -3665,6 +4177,7 @@ def run(args, work: Path) -> dict:
                                      tensors=pulled.params)
         _, gen_cpu = load_generator(pulled.snapshot_dir, device="cpu")
         prompts = rng.integers(0, GPT2_CONFIG["vocab_size"], (4, 8)).tolist()
+        gpt2_tokens = []  # the CPU float32 run's, for phase 14a
         for batch in ([prompts[0]], prompts):
             gen_cuda(batch, 2, stop_at_eos=False)  # warm-up (cuBLAS init)
             torch.cuda.synchronize()
@@ -3674,6 +4187,7 @@ def run(args, work: Path) -> dict:
             ref = gen_cpu(batch, args.steps, stop_at_eos=False)
             if not np.array_equal(out, ref):
                 fail(f"batch {len(batch)}: cuda tokens != cpu tokens")
+            gpt2_tokens.append((batch, ref))
             if len(batch) == 1:
                 gpt2_b1 = (batch[0], out[0].tolist())  # for phase 9b
             print(f"phase 5 generate batch {len(batch)}: prefill 8 + "
@@ -3753,6 +4267,18 @@ def run(args, work: Path) -> dict:
         sharded_train_phase(work, publisher.url, llama_ref, ft_ref, dev)
         tp_cp_phase(args.seed, dev)
         expert_train_phase(args.seed, dev)
+
+        # ── 14. the multi-pod pull: the federated round across two pods,
+        # the hierarchical distributor, the lossy cross-pod tier ──
+        torch.cuda.empty_cache()
+        t14 = time.monotonic()
+        fed_launches = federated_phase(
+            work, publisher.url, cfg_a, ckpt, pushed, digest,
+            {"tokens": gpt2_tokens, "steps": args.steps}, dev)
+        hier_launches = hierarchy_phase(work, publisher.url, cfg_a, pushed,
+                                        dev)
+        lossy_launches = lossy_phase(work, publisher.url, ckpt, pushed, dev)
+        print(f"phase 14 wall {time.monotonic() - t14:.2f} s")
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -3823,7 +4349,10 @@ def run(args, work: Path) -> dict:
                                  "mesh": mesh_launches["blake3_chunks"],
                                  "mesh_swap": mesh_swap_launches[
                                      "blake3_chunks"],
-                                 "swarm": swarm_launches["blake3_chunks"]}}
+                                 "swarm": swarm_launches["blake3_chunks"],
+                                 "federated": fed_launches["blake3_chunks"],
+                                 "hier": hier_launches["blake3_chunks"],
+                                 "lossy": lossy_launches["blake3_chunks"]}}
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
                                         "coop_collective":
@@ -3835,6 +4364,9 @@ def run(args, work: Path) -> dict:
                                         "mesh_swap": mesh_swap_launches[
                                             k["name"]],
                                         "swarm": swarm_launches[k["name"]],
+                                        "federated": fed_launches[k["name"]],
+                                        "hier": hier_launches[k["name"]],
+                                        "lossy": lossy_launches[k["name"]],
                                         "serve": pool_out["launches"][
                                             k["name"]],
                                         "serve_daemon": daemon_launches[

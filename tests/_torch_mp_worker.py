@@ -16,6 +16,11 @@ CPU slot per process, keeps only its own shards, builds the tensor-parallel tree
 (the replicated tensors gathered over the group, the row-parallel sums
 all-reduced) and writes the prefill logits of DIR/ids.npy and a greedy
 decode into DIR.
+
+With ``hier`` (for tests/test_torch_hierarchy.py) it runs one
+``HierarchicalDistributor`` round over a ``(pods=2, hosts=2)`` mesh of two
+CPU slots per process, each fetching only the units its slots own from
+DIR/blobs.json, and writes every local slot's gathered rows into DIR.
 """
 
 from __future__ import annotations
@@ -106,7 +111,41 @@ def tp_main(rank: int, world: int, port: int, root: Path) -> None:
         dist.destroy_process_group()
 
 
+def hier_main(rank: int, world: int, port: int, root: Path) -> None:
+    from zest_tpu_torch.parallel import (
+        HierarchicalDistributor,
+        HierarchicalPlan,
+        hier_mesh,
+    )
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        blobs = {hh: bytes.fromhex(b) for hh, b in json.loads(
+            (root / "blobs.json").read_text()).items()}
+        recs = [recon.from_json(fh, doc) for fh, doc in json.loads(
+            (root / "recs.json").read_text()).items()]
+        mesh = hier_mesh(2, 2, ["cpu"] * 2)
+        mine = set(mesh.local_slots())
+
+        def fetch(a):
+            assert a.owner in mine, "fetched a unit another process owns"
+            f = a.fetch_info
+            return blobs[a.hash_hex][f.url_range_start:f.url_range_end]
+
+        hd = HierarchicalDistributor(mesh)
+        pool = hd.distribute(HierarchicalPlan.build(recs, 2, 2), fetch)
+        for j, replica in enumerate(pool.replicas):
+            np.save(root / f"hier_{rank}_{j}.npy", replica.numpy())
+        (root / f"stats_{rank}.json").write_text(json.dumps(
+            sorted(hd.stage_stats())))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    run = tp_main if sys.argv[5:] == ["tp"] else main
+    run = {"tp": tp_main, "hier": hier_main}.get(
+        (sys.argv[5:] or [""])[0], main)
     run(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
         Path(sys.argv[4]))

@@ -63,6 +63,8 @@ SLICE_MODULES = [
     "zest_tpu_torch.parallel.sharding", "zest_tpu_torch.parallel.expert",
     "zest_tpu_torch.models.tensor_parallel", "zest_tpu_torch.models.registry",
     "zest_tpu_torch.models.direct", "zest_tpu_torch.models.loader",
+    "zest_tpu_torch.transfer.lossy", "zest_tpu_torch.parallel.hierarchy",
+    "zest_tpu_torch.telemetry.fleet",
 ]
 
 
@@ -118,7 +120,7 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
     from zest_tpu_torch.config import Config, MeshConfig, resolve_device
     from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import stage_snapshot_to_hbm
-    from zest_tpu_torch.parallel import HbmStagingCache, pod_mesh
+    from zest_tpu_torch.parallel import HbmStagingCache, hier_mesh, pod_mesh
     from zest_tpu_torch.parallel.mesh import mesh_from_config, model_mesh
     from zest_tpu_torch.transfer.dcn import DcnPool
     from zest_tpu_torch.transfer.pod import make_unit_verifier, pod_round
@@ -169,6 +171,9 @@ def test_entry_points_default_to_cuda_and_raise(no_card, tmp_path):
         lambda: make_transport("jax", DcnPool()),
         lambda: pod_round(None, []),
         lambda: main(["pull", "org/m", "--pod"]),
+        lambda: main(["pull", "org/m", "--pods", "2", "--pod-index", "1",
+                      "--pod-addr", "0=127.0.0.1:9"]),
+        lambda: hier_mesh(2, 2),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):

@@ -11,7 +11,7 @@ verifier as well as the plain BLAKE3), with ``device="cpu"``:
   transfer matrices and their skew equal; every foreign unit requested
   once;
 - topology resolution and the collective knobs parsed as the reference
-  parses them; a lossy value raises, naming the missing port;
+  parses them, the lossy values included; a bad value raises;
 - the round end to end over loopback DCN sockets (ring at 3 hosts,
   hypercube at 4 and 8): ``stats["coop"]`` and its ``collective`` block
   with the reference's keys and counts (times excepted), every window
@@ -254,13 +254,23 @@ def test_collective_knob_typos_raise(env):
 
 @pytest.mark.parametrize("value", ["dcn", "wan"])
 def test_lossy_values_raise_naming_the_missing_port(value):
+    """The lossy tier is ported: both values parse as the reference parses
+    them, from the environment and as arguments; what raises now is a
+    value neither package accepts, naming the accepted modes."""
     base = {"HF_HOME": "/tmp/x", "ZEST_CACHE_DIR": "/tmp/y"}
     assert JConfig.load({**base, "ZEST_COLLECTIVE_LOSSY": value}) \
         .collective_lossy == value
-    with pytest.raises(ValueError, match="transfer/lossy.py"):
-        Config.load({**base, "ZEST_COLLECTIVE_LOSSY": value})
-    with pytest.raises(ValueError, match="not ported"):
-        Config(hf_home="/tmp/x", cache_dir="/tmp/y", collective_lossy=value)
+    assert Config.load({**base, "ZEST_COLLECTIVE_LOSSY": value}) \
+        .collective_lossy == value
+    assert Config(hf_home="/tmp/x", cache_dir="/tmp/y",
+                  collective_lossy=value).collective_lossy == value
+    for bad in (value + "x", value.upper()):
+        with pytest.raises(ValueError):
+            JConfig.load({**base, "ZEST_COLLECTIVE_LOSSY": bad})
+        with pytest.raises(ValueError, match="0|dcn|wan"):
+            Config.load({**base, "ZEST_COLLECTIVE_LOSSY": bad})
+        with pytest.raises(ValueError, match="0|dcn|wan"):
+            Config(hf_home="/tmp/x", cache_dir="/tmp/y", collective_lossy=bad)
     with pytest.raises(ValueError):
         Config(hf_home="/tmp/x", cache_dir="/tmp/y",
                collective_backend="carrier-pigeon")

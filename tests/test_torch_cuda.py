@@ -1009,3 +1009,84 @@ def test_ring_gradient_on_card_slots(cuda_device):
     for a, b in zip(g_ring, g_dense):
         assert not torch.isnan(a).any()
         assert torch.allclose(a, b, atol=1e-5, rtol=1e-4)
+
+
+def test_federated_round_and_hierarchical_fill_on_card(cuda_device,
+                                                       tmp_path):
+    """Two pods pull a tiny GPT-2 over ``{"model": 2}`` slots of the card,
+    pod 0 first, pod 1 from pod 0 over DCN: pod 1's pod pre-pass launches
+    kernels #3/#1 once per whole-xorb unit of its plan and lands the
+    CPU's tree. A hierarchical (2, 2) round over the card's slots fills a
+    fresh cache through the same kernels, one launch per unit again.
+    The launches each fill owes come from ``chip_smoke.plan_launches``,
+    phase 14's own rule."""
+    import chip_smoke
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.parallel import (
+        DistributionPlan,
+        HierarchicalDistributor,
+        HierarchicalPlan,
+        hier_mesh,
+    )
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.storage import XorbCache
+    from zest_tpu_torch.transfer.bridge import XetBridge
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.pod import make_unit_verifier
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt, notify=False)
+    mesh = model_mesh({"model": 2}, [cuda_device] * 2)
+    want_digest = params_digest(load_checkpoint(ckpt, "cpu"))
+    with PublisherServer(cfg_a) as hub:
+        def node(name):
+            return Config(hf_home=tmp_path / name / "hf",
+                          cache_dir=tmp_path / name / "zest",
+                          endpoint=hub.url, dcn_port=0)
+
+        res0 = pull_model(node("p0"), "org/tiny", pods=2, pod_index=0,
+                          mesh=mesh)
+        server = DcnServer(node("p0"))
+        port = server.start()
+        try:
+            chip_smoke.reset_counters()
+            res1 = pull_model(node("p1"), "org/tiny", pods=2, pod_index=1,
+                              pod_addrs={0: ("127.0.0.1", port)}, mesh=mesh)
+            got = chip_smoke.read_counters()
+        finally:
+            server.shutdown()
+        bridge = XetBridge(node("p1"))
+        bridge.authenticate("org/tiny")
+        recs = [bridge.get_reconstruction(e.xet_hash)
+                for e in HubClient(bridge.cfg).list_files("org/tiny")
+                if e.is_xet]
+        bridge.close()
+    fed = res1.stats["federated"]
+    assert fed["dcn_units"] > 0 and fed["failed_units"] == 0
+    assert fed["fallback_units"] == 0
+    for res in (res0, res1):
+        assert res.stats["pod"]["verify_rejected"] == 0
+        assert params_digest(res.params) == want_digest
+    assert (got, 0) == chip_smoke.plan_launches(
+        DistributionPlan.build(recs, 2), cfg_a)
+
+    plan = HierarchicalPlan.build(recs, 2, 2)
+    chip_smoke.reset_counters()
+    pool = HierarchicalDistributor(hier_mesh(2, 2, [cuda_device] * 4)) \
+        .distribute(plan, lambda a: cfg_a.xorb_cache_path(
+            a.hash_hex).read_bytes()[a.fetch_info.url_range_start:
+                                     a.fetch_info.url_range_end])
+    fresh = Config(hf_home=tmp_path / "h" / "hf",
+                   cache_dir=tmp_path / "h" / "zest")
+    filled, rejected = pool.fill_cache(XorbCache(fresh),
+                                       verify=make_unit_verifier())
+    assert (filled, rejected) == (len(plan.flat.assignments), 0)
+    assert all(r.device == cuda_device for r in pool.replicas)
+    assert (chip_smoke.read_counters(), 0) == chip_smoke.plan_launches(
+        plan.flat, cfg_a)

@@ -248,18 +248,33 @@ def _swarm_for(args):
 def cmd_pull(args) -> int:
     from zest_tpu_torch.transfer.pull import pull_model
 
-    try:
-        coop_addrs = dict(parse_host_addr(a) for a in args.coop_addr or [])
-    except ValueError as exc:
-        print(f"error: --coop-addr: {exc}", file=sys.stderr)
+    if (args.pods is None) != (args.pod_index is None):
+        print("error: --pods and --pod-index must be given together",
+              file=sys.stderr)
         return 2
+    if args.pods is not None and not 0 <= args.pod_index < args.pods:
+        print(f"error: --pod-index {args.pod_index} outside [0,{args.pods})",
+              file=sys.stderr)
+        return 2
+    addrs = {}
+    for flag in ("coop_addr", "pod_addr"):
+        try:
+            addrs[flag] = dict(parse_host_addr(a)
+                               for a in getattr(args, flag) or [])
+        except ValueError as exc:
+            print(f"error: --{flag.replace('_', '-')}: {exc}",
+                  file=sys.stderr)
+            return 2
     swarm = _swarm_for(args)
     try:
         res = pull_model(Config.load(), args.repo, revision=args.revision,
                          device=args.device, coop=args.coop,
                          coop_hosts=args.coop_hosts,
-                         coop_index=args.coop_index, coop_addrs=coop_addrs,
-                         swarm=swarm, no_p2p=args.no_p2p, pod=args.pod)
+                         coop_index=args.coop_index,
+                         coop_addrs=addrs["coop_addr"], swarm=swarm,
+                         no_p2p=args.no_p2p, pod=args.pod, pods=args.pods,
+                         pod_index=args.pod_index,
+                         pod_addrs=addrs["pod_addr"])
     finally:
         if swarm is not None:
             swarm.close()
@@ -299,6 +314,12 @@ def cmd_pull(args) -> int:
                 line += (f" — aborted ({cx['aborted']}), degraded to "
                          "point-to-point")
             print(line)
+    fed = st.get("federated")
+    if fed:
+        print(f"  Federated:  pod {fed['pod']}/{fed['pods']}: "
+              f"{fed['own_units']} own, {fed['dcn_units']} over DCN "
+              f"({fed['dcn_bytes']} bytes), {fed['fallback_units']} "
+              "CDN-fallback")
     if st["hbm"].get("sharded"):
         shape = ",".join(f"{a}={n}" for a, n in st["mesh"].items())
         print(f"  Sharded:    over the mesh {shape}")
@@ -538,6 +559,14 @@ def build_parser() -> argparse.ArgumentParser:
                           "(default with --device cuda; also ZEST_TPU_POD)")
     pod.add_argument("--no-pod", dest="pod", action="store_false",
                      help="skip the pod round")
+    pull.add_argument("--pods", type=int, default=None,
+                      help="pods in a federated multi-pod pull (separate "
+                           "processes linked over DCN)")
+    pull.add_argument("--pod-index", type=int, default=None,
+                      help="this process's pod index, 0-based")
+    pull.add_argument("--pod-addr", action="append", metavar="I=HOST:PORT",
+                      help="DCN endpoint of pod I (repeatable); units "
+                           "owned by unreachable pods degrade to the CDN")
     add_peer_flags(pull)
     pull.set_defaults(fn=cmd_pull)
 

@@ -86,6 +86,7 @@ DEFAULT_HBM_POOL = True
 DEFAULT_HBM_POOL_BYTES = 2 << 30
 
 COLLECTIVE_BACKENDS = ("dcn", "jax", "loopback")
+COLLECTIVE_LOSSY_MODES = ("0", "dcn", "wan")
 
 _REPO_RE = re.compile(r"^[\w.\-]+/[\w.\-]+$")
 
@@ -298,8 +299,10 @@ class Config:
     # flat slice, one pod); ``collective_backend`` (dcn|jax|loopback)
     # picks how its phase windows move ("jax" is the device-lane
     # transport, the JAX package's name kept so a node's environment
-    # carries across). ``collective_lossy`` must stay "0": the lossy tier
-    # (transfer/lossy.py) is not ported.
+    # carries across). ``collective_lossy`` (ZEST_COLLECTIVE_LOSSY,
+    # 0|dcn|wan) arms the quantized tier (transfer/lossy.py) on the named
+    # link classes ("dcn" covers wan too); lossy payloads land in the
+    # staging overlay only, never in the xorb cache.
     coop_collective: bool = True
     coop_topology: tuple[int, ...] | None = None
     coop_pods: tuple[int, ...] | None = None
@@ -357,11 +360,11 @@ class Config:
                 f"collective_backend must be one of "
                 f"{'|'.join(COLLECTIVE_BACKENDS)}, got "
                 f"{self.collective_backend!r}")
-        if self.collective_lossy != "0":
+        if self.collective_lossy not in COLLECTIVE_LOSSY_MODES:
             raise ValueError(
-                f"collective_lossy={self.collective_lossy!r}: the lossy "
-                "tier (transfer/lossy.py) is not ported; only '0' "
-                "(byte-exact) runs")
+                f"collective_lossy must be one of "
+                f"{'|'.join(COLLECTIVE_LOSSY_MODES)}, got "
+                f"{self.collective_lossy!r}")
 
     @staticmethod
     def load(env: dict[str, str] | None = None) -> "Config":
@@ -404,10 +407,8 @@ class Config:
             coop_pods=_opt_topology(env, "ZEST_COOP_PODS"),
             collective_backend=_strict_choice(
                 env, "ZEST_COLLECTIVE_BACKEND", "dcn", COLLECTIVE_BACKENDS),
-            # The JAX package's values parse; __post_init__ refuses the
-            # lossy ones.
             collective_lossy=_strict_choice(
-                env, "ZEST_COLLECTIVE_LOSSY", "0", ("0", "dcn", "wan")),
+                env, "ZEST_COLLECTIVE_LOSSY", "0", COLLECTIVE_LOSSY_MODES),
             hbm_staging_bytes=_nonneg_int(
                 env, "ZEST_TPU_HBM_STAGING", DEFAULT_HBM_STAGING_BYTES),
             pull_inflight_bytes=max(1, int(

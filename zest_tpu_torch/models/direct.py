@@ -24,8 +24,10 @@ landing path are the content-addressed cache entries.
 - :func:`land_moe_expert_sharded`: a Mixtral checkpoint stacked into the
   family tree and laid out expert-parallel over a slot mesh.
 
-Not ported: the lossy staging overlay (``allow_lossy=True`` raises
-:class:`DirectLandingError`).
+A reader built with ``allow_lossy=True`` overlays the host's lossy
+staging (``transfer/lossy.py``) where the cache misses: the device
+landings ask for it when no file shares their decoded bytes; file
+materialization and serving never do.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from zest_tpu_torch.cas.xorb import (
 from zest_tpu_torch.config import DEFAULT_DECODE_CACHE_BYTES
 from zest_tpu_torch.models.registry import layer_priority
 from zest_tpu_torch.models.safetensors_io import SafetensorsHeader
+from zest_tpu_torch.transfer import lossy
 
 # Typed views of a landed byte buffer keep the file's alignment: the
 # buffer starts ``file offset % _ALIGN`` bytes into an aligned allocation.
@@ -143,10 +146,8 @@ class CachedFileReader:
     def __init__(self, cache, rec: recon.Reconstruction, bridge=None,
                  workers: int | None = None, allow_lossy: bool = False,
                  use_preadv: bool = True):
-        if allow_lossy:
-            raise DirectLandingError(
-                "allow_lossy: the lossy staging overlay is not ported")
         self.cache = cache
+        self.allow_lossy = allow_lossy
         self.rec = rec
         self.bridge = bridge
         self.use_preadv = bool(use_preadv) and hasattr(os, "preadv")
@@ -184,26 +185,52 @@ class CachedFileReader:
                 return hit[0], hit[1]
         entry = self.cache.get_with_range_mapped(hash_hex, range_start)
         if entry is None:
-            return None
-        try:
-            reader = XorbReader(entry.data)
-        except ValueError as exc:  # XorbFormatError
-            # Kept without its traceback: the frames it links to (the
-            # caller's read, and its view of the caller's buffer) must
-            # not outlive the read.
-            self._malformed[key] = exc.with_traceback(None)
-            return None
+            got = self._lossy_reader(hash_hex, range_start)
+            if got is None:
+                return None
+            reader, chunk_offset, nbytes = got
+        else:
+            try:
+                reader = XorbReader(entry.data)
+            except ValueError as exc:  # XorbFormatError
+                # Kept without its traceback: the frames it links to (the
+                # caller's read, and its view of the caller's buffer) must
+                # not outlive the read.
+                self._malformed[key] = exc.with_traceback(None)
+                return None
+            chunk_offset, nbytes = entry.chunk_offset, len(entry.data)
         if self._reader_cache_cap > 0:
             with self._readers_lock:
                 if key not in self._readers:
-                    self._readers[key] = (reader, entry.chunk_offset,
-                                          len(entry.data))
-                    self._readers_bytes += len(entry.data)
+                    self._readers[key] = (reader, chunk_offset, nbytes)
+                    self._readers_bytes += nbytes
                 while (self._readers_bytes > self._reader_cache_cap
                        and len(self._readers) > 1):
                     _, (_r, _o, dropped) = self._readers.popitem(last=False)
                     self._readers_bytes -= dropped
-        return reader, entry.chunk_offset
+        return reader, chunk_offset
+
+    def _lossy_reader(self, hash_hex: str, range_start: int):
+        """``(reader, chunk_offset, nbytes)`` over the dequantized frames
+        of a staged lossy container, or None. Only a reader built with
+        ``allow_lossy`` looks, and only after a cache miss, so byte-exact
+        data always wins."""
+        if not self.allow_lossy:
+            return None
+        cache_dir = getattr(getattr(self.cache, "cfg", None), "cache_dir",
+                            None)
+        if cache_dir is None:
+            return None
+        staged = lossy.staging_for(cache_dir).get_with_range(hash_hex,
+                                                             range_start)
+        if staged is None:
+            return None
+        container, chunk_offset = staged
+        try:
+            data = lossy.dequantize_blob(container)
+        except ValueError:
+            return None  # a malformed container reads as a miss
+        return XorbReader(data), chunk_offset, len(data)
 
     def _drop_reader(self, hash_hex: str, range_start: int) -> None:
         """Forget a memoized reader whose blob failed to decode, so no
@@ -606,14 +633,16 @@ def typed_view(raw: torch.Tensor, info) -> torch.Tensor:
 
 
 def land_tensors(cache, rec: recon.Reconstruction, header: SafetensorsHeader,
-                 predicate=None, bridge=None, workers: int | None = None
-                 ) -> dict[str, torch.Tensor]:
+                 predicate=None, bridge=None, workers: int | None = None,
+                 allow_lossy: bool = False) -> dict[str, torch.Tensor]:
     """Decode one safetensors file's tensors (those ``predicate(name)``
     keeps) from the cache into CPU tensors. Without a predicate the whole
     data section decodes as one read into one buffer and the tensors are
     views of it. With a ``bridge``, missing units come through its
-    waterfall. ``workers`` sizes the decode pool."""
-    reader = CachedFileReader(cache, rec, bridge=bridge, workers=workers)
+    waterfall. ``workers`` sizes the decode pool; ``allow_lossy`` reads
+    the lossy staging where the cache misses."""
+    reader = CachedFileReader(cache, rec, bridge=bridge, workers=workers,
+                              allow_lossy=allow_lossy)
     out: dict[str, torch.Tensor] = {}
     spans = {name: info.file_range(header.data_start)
              for name, info in header.tensors.items()
@@ -645,10 +674,11 @@ class StreamingShardReader:
 
     def __init__(self, cache, rec: recon.Reconstruction,
                  header: SafetensorsHeader, bridge=None,
-                 workers: int | None = None):
+                 workers: int | None = None, allow_lossy: bool = False):
         self.header = header
         self.reader = CachedFileReader(cache, rec, bridge=bridge,
-                                       workers=workers)
+                                       workers=workers,
+                                       allow_lossy=allow_lossy)
 
     def decode_range_into(self, lo: int, hi: int, dest) -> None:
         """Decode file bytes ``[lo, hi)`` into ``dest``."""

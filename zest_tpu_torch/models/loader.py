@@ -751,9 +751,12 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                     return
                 if prefetch_next is not None:
                     prefetch_next(i)
+                # Lossy staged units are device-only: the overlay is on
+                # only when no file sink shares the decoded bytes.
                 sr = StreamingShardReader(bridge.cache, rec, header,
                                           bridge=bridge,
-                                          workers=decode_workers)
+                                          workers=decode_workers,
+                                          allow_lossy=stream_file_sink is None)
                 sink = (stream_file_sink(i)
                         if stream_file_sink is not None else None)
                 try:
@@ -1039,7 +1042,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         with clock("decode") if clock is not None else contextlib.nullcontext():
             host = land_tensors(bridge.cache, rec, header,
                                 predicate=predicate, bridge=bridge,
-                                workers=decode_workers)
+                                workers=decode_workers,
+                                allow_lossy=on_host_ready is None)
         if clock is not None:
             clock.note_bytes("decode", sum(
                 t.numel() * t.element_size() for t in host.values()))

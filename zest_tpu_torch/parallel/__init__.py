@@ -1,7 +1,7 @@
 """The distribution plane: the slot mesh (``mesh``), the ownership plans
-(``plan``), the pod round's gather (``collectives``), the HBM staging
-tier (``hbm``) and discovery over the process group's store
-(``coordinator``)."""
+(``plan``), the pod round's gather (``collectives``), the two-tier
+multi-pod gather (``hierarchy``), the HBM staging tier (``hbm``) and
+discovery over the process group's store (``coordinator``)."""
 
 from zest_tpu_torch.parallel.collectives import (  # noqa: F401
     GatheredPool,
@@ -14,6 +14,12 @@ from zest_tpu_torch.parallel.collectives import (  # noqa: F401
 from zest_tpu_torch.parallel.coordinator import (  # noqa: F401
     CoordinatorRegistry,
     InMemoryRegistry,
+)
+from zest_tpu_torch.parallel.hierarchy import (  # noqa: F401
+    HierarchicalDistributor,
+    HierarchicalPlan,
+    hier_mesh,
+    owner_pod_host,
 )
 from zest_tpu_torch.parallel.hbm import (  # noqa: F401
     HbmStagingCache,

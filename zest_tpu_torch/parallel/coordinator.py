@@ -20,6 +20,17 @@ import threading
 from datetime import timedelta
 
 
+def kv_store():
+    """The default process group's key-value store, or None when
+    ``torch.distributed`` is not initialized (the JAX package's
+    ``_kv_client``)."""
+    import torch.distributed as dist
+
+    if not dist.is_available() or not dist.is_initialized():
+        return None
+    return dist.distributed_c10d._get_default_store()
+
+
 class InMemoryRegistry:
     """Process-local peer source; also the fake for loopback tests."""
 
@@ -69,8 +80,7 @@ class CoordinatorRegistry:
                            else process_id)
         self.world_size = (dist.get_world_size() if world_size is None
                            else world_size)
-        self._store = (dist.distributed_c10d._get_default_store()
-                       if store is None else store)
+        self._store = kv_store() if store is None else store
 
     def _prefix(self, info_hash: bytes) -> str:
         return f"{self.PREFIX}/{info_hash.hex()}"

@@ -9,7 +9,8 @@ timelines and remediation the parts the collective exchange reaches
 (:mod:`.timeline`: posted cells and clock offsets; :mod:`.remediate`:
 the action-target registry). Pull sessions, critical-path analysis, the
 timeline sampler and anomaly detector, the remediation engine and fleet
-aggregation are not ported.
+aggregation are not ported; of the fleet layer, only the trace
+identity (:mod:`.fleet`, ``mint_trace_id``).
 
 This package imports nothing from the rest of ``zest_tpu_torch``, so
 every module can use it without cycles.

@@ -36,8 +36,14 @@ pre-sized window (paged under the round's byte budget) to one partner.
   returns to its true owner for the point-to-point exchange, which
   degrades per unit to the CDN.
 
-The JAX package's lossy tier (``ZEST_COLLECTIVE_LOSSY``) is not ported:
-the configuration refuses it, and every window is byte-exact.
+- **The lossy tier** (``Config.collective_lossy``, ``ZEST_COLLECTIVE_LOSSY``):
+  ``dcn`` arms the dcn and wan links, ``wan`` the wan links alone. An
+  armed link's windows invite quantized float payloads
+  (``transfer/lossy.py``), and once any link is armed every window
+  accepts a staged container forwarded verbatim. A lossy reply goes into
+  the host's staging overlay, never the cache (``coop._admit_lossy``),
+  and ``stats["lossy"]`` names the mode. Byte-exact replies keep the
+  receipt's device verification.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ from dataclasses import dataclass
 from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.config import DEFAULT_DEVICE, parse_topology
-from zest_tpu_torch.transfer.dcn import DcnResponse
+from zest_tpu_torch.transfer.dcn import FLAG_LOSSY, DcnResponse
 from zest_tpu_torch.transfer.transport import (
     TransportUnavailable,
     make_transport,
@@ -362,6 +368,7 @@ def run_collective(bridge, plan, host_index: int,
     scheduled partner has no address or the backend is unknown."""
     from zest_tpu_torch.transfer.coop import (
         _admit,
+        _admit_lossy,
         _already_cached,
         _fallback,
         _layer_order,
@@ -379,6 +386,13 @@ def run_collective(bridge, plan, host_index: int,
                                        plan=plan, device=device)
         except TransportUnavailable as exc:
             raise CollectiveUnavailable(str(exc)) from exc
+    # The link classes that may carry quantized payloads. Once any is
+    # armed, every window also accepts a staged container: a
+    # store-and-forward schedule re-serves imported blocks over links that
+    # would not quantize fresh data themselves.
+    mode = bridge.cfg.collective_lossy
+    lossy_links = {"dcn": {LINK_DCN, LINK_WAN},
+                   "wan": {LINK_WAN}}.get(mode, set())
     blocks = units_by_owner(plan)
 
     t0 = time.monotonic()
@@ -405,6 +419,8 @@ def run_collective(bridge, plan, host_index: int,
     }
     if transport.name != "dcn":
         stats["backend"] = transport.name
+    if lossy_links:
+        stats["lossy"] = mode
 
     def finish(aborted: str | None = None,
                dead_host: int | None = None) -> dict:
@@ -496,7 +512,9 @@ def run_collective(bridge, plan, host_index: int,
                             [(hashing.hex_to_hash(hh), fi.range.start,
                               fi.range.end) for hh, fi in window],
                             timeout=max(1.0, deadline - time.monotonic()),
-                            tag=transport.window_tag(), link=ph.link)
+                            tag=transport.window_tag(), link=ph.link,
+                            lossy_ok=bool(lossy_links),
+                            quant_ok=ph.link in lossy_links)
                         windows += 1
                         requests += len(window)
                         if retry_pass:
@@ -514,12 +532,22 @@ def run_collective(bridge, plan, host_index: int,
                     missing = []
                     try:
                         for (hh, fi), reply in zip(window, replies):
-                            admitted, wire, unpacked = _admit(
-                                bridge, entries_map, hh, fi, reply, verify)
+                            exact = None
+                            if isinstance(reply, DcnResponse) \
+                                    and reply.flags & FLAG_LOSSY:
+                                # Only after our opt-in: staging, never
+                                # the cache.
+                                admitted, wire, unpacked, exact = \
+                                    _admit_lossy(bridge, hh, fi, reply)
+                            else:
+                                admitted, wire, unpacked = _admit(
+                                    bridge, entries_map, hh, fi, reply,
+                                    verify)
                             if admitted:
                                 bridge.stats.record("peer", wire)
                                 ex.book_exchange((hh, fi.range.start), wire,
-                                                 unpacked, link=ph.link)
+                                                 unpacked, link=ph.link,
+                                                 lossy_exact=exact)
                                 link_bytes[ph.link] += wire
                                 _M_COLLECTIVE_BYTES.inc(wire, link=ph.link)
                             elif isinstance(reply, DcnResponse):

@@ -28,19 +28,31 @@ its stats schema.
   ``fallbacks`` counts; a blob that fails verification is never cached and
   heals from the CDN (``verify_rejected``).
 
+- **Swarm health**: hosts whose DCN address the swarm's health registry
+  holds in quarantine join the caller's ``quarantined`` before the plan
+  (:func:`quarantined_hosts`); the point-to-point exchange strikes an
+  owner that dies and credits one that answers.
+- **The lossy tier** (``Config.collective_lossy``): a quantized reply of
+  the collective lands in the host's staging overlay, never the cache
+  (:func:`_admit_lossy`); ``exchange`` then carries ``lossy_bytes`` and
+  ``bits_saved_ratio``.
+- **Discovery**: without explicit addresses, hosts find each other's DCN
+  endpoints and a shared trace nonce through the ``torch.distributed``
+  store (:func:`exchange_addrs_via_kv`, :func:`share_nonce_via_kv`), where
+  the JAX package uses the ``jax.distributed`` KV client.
+
 ``stats["coop"]`` keeps the JAX package's keys and meaning:
 ``collective`` when the collective ran, ``clock_offsets`` (host index →
 the peer's hello clock offset and round trip) when a channel measured
-one. Not ported: the lossy tier, address discovery over a KV store and
-the point-to-point exchange's use of swarm health. An error that is not a
-transfer failure — a kernel that does not build or launch — leaves the
-round as an exception, from either tier.
+one. An error that is not a transfer failure — a kernel that does not
+build or launch — leaves the round as an exception, from either tier.
 """
 
 from __future__ import annotations
 
 import contextlib
-import hashlib
+import os
+import socket
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -48,10 +60,14 @@ from dataclasses import dataclass
 
 from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import hashing
+from zest_tpu_torch.cas.compression import CompressionError
 from zest_tpu_torch.cas.reconstruction import FetchInfo, Reconstruction
 from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.models.direct import unit_priority_sort_key
+from zest_tpu_torch.parallel.coordinator import kv_store
 from zest_tpu_torch.parallel.plan import collect_units
+from zest_tpu_torch.telemetry.fleet import mint_trace_id
+from zest_tpu_torch.transfer import lossy
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS
 from zest_tpu_torch.transfer.dcn import DcnPool, DcnResponse, DcnServer
 from zest_tpu_torch.transfer.federated import (
@@ -215,13 +231,15 @@ def _unpacked_bytes(data: bytes) -> int:
         return len(data)
 
 
-def mint_trace_id(pull_key: str) -> str:
-    """16-byte trace id (32 hex) of one cooperative pull, derived so that
-    every host mints the same one: the JAX package's
-    ``telemetry.fleet.mint_trace_id`` with no nonce (the port has no KV
-    store to share one through)."""
-    return hashlib.blake2b(f"zest-trace|{pull_key}|".encode(),
-                           digest_size=16).hexdigest()
+def quarantined_hosts(health, host_addrs: dict[int, tuple[str, int]]
+                      ) -> frozenset[int]:
+    """Hosts whose DCN address ``health`` (the swarm's registry) holds in
+    quarantine now: left out of the plan, so their share re-shards before
+    the round instead of timing out in it."""
+    if health is None:
+        return frozenset()
+    return frozenset(h for h, addr in host_addrs.items()
+                     if health.is_quarantined(addr))
 
 
 def _derive_trace_id(recs) -> str:
@@ -241,12 +259,16 @@ class _ExchangeStats:
 
     def __init__(self) -> None:
         self.lock = threading.Lock()
-        # key -> (kind, tier or link, bytes, unpacked)
+        # key -> (kind, tier or link, bytes, unpacked, lossy_exact)
         self._booked: dict[tuple[str, int], tuple] = {}
         self.reattributed = 0
         self.units = 0
         self.wire_bytes = 0
         self.unpacked_bytes = 0
+        # The lossy slice of the wire bytes: quantized container bytes
+        # shipped, and the byte-exact bytes they replaced.
+        self.lossy_bytes = 0
+        self.lossy_exact_bytes = 0
         self.fallback_units = 0
         self.fallback_bytes = 0
         self.fallback_tiers: dict[str, int] = {}
@@ -255,19 +277,25 @@ class _ExchangeStats:
         self.dead_hosts: set[int] = set()
 
     def book_exchange(self, key: tuple[str, int], wire: int,
-                      unpacked: int, link: str = "dcn") -> None:
+                      unpacked: int, link: str = "dcn",
+                      lossy_exact: int | None = None) -> None:
+        """Book an exchange-delivered unit; ``lossy_exact`` (the length of
+        the byte-exact blob a container replaced) marks it lossy."""
         with self.lock:
             self._unbook(key)
-            self._booked[key] = ("x", link, wire, unpacked)
+            self._booked[key] = ("x", link, wire, unpacked, lossy_exact)
             self.units += 1
             self.wire_bytes += wire
             self.unpacked_bytes += unpacked
+            if lossy_exact is not None:
+                self.lossy_bytes += wire
+                self.lossy_exact_bytes += lossy_exact
 
     def book_fallback(self, key: tuple[str, int], source: str,
                       nbytes: int) -> None:
         with self.lock:
             self._unbook(key)
-            self._booked[key] = ("f", source, nbytes, 0)
+            self._booked[key] = ("f", source, nbytes, 0, None)
             self.fallback_units += 1
             self.fallback_bytes += nbytes
             self.fallback_tiers[source] = (
@@ -277,12 +305,15 @@ class _ExchangeStats:
         prev = self._booked.pop(key, None)
         if prev is None:
             return
-        kind, tier, nbytes, unpacked = prev
+        kind, tier, nbytes, unpacked, lossy_exact = prev
         self.reattributed += 1
         if kind == "x":
             self.units -= 1
             self.wire_bytes -= nbytes
             self.unpacked_bytes -= unpacked
+            if lossy_exact is not None:
+                self.lossy_bytes -= nbytes
+                self.lossy_exact_bytes -= lossy_exact
             return
         self.fallback_units -= 1
         self.fallback_bytes -= nbytes
@@ -302,6 +333,13 @@ class _ExchangeStats:
             "verify_rejected": self.verify_rejected,
             "retries": self.retries,
         }
+        if self.lossy_bytes:
+            # Only when lossy traffic flowed: a byte-exact round keeps the
+            # schema.
+            out["lossy_bytes"] = self.lossy_bytes
+            if self.lossy_exact_bytes:
+                out["bits_saved_ratio"] = round(
+                    1.0 - self.lossy_bytes / self.lossy_exact_bytes, 4)
         if self.fallback_tiers:
             out["fallback_tiers"] = dict(sorted(self.fallback_tiers.items()))
         if self.reattributed:
@@ -362,7 +400,9 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
         raise CoopUnavailable(
             f"cooperative pull over {n_hosts} hosts has no peer addresses "
             "(host_addrs empty)")
+    health = bridge.swarm.health if bridge.swarm is not None else None
     q = set(quarantined or ())
+    q |= quarantined_hosts(health, peers)
     q.discard(host_index)  # we are demonstrably alive
     plan = CoopPlan.build(recs, n_hosts, frozenset(q), units=units)
     entries_map = _entries_by_hash(recs)
@@ -424,14 +464,15 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
                 collective_stats, foreign = _collective_tier(
                     bridge, plan, host_index, n_hosts, peers, pool, budget,
                     ex, verify, deadline, priorities, entries_map, device,
-                    foreign)
+                    foreign, health)
             jobs = [(h, units) for h, units in foreign.items() if units]
             if jobs:
                 with ThreadPoolExecutor(
                         len(jobs), thread_name_prefix="zest-coop-x") as tp:
                     futures = [tp.submit(_exchange_from, bridge,
                                          entries_map, pool, peers, h, units,
-                                         budget, ex, verify, deadline)
+                                         budget, ex, verify, deadline,
+                                         health)
                                for h, units in jobs]
                 for fut in futures:
                     fut.result()  # a worker's error is the round's error
@@ -478,7 +519,7 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
 
 def _collective_tier(bridge, plan, host_index, n_hosts, peers, pool, budget,
                      ex, verify, deadline, priorities, entries_map, device,
-                     foreign):
+                     foreign, health):
     """Run the collective exchange. Returns ``(stats or None, left)``: the
     units left for the point-to-point exchange by true owner, all of
     ``foreign`` when the collective cannot run (recorded, not raised: the
@@ -492,7 +533,6 @@ def _collective_tier(bridge, plan, host_index, n_hosts, peers, pool, budget,
         slice_topology,
     )
 
-    health = bridge.swarm.health if bridge.swarm is not None else None
     try:
         stats, left = run_collective(
             bridge, plan, host_index, peers, pool, budget, ex, verify,
@@ -556,10 +596,13 @@ def _layer_order(units, priorities):
 
 
 def _exchange_from(bridge, entries_map, pool, peers, owner, units,
-                   budget, ex: _ExchangeStats, verify, deadline) -> None:
+                   budget, ex: _ExchangeStats, verify, deadline,
+                   health) -> None:
     """Pull ``units`` from ``owner``: NOT_FOUND retries until the deadline
     (the owner may still be fetching), a dead channel or an expired
-    deadline degrades the rest to the per-host CDN fallback."""
+    deadline degrades the rest to the per-host CDN fallback. ``health``
+    (the swarm's registry) is struck when the owner dies and credited
+    when a window comes back whole."""
     addr = peers.get(owner)
     if addr is None:
         _fallback(bridge, entries_map, units, ex, owner=owner)
@@ -593,6 +636,8 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
             budget.release(wire_est)
             with ex.lock:
                 ex.dead_hosts.add(owner)
+            if health is not None:
+                health.record_failure(addr, kind="io_timeout")
             _fallback(bridge, entries_map, window + pending, ex, owner=owner)
             return
         missing = []
@@ -616,6 +661,8 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
                     missing.append((hh, fi))  # NOT_FOUND: owner behind
         finally:
             budget.release(wire_est)
+        if health is not None and not missing:
+            health.record_success(addr)
         if missing:
             if time.monotonic() + sleep_s > deadline:
                 _fallback(bridge, entries_map, missing + pending, ex,
@@ -649,6 +696,29 @@ def _admit(bridge, entries_map, hh, fi, reply, verify):
     return True, len(reply.data), _unpacked_bytes(reply.data)
 
 
+def _admit_lossy(bridge, hh, fi, reply):
+    """Gate one lossy reply (a ZQLS container, ``dcn.FLAG_LOSSY``) into
+    the host's staging overlay, never the xorb cache: the container must
+    parse, dequantize into frames in the right coordinate frame and cover
+    the unit. Content verification is impossible by construction (these
+    are not the bytes the merkle tree committed to), which is why the
+    bytes reach only a landing that opted in. The container itself is
+    staged, so a later partner is served the first quantization verbatim.
+    Returns ``(admitted, wire_bytes, unpacked_bytes, exact_bytes)``."""
+    try:
+        frames = lossy.dequantize_blob(reply.data)
+        exact = lossy.exact_len(reply.data)
+    except (ValueError, CompressionError):
+        return False, 0, 0, 0
+    if reply.chunk_offset > fi.range.start:
+        return False, 0, 0, 0
+    if not _blob_covers(frames, fi.range.end - reply.chunk_offset):
+        return False, 0, 0, 0
+    lossy.staging_for(bridge.cfg.cache_dir).put(hh, reply.chunk_offset,
+                                                reply.data)
+    return True, len(reply.data), _unpacked_bytes(frames), exact
+
+
 def _fallback(bridge, entries_map, units, ex: _ExchangeStats,
               owner=None) -> None:
     """Per-host fallback for units the exchange could not deliver,
@@ -665,3 +735,115 @@ def _fallback(bridge, entries_map, units, ex: _ExchangeStats,
         ex.book_fallback((hh, fi.range.start), source, len(data))
         telemetry.record("cdn_fallback", unit=hh[:16], owner=owner,
                          tier=source, bytes=len(data))
+
+
+# ── Address and nonce exchange over the torch.distributed store ──
+
+
+def _advertise_host() -> str:
+    """The address peers should dial for this host's DCN listener:
+    ``ZEST_COOP_ADVERTISE`` when set, else the primary interface's address
+    (a UDP connect only looks the route up; no packet is sent), else the
+    hostname's. Loopback comes last: announced on a real multi-host job,
+    it makes every peer dial itself."""
+    env = os.environ.get("ZEST_COOP_ADVERTISE")
+    if env:
+        return env
+    try:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            s.connect(("10.255.255.255", 1))  # route lookup only
+            addr = s.getsockname()[0]
+        if addr and not addr.startswith("127."):
+            return addr
+    except OSError:
+        pass
+    try:
+        addr = socket.gethostbyname(socket.gethostname())
+        if addr:
+            return addr
+    except OSError:
+        pass
+    return "127.0.0.1"
+
+
+_KV_POLL_S = 0.2
+
+
+def _kv_read(store, key: str) -> str | None:
+    """The value under ``key``, or None while nobody wrote it (``check``
+    does not block, where ``get`` would wait out the store's timeout)."""
+    try:
+        if not store.check([key]):
+            return None
+        return store.get(key).decode()
+    except (RuntimeError, OSError):
+        return None
+
+
+def exchange_addrs_via_kv(pull_key: str, host_index: int, n_hosts: int,
+                          dcn_port: int, advertise_host: str | None = None,
+                          timeout_s: float = 30.0, store=None):
+    """DCN endpoints through the process group's store: every host writes
+    ``zest/coop/{pull_key}/{index} -> host:port`` and reads the others'
+    until all ``n_hosts`` are there. Returns the address map; what it has
+    at ``timeout_s`` when that is more than this host; None without a
+    store (``torch.distributed`` not initialized and no ``store``) or
+    when the write fails. The JAX package lists the prefix in one
+    directory read; the torch store has none, so this reads one key a
+    host."""
+    store = kv_store() if store is None else store
+    if store is None:
+        return None
+    if advertise_host is None:
+        advertise_host = _advertise_host()
+    prefix = f"zest/coop/{pull_key}"
+    try:
+        store.set(f"{prefix}/{host_index}", f"{advertise_host}:{dcn_port}")
+    except (RuntimeError, OSError):
+        return None
+    deadline = time.monotonic() + timeout_s
+    addrs: dict[int, tuple[str, int]] = {}
+    while True:
+        for i in range(n_hosts):
+            if i in addrs:
+                continue
+            value = _kv_read(store, f"{prefix}/{i}")
+            host, _, port = (value or "").rpartition(":")
+            if host and port.isdigit():
+                addrs[i] = (host, int(port))
+        if len(addrs) >= n_hosts:
+            return addrs
+        if time.monotonic() >= deadline:
+            return addrs if len(addrs) > 1 else None
+        time.sleep(_KV_POLL_S)
+
+
+def share_nonce_via_kv(pull_key: str, host_index: int,
+                       timeout_s: float = 10.0, store=None) -> str:
+    """The pull's trace nonce through the process group's store: host 0
+    writes a fresh one under ``zest/coop-nonce/{pull_key}/0`` (a sibling
+    prefix of the address keys), the others read it. Host 0 writes BEFORE
+    it announces its address, and the others read only AFTER the address
+    exchange, so once host 0's address is seen its nonce is there and no
+    host starts late enough to mint another id. Every miss gives ``""``:
+    the id then comes from ``repo@sha`` alone, still shared, just not
+    unique across repeated pulls."""
+    store = kv_store() if store is None else store
+    if store is None:
+        return ""
+    key = f"zest/coop-nonce/{pull_key}/0"
+    if host_index == 0:
+        nonce = os.urandom(8).hex()
+        try:
+            store.set(key, nonce)
+        except (RuntimeError, OSError):
+            return ""
+        return nonce
+    deadline = time.monotonic() + timeout_s
+    while True:
+        value = _kv_read(store, key)
+        if value:
+            return value
+        if time.monotonic() >= deadline:
+            return ""
+        time.sleep(_KV_POLL_S)

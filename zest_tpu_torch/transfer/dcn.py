@@ -23,11 +23,12 @@ on connect, then messages flow in either direction):
 The port's trace block carries no trace id and no host index, only its
 wall clock; from the peer's block a channel estimates the peer's clock
 offset (the single-exchange NTP estimate, error within half the hello's
-round trip), which :meth:`DcnPool.clock_offsets` reports. Request flags
-(``FLAG_LOSSY_OK``, ``FLAG_QUANT_OK``) are carried on the wire, but the
-port serves byte-exact cache data only (response flags 0, which every
-request accepts): the JAX package's lossy tier, gossip messages, link
-shaping and server counters are not ported. Ranges are chunk-index ranges
+round trip), which :meth:`DcnPool.clock_offsets` reports. A server
+answers byte-exact by default; a request's flags let it answer lossy
+(``serve_chunk_range``: ``FLAG_QUANT_OK`` invites a quantized container
+of a cache hit, ``FLAG_LOSSY_OK`` accepts a staged one forwarded
+verbatim, and such a response carries ``FLAG_LOSSY``). Gossip messages,
+link shaping and server counters are not ported. Ranges are chunk-index ranges
 within a xorb and a response carries the ``chunk_offset`` its frames
 start at — the same coordinate frames as the cache.
 """
@@ -45,6 +46,7 @@ from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.xorb import XorbFormatError, XorbReader, encode_frame
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.storage import XorbCache, read_chunk
+from zest_tpu_torch.transfer import lossy
 
 # The BT wire's message cap (zest_tpu/p2p/wire.py): a full xorb always fits.
 MAX_MESSAGE_SIZE = 64 * 1024 * 1024 + 1024
@@ -69,8 +71,8 @@ MSG_ERROR = 4
 
 # Per-message flag bits. On a REQUEST, FLAG_LOSSY_OK accepts a lossy
 # payload and FLAG_QUANT_OK invites the server to quantize fresh data; on
-# a RESPONSE, FLAG_LOSSY marks a quantized container. The port never
-# sends FLAG_LOSSY: it serves byte-exact data whatever a request allows.
+# a RESPONSE, FLAG_LOSSY marks a quantized container (transfer/lossy.py).
+# A request with neither bit never receives lossy bytes.
 FLAG_LOSSY_OK = 0x01
 FLAG_QUANT_OK = 0x02
 FLAG_LOSSY = 0x01
@@ -278,14 +280,30 @@ def serve_chunk_range(cfg: Config, cache: XorbCache, chunk_hash: bytes,
     """What a server answers to one request: ``(chunk_offset, blob,
     response flags)`` or None. The socket server and the in-process
     transports (``transfer/transport.py``) share it, so every backend
-    answers alike. Byte-exact cache data only: a request's lossy flags
-    are accepted and never acted on, and a miss stays a miss."""
+    answers alike.
+
+    Byte-exact cache data always wins. With ``FLAG_QUANT_OK`` a cache hit
+    goes out as a quantized container when that shrinks it; with
+    ``FLAG_LOSSY_OK`` a cache miss falls through to this host's lossy
+    staging (a container it received over a lossy link), forwarded
+    verbatim so the error never compounds across hops. Either answer is
+    flagged ``FLAG_LOSSY``."""
     found = lookup_chunk_range(cfg, cache, chunk_hash, range_start,
                                range_end)
-    if found is None:
-        return None
-    offset, blob = found
-    return offset, blob, 0
+    if found is not None:
+        offset, blob = found
+        if flags & FLAG_QUANT_OK:
+            packed = lossy.quantize_blob(blob)
+            if packed is not None and len(packed) < len(blob):
+                return offset, packed, FLAG_LOSSY
+        return offset, blob, 0
+    if flags & FLAG_LOSSY_OK:
+        staged = lossy.staging_for(cfg.cache_dir).get_with_range(
+            hashing.hash_to_hex(chunk_hash), range_start)
+        if staged is not None:
+            blob, offset = staged
+            return offset, blob, FLAG_LOSSY
+    return None
 
 
 # ── Server ──

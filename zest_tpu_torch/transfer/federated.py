@@ -1,22 +1,61 @@
-"""Unit-level cache helpers shared by the cooperative round.
+"""Federated multi-pod rounds, and the unit-level cache helpers the
+cooperative round and the landing share.
 
-The helpers of ``zest_tpu/transfer/federated.py`` that the cooperative
-pull (``transfer/coop.py``) and the direct landing's warm fetch
-(``transfer/pull.py``) run: the structural cover gate, the cache probe
-that never lets a narrower blob be re-written over a wider entry, the
-full-vs-partial cache write, and the parallel warm of a unit set through
-the waterfall. The federated round itself is not ported.
+The counterpart of ``zest_tpu/transfer/federated.py``.
+``parallel/hierarchy.py`` distributes across pods when every host joins
+one mesh. This module serves the other deployment: pods that are separate
+processes or jobs with no shared mesh (separate trainers, a warm pod
+seeding a cold one, pods that start at different times). Between them no
+collective exists, so bytes move over the DCN chunk RPC
+(``transfer/dcn.py``), and each unit keeps the waterfall with the owner
+pod slotted in before the CDN:
+
+    local cache  →  owner pod over DCN  →  (peers)  →  CDN
+
+Ownership is the hierarchical plan's pod draw (``owner_pod_host``), so
+every pod computes the same owner map with no coordination, each unit
+leaves the CDN once, through its owning pod, and crosses pods at most
+``n_pods - 1`` times. A missing or failed owner degrades the unit to the
+waterfall. After the round every unit is in the local cache and the
+in-pod pod round (``transfer/pod.py``) spreads it over the pod's slots.
+
+The helpers: the structural cover gate, the cache probe that never lets a
+narrower blob be re-written over a wider entry, the full-vs-partial cache
+write, and the parallel warm of a unit set through the waterfall (the
+cooperative pull's fetch phase and the direct landing's warm fetch).
 """
 
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor, as_completed
 
+from zest_tpu_torch import telemetry
+from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.reconstruction import FetchInfo, Reconstruction
 from zest_tpu_torch.cas.xorb import XorbReader
+from zest_tpu_torch.parallel.hierarchy import owner_pod_host
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS
+from zest_tpu_torch.transfer.dcn import DcnPool, DcnResponse
+
+
+def pod_owned_units(recs: list[Reconstruction], pod_index: int,
+                    n_pods: int):
+    """The deduplicated fetch units split into ``(mine, theirs by pod)``.
+    Only the pod draw matters here (the in-pod spread is the pod round's),
+    so the host draw is pinned to one host."""
+    mine: list[tuple[str, FetchInfo]] = []
+    theirs: dict[int, list[tuple[str, FetchInfo]]] = {}
+    for (hash_hex, start), fi in collect_units(recs):
+        pod, _host = owner_pod_host(hashing.hex_to_hash(hash_hex), start,
+                                    n_pods, 1)
+        if pod == pod_index:
+            mine.append((hash_hex, fi))
+        else:
+            theirs.setdefault(pod, []).append((hash_hex, fi))
+    return mine, theirs
 
 
 def _blob_covers(data: bytes, n_chunks: int) -> bool:
@@ -128,4 +167,128 @@ def warm_units_parallel(bridge, recs: list[Reconstruction],
             stats["bytes"] += n
         if on_unit is not None:
             on_unit((unit[0], unit[1].range.start))
+    return stats
+
+
+def federated_round(bridge, recs: list[Reconstruction], pod_index: int,
+                    n_pods: int, pod_addrs: dict[int, tuple[str, int]],
+                    dcn_pool: DcnPool | None = None,
+                    pipeline_depth: int = 16, log=None) -> dict:
+    """One cross-pod stage: this pod's units through the waterfall, every
+    other pod's from their owner over DCN (``pipeline_depth`` requests in
+    flight a channel), the waterfall for whatever the owner cannot serve.
+    Afterwards every unit is in the local cache. ``pod_addrs`` maps a pod
+    index to its ``(host, dcn_port)``; a pod with no address is
+    unreachable and its units degrade. Returns ``stats["federated"]``
+    with the JAX package's keys."""
+    with telemetry.span("federated.round", pod=pod_index, pods=n_pods):
+        return _federated_round(bridge, recs, pod_index, n_pods, pod_addrs,
+                                dcn_pool, pipeline_depth, log)
+
+
+def _federated_round(bridge, recs, pod_index, n_pods, pod_addrs, dcn_pool,
+                     pipeline_depth, log) -> dict:
+    t0 = time.monotonic()
+    pool = dcn_pool or DcnPool()
+    mine, theirs = pod_owned_units(recs, pod_index, n_pods)
+    entries_map = _entries_by_hash(recs)
+    stats = {
+        "pod": pod_index,
+        "pods": n_pods,
+        "own_units": 0,
+        "own_bytes": 0,
+        "cached_units": 0,
+        "dcn_units": 0,
+        "dcn_bytes": 0,
+        "fallback_units": 0,
+        "fallback_bytes": 0,
+        "failed_units": 0,
+    }
+
+    def waterfall(hash_hex, fi) -> int | None:
+        """Fetch one unit through the waterfall and cache it; its bytes,
+        or None (counted failed) when every tier failed."""
+        try:
+            data = bridge.fetch_unit(hash_hex, fi)
+        except FETCH_ERRORS:
+            stats["failed_units"] += 1
+            return None
+        _cache_unit(bridge, entries_map, hash_hex, fi, fi.range.start, data)
+        return len(data)
+
+    # Stage 1: this pod's units, cached so it can serve the others.
+    for hash_hex, fi in mine:
+        if _already_cached(bridge, hash_hex, fi):
+            stats["own_units"] += 1
+            continue
+        n = waterfall(hash_hex, fi)
+        if n is not None:
+            stats["own_units"] += 1
+            stats["own_bytes"] += n
+
+    def fallback(units, owner_pod):
+        for hash_hex, fi in units:
+            if _already_cached(bridge, hash_hex, fi):
+                stats["fallback_units"] += 1
+                continue
+            n = waterfall(hash_hex, fi)
+            if n is None:
+                continue
+            stats["fallback_units"] += 1
+            stats["fallback_bytes"] += n
+            telemetry.record("cdn_fallback", unit=hash_hex[:16],
+                             owner=owner_pod, tier="federated", bytes=n)
+
+    # Stage 2: the other pods' units from their owners, pipelined.
+    try:
+        for pod, all_units in sorted(theirs.items()):
+            units = []
+            for hash_hex, fi in all_units:
+                if _already_cached(bridge, hash_hex, fi):
+                    stats["cached_units"] += 1
+                else:
+                    units.append((hash_hex, fi))
+            if not units:
+                continue
+            addr = pod_addrs.get(pod)
+            if addr is None:
+                fallback(units, pod)
+                continue
+            for i in range(0, len(units), pipeline_depth):
+                window = units[i:i + pipeline_depth]
+                try:
+                    # The pool reconnects and retries a window once on a
+                    # stale channel, so a failure here is a hard one: the
+                    # pod's remaining units degrade.
+                    replies = pool.request_many(*addr, [
+                        (hashing.hex_to_hash(hh), fi.range.start,
+                         fi.range.end) for hh, fi in window])
+                except (ConnectionError, TimeoutError, OSError):
+                    fallback(units[i:], pod)
+                    break
+                missed = []
+                for (hash_hex, fi), reply in zip(window, replies):
+                    if (isinstance(reply, DcnResponse)
+                            and reply.chunk_offset <= fi.range.start
+                            and _blob_covers(
+                                reply.data,
+                                fi.range.end - reply.chunk_offset)):
+                        _cache_unit(bridge, entries_map, hash_hex, fi,
+                                    reply.chunk_offset, reply.data)
+                        bridge.stats.record("peer", len(reply.data))
+                        stats["dcn_units"] += 1
+                        stats["dcn_bytes"] += len(reply.data)
+                    else:
+                        missed.append((hash_hex, fi))
+                fallback(missed, pod)
+    finally:
+        if dcn_pool is None:
+            pool.close()
+    stats["units"] = len(mine) + sum(len(u) for u in theirs.values())
+    stats["elapsed_s"] = round(time.monotonic() - t0, 3)
+    if log is not None:
+        log(f"federated round pod {pod_index}/{n_pods}: "
+            f"{stats['own_units']} own, {stats['dcn_units']} over DCN "
+            f"({stats['dcn_bytes']} bytes), {stats['fallback_units']} "
+            f"CDN-fallback, {stats['failed_units']} failed")
     return stats

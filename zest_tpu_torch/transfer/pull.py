@@ -56,10 +56,22 @@ deduplicated xorb units and pulls the rest from their owners over the DCN
 chunk RPC (the collective exchange first), verifying every received
 whole xorb on ``device``, both phases in layer order; the landing then
 reads the cache. ``stats["coop"]`` is the round's block and
-``stats["peer_served_ratio"]`` its headline. Only a missing topology
+``stats["peer_served_ratio"]`` its headline. Without explicit addresses
+the hosts find each other's DCN endpoints, and a shared trace nonce,
+through the ``torch.distributed`` store (``coop.exchange_addrs_via_kv``).
+Only a missing topology
 (:class:`~zest_tpu_torch.transfer.coop.CoopUnavailable`) or a connection
 failure degrades the pull to the per-host waterfall; any other error of
 the round — a kernel that does not build or launch — fails the pull.
+
+**Federated pull** (``pods``, ``pod_index``, ``pod_addrs``: pods that are
+separate processes or jobs): after the cooperative round and before the
+pod round, ``transfer/federated.federated_round`` fetches this pod's share
+of the units through the waterfall and every other pod's from its owner
+over the DCN chunk RPC (``pod_addrs``: pod index → its DCN address; a pod
+without one degrades to the waterfall), so the pod round spreads a warm
+cache (``stats["federated"]``). A fetch error degrades the pull to the
+per-host waterfall.
 
 **Pod round** (``pod``; on by default for ``cuda``, forced with
 ``ZEST_TPU_POD=1/0``): after the cooperative round,
@@ -149,16 +161,20 @@ from zest_tpu_torch.parallel.mesh import (
 from zest_tpu_torch.parallel.sharding import ShardedTensor, same_mesh
 from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.resilience import Deadline
+from zest_tpu_torch.telemetry.fleet import mint_trace_id
 from zest_tpu_torch.transfer import delta
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS, XetBridge
 from zest_tpu_torch.transfer.coop import (
     ByteBudget,
     CoopUnavailable,
     coop_round,
-    mint_trace_id,
+    exchange_addrs_via_kv,
+    share_nonce_via_kv,
 )
+from zest_tpu_torch.transfer.dcn import DcnServer
 from zest_tpu_torch.transfer.federated import (
     _entries_by_hash,
+    federated_round,
     warm_units_parallel,
 )
 from zest_tpu_torch.transfer.pod import (
@@ -655,6 +671,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                base_revision: str | None = None, swarm=None,
                no_p2p: bool = False, land: bool = True,
                pod: bool | None = None, mesh: SlotMesh | None = None,
+               pods: int | None = None, pod_index: int | None = None,
+               pod_addrs: dict[int, tuple[str, int]] | None = None,
                log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
@@ -687,7 +705,10 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     shard rules; without it a ``cuda`` pull lands over ``cfg.mesh``'s
     axes when they are set. The pod pre-pass then runs over the mesh's
     slots. With ``base_params`` too (a tree landed over an equal mesh)
-    the swap reuses base shards in place."""
+    the swap reuses base shards in place.
+
+    ``pods`` > 1 with ``pod_index`` runs the federated round (see module
+    docstring) with the other pods' DCN addresses ``pod_addrs``."""
     if not land and base_params is not None:
         raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
@@ -778,8 +799,9 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if pod is None:
         env = os.environ.get("ZEST_TPU_POD")
         pod = env == "1" if env in ("0", "1") else dev.type == "cuda"
+    fed = pods is not None and pods > 1 and pod_index is not None
     try:
-        coop_stats = pod_stats = recs = None
+        coop_stats = pod_stats = fed_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
                                  coop_addrs, log)
         pending = [e for e in files
@@ -796,7 +818,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 "running a full pull", file=sys.stderr)
         if delta_plan is None:
             base_params = None
-        if (coop_cfg or pod) and pending:
+        if (coop_cfg or pod or fed) and pending:
             try:
                 with clock("cas_metadata"):
                     ensure_auth()
@@ -818,6 +840,15 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                                and delta_plan.changed_units else None))
             except (CoopUnavailable, CasError, ConnectionError) as exc:
                 log(f"cooperative pull unavailable ({exc}); continuing "
+                    "with the per-host waterfall", file=sys.stderr)
+        # The cross-pod stage before the in-pod round, which then spreads
+        # a warm cache.
+        if fed and recs:
+            try:
+                fed_stats = federated_round(bridge, recs, pod_index, pods,
+                                            pod_addrs or {}, log=log)
+            except FETCH_ERRORS as exc:
+                log(f"federated round unavailable ({exc}); continuing "
                     "with the per-host waterfall", file=sys.stderr)
         if pod and pending:
             pod_stats = _pod_stage(bridge, pending, recs, dev, log,
@@ -919,6 +950,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if coop_stats is not None:
         stats["coop"] = coop_stats
         stats["peer_served_ratio"] = coop_stats.get("peer_served_ratio")
+    if fed_stats is not None:
+        stats["federated"] = fed_stats
     if pod_stats is not None:
         stats["pod"] = pod_stats
     if deadline is not None:
@@ -1367,11 +1400,13 @@ class _PipelinedWarm:
 
 
 def _resolve_coop(cfg, coop, coop_hosts, coop_index, coop_addrs, log):
-    """The cooperative topology: explicit arguments, else ``ZEST_COOP*``.
-    Auto (``coop`` None) turns the round on when more than one host is
-    known and stays quietly off otherwise; a forced ``coop=True`` with an
-    unusable topology logs why it is off. Returns ``(index, n_hosts,
-    addrs)`` or None."""
+    """The cooperative topology: explicit arguments, else ``ZEST_COOP*``,
+    else the process topology of ``ZEST_TPU_NUM_PROCESSES`` and
+    ``ZEST_TPU_PROCESS_ID``. Auto (``coop`` None) turns the round on when
+    more than one host is known and stays quietly off otherwise; a forced
+    ``coop=True`` with an unusable topology logs why it is off. Returns
+    ``(index, n_hosts, addrs)`` or None; empty ``addrs`` are discovered
+    over the process group's store (:func:`_coop_stage`)."""
     enabled = coop if coop is not None else cfg.coop_pull
     if enabled is False:
         return None
@@ -1380,6 +1415,11 @@ def _resolve_coop(cfg, coop, coop_hosts, coop_index, coop_addrs, log):
     addrs = dict(coop_addrs) if coop_addrs else dict(cfg.coop_addrs)
     if n is None and addrs:
         n = max(addrs) + 1
+    if cfg.mesh.is_distributed:
+        if n is None:
+            n = cfg.mesh.num_processes
+        if i is None:
+            i = cfg.mesh.process_id
     if enabled is None:
         enabled = bool(n and n > 1)
     if not enabled:
@@ -1409,18 +1449,46 @@ def _coop_priorities(cfg, bridge, pending, recs):
 
 def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
                 server, clock, log, priorities=None, units=None) -> dict:
-    """Run the cooperative round over explicit peer addresses (address
-    discovery over a KV store is not ported). The pull's trace id is
-    minted from ``repo@sha``, as every host of the pull mints it.
-    ``units`` is a delta pull's changed set: only those are planned."""
+    """Run the cooperative round. Without peer addresses the hosts find
+    each other over the ``torch.distributed`` store: this host's DCN
+    listener binds first (peers learn the port it really bound; the
+    bridge keeps it up until the pull ends), then every host announces
+    and reads the others (:func:`coop.exchange_addrs_via_kv`). Neither
+    addresses nor a store raises :class:`CoopUnavailable`.
+
+    The pull's trace id is minted from ``repo@sha`` and the nonce host 0
+    shares over the store. Host 0 writes the nonce before it announces
+    its address and the others read it only after the address exchange,
+    so every host that sees host 0 mints the same id. ``units`` is a
+    delta pull's changed set: only those are planned."""
     host_index, n_hosts, addrs = coop_cfg
+    pull_key = f"{repo_id}@{commit_sha}"
+    nonce = ""
     if not {h for h in addrs if h != host_index}:
-        raise CoopUnavailable("no coop peer addresses: pass coop_addrs or "
-                              "set ZEST_COOP_ADDRS")
+        if server is None:
+            server = DcnServer(cfg, bridge.cache)
+            try:
+                port = server.start()
+            except OSError:
+                server, port = None, cfg.dcn_port
+            else:
+                bridge.adopt_coop_server(server)
+        else:
+            port = server.port
+        if host_index == 0:
+            nonce = share_nonce_via_kv(pull_key, host_index)
+        addrs = exchange_addrs_via_kv(pull_key, host_index, n_hosts, port)
+        if not addrs:
+            raise CoopUnavailable(
+                "no coop peer addresses: pass coop_addrs, set "
+                "ZEST_COOP_ADDRS, or run under torch.distributed for "
+                "discovery over its store")
+        if host_index != 0:
+            nonce = share_nonce_via_kv(pull_key, host_index, timeout_s=5.0)
     return coop_round(bridge, recs, host_index, n_hosts, addrs,
                       device=device, server=server,
                       budget_bytes=cfg.coop_inflight_bytes,
-                      trace_id=mint_trace_id(f"{repo_id}@{commit_sha}"),
+                      trace_id=mint_trace_id(pull_key, nonce),
                       priorities=priorities, units=units, clock=clock,
                       log=log)
 
