@@ -122,6 +122,32 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    the seeder quarantined; CDN bytes at most 1.05 × one copy; every
    whole-xorb cache entry of the node hashes back to its key (no corrupt
    blob under a full key);
+15. (run after 8) peer discovery, revision A by its sha: node B's cache
+   seeded again by its own ``serve`` process, now with a coop identity
+   (host 0 of 2: a gossip node on its swarm and its DCN listener) and
+   ``--tracker`` pointing at a loopback BitTorrent HTTP tracker that
+   this script runs (``LoopbackTracker``). No step names B as a direct
+   peer; each landing's only peer source is the sub-phase's one, and it
+   holds 8a's gates plus ``swarm.peers_discovered`` > 0 and no direct
+   peer. 15a: ``python -m zest_tpu_torch seed --tracker URL`` over B's
+   cache prints ``announced N/N`` and the tracker holds every cached
+   xorb at B's port; a fresh node lands with ``cli._build_swarm(cfg,
+   tracker=URL, dht=False)``, the tracker sees its lookups, and after
+   ``POST /v1/push`` of A's xorbs to B, B's own announces carry
+   ``uploaded`` > 0 (the ``zest_seed_bytes_total`` it served). 15b: three
+   loopback ``Dht`` nodes: a router, the seeder's node announcing B's
+   xorbs at B's port through ``SwarmDownloader.announce_xorbs`` and the
+   leecher's, both bootstrapped from the router; the leecher's node is
+   the fresh node's only source. 15c: the push put A's xorbs in B's
+   gossip digest; the leecher's ``GossipNode`` (host 1), over
+   ``DcnGossipTransport`` to B's DCN port, names host 0 as holder of
+   every xorb of A within 2 ticks and is its swarm's only source (its
+   ``gossip`` block shows the rounds). 15d: a fresh node's files-only
+   pull (``land=False``) with 15a's swarm: every xet file written by the
+   ``ParallelDownloader`` rung over the shared term pool (each rung's
+   writes counted), files byte-identical, ``lane_bytes`` all
+   ``waterfall`` (the xet files and config.json), no fallback. No kernel
+   launches on any of the four paths;
 9. the serving daemon. 9a: an ``HbmPool`` on ``cuda:0`` in this process
    over fresh node pulls. Llama-3.2-1B from phase 7's snapshot: a cold
    generate decodes from the first-layer commit, before the landing ends;
@@ -251,7 +277,9 @@ pool's (``serve``), the daemon's (``serve_daemon``), the collective's
 (``pod``), the mesh landing's expert round (``mesh``), the sharded swap's
 round (``mesh_swap``), the fine-tune's push (``push_finetune``), the
 federated pull's pre-passes (``federated``), the hierarchical fill
-(``hier``) and the lossy round's receipts (``lossy``) among them), the
+(``hier``), the lossy round's receipts (``lossy``) and phase 15's four
+discovery paths (``tracker``, ``dht``, ``gossip``, ``files_parallel``)
+among them), the
 card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -1323,6 +1351,7 @@ class Seeder:
                 fail(f"{label}: the seeder is not on port {self.port}: "
                      f"{lines}")
             self.url = lines[-1].rsplit(" ", 1)[-1]
+            self.lines = lines
         except BaseException:
             self.kill()
             raise
@@ -1454,6 +1483,383 @@ def swarm_phase(work: Path, url: str, cfg_b, ckpt: Path, pushed,
     del res
     shutil.rmtree(work / "c8")
     shutil.rmtree(work / "d8")
+    return launches
+
+
+class LoopbackTracker:
+    """Phase 15a's BitTorrent HTTP tracker on loopback (the package has no
+    tracker server, as the JAX package has none). Every ``GET /announce``
+    is recorded and registers its peer (the caller's address, the query's
+    port; port 0 is a lookup that registers nothing) under its info hash;
+    the answer is the bencoded compact list of the hash's registered
+    peers."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        from urllib.parse import unquote_to_bytes
+
+        self.announces: list[dict] = []
+        self.peers: dict[bytes, dict[tuple[str, int], None]] = {}
+        lock = threading.Lock()
+        tracker = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):
+                query = dict(part.split("=", 1) for part in
+                             self.path.partition("?")[2].split("&")
+                             if "=" in part)
+                ih = unquote_to_bytes(query.get("info_hash", ""))
+                port = int(query.get("port", "0"))
+                row = {"info_hash": ih,
+                       "peer_id": unquote_to_bytes(query.get("peer_id", "")),
+                       "port": port,
+                       "uploaded": int(query.get("uploaded", "0")),
+                       "event": query.get("event", "")}
+                with lock:
+                    tracker.announces.append(row)
+                    known = tracker.peers.setdefault(ih, {})
+                    if port:
+                        known[(self.client_address[0], port)] = None
+                    compact = b"".join(
+                        socket.inet_aton(h) + p.to_bytes(2, "big")
+                        for h, p in known)
+                body = (b"d8:intervali60e5:peers%d:" % len(compact)
+                        + compact + b"e")
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self._httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        self.url = (f"http://127.0.0.1:{self._httpd.server_address[1]}"
+                    "/announce")
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=10)
+
+
+def free_port() -> int:
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        return probe.getsockname()[1]
+
+
+class RungLog:
+    """Which rung of the pull's file chain wrote each file: the cache
+    lane, the ``ParallelDownloader``, the bridge's sequential
+    ``reconstruct_to_file`` or the plain download, each write counted
+    where the rung runs (the functions are wrapped for the ``with``
+    block)."""
+
+    def __init__(self):
+        self.rows: list[tuple[str, str]] = []
+
+    def __enter__(self):
+        from zest_tpu_torch.transfer import bridge, parallel, pull
+
+        self._saved = [
+            (pull, "_write_file_from_cache", pull._write_file_from_cache),
+            (parallel.ParallelDownloader, "write_plan_to_temp",
+             parallel.ParallelDownloader.write_plan_to_temp),
+            (bridge.XetBridge, "reconstruct_to_file",
+             bridge.XetBridge.reconstruct_to_file),
+            (pull.HubClient, "download_regular_file",
+             pull.HubClient.download_regular_file)]
+        rows = self.rows
+
+        def wrap(rung, fn, name_of, wrote=lambda out: True):
+            def counted(*args, **kw):
+                out = fn(*args, **kw)
+                if wrote(out):
+                    rows.append((rung, name_of(args)))
+                return out
+            return counted
+
+        pull._write_file_from_cache = wrap(
+            "cache", pull._write_file_from_cache,
+            lambda a: Path(a[2]).name, wrote=lambda out: out is not None)
+        parallel.ParallelDownloader.write_plan_to_temp = wrap(
+            "parallel", parallel.ParallelDownloader.write_plan_to_temp,
+            lambda a: Path(a[2]).name)
+        bridge.XetBridge.reconstruct_to_file = wrap(
+            "sequential", bridge.XetBridge.reconstruct_to_file,
+            lambda a: Path(a[2]).name)
+        pull.HubClient.download_regular_file = wrap(
+            "plain", pull.HubClient.download_regular_file,
+            lambda a: Path(a[3]).name)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def discovery_phase(work: Path, url: str, cfg_b, ckpt: Path, pushed,
+                    digest: str, dev) -> dict:
+    """Phase 15: node B's cache seeded by its own ``serve`` process, found
+    by fresh nodes through the tracker (15a), the DHT (15b) and the gossip
+    plane (15c), never named as a direct peer; 15d writes every xet file
+    of a files-only pull through the ``ParallelDownloader``. Returns each
+    kernel's launches by path (none expected: the peer tier verifies on
+    the host)."""
+    from zest_tpu_torch import cli, storage
+    from zest_tpu_torch.cas import hashing
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.p2p.dht import Dht
+    from zest_tpu_torch.p2p.peer_id import compute_info_hash
+    from zest_tpu_torch.transfer.dcn import DcnPool
+    from zest_tpu_torch.transfer.gossip import DcnGossipTransport, GossipNode
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    copy = pushed.new_xorb_bytes
+    counters = {"blake3_chunks": blake3_cuda.COUNTER,
+                "bg4_regroup": bg4_cuda.COUNTER,
+                "bg4_fused_verify": bg4_cuda.FUSED_COUNTER}
+    launches = {path: dict.fromkeys(counters, 0)
+                for path in ("tracker", "dht", "gossip", "files_parallel")}
+    cached = storage.list_cached_xorbs(cfg_b)
+    a_keys = sorted(pushed.xorb_digests)
+    a_hashes = [compute_info_hash(hashing.hex_to_hash(h)) for h in a_keys]
+
+    def pull_on(label: str, node: str, swarm, path: str, land=True):
+        cfg = Config(hf_home=work / node / "hf", cache_dir=work / node /
+                     "zest", endpoint=url, listen_port=0)
+        for c in counters.values():
+            c.reset()  # counts from here are this pull's
+        t0 = time.monotonic()
+        res = pull_model(cfg, REPO, revision=pushed.revision, device=dev,
+                         swarm=swarm, land=land)
+        wall = time.monotonic() - t0
+        for name, c in counters.items():
+            launches[path][name] += c.launches
+        check_files(label, res, ckpt)
+        if land:
+            check_tree(label, res, digest, dev)
+            check_direct(label, res)
+        st, sw = res.stats, res.stats["swarm"]
+        fetch = st["fetch"]
+        if fetch["p2p_ratio"] < 0.9 or fetch["bytes"]["cdn"] > 0.1 * copy:
+            fail(f"{label}: p2p_ratio {fetch['p2p_ratio']}, CDN "
+                 f"{fetch['bytes']['cdn']:,} B of a {copy:,} B copy")
+        if sw["peer_failures"] or sw["corrupt_from_peer"] or \
+                sw["health"]["quarantine_events"] or \
+                fetch["resilience"]["corrupt_from_peer"]:
+            fail(f"{label}: a clean seeder failed or was struck: {sw}")
+        if sw["peers_discovered"] <= 0 or swarm.direct_peers:
+            fail(f"{label}: peers_discovered {sw['peers_discovered']}, "
+                 f"direct peers {swarm.direct_peers}")
+        return cfg, res, wall
+
+    def landed_line(label: str, res, wall: float, source: str) -> None:
+        st, fetch = res.stats, res.stats["fetch"]
+        print(f"{label}: {source}; {landing_summary(st) if 'hbm' in st else 'files only'}"
+              f"; wall {wall:.2f} s; p2p_ratio {fetch['p2p_ratio']}, "
+              f"{fetch['bytes']['peer']:,} B from peers, "
+              f"{fetch['bytes']['cdn']:,} B from the CDN; "
+              f"peers_discovered {st['swarm']['peers_discovered']}")
+
+    wall0 = time.monotonic()
+    tracker = LoopbackTracker()
+    dcn_port, dead_port = free_port(), free_port()
+    seeder = Seeder(
+        "phase 15", cfg_b, args=("--dcn-port", str(dcn_port),
+                                 "--tracker", tracker.url),
+        ZEST_COOP_INDEX="0", ZEST_COOP_HOSTS="2",
+        ZEST_COOP_ADDRS=f"0=127.0.0.1:{dcn_port},1=127.0.0.1:{dead_port}")
+    b_addr = ("127.0.0.1", seeder.port)
+    try:
+        if f"indexed {len(cached)} cached xorbs" not in seeder.lines or \
+                not any(ln.startswith("gossip: ") for ln in seeder.lines):
+            fail(f"phase 15: the daemon did not index its cache or start "
+                 f"gossip: {seeder.lines}")
+
+        # ── 15a: the tracker ──
+        t0 = time.monotonic()
+        env = {k: v for k, v in os.environ.items() if k != "ZEST_FAULTS"}
+        env.update(HF_HOME=str(cfg_b.hf_home),
+                   ZEST_CACHE_DIR=str(cfg_b.cache_dir),
+                   ZEST_LISTEN_PORT=str(seeder.port))
+        seed = subprocess.run(
+            [sys.executable, "-m", "zest_tpu_torch", "seed", "--tracker",
+             tracker.url], cwd=Path(__file__).resolve().parent, env=env,
+            capture_output=True, text=True, timeout=300)
+        want = f"announced {len(cached)}/{len(cached)} xorbs to the swarm"
+        if seed.returncode != 0 or want not in seed.stdout:
+            fail(f"phase 15a: seed exited {seed.returncode}: "
+                 f"{seed.stdout[-2000:]} {seed.stderr[-2000:]}")
+        held = [h for h in cached if b_addr in tracker.peers.get(
+            compute_info_hash(hashing.hex_to_hash(h)), {})]
+        if len(held) != len(cached):
+            fail(f"phase 15a: the tracker holds {len(held)} of "
+                 f"{len(cached)} xorbs at B's port")
+        seed_s = time.monotonic() - t0
+        swarm_t = cli._build_swarm(Config(hf_home=work / "t15" / "hf",
+                                          cache_dir=work / "t15" / "zest",
+                                          listen_port=0),
+                                   tracker=tracker.url, dht=False)
+        try:
+            if [type(s).__name__ for s in swarm_t.peer_sources] != \
+                    ["TrackerClient"]:
+                fail(f"phase 15a: sources {swarm_t.peer_sources}")
+            _, res, wall = pull_on("phase 15a", "t15", swarm_t, "tracker")
+            leecher_id = swarm_t.peer_sources[0].peer_id
+            lookups = sum(a["peer_id"] == leecher_id
+                          for a in tracker.announces)
+            if lookups < len(a_keys):
+                fail(f"phase 15a: the tracker saw {lookups} lookups of "
+                     f"the leecher for {len(a_keys)} xorbs")
+            landed_line("phase 15a tracker", res, wall,
+                        f"seed announced {len(cached)} xorbs in "
+                        f"{seed_s:.2f} s, {lookups} leecher lookups")
+            del res
+            shutil.rmtree(work / "t15")
+
+            # ── 15d: the parallel rung, files only, 15a's swarm ──
+            entries = HubClient(cfg_b).list_files(REPO, pushed.revision)
+            xet = sorted(e.path for e in entries if e.is_xet)
+            with RungLog() as rungs:
+                _, res, wall = pull_on("phase 15d", "f15", swarm_t,
+                                       "files_parallel", land=False)
+        finally:
+            swarm_t.close()
+        st = res.stats
+        by_file = {}
+        for rung, name in rungs.rows:
+            by_file.setdefault(name, []).append(rung)
+        if any(by_file.get(Path(p).name) != ["parallel"] for p in xet):
+            fail(f"phase 15d: rungs {by_file}, xet files {xet}")
+        lanes = st["files_pipeline"]["lane_bytes"]
+        total = sum(e.size for e in entries)
+        if lanes != {"waterfall": total} or st["fallback_files"]:
+            fail(f"phase 15d: lanes {lanes} (files {total:,} B), "
+                 f"fallbacks {st['fallback_files']}")
+        files_s = st["stages"]["files"]
+        landed_line("phase 15d files-only", res, wall,
+                    f"rungs {by_file}; files stage {files_s} s, "
+                    f"{total / files_s / 1e6:.1f} MB/s")
+        del res
+        shutil.rmtree(work / "f15")
+
+        # B announces A's xorbs on a push: the tracker sees B's first
+        # announce per xorb with the bytes B has served, and the gossip
+        # node rumors them.
+        import urllib.request
+
+        body = json.dumps({
+            "repo": REPO, "revision": pushed.revision,
+            "xorbs": [[h, (cfg_b.xorb_cache_path(h).stat().st_size)]
+                      for h in a_keys]}).encode()
+        req = urllib.request.Request(f"{seeder.url}/v1/push", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            if not json.loads(r.read()).get("ok"):
+                fail("phase 15: POST /v1/push was not ok")
+        mine = [a for a in tracker.announces if a["port"] == seeder.port
+                and a["event"] == "started" and a["uploaded"] > 0]
+        if sorted(a["info_hash"] for a in mine) != sorted(a_hashes):
+            fail(f"phase 15a: B's announces with uploaded > 0 cover "
+                 f"{len(mine)} of {len(a_hashes)} pushed xorbs")
+        print(f"phase 15a push: B announced {len(mine)} xorbs to the "
+              f"tracker with uploaded {mine[0]['uploaded']:,} B")
+
+        # ── 15b: the DHT ──
+        router, seeder_dht, leecher_dht = (
+            Dht(bind=("127.0.0.1", 0)) for _ in range(3))
+        try:
+            seeder_dht.bootstrap([("127.0.0.1", router.port)])
+            leecher_dht.bootstrap([("127.0.0.1", router.port)])
+            announcer = SwarmDownloader(
+                Config(hf_home=cfg_b.hf_home, cache_dir=cfg_b.cache_dir,
+                       listen_port=seeder.port), peer_sources=[seeder_dht])
+            t0 = time.monotonic()
+            try:
+                announcer.announce_xorbs(cached)
+            finally:
+                announcer.close()
+            announce_s = time.monotonic() - t0
+            stored = sum(b_addr in router.peer_store.get(
+                compute_info_hash(hashing.hex_to_hash(h)), {})
+                for h in cached)
+            if stored != len(cached):
+                fail(f"phase 15b: the router stores {stored} of "
+                     f"{len(cached)} xorbs at B's port")
+            swarm_d = SwarmDownloader(
+                Config(hf_home=work / "h15" / "hf", cache_dir=work / "h15"
+                       / "zest", listen_port=0),
+                peer_sources=[leecher_dht], own_sources=True)
+            try:
+                _, res, wall = pull_on("phase 15b", "h15", swarm_d, "dht")
+            finally:
+                swarm_d.close()
+        finally:
+            router.close()
+            seeder_dht.close()
+            leecher_dht.close()
+        landed_line("phase 15b DHT", res, wall,
+                    f"{stored} xorbs announced through the router in "
+                    f"{announce_s:.3f} s")
+        del res
+        shutil.rmtree(work / "h15")
+
+        # ── 15c: the gossip plane ──
+        book = {0: ("127.0.0.1", dcn_port)}
+        node = GossipNode(1, 2, book)
+        pool = DcnPool()
+        try:
+            transport = DcnGossipTransport(pool, book)
+            ticks = 0
+            while ticks < 2 and any(0 not in node.who_has(ih)
+                                    for ih in a_hashes):
+                node.tick(transport)
+                ticks += 1
+            if any(0 not in node.who_has(ih) for ih in a_hashes):
+                fail(f"phase 15c: after {ticks} ticks the digest names "
+                     f"host 0 for {sum(0 in node.who_has(ih) for ih in a_hashes)} "
+                     f"of {len(a_hashes)} xorbs")
+            swarm_g = SwarmDownloader(Config(
+                hf_home=work / "g15" / "hf", cache_dir=work / "g15" / "zest",
+                listen_port=0))
+            swarm_g.attach_gossip(node)
+            try:
+                if swarm_g.peer_sources != [node]:
+                    fail(f"phase 15c: sources {swarm_g.peer_sources}")
+                _, res, wall = pull_on("phase 15c", "g15", swarm_g,
+                                       "gossip")
+            finally:
+                swarm_g.close()
+        finally:
+            pool.close()
+        gsum = res.stats["swarm"]["gossip"]
+        if gsum["rounds"] < 1:
+            fail(f"phase 15c: gossip block {gsum}")
+        landed_line("phase 15c gossip", res, wall,
+                    f"{ticks} tick(s) to learn {len(a_hashes)} holders; "
+                    f"gossip {gsum}")
+        del res
+        shutil.rmtree(work / "g15")
+    finally:
+        served = seeder.stop()
+        tracker.close()
+    if served["chunks_served"] <= 0:
+        fail(f"phase 15: the seeder served nothing: {served}")
+    if any(any(v.values()) for v in launches.values()):
+        fail(f"phase 15: a kernel launched on a discovery path: {launches}")
+    print(f"phase 15 wall {time.monotonic() - wall0:.2f} s; seeder served "
+          f"{served['chunks_served']} chunks, {served['bytes_served']:,} B; "
+          f"kernel launches {launches}")
     return launches
 
 
@@ -4234,6 +4640,10 @@ def run(args, work: Path) -> dict:
         swarm_launches = swarm_phase(work, publisher.url, cfg_b, ckpt,
                                      pushed, digest, tth_a, tfl_a, dev)
 
+        # ── 15. peer discovery: tracker, DHT, gossip; the parallel rung ──
+        discovery_launches = discovery_phase(work, publisher.url, cfg_b,
+                                             ckpt, pushed, digest, dev)
+
         # ── 9. the serving pool in-process, then the daemon over HTTP ──
         pool_out = pool_phase(work, publisher.url, cfg_a, llama_ref,
                               args.seed, args.steps, dev)
@@ -4353,6 +4763,8 @@ def run(args, work: Path) -> dict:
                                  "federated": fed_launches["blake3_chunks"],
                                  "hier": hier_launches["blake3_chunks"],
                                  "lossy": lossy_launches["blake3_chunks"]}}
+    for path, counts in discovery_launches.items():
+        by_path["blake3_chunks"][path] = counts["blake3_chunks"]
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
                                         "coop_collective":
@@ -4370,7 +4782,10 @@ def run(args, work: Path) -> dict:
                                         "serve": pool_out["launches"][
                                             k["name"]],
                                         "serve_daemon": daemon_launches[
-                                            k["name"]]})
+                                            k["name"]],
+                                        **{path: counts[k["name"]]
+                                           for path, counts in
+                                           discovery_launches.items()}})
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     return {"kernels": kernels}

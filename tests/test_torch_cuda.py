@@ -291,6 +291,71 @@ def test_peer_pull_on_card(cuda_device, tmp_path):
     assert params_digest(res.params) == params_digest(cpu.params)
 
 
+def test_discovered_parallel_rung_on_card(cuda_device, tmp_path):
+    """Phase 15d at a tiny width: a seeder registered with a loopback
+    tracker, found through it by a files-only pull on ``cuda`` (the
+    default device) whose xet file the ``ParallelDownloader`` writes over
+    the shared term pool; then a landing on ``cuda:0`` through the same
+    swarm. Every xorb byte from the peer, no kernel launch on the path."""
+    import chip_smoke
+    from zest_tpu_torch import cli, storage
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.p2p.tracker import TrackerClient
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+    from zest_tpu_torch.transfer.server import BtServer
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt)
+
+    def node(name):
+        return Config(hf_home=tmp_path / name / "hf",
+                      cache_dir=tmp_path / name / "zest",
+                      endpoint=server.url, listen_port=0)
+
+    tracker = chip_smoke.LoopbackTracker()
+    with PublisherServer(cfg_a) as server:
+        cfg_b = node("b")
+        pull_model(cfg_b, "org/tiny", device="cpu", no_p2p=True)
+        seeder = BtServer(cfg_b)
+        cfg_b.listen_port = seeder.start()
+        seed = SwarmDownloader(cfg_b, peer_sources=[TrackerClient(
+            tracker.url, b"s" * 20, listen_port=cfg_b.listen_port)])
+        seed.announce_xorbs(storage.list_cached_xorbs(cfg_b))
+        seed.close()
+        swarm = cli._build_swarm(node("c"), tracker=tracker.url, dht=False)
+        blake3_cuda.COUNTER.reset()
+        bg4_cuda.FUSED_COUNTER.reset()
+        try:
+            with chip_smoke.RungLog() as rungs:
+                files = pull_model(node("c"), "org/tiny", swarm=swarm,
+                                   land=False)
+            landed = pull_model(node("d"), "org/tiny", swarm=swarm)
+        finally:
+            swarm.close()
+            seeder.shutdown()
+            tracker.close()
+    assert sorted(rungs.rows) == [("parallel", "model.safetensors"),
+                                  ("plain", "config.json")]
+    for res in (files, landed):
+        assert res.stats["fetch"]["bytes"]["cdn"] == 0
+        assert res.stats["swarm"]["peers_discovered"] > 0
+        for f in ckpt.iterdir():
+            assert (res.snapshot_dir / f.name).read_bytes() == f.read_bytes()
+    assert files.stats["files_pipeline"]["lane_bytes"] == {
+        "waterfall": sum(f.stat().st_size for f in ckpt.iterdir())}
+    assert files.stats["fallback_files"] == 0
+    assert all(t.device == cuda_device for t in landed.params.values())
+    assert params_digest(landed.params) == params_digest(
+        load_checkpoint(ckpt, "cpu"))
+    assert blake3_cuda.COUNTER.launches == 0
+    assert bg4_cuda.FUSED_COUNTER.launches == 0
+
+
 def test_coop_pull_on_card(cuda_device, tmp_path):
     """Four in-process hosts pull cooperatively on ``cuda``: every received
     whole xorb's BG4 chunks go through the fused kernel once, and the

@@ -14,7 +14,7 @@ runs. The publisher surface answers a second node's unmodified pull from
 
 the continuous fan-out of pushed revisions:
 
-    POST /v1/push   {"repo", "revision", "parent"?, ...} -> {"ok", "watchers", "delivered"}
+    POST /v1/push   {"repo", "revision", "parent"?, "xorbs"?, ...} -> {"ok", "watchers", "delivered"}
     POST /v1/watch  {"repos": [...]}  -> SSE: hello, then revision events, ping keepalives
 
 and the control and serving routes of :class:`HttpApi`:
@@ -38,7 +38,10 @@ from a per-snapshot generator. Any failure of the pull, the landing or
 the decode reaches the client as an ``error`` event.
 
 ``/v1/watch`` answers 404 when ``Config.watch_enabled`` is off
-(``ZEST_WATCH=0``); a push then notifies no one. Blocks and routes of
+(``ZEST_WATCH=0``); a push then notifies no one. A ``/v1/push`` carrying
+``xorbs`` ([[hex, size], ...]) also makes them seedable at once: they
+enter the daemon's ``XorbRegistry``, its swarm announces them, and its
+gossip node puts ``repo@revision`` on the gossip plane (each best-effort). Blocks and routes of
 subsystems the port does not run (pull sessions, tenancy, timelines,
 remediation, pod aggregation, the dashboard, ``/v1/pull``) are absent.
 """
@@ -125,16 +128,36 @@ class WatchHub:
             self._cond.notify_all()
 
 
-def push_notify(hub: WatchHub, req: dict) -> dict:
-    """A ``POST /v1/push`` from a push: wake every watcher of the repo.
+def push_notify(hub: WatchHub, req: dict, registry=None, swarm=None,
+                gossip_node=None) -> dict:
+    """A ``POST /v1/push`` from a push: make its new xorbs seedable now
+    (``registry`` add, ``swarm`` announce), put the revision on the
+    gossip plane (``gossip_node``), and wake every watcher of the repo.
     Raises ValueError on a malformed notification (answered 400)."""
     repo, revision = req.get("repo"), req.get("revision")
     if not repo or not revision:
         raise ValueError("push notify needs repo and revision")
     try:
-        [(str(h), int(n)) for h, n in (req.get("xorbs") or [])]
+        xorbs = [(str(h), int(n)) for h, n in (req.get("xorbs") or [])]
     except (TypeError, ValueError) as exc:
         raise ValueError("xorbs must be [[hex, size], ...]") from exc
+    if registry is not None:
+        for h, n in xorbs:
+            registry.add(h, n)
+    if swarm is not None and xorbs:
+        try:
+            swarm.announce_xorbs([h for h, _ in xorbs])
+        except Exception:  # noqa: BLE001 - announce is best-effort
+            pass
+    if gossip_node is not None:
+        try:
+            gossip_node.announce_manifest(
+                f"{repo}@{revision}",
+                {"repo": repo, "revision": revision,
+                 "parent": req.get("parent"),
+                 "pushed_at": req.get("pushed_at")})
+        except Exception:  # noqa: BLE001 - gossip is best-effort
+            pass
     event = {"event": "revision", "repo": repo, "revision": revision,
              "parent": req.get("parent"),
              "pushed_at": req.get("pushed_at"),
@@ -149,16 +172,19 @@ class HttpApi:
     watch fan-out, and the serving path over ``cfg``'s caches on
     ``device``. ``swarm`` (the node's ``SwarmDownloader``) carries every
     generate's pull; ``bt_server`` (its ``BtServer``) feeds ``/v1/status``
-    and the metrics."""
+    and the metrics; ``registry`` (its ``XorbRegistry``) and
+    ``gossip_node`` take what ``POST /v1/push`` announces."""
 
     _PULL_TTL_S = 30.0
 
     def __init__(self, cfg: Config, device=DEFAULT_DEVICE, swarm=None,
-                 bt_server=None):
+                 bt_server=None, registry=None, gossip_node=None):
         self.cfg = cfg
         self.device = device
         self.swarm = swarm
         self.bt_server = bt_server
+        self.registry = registry
+        self.gossip_node = gossip_node
         self.index = PublisherIndex(cfg)
         self.watch_hub = WatchHub()
         self.port: int | None = None   # set by the server once bound
@@ -221,7 +247,9 @@ class HttpApi:
             "version": __version__,
             "bt_peers": bt.active_peers if bt else 0,
             "chunks_served": bt.chunks_served if bt else 0,
-            "xorbs_cached": len(storage.list_cached_xorbs(self.cfg)),
+            "xorbs_cached": (len(self.registry)
+                             if self.registry is not None
+                             else len(storage.list_cached_xorbs(self.cfg))),
             "http_requests": self.http_requests,
             "listen_port": self.cfg.listen_port,
             "http_port": self.port,
@@ -711,7 +739,10 @@ class _Handler(BaseHTTPRequestHandler):
             if req is None:
                 return
             try:
-                self._json(push_notify(self.api.watch_hub, req))
+                self._json(push_notify(
+                    self.api.watch_hub, req, registry=self.api.registry,
+                    swarm=self.api.swarm,
+                    gossip_node=self.api.gossip_node))
             except ValueError as exc:
                 self._json({"error": str(exc)}, 400)
             return
@@ -739,13 +770,16 @@ class _Handler(BaseHTTPRequestHandler):
 class PublisherServer:
     """Threaded loopback daemon over ``cfg``'s caches. ``port=0`` binds an
     ephemeral port; use as a context manager or call :meth:`start` /
-    :meth:`close`. ``api`` is its :class:`HttpApi` (``device``, ``swarm``
-    and ``bt_server`` go to it), ``hub`` its watch fan-out."""
+    :meth:`close`. ``api`` is its :class:`HttpApi` (``device``, ``swarm``,
+    ``bt_server``, ``registry`` and ``gossip_node`` go to it), ``hub`` its
+    watch fan-out."""
 
     def __init__(self, cfg: Config, host: str = "127.0.0.1", port: int = 0,
-                 device=DEFAULT_DEVICE, swarm=None, bt_server=None):
+                 device=DEFAULT_DEVICE, swarm=None, bt_server=None,
+                 registry=None, gossip_node=None):
         self.api = HttpApi(cfg, device=device, swarm=swarm,
-                           bt_server=bt_server)
+                           bt_server=bt_server, registry=registry,
+                           gossip_node=gossip_node)
         handler = type("DaemonHandler", (_Handler,), {"api": self.api})
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True

@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,pull,generate,watch,diff,models}``.
+"""``python -m zest_tpu_torch {push,serve,seed,pull,generate,watch,diff,models}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -6,8 +6,18 @@ publisher endpoint that a second node's ``pull`` points at
 (``HF_ENDPOINT=http://host:port``), and seeds this node's xorb cache: a
 BT-wire ``BtServer`` (``--listen-port``, ``ZEST_LISTEN_PORT``, 6881) and
 a ``DcnServer`` (``--dcn-port``) share one peer-health book with the
-node's swarm. ``pull --peer HOST:PORT`` (repeatable) asks those peers
-before the CDN; ``--no-p2p`` turns the peer tier off. ``pull --coop
+node's swarm. ``serve`` indexes the xorb cache into an ``XorbRegistry``
+(``POST /v1/push`` adds to it and announces what it adds); with a coop
+identity (``ZEST_COOP_INDEX``, ``ZEST_COOP_HOSTS`` >= 2,
+``ZEST_COOP_ADDRS``) and ``ZEST_GOSSIP`` on, it attaches a gossip node to
+its swarm and its DCN listener and ticks it against the other hosts every
+``ZEST_GOSSIP_INTERVAL_S``; ``serve --tracker URL`` also registers what it
+announces with an HTTP tracker. ``seed [--tracker URL]`` announces every
+cached xorb at ``ZEST_LISTEN_PORT``. ``pull`` finds peers through the
+Kademlia DHT (UDP on ``ZEST_LISTEN_PORT``, an ephemeral port when that
+one is taken; ``--no-dht`` skips it) and ``--tracker URL``;
+``pull --peer HOST:PORT`` (repeatable) asks those peers first;
+``--no-p2p`` turns the peer tier off. ``pull --coop
 --coop-hosts N --coop-index I --coop-addr J=HOST:PORT ...`` runs the
 cooperative pull: this host fetches its ~1/N of the xorbs and the
 others' shares come over the DCN chunk RPC (its listener is
@@ -87,6 +97,85 @@ def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
     return payload if isinstance(payload, dict) else None
 
 
+def _build_swarm(cfg: Config, tracker: str | None = None, dht: bool = True,
+                 health=None):
+    """A ``SwarmDownloader`` with the configured discovery sources, which
+    it closes with itself: the DHT (UDP on ``cfg.listen_port``, an
+    ephemeral port when that one is taken; reference swarm.zig:221) and
+    an HTTP tracker. The DHT is not bootstrapped here: it answers from
+    the nodes that reach it. A coop identity attaches the gossip node
+    (:func:`_attach_fleet_gossip`)."""
+    from zest_tpu_torch.p2p import peer_id as peer_id_mod
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    sources = []
+    if dht:
+        from zest_tpu_torch.p2p.dht import Dht
+
+        try:
+            sources.append(Dht(bind=("0.0.0.0", cfg.listen_port)))
+        except OSError:  # the port is taken (a daemon owns it)
+            try:
+                sources.append(Dht(bind=("0.0.0.0", 0)))
+            except OSError:
+                pass
+    if tracker:
+        from zest_tpu_torch.p2p.tracker import TrackerClient
+
+        sources.append(TrackerClient(tracker, peer_id_mod.generate(),
+                                     listen_port=cfg.listen_port))
+    swarm = SwarmDownloader(cfg, peer_sources=sources, health=health,
+                            own_sources=True)
+    _attach_fleet_gossip(cfg, swarm)
+    return swarm
+
+
+def _attach_fleet_gossip(cfg: Config, swarm, dcn_server=None):
+    """With a coop identity (host index + a fleet of two or more) and
+    ``ZEST_GOSSIP`` on, the gossip node becomes the swarm's primary
+    discovery source (tracker and DHT demote to bootstrap announce) and,
+    given a ``DcnServer``, answers anti-entropy rounds on its listener.
+    Returns the node, or None (no identity, or ``ZEST_GOSSIP=0``)."""
+    if cfg.coop_index is None or not cfg.coop_hosts or cfg.coop_hosts < 2:
+        return None
+    from zest_tpu_torch.transfer.gossip import node_from_config
+
+    node = node_from_config(cfg, cfg.coop_index, cfg.coop_hosts,
+                            cfg.coop_addrs or None)
+    if node is None:
+        return None
+    swarm.attach_gossip(node)
+    if dcn_server is not None:
+        dcn_server.attach_gossip(node)
+    return node
+
+
+def _start_gossip_loop(cfg: Config, node) -> threading.Event:
+    """Tick ``node`` against ``cfg.coop_addrs``' DCN endpoints every
+    ``cfg.gossip_interval_s`` until the returned event is set."""
+    from zest_tpu_torch.transfer.dcn import DcnPool
+    from zest_tpu_torch.transfer.gossip import DcnGossipTransport
+
+    pool = DcnPool()
+    transport = DcnGossipTransport(pool, cfg.coop_addrs)
+    stop = threading.Event()
+
+    def loop() -> None:
+        try:
+            while not stop.wait(cfg.gossip_interval_s):
+                try:
+                    node.tick(transport)
+                except Exception:  # noqa: BLE001 - gossip is best-effort
+                    pass
+        finally:
+            pool.close()
+
+    threading.Thread(target=loop, name="zest-gossip", daemon=True).start()
+    print(f"gossip: fanout {node.fanout()} over {len(cfg.coop_addrs)} "
+          f"peers, every {cfg.gossip_interval_s:g}s", flush=True)
+    return stop
+
+
 def cmd_serve(args) -> int:
     """The daemon over this node's cache until SIGINT, SIGTERM or
     ``POST /v1/stop``: the publisher endpoint, the serving routes and
@@ -97,7 +186,6 @@ def cmd_serve(args) -> int:
     from zest_tpu_torch.p2p.health import HealthRegistry
     from zest_tpu_torch.transfer.dcn import DcnServer
     from zest_tpu_torch.transfer.server import BtServer
-    from zest_tpu_torch.transfer.swarm import SwarmDownloader
 
     cfg = Config.load()
     if args.listen_port is not None:
@@ -105,19 +193,29 @@ def cmd_serve(args) -> int:
     if args.dcn_port is not None:
         cfg.dcn_port = args.dcn_port
     port = cfg.http_port if args.port is None else args.port
+    registry = storage.XorbRegistry()
+    print(f"indexed {registry.scan(cfg)} cached xorbs", flush=True)
     # One health book for the node: the seeder's reciprocity ranking,
     # stalled-reader strikes and quarantine oracle read what the node's
     # swarm writes.
     health = HealthRegistry()
-    swarm = SwarmDownloader(cfg, health=health)
     bt = BtServer(cfg, health=health)
     stop = threading.Event()
     if threading.current_thread() is threading.main_thread():
         signal.signal(signal.SIGTERM, lambda *_: stop.set())
     dcn = None
     server = None
+    swarm = None
+    gossip_stop = None
     try:
         bt_port = bt.start()
+        # The announces carry the bound port (``--listen-port 0``).
+        cfg.listen_port = bt_port
+        # No DHT: the daemon's swarm discovers through the tracker and
+        # the gossip plane only (the JAX package's daemon has neither
+        # a DHT nor a tracker).
+        swarm = _build_swarm(cfg, tracker=args.tracker, dht=False,
+                             health=health)
         shaped = ""
         if cfg.seed_rate_bps or cfg.seed_peer_bps:
             shaped = (f", shaped {cfg.seed_rate_bps or 'unlimited'} B/s "
@@ -134,10 +232,18 @@ def cmd_serve(args) -> int:
             dcn = None
             print(f"DCN listener disabled (port {cfg.dcn_port}: {exc})",
                   flush=True)
+        # The gossip plane: rounds answered on the DCN listener, and the
+        # active tick loop against the other hosts' DCN endpoints.
+        gossip_node = swarm.gossip
+        if gossip_node is not None and dcn is not None:
+            dcn.attach_gossip(gossip_node)
+        if gossip_node is not None and cfg.coop_addrs:
+            gossip_stop = _start_gossip_loop(cfg, gossip_node)
         # The serving routes pull through this node's swarm.
         server = PublisherServer(cfg, host=args.host, port=port,
                                  device=args.device, swarm=swarm,
-                                 bt_server=bt).start()
+                                 bt_server=bt, registry=registry,
+                                 gossip_node=gossip_node).start()
         bound = server.api.port
         try:
             storage.atomic_write(cfg.http_port_file(), str(bound).encode())
@@ -152,6 +258,8 @@ def cmd_serve(args) -> int:
         except KeyboardInterrupt:
             pass
     finally:
+        if gossip_stop is not None:
+            gossip_stop.set()
         if server is not None:
             server.close()
         pool_mod = sys.modules.get("zest_tpu_torch.models.hbm_pool")
@@ -160,7 +268,8 @@ def cmd_serve(args) -> int:
         if dcn is not None:
             dcn.shutdown()
         bt.shutdown()
-        swarm.close()
+        if swarm is not None:
+            swarm.close()
     print("seeder stats: " + json.dumps(dataclasses.asdict(bt.get_stats())),
           flush=True)
     return 0
@@ -225,20 +334,42 @@ def cmd_models(args) -> int:
     return 0
 
 
-def _swarm_for(args):
-    """The pull's peer tier from ``--peer``/``--no-p2p``: None for
-    ``--no-p2p``, else a swarm over the direct peers. A swarm that cannot
-    be built leaves the pull CDN-only, said on stderr."""
+def cmd_seed(args) -> int:
+    """Announce every cached xorb at ``ZEST_LISTEN_PORT`` (reference
+    main.zig:307-369)."""
+    from zest_tpu_torch import storage
+
+    cfg = Config.load()
+    hashes = storage.list_cached_xorbs(cfg)
+    if not hashes:
+        print("nothing cached to seed")
+        return 0
+    swarm = _build_swarm(cfg, tracker=args.tracker)
+    try:
+        n = swarm.announce_xorbs(hashes)
+    finally:
+        swarm.close()
+    print(f"announced {n}/{len(hashes)} xorbs to the swarm")
+    return 0
+
+
+def _swarm_for(args, tracker: str | None = None, dht: bool = False):
+    """The pull's peer tier: None for ``--no-p2p``, else a swarm over the
+    ``--peer`` direct peers with the discovery sources ``tracker`` and
+    ``dht`` (see :func:`_build_swarm`). A swarm that cannot be built
+    leaves the pull CDN-only, said on stderr."""
     if args.no_p2p:
         return None
     from zest_tpu_torch.p2p.peer import parse_address
-    from zest_tpu_torch.transfer.swarm import SwarmDownloader
 
+    swarm = None
     try:
-        swarm = SwarmDownloader(Config.load())
+        swarm = _build_swarm(Config.load(), tracker=tracker, dht=dht)
         for spec in args.peer or []:
             swarm.add_direct_peer(*parse_address(spec))
     except (OSError, ValueError) as exc:
+        if swarm is not None:
+            swarm.close()
         print(f"p2p unavailable ({exc}); continuing CDN-only",
               file=sys.stderr)
         return None
@@ -265,7 +396,7 @@ def cmd_pull(args) -> int:
             print(f"error: --{flag.replace('_', '-')}: {exc}",
                   file=sys.stderr)
             return 2
-    swarm = _swarm_for(args)
+    swarm = _swarm_for(args, tracker=args.tracker, dht=not args.no_dht)
     try:
         res = pull_model(Config.load(), args.repo, revision=args.revision,
                          device=args.device, coop=args.coop,
@@ -513,7 +644,16 @@ def build_parser() -> argparse.ArgumentParser:
                             "6991; 0 = ephemeral)")
     serve.add_argument("--device", choices=devices, default="cuda",
                        help="where /v1/generate decodes")
+    serve.add_argument("--tracker", metavar="URL", default=None,
+                       help="HTTP tracker announce URL: pushed xorbs are "
+                            "registered there too")
     serve.set_defaults(fn=cmd_serve)
+
+    seed = sub.add_parser("seed", help="announce the cached xorbs to the "
+                                       "swarm (DHT and --tracker)")
+    seed.add_argument("--tracker", metavar="URL", default=None,
+                      help="HTTP tracker announce URL")
+    seed.set_defaults(fn=cmd_seed)
 
     models = sub.add_parser("models", help="pulled models (and, with "
                                            "--resident, the daemon's "
@@ -568,6 +708,11 @@ def build_parser() -> argparse.ArgumentParser:
                       help="DCN endpoint of pod I (repeatable); units "
                            "owned by unreachable pods degrade to the CDN")
     add_peer_flags(pull)
+    pull.add_argument("--tracker", metavar="URL", default=None,
+                      help="HTTP tracker announce URL (peer discovery)")
+    pull.add_argument("--no-dht", action="store_true",
+                      help="skip DHT discovery (direct peers and tracker "
+                           "only)")
     pull.set_defaults(fn=cmd_pull)
 
     gen = sub.add_parser("generate", help="pull a model and decode with it")

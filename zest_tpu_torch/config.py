@@ -308,6 +308,17 @@ class Config:
     coop_pods: tuple[int, ...] | None = None
     collective_backend: str = "dcn"
     collective_lossy: str = "0"
+    # Fleet gossip (transfer/gossip.py): ``gossip_enabled`` (ZEST_GOSSIP,
+    # strict 0/1) is the rollback knob — 0 builds no node anywhere, so
+    # tracker/DHT announce and the stats schema stay as without gossip;
+    # ``gossip_fanout`` peers per anti-entropy tick (ZEST_GOSSIP_FANOUT,
+    # 0 = auto, ceil(log2 N)); ``gossip_max_entries`` bounds the digest
+    # (ZEST_GOSSIP_MAX, >= 1); ``gossip_interval_s`` is the daemon's
+    # tick cadence (ZEST_GOSSIP_INTERVAL_S, >= 0.05).
+    gossip_enabled: bool = True
+    gossip_fanout: int = 0
+    gossip_max_entries: int = 65536
+    gossip_interval_s: float = 5.0
     # The pod round (transfer/pod.py): each wave's staged pool fits this
     # many bytes (ZEST_TPU_HBM_STAGING; 0 = one wave).
     hbm_staging_bytes: int = DEFAULT_HBM_STAGING_BYTES
@@ -409,6 +420,13 @@ class Config:
                 env, "ZEST_COLLECTIVE_BACKEND", "dcn", COLLECTIVE_BACKENDS),
             collective_lossy=_strict_choice(
                 env, "ZEST_COLLECTIVE_LOSSY", "0", COLLECTIVE_LOSSY_MODES),
+            gossip_enabled=_strict_bool(
+                "ZEST_GOSSIP", env.get("ZEST_GOSSIP", "1")),
+            gossip_fanout=_strict_nonneg_int(env, "ZEST_GOSSIP_FANOUT"),
+            gossip_max_entries=_strict_nonneg_int(
+                env, "ZEST_GOSSIP_MAX", default=65536, floor=1),
+            gossip_interval_s=_strict_pos_float(
+                env, "ZEST_GOSSIP_INTERVAL_S", 5.0, floor=0.05),
             hbm_staging_bytes=_nonneg_int(
                 env, "ZEST_TPU_HBM_STAGING", DEFAULT_HBM_STAGING_BYTES),
             pull_inflight_bytes=max(1, int(

@@ -7,6 +7,8 @@ single chunks at ``chunks/{prefix}/{hash}`` (read by the DCN server).
 The landing's decode reads entries through read-only maps
 (:meth:`XorbCache.get_with_range_mapped`) and, for stored chunks, straight
 from the entry file (:meth:`XorbCache.locate_with_range`).
+:class:`XorbRegistry` is the seeding node's in-memory index of that cache
+(``serve`` scans it at start, ``POST /v1/push`` adds what a push minted).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import mmap
 import os
 import tempfile
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -195,3 +198,83 @@ def list_cached_xorbs(cfg: Config) -> list[str]:
     return sorted(f.name for sub in root.iterdir() if sub.is_dir()
                   for f in sub.iterdir()
                   if len(f.name) == 64 and "." not in f.name)
+
+
+@dataclass
+class RegistryEntry:
+    hash_hex: str
+    size: int
+    partial_starts: tuple[int, ...] = ()
+
+
+class XorbRegistry:
+    """In-memory index of locally available xorbs (reference:
+    storage.zig:148-196). ``scan()`` rebuilds it from the cache
+    directory (full entries and ``{hex}.{start}`` partial ones) when the
+    daemon starts; ``POST /v1/push`` adds the xorbs a push minted."""
+
+    def __init__(self) -> None:
+        self._entries: dict[str, RegistryEntry] = {}
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def add(self, hash_hex: str, size: int,
+            partial_starts: tuple[int, ...] = ()) -> None:
+        with self._lock:
+            prev = self._entries.get(hash_hex)
+            if prev is not None:
+                partial_starts = tuple(
+                    sorted(set(prev.partial_starts) | set(partial_starts))
+                )
+                size = max(size, prev.size)
+            self._entries[hash_hex] = RegistryEntry(hash_hex, size, partial_starts)
+
+    def has(self, hash_hex: str) -> bool:
+        with self._lock:
+            return hash_hex in self._entries
+
+    def get(self, hash_hex: str) -> RegistryEntry | None:
+        with self._lock:
+            return self._entries.get(hash_hex)
+
+    def all_hashes(self) -> list[str]:
+        with self._lock:
+            return sorted(self._entries)
+
+    def scan(self, cfg: Config) -> int:
+        """Rebuild from the on-disk cache; returns the number of entries."""
+        root = cfg.xorb_cache_dir()
+        found: dict[str, RegistryEntry] = {}
+        if root.is_dir():
+            for sub in root.iterdir():
+                if not sub.is_dir():
+                    continue
+                for f in sub.iterdir():
+                    name = f.name
+                    if name.startswith(".tmp-"):
+                        continue
+                    try:
+                        size = f.stat().st_size
+                    except OSError:
+                        continue
+                    if len(name) == 64:
+                        e = found.setdefault(name, RegistryEntry(name, 0))
+                        found[name] = RegistryEntry(
+                            name, size, e.partial_starts
+                        )
+                    elif len(name) > 65 and name[64] == ".":
+                        hex_part, _, start = name.partition(".")
+                        if len(hex_part) == 64 and start.isdigit():
+                            e = found.setdefault(
+                                hex_part, RegistryEntry(hex_part, 0)
+                            )
+                            found[hex_part] = RegistryEntry(
+                                hex_part, e.size,
+                                tuple(sorted(set(e.partial_starts) | {int(start)})),
+                            )
+        with self._lock:
+            self._entries = found
+            return len(self._entries)

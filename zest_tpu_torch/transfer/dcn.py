@@ -19,6 +19,8 @@ on connect, then messages flow in either direction):
     RESPONSE  (2): u64 chunk_offset + frame bytes
     NOT_FOUND (3): 32B xorb hash
     ERROR     (4): utf-8 message
+    GOSSIP    (5): one anti-entropy request, a JSON object
+    GOSSIP_REPLY (6): its reply, a JSON object
 
 The port's trace block carries no trace id and no host index, only its
 wall clock; from the peer's block a channel estimates the peer's clock
@@ -27,14 +29,20 @@ round trip), which :meth:`DcnPool.clock_offsets` reports. A server
 answers byte-exact by default; a request's flags let it answer lossy
 (``serve_chunk_range``: ``FLAG_QUANT_OK`` invites a quantized container
 of a cache hit, ``FLAG_LOSSY_OK`` accepts a staged one forwarded
-verbatim, and such a response carries ``FLAG_LOSSY``). Gossip messages,
-link shaping and server counters are not ported. Ranges are chunk-index ranges
+verbatim, and such a response carries ``FLAG_LOSSY``). A gossip round
+(:mod:`~zest_tpu_torch.transfer.gossip`) rides the same stream: a server
+with a node attached (:meth:`DcnServer.attach_gossip`) answers GOSSIP with
+GOSSIP_REPLY, one without answers ERROR "server accepts only REQUEST",
+which the client raises as :class:`GossipUnavailable`, never as a
+connection fault. Link shaping and server counters are not ported.
+Ranges are chunk-index ranges
 within a xorb and a response carries the ``chunk_offset`` its frames
 start at — the same coordinate frames as the cache.
 """
 
 from __future__ import annotations
 
+import json
 import socket
 import struct
 import threading
@@ -68,6 +76,10 @@ MSG_REQUEST = 1
 MSG_RESPONSE = 2
 MSG_NOT_FOUND = 3
 MSG_ERROR = 4
+# A gossip push-pull round: a JSON request/reply pair on the chunk-RPC
+# stream (no new listener, no new port).
+MSG_GOSSIP = 5
+MSG_GOSSIP_REPLY = 6
 
 # Per-message flag bits. On a REQUEST, FLAG_LOSSY_OK accepts a lossy
 # payload and FLAG_QUANT_OK invites the server to quantize fresh data; on
@@ -84,6 +96,12 @@ IDLE_TIMEOUT_S = 300.0
 
 class DcnProtocolError(ConnectionError):
     pass
+
+
+class GossipUnavailable(ConnectionError):
+    """The peer's server answered GOSSIP with an ERROR — one with no
+    gossip node attached, or a build without gossip. Callers skip the
+    peer for this round; chunk RPCs to it still work."""
 
 
 @dataclass(frozen=True)
@@ -116,7 +134,17 @@ class DcnError:
     message: str
 
 
-DcnMessage = DcnRequest | DcnResponse | DcnNotFound | DcnError
+@dataclass(frozen=True)
+class DcnGossip:
+    """One gossip push-pull payload (request or reply): ``payload`` is
+    the transfer.gossip vv+delta dict, JSON on the wire."""
+
+    request_id: int
+    payload: dict
+    reply: bool = False
+
+
+DcnMessage = DcnRequest | DcnResponse | DcnNotFound | DcnError | DcnGossip
 
 
 # ── Codec (no sockets) ──
@@ -146,6 +174,9 @@ def encode_message(msg: DcnMessage) -> bytes:
         body, mtype = msg.chunk_hash, MSG_NOT_FOUND
     elif isinstance(msg, DcnError):
         body, mtype = msg.message.encode(), MSG_ERROR
+    elif isinstance(msg, DcnGossip):
+        body = json.dumps(msg.payload, separators=(",", ":")).encode()
+        mtype = MSG_GOSSIP_REPLY if msg.reply else MSG_GOSSIP
     else:
         raise DcnProtocolError(f"unencodable message {msg!r}")
     if len(body) > MAX_MESSAGE_SIZE:
@@ -173,6 +204,14 @@ def decode_message(header: bytes, body: bytes) -> DcnMessage:
         return DcnNotFound(req_id, body)
     if mtype == MSG_ERROR:
         return DcnError(req_id, body.decode(errors="replace"))
+    if mtype in (MSG_GOSSIP, MSG_GOSSIP_REPLY):
+        try:
+            payload = json.loads(body.decode())
+        except (UnicodeDecodeError, ValueError) as exc:
+            raise DcnProtocolError(f"bad GOSSIP body: {exc}") from exc
+        if not isinstance(payload, dict):
+            raise DcnProtocolError("GOSSIP body is not an object")
+        return DcnGossip(req_id, payload, reply=mtype == MSG_GOSSIP_REPLY)
     raise DcnProtocolError(f"unknown message type {mtype}")
 
 
@@ -343,11 +382,21 @@ class DcnServer:
     def __init__(self, cfg: Config, cache: XorbCache | None = None):
         self.cfg = cfg
         self.cache = cache or XorbCache(cfg)
+        # The gossip responder (attach_gossip): anti-entropy rounds ride
+        # this listener's connections.
+        self.gossip = None
         self.port: int | None = None
         self._shutdown = threading.Event()
         self._sock: socket.socket | None = None
         self._accept_thread: threading.Thread | None = None
         self._conns = ConnTracker()
+
+    def attach_gossip(self, node) -> None:
+        """Answer GOSSIP on this listener with ``node``'s anti-entropy
+        responder (``transfer.gossip.GossipNode.handle_exchange``).
+        Without a node the server answers ERROR "server accepts only
+        REQUEST", which clients read as gossip-unavailable."""
+        self.gossip = node
 
     def start(self) -> int:
         sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -405,8 +454,14 @@ class DcnServer:
                 _exchange_hello(conn)
                 while not self._shutdown.is_set():
                     msg = _recv_message(conn)
+                    node = self.gossip
                     if isinstance(msg, DcnRequest):
                         self._serve_request(conn, msg)
+                    elif (isinstance(msg, DcnGossip) and not msg.reply
+                          and node is not None):
+                        conn.sendall(encode_message(DcnGossip(
+                            msg.request_id,
+                            node.handle_exchange(msg.payload), reply=True)))
                     else:
                         conn.sendall(encode_message(DcnError(
                             msg.request_id, "server accepts only REQUEST")))
@@ -556,6 +611,34 @@ class DcnChannel:
         t = self.timeout if timeout is None else timeout
         return [w.wait(t) for w in waiters]
 
+    def gossip_exchange(self, payload: dict,
+                        timeout: float | None = None) -> dict:
+        """One anti-entropy round trip on this channel: send our digest
+        delta, return the peer's reply payload. An ERROR reply raises
+        :class:`GossipUnavailable`."""
+        if self.dead:
+            raise ConnectionError("DCN channel is dead")
+        with self._send_lock:
+            req_id = self._next_id
+            self._next_id = (self._next_id + 1) & 0xFFFFFFFF
+            waiter = _Waiter(req_id)
+            with self._pending_lock:
+                self._pending[req_id] = waiter
+            try:
+                self._sock.sendall(encode_message(DcnGossip(req_id,
+                                                            payload)))
+            except OSError as exc:
+                with self._pending_lock:
+                    self._pending.pop(req_id, None)
+                raise ConnectionError(f"DCN send failed: {exc}") from exc
+        msg = waiter.wait(self.timeout if timeout is None else timeout)
+        if isinstance(msg, DcnGossip):
+            return msg.payload
+        if isinstance(msg, DcnError):
+            raise GossipUnavailable(msg.message)
+        raise DcnProtocolError(
+            f"unexpected reply to GOSSIP: {type(msg).__name__}")
+
 
 class DcnPool:
     """Long-lived channels keyed by ``(host, port)``."""
@@ -645,6 +728,28 @@ class DcnPool:
         try:
             return ch.request_many(wants, timeout=timeout, tag=tag,
                                    flags=flags)
+        except (ConnectionError, TimeoutError, OSError):
+            self.drop(host, port)
+            raise
+
+    def gossip_exchange(self, host: str, port: int, payload: dict,
+                        timeout: float | None = None) -> dict:
+        """One anti-entropy round trip through a pooled channel, with
+        :meth:`request_many`'s reconnect-and-retry-once on a stale pooled
+        channel. ``GossipUnavailable`` propagates without a retry: the
+        peer is alive, it does not speak gossip."""
+        ch, reused = self._lease(host, port)
+        try:
+            return ch.gossip_exchange(payload, timeout=timeout)
+        except GossipUnavailable:
+            raise
+        except (ConnectionError, TimeoutError, OSError):
+            self.drop(host, port)
+            if not reused:
+                raise
+        ch, _ = self._lease(host, port)
+        try:
+            return ch.gossip_exchange(payload, timeout=timeout)
         except (ConnectionError, TimeoutError, OSError):
             self.drop(host, port)
             raise

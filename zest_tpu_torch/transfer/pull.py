@@ -15,7 +15,11 @@ the xorb cache (:func:`_try_direct_stage`), before any file is written:
   (fsync + rename) at the pull's end. A file whose units are cached is
   written by the copy-range cache lane (:func:`_write_file_from_cache`:
   stored runs move with ``copy_file_range``, the rest decodes in place);
-  the reconstruction waterfall writes the rest.
+  the reconstruction waterfall writes the rest: first the
+  ``ParallelDownloader`` (``transfer/parallel.py``) over one term-fetch
+  pool of ``max_concurrent_downloads`` threads that the whole pull
+  shares, its temp file committed at the same barrier; then the bridge's
+  ``reconstruct_to_file``; last the plain download of the whole file.
 
 The disk-staging landing (files first, then
 ``models.loader.stage_snapshot_to_hbm``) runs only where the JAX package
@@ -172,6 +176,7 @@ from zest_tpu_torch.transfer.coop import (
     share_nonce_via_kv,
 )
 from zest_tpu_torch.transfer.dcn import DcnServer
+from zest_tpu_torch.transfer.parallel import ParallelDownloader
 from zest_tpu_torch.transfer.federated import (
     _entries_by_hash,
     federated_round,
@@ -328,12 +333,16 @@ class _FilePipeline:
 
     def __init__(self, width: int, budget_bytes: int, clock: StageClock,
                  work, skip_check=None, materialize_workers: int = 1,
-                 async_handoff: bool = True):
+                 async_handoff: bool = True, term_executor=None):
         self.width = max(1, int(width))
         self.budget = ByteBudget(budget_bytes)
         self.clock = clock
         self.work = work  # work(entry) -> "downloaded" | "skipped"
         self.skip_check = skip_check
+        # The shared term-fetch pool the per-file ParallelDownloader
+        # rides (bounds the fetch streams across concurrent files);
+        # owned here, shut down with the other pools.
+        self.term_executor = term_executor
         self.async_handoff = async_handoff
         self.materialize_workers = max(1, int(materialize_workers))
         self.downloaded = 0
@@ -500,9 +509,12 @@ class _FilePipeline:
         return self.downloaded, self.skipped
 
     def _shutdown_pools(self) -> None:
-        # A held job waits for its shard's writes: the write pool last.
-        for pool in (self._pool, self._prepared_pool, self._write_pool):
-            pool.shutdown(wait=True)
+        # A held job waits for its shard's writes: the write pool, then
+        # the term pool the file jobs submit to, last.
+        for pool in (self._pool, self._prepared_pool, self._write_pool,
+                     self.term_executor):
+            if pool is not None:
+                pool.shutdown(wait=True)
 
     def abort(self) -> None:
         """Cancel queued work, drain running jobs, discard temps;
@@ -734,6 +746,12 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if swarm is None and not no_p2p:
         swarm = own_swarm = _default_swarm(cfg)
     bridge = XetBridge(cfg, swarm=swarm)
+    # ONE term-fetch pool shared by every concurrent file reassembly:
+    # in-flight fetch streams stay at the configured budget however many
+    # files are written at once. Owned by the file pipeline below.
+    term_pool = ThreadPoolExecutor(max(1, cfg.max_concurrent_downloads),
+                                   thread_name_prefix="zest-term-fetch")
+    par = ParallelDownloader(bridge, executor=term_pool)
     # The pull's wall-clock budget, armed before authenticate() so the
     # CAS client inherits it; the swarm gets it per call from the bridge.
     deadline = Deadline.after(cfg.pull_deadline_s)
@@ -758,20 +776,14 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             # without a fetch and without decoding its stored chunks.
             tmp = _write_file_from_cache(bridge, entry.xet_hash, dest,
                                          lane_note=file_pipeline.note_lane)
+            if tmp is None:
+                tmp = _waterfall_chain(bridge, par, hub, repo_id, revision,
+                                       entry, dest, log, fallbacks)
+                file_pipeline.note_lane("waterfall", entry.size)
             if tmp is not None:
                 file_pipeline.defer_commit(tmp, dest)
-                clock.note_bytes("files", entry.size)
-                return "downloaded"
-            try:
-                bridge.reconstruct_to_file(entry.xet_hash, dest)
-            except Exception as exc:  # noqa: BLE001 - reference chain
-                # Last rung of the reference's fallback chain: the plain
-                # CDN download of the whole file.
-                log(f"reconstruct of {entry.path} failed ({exc}); "
-                    "falling back to plain download", file=sys.stderr)
-                fallbacks.append(entry.path)
-                hub.download_regular_file(repo_id, revision, entry.path,
-                                          dest)
+            clock.note_bytes("files", entry.size)
+            return "downloaded"
         else:
             hub.download_regular_file(repo_id, revision, entry.path, dest)
         file_pipeline.note_lane("waterfall", entry.size)
@@ -792,7 +804,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         1, cfg.pull_inflight_bytes, clock, file_work,
         skip_check=lambda e: _is_complete(snapshot_dir, e),
         materialize_workers=_resolve_files_workers(cfg.files_workers),
-        async_handoff=cfg.files_async)
+        async_handoff=cfg.files_async, term_executor=term_pool)
     hbm_params = hbm_stats = None
     time_to_hbm = hbm_done_at = time_to_first_layer = None
     delta_plan = delta_base = delta_net_before = None
@@ -964,10 +976,35 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     return PullResult(snapshot_dir, stats, params=hbm_params)
 
 
+def _waterfall_chain(bridge, par, hub, repo_id, revision, entry, dest, log,
+                     fallbacks) -> str | None:
+    """The rungs after the cache lane (reference: main.zig:232-256): the
+    ``ParallelDownloader`` over the pull's term pool, whose temp file is
+    returned for the pipeline's commit barrier; then the bridge's
+    ``reconstruct_to_file`` and last the plain download of the whole
+    file, which both write ``dest`` themselves (None). A file that takes
+    the last rung is listed in ``fallbacks``."""
+    try:
+        return par.write_plan_to_temp(
+            bridge.get_reconstruction(entry.xet_hash), dest)
+    except Exception as exc:  # noqa: BLE001 - any failure falls through
+        log(f"parallel fetch of {entry.path} failed ({exc}); "
+            "retrying sequentially", file=sys.stderr)
+    try:
+        bridge.reconstruct_to_file(entry.xet_hash, dest)
+        return None
+    except Exception as exc:  # noqa: BLE001 - reference chain
+        log(f"sequential fetch of {entry.path} failed ({exc}); "
+            "falling back to plain download", file=sys.stderr)
+    fallbacks.append(entry.path)
+    hub.download_regular_file(repo_id, revision, entry.path, dest)
+    return None
+
+
 def _default_swarm(cfg: Config):
-    """A swarm with no candidates (the tracker and DHT sources are not
-    ported): its stats block is the JAX package's; None when it cannot
-    start."""
+    """A swarm with no discovery source, as the JAX package's default is
+    (``cli._build_swarm`` adds the tracker and the DHT): its stats block
+    is the JAX package's; None when it cannot start."""
     from zest_tpu_torch.transfer.swarm import SwarmDownloader
 
     try:

@@ -1,8 +1,11 @@
 """Seeding server: answers CHUNK_REQUESTs from the local caches.
 
-The port's copy of ``zest_tpu/transfer/server.py`` (its process-registry
-counters and flight-recorder events wait for the telemetry port; the
-``ServerStats`` fields are the same). The src/server.zig equivalent: TCP listener, per-connection thread,
+The port's copy of ``zest_tpu/transfer/server.py``, with its four
+process-registry counters (``zest_seed_bytes_total`` by unchoke slot
+kind, ``zest_seed_choke_events_total``, ``zest_seed_refusals_total``,
+``zest_seed_uploads_expired_total``: the tracker client's ``uploaded``
+reads the first) and the same ``ServerStats`` fields; its flight-recorder
+events are not ported. The src/server.zig equivalent: TCP listener, per-connection thread,
 responder-side handshake (echo the requester's info_hash — the responder
 serves all swarms, server.zig:122-139), BEP 10 negotiation, then a serve
 loop answering each CHUNK_REQUEST from the chunk cache (plain-hex keys)
@@ -57,7 +60,7 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.p2p import bep_xet, peer_id as peer_id_mod, wire
 from zest_tpu_torch.p2p.health import PROVENANCE, HealthRegistry
@@ -65,6 +68,23 @@ from zest_tpu_torch.p2p.peer import LOCAL_UT_XET_ID
 from zest_tpu_torch.shaping import TokenBucket
 from zest_tpu_torch.storage import XorbCache
 from zest_tpu_torch.transfer.dcn import ConnTracker, lookup_chunk_range
+
+# Process-registry mirrors: serving economics visible on /v1/metrics
+# across sessions ("which peers do we feed, whom do we choke, what did
+# we refuse").
+_M_SEED_BYTES = telemetry.counter(
+    "zest_seed_bytes_total",
+    "Payload bytes served by the seeding tier, by unchoke slot kind",
+    ("peer_state",))
+_M_CHOKE_EVENTS = telemetry.counter(
+    "zest_seed_choke_events_total",
+    "Choke/unchoke state transitions sent to leechers")
+_M_REFUSALS = telemetry.counter(
+    "zest_seed_refusals_total",
+    "Chunk requests refused for quarantined-source content")
+_M_EXPIRED = telemetry.counter(
+    "zest_seed_uploads_expired_total",
+    "Uploads aborted at the per-request deadline (stalled readers)")
 
 # How often the choke book re-ranks (and the optimistic slot rotates).
 RECHOKE_INTERVAL_S = 10.0
@@ -178,6 +198,12 @@ class _ChokeBook:
                                 key=f"{addr[0]}:{addr[1]}"):
             return None
         return kind
+
+    def kind(self, key: int) -> str | None:
+        """Current slot kind WITHOUT re-ranking or fault rolls — for
+        labeling work already authorized by :meth:`slot`."""
+        with self._lock:
+            return self._unchoked.get(key)
 
     def count_transition(self) -> None:
         """Choke-state flip sent on some wire; serve threads race, so
@@ -339,6 +365,7 @@ class BtServer:
             # from "bad seeder".
             with self._stats_lock:
                 self._uploads_expired += 1
+            _M_EXPIRED.inc()
         except (wire.WireError, OSError, bep_xet.XetMessageError):
             pass  # peer went away or spoke garbage; drop quietly
         finally:
@@ -410,6 +437,7 @@ class BtServer:
                                 else wire.MessageId.CHOKE)
             if last_sent is not None:
                 self._choke.count_transition()
+                _M_CHOKE_EVENTS.inc()
         return unchoked
 
     # ── Request service (reference: server.zig:187-215) ──
@@ -447,6 +475,7 @@ class BtServer:
         if src is not None:
             with self._stats_lock:
                 self._refused_quarantined += 1
+            _M_REFUSALS.inc()
             stream.send_raw(bep_xet.encode_framed(
                 ext_id,
                 bep_xet.ChunkError(
@@ -527,9 +556,11 @@ class BtServer:
             with self._stats_lock:
                 self._uploads_inflight -= 1
             self._slots.release()
+        slot_kind = self._choke.kind(key) or "reciprocal"
         with self._stats_lock:
             self._chunks_served += 1
             self._bytes_served += len(data)
+        _M_SEED_BYTES.inc(len(data), peer_state=slot_kind)
 
     def _send_shaped(self, stream, frame: bytes,
                      peer_addr: tuple[str, int], give_up_at: float) -> None:

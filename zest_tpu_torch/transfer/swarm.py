@@ -3,9 +3,13 @@
 The port's copy of ``zest_tpu/transfer/swarm.py``. Decides *which peers*
 to ask for a xorb range and manages the connection pool, discovery
 cache, and per-session stats. Discovery is pluggable (``PeerSource``):
-direct ``--peer`` addresses are tried first, then discovered peers (the
-tracker and DHT sources are not ported yet; they plug in through
-``peer_sources``). Discovery results are cached for 30 s per swarm under
+direct ``--peer`` addresses are tried first, then discovered peers — an
+HTTP tracker (:mod:`zest_tpu_torch.p2p.tracker`), the Kademlia DHT
+(:mod:`zest_tpu_torch.p2p.dht`) and, inside a trusted fleet, the gossip
+node (:meth:`SwarmDownloader.attach_gossip`), which then answers first
+and demotes the tracker and DHT to bootstrap announce. A swarm built with
+``own_sources=True`` closes its sources with itself (the CLI's DHT socket
+and receive thread). Discovery results are cached for 30 s per swarm under
 a lock (reference: swarm.zig:320-355); an *all-sources-failed* round
 caches for only ~2 s, so one discovery blip can't blank peer discovery
 for a whole TTL.
@@ -133,6 +137,7 @@ class SwarmDownloader:
         peer_sources: list[PeerSource] | None = None,
         pool: PeerPool | None = None,
         health: HealthRegistry | None = None,
+        own_sources: bool = False,
     ):
         self.cfg = cfg
         self.peer_id = peer_id_mod.generate()
@@ -153,7 +158,26 @@ class SwarmDownloader:
         self._reannounce_lock = threading.Lock()
         self._reannounce_pending = False
         self._last_reannounce: dict[bytes, float] = {}
+        # The gossip node (transfer.gossip), when attached: the FIRST
+        # discovery source (cost-ordered, zero round trips), and the
+        # tracker/DHT sources demote to bootstrap-only announce. None
+        # (ZEST_GOSSIP=0, or no coop identity): tracker/DHT only.
+        self.gossip = None
+        # Sources this swarm closes with itself (the caller built them
+        # for it alone).
+        self._owned_sources = list(self.peer_sources) if own_sources else []
         self.health.subscribe(self._on_health_transition)
+
+    def attach_gossip(self, node) -> None:
+        """Adopt ``node`` (transfer.gossip.GossipNode) as the primary
+        discovery source: its local digest answers ``find_peers``
+        nearest-warm-host first (ICI < DCN < WAN), and every announce
+        rumors through anti-entropy instead of a tracker round trip —
+        the other sources only see the FIRST announce per swarm (the
+        bootstrap seed)."""
+        self.gossip = node
+        self.peer_sources = [node] + [
+            s for s in self.peer_sources if s is not node]
 
     def add_direct_peer(self, host: str, port: int) -> None:
         """--peer flag path: tried before discovered peers (swarm.zig:279-314)."""
@@ -167,12 +191,20 @@ class SwarmDownloader:
         # its transitions or be pinned in memory by the listener ref.
         self.health.unsubscribe(self._on_health_transition)
         self.pool.close_all()
+        for source in self._owned_sources:
+            close = getattr(source, "close", None)
+            if close is not None:
+                close()
+        self._owned_sources = []
 
     def summary(self) -> dict:
-        """Session stats plus the health registry's live view: the JAX
-        package's schema without a gossip node (gossip is not ported)."""
+        """Session stats plus the health registry's live view. The
+        ``gossip`` block exists only when a node is attached — with
+        ZEST_GOSSIP=0 the schema is the tracker-only one."""
         out = self.stats.summary()
         out["health"] = self.health.summary()
+        if self.gossip is not None:
+            out["gossip"] = self.gossip.summary()
         return out
 
     # ── Discovery (reference: swarm.zig:320-355) ──
@@ -367,8 +399,16 @@ class SwarmDownloader:
 
     def announce_available(self, xorb_hash: bytes, hash_hex: str) -> None:
         info_hash = peer_id_mod.compute_info_hash(xorb_hash)
+        first = info_hash not in self._announced
         self._announced.add(info_hash)
         for source in self.peer_sources:
+            # With gossip attached the tracker/DHT tier is bootstrap
+            # only: it sees the FIRST announce per swarm (seeding the
+            # epidemic); every refresh is a local digest update that the
+            # anti-entropy rounds spread.
+            if self.gossip is not None and source is not self.gossip \
+                    and not first:
+                continue
             try:
                 source.announce(info_hash, self.cfg.listen_port)
             except Exception:
