@@ -262,6 +262,28 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    where the grid's reading overflows float32, the codec fault the JAX
    package shares), every host's file byte-identical once healed through
    the waterfall;
+16. the multi-tenant pull service on GPT-2 revisions A and B (5b's), on
+   fresh nodes. 16a: one shared tenancy state (two pulls admitted, one
+   queued); tenants t0 and t1 pull A onto ``cuda:0`` at once: every CDN
+   unit fetched once (≤ 1.02 × one copy), singleflight dedupe hits > 0,
+   both digests the CPU landing's, both sessions ok under their tenants;
+   t2 pulls B and its token fires when its first layer is resident: the
+   session ends ``cancelled``, the card's allocation is back at its level
+   before t2, no complete-named safetensors file in t2's snapshot, no
+   admission slot held; a re-pull lands B's digest. 16b: ``serve
+   --device cuda`` with one admission slot and a one-deep queue, started
+   by ``api.daemon.ZestServer``: three ``POST /v1/pull`` of A — one runs
+   (its ``done`` with ``time_to_hbm_s`` > 0 and the tree's bytes, its
+   files the checkpoint's), one shows ``queued`` in ``/v1/pulls`` and
+   ends ``cancelled`` after ``DELETE /v1/pulls/<id>``, one gets 429 with
+   ``Retry-After`` before any SSE byte; ``ps --json`` lists both
+   terminal; the daemon stops with exit 0. 16c: revision C (A with the
+   embeddings and the first two blocks redrawn) hot-swapped over t0's A
+   (5b's fetch gate, C's digest), the tree pin now C's; with the disk
+   watermark armed below the cache's bytes, an eviction pass removes
+   exactly the entries no pin holds, every xorb of A alone among them (at
+   least one), and no pinned entry. 0 kernel launches on every path (see
+   :func:`tenancy_phase`);
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -277,9 +299,10 @@ pool's (``serve``), the daemon's (``serve_daemon``), the collective's
 (``pod``), the mesh landing's expert round (``mesh``), the sharded swap's
 round (``mesh_swap``), the fine-tune's push (``push_finetune``), the
 federated pull's pre-passes (``federated``), the hierarchical fill
-(``hier``), the lossy round's receipts (``lossy``) and phase 15's four
+(``hier``), the lossy round's receipts (``lossy``), phase 15's four
 discovery paths (``tracker``, ``dht``, ``gossip``, ``files_parallel``)
-among them), the
+and phase 16's pull service (``tenancy``, ``tenancy_daemon``,
+``tenancy_swap``) among them), the
 card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -332,6 +355,10 @@ POD_BUDGET = 256 * 1024 * 1024
 # norm, 4,720,128 of GPT-2's 124,439,808 parameters.
 REDRAWN = ("h.11.mlp.c_fc.weight", "h.11.mlp.c_proj.weight", "ln_f.weight",
            "ln_f.bias")
+# Phase 16c's revision C: A with the embeddings and the first two blocks
+# drawn again, the file's first 214 MB. A xorb of A covers ~71 MB of the
+# file, so at least one of them holds only chunks C no longer references.
+REDRAWN_C = ("wte.", "wpe.", "h.0.", "h.1.")
 MAX_LANDED = 12
 # Phase 7: meta-llama/Llama-3.2-1B's published config.json, full width and
 # depth (1,235,814,400 parameters in 146 bf16 tensors, embeddings tied).
@@ -844,18 +871,18 @@ def resume_phase(cfg_b, digest: str, dev) -> None:
           f"staged from disk; {landing_summary(st)}; digest equal")
 
 
-def revision_b(tensors: dict, seed: int) -> dict:
-    """Phase 5b's revision: ``tensors`` with ``REDRAWN`` drawn again from
-    ``seed`` (weights N(0, 0.02), the norm's weight 1 + N(0, 0.02) and its
-    bias N(0, 0.02))."""
+def revision_b(tensors: dict, seed: int, names=REDRAWN) -> dict:
+    """Phase 5b's revision: ``tensors`` with ``names`` drawn again from
+    ``seed`` (weights N(0, 0.02), a norm's weight 1 + N(0, 0.02) and its
+    bias N(0, 0.02)). Phase 16c's revision C passes its own names."""
     import torch
 
     rng = np.random.default_rng(seed)
     out = dict(tensors)
-    for name in REDRAWN:
+    for name in names:
         shape = tuple(tensors[name].shape)
         v = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
-        if name == "ln_f.weight":
+        if re.search(r"(^|\.)ln_\w+\.weight$", name):
             v += np.float32(1.0)
         out[name] = torch.from_numpy(v)
     return out
@@ -4487,6 +4514,440 @@ def lossy_phase(work: Path, url: str, ckpt: Path, pushed, dev) -> dict:
     return {k: v[0] for k, v in launches.items()}
 
 
+TENANT_CDN_SLACK = 1.02  # the duplicate-fetch gate: CDN bytes / one copy
+
+
+class first_layer_hook:
+    """Within the block, ``fn()`` runs right after each streaming landing
+    of ``transfer.pull`` reports its first layer resident (the landing's
+    ``on_first_layer``): where phase 16a fires a tenant's cancel token."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        from zest_tpu_torch.transfer import pull as pull_mod
+
+        self.real = real = pull_mod.stage_cached_to_hbm
+        fn = self.fn
+
+        def hooked(*a, on_first_layer=None, **k):
+            def fire():
+                if on_first_layer is not None:
+                    on_first_layer()
+                fn()
+            return real(*a, on_first_layer=fire, **k)
+
+        pull_mod.stage_cached_to_hbm = hooked
+        return self
+
+    def __exit__(self, *exc):
+        from zest_tpu_torch.transfer import pull as pull_mod
+
+        pull_mod.stage_cached_to_hbm = self.real
+
+
+def cache_entries(cfg) -> dict[str, set[str]]:
+    """xorb hash → the names of its entries in ``cfg``'s cache (the full
+    one and ``{hash}.{start}`` partial ones)."""
+    out: dict[str, set[str]] = {}
+    root = cfg.xorb_cache_dir()
+    for f in root.rglob("*"):
+        if f.is_file() and not f.name.startswith(".tmp-"):
+            out.setdefault(f.name.split(".", 1)[0], set()).add(f.name)
+    return out
+
+
+def tenancy_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed,
+                  digest: str, swap_ref: dict, seed: int, dev) -> dict:
+    """Phase 16: the multi-tenant pull service, on GPT-2 revisions A
+    (``pushed``, CPU digest ``digest``, weights from ``seed``), B
+    (``swap_ref``) and C (pushed here) from node A's publisher (``cfg_a``),
+    on fresh nodes. Returns the kernels' launches by path
+    (``tenancy`` 16a, ``tenancy_daemon`` 16b's ``serve`` process,
+    ``tenancy_swap`` 16c: 0 each; ``push_tenancy``, C's push: kernel #1
+    as on every push).
+
+    16a, in-process on ``cuda:0`` over one fresh tenancy state
+    (``tenant_max_pulls=2``, ``tenant_queue=1``): tenants t0 and t1 pull A
+    at once; every CDN unit is fetched once (CDN fetches = A's distinct
+    units, CDN bytes ≤ 1.02 × one copy), the singleflight table records
+    dedupe hits, both trees have the CPU digest and both sessions end ok
+    under their tenants. Then t2 pulls B and its token fires when its
+    first layer is resident: the pull ends ``cancelled``, the card's
+    allocation returns to its level before t2 began, no complete-named
+    safetensors file is in t2's snapshot, no session holds a slot, and a
+    re-pull of B (a second HF dir over the same cache) lands B's digest.
+
+    16b, a ``serve --device cuda`` process with ``ZEST_TENANT_MAX_PULLS=1``
+    and ``ZEST_TENANT_QUEUE=1``, started by ``api.daemon.ZestServer`` and
+    read through ``api.client.ZestClient``: three ``POST /v1/pull`` of A
+    with ``device: "cuda"``. One runs; one shows phase ``queued`` in
+    ``GET /v1/pulls`` and ends ``cancelled`` after ``DELETE
+    /v1/pulls/<id>``; the third gets 429 with ``Retry-After`` before any
+    SSE byte. The running pull's ``done`` carries ``time_to_hbm_s`` > 0
+    and 16a's landed bytes, its files equal the checkpoint, and ``ps
+    --json`` lists both sessions terminal; ``ZestServer.stop()`` ends the
+    process with exit 0.
+
+    16c, on 16a's node: revision C (``REDRAWN_C`` drawn again from
+    ``seed + 2``; B's delta reads every xorb of A, C's leaves some out) is
+    pushed, outside the counted path, and hot-swapped over t0's A tree
+    (``base_params``); then the disk watermark is armed below the cache's
+    bytes and an eviction pass run. The tree pin is C's (it replaced the
+    earlier landings' pins), so exactly the entries outside C's tree are
+    evicted, among them every xorb of A alone (at least one), none of
+    which stays pinned, and no pinned entry leaves the disk; the swap's
+    5b gates hold (fetched ≤ changed + stale, C's CPU digest).
+
+    ``huggingface_hub`` (``zest_tpu_torch.enable()``) is held on the CPU
+    only: the card's machine has neither it nor ``requests``, so this
+    phase drives ``ZestServer`` and ``ZestClient`` directly."""
+    import dataclasses
+    import gc
+    import urllib.error
+    import urllib.request
+    from types import SimpleNamespace
+
+    import torch
+
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.api.client import ZestClient
+    from zest_tpu_torch.api.daemon import ZestServer
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.parallel.plan import collect_units
+    from zest_tpu_torch.transfer import tenancy
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+    from zest_tpu_torch.transfer.tenancy import CancelToken, PullCancelled
+
+    wall0 = time.monotonic()
+    sha_a, sha_b, digest_b = (pushed.revision, swap_ref["revision"],
+                              swap_ref["digest"])
+    session = telemetry.session
+    tenancy.reset()  # the phase's own shared state, on fresh nodes
+    session.reset()
+    reset_counters()
+
+    # ── 16a ──
+    cfg = Config(hf_home=work / "t" / "hf", cache_dir=work / "t" / "zest",
+                 endpoint=url, tenant_max_pulls=2, tenant_queue=1)
+    recs_a, recs_b = gpt2_recs(cfg, sha_a), gpt2_recs(cfg, sha_b)
+    units_a = collect_units(recs_a)
+    one_copy = pushed.new_xorb_bytes
+    out: dict = {}
+    barrier = threading.Barrier(2)
+
+    def tenant_pull(tenant):
+        barrier.wait()
+        out[tenant] = pull_model(cfg, REPO, revision=sha_a, device=dev,
+                                 tenant=tenant, log=lambda *a, **k: None)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=tenant_pull, args=(t,))
+               for t in ("t0", "t1")]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall_a = time.monotonic() - t0
+    if set(out) != {"t0", "t1"}:
+        fail(f"phase 16a: tenants {sorted(out)} finished, not t0 and t1")
+    cdn_fetches = sum(r.stats["fetch"]["xorbs"]["cdn"] for r in out.values())
+    cdn_bytes = sum(r.stats["fetch"]["bytes"]["cdn"] for r in out.values())
+    dedupe = tenancy.state(cfg).flights.summary()
+    if cdn_fetches != len(units_a) or cdn_bytes > TENANT_CDN_SLACK * one_copy:
+        fail(f"phase 16a: {cdn_fetches} CDN fetches for {len(units_a)} "
+             f"units, {cdn_bytes:,} CDN bytes for one copy {one_copy:,}")
+    if not dedupe["dedupe_hits"] > 0:
+        fail(f"phase 16a: no singleflight dedupe hit: {dedupe}")
+    for tenant, res in out.items():
+        check_tree(f"phase 16a {tenant}", res, digest, dev)
+    ends = sorted((s.tenant, s.status) for s in session.SESSIONS.recent())
+    if ends != [("t0", "ok"), ("t1", "ok")]:
+        fail(f"phase 16a: sessions {ends}")
+    tth = [out[t].stats["time_to_hbm_s"] for t in ("t0", "t1")]
+    landed_bytes = out["t0"].stats["hbm"]["bytes"]
+    t1_tree = out.pop("t1")
+    del t1_tree
+    gc.collect()
+    torch.cuda.synchronize()
+    base_alloc = torch.cuda.memory_allocated(dev)
+    token = CancelToken()
+    fired_at: list[float] = []
+
+    def fire():
+        if not token.fired:
+            fired_at.append(time.monotonic())
+            token.cancel("phase 16a: first layer committed")
+
+    t0 = time.monotonic()
+    cancelled = False
+    with first_layer_hook(fire):
+        try:
+            pull_model(cfg, REPO, revision=sha_b, device=dev, tenant="t2",
+                       cancel=token, log=lambda *a, **k: None)
+        except PullCancelled:
+            cancelled = True
+    t_end = time.monotonic()
+    if not cancelled or not fired_at:
+        fail(f"phase 16a: t2 was not cancelled mid-landing (cancelled "
+             f"{cancelled}, fired {bool(fired_at)})")
+    cancel_to_release = t_end - fired_at[0]
+    gc.collect()
+    torch.cuda.synchronize()
+    after_alloc = torch.cuda.memory_allocated(dev)
+    t2 = session.SESSIONS.recent()[0].snapshot()
+    snap_b = cfg.model_snapshot_dir(REPO, sha_b)
+    complete = [f.name for f in snap_b.rglob("*.safetensors")] \
+        if snap_b.exists() else []
+    summary = tenancy.summary(cfg)
+    if (t2["tenant"], t2["status"]) != ("t2", "cancelled"):
+        fail(f"phase 16a: t2's session {t2}")
+    if after_alloc != base_alloc:
+        fail(f"phase 16a: {after_alloc:,} B allocated after the cancel, "
+             f"{base_alloc:,} B before t2 began")
+    if complete:
+        fail(f"phase 16a: complete-named files in t2's snapshot: {complete}")
+    if summary["active"] or summary["queued"]:
+        fail(f"phase 16a: tenancy after the cancel {summary}")
+    repull = pull_model(dataclasses.replace(cfg, hf_home=work / "t" / "hf2"),
+                        REPO, revision=sha_b, device=dev, tenant="t2",
+                        log=lambda *a, **k: None)
+    check_tree("phase 16a re-pull", repull, digest_b, dev)
+    del repull
+    gc.collect()
+    print(f"phase 16a tenants ({card_label()}): t0 and t1 pulled A at once "
+          f"in {wall_a:.3f} s (time_to_hbm_s {tth[0]} / {tth[1]}); "
+          f"{cdn_fetches} CDN fetches for {len(units_a)} units, "
+          f"{cdn_bytes:,} CDN bytes = {cdn_bytes / one_copy:.4f} x one copy; "
+          f"singleflight {dedupe}; digests equal; t2 cancelled "
+          f"{fired_at[0] - t0:.3f} s into its pull, released "
+          f"{cancel_to_release:.3f} s after the cancel; allocation "
+          f"{after_alloc:,} B = before t2; re-pull of B: digest equal")
+    launches = {"tenancy": read_counters()}
+
+    # ── 16b ──
+    reset_counters()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, HF_HOME=str(work / "u" / "hf"),
+               ZEST_CACHE_DIR=str(work / "u" / "zest"), HF_ENDPOINT=url,
+               ZEST_HTTP_PORT="0", ZEST_LISTEN_PORT="0", ZEST_DCN_PORT="0",
+               ZEST_TENANT_MAX_PULLS="1", ZEST_TENANT_QUEUE="1",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (str(root), os.environ.get("PYTHONPATH"))
+                   if p))
+    env.pop("ZEST_FAULTS", None)
+    cfg_u = Config.load(env)
+    daemon = ZestServer(cfg_u, env=env, args=["--device", dev.type])
+    t0 = time.monotonic()
+    daemon.ensure_running()
+    start_s = time.monotonic() - t0
+    stopped = False
+    try:
+        base = f"http://127.0.0.1:{cfg_u.effective_http_port()}"
+        status = ZestClient(cfg_u).status()
+        tn = status.get("tenancy") or {}
+        if (tn.get("max_pulls"), tn.get("queue_cap")) != (1, 1):
+            fail(f"phase 16b: the daemon's tenancy block {tn}")
+        kernels0 = status["kernels"]
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return json.loads(r.read())
+
+        def post_pull(tenant):
+            return urllib.request.Request(
+                base + "/v1/pull", method="POST",
+                headers={"Content-Type": "application/json"},
+                data=json.dumps({"repo_id": REPO, "revision": sha_a,
+                                 "device": dev.type,
+                                 "tenant": tenant}).encode())
+
+        streams: dict = {}
+
+        def stream(tenant):
+            with urllib.request.urlopen(post_pull(tenant),
+                                        timeout=600) as r:
+                streams[tenant] = [json.loads(ln[6:]) for ln in r
+                                   if ln.startswith(b"data: ")]
+
+        def wait_for(pred, label):
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                doc = get("/v1/pulls")
+                rows = pred(doc)
+                if rows:
+                    return rows
+                time.sleep(0.01)
+            fail(f"phase 16b: {label} never showed in /v1/pulls: {doc}")
+
+        t_run = threading.Thread(target=stream, args=("u0",))
+        t_run.start()
+        running = wait_for(lambda d: [s for s in d["active"]
+                                      if s.get("tenant") == "u0"
+                                      and s["phase"] != "queued"],
+                           "the running pull")
+        t_q = threading.Thread(target=stream, args=("u1",))
+        t_q.start()
+        queued = wait_for(lambda d: [s for s in d["active"]
+                                     if s.get("tenant") == "u1"
+                                     and s["phase"] == "queued"],
+                          "the queued pull")
+        code = retry = body = None
+        try:
+            with urllib.request.urlopen(post_pull("u2"), timeout=60) as r:
+                code, body = r.status, r.read(64)
+        except urllib.error.HTTPError as exc:
+            code, retry = exc.code, exc.headers.get("Retry-After")
+            body = exc.read()
+        if code != 429 or not retry or int(retry) < 1 \
+                or body.startswith(b"data:"):
+            fail(f"phase 16b: the third pull got {code}, Retry-After "
+                 f"{retry}: {body[:200]!r}")
+        still = [s for s in get("/v1/pulls")["active"]
+                 if s["id"] == running[0]["id"] and s["phase"] != "queued"]
+        if not still:
+            fail("phase 16b: the running pull ended before the queue "
+                 "filled")
+        req = urllib.request.Request(
+            f"{base}/v1/pulls/{queued[0]['id']}", method="DELETE")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            deleted = json.loads(r.read())
+        t_q.join(300)
+        t_run.join(600)
+        done, gone = streams.get("u0", []), streams.get("u1", [])
+        if not done or done[-1]["event"] != "done":
+            fail(f"phase 16b: the running pull's stream {done[-3:]}")
+        if not gone or gone[-1]["event"] != "cancelled":
+            fail(f"phase 16b: the queued pull's stream {gone[-3:]}")
+        st = done[-1]["stats"]
+        if not st["time_to_hbm_s"] > 0 or st["hbm"]["bytes"] != landed_bytes:
+            fail(f"phase 16b: done carries time_to_hbm_s "
+                 f"{st.get('time_to_hbm_s')}, {st['hbm']['bytes']:,} B "
+                 f"landed (16a {landed_bytes:,} B)")
+        check_files("phase 16b", SimpleNamespace(
+            snapshot_dir=Path(done[-1]["snapshot_dir"])), ckpt)
+        ps = subprocess.run(
+            [sys.executable, "-m", "zest_tpu_torch", "ps", "--json"],
+            env=env, capture_output=True, text=True, timeout=120)
+        doc = json.loads(ps.stdout) if ps.returncode == 0 else {}
+        ends = {s["id"]: s["status"] for s in doc.get("recent", [])}
+        want = {running[0]["id"]: "ok", queued[0]["id"]: "cancelled"}
+        if ps.returncode or doc.get("active") or ends != want:
+            fail(f"phase 16b: ps --json exit {ps.returncode}: {ends} "
+                 f"(want {want}) {ps.stderr[-500:]}")
+        kernels = ZestClient(cfg_u).status()["kernels"]
+        launches["tenancy_daemon"] = {
+            k: [c["launches"] - kernels0[k]["launches"],
+                c["rows"] - kernels0[k]["rows"]]
+            for k, c in kernels.items()}
+        rc = daemon.stop()
+        stopped = True
+        if rc != 0:
+            fail(f"phase 16b: the daemon exited {rc}")
+    finally:
+        if not stopped:
+            daemon.stop()
+    print(f"phase 16b daemon: ready in {start_s:.2f} s; u0 ran "
+          f"(time_to_hbm_s {st['time_to_hbm_s']}, {st['hbm']['bytes']:,} B "
+          f"landed), u1 {queued[0]['phase']} then {deleted['status']} → "
+          f"{gone[-1]['event']}, u2 {code} Retry-After {retry} before the "
+          f"stream; files exact; ps --json {sorted(ends.values())}; "
+          "ZestServer.stop() exit 0")
+
+    # ── 16c ──
+    ckpt_c = work / "checkpoint-c"
+    ckpt_c.mkdir()
+    shutil.copy(ckpt / "config.json", ckpt_c / "config.json")
+    tensors = gpt2_checkpoint(seed, GPT2_CONFIG)  # A's, as ckpt holds them
+    write_safetensors(ckpt_c / "model.safetensors", revision_b(
+        tensors, seed + 2, [n for n in tensors if n.startswith(REDRAWN_C)]))
+    del tensors
+    reset_counters()
+    pushed_c = push_checkpoint(cfg_a, REPO, ckpt_c, base_revision=sha_a,
+                               device=dev, notify=False,
+                               log=lambda *a, **k: None)
+    push_c = read_counters()
+    n, rows = push_c["blake3_chunks"]
+    # (On the CPU, where phase 16 is rehearsed, a push launches nothing.)
+    if dev.type == "cuda" and (n < 1 or rows != pushed_c.minted_chunks):
+        fail(f"phase 16c: C's push hashed {rows} chunks in {n} launches; "
+             f"it minted {pushed_c.minted_chunks}")
+    sha_c = pushed_c.revision
+    digest_c = params_digest(load_checkpoint(ckpt_c, "cpu"))
+    reset_counters()
+    tree = out.pop("t0").params
+    t0 = time.monotonic()
+    swap = pull_model(cfg, REPO, revision=sha_c, device=dev,
+                      base_params=tree, base_revision=sha_a, tenant="t0",
+                      log=lambda *a, **k: None)
+    swap_s = time.monotonic() - t0
+    d = swap.stats.get("delta") or {}
+    stale = d.get("stale_bytes", 0)
+    if tree or "swap" not in swap.stats["hbm"] \
+            or not d["fetched_bytes"] <= d["changed_bytes"] + stale:
+        fail(f"phase 16c: swap {swap.stats['hbm'].get('swap')}, delta "
+             f"{ {k: v for k, v in d.items() if k != 'files'} }, "
+             f"{len(tree)} base tensors left")
+    check_tree("phase 16c", swap, digest_c, dev)
+    hashes_a = {h for r in recs_a for h in r.fetch_info}
+    hashes_b = {h for r in recs_b for h in r.fetch_info}
+    hashes_c = {h for r in gpt2_recs(cfg, sha_c) for h in r.fetch_info}
+    a_only = hashes_a - hashes_c
+    st16 = tenancy.state(cfg)
+    if not all(st16.pins.pinned(h) for h in hashes_c) \
+            or any(st16.pins.pinned(h) for h in a_only):
+        fail(f"phase 16c: the tree pin is not C's: {st16.pins.summary()}")
+    before = cache_entries(cfg)
+    pinned = {h for h in before if st16.pins.pinned(h)}
+    usage = st16.evictor.usage_bytes()
+    armed = dataclasses.replace(cfg, tenant_disk_high=usage - 1,
+                                tenant_disk_low=1)
+    st_armed = tenancy.state(armed)
+    freed = st_armed.evictor.maybe_evict(force=True)
+    after = cache_entries(cfg)
+    evicted = {h for h in before if h not in after}
+    pinned_lost = sorted(h for h in pinned if before[h] != after.get(h))
+    b_only = hashes_b - hashes_c
+    if (not a_only or not a_only <= set(before) or not a_only <= evicted
+            or evicted != set(before) - pinned
+            or not evicted <= a_only | b_only or pinned_lost):
+        fail(f"phase 16c: evicted {len(evicted)} xorbs, {len(a_only)} of A "
+             f"alone ({len(a_only & evicted)} evicted), {len(b_only)} of B "
+             f"not in C, {len(pinned)} pinned, pinned entries gone "
+             f"{pinned_lost}")
+    launches["tenancy_swap"] = read_counters()
+    swap_st = swap.stats
+    del swap, tree
+    gc.collect()
+    print(f"phase 16c swap + eviction: C over t0's A in {swap_s:.3f} s "
+          f"(time_to_swap_s {swap_st['time_to_swap_s']}, fetched "
+          f"{d['fetched_bytes']:,} B, changed {d['changed_bytes']:,} B, "
+          f"reused {swap_st['hbm']['swap']['reused_tensors']} tensors), "
+          f"digest equal; C's tree pins {len(pinned)} xorbs, "
+          f"{len(a_only)} xorbs of A alone; watermark {usage - 1:,} B: "
+          f"evicted {len(evicted)} xorbs ({freed:,} B: A alone "
+          f"{len(evicted & a_only)}, B's not in C "
+          f"{len(evicted & b_only)}), "
+          f"{st_armed.evictor.summary()['pinned_survivals']} pinned "
+          "survivals, no pinned entry gone")
+    for path, counts in launches.items():
+        if any(n for n, _rows in counts.values()):
+            fail(f"phase 16: kernel launches on {path}: {counts}")
+    shutil.rmtree(work / "t")
+    shutil.rmtree(work / "u")
+    shutil.rmtree(ckpt_c)
+    tenancy.reset()
+    print(f"phase 16 wall {time.monotonic() - wall0:.2f} s; kernel "
+          f"[launches, rows] by path {launches}, C's push {push_c}")
+    launches["push_tenancy"] = push_c
+    return {path: {k: n for k, (n, _rows) in counts.items()}
+            for path, counts in launches.items()}
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -4689,6 +5150,13 @@ def run(args, work: Path) -> dict:
                                         dev)
         lossy_launches = lossy_phase(work, publisher.url, ckpt, pushed, dev)
         print(f"phase 14 wall {time.monotonic() - t14:.2f} s")
+
+        # ── 16. the multi-tenant pull service: concurrent tenants, a
+        # cancel mid-landing, the daemon's queue, eviction under pins ──
+        torch.cuda.empty_cache()
+        tenancy_launches = tenancy_phase(work, publisher.url, cfg_a, ckpt,
+                                         pushed, digest, swap_ref,
+                                         args.seed, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -4763,7 +5231,8 @@ def run(args, work: Path) -> dict:
                                  "federated": fed_launches["blake3_chunks"],
                                  "hier": hier_launches["blake3_chunks"],
                                  "lossy": lossy_launches["blake3_chunks"]}}
-    for path, counts in discovery_launches.items():
+    phase_paths = {**discovery_launches, **tenancy_launches}
+    for path, counts in phase_paths.items():
         by_path["blake3_chunks"][path] = counts["blake3_chunks"]
     for k in kernels:
         paths = by_path.get(k["name"], {"coop": coop_launches[k["name"]],
@@ -4785,7 +5254,7 @@ def run(args, work: Path) -> dict:
                                             k["name"]],
                                         **{path: counts[k["name"]]
                                            for path, counts in
-                                           discovery_launches.items()}})
+                                           phase_paths.items()}})
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     return {"kernels": kernels}

@@ -66,7 +66,9 @@ SLICE_MODULES = [
     "zest_tpu_torch.transfer.lossy", "zest_tpu_torch.parallel.hierarchy",
     "zest_tpu_torch.telemetry.fleet", "zest_tpu_torch.p2p.tracker",
     "zest_tpu_torch.p2p.dht", "zest_tpu_torch.transfer.gossip",
-    "zest_tpu_torch.transfer.parallel",
+    "zest_tpu_torch.transfer.parallel", "zest_tpu_torch.transfer.tenancy",
+    "zest_tpu_torch.telemetry.session", "zest_tpu_torch.api.client",
+    "zest_tpu_torch.api.daemon", "zest_tpu_torch.api.hf_backend",
 ]
 
 

@@ -1155,3 +1155,94 @@ def test_federated_round_and_hierarchical_fill_on_card(cuda_device,
     assert all(r.device == cuda_device for r in pool.replicas)
     assert (chip_smoke.read_counters(), 0) == chip_smoke.plan_launches(
         plan.flat, cfg_a)
+
+
+def test_concurrent_tenant_landings_on_card(cuda_device, tmp_path):
+    """Two tenants land one revision onto ``cuda:0`` at once, each with
+    its own commit stream and events: one CDN copy between them, both
+    trees the CPU landing's, both sessions ok."""
+    import threading
+
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models.loader import params_digest
+    from zest_tpu_torch.transfer import tenancy
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    tenancy.reset()
+    telemetry.session.reset()
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt)
+    out: dict = {}
+    with PublisherServer(cfg_a) as server:
+        cpu = pull_model(Config(hf_home=tmp_path / "c" / "hf",
+                                cache_dir=tmp_path / "c" / "zest",
+                                endpoint=server.url), "org/tiny",
+                         device="cpu", no_p2p=True)
+        cfg = Config(hf_home=tmp_path / "t" / "hf",
+                     cache_dir=tmp_path / "t" / "zest", endpoint=server.url)
+        barrier = threading.Barrier(2)
+
+        def pull(tenant):
+            barrier.wait()
+            out[tenant] = pull_model(cfg, "org/tiny", device=cuda_device,
+                                     tenant=tenant, no_p2p=True)
+
+        threads = [threading.Thread(target=pull, args=(t,))
+                   for t in ("t0", "t1")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    cdn = sum(r.stats["fetch"]["bytes"]["cdn"] for r in out.values())
+    assert cdn == cpu.stats["fetch"]["bytes"]["cdn"]
+    for res in out.values():
+        assert all(t.device == cuda_device for t in res.params.values())
+        assert params_digest(res.params) == params_digest(cpu.params)
+    assert sorted((s.tenant, s.status)
+                  for s in telemetry.session.SESSIONS.recent()[:2]) \
+        == [("t0", "ok"), ("t1", "ok")]
+    tenancy.reset()
+
+
+def test_cancel_mid_landing_gives_the_memory_back(cuda_device, tmp_path):
+    """A cancel fired when the first layer is resident: ``PullCancelled``,
+    the session ``cancelled``, and after a synchronize and a collection
+    the card's allocation is back at its level before the pull."""
+    import gc
+
+    import chip_smoke
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.transfer import tenancy
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+    from zest_tpu_torch.transfer.tenancy import CancelToken, PullCancelled
+
+    tenancy.reset()
+    telemetry.session.reset()
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt)
+    token = CancelToken()
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    with PublisherServer(cfg_a) as server:
+        cfg = Config(hf_home=tmp_path / "t" / "hf",
+                     cache_dir=tmp_path / "t" / "zest", endpoint=server.url,
+                     land_ring_bytes=64 * 1024, land_ring_slots=4)
+        with chip_smoke.first_layer_hook(lambda: token.cancel("test")):
+            with pytest.raises(PullCancelled):
+                pull_model(cfg, "org/tiny", device=cuda_device,
+                           cancel=token, no_p2p=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) == base
+    assert telemetry.session.SESSIONS.recent()[0].status == "cancelled"
+    assert tenancy.summary(cfg)["active"] == 0
+    tenancy.reset()

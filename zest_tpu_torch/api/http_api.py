@@ -17,16 +17,30 @@ the continuous fan-out of pushed revisions:
     POST /v1/push   {"repo", "revision", "parent"?, "xorbs"?, ...} -> {"ok", "watchers", "delivered"}
     POST /v1/watch  {"repos": [...]}  -> SSE: hello, then revision events, ping keepalives
 
-and the control and serving routes of :class:`HttpApi`:
+and the control, pull and serving routes of :class:`HttpApi`:
 
     GET  /v1/health   -> {"status": "ok"}
-    GET  /v1/status   -> node, seeding, swarm, telemetry, kernels and
-                         ``hbm_pool`` blocks
+    GET  /v1/status   -> node, seeding, swarm, telemetry, kernels, pulls,
+                         ``tenancy`` and ``hbm_pool`` blocks
     GET  /v1/models   -> {"models": [...], "resident": [...]}
     GET  /v1/metrics  -> Prometheus text
+    POST /v1/pull     {"repo_id", "revision"?, "device"?, "tenant"?}
+                      -> SSE: start, [log...], done | cancelled | error;
+                         429 + Retry-After before the stream when the
+                         admission queue is full
+    GET  /v1/pulls    -> {"active", "recent", "capacity", "tenancy"?}
+    GET  /v1/pulls/{id}         -> one session, with stages and stats
+    GET  /v1/pulls/{id}/events  -> SSE: start, [progress...], done | error
+    DELETE /v1/pulls/{id}       -> 202 cancelling | 404 | 409
     POST /v1/generate {"repo_id", "ids" | "prompt", "steps", ...}
                       -> SSE: start, pulled, [token...], done | error
     POST /v1/stop     -> {"status": "stopping"}
+
+A pull's ``device`` follows the JAX package: absent, the pull writes the
+snapshot's files and lands nothing; ``"cuda"`` lands on ``cuda:0`` and
+``"cpu"`` on the CPU (no request lands on the CPU unless it asks to).
+The stream's ``done`` event carries ``snapshot_dir`` and the pull's
+stats. A client that disconnects from the stream cancels its pull.
 
 ``/v1/generate`` pulls the repo through the node's swarm (memoized for
 30 s, see :meth:`HttpApi._pull_memo`) and decodes on the daemon's device
@@ -42,8 +56,8 @@ the decode reaches the client as an ``error`` event.
 ``xorbs`` ([[hex, size], ...]) also makes them seedable at once: they
 enter the daemon's ``XorbRegistry``, its swarm announces them, and its
 gossip node puts ``repo@revision`` on the gossip plane (each best-effort). Blocks and routes of
-subsystems the port does not run (pull sessions, tenancy, timelines,
-remediation, pod aggregation, the dashboard, ``/v1/pull``) are absent.
+subsystems the port does not run (timelines, traces, the debug tail,
+remediation, pod aggregation, the dashboard) are absent.
 """
 
 from __future__ import annotations
@@ -59,7 +73,12 @@ import numpy as np
 from zest_tpu_torch import faults, storage, telemetry
 from zest_tpu_torch import __version__
 from zest_tpu_torch.config import DEFAULT_DEVICE, Config
+from zest_tpu_torch.transfer import tenancy
 from zest_tpu_torch.transfer.push import PUBLISHER_TOKEN, PublisherIndex
+
+# What a POST /v1/pull's "device" may name (absent: files only), and the
+# device it lands on: the pull's own thread names the card explicitly.
+PULL_DEVICES = {"cuda": "cuda:0", "cpu": "cpu"}
 
 
 class WatchHub:
@@ -275,9 +294,20 @@ class HttpApi:
                 payload["peers"] = health.detail()
         payload["telemetry"] = telemetry.status_snapshot()
         payload["kernels"] = kernel_launches()
+        sessions = telemetry.session.SESSIONS
+        payload["pulls"] = {"active": len(sessions.active_ids()),
+                            "recent": len(sessions.recent())}
+        burn = sessions.slo_burn()
+        if burn:
+            payload["slo"] = burn
         fired = faults.counters()
         if fired:
             payload["faults"] = dict(sorted(fired.items()))
+        # The pull service: admission, dedupe, eviction, pins. Absent
+        # with ZEST_TENANCY=0.
+        tn = tenancy.summary(self.cfg)
+        if tn is not None:
+            payload["tenancy"] = tn
         # The serving pool: absent with ZEST_HBM_POOL=0.
         hp = hbm_pool.pool(self.cfg, self.device)
         if hp is not None:
@@ -302,6 +332,138 @@ class HttpApi:
                 if state is not None:
                     m["pool_state"] = state
         return doc
+
+    # ── Pulls ──
+
+    def pulls_payload(self) -> dict:
+        """``GET /v1/pulls``: active and recent sessions, newest first,
+        and the admission queue's state."""
+        doc = telemetry.session.payload()
+        tn = tenancy.summary(self.cfg)
+        if tn is not None:
+            doc["tenancy"] = {"active": tn["active"],
+                              "queued": tn["queued"],
+                              "max_pulls": tn["max_pulls"],
+                              "queue_cap": tn["queue_cap"],
+                              "rejected_total": tn["rejected_total"]}
+        return doc
+
+    def cancel_pull(self, sid: str) -> tuple[dict, int]:
+        """``DELETE /v1/pulls/<id>``: fire the session's cancel token. 404
+        for an unknown id; 409 when the session is terminal or has no
+        token."""
+        sess = telemetry.session.get(sid)
+        if sess is None:
+            return {"error": "unknown session"}, 404
+        if sess.cancel(reason=f"DELETE /v1/pulls/{sid}"):
+            return {"id": sid, "status": "cancelling"}, 202
+        snap = sess.snapshot()
+        if snap["status"] != "running":
+            return {"id": sid, "error": "already terminal",
+                    "status": snap["status"]}, 409
+        return {"id": sid, "error": "not cancellable"}, 409
+
+    def pull_detail(self, sid: str) -> dict | None:
+        sess = telemetry.session.get(sid)
+        return sess.snapshot(detail=True) if sess is not None else None
+
+    def session_events(self, sid: str):
+        """SSE events of one session (``GET /v1/pulls/<id>/events``):
+        ``start`` → [``progress``…] → ``done``/``error``; a progress
+        event on each phase or version change, with a 1 s heartbeat. A
+        finished session yields ``start`` and its terminal event."""
+        sess = telemetry.session.get(sid)
+        if sess is None:
+            yield {"event": "error", "message": "unknown session"}
+            return
+        yield {"event": "start", **sess.snapshot(detail=True)}
+        while True:
+            snap = sess.snapshot()
+            if snap["status"] != "running":
+                break
+            yield {"event": "progress", **snap}
+            sess.wait(snap["version"], timeout=1.0)
+        final = sess.snapshot(detail=True)
+        yield {"event": "done" if final["status"] == "ok" else "error",
+               **final}
+
+    def pull_events(self, repo_id: str, revision: str, device: str | None,
+                    tenant: str | None = None):
+        """SSE events of one pull: ``start`` → [``log``…] → ``done``
+        (``snapshot_dir``, ``stats``) | ``cancelled`` | ``error`` (a
+        rejection in the race after the pre-stream probe carries ``code:
+        429`` and ``retry_after_s``). The generator owns the pull's
+        cancel token: a client that goes away mid-stream cancels the
+        pull."""
+        from zest_tpu_torch.transfer.pull import pull_model
+
+        done = threading.Event()
+        events: list[dict] = []
+        cond = threading.Condition()
+        token = tenancy.CancelToken()
+        result: dict = {}
+
+        def log(*args, **_kw):
+            with cond:
+                events.append({"event": "log",
+                               "message": " ".join(str(a) for a in args)})
+                cond.notify()
+
+        def work():
+            try:
+                # Without a device the pull writes files only: nothing
+                # lands, and no landing's pod pre-pass runs.
+                res = pull_model(self.cfg, repo_id, revision=revision,
+                                 device=PULL_DEVICES.get(device, "cpu"),
+                                 land=device is not None, swarm=self.swarm,
+                                 tenant=tenant, cancel=token, log=log)
+                result["ok"] = {"snapshot_dir": str(res.snapshot_dir),
+                                "stats": res.stats}
+                del res  # the landed tree goes with the request
+            except tenancy.PullCancelled as exc:
+                result["cancelled"] = str(exc)
+            except tenancy.AdmissionRejected as exc:
+                result["rejected"] = {"message": str(exc),
+                                      "retry_after_s": exc.retry_after_s}
+            except Exception as exc:  # noqa: BLE001 - reported to client
+                result["error"] = f"{type(exc).__name__}: {exc}"
+            finally:
+                done.set()
+                with cond:
+                    cond.notify()
+
+        threading.Thread(target=work, daemon=True,
+                         name="zest-http-pull").start()
+        try:
+            yield {"event": "start", "repo_id": repo_id,
+                   "revision": revision}
+            sent = 0
+            while True:
+                with cond:
+                    cond.wait(timeout=1.0)
+                    new = events[sent:]
+                    sent = len(events)
+                yield from new
+                if done.is_set():
+                    with cond:
+                        yield from events[sent:]
+                    break
+            if "ok" in result:
+                yield {"event": "done", **result["ok"]}
+            elif "cancelled" in result:
+                yield {"event": "cancelled",
+                       "message": result["cancelled"]}
+            elif "rejected" in result:
+                yield {"event": "error", "code": 429,
+                       **result["rejected"]}
+            else:
+                yield {"event": "error",
+                       "message": result.get("error", "?")}
+        finally:
+            # Reached on completion and on GeneratorExit (the SSE writer
+            # saw the client go); after the pull ended it is a no-op.
+            if not done.is_set():
+                token.cancel("client disconnected from /v1/pull stream")
 
     # ── Serving ──
 
@@ -630,6 +792,22 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/v1/metrics":
             self._text(telemetry.render_prometheus().encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/v1/pulls":
+            self._json(self.api.pulls_payload())
+        elif path.startswith("/v1/pulls/"):
+            rest = path[len("/v1/pulls/"):].strip("/")
+            if rest.endswith("/events"):
+                sid = rest[:-len("/events")].strip("/")
+                if telemetry.session.get(sid) is None:
+                    self._json({"error": "unknown session"}, 404)
+                else:
+                    self._stream_sse(self.api.session_events(sid))
+            else:
+                detail = self.api.pull_detail(rest)
+                if detail is None:
+                    self._json({"error": "unknown session"}, 404)
+                else:
+                    self._json(detail)
         elif path.startswith("/api/models/"):
             parts = path[len("/api/models/"):].strip("/").split("/")
             if len(parts) >= 4 and parts[2] == "revision":
@@ -711,6 +889,36 @@ class _Handler(BaseHTTPRequestHandler):
             self._json({"status": "stopping"})
             self.api.trigger_shutdown()
             return
+        if self.path == "/v1/pull":
+            req = self._json_body(raw)
+            if req is None:
+                return
+            device = req.get("device")
+            if not isinstance(req.get("repo_id"), str) or (
+                    device is not None and device not in PULL_DEVICES):
+                self._json({"error": "body must be JSON with repo_id "
+                            "(and device cuda|cpu, or none for files "
+                            "only)"}, 400)
+                return
+            # Typed backpressure before the SSE stream opens: a full
+            # admission queue answers a real 429 with Retry-After. The
+            # probe is advisory (admission checks again); the race turns
+            # a 429 into an in-stream error event with code 429.
+            ok, retry_after = tenancy.can_enqueue(self.api.cfg)
+            if not ok:
+                body = json.dumps({"error": "admission queue full",
+                                   "retry_after_s": retry_after}).encode()
+                self.send_response(429)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Retry-After", str(int(retry_after) or 1))
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
+            self._stream_sse(self.api.pull_events(
+                req["repo_id"], req.get("revision", "main"), device,
+                tenant=req.get("tenant")))
+            return
         if self.path == "/v1/generate":
             req = self._json_body(raw)
             if req is None:
@@ -765,6 +973,16 @@ class _Handler(BaseHTTPRequestHandler):
             self._json({"error": "unknown revision"}, 404)
         else:
             self._json(info)
+
+
+    def do_DELETE(self) -> None:  # noqa: N802
+        self.api.http_requests += 1
+        if self.path.startswith("/v1/pulls/"):
+            sid = self.path[len("/v1/pulls/"):].strip("/")
+            payload, code = self.api.cancel_pull(sid)
+            self._json(payload, code)
+        else:
+            self._json({"error": "not found"}, 404)
 
 
 class PublisherServer:

@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,seed,pull,generate,watch,diff,models}``.
+"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,version,seed,pull,generate,watch,diff,models}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -37,7 +37,15 @@ greedy or sampled (``--temperature``, ``--top-k``, ``--top-p``,
 serving pool on ``--device`` (``cuda`` by default), with ``/v1/health``,
 ``/v1/status``, ``/v1/models``, ``/v1/metrics`` and ``/v1/stop``;
 ``models [--resident] [--json]`` lists the pulled models, through the
-running daemon's ``/v1/models`` when there is one.
+running daemon's ``/v1/models`` when there is one. The daemon's life
+cycle: ``start`` spawns ``serve`` in the background (its pid goes to
+``ZEST_CACHE_DIR/zest.pid``) and waits for ``/v1/health``, ``stop`` asks
+it to stop (``POST /v1/stop``, else SIGTERM to the recorded pid),
+``status`` prints its ``/v1/status`` (with the pull service's ``tenancy``
+block), ``ps [--watch|--json]`` lists its pull sessions (``/v1/pulls``:
+id, repo@revision, tenant, status, phase, progress; then the admission
+line), and ``version`` prints the package version. ``pull --tenant T``
+labels the pull's session.
 """
 
 from __future__ import annotations
@@ -45,10 +53,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import signal
+import subprocess
 import sys
 import threading
+import time
+from pathlib import Path
 
+from zest_tpu_torch import __version__
 from zest_tpu_torch.config import Config, parse_host_addr
 
 
@@ -95,6 +108,178 @@ def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
     except (OSError, urllib.error.URLError, ValueError):
         return None
     return payload if isinstance(payload, dict) else None
+
+
+def _daemon_post(cfg: Config, path: str, timeout: float = 5.0) -> bool:
+    """POST an empty body to a local daemon endpoint; True on a 2xx."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{cfg.effective_http_port()}{path}", data=b"",
+        method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return 200 <= r.status < 300
+    except (OSError, urllib.error.URLError):
+        return False
+
+
+def _pid_file(cfg: Config) -> Path:
+    return cfg.cache_dir / "zest.pid"
+
+
+def _remove_pid_file(cfg: Config) -> None:
+    """Remove both daemon state files (pid and recorded http port): a
+    surviving port record would keep clients dialing a dead daemon."""
+    for path in (_pid_file(cfg), cfg.http_port_file()):
+        try:
+            path.unlink()
+        except OSError:
+            pass
+
+
+def _server_running(cfg: Config) -> bool:
+    return _daemon_get(cfg, "/v1/health", timeout=1.0) is not None
+
+
+def auto_start_server(cfg: Config) -> bool:
+    """Spawn a detached ``serve`` unless a daemon answers already."""
+    if _server_running(cfg):
+        return False
+    subprocess.Popen(
+        [sys.executable, "-m", "zest_tpu_torch", "serve",
+         "--port", str(cfg.http_port),
+         "--listen-port", str(cfg.listen_port)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        start_new_session=True)
+    return True
+
+
+def cmd_start(args) -> int:
+    cfg = Config.load()
+    if _server_running(cfg):
+        print("already running")
+        return 0
+    auto_start_server(cfg)
+    deadline = time.monotonic() + args.timeout
+    while time.monotonic() < deadline:
+        if _server_running(cfg):
+            print(f"started (http :{cfg.effective_http_port()})")
+            return 0
+        time.sleep(0.1)
+    print("daemon failed to become healthy", file=sys.stderr)
+    return 1
+
+
+def cmd_stop(_args) -> int:
+    """``POST /v1/stop``, else SIGTERM to the recorded pid. The health
+    check comes first: a stale port record may point at another
+    service, which must not get the stop."""
+    cfg = Config.load()
+    if _server_running(cfg) and _daemon_post(cfg, "/v1/stop"):
+        print("stopped")
+        return 0
+    pid_file = _pid_file(cfg)
+    if pid_file.exists():
+        try:
+            pid = int(pid_file.read_text().strip())
+            os.kill(pid, signal.SIGTERM)
+            print(f"sent SIGTERM to pid {pid}")
+        except (ValueError, ProcessLookupError):
+            print("stale pid file removed")
+        _remove_pid_file(cfg)
+        return 0
+    print("not running")
+    return 0
+
+
+def cmd_status(_args) -> int:
+    payload = _daemon_get(Config.load(), "/v1/status")
+    if payload is None:
+        print("daemon not running")
+        return 1
+    print(json.dumps(payload, indent=2))
+    return 0
+
+
+def cmd_version(_args) -> int:
+    print(f"zest-tpu-torch {__version__}")
+    return 0
+
+
+def _ps_lines(payload: dict) -> list[str]:
+    """One ``ps`` frame from the ``/v1/pulls`` document: active sessions,
+    then the recent ring, the admission line and the SLO burn line."""
+    rows = [("ID", "REPO@REV", "TENANT", "STATUS", "PHASE", "PROG",
+             "ELAPSED")]
+
+    def row(s: dict) -> tuple:
+        rev = str(s.get("revision", ""))[:12]
+        prog = ""
+        if s.get("progress") is not None:
+            prog = f"{s['progress']:.0%}"
+            if s.get("eta_s") is not None:
+                prog += f" eta {s['eta_s']}s"
+        status = s.get("status", "?")
+        if s.get("slo") and any(v.get("breached")
+                                for v in s["slo"].values()):
+            status += "!slo"
+        return (s.get("id", "?"), f"{s.get('repo', '?')}@{rev}",
+                s.get("tenant") or "-", status, s.get("phase", ""),
+                prog, f"{s.get('elapsed_s', 0)}s")
+
+    for s in payload.get("active") or []:
+        rows.append(row(s))
+    for s in payload.get("recent") or []:
+        rows.append(row(s))
+    widths = [max(len(str(r[i])) for r in rows) for i in range(len(rows[0]))]
+    lines = ["  ".join(str(c).ljust(w) for c, w in zip(r, widths)).rstrip()
+             for r in rows]
+    if len(rows) == 1:
+        lines.append("no pull sessions (daemon idle, or ZEST_TELEMETRY=0)")
+    # Queued against active, and the total of typed 429s; a queued
+    # session also shows above with phase "queued".
+    tn = payload.get("tenancy") or {}
+    if tn:
+        line = (f"tenancy: {tn.get('active', 0)}/{tn.get('max_pulls', '?')}"
+                f" active  {tn.get('queued', 0)}/{tn.get('queue_cap', '?')}"
+                " queued")
+        if tn.get("rejected_total"):
+            line += f"  rejected {tn['rejected_total']}"
+        lines.append(line)
+    burn = payload.get("slo") or {}
+    if burn:
+        lines.append("slo burn: " + "  ".join(
+            f"{k}={v['breaches']}/{v['pulls']} ({v['burn']:.1%})"
+            for k, v in sorted(burn.items())))
+    return lines
+
+
+def cmd_ps(args) -> int:
+    """The daemon's pull sessions (``GET /v1/pulls``); ``--watch``
+    redraws every ``--interval`` seconds (``--count`` frames, or until
+    Ctrl-C)."""
+    cfg = Config.load()
+    frames = 0
+    try:
+        while True:
+            payload = _daemon_get(cfg, "/v1/pulls")
+            if payload is None:
+                print("daemon not running", file=sys.stderr)
+                return 1
+            if args.json:
+                print(json.dumps(payload, indent=2))
+            else:
+                if args.watch and sys.stdout.isatty():
+                    sys.stdout.write("\x1b[H\x1b[2J")
+                print("\n".join(_ps_lines(payload)))
+            frames += 1
+            if not args.watch or (args.count and frames >= args.count):
+                return 0
+            time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
 
 
 def _build_swarm(cfg: Config, tracker: str | None = None, dht: bool = True,
@@ -247,8 +432,9 @@ def cmd_serve(args) -> int:
         bound = server.api.port
         try:
             storage.atomic_write(cfg.http_port_file(), str(bound).encode())
+            storage.atomic_write(_pid_file(cfg), str(os.getpid()).encode())
         except OSError:
-            pass  # only `models` of a port-0 daemon reads it
+            pass  # only the client side of a port-0 daemon reads them
         print(f"publisher endpoint at {server.url}", flush=True)
         print(f"serving /v1/generate on {args.device}", flush=True)
         try:
@@ -270,6 +456,7 @@ def cmd_serve(args) -> int:
         bt.shutdown()
         if swarm is not None:
             swarm.close()
+        _remove_pid_file(cfg)
     print("seeder stats: " + json.dumps(dataclasses.asdict(bt.get_stats())),
           flush=True)
     return 0
@@ -405,7 +592,7 @@ def cmd_pull(args) -> int:
                          coop_addrs=addrs["coop_addr"], swarm=swarm,
                          no_p2p=args.no_p2p, pod=args.pod, pods=args.pods,
                          pod_index=args.pod_index,
-                         pod_addrs=addrs["pod_addr"])
+                         pod_addrs=addrs["pod_addr"], tenant=args.tenant)
     finally:
         if swarm is not None:
             swarm.close()
@@ -713,7 +900,32 @@ def build_parser() -> argparse.ArgumentParser:
     pull.add_argument("--no-dht", action="store_true",
                       help="skip DHT discovery (direct peers and tracker "
                            "only)")
+    pull.add_argument("--tenant", default=None,
+                      help="tenant label of the pull's session (default "
+                           "ZEST_TENANT)")
     pull.set_defaults(fn=cmd_pull)
+
+    start = sub.add_parser("start", help="start the daemon in the "
+                                         "background")
+    start.add_argument("--timeout", type=float, default=30.0,
+                       help="seconds to wait for /v1/health")
+    start.set_defaults(fn=cmd_start)
+    sub.add_parser("stop", help="stop the daemon").set_defaults(fn=cmd_stop)
+    sub.add_parser("status", help="print the daemon's status") \
+        .set_defaults(fn=cmd_status)
+    ps = sub.add_parser("ps", help="list the daemon's pull sessions "
+                                   "(live and recent)")
+    ps.add_argument("--json", action="store_true",
+                    help="the raw /v1/pulls document")
+    ps.add_argument("--watch", action="store_true",
+                    help="redraw until Ctrl-C")
+    ps.add_argument("--interval", type=float, default=1.0,
+                    help="redraw interval in seconds")
+    ps.add_argument("--count", type=int, default=0,
+                    help="with --watch: stop after N frames")
+    ps.set_defaults(fn=cmd_ps)
+    sub.add_parser("version", help="print the version") \
+        .set_defaults(fn=cmd_version)
 
     gen = sub.add_parser("generate", help="pull a model and decode with it")
     gen.add_argument("repo")

@@ -17,7 +17,12 @@ the peer tier's ``ZEST_LISTEN_PORT``, ``ZEST_MAX_PEERS``,
 ``ZEST_SEED_RATE_BPS``, ``ZEST_SEED_PEER_BPS``, ``ZEST_SEED_SLOTS``,
 ``ZEST_SEED_DEADLINE_S``, ``ZEST_SEED_DRAIN_S`` and
 ``ZEST_PULL_DEADLINE_S``, and the serving pool's ``ZEST_HBM_POOL``,
-``ZEST_HBM_POOL_BYTES`` and ``ZEST_SLO_TTFT_S``, and the landing mesh's
+``ZEST_HBM_POOL_BYTES`` and ``ZEST_SLO_TTFT_S``, the pull service's
+``ZEST_TENANCY``, ``ZEST_TENANT_MAX_PULLS``, ``ZEST_TENANT_QUEUE``,
+``ZEST_TENANT_INFLIGHT``, ``ZEST_TENANT_DISK_HIGH``,
+``ZEST_TENANT_DISK_LOW`` and ``ZEST_TENANT``, the pull SLOs'
+``ZEST_SLO_TTHBM_S`` and ``ZEST_SLO_TTFL_S`` (the session table reads its
+ring size, ``ZEST_SESSIONS_RECENT``, itself), and the landing mesh's
 ``ZEST_TPU_MESH``, ``ZEST_TPU_COORDINATOR``, ``ZEST_TPU_PROCESS_ID`` and
 ``ZEST_TPU_NUM_PROCESSES``),
 the same defaults and the same HF cache layout, so a tree pulled by either
@@ -84,6 +89,21 @@ DEFAULT_DELTA = True
 # budget (unset or 0: unarmed).
 DEFAULT_HBM_POOL = True
 DEFAULT_HBM_POOL_BYTES = 2 << 30
+# The multi-tenant pull service (transfer/tenancy.py): singleflight fetch
+# dedupe, fair admission and xorb-cache eviction shared by every pull of
+# the process. ZEST_TENANCY=0 (strictly 0 or 1) runs every pull on its
+# own. ZEST_TENANT_MAX_PULLS bounds admitted pulls, ZEST_TENANT_QUEUE the
+# parked ones (beyond it a pull is rejected with a retry-after: HTTP
+# 429); ZEST_TENANT_INFLIGHT is the in-flight file-write byte budget
+# every admitted pull draws from, on top of its own ZEST_PULL_INFLIGHT.
+# ZEST_TENANT_DISK_HIGH / ZEST_TENANT_DISK_LOW are the xorb cache's byte
+# watermarks: above HIGH, unpinned entries are evicted oldest-read first
+# down to LOW (0 = unarmed; LOW defaults to 80% of HIGH). ZEST_TENANT
+# labels this process' pull sessions.
+DEFAULT_TENANCY = True
+DEFAULT_TENANT_MAX_PULLS = 4
+DEFAULT_TENANT_QUEUE = 16
+DEFAULT_TENANT_INFLIGHT_BYTES = 4 << 30
 
 COLLECTIVE_BACKENDS = ("dcn", "jax", "loopback")
 COLLECTIVE_LOSSY_MODES = ("0", "dcn", "wan")
@@ -362,6 +382,19 @@ class Config:
     hbm_pool_enabled: bool = DEFAULT_HBM_POOL
     hbm_pool_bytes: int = DEFAULT_HBM_POOL_BYTES
     slo_ttft_s: float | None = None
+    # The pull service (see DEFAULT_TENANCY above).
+    tenancy_enabled: bool = DEFAULT_TENANCY
+    tenant_max_pulls: int = DEFAULT_TENANT_MAX_PULLS
+    tenant_queue: int = DEFAULT_TENANT_QUEUE
+    tenant_inflight_bytes: int = DEFAULT_TENANT_INFLIGHT_BYTES
+    tenant_disk_high: int = 0
+    tenant_disk_low: int = 0
+    # The tenant label of this process' pull sessions (an API request's
+    # ``tenant`` overrides it per pull), and the pull SLO budgets in
+    # seconds: time to HBM and time to the first layer (None = unarmed).
+    tenant: str | None = None
+    slo_tthbm_s: float | None = None
+    slo_ttfl_s: float | None = None
     # The landing mesh (ZEST_TPU_MESH and the process topology).
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
@@ -389,6 +422,21 @@ class Config:
                 token = (hf_home / "token").read_text().strip() or None
             except OSError:
                 token = None
+        # The eviction watermarks are checked against each other, not
+        # clamped: LOW >= HIGH would make every pass free nothing, and LOW
+        # without HIGH silently leaves eviction unarmed.
+        disk_high = _strict_nonneg_int(env, "ZEST_TENANT_DISK_HIGH")
+        disk_low = _strict_nonneg_int(env, "ZEST_TENANT_DISK_LOW")
+        if disk_low and not disk_high:
+            raise ValueError(
+                "ZEST_TENANT_DISK_LOW is set but ZEST_TENANT_DISK_HIGH "
+                "is not: eviction arms on HIGH — a LOW alone would "
+                "silently do nothing")
+        if disk_high and disk_low >= disk_high:
+            raise ValueError(
+                f"ZEST_TENANT_DISK_LOW ({disk_low}) must be below "
+                f"ZEST_TENANT_DISK_HIGH ({disk_high}): an inverted "
+                "pair would trigger eviction passes that free nothing")
         return Config(
             hf_home=hf_home,
             cache_dir=_expand(env.get("ZEST_CACHE_DIR", "~/.cache/zest")),
@@ -484,6 +532,24 @@ class Config:
             hbm_pool_bytes=_strict_nonneg_int(
                 env, "ZEST_HBM_POOL_BYTES", DEFAULT_HBM_POOL_BYTES),
             slo_ttft_s=_opt_pos_float(env, "ZEST_SLO_TTFT_S"),
+            # Strict: ZEST_TENANCY is the pull service's rollback knob,
+            # and a sign-slipped budget must not mean tiny or unbounded.
+            tenancy_enabled=_strict_bool(
+                "ZEST_TENANCY",
+                env.get("ZEST_TENANCY", "1" if DEFAULT_TENANCY else "0")),
+            tenant_max_pulls=_strict_nonneg_int(
+                env, "ZEST_TENANT_MAX_PULLS", DEFAULT_TENANT_MAX_PULLS,
+                floor=1),
+            tenant_queue=_strict_nonneg_int(
+                env, "ZEST_TENANT_QUEUE", DEFAULT_TENANT_QUEUE),
+            tenant_inflight_bytes=_strict_nonneg_int(
+                env, "ZEST_TENANT_INFLIGHT",
+                DEFAULT_TENANT_INFLIGHT_BYTES, floor=1),
+            tenant_disk_high=disk_high,
+            tenant_disk_low=disk_low,
+            tenant=env.get("ZEST_TENANT") or None,
+            slo_tthbm_s=_opt_pos_float(env, "ZEST_SLO_TTHBM_S"),
+            slo_ttfl_s=_opt_pos_float(env, "ZEST_SLO_TTFL_S"),
             mesh=MeshConfig.from_env(env),
         )
 

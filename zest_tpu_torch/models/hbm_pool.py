@@ -51,6 +51,7 @@ import torch
 
 from zest_tpu_torch import telemetry
 from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from zest_tpu_torch.transfer import tenancy
 
 # Families the gated decoders below cover; gpt2 (and unknown types) take
 # the single-model path in api.http_api.
@@ -844,6 +845,10 @@ class HbmPool:
             for entry in list(self._entries.values()):
                 if entry.state in ("resident", "landing"):
                     self._evict_entry(entry, "reset")
+                # Leaving the pool for good: the tree's xorbs lose their
+                # pin and are ordinary eviction candidates again (an
+                # evicted entry keeps it: a re-land reads the snapshot).
+                tenancy.release_tree(self.cfg, entry.repo)
             self._entries.clear()
 
 

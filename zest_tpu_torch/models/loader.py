@@ -506,7 +506,7 @@ class HostRing:
 
     def close(self) -> None:
         """Wake any waiter with :class:`RingClosed` (the consumer's error
-        path) and drop the free buffers."""
+        path, a pull's cancel) and drop the free buffers."""
         with self._cv:
             self._closed = True
             self._free.clear()
@@ -691,9 +691,19 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                      decode_workers, clock, ring_bytes: int,
                      ring_slots: int, tensor_gate=None, on_first_layer=None,
                      stream_file_sink=None, preloaded=None, swap_from=None,
-                     mesh=None, rules=None) -> tuple[dict, dict]:
+                     mesh=None, rules=None, cancel=None) -> tuple[dict, dict]:
     """The ring scheduler: decode of run N+k overlaps the device copy of
-    run N, in layer order. See :func:`stage_cached_to_hbm`."""
+    run N, in layer order. See :func:`stage_cached_to_hbm`.
+
+    Three threads take part: the producer decoding into ring slots, this
+    (consumer) thread queueing each group's copies on the side stream,
+    and whatever fills the cache behind ``tensor_gate``. Any error, and a
+    fired ``cancel`` token, ends the landing the same way: the landing's
+    abort event wakes the gate, :meth:`HostRing.close` wakes a producer
+    parked on the ring, the producer is joined, every copy in flight is
+    waited on before its slot goes back (a pinned buffer reused under a
+    live copy would corrupt the tree), and every group committed so far
+    is dropped."""
     t0 = time.monotonic()
     preloaded = preloaded or {}
     # On the CPU the landed tensors alias their slots: no slot is reused.
@@ -712,8 +722,8 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
     # subset; otherwise "first layer" is the whole landing anyway.
     eager = bool(first_set) and first_set < all_names
     q: SimpleQueue = SimpleQueue()
-    cancel = threading.Event()
-    done_marker = object()
+    abort = threading.Event()
+    done_marker, cancelled_marker = object(), object()
 
     def shard_runs(header):
         """File-contiguous tensors in landing order, cut at the commit
@@ -747,7 +757,7 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
     def produce():
         try:
             for i, (rec, header) in enumerate(recs_with_headers):
-                if cancel.is_set():
+                if abort.is_set():
                     return
                 if prefetch_next is not None:
                     prefetch_next(i)
@@ -761,12 +771,12 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                         if stream_file_sink is not None else None)
                 try:
                     for run in shard_runs(header):
-                        if cancel.is_set():
+                        if abort.is_set():
                             return
                         if tensor_gate is not None:
                             for name in run:
-                                tensor_gate(i, name, cancel)
-                        if cancel.is_set():
+                                tensor_gate(i, name, abort)
+                        if abort.is_set():
                             return
                         spans = [header.tensors[n].file_range(
                             header.data_start) for n in run]
@@ -846,73 +856,93 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         while len(pending) > 1:
             drain_one()
 
-    error: BaseException | None = None
-    with _gc_frozen():
-        with ThreadPoolExecutor(
-                1, thread_name_prefix="zest-land-stream") as staging:
-            staging.submit(produce)
+    def consume():
+        nonlocal batch_bytes
+        while True:
             try:
-                while True:
-                    try:
-                        item = q.get_nowait()
-                    except Empty:
-                        # Queue dry: recycle committed groups, then flush
-                        # the half-built group when the producer stalls on
-                        # the ring, after a 0.25 s quiet gap, or at once
-                        # until the first-layer set is in.
-                        while pending:
-                            drain_one()
-                        waited = 0.0
-                        while True:
-                            if batch and ((eager and not fired)
-                                          or ring.producer_waiting
-                                          or waited >= 0.25):
-                                flush()
-                                while pending:
-                                    drain_one()
-                            try:
-                                item = q.get(
-                                    timeout=0.05 if batch else None)
-                                break
-                            except Empty:
-                                waited += 0.05
-                    if item is done_marker:
-                        break
-                    if isinstance(item, BaseException):
-                        raise item
-                    batch.append(item)
-                    batch_bytes += item[4] - item[3]
-                    batch_slot_ids.add(id(item[2]))
-                    # Distinct slots bound how many ring buffers a group
-                    # pins (a run's tensors share one).
-                    if (batch_bytes >= group_bytes
-                            or len(batch_slot_ids) >= group_count):
-                        flush()
-                flush()
+                item = q.get_nowait()
+            except Empty:
+                # Queue dry: recycle committed groups, then flush the
+                # half-built group when the producer stalls on the ring,
+                # after a 0.25 s quiet gap, or at once until the
+                # first-layer set is in.
                 while pending:
                     drain_one()
-            except BaseException as exc:
-                error = exc
-                cancel.set()
-                ring.close()
-                raise
-            finally:
-                if error is not None:
-                    # No slot goes back while a copy may still read it.
-                    committer.synchronize()
-                    while pending:
-                        for s in pending.popleft()[1]:
-                            s.release()
-                    for it in batch:
-                        it[2].release()
-                    while True:
-                        try:
-                            item = q.get_nowait()
-                        except Empty:
-                            break
-                        if isinstance(item, tuple):
-                            item[2].release()
-                    params.clear()
+                waited = 0.0
+                while True:
+                    if batch and ((eager and not fired)
+                                  or ring.producer_waiting
+                                  or waited >= 0.25):
+                        flush()
+                        while pending:
+                            drain_one()
+                    try:
+                        item = q.get(timeout=0.05 if batch else None)
+                        break
+                    except Empty:
+                        waited += 0.05
+            if item is done_marker:
+                break
+            if item is cancelled_marker:
+                cancel.check()
+            if isinstance(item, BaseException):
+                raise item
+            batch.append(item)
+            batch_bytes += item[4] - item[3]
+            batch_slot_ids.add(id(item[2]))
+            # Distinct slots bound how many ring buffers a group pins (a
+            # run's tensors share one).
+            if (batch_bytes >= group_bytes
+                    or len(batch_slot_ids) >= group_count):
+                flush()
+        flush()
+        while pending:
+            drain_one()
+
+    def on_cancel():
+        # The token ends the landing as an error does. The marker goes in
+        # first, so that the consumer raises the cancel, not the
+        # producer's RingClosed.
+        q.put(cancelled_marker)
+        abort.set()
+        ring.close()
+
+    untie = cancel.on_cancel(on_cancel) if cancel is not None else None
+    with _gc_frozen():
+        try:
+            # The with-exit joins the producer, on success and on error.
+            with ThreadPoolExecutor(
+                    1, thread_name_prefix="zest-land-stream") as staging:
+                staging.submit(produce)
+                try:
+                    consume()
+                except BaseException:
+                    abort.set()
+                    ring.close()
+                    raise
+        except BaseException:
+            # The producer is gone, so the queue holds every slot it
+            # still had. No slot goes back while a copy may still read
+            # it, and the groups committed so far are dropped.
+            committer.synchronize()
+            while pending:
+                for s in pending.popleft()[1]:
+                    s.release()
+            for it in batch:
+                it[2].release()
+            batch.clear()
+            while True:
+                try:
+                    item = q.get_nowait()
+                except Empty:
+                    break
+                if isinstance(item, tuple):
+                    item[2].release()
+            params.clear()
+            raise
+        finally:
+            if untie is not None:
+                untie()
         committer.finish()
         dt = time.monotonic() - t0
     stats = _commit_stats(params, dt, direct=True, mesh=mesh)
@@ -948,7 +978,7 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
                         ring_slots: int | None = None, tensor_gate=None,
                         on_first_layer=None, stream_file_sink=None,
                         preloaded=None, swap_from=None, mesh=None,
-                        rules: ShardRules | None = None
+                        rules: ShardRules | None = None, cancel=None
                         ) -> tuple[dict, dict]:
     """Direct landing: tensors straight from cached xorb units onto
     ``device``, with no file read.
@@ -964,8 +994,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
     **Streaming** (``stream``, default ``Config.land_stream``; needs
     ``decode_ahead`` and no ``on_host_ready``): runs of tensors decode into
     a :class:`HostRing` (``ring_bytes`` / ``ring_slots``) in layer order
-    and commit in groups from the slots. ``tensor_gate(i, name, cancel)``
-    blocks until tensor ``name``'s units are cached (``cancel``, a
+    and commit in groups from the slots. ``tensor_gate(i, name, abort)``
+    blocks until tensor ``name``'s units are cached (``abort``, a
     ``threading.Event``, is the landing's abort); ``on_first_layer()``
     fires once, when the embedding and the first layer are resident (their
     copies done); ``stream_file_sink(i)`` returns shard ``i``'s
@@ -999,6 +1029,15 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
     group that replaced it has completed on every device, and
     ``stats["swap"]`` counts each tensor by its global bytes.
 
+    **Cancel** (both modes): ``cancel``, a pull's
+    ``transfer.tenancy.CancelToken``, sets the streaming landing's abort
+    (:meth:`CancelToken.on_cancel`) or is checked between shards; once it
+    fires the landing raises ``PullCancelled`` with
+    nothing left behind: no thread parked on the ring, every copy in
+    flight waited on before its pinned slot goes back, and every tensor
+    committed so far dropped (the allocations return once the caller lets
+    go of the exception). An error ends the landing the same way.
+
     Returns ``(params, stats)``, ``stats["direct"]`` true. On ``cuda`` the
     current stream is ordered after every copy when this returns.
     """
@@ -1023,7 +1062,7 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
             decode_workers, clock, ring_bytes, ring_slots,
             tensor_gate=tensor_gate, on_first_layer=on_first_layer,
             stream_file_sink=stream_file_sink, preloaded=preloaded,
-            swap_from=swap_from, mesh=mesh, rules=rules)
+            swap_from=swap_from, mesh=mesh, rules=rules, cancel=cancel)
 
     t0 = time.monotonic()
     preloaded = preloaded or {}
@@ -1036,6 +1075,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
             return name not in _skip
 
     def decode(i: int) -> dict:
+        if cancel is not None:
+            cancel.check()
         if prefetch_next is not None:
             prefetch_next(i)
         rec, header = recs_with_headers[i]
@@ -1052,6 +1093,8 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         return host
 
     def commit(host: dict) -> None:
+        if cancel is not None:
+            cancel.check()
         if not host:
             return
         # commit_tensors returns with its copy done on the current stream.
@@ -1063,19 +1106,23 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
 
     pipelined = bool(decode_ahead) and n > 1
     with _gc_frozen():
-        if pipelined:
-            with ThreadPoolExecutor(
-                    1, thread_name_prefix="zest-land-decode") as staging:
-                pending = staging.submit(decode, 0)
+        try:
+            if pipelined:
+                with ThreadPoolExecutor(
+                        1, thread_name_prefix="zest-land-decode") as staging:
+                    pending = staging.submit(decode, 0)
+                    for i in range(n):
+                        host = pending.result()
+                        if i + 1 < n:
+                            pending = staging.submit(decode, i + 1)
+                        commit(host)
+                        del host
+            else:
                 for i in range(n):
-                    host = pending.result()
-                    if i + 1 < n:
-                        pending = staging.submit(decode, i + 1)
-                    commit(host)
-                    del host
-        else:
-            for i in range(n):
-                commit(decode(i))
+                    commit(decode(i))
+        except BaseException:
+            params.clear()  # the shards committed so far are dropped
+            raise
         for d in (mesh.distinct_devices() if mesh is not None else [dev]):
             if d.type == "cuda":
                 torch.cuda.current_stream(d).synchronize()

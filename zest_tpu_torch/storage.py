@@ -9,10 +9,14 @@ The landing's decode reads entries through read-only maps
 from the entry file (:meth:`XorbCache.locate_with_range`).
 :class:`XorbRegistry` is the seeding node's in-memory index of that cache
 (``serve`` scans it at start, ``POST /v1/push`` adds what a push minted).
+A cache write that hits ENOSPC raises :class:`CacheFullError` after its
+temp file is gone and the disk-full hook (the tenancy evictor) ran; a
+read freshens the entry's mtime, so that evictor's pass is LRU.
 """
 
 from __future__ import annotations
 
+import errno
 import mmap
 import os
 import tempfile
@@ -23,19 +27,73 @@ from pathlib import Path
 from zest_tpu_torch.config import Config
 
 
+class CacheFullError(OSError):
+    """Typed ENOSPC for cache writes: the write's temp file is already
+    removed, a ``disk_pressure`` event was recorded and, when a disk-full
+    hook is installed (the tenancy layer's eviction pass), eviction
+    already ran. The fetch path treats it as "could not cache" and keeps
+    serving; a pull that cannot progress at all fails with this error."""
+
+    def __init__(self, msg: str, path: Path | str | None = None):
+        super().__init__(errno.ENOSPC, msg)
+        self.path = str(path) if path is not None else None
+
+
+# The tenancy layer's eviction pass (``transfer.tenancy`` installs it;
+# None while tenancy is off or unconfigured). Called on ENOSPC; True when
+# it freed anything, which earns the write one retry.
+_disk_full_hook = None
+
+
+def set_disk_full_hook(fn) -> None:
+    global _disk_full_hook
+    _disk_full_hook = fn
+
+
+def note_disk_full(path) -> bool:
+    """Record disk pressure and run the eviction hook; True when the hook
+    freed space."""
+    from zest_tpu_torch import telemetry
+
+    telemetry.record("disk_pressure", path=str(path))
+    hook = _disk_full_hook
+    if hook is None:
+        return False
+    try:
+        return bool(hook())
+    except Exception:  # noqa: BLE001 - eviction is advisory
+        return False
+
+
 def atomic_write(path: Path, data: bytes) -> None:
-    """Write via tmp file + rename so readers never see partial content."""
+    """Write via tmp file + rename so readers never see partial content.
+    ENOSPC raises :class:`CacheFullError`; the payload is replayable, so
+    the write is retried once when the eviction hook freed space."""
+    try:
+        _atomic_write(path, data)
+    except CacheFullError:
+        # note_disk_full (and the eviction pass) already ran: one retry.
+        _atomic_write(path, data, _retry=True)
+
+
+def _atomic_write(path: Path, data: bytes, _retry: bool = False) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=".tmp-")
     try:
         with os.fdopen(fd, "wb") as f:
             f.write(data)
         os.replace(tmp, path)
-    except BaseException:
+    except BaseException as exc:
         try:
             os.unlink(tmp)
         except OSError:
             pass
+        if isinstance(exc, OSError) and exc.errno == errno.ENOSPC \
+                and not isinstance(exc, CacheFullError):
+            if not _retry:
+                note_disk_full(path)
+            raise CacheFullError(
+                f"cache write of {path} hit ENOSPC", path) from exc
         raise
 
 
@@ -99,6 +157,15 @@ def read_chunk(cfg: Config, chunk_hash: bytes) -> bytes | None:
         return None
 
 
+def _touch_for_lru(fileno_or_path) -> None:
+    """Freshen an entry's mtime on read, so the evictor's
+    oldest-mtime-first pass is LRU and not write-time FIFO."""
+    try:
+        os.utime(fileno_or_path)
+    except OSError:
+        pass
+
+
 @dataclass(frozen=True)
 class CacheResult:
     """A serialized xorb whose chunk 0 is absolute chunk ``chunk_offset``
@@ -123,7 +190,9 @@ class XorbCache:
 
     def get(self, hash_hex: str) -> bytes | None:
         try:
-            return self._path(hash_hex).read_bytes()
+            with open(self._path(hash_hex), "rb") as f:
+                _touch_for_lru(f.fileno())
+                return f.read()
         except OSError:
             return None
 
@@ -150,6 +219,7 @@ class XorbCache:
             with open(self._path(key), "rb") as f:
                 if os.fstat(f.fileno()).st_size == 0:
                     return memoryview(b"")
+                _touch_for_lru(f.fileno())
                 mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
         except (OSError, ValueError):
             return None
@@ -178,6 +248,7 @@ class XorbCache:
                             (f"{hash_hex}.{range_start}", range_start)):
             p = self._path(key)
             if p.exists():
+                _touch_for_lru(p)
                 return p, offset
         return None
 

@@ -7,10 +7,12 @@ histograms rendered as Prometheus text on the daemon's ``GET
 ``ZEST_TRACE``), the flight recorder (:mod:`.recorder`), and of
 timelines and remediation the parts the collective exchange reaches
 (:mod:`.timeline`: posted cells and clock offsets; :mod:`.remediate`:
-the action-target registry). Pull sessions, critical-path analysis, the
-timeline sampler and anomaly detector, the remediation engine and fleet
-aggregation are not ported; of the fleet layer, only the trace
-identity (:mod:`.fleet`, ``mint_trace_id``).
+the action-target registry), and pull sessions (:mod:`.session`: the
+bounded table of live and recent pulls behind ``GET /v1/pulls`` and
+``zest ps``). Critical-path analysis, the timeline sampler and anomaly
+detector, the remediation engine and fleet aggregation are not ported;
+of the fleet layer, only the trace identity (:mod:`.fleet`,
+``mint_trace_id``).
 
 This package imports nothing from the rest of ``zest_tpu_torch``, so
 every module can use it without cycles.
@@ -42,6 +44,7 @@ from zest_tpu_torch.telemetry import recorder as recorder  # noqa: PLC0414
 from zest_tpu_torch.telemetry import timeline as timeline  # noqa: PLC0414
 from zest_tpu_torch.telemetry import remediate as remediate  # noqa: PLC0414
 from zest_tpu_torch.telemetry.recorder import record  # noqa: F401
+from zest_tpu_torch.telemetry import session as session  # noqa: PLC0414
 
 __all__ = [
     "REGISTRY",
@@ -62,6 +65,7 @@ __all__ = [
     "remediate",
     "render_prometheus",
     "reset_all",
+    "session",
     "set_enabled",
     "span",
     "status_snapshot",
@@ -94,5 +98,6 @@ def reset_all() -> None:
     trace.clear_context()
     REGISTRY.reset()
     recorder.reset()
+    session.reset()
     timeline.reset()
     remediate.reset()

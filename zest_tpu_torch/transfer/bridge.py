@@ -30,6 +30,15 @@ the CDN and the term decodes from those bytes (a peer-served blob also
 strikes its peer). Once any file's references could not be
 resolved (:meth:`XetBridge.mark_evidence_incomplete`), no blob is cached
 under a full key for the rest of the bridge's life.
+
+With the pull service on (``transfer/tenancy.py``), ``pull_model`` wires
+three shared pieces in: ``flights``, the process singleflight table — the
+term and unit network tiers run under :meth:`XetBridge._deduped`, so one
+fetch per ``(xorb, chunk range)`` crosses the network however many
+sessions want it; ``cancel``, the session's ``CancelToken``, checked at
+every term and unit; and ``on_reconstruction``, which pins each resolved
+plan's xorbs against eviction. A cache write that hits ENOSPC
+(``storage.CacheFullError``) is absorbed: the fetched bytes still serve.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from dataclasses import dataclass, field
 
-from zest_tpu_torch import storage
+from zest_tpu_torch import storage, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas import reconstruction as recon
 from zest_tpu_torch.cas.client import CasClient, CasError
@@ -47,6 +56,8 @@ from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.cas.xorb import XorbReader
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.p2p.health import PROVENANCE
+from zest_tpu_torch.storage import CacheFullError
+from zest_tpu_torch.transfer.tenancy import PullCancelled
 
 
 class BridgeError(RuntimeError):
@@ -198,6 +209,14 @@ class XetBridge:
         # Set when some file's reconstruction could not be resolved: the
         # whole-xorb evidence is then incomplete for every xorb.
         self.evidence_incomplete = False
+        # The pull service's shared pieces, wired by pull_model when
+        # tenancy is on (all None: the bridge runs alone): the process
+        # Singleflight table, this pull's CancelToken, and a hook called
+        # once per freshly resolved reconstruction (the session pins its
+        # xorbs against eviction).
+        self.flights = None
+        self.cancel = None
+        self.on_reconstruction = None
 
     def arm_hedge(self, reason: str = "policy") -> dict:
         """Arm hedging without a deadline: every later peer-tier fetch
@@ -243,7 +262,20 @@ class XetBridge:
             cached = self.cas.get_reconstruction(file_hash_hex)
             with self._lock:
                 cached = self._recons.setdefault(file_hash_hex, cached)
+            hook = self.on_reconstruction
+            if hook is not None:
+                try:
+                    hook(cached)  # tenancy: pin this plan's xorbs
+                except Exception:  # noqa: BLE001 - pinning is advisory
+                    pass
         return cached
+
+    def resolved_xorb_hashes(self) -> set[str]:
+        """Every xorb hash a reconstruction this bridge resolved refers
+        to: the pin set of a landed tree."""
+        with self._lock:
+            return {h for rec in self._recons.values()
+                    for h in rec.fetch_info}
 
     def known_reconstruction(self, file_hash_hex: str
                              ) -> recon.Reconstruction | None:
@@ -254,6 +286,10 @@ class XetBridge:
 
     def fetch_xorb_for_term(self, term: recon.Term,
                             rec: recon.Reconstruction) -> XorbFetchResult:
+        if self.cancel is not None:
+            # Per-term cancellation point: a cancelled session stops at
+            # the next term instead of finishing files it no longer wants.
+            self.cancel.check()
         fi = rec.find_fetch_info(term)
         if fi is None:
             raise BridgeError(f"no fetch info covers chunks "
@@ -261,6 +297,23 @@ class XetBridge:
                               f"{term.hash_hex}")
         # 1. Local cache: the full xorb, or the partial entry for fi's
         # range — whichever actually covers the term.
+        hit = self._probe_term(term, fi)
+        if hit is not None:
+            return hit
+        # Network tiers, deduped across sessions: the loser of a flight
+        # reads the winner's cache entry instead of refetching.
+        return self._deduped(
+            (term.hash_hex, fi.range.start, fi.range.end),
+            lambda: self._network_fetch_for_term(term, rec, fi,
+                                                 term.hash_hex),
+            lambda: self._probe_term(term, fi))
+
+    def _probe_term(self, term: recon.Term,
+                    fi: recon.FetchInfo) -> XorbFetchResult | None:
+        """Tier 1: the covering cache entry as a term result (counted), or
+        None. The coverage predicate runs inside the lookup, so a full
+        entry that does not cover the term falls through to the partial
+        one."""
         def covers(res: storage.CacheResult) -> bool:
             return _blob_covers(res.data,
                                 term.range.start - res.chunk_offset,
@@ -268,12 +321,64 @@ class XetBridge:
 
         hit = self.cache.get_with_range(term.hash_hex, fi.range.start,
                                         covers=covers)
-        if hit is not None:
-            self.stats.record("cache", len(hit.data))
-            return XorbFetchResult(hit.data,
-                                   term.range.start - hit.chunk_offset,
-                                   term.range.end - hit.chunk_offset)
-        return self._network_fetch_for_term(term, rec, fi, term.hash_hex)
+        if hit is None:
+            return None
+        self.stats.record("cache", len(hit.data))
+        return XorbFetchResult(hit.data,
+                               term.range.start - hit.chunk_offset,
+                               term.range.end - hit.chunk_offset)
+
+    def _deduped(self, key, fetch_fn, probe_fn):
+        """Run ``fetch_fn`` under the process singleflight table (when
+        wired): the first session to want ``key`` leads; every concurrent
+        session waits, then serves itself from the winner's cache entry
+        through ``probe_fn`` (a probe miss — the entry was evicted in the
+        gap — is a solo refetch, never an error). A failed flight raises
+        the leader's error in every waiter; a cancelled leader abdicates,
+        so a live waiter takes the fetch over."""
+        flights = self.flights
+        if flights is None:
+            return fetch_fn()
+        role, flight = flights.join(key)
+        first_lead = role == "lead"
+        while True:
+            if role == "lead":
+                if first_lead:
+                    # This session's cache miss may predate another
+                    # flight's winner writing the entry and resolving:
+                    # probing again turns that window into a hit instead
+                    # of a second fetch. (A promoted waiter skips it.)
+                    hit = probe_fn()
+                    if hit is not None:
+                        flights.resolve(flight)
+                        flights.note_hit()
+                        return hit
+                try:
+                    if self.cancel is not None:
+                        self.cancel.check()
+                    result = fetch_fn()
+                except BaseException as exc:
+                    if isinstance(exc, PullCancelled):
+                        flights.abdicate(flight)
+                    else:
+                        flights.fail(flight, exc)
+                    raise
+                flights.resolve(flight)
+                return result
+            outcome = flights.wait(flight, cancel=self.cancel)
+            if outcome == "lead":
+                role = "lead"
+                continue
+            if outcome == "cancelled":
+                raise PullCancelled(
+                    "cancelled while waiting on a shared fetch")
+            if outcome == "failed":
+                raise flight.error
+            hit = probe_fn()  # "done": the winner's bytes are cached
+            if hit is not None:
+                flights.note_hit()
+                return hit
+            return fetch_fn()  # evicted before we read: refetch solo
 
     def _network_fetch_for_term(self, term: recon.Term,
                                 rec: recon.Reconstruction,
@@ -478,20 +583,28 @@ class XetBridge:
         full key when ``whole``, else a partial key at ``chunk_offset`` —
         skipped when an entry at that offset already covers at least this
         blob's chunks (never narrower), checked and written under a
-        hash-striped lock."""
-        with _write_lock(hash_hex):
-            existing = self.cache.get_with_range(hash_hex, chunk_offset)
-            if existing is not None and existing.chunk_offset <= chunk_offset:
-                try:
-                    if (existing.chunk_offset + len(XorbReader(existing.data))
-                            >= chunk_offset + len(XorbReader(data))):
-                        return
-                except ValueError:
-                    pass  # corrupt entry: overwrite
-            if whole:
-                self.cache.put(hash_hex, data)
-            else:
-                self.cache.put_partial(hash_hex, chunk_offset, data)
+        hash-striped lock. ENOSPC (``CacheFullError``: the eviction pass
+        already ran) is absorbed: the bytes in hand still serve, they are
+        just not cached."""
+        try:
+            with _write_lock(hash_hex):
+                existing = self.cache.get_with_range(hash_hex, chunk_offset)
+                if existing is not None \
+                        and existing.chunk_offset <= chunk_offset:
+                    try:
+                        if (existing.chunk_offset
+                                + len(XorbReader(existing.data))
+                                >= chunk_offset + len(XorbReader(data))):
+                            return
+                    except ValueError:
+                        pass  # corrupt entry: overwrite
+                if whole:
+                    self.cache.put(hash_hex, data)
+                else:
+                    self.cache.put_partial(hash_hex, chunk_offset, data)
+        except CacheFullError:
+            telemetry.record("cache_write_skipped", xorb=hash_hex,
+                             reason="disk_full")
 
     # ── Fetch units (the cooperative round's currency) ──
 
@@ -504,11 +617,39 @@ class XetBridge:
                           fi: recon.FetchInfo) -> tuple[bytes, str]:
         """:meth:`fetch_unit` plus the serving tier (``cache`` | ``peer``
         | ``cdn``): the cooperative round books its fallback bytes per
-        tier. The caller caches what the network tiers return."""
+        tier. The caller caches what the network tiers return (with a
+        singleflight table wired, the leader caches it first)."""
+        if self.cancel is not None:
+            self.cancel.check()  # per-unit cancellation point
+        hit = self._probe_unit(hash_hex, fi)
+        if hit is not None:
+            return hit
+        return self._deduped(
+            (hash_hex, fi.range.start, fi.range.end),
+            lambda: self._network_fetch_unit(hash_hex, fi),
+            lambda: self._probe_unit(hash_hex, fi))
+
+    def _probe_unit(self, hash_hex: str,
+                    fi: recon.FetchInfo) -> tuple[bytes, str] | None:
         data = self._cached_unit(hash_hex, fi)
-        if data is not None:
-            self.stats.record("cache", len(data))
-            return data, "cache"
+        if data is None:
+            return None
+        self.stats.record("cache", len(data))
+        return data, "cache"
+
+    def _network_fetch_unit(self, hash_hex: str,
+                            fi: recon.FetchInfo) -> tuple[bytes, str]:
+        data, source = self._network_fetch_unit_raw(hash_hex, fi)
+        if self.flights is not None:
+            # The flight's waiters read the cache the moment this leader
+            # resolves, so the bytes are cached here (the caller's own
+            # cache write runs after return: too late for them). ENOSPC
+            # is absorbed; the waiters then fetch for themselves.
+            self._cache_fetched(None, hash_hex, fi.range.start, data)
+        return data, source
+
+    def _network_fetch_unit_raw(self, hash_hex: str,
+                                fi: recon.FetchInfo) -> tuple[bytes, str]:
         if self.swarm is not None:
             xorb_hash = hashing.hex_to_hash(hash_hex)
             peer_result = self.swarm.try_peer_download(

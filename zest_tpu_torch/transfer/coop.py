@@ -78,6 +78,7 @@ from zest_tpu_torch.transfer.federated import (
     warm_units_parallel,
 )
 from zest_tpu_torch.transfer.pod import make_unit_verifier
+from zest_tpu_torch.transfer.tenancy import ByteBudget  # noqa: F401 - re-export
 
 # How long a host keeps retrying NOT_FOUND units (the owner may still be
 # fetching them: hosts run the round concurrently) before degrading them
@@ -97,46 +98,6 @@ _CLK_HELLO_TIMEOUT_S = 2.0
 class CoopUnavailable(RuntimeError):
     """Cooperative mode cannot run (no peer addresses, no alive hosts):
     the caller degrades to the ordinary full-fetch waterfall."""
-
-
-class ByteBudget:
-    """Counting byte-semaphore bounding in-flight exchange bytes.
-
-    ``acquire(n)`` blocks while admitting ``n`` more bytes would push the
-    in-flight total past the budget — except when nothing is in flight,
-    where an item larger than the whole budget is admitted alone rather
-    than deadlocking. ``peak_bytes`` is the high-water mark."""
-
-    def __init__(self, budget_bytes: int):
-        self.budget_bytes = max(1, int(budget_bytes))
-        self._cv = threading.Condition(threading.Lock())
-        self._inflight = 0
-        self.peak_bytes = 0
-
-    def acquire(self, nbytes: int) -> None:
-        nbytes = max(0, int(nbytes))
-        with self._cv:
-            while (self._inflight > 0
-                   and self._inflight + nbytes > self.budget_bytes):
-                self._cv.wait()
-            self._inflight += nbytes
-            self.peak_bytes = max(self.peak_bytes, self._inflight)
-
-    def try_acquire(self, nbytes: int) -> bool:
-        """:meth:`acquire` without waiting: False when it would wait."""
-        nbytes = max(0, int(nbytes))
-        with self._cv:
-            if (self._inflight > 0
-                    and self._inflight + nbytes > self.budget_bytes):
-                return False
-            self._inflight += nbytes
-            self.peak_bytes = max(self.peak_bytes, self._inflight)
-            return True
-
-    def release(self, nbytes: int) -> None:
-        with self._cv:
-            self._inflight -= max(0, int(nbytes))
-            self._cv.notify_all()
 
 
 @dataclass(frozen=True)

@@ -89,7 +89,7 @@ only by the slots that own it (``stats["pod"]["expert_routed"]``). Its
 pre-pass (the safetensors headers) degrades to the plain round only on a
 fetch or header-parse error. With several processes they agree first,
 over ``torch.distributed``, that every one has its reconstructions and
-its expert pre-pass. Pull sessions are not ported.
+its expert pre-pass.
 
 **Mesh landing** (``mesh=``, a ``parallel.mesh.SlotMesh``; without it on
 ``cuda``, ``Config.mesh`` (``ZEST_TPU_MESH``) over every CUDA device):
@@ -169,7 +169,6 @@ from zest_tpu_torch.telemetry.fleet import mint_trace_id
 from zest_tpu_torch.transfer import delta
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS, XetBridge
 from zest_tpu_torch.transfer.coop import (
-    ByteBudget,
     CoopUnavailable,
     coop_round,
     exchange_addrs_via_kv,
@@ -187,6 +186,12 @@ from zest_tpu_torch.transfer.pod import (
     fetch_file_header,
     fetch_header_probe,
     pod_round,
+)
+from zest_tpu_torch.transfer import tenancy
+from zest_tpu_torch.transfer.tenancy import (  # noqa: F401 - re-export
+    ByteBudget,
+    CancelToken,
+    PullCancelled,
 )
 
 
@@ -219,14 +224,28 @@ class StageClock:
         self._lock = threading.Lock()
         self._intervals: dict[str, list[tuple[float, float]]] = {}
         self._bytes: dict[str, int] = {}
+        # Stage entry/exit observer (the pull session's live ``phase``):
+        # a handful of calls per pull, never per chunk, and never allowed
+        # to break the pull.
+        self.observer = None
+
+    def _notify(self, stage: str, entered: bool) -> None:
+        obs = self.observer
+        if obs is not None:
+            try:
+                obs(stage, entered)
+            except Exception:  # noqa: BLE001 - observers are advisory
+                pass
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
         t0 = time.monotonic()
+        self._notify(stage, True)
         try:
             yield
         finally:
             self.note_interval(stage, t0, time.monotonic())
+            self._notify(stage, False)
 
     def ensure(self, stage: str) -> None:
         """Report ``stage`` (as 0.0) even when nothing entered it."""
@@ -329,13 +348,26 @@ class _FilePipeline:
     no job ever waits in. :meth:`join` waits for every job, then fsyncs
     and renames every temp file: a pull killed before that leaves no
     complete-named partial file. The first error cancels queued work and
-    re-raises from :meth:`join`."""
+    re-raises from :meth:`join`.
+
+    ``budget`` is the pull service's shared :class:`ByteBudget`: every
+    acquire then clears both this pull's ``budget_bytes`` and the shared
+    bound (``tenancy.StackedBudget``). ``cancel``, the session's token, is
+    checked before each file: a fired token is the first error."""
 
     def __init__(self, width: int, budget_bytes: int, clock: StageClock,
                  work, skip_check=None, materialize_workers: int = 1,
-                 async_handoff: bool = True, term_executor=None):
+                 async_handoff: bool = True, term_executor=None,
+                 budget: ByteBudget | None = None,
+                 cancel: CancelToken | None = None):
         self.width = max(1, int(width))
-        self.budget = ByteBudget(budget_bytes)
+        local = ByteBudget(budget_bytes)
+        self.budget = (local if budget is None
+                       else tenancy.StackedBudget(local, budget))
+        self.cancel_token = cancel
+        # Worker threads stamp their recorder events with the session of
+        # the pull that built the pipeline.
+        self._session_id = telemetry.session.current_id()
         self.clock = clock
         self.work = work  # work(entry) -> "downloaded" | "skipped"
         self.skip_check = skip_check
@@ -425,9 +457,12 @@ class _FilePipeline:
                 self.downloaded += 1
 
     def _run_prepared(self, entry, prepared) -> None:
+        telemetry.session.use(self._session_id)
         try:
             if self._cancel.is_set():
                 return
+            if self.cancel_token is not None:
+                self.cancel_token.check()
             with self.clock("files"):
                 status = prepared(entry)
                 if status is None:
@@ -437,8 +472,13 @@ class _FilePipeline:
         self._count(status)
 
     def _run(self, entry) -> None:
+        telemetry.session.use(self._session_id)
         if self._cancel.is_set():
             return
+        if self.cancel_token is not None:
+            # The session's cancel is this pipeline's first error: queued
+            # files drop, and join re-raises it.
+            self.cancel_token.check()
         if self.skip_check is not None and self.skip_check(entry):
             self._count("skipped")
             return
@@ -446,6 +486,8 @@ class _FilePipeline:
         try:
             if self._cancel.is_set():
                 return
+            if self.cancel_token is not None:
+                self.cancel_token.check()
             with self.clock("files"):
                 status = self.work(entry)
         finally:
@@ -685,6 +727,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                pod: bool | None = None, mesh: SlotMesh | None = None,
                pods: int | None = None, pod_index: int | None = None,
                pod_addrs: dict[int, tuple[str, int]] | None = None,
+               tenant: str | None = None,
+               cancel: CancelToken | None = None,
                log=print) -> PullResult:
     """Pull ``repo_id@revision`` and land it on ``device`` (see module
     docstring). ``coop_server`` is this host's running ``DcnServer`` over
@@ -720,7 +764,106 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     the swap reuses base shards in place.
 
     ``pods`` > 1 with ``pod_index`` runs the federated round (see module
-    docstring) with the other pods' DCN addresses ``pod_addrs``."""
+    docstring) with the other pods' DCN addresses ``pod_addrs``.
+
+    **Pull service** (``transfer/tenancy.py``; off with ``ZEST_TENANCY=0``):
+    the pull is admitted through the process-global controller — it may
+    wait in the fair per-tenant queue (session phase ``queued``) or be
+    rejected with :class:`~zest_tpu_torch.transfer.tenancy.
+    AdmissionRejected` when the queue is full — and then runs over the
+    shared pools: the singleflight fetch table, the aggregate in-flight
+    byte budget, and the pinned cache eviction. A landed tree pins the
+    xorbs its next hot-swap will diff against (``tree:<repo>``).
+
+    **Cancel**: ``cancel`` (a :class:`CancelToken`; one is made when
+    absent, so ``DELETE /v1/pulls/<id>`` always works) stops the pull at
+    the next stage boundary, term, unit, file or landing group, and the
+    pull raises :class:`PullCancelled`: the session ends ``cancelled``,
+    its admission slot, byte shares and pins are released, shared flights
+    are left unharmed, no thread of the pull is left running, no
+    complete-named partial file is written, and the device memory of the
+    groups it committed goes back.
+
+    **Session**: every pull registers in the session table
+    (``telemetry.session``: phase, byte progress and ETA while running,
+    terminal status ``ok|error|cancelled|rejected`` and the stats after)
+    behind ``GET /v1/pulls`` and ``zest ps``. ``tenant`` labels it (else
+    ``cfg.tenant``, ``ZEST_TENANT``). With ``ZEST_TELEMETRY=0`` no session
+    is registered."""
+    t0 = time.monotonic()
+    tenant_label = tenant or cfg.tenant
+    if cancel is None:
+        cancel = CancelToken()
+    sess = telemetry.session.begin(
+        repo_id, revision, tenant=tenant_label,
+        device=str(device) if land else None)
+    if sess is not None:
+        sess.cancel_token = cancel
+    with telemetry.session.bind(sess.id if sess else None), \
+            telemetry.span("pull", repo=repo_id, revision=revision):
+        try:
+            with tenancy.admit(cfg, tenant_label, cancel=cancel,
+                               session=sess) as ticket:
+                result = _pull_model(
+                    cfg, repo_id, revision, device, coop, coop_hosts,
+                    coop_index, coop_addrs, coop_server, base_params,
+                    base_revision, swarm, no_p2p, land, pod, mesh, pods,
+                    pod_index, pod_addrs, log, t0, session=sess,
+                    cancel=cancel, ticket=ticket)
+        except BaseException as exc:
+            cancelled = isinstance(exc, PullCancelled)
+            rejected = isinstance(exc, tenancy.AdmissionRejected)
+            # A deliberate abort and typed backpressure are not errors.
+            status = ("cancelled" if cancelled
+                      else "rejected" if rejected else "error")
+            try:
+                telemetry.record(
+                    "pull_cancelled" if cancelled
+                    else "pull_rejected" if rejected else "pull_failed",
+                    repo=repo_id, reason=str(exc),
+                    error=type(exc).__name__)
+            finally:
+                telemetry.session.finish(
+                    sess, status, error=f"{type(exc).__name__}: {exc}")
+            raise
+    try:
+        _check_slos(cfg, repo_id, result.stats, sess)
+    finally:
+        telemetry.session.finish(sess, "ok", stats=result.stats)
+    return result
+
+
+def _check_slos(cfg: Config, repo_id: str, stats: dict, sess) -> None:
+    """Per-session SLO check: the pull's time to HBM and to the first
+    layer against ``ZEST_SLO_TTHBM_S`` / ``ZEST_SLO_TTFL_S``. A breach
+    records an ``slo_breach`` event with the session id; the burn counts
+    live on the session table (``/v1/pulls``' ``slo`` block).
+    ``blamed_stage`` stays None: the critical-path analyzer that names it
+    is not ported."""
+    budgets = (("tthbm", cfg.slo_tthbm_s, stats.get("time_to_hbm_s")),
+               ("ttfl", cfg.slo_ttfl_s, stats.get("time_to_first_layer_s")))
+    for slo, budget, actual in budgets:
+        if not budget or actual is None:
+            continue
+        breached = actual > budget
+        if sess is not None:
+            telemetry.session.SESSIONS.note_slo(slo, breached)
+            sess.note_slo(slo, {"budget_s": budget, "actual_s": actual,
+                                "breached": breached})
+        if breached:
+            telemetry.record(
+                "slo_breach", slo=slo, repo=repo_id, budget_s=budget,
+                actual_s=actual,
+                session=sess.id if sess is not None else None,
+                blamed_stage=None)
+
+
+def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
+                coop_hosts, coop_index, coop_addrs, coop_server,
+                base_params, base_revision, swarm, no_p2p: bool,
+                land: bool, pod, mesh, pods, pod_index, pod_addrs, log,
+                t0: float, session=None, cancel: CancelToken | None = None,
+                ticket=None) -> PullResult:
     if not land and base_params is not None:
         raise ValueError("base_params needs a landing (land=True)")
     if base_params is not None and not base_revision:
@@ -735,17 +878,46 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         raise TypeError(f"mesh must be a SlotMesh (model_mesh), got "
                         f"{type(mesh).__name__}")
     land_dtype = resolve_dtype(cfg.land_dtype)
-    t0 = time.monotonic()
     hub = HubClient(cfg)
     clock = StageClock()
+    if session is not None:
+        # The session watches the pull's own instrumentation: the clock's
+        # stage observer drives its phase.
+        session.attach(clock=clock)
+
+    def cancel_point() -> None:
+        """Stage-boundary cancel check."""
+        if cancel is not None:
+            cancel.check()
+
+    cancel_point()
     with clock("resolve"):
         commit_sha = hub.resolve_revision(repo_id, revision)
         files = hub.list_files(repo_id, revision)
+    cancel_point()
     snapshot_dir = cfg.model_snapshot_dir(repo_id, commit_sha)
+    if session is not None:
+        session.set_revision(commit_sha)
+        session.set_total_bytes(sum(
+            e.size for e in files if not _is_complete(snapshot_dir, e)))
     own_swarm = None
     if swarm is None and not no_p2p:
         swarm = own_swarm = _default_swarm(cfg)
     bridge = XetBridge(cfg, swarm=swarm)
+    # The pull service's shared pools: the singleflight table, the
+    # eviction pins of every plan this pull resolves, and the aggregate
+    # in-flight byte budget. All absent with ZEST_TENANCY=0.
+    shared_budget = None
+    if tenancy.enabled(cfg):
+        tstate = tenancy.state(cfg)
+        bridge.flights = tstate.flights
+        shared_budget = tstate.byte_budget
+        if ticket is not None:
+            bridge.on_reconstruction = (
+                lambda rec: ticket.pin(rec.fetch_info.keys()))
+    bridge.cancel = cancel
+    if session is not None:
+        session.attach(fetch_stats=bridge.stats)
     # ONE term-fetch pool shared by every concurrent file reassembly:
     # in-flight fetch streams stay at the configured budget however many
     # files are written at once. Owned by the file pipeline below.
@@ -766,6 +938,22 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 bridge.authenticate(repo_id, revision, hub=hub)
 
     def file_work(entry) -> str:
+        try:
+            return _file_work(entry)
+        except OSError as exc:
+            # ENOSPC on an HF-cache write surfaces typed: the writers
+            # removed their temps; this records the pressure, runs the
+            # eviction pass and raises CacheFullError.
+            if (exc.errno == errno.ENOSPC
+                    and not isinstance(exc, storage.CacheFullError)):
+                dest = snapshot_dir / entry.path
+                storage.note_disk_full(dest)
+                raise storage.CacheFullError(
+                    f"HF-cache write of {entry.path} hit ENOSPC",
+                    dest) from exc
+            raise
+
+    def _file_work(entry) -> str:
         dest = snapshot_dir / entry.path
         if _is_complete(snapshot_dir, entry):
             return "skipped"
@@ -804,7 +992,8 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         1, cfg.pull_inflight_bytes, clock, file_work,
         skip_check=lambda e: _is_complete(snapshot_dir, e),
         materialize_workers=_resolve_files_workers(cfg.files_workers),
-        async_handoff=cfg.files_async, term_executor=term_pool)
+        async_handoff=cfg.files_async, term_executor=term_pool,
+        budget=shared_budget, cancel=cancel)
     hbm_params = hbm_stats = None
     time_to_hbm = hbm_done_at = time_to_first_layer = None
     delta_plan = delta_base = delta_net_before = None
@@ -830,6 +1019,12 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 "running a full pull", file=sys.stderr)
         if delta_plan is None:
             base_params = None
+        elif session is not None:
+            # Progress counts the bytes this pull moves: unchanged units
+            # never reach the fetch counters.
+            session.set_total_bytes(delta_plan.changed_bytes
+                                    + delta_plan.stale_bytes)
+        cancel_point()
         if (coop_cfg or pod or fed) and pending:
             try:
                 with clock("cas_metadata"):
@@ -862,9 +1057,11 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             except FETCH_ERRORS as exc:
                 log(f"federated round unavailable ({exc}); continuing "
                     "with the per-host waterfall", file=sys.stderr)
+        cancel_point()
         if pod and pending:
             pod_stats = _pod_stage(bridge, pending, recs, dev, log,
                                    early_cfg, mesh)
+        cancel_point()
         rules = _landing_rules(early_cfg) if mesh is not None else None
         # Files the landing does not write ride the pipeline under it.
         for entry in files:
@@ -876,7 +1073,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 file_pipeline, ensure_auth,
                 delta_state=((delta_base, base_params, delta_plan)
                              if delta_plan is not None else None),
-                mesh=mesh, rules=rules)
+                mesh=mesh, rules=rules, cancel=cancel)
         if hbm_stats is not None:
             hbm_done_at = time.monotonic()
             time_to_hbm = hbm_done_at - t0
@@ -885,6 +1082,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             if fl_at is not None:
                 time_to_first_layer = fl_at - t0
                 clock.note_interval("first_layer", t0, fl_at)
+        cancel_point()
         for entry in files:
             file_pipeline.submit(entry)
         clock.ensure("files")
@@ -905,6 +1103,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     if land and hbm_stats is None:
         # Disk staging: a resumed pull (complete files) or a shard that
         # is not a xet file; the files are on disk now.
+        cancel_point()
         with clock("hbm_commit"):
             hbm_params, hbm_stats = stage_snapshot_to_hbm(
                 snapshot_dir, dev, land_dtype, mesh=mesh, rules=rules)
@@ -973,6 +1172,11 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         }
     if swarm is not None:
         stats["swarm"] = swarm.summary()
+    if ticket is not None and hbm_params is not None:
+        # The tree on the device pins the xorbs its next delta or
+        # hot-swap will diff against, past this session's own pins; a
+        # newer revision of the repo replaces the set.
+        ticket.pin_tree(repo_id, bridge.resolved_xorb_hashes())
     return PullResult(snapshot_dir, stats, params=hbm_params)
 
 
@@ -987,12 +1191,16 @@ def _waterfall_chain(bridge, par, hub, repo_id, revision, entry, dest, log,
     try:
         return par.write_plan_to_temp(
             bridge.get_reconstruction(entry.xet_hash), dest)
+    except PullCancelled:
+        raise  # a cancel is no tier failure: no later rung runs
     except Exception as exc:  # noqa: BLE001 - any failure falls through
         log(f"parallel fetch of {entry.path} failed ({exc}); "
             "retrying sequentially", file=sys.stderr)
     try:
         bridge.reconstruct_to_file(entry.xet_hash, dest)
         return None
+    except PullCancelled:
+        raise
     except Exception as exc:  # noqa: BLE001 - reference chain
         log(f"sequential fetch of {entry.path} failed ({exc}); "
             "falling back to plain download", file=sys.stderr)
@@ -1141,7 +1349,8 @@ def _reused_tensors(cache, st, recs_with_headers, base_manifest,
 
 def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                       clock: StageClock, file_pipeline: _FilePipeline,
-                      ensure_auth, delta_state=None, mesh=None, rules=None):
+                      ensure_auth, delta_state=None, mesh=None, rules=None,
+                      cancel: CancelToken | None = None):
     """Land every safetensors file straight from the cache, before any
     file write; the HF-cache files are written from the landing's decoded
     bytes. Returns ``(None, None)``, before any work, when ineligible: a
@@ -1243,7 +1452,7 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                         time.monotonic()),
                     stream_file_sink=stream_file_sink,
                     preloaded=preloaded or None, swap_from=swap_from,
-                    mesh=mesh, rules=rules)
+                    mesh=mesh, rules=rules, cancel=cancel)
             if first_layer_at:
                 hbm_stats["first_layer_at"] = first_layer_at[0]
         else:
@@ -1270,12 +1479,12 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                     prefetch_next=pipeline.ensure,
                     on_host_ready=on_host_ready, clock=clock, stream=False,
                     preloaded=preloaded or None, swap_from=swap_from,
-                    mesh=mesh, rules=rules)
+                    mesh=mesh, rules=rules, cancel=cancel)
     except BaseException as exc:
         if swap_from is None:
             raise
         swap_from.update(preloaded)
-        if not isinstance(exc, Exception):
+        if not isinstance(exc, Exception) or isinstance(exc, PullCancelled):
             raise
         raise delta.DeltaSwapError(
             exc, sorted(base_names - swap_from.keys()),
@@ -1379,8 +1588,9 @@ class _PipelinedWarm:
                     entries_map=self.entries_map,
                     units=(self._shard_units(i) if self.skip_keys
                            else None)))
-        except (*FETCH_ERRORS, ValueError):
-            # The landing's per-term waterfall serves what is missing.
+        except (*FETCH_ERRORS, ValueError, PullCancelled):
+            # The landing's per-term waterfall serves what is missing (a
+            # cancelled pull stops there too).
             self.stats.append({"units": 0, "bytes": 0, "failed": 0,
                                "prefetch_error": True})
         finally:
