@@ -69,7 +69,16 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    fused kernel's rows equal to the BG4 chunks the hosts received and no
    standalone regroup launch; then each host's receipt verification is
    timed again without the network, once alone and once with every
-   host's verifier running at the same time;
+   host's verifier running at the same time. Phase 6 runs traced (a
+   tracer installed around the four pulls, each host's thread and DCN
+   server stamping its host index): each host's ``stats["critical_path"]``
+   covers ≥ 90% of its ``time_to_hbm_s`` with its stages summing to the
+   path within 1 ms; the trace split by host and merged
+   (``telemetry.fleet``) has four host tracks, one trace id and
+   client→server flow links, each host's spans covering ≥ 90% of its
+   ``coop.round``; the fused kernel launched once per received xorb with
+   BG4 chunks, as untraced; each host's stage split and idle time are
+   printed;
    6c. four fresh hosts the same way with the collective exchange (the
    default ``dcn`` backend): phase 6's gates, and a ``collective`` block
    on every host, a hypercube in 2 phases, not aborted;
@@ -103,7 +112,12 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    on the host and injected on both sides), equal to the CPU float32
    run's, unless the CPU run's top-2 margin where a row first differs is
    below the tolerance; one seed twice on the card gives one draw;
-   ``on_token`` sees each generated position once, in order;
+   ``on_token`` sees each generated position once, in order. The pull
+   runs traced with ``slo_tthbm_s`` armed at 1 µs: its critical path
+   covers ≥ 90% of ``time_to_hbm_s`` and its stages sum to it within 1 ms,
+   ``analyze --json`` over the exported trace gives every stage within
+   1 ms, and the ``slo_breach`` event blames the path's largest stage; the
+   traced ``time_to_hbm_s`` is printed beside the untraced spread;
 8. the swarm peer tier, revision A by its sha (phase 4's repo, every
    tensor at full width and depth): node B, which holds A's xorbs from
    phase 4, seeds its cache as its own process (``python -m
@@ -277,7 +291,11 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    files the checkpoint's), one shows ``queued`` in ``/v1/pulls`` and
    ends ``cancelled`` after ``DELETE /v1/pulls/<id>``, one gets 429 with
    ``Retry-After`` before any SSE byte; ``ps --json`` lists both
-   terminal; the daemon stops with exit 0. 16c: revision C (A with the
+   terminal; ``GET /v1/debug?tail=8`` holds the queued pull's cancel in
+   its recorder tail, the running pull's ``time_to_hbm_s`` in its
+   landing block and a telemetry block, ``GET /v1/trace`` answers "no
+   tracer armed" and ``GET /v1/metrics?scope=pod`` this host's counters
+   as a pod of one; the daemon stops with exit 0. 16c: revision C (A with the
    embeddings and the first two blocks redrawn) hot-swapped over t0's A
    (5b's fetch gate, C's digest), the tree pin now C's; with the disk
    watermark armed below the cache's bytes, an eviction pass removes
@@ -413,6 +431,9 @@ SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
 # tree in bf16, for logits of standard deviation ~1. The gate sits ~6x
 # above the float32 error and ~80x below TF32's, so a TF32 product fails.
 LOGITS_TOL = 1e-4
+# Phase 7's time_to_hbm_s over earlier untraced runs (PERF.md §5; NVIDIA
+# H100 80GB HBM3, 700 W), the traced pull's yardstick.
+LLAMA_TTH_UNTRACED_S = (6.53, 8.79)
 # Phase 4b: save_pretrained(max_shard_size="200MB") (decimal megabytes),
 # and a ring that the landing must reuse many times over.
 SHARD_BYTES = 200 * 1000 * 1000
@@ -1032,13 +1053,18 @@ def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
 
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                digest: str, dev, revision: str, label: str = "phase 6",
-               schedule: str | None = None, **cfg_kw) -> dict:
+               schedule: str | None = None, traced: bool = False,
+               **cfg_kw) -> dict:
     """Phase 6 (the point-to-point exchange) and, with ``schedule``, 6c
     and 6d (the collective, expected to run that schedule in 2 phases):
     ``COOP_HOSTS`` cooperative pulls of ``revision`` in threads, their
     configs given ``cfg_kw``. Returns the launch counts of the path; the
     counters of the transports the hosts' collectives built are printed
-    and, for the device lane, gated."""
+    and, for the device lane, gated. Each host's thread runs under its
+    host index as trace context and its DCN server stamps that index on
+    its spans; ``traced`` installs a tracer for the pulls and holds the
+    trace to :func:`coop_trace_gates`."""
+    from zest_tpu_torch import telemetry
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
     from zest_tpu_torch.transfer import collective
@@ -1052,20 +1078,22 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                    dcn_port=0, **cfg_kw) for i in range(n)]
     # Each host's listener outlives its own pull: the peers still behind
     # it read from it until every host is done.
-    servers = [DcnServer(c) for c in cfgs]
+    servers = [DcnServer(c, span_attrs={"host": i})
+               for i, c in enumerate(cfgs)]
     addrs = {i: ("127.0.0.1", srv.start()) for i, srv in enumerate(servers)}
     results, errors = [None] * n, []
 
     def host(i):
         try:
-            results[i] = pull_model(
-                cfgs[i], REPO, revision=revision, device=dev, coop=True,
-                coop_hosts=n,
-                coop_index=i,
-                coop_addrs={j: a for j, a in addrs.items() if j != i},
-                coop_server=servers[i],
-                log=lambda *a, **k: print(f"  [host {i}]", *a,
-                                          file=sys.stderr))
+            with telemetry.trace.context(host=i):
+                results[i] = pull_model(
+                    cfgs[i], REPO, revision=revision, device=dev, coop=True,
+                    coop_hosts=n,
+                    coop_index=i,
+                    coop_addrs={j: a for j, a in addrs.items() if j != i},
+                    coop_server=servers[i],
+                    log=lambda *a, **k: print(f"  [host {i}]", *a,
+                                              file=sys.stderr))
         except Exception as exc:  # noqa: BLE001 - re-raised below
             errors.append(exc)
 
@@ -1082,6 +1110,7 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         c.reset()  # counts from here are this path's
     threads = [threading.Thread(target=host, args=(i,)) for i in range(n)]
     collective.make_transport = make_transport
+    tracer = telemetry.trace.install(None) if traced else None
     t0 = time.monotonic()
     try:
         for t in threads:
@@ -1092,6 +1121,11 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
         collective.make_transport = real_make
         for srv in servers:
             srv.shutdown()
+        if traced:
+            telemetry.trace.uninstall()
+        # In one process the hosts' pulls share the process trace
+        # context; none of it may reach a later phase.
+        telemetry.trace.clear_context()
     wall = time.monotonic() - t0
     launches = {name: (c.launches, c.rows) for name, c in zip(
         ("blake3_chunks", "bg4_regroup", "bg4_fused_verify"), counters)}
@@ -1200,9 +1234,63 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                   f"{c.get('clock_offsets')}")
     if schedule is not None:
         print(f"  {label} transports: {lanes}")
+    if tracer is not None:
+        coop_trace_gates(label, tracer, results, fu_launches, (n - 1) * sum(
+            1 for b, _ in per_xorb.values() if b))
     for i in range(n):
         shutil.rmtree(work / f"c{tag}-{i}")
     return {name: v[0] for name, v in launches.items()}
+
+
+def coop_trace_gates(label: str, tracer, results, fused_launches: int,
+                     want_launches: int) -> None:
+    """The traced phase 6: each host's ``stats["critical_path"]`` covers
+    >= 90% of its ``time_to_hbm_s`` and its stages sum to its path within
+    1 ms; the one process trace, split by host and merged, has a track a
+    host, one trace id and client→server flow links, and every host's
+    spans cover >= 90% of its ``coop.round``; the fused kernel ran the
+    launches an untraced round runs, one per received xorb with BG4
+    chunks. Every host's window holds the other hosts' spans too (one
+    process, one tracer), so its split is the pod's, seen from its
+    pull."""
+    from zest_tpu_torch.telemetry import fleet
+
+    n = len(results)
+    doc = tracer.to_chrome()
+    merged = fleet.merge_traces(fleet.split_hosts(doc, default_host=0))
+    meta = merged["otherData"]
+    if sorted(meta["merged_hosts"]) != [str(i) for i in range(n)]:
+        fail(f"{label} traced: host tracks {meta['merged_hosts']}")
+    if len(meta.get("trace_ids", ())) != 1 or meta["flow_links"] < 1:
+        fail(f"{label} traced: trace ids {meta.get('trace_ids')}, "
+             f"{meta['flow_links']} flow links")
+    if fused_launches != want_launches:
+        fail(f"{label} traced: bg4_fused_verify launched {fused_launches} "
+             f"times; an untraced round launches {want_launches}")
+    rows = []
+    for i, res in enumerate(results):
+        cp, tth = res.stats.get("critical_path"), res.stats["time_to_hbm_s"]
+        if not cp or cp["path_s"] < 0.9 * tth:
+            fail(f"{label} host {i}: critical path "
+                 f"{cp and cp['path_s']} s < 0.9 x time_to_hbm_s {tth} s")
+        split = sum(cp["stages"].values())
+        if abs(split - cp["path_s"]) > 1e-3:
+            fail(f"{label} host {i}: stages sum to {split:.4f} s, the path "
+                 f"is {cp['path_s']} s")
+        cov, root = fleet.host_coverage_s(merged, i, "coop.round")
+        if not root or cov < 0.9 * root:
+            fail(f"{label} host {i}: spans cover {cov:.3f} s of its "
+                 f"{root:.3f} s coop.round")
+        rows.append((i, tth, cp, cov, root))
+    print(f"{label} traced ({card_label()}): {doc['otherData']['spans']} "
+          f"spans, {n} host tracks, trace id {meta['trace_ids'][0][:12]}, "
+          f"{meta['flow_links']} flow links; bg4_fused_verify "
+          f"{fused_launches} launches (untraced: {want_launches})")
+    for i, tth, cp, cov, root in rows:
+        print(f"  host {i}: time_to_hbm_s {tth}, path {cp['path_s']} s "
+              f"({cp['path_s'] / tth:.1%} of it), idle {cp['idle_s']} s, "
+              f"stages {cp['stages']}, tiers {cp.get('tiers')}; coop.round "
+              f"{root:.3f} s, covered {cov / root:.1%}")
 
 
 def pod_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
@@ -2143,6 +2231,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     tree's logits error."""
     import torch
 
+    from zest_tpu_torch import telemetry
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.models import llama
     from zest_tpu_torch.models.generate import load_generator
@@ -2178,13 +2267,19 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
              f"chunks in {launches} launches; it minted "
              f"{pushed.minted_chunks}")
 
-    # ── pull onto the card: the direct streaming landing ──
+    # ── pull onto the card: the direct streaming landing, traced, with a
+    # time-to-HBM budget no pull meets ──
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     cfg_l = Config(hf_home=work / "l" / "hf", cache_dir=work / "l" / "zest",
-                   endpoint=url)
-    res = pull_model(cfg_l, LLAMA_REPO, device=dev)
+                   endpoint=url, slo_tthbm_s=1e-6)
+    tracer = telemetry.trace.install(None)
+    try:
+        res = pull_model(cfg_l, LLAMA_REPO, device=dev)
+    finally:
+        telemetry.trace.uninstall()
     st = res.stats
+    traced = llama_trace_gates(work, tracer, st)
     if st["fallback_files"]:
         fail(f"phase 7: {st['fallback_files']} whole-file fallbacks")
     check_files("phase 7", res, ckpt)
@@ -2326,9 +2421,57 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     print(f"  peak allocation {peak:,} B; CPU forward {cpu_fwd_s:.2f} s, "
           f"CPU decodes {cpu_decode_s:.2f} s; phase wall "
           f"{time.monotonic() - wall0:.2f} s")
+    print(f"  traced: {traced}")
     ref["launches"] = launches
     ref["revision"] = pushed.revision  # phase 12b's base revision
     return ref
+
+
+def llama_trace_gates(work: Path, tracer, st: dict) -> str:
+    """Phase 7's traced pull: the critical path covers >= 90% of
+    ``time_to_hbm_s`` and its stages sum to it within 1 ms; ``analyze
+    --json`` over the exported trace reproduces every stage within 1 ms;
+    the ``slo_breach`` event blames the path's largest stage. Returns the
+    summary line, with the traced ``time_to_hbm_s`` beside the untraced
+    spread of earlier runs (``LLAMA_TTH_UNTRACED_S``): the tracer's
+    cost."""
+    import contextlib
+    import io
+
+    from zest_tpu_torch import cli, telemetry
+
+    cp, tth = st.get("critical_path"), st["time_to_hbm_s"]
+    if not cp or cp["path_s"] < 0.9 * tth:
+        fail(f"phase 7 traced: critical path {cp and cp['path_s']} s < 0.9 "
+             f"x time_to_hbm_s {tth} s")
+    if abs(sum(cp["stages"].values()) - cp["path_s"]) > 1e-3:
+        fail(f"phase 7 traced: stages {cp['stages']} do not sum to the "
+             f"path {cp['path_s']} s")
+    path = work / "llama-trace.json"
+    n_spans = tracer.export(path)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["analyze", str(path), "--json"])
+    path.unlink()
+    offline = json.loads(out.getvalue()) if rc == 0 else {}
+    stages = offline.get("stages")
+    if stages is None or any(
+            abs(stages.get(k, 0.0) - cp["stages"].get(k, 0.0)) > 1e-3
+            for k in set(stages) | set(cp["stages"])):
+        fail(f"phase 7 traced: analyze --json (exit {rc}) {stages} vs the "
+             f"pull's {cp['stages']}")
+    top = max(cp["stages"], key=cp["stages"].get)
+    breaches = [e for e in telemetry.recorder.tail()
+                if e["kind"] == "slo_breach" and e.get("repo") == LLAMA_REPO]
+    if not breaches or breaches[-1].get("blamed_stage") != top:
+        fail(f"phase 7 traced: slo_breach {breaches[-1:]} does not blame "
+             f"the largest stage {top}")
+    lo, hi = LLAMA_TTH_UNTRACED_S
+    return (f"{n_spans} spans; time_to_hbm_s {tth} s traced (untraced "
+            f"{lo}-{hi} s in earlier runs), path {cp['path_s']} s "
+            f"({cp['path_s'] / tth:.1%} of it), idle {cp['idle_s']} s, "
+            f"stages {cp['stages']}, tiers {cp.get('tiers')}; analyze "
+            f"--json equal; slo_breach blamed {top}")
 
 
 def mixtral_checkpoint(seed: int, cfg: dict) -> dict:
@@ -4547,6 +4690,47 @@ class first_layer_hook:
         pull_mod.stage_cached_to_hbm = self.real
 
 
+def debug_surface(base: str, get, cancelled_id: str, tth: float) -> str:
+    """Phase 16b's daemon after its pulls: ``GET /v1/debug?tail=8`` has
+    a recorder tail holding the queued pull's cancel, a landing block
+    with the running pull's ``time_to_hbm_s`` and a telemetry block;
+    ``GET /v1/trace`` with no tracer armed answers the note; ``GET
+    /v1/metrics?scope=pod`` with no pod peers is this host's exposition,
+    one host."""
+    import urllib.request
+
+    from zest_tpu_torch.telemetry import fleet
+
+    debug = get("/v1/debug?tail=8")
+    events = debug.get("recorder", {}).get("events", [])
+    if not any(e["kind"] == "pull_cancelled"
+               and e.get("session") == cancelled_id for e in events):
+        fail(f"phase 16b: /v1/debug's tail has no cancel of "
+             f"{cancelled_id}: {[e['kind'] for e in events]}")
+    landing = debug.get("landing") or {}
+    if landing.get("time_to_hbm_s") != tth or "telemetry" not in debug:
+        fail(f"phase 16b: /v1/debug landing {landing}, telemetry "
+             f"{debug.get('telemetry')}")
+    trace = get("/v1/trace")
+    if trace.get("traceEvents") or "no tracer armed" not in trace.get(
+            "otherData", {}).get("note", ""):
+        fail(f"phase 16b: /v1/trace with no tracer {str(trace)[:300]}")
+    with urllib.request.urlopen(base + "/v1/metrics?scope=pod",
+                                timeout=60) as r:
+        pod = fleet.parse_prometheus(r.read().decode())
+    with urllib.request.urlopen(base + "/v1/metrics", timeout=60) as r:
+        local = fleet.parse_prometheus(r.read().decode())
+    pulls = pod.get("zest_pulls_total", {}).get("samples")
+    if pod["zest_pod_hosts"]["samples"] != {(): 1.0} or not pulls \
+            or pulls != local["zest_pulls_total"]["samples"]:
+        fail(f"phase 16b: pod-scope metrics {pulls} vs this host's "
+             f"{local.get('zest_pulls_total')}")
+    return (f"/v1/debug tail {[e['kind'] for e in events]}, landing "
+            f"time_to_hbm_s {landing['time_to_hbm_s']}; /v1/trace "
+            f"unarmed; /v1/metrics?scope=pod 1 host, pulls "
+            f"{ {dict(k).get('outcome'): v for k, v in pulls.items()} }")
+
+
 def cache_entries(cfg) -> dict[str, set[str]]:
     """xorb hash → the names of its entries in ``cfg``'s cache (the full
     one and ``{hash}.{start}`` partial ones)."""
@@ -4839,6 +5023,8 @@ def tenancy_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed,
         if ps.returncode or doc.get("active") or ends != want:
             fail(f"phase 16b: ps --json exit {ps.returncode}: {ends} "
                  f"(want {want}) {ps.stderr[-500:]}")
+        debug_note = debug_surface(base, get, queued[0]["id"],
+                                   st["time_to_hbm_s"])
         kernels = ZestClient(cfg_u).status()["kernels"]
         launches["tenancy_daemon"] = {
             k: [c["launches"] - kernels0[k]["launches"],
@@ -4856,7 +5042,7 @@ def tenancy_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed,
           f"landed), u1 {queued[0]['phase']} then {deleted['status']} → "
           f"{gone[-1]['event']}, u2 {code} Retry-After {retry} before the "
           f"stream; files exact; ps --json {sorted(ends.values())}; "
-          "ZestServer.stop() exit 0")
+          f"{debug_note}; ZestServer.stop() exit 0")
 
     # ── 16c ──
     ckpt_c = work / "checkpoint-c"
@@ -5078,7 +5264,7 @@ def run(args, work: Path) -> dict:
         # (6c) and through the device lane (6d) ──
         coop_launches = coop_phase(work, publisher.url, ckpt, pushed,
                                    cfg_a, digest, dev, pushed.revision,
-                                   coop_collective=False)
+                                   traced=True, coop_collective=False)
         collective_launches = coop_phase(
             work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
             pushed.revision, label="phase 6c", schedule="hypercube")

@@ -1246,3 +1246,38 @@ def test_cancel_mid_landing_gives_the_memory_back(cuda_device, tmp_path):
     assert telemetry.session.SESSIONS.recent()[0].status == "cancelled"
     assert tenancy.summary(cfg)["active"] == 0
     tenancy.reset()
+
+
+def test_traced_pull_on_card(cuda_device, tmp_path):
+    """A traced ``cuda`` pull: the critical path covers >= 90% of
+    ``time_to_hbm_s``, its stages sum to the path, and every
+    ``hbm.commit`` span lies inside a ``stage.hbm_commit`` span."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    telemetry.reset_all()
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt, notify=False)
+    tracer = telemetry.trace.install(None)
+    try:
+        with PublisherServer(cfg_a) as server:
+            res = pull_model(Config(hf_home=tmp_path / "b" / "hf",
+                                    cache_dir=tmp_path / "b" / "zest",
+                                    endpoint=server.url), "org/tiny",
+                             device=cuda_device, no_p2p=True)
+        spans = tracer.spans()
+    finally:
+        telemetry.trace.uninstall()
+    cp = res.stats["critical_path"]
+    assert cp["path_s"] >= 0.9 * res.stats["time_to_hbm_s"], cp
+    assert abs(sum(cp["stages"].values()) - cp["path_s"]) <= 1e-3, cp
+    stages = [(s.t0, s.t1) for s in spans if s.name == "stage.hbm_commit"]
+    commits = [s for s in spans if s.name == "hbm.commit"]
+    assert stages and commits
+    for s in commits:
+        assert any(a <= s.t0 and s.t1 <= b for a, b in stages), s.name
+    telemetry.reset_all()

@@ -765,6 +765,9 @@ class TestObservability:
               if e["kind"] == "slo_breach"]
         assert ev and ev[0]["slo"] == "ttft" and ev[0]["blamed_stage"] == \
             "cold"
+        burn = telemetry.session.SESSIONS.slo_burn()
+        assert burn["ttft"]["breaches"] == 1
+        assert burn["ttft"]["burn"] == 1.0
 
 
 # ── The subscriber's pool branch ──

@@ -1,7 +1,7 @@
 """Pull sessions in the port, held to the JAX package's.
 
-Mirrors ``tests/test_sessions.py`` (the critical-path cases wait for the
-port's ``critpath``): the session table's life cycle, bounds and
+Mirrors ``tests/test_sessions.py`` (its critical-path cases are in
+``tests/test_torch_critpath.py``): the session table's life cycle, bounds and
 recorder stamps, a pull's terminal session, ``ZEST_TELEMETRY=0``, two
 concurrent landings with their own sessions, the per-session SLO check,
 the ``/v1/pulls`` payload with the JAX package's keys for the same pull,
@@ -308,16 +308,21 @@ def test_two_concurrent_pulls_distinct_correct_sessions(tmp_path):
 
 def test_slo_breach_detection(hub, tmp_path):
     cfg = _cfg(hub, tmp_path, slo_tthbm_s=1e-6)
+    telemetry.trace.install(None)
     res = pull_model(cfg, "acme/session-ckpt", device="cpu", no_p2p=True,
                      log=_quiet)
     assert res.stats["time_to_hbm_s"] > 1e-6
+    assert telemetry.REGISTRY.counter(
+        "zest_slo_breaches_total", "", ("slo",)).value(slo="tthbm") == 1
     breaches = [e for e in telemetry.recorder.tail()
                 if e["kind"] == "slo_breach"]
     assert len(breaches) == 1
     (snap,) = session_mod.payload()["recent"]
     assert breaches[0]["session"] == snap["id"]
     assert breaches[0]["actual_s"] == res.stats["time_to_hbm_s"]
-    assert "blamed_stage" not in breaches[0]  # no critical path yet
+    # The JAX package's rule: the largest stage of the critical path.
+    stages = res.stats["critical_path"]["stages"]
+    assert breaches[0]["blamed_stage"] == max(stages, key=stages.get)
     assert snap["slo"]["tthbm"]["breached"] is True
     assert session_mod.SESSIONS.slo_burn()["tthbm"] \
         == {"pulls": 1, "breaches": 1, "burn": 1.0}

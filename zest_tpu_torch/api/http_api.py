@@ -23,7 +23,12 @@ and the control, pull and serving routes of :class:`HttpApi`:
     GET  /v1/status   -> node, seeding, swarm, telemetry, kernels, pulls,
                          ``tenancy`` and ``hbm_pool`` blocks
     GET  /v1/models   -> {"models": [...], "resident": [...]}
-    GET  /v1/metrics  -> Prometheus text
+    GET  /v1/metrics  -> Prometheus text; ``?scope=pod`` sums it with every
+                         pod peer's (``Config.pod_peers``)
+    GET  /v1/trace    -> the live tracer as Chrome trace JSON
+    GET  /v1/debug?tail=N -> recorder tail, telemetry, trace context,
+                         faults, coop/collective and landing blocks,
+                         quarantined peers
     POST /v1/pull     {"repo_id", "revision"?, "device"?, "tenant"?}
                       -> SSE: start, [log...], done | cancelled | error;
                          429 + Retry-After before the stream when the
@@ -55,9 +60,9 @@ the decode reaches the client as an ``error`` event.
 (``ZEST_WATCH=0``); a push then notifies no one. A ``/v1/push`` carrying
 ``xorbs`` ([[hex, size], ...]) also makes them seedable at once: they
 enter the daemon's ``XorbRegistry``, its swarm announces them, and its
-gossip node puts ``repo@revision`` on the gossip plane (each best-effort). Blocks and routes of
-subsystems the port does not run (timelines, traces, the debug tail,
-remediation, pod aggregation, the dashboard) are absent.
+gossip node puts ``repo@revision`` on the gossip plane (each
+best-effort). Blocks and routes of subsystems the port does not run
+(timelines, remediation, the dashboard) are absent.
 """
 
 from __future__ import annotations
@@ -66,13 +71,16 @@ import json
 import queue
 import threading
 import time
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs
 
 import numpy as np
 
 from zest_tpu_torch import faults, storage, telemetry
 from zest_tpu_torch import __version__
 from zest_tpu_torch.config import DEFAULT_DEVICE, Config
+from zest_tpu_torch.telemetry import fleet
 from zest_tpu_torch.transfer import tenancy
 from zest_tpu_torch.transfer.push import PUBLISHER_TOKEN, PublisherIndex
 
@@ -192,13 +200,18 @@ class HttpApi:
     ``device``. ``swarm`` (the node's ``SwarmDownloader``) carries every
     generate's pull; ``bt_server`` (its ``BtServer``) feeds ``/v1/status``
     and the metrics; ``registry`` (its ``XorbRegistry``) and
-    ``gossip_node`` take what ``POST /v1/push`` announces."""
+    ``gossip_node`` take what ``POST /v1/push`` announces. ``pod_peers``
+    (host index → ``(host, http_port)`` of the other hosts' daemons, else
+    ``cfg.pod_peers``) are scraped for ``/v1/metrics?scope=pod``."""
 
     _PULL_TTL_S = 30.0
 
     def __init__(self, cfg: Config, device=DEFAULT_DEVICE, swarm=None,
-                 bt_server=None, registry=None, gossip_node=None):
+                 bt_server=None, registry=None, gossip_node=None,
+                 pod_peers: dict | None = None):
         self.cfg = cfg
+        self.pod_peers = dict(pod_peers if pod_peers is not None
+                              else cfg.pod_peers)
         self.device = device
         self.swarm = swarm
         self.bt_server = bt_server
@@ -334,6 +347,154 @@ class HttpApi:
         return doc
 
     # ── Pulls ──
+
+    def trace_payload(self) -> dict:
+        """``GET /v1/trace``: the live tracer as Chrome trace JSON, the
+        per-host piece ``zest trace --coop`` merges; empty, with a note,
+        when no tracer is armed."""
+        tracer = telemetry.trace.active()
+        if tracer is None:
+            return {"traceEvents": [],
+                    "otherData": {"tool": "zest-tpu",
+                                  "note": "no tracer armed "
+                                          "(set ZEST_TRACE)"}}
+        return tracer.to_chrome()
+
+    def debug_payload(self, tail: int = 100) -> dict:
+        """``GET /v1/debug``: the flight recorder's tail, the telemetry
+        snapshot, the trace context, fired faults, the coop and collective
+        summary from the metrics, the last landing (from the session
+        table, the ``zest_last_pull_*`` gauges as fallback) and the
+        quarantined peers."""
+        rec = telemetry.recorder.RECORDER
+        payload: dict = {
+            "recorder": {
+                "capacity": rec.capacity,
+                "recorded_total": rec.recorded,
+                "events": rec.tail(tail),
+            },
+            "telemetry": telemetry.status_snapshot(),
+        }
+        ctx = telemetry.trace.current_context()
+        if ctx:
+            payload["trace_context"] = ctx
+        fired = faults.counters()
+        if fired:
+            payload["faults"] = dict(sorted(fired.items()))
+
+        tiers = {}
+        for labels, value in self._metric_samples("zest_coop_bytes_total"):
+            tiers[labels.get("tier", "")] = int(value)
+        coop: dict = {}
+        if tiers:
+            peer = tiers.get("peer", 0) + tiers.get("dcn", 0)
+            total = peer + tiers.get("cdn", 0) + tiers.get("fallback", 0)
+            coop["tier_bytes"] = tiers
+            coop["peer_served_ratio"] = (
+                round(peer / total, 4) if total else None)
+        wall = self._metric_samples("zest_coop_exchange_wall_seconds")
+        if wall:
+            coop["exchange_wall_s"] = round(wall[0][1], 3)
+        for _labels, value in self._metric_samples(
+                "zest_coop_fallbacks_total"):
+            coop["fallbacks"] = int(value)
+        # The collective's last round: phases, wall, and cumulative wire
+        # bytes per link class.
+        collective: dict = {}
+        phases = self._metric_samples("zest_coop_collective_phases")
+        if phases and phases[0][1] > 0:
+            collective["phases"] = int(phases[0][1])
+        cwall = self._metric_samples("zest_coop_collective_wall_seconds")
+        if cwall and cwall[0][1] > 0:
+            collective["wall_s"] = round(cwall[0][1], 3)
+        link_bytes = {}
+        for labels, value in self._metric_samples(
+                "zest_coop_collective_bytes_total"):
+            link_bytes[labels.get("link", "")] = int(value)
+        if link_bytes:
+            collective["link_bytes"] = link_bytes
+        for _labels, value in self._metric_samples(
+                "zest_coop_collective_aborts_total"):
+            collective["aborts"] = int(value)
+        if collective:
+            coop["collective"] = collective
+        if coop:
+            payload["coop"] = coop
+
+        # One pull's values from the session table: the process gauges
+        # clobber each other under concurrent pulls, so they are only the
+        # fallback when the table holds no landing.
+        landing = telemetry.session.last_landing() or {}
+        if not landing:
+            last_fl = self._metric_samples(
+                "zest_last_pull_first_layer_seconds")
+            if last_fl and last_fl[0][1] > 0:
+                landing["first_layer_s"] = round(last_fl[0][1], 3)
+            last_hbm = self._metric_samples("zest_last_pull_hbm_seconds")
+            if last_hbm and last_hbm[0][1] > 0:
+                landing["time_to_hbm_s"] = round(last_hbm[0][1], 3)
+            if "first_layer_s" in landing and "time_to_hbm_s" in landing:
+                landing["first_layer_ratio"] = round(
+                    landing["first_layer_s"] / landing["time_to_hbm_s"],
+                    4)
+            for _labels, value in self._metric_samples(
+                    "zest_last_pull_ring_stalls"):
+                if value:
+                    landing["ring_stalls"] = int(value)
+            # -1 says "not a delta": 0.0 is a fully reused delta.
+            last_delta = self._metric_samples("zest_last_pull_delta_ratio")
+            if last_delta and last_delta[0][1] >= 0:
+                landing["delta_ratio"] = round(last_delta[0][1], 4)
+            last_swap = self._metric_samples("zest_last_pull_swap_seconds")
+            if last_swap and last_swap[0][1] > 0:
+                landing["swap_s"] = round(last_swap[0][1], 3)
+        if landing:
+            payload["landing"] = landing
+
+        health = getattr(self.swarm, "health", None) \
+            if self.swarm is not None else None
+        if health is not None and hasattr(health, "detail"):
+            payload["quarantined_peers"] = [
+                r for r in health.detail() if r["quarantined_for_s"] > 0]
+        return payload
+
+    @staticmethod
+    def _metric_samples(name: str) -> list:
+        for m in telemetry.REGISTRY.metrics():
+            if m.name == name:
+                return m.samples()
+        return []
+
+    def pod_metrics_text(self) -> str:
+        """``GET /v1/metrics?scope=pod``: this host's exposition and every
+        pod peer's, scraped at once on ``fleet.scrape_pool`` and summed by
+        ``fleet.aggregate_prometheus``. A peer that fails the scrape shows
+        as ``zest_pod_scrape_errors{host=...}`` instead of failing the
+        surface."""
+        local_label = str(
+            self.cfg.coop_index if self.cfg.coop_index is not None
+            else self.cfg.mesh.process_id)
+        texts = {local_label: telemetry.render_prometheus()}
+        errors: dict = {}
+        peers = {str(k): v for k, v in self.pod_peers.items()
+                 if str(k) != local_label}
+        if peers:
+            def scrape(item):
+                label, (host, port) = item
+                url = f"http://{host}:{port}/v1/metrics"
+                try:
+                    with urllib.request.urlopen(url, timeout=2.0) as r:
+                        return label, r.read().decode(), None
+                except Exception as exc:  # noqa: BLE001 - per-host report
+                    return label, None, str(exc)
+
+            pool = fleet.scrape_pool(self.cfg.pod_scrape_workers)
+            for label, text, err in pool.map(scrape, peers.items()):
+                if text is not None:
+                    texts[label] = text
+                else:
+                    errors[label] = err
+        return fleet.aggregate_prometheus(texts, errors)
 
     def pulls_payload(self) -> dict:
         """``GET /v1/pulls``: active and recent sessions, newest first,
@@ -782,7 +943,8 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802
         self.api.http_requests += 1
         index = self.api.index
-        path = self.path.split("?", 1)[0]
+        path, _, qs = self.path.partition("?")
+        query = parse_qs(qs)
         if path == "/v1/health":
             self._json({"status": "ok"})
         elif path == "/v1/status":
@@ -790,8 +952,19 @@ class _Handler(BaseHTTPRequestHandler):
         elif path == "/v1/models":
             self._json(self.api.models_payload())
         elif path == "/v1/metrics":
-            self._text(telemetry.render_prometheus().encode(),
+            text = (self.api.pod_metrics_text()
+                    if query.get("scope", [""])[0] == "pod"
+                    else telemetry.render_prometheus())
+            self._text(text.encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/v1/trace":
+            self._json(self.api.trace_payload())
+        elif path == "/v1/debug":
+            try:
+                tail = int(query.get("tail", ["100"])[0])
+            except ValueError:
+                tail = 100
+            self._json(self.api.debug_payload(tail=tail))
         elif path == "/v1/pulls":
             self._json(self.api.pulls_payload())
         elif path.startswith("/v1/pulls/"):
@@ -989,15 +1162,17 @@ class PublisherServer:
     """Threaded loopback daemon over ``cfg``'s caches. ``port=0`` binds an
     ephemeral port; use as a context manager or call :meth:`start` /
     :meth:`close`. ``api`` is its :class:`HttpApi` (``device``, ``swarm``,
-    ``bt_server``, ``registry`` and ``gossip_node`` go to it), ``hub`` its
+    ``bt_server``, ``registry``, ``gossip_node`` and ``pod_peers`` go to
+    it), ``hub`` its
     watch fan-out."""
 
     def __init__(self, cfg: Config, host: str = "127.0.0.1", port: int = 0,
                  device=DEFAULT_DEVICE, swarm=None, bt_server=None,
-                 registry=None, gossip_node=None):
+                 registry=None, gossip_node=None,
+                 pod_peers: dict | None = None):
         self.api = HttpApi(cfg, device=device, swarm=swarm,
                            bt_server=bt_server, registry=registry,
-                           gossip_node=gossip_node)
+                           gossip_node=gossip_node, pod_peers=pod_peers)
         handler = type("DaemonHandler", (_Handler,), {"api": self.api})
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True

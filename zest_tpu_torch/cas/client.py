@@ -21,10 +21,16 @@ import json
 import os
 import threading
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import reconstruction as recon
 from zest_tpu_torch.cas.hub import request
 from zest_tpu_torch.resilience import Backoff, Deadline, DeadlineExceeded
+
+
+def _span_url(url: str) -> str:
+    """Scheme, host and path only: a presigned CDN URL carries its auth
+    in the query string, which must never reach a trace file."""
+    return url.split("?", 1)[0]
 
 
 class CasError(RuntimeError):
@@ -145,6 +151,11 @@ class CasClient:
 
     def get_reconstruction(self, file_hash_hex: str) -> recon.Reconstruction:
         """GET /v1/reconstructions/{hex} -> terms + fetch_info."""
+        with telemetry.span("cas.reconstruction", file=file_hash_hex):
+            return self._get_reconstruction(file_hash_hex)
+
+    def _get_reconstruction(self, file_hash_hex: str
+                            ) -> recon.Reconstruction:
         url = f"{self.cas_url}/v1/reconstructions/{file_hash_hex}"
         backoff = Backoff(self.backoff_base_s, _BACKOFF_CAP_S)
         attempt = 0
@@ -201,6 +212,13 @@ class CasClient:
         from byte N (the GET is idempotent and ranged), so a large unit
         doesn't restart from zero on a mid-stream reset — and the
         consumer sees one uninterrupted byte stream either way."""
+        with telemetry.span("cdn.get", url=_span_url(url)) as sp:
+            for piece in self._fetch_xorb_iter(url, byte_range):
+                sp.add_bytes(len(piece))
+                yield piece
+
+    def _fetch_xorb_iter(self, url: str,
+                         byte_range: tuple[int, int] | None = None):
         if byte_range is not None:
             start, end = byte_range
             if not (0 <= start < end):

@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,version,seed,pull,generate,watch,diff,models}``.
+"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,stats,debug,analyze,trace,version,seed,pull,generate,watch,diff,models}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -45,7 +45,13 @@ it to stop (``POST /v1/stop``, else SIGTERM to the recorded pid),
 block), ``ps [--watch|--json]`` lists its pull sessions (``/v1/pulls``:
 id, repo@revision, tenant, status, phase, progress; then the admission
 line), and ``version`` prints the package version. ``pull --tenant T``
-labels the pull's session.
+labels the pull's session. Observability: ``stats [--json | --pod |
+--watch]`` prints the daemon's metrics, ``debug [--tail N] [--out F]``
+its ``/v1/debug`` report, ``trace REPO [--out F] [--coop --peer-api
+I=HOST:PORT]`` pulls with a tracer installed and writes the Chrome trace
+(``trace --merge a.json b.json`` merges per-host exports offline), and
+``analyze TRACE.json [--json] [--host H] [--top K]`` prints a trace's
+critical path.
 """
 
 from __future__ import annotations
@@ -95,17 +101,27 @@ def cmd_push(args) -> int:
     return 0
 
 
-def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
-    """GET a local daemon endpoint (``cfg.effective_http_port()``); None
-    on any failure: no daemon, or an answer that is not a JSON object."""
+def _daemon_text(cfg: Config, path: str, timeout: float = 2.0) -> str | None:
+    """GET a local daemon endpoint (``cfg.effective_http_port()``) as
+    text; None on any failure."""
     import urllib.error
     import urllib.request
 
     url = f"http://127.0.0.1:{cfg.effective_http_port()}{path}"
     try:
         with urllib.request.urlopen(url, timeout=timeout) as r:
-            payload = json.loads(r.read().decode())
-    except (OSError, urllib.error.URLError, ValueError):
+            return r.read().decode()
+    except (OSError, urllib.error.URLError, UnicodeDecodeError):
+        return None
+
+
+def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
+    """GET a local daemon endpoint as JSON; None on any failure: no
+    daemon, or an answer that is not a JSON object."""
+    text = _daemon_text(cfg, path, timeout)
+    try:
+        payload = json.loads(text) if text is not None else None
+    except ValueError:
         return None
     return payload if isinstance(payload, dict) else None
 
@@ -280,6 +296,269 @@ def cmd_ps(args) -> int:
             time.sleep(max(0.1, args.interval))
     except KeyboardInterrupt:
         return 0
+
+
+def cmd_stats(args) -> int:
+    """The daemon's process metrics: ``GET /v1/metrics`` verbatim
+    (Prometheus text; ``--pod`` the pod-scope sum), the ``/v1/status``
+    telemetry, faults and peer-health blocks with ``--json``, or a live
+    redraw over ``/v1/debug`` with ``--watch``."""
+    cfg = Config.load()
+    if args.watch:
+        return _stats_watch(cfg, interval=args.interval, count=args.count)
+    if args.json:
+        payload = _daemon_get(cfg, "/v1/status")
+        if payload is None:
+            print("daemon not running", file=sys.stderr)
+            return 1
+        keep = {k: payload[k] for k in
+                ("telemetry", "faults", "swarm", "peers", "hbm", "dcn")
+                if k in payload}
+        print(json.dumps(keep, indent=2))
+        return 0
+    text = _daemon_text(cfg, "/v1/metrics?scope=pod" if args.pod
+                        else "/v1/metrics",
+                        timeout=10.0 if args.pod else 2.0)
+    if text is None:
+        print("daemon not running", file=sys.stderr)
+        return 1
+    sys.stdout.write(text)
+    return 0
+
+
+def _stats_watch_lines(debug: dict, status: dict) -> list[str]:
+    """One frame of ``stats --watch``, from ``/v1/debug`` and
+    ``/v1/status``."""
+    lines = [f"zest-tpu v{status.get('version', '?')}  "
+             f"http_requests={status.get('http_requests', 0)}  "
+             f"xorbs={status.get('xorbs_cached', 0)}"]
+    landing = debug.get("landing") or {}
+    if landing:
+        fl = landing.get("first_layer_s")
+        hbm = landing.get("time_to_hbm_s")
+        ratio = landing.get("first_layer_ratio")
+        lane = "landing:"
+        if fl is not None:
+            lane += f" first_layer={fl}s"
+        if hbm is not None:
+            lane += f" hbm={hbm}s"
+        if ratio is not None:
+            lane += f" ({ratio:.0%} of hbm)"
+        if "ring_stalls" in landing:
+            lane += f"  ring_stalls={landing['ring_stalls']}"
+        lines.append(lane)
+        if "delta_ratio" in landing or "swap_s" in landing:
+            dline = "delta:"
+            if "delta_ratio" in landing:
+                dline += f" fetched={landing['delta_ratio']:.1%} of bytes"
+            if "swap_s" in landing:
+                dline += f"  swap={landing['swap_s']}s"
+            lines.append(dline)
+    coop = debug.get("coop") or {}
+    if coop:
+        ratio = coop.get("peer_served_ratio")
+        tiers = " ".join(f"{t}={b}" for t, b in
+                         sorted((coop.get("tier_bytes") or {}).items()))
+        lines.append(
+            "coop: peer_served="
+            + (f"{ratio:.1%}" if ratio is not None else "n/a")
+            + (f"  wall={coop['exchange_wall_s']}s"
+               if "exchange_wall_s" in coop else "")
+            + (f"  fallbacks={coop['fallbacks']}"
+               if "fallbacks" in coop else "")
+            + (f"  [{tiers}]" if tiers else ""))
+        cx = coop.get("collective") or {}
+        if cx:
+            links = " ".join(f"{lk}={b}" for lk, b in
+                             sorted((cx.get("link_bytes") or {}).items()))
+            lines.append(
+                f"collective: phases={cx.get('phases', 0)}"
+                + (f"  wall={cx['wall_s']}s" if "wall_s" in cx else "")
+                + (f"  aborts={cx['aborts']}" if cx.get("aborts") else "")
+                + (f"  [{links}]" if links else ""))
+    seeding = status.get("seeding") or {}
+    if seeding.get("chunks_served") or seeding.get("active_leechers"):
+        sline = (f"seed: {seeding.get('bytes_served', 0)}B in "
+                 f"{seeding.get('chunks_served', 0)} chunks  "
+                 f"unchoked={seeding.get('unchoked', 0)}"
+                 f"/{seeding.get('unchoked', 0) + seeding.get('choked', 0)}")
+        if seeding.get("choke_events"):
+            sline += f"  choke_events={seeding['choke_events']}"
+        if seeding.get("refused_quarantined"):
+            sline += f"  refused={seeding['refused_quarantined']}"
+        if seeding.get("uploads_expired"):
+            sline += f"  expired={seeding['uploads_expired']}"
+        if seeding.get("rate_bps"):
+            sline += f"  rate={seeding['rate_bps']}B/s"
+        lines.append(sline)
+    quarantined = debug.get("quarantined_peers") or []
+    if quarantined:
+        lines.append("quarantined: "
+                     + ", ".join(p["peer"] for p in quarantined))
+    faults_fired = debug.get("faults") or {}
+    if faults_fired:
+        lines.append("faults: " + " ".join(
+            f"{k}={v}" for k, v in sorted(faults_fired.items())))
+    events = (debug.get("recorder") or {}).get("events") or []
+    if events:
+        lines.append("recorder tail:")
+        for ev in events[-8:]:
+            extra = " ".join(f"{k}={v}" for k, v in ev.items()
+                             if k not in ("t", "kind"))
+            lines.append(f"  {ev.get('t', 0):.3f} {ev.get('kind')} {extra}")
+    return lines
+
+
+def _stats_watch(cfg: Config, interval: float = 1.0, count: int = 0) -> int:
+    """Redraw every ``interval`` seconds, ``count`` frames (0: until
+    Ctrl-C)."""
+    frames = 0
+    try:
+        while True:
+            debug = _daemon_get(cfg, "/v1/debug?tail=8") or {}
+            status = _daemon_get(cfg, "/v1/status") or {}
+            if not status:
+                print("daemon not running", file=sys.stderr)
+                return 1
+            if sys.stdout.isatty():
+                sys.stdout.write("\x1b[H\x1b[2J")
+            print("\n".join(_stats_watch_lines(debug, status)))
+            frames += 1
+            if count and frames >= count:
+                return 0
+            time.sleep(max(0.1, interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_debug(args) -> int:
+    """The daemon's ``/v1/debug`` (recorder tail, coop summary, landing,
+    quarantined peers) to stdout or, with ``--out``, to a JSON file."""
+    cfg = Config.load()
+    payload = _daemon_get(cfg, f"/v1/debug?tail={args.tail}", timeout=5.0)
+    if payload is None:
+        print("daemon not running", file=sys.stderr)
+        return 1
+    body = json.dumps(payload, indent=2)
+    if args.out:
+        Path(args.out).write_text(body + "\n")
+        n = len((payload.get("recorder") or {}).get("events") or [])
+        print(f"debug report: {args.out} ({n} recorder events)")
+    else:
+        print(body)
+    return 0
+
+
+def cmd_analyze(args) -> int:
+    """Critical-path attribution over a trace export (solo, or merged by
+    ``trace --merge``): per-stage and per-tier blamed seconds and the top
+    blocking spans."""
+    from zest_tpu_torch.telemetry import critpath
+
+    try:
+        doc = json.loads(Path(args.trace).read_text())
+    except (OSError, ValueError) as exc:
+        print(f"error: cannot read trace: {exc}", file=sys.stderr)
+        return 1
+    try:
+        report = critpath.analyze_doc(doc, host=args.host, top_k=args.top)
+    except critpath.AnalyzeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(report, indent=2))
+    else:
+        print("\n".join(critpath.render_text(report)))
+    return 0
+
+
+def _write_merged(docs: dict, out: str, reference=None) -> None:
+    from zest_tpu_torch.telemetry import fleet
+
+    merged = fleet.merge_traces(docs, reference=reference)
+    Path(out).write_text(json.dumps(merged))
+    meta = merged["otherData"]
+    print(f"merged trace: {out} ({len(meta['merged_hosts'])} host "
+          f"tracks, {meta['flow_links']} cross-host flow links)")
+
+
+def _host_key(doc: dict, default):
+    """The host a trace doc recorded for itself, else ``default``."""
+    return doc.get("otherData", {}).get("context", {}).get("host", default)
+
+
+def cmd_trace(args) -> int:
+    """Pull with a tracer installed and write its Chrome trace (view it
+    at ui.perfetto.dev), printing the span count and wall coverage.
+    ``--merge a.json b.json`` merges per-host exports offline, with no
+    pull; ``--coop`` gathers every pod peer's live ``/v1/trace``
+    (``--peer-api`` or ``ZEST_POD_PEERS``) after the traced pull and
+    writes one merged multi-track file."""
+    if args.merge:
+        docs = {}
+        for i, path in enumerate(args.merge):
+            doc = json.loads(Path(path).read_text())
+            docs[_host_key(doc, i)] = doc
+        _write_merged(docs, args.out)
+        return 0
+    if args.repo is None:
+        print("error: a repo id is required unless --merge is given",
+              file=sys.stderr)
+        return 2
+    cfg = Config.load()
+    try:
+        cfg.model_cache_dir(args.repo)  # repo-id syntax, before any I/O
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 2
+    peer_apis = {}
+    if args.coop:
+        try:
+            peer_apis = dict(parse_host_addr(a) for a in args.peer_api or [])
+        except ValueError as exc:
+            print(f"error: --peer-api: {exc}", file=sys.stderr)
+            return 2
+        peer_apis = peer_apis or dict(cfg.pod_peers)
+        if not peer_apis:
+            print("error: --coop needs peer API endpoints (--peer-api "
+                  "I=HOST:PORT or ZEST_POD_PEERS)", file=sys.stderr)
+            return 2
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.telemetry import fleet
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    # The command is the opt-in: ZEST_TELEMETRY=0 must not turn a
+    # requested trace into an empty one.
+    telemetry.set_enabled(True)
+    tracer = telemetry.trace.install(None)
+    t0 = time.monotonic()
+    failed = None
+    try:
+        res = pull_model(cfg, args.repo, revision=args.revision,
+                         device=args.device, no_p2p=args.no_p2p,
+                         coop=True if args.coop else None)
+    except Exception as exc:  # noqa: BLE001 - a failed pull's trace is
+        failed = exc          # what the operator wants to see
+    elapsed = time.monotonic() - t0
+    if args.coop:
+        own = (cfg.coop_index if cfg.coop_index is not None
+               else cfg.mesh.process_id)
+        docs, errors = fleet.gather_traces(peer_apis)
+        for key, err in sorted(errors.items(), key=lambda i: str(i)):
+            print(f"host {key}: trace unavailable ({err})", file=sys.stderr)
+        keyed = {_host_key(doc, key): doc for key, doc in docs.items()}
+        keyed[own] = tracer.to_chrome()
+        _write_merged(keyed, args.out, reference=own)
+    else:
+        n = tracer.export(args.out)
+        print(f"trace: {args.out} ({n} events, spans cover "
+              f"{tracer.coverage_s():.2f}s of {elapsed:.2f}s wall)")
+    print("view:  https://ui.perfetto.dev or chrome://tracing")
+    if failed is not None:
+        print(f"error: pull failed: {failed}", file=sys.stderr)
+        return 1
+    print(f"✓ {args.repo} -> {res.snapshot_dir}")
+    return 0
 
 
 def _build_swarm(cfg: Config, tracker: str | None = None, dht: bool = True,
@@ -926,6 +1205,58 @@ def build_parser() -> argparse.ArgumentParser:
     ps.set_defaults(fn=cmd_ps)
     sub.add_parser("version", help="print the version") \
         .set_defaults(fn=cmd_version)
+
+    stats = sub.add_parser("stats", help="print the daemon's metrics "
+                                         "(Prometheus text)")
+    stats.add_argument("--json", action="store_true",
+                       help="the telemetry, faults and peer-health blocks "
+                            "of /v1/status as JSON instead")
+    stats.add_argument("--pod", action="store_true",
+                       help="pod-scope sum (/v1/metrics?scope=pod)")
+    stats.add_argument("--watch", action="store_true",
+                       help="redraw over /v1/debug until Ctrl-C")
+    stats.add_argument("--interval", type=float, default=1.0,
+                       help="redraw interval in seconds")
+    stats.add_argument("--count", type=int, default=0,
+                       help="with --watch: stop after N frames")
+    stats.set_defaults(fn=cmd_stats)
+    debug = sub.add_parser("debug", help="dump the daemon's flight "
+                                         "recorder and coop summary "
+                                         "(/v1/debug)")
+    debug.add_argument("--out", default=None, metavar="PATH",
+                       help="write the JSON report here, not to stdout")
+    debug.add_argument("--tail", type=int, default=100,
+                       help="recorder events to include")
+    debug.set_defaults(fn=cmd_debug)
+    analyze = sub.add_parser("analyze", help="critical-path attribution "
+                                             "over a trace export")
+    analyze.add_argument("trace", metavar="TRACE.json",
+                         help="a trace export (solo or merged)")
+    analyze.add_argument("--json", action="store_true")
+    analyze.add_argument("--host", default=None,
+                         help="merged docs: analyze this host's spans "
+                              "(default: the dominant pull's host)")
+    analyze.add_argument("--top", type=int, default=8,
+                         help="top blocking spans to list")
+    analyze.set_defaults(fn=cmd_analyze)
+    trace = sub.add_parser("trace", help="pull with the tracer on and "
+                                         "write a Chrome trace")
+    trace.add_argument("repo", nargs="?", default=None)
+    trace.add_argument("--revision", default="main")
+    trace.add_argument("--device", choices=devices, default="cuda")
+    trace.add_argument("--out", default="zest-trace.json", metavar="PATH",
+                       help="trace file (view at ui.perfetto.dev)")
+    trace.add_argument("--no-p2p", action="store_true")
+    trace.add_argument("--coop", action="store_true",
+                       help="after the traced coop pull, gather every pod "
+                            "peer's /v1/trace into one merged file")
+    trace.add_argument("--peer-api", action="append", metavar="I=HOST:PORT",
+                       help="pod peer HTTP endpoint for --coop "
+                            "(repeatable; default ZEST_POD_PEERS)")
+    trace.add_argument("--merge", nargs="+", default=None,
+                       metavar="TRACE.json",
+                       help="offline: merge per-host exports into --out")
+    trace.set_defaults(fn=cmd_trace)
 
     gen = sub.add_parser("generate", help="pull a model and decode with it")
     gen.add_argument("repo")

@@ -339,6 +339,14 @@ class Config:
     gossip_fanout: int = 0
     gossip_max_entries: int = 65536
     gossip_interval_s: float = 5.0
+    # Pod observability (telemetry.fleet): the other hosts' daemon HTTP
+    # endpoints, ``ZEST_POD_PEERS="1=hostB:9847,2=hostC:9847"`` (the coop
+    # address grammar), scraped for ``/v1/metrics?scope=pod`` and by
+    # ``zest trace --coop``; ``pod_scrape_workers`` bounds the one shared
+    # scrape pool (ZEST_POD_SCRAPE_WORKERS).
+    pod_peers: dict[int, tuple[str, int]] = dataclasses.field(
+        default_factory=dict)
+    pod_scrape_workers: int = 8
     # The pod round (transfer/pod.py): each wave's staged pool fits this
     # many bytes (ZEST_TPU_HBM_STAGING; 0 = one wave).
     hbm_staging_bytes: int = DEFAULT_HBM_STAGING_BYTES
@@ -475,6 +483,9 @@ class Config:
                 env, "ZEST_GOSSIP_MAX", default=65536, floor=1),
             gossip_interval_s=_strict_pos_float(
                 env, "ZEST_GOSSIP_INTERVAL_S", 5.0, floor=0.05),
+            pod_peers=_parse_coop_addrs(env.get("ZEST_POD_PEERS", "")),
+            pod_scrape_workers=_strict_nonneg_int(
+                env, "ZEST_POD_SCRAPE_WORKERS", default=8, floor=1),
             hbm_staging_bytes=_nonneg_int(
                 env, "ZEST_TPU_HBM_STAGING", DEFAULT_HBM_STAGING_BYTES),
             pull_inflight_bytes=max(1, int(

@@ -1,7 +1,8 @@
 """Deterministic fault injection for the fetch path (the chaos harness).
 
-The port's copy of ``zest_tpu/faults.py`` (its process-registry counter
-and flight-recorder event wait for the telemetry port). The resilience
+The port's copy of ``zest_tpu/faults.py``, with its process-registry
+counter (``zest_faults_fired_total``) and ``fault_fired`` flight-recorder
+event. The resilience
 layer (adaptive timeouts, retries, hedging, peer health scoring) is only
 trustworthy if its failure handling is *provoked* on demand,
 reproducibly. This registry injects failures at fixed points in the
@@ -65,8 +66,16 @@ import os
 import threading
 import time
 
+from zest_tpu_torch import telemetry
+
 ENV_SPEC = "ZEST_FAULTS"
 ENV_SEED = "ZEST_FAULTS_SEED"
+
+# Fired faults also land in the process registry, so a chaos run can
+# assert from /v1/metrics that the fault really fired.
+_M_FIRED = telemetry.counter(
+    "zest_faults_fired_total", "Injected faults fired, by fault name",
+    ("fault",))
 
 
 class FaultSpecError(ValueError):
@@ -162,6 +171,9 @@ class FaultInjector:
             return None
         with self._lock:
             self.fired[name] = self.fired.get(name, 0) + 1
+        _M_FIRED.inc(fault=name)
+        # The fault's place in the event order, for triage.
+        telemetry.record("fault_fired", fault=name, key=key)
         return spec
 
     def counters(self) -> dict[str, int]:

@@ -41,6 +41,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from zest_tpu_torch import telemetry
 from zest_tpu_torch.cas import compression, reconstruction as recon
 from zest_tpu_torch.cas.xorb import (
     XorbFormatError,
@@ -51,6 +52,10 @@ from zest_tpu_torch.config import DEFAULT_DECODE_CACHE_BYTES
 from zest_tpu_torch.models.registry import layer_priority
 from zest_tpu_torch.models.safetensors_io import SafetensorsHeader
 from zest_tpu_torch.transfer import lossy
+
+_M_READER_EVENTS = telemetry.counter(
+    "zest_decode_reader_cache_events_total",
+    "Parsed-reader LRU events on the landing decode path", ("event",))
 
 # Typed views of a landed byte buffer keep the file's alignment: the
 # buffer starts ``file offset % _ALIGN`` bytes into an aligned allocation.
@@ -182,7 +187,10 @@ class CachedFileReader:
             hit = self._readers.get(key)
             if hit is not None:
                 self._readers.move_to_end(key)
-                return hit[0], hit[1]
+        if hit is not None:
+            _M_READER_EVENTS.inc(event="hit")
+            return hit[0], hit[1]
+        _M_READER_EVENTS.inc(event="miss")
         entry = self.cache.get_with_range_mapped(hash_hex, range_start)
         if entry is None:
             got = self._lossy_reader(hash_hex, range_start)
@@ -230,6 +238,7 @@ class CachedFileReader:
             data = lossy.dequantize_blob(container)
         except ValueError:
             return None  # a malformed container reads as a miss
+        _M_READER_EVENTS.inc(event="lossy")
         return XorbReader(data), chunk_offset, len(data)
 
     def _drop_reader(self, hash_hex: str, range_start: int) -> None:
@@ -640,7 +649,19 @@ def land_tensors(cache, rec: recon.Reconstruction, header: SafetensorsHeader,
     data section decodes as one read into one buffer and the tensors are
     views of it. With a ``bridge``, missing units come through its
     waterfall. ``workers`` sizes the decode pool; ``allow_lossy`` reads
-    the lossy staging where the cache misses."""
+    the lossy staging where the cache misses. Runs in a ``land.decode``
+    span."""
+    with telemetry.span("land.decode", file=rec.file_hash.hex(),
+                        tensors=len(header.tensors)) as sp:
+        out = _land_tensors(cache, rec, header, predicate, bridge, workers,
+                            allow_lossy)
+        sp.add_bytes(sum(t.numel() * t.element_size()
+                         for t in out.values()))
+        return out
+
+
+def _land_tensors(cache, rec, header, predicate, bridge, workers,
+                  allow_lossy) -> dict[str, torch.Tensor]:
     reader = CachedFileReader(cache, rec, bridge=bridge, workers=workers,
                               allow_lossy=allow_lossy)
     out: dict[str, torch.Tensor] = {}
@@ -680,9 +701,13 @@ class StreamingShardReader:
                                        workers=workers,
                                        allow_lossy=allow_lossy)
 
-    def decode_range_into(self, lo: int, hi: int, dest) -> None:
-        """Decode file bytes ``[lo, hi)`` into ``dest``."""
-        self.reader.read_into(lo, hi, dest)
+    def decode_range_into(self, lo: int, hi: int, dest,
+                          label: str = "") -> None:
+        """Decode file bytes ``[lo, hi)`` into ``dest``, in a
+        ``land.slice`` span naming the run (``label``)."""
+        with telemetry.span("land.slice", tensors=label) as sp:
+            self.reader.read_into(lo, hi, dest)
+            sp.add_bytes(hi - lo)
 
     def close(self) -> None:
         self.reader.drop_memo()

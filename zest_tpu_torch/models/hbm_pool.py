@@ -30,7 +30,8 @@ frames would hold the committed tensors).
 Metrics: ``zest_hbm_pool_bytes{state}``,
 ``zest_hbm_pool_evictions_total{reason}``, ``zest_ttft_seconds{temp}``,
 ``zest_hbm_pool_expert_pages_total{outcome}`` and, with
-``ZEST_SLO_TTFT_S``, ``zest_slo_breaches_total{slo="ttft"}``; flight
+``ZEST_SLO_TTFT_S``, ``zest_slo_breaches_total{slo="ttft"}`` and the
+session table's ``ttft`` SLO burn; flight
 events ``pool_land``, ``pool_land_done``, ``pool_land_error``,
 ``pool_evict``, ``pool_swap``, ``slo_breach``. The JAX package's timeline
 probes and remediation targets are not ported.
@@ -787,17 +788,21 @@ class HbmPool:
             self.release(entry)
 
     def _check_ttft_slo(self, repo: str, ttft: float, temp: str) -> None:
-        """``ZEST_SLO_TTFT_S`` arms a time-to-first-token budget: a breach
-        bumps ``zest_slo_breaches_total{slo="ttft"}`` and records an
-        ``slo_breach`` event. (The JAX package's session SLO book is not
-        ported.)"""
+        """``ZEST_SLO_TTFT_S`` arms a time-to-first-token budget. Every
+        armed check is booked on the session table's SLO burn (the ``ttft``
+        row of ``/v1/pulls``' ``slo`` block); a breach also bumps
+        ``zest_slo_breaches_total{slo="ttft"}`` and records an
+        ``slo_breach`` event."""
         budget = getattr(self.cfg, "slo_ttft_s", None)
-        if not budget or ttft <= budget:
+        if not budget:
             return
-        _M_SLO_BREACHES.inc(slo="ttft")
-        telemetry.record("slo_breach", slo="ttft", repo=repo,
-                         budget_s=budget, actual_s=round(ttft, 4),
-                         session=None, blamed_stage=temp)
+        breached = ttft > budget
+        telemetry.session.SESSIONS.note_slo("ttft", breached)
+        if breached:
+            _M_SLO_BREACHES.inc(slo="ttft")
+            telemetry.record("slo_breach", slo="ttft", repo=repo,
+                             budget_s=budget, actual_s=round(ttft, 4),
+                             session=None, blamed_stage=temp)
 
     # ── introspection ──
 

@@ -47,6 +47,7 @@ from queue import Empty, SimpleQueue
 
 import torch
 
+from zest_tpu_torch import telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.config import (
     DEFAULT_DEVICE,
@@ -73,6 +74,15 @@ from zest_tpu_torch.parallel.sharding import (
 _ALIGN = 16
 
 ShardRules = list[tuple[str, P]]
+
+
+_M_COMMIT_BYTES = telemetry.counter(
+    "zest_hbm_commit_bytes_total", "Bytes committed host→HBM")
+_M_COMMIT_TENSORS = telemetry.counter(
+    "zest_hbm_commit_tensors_total", "Tensors committed host→HBM")
+_M_RING_STALLS = telemetry.counter(
+    "zest_land_ring_stalls_total",
+    "Streaming-landing ring acquisitions that had to wait for capacity")
 
 
 def infer_spec(shape: tuple[int, ...], mesh, axis: str) -> P:
@@ -181,9 +191,18 @@ def commit_tensors(host: dict[str, torch.Tensor], device=DEFAULT_DEVICE,
     With a ``mesh`` (``device`` is then unused) every tensor lands as a
     :class:`ShardedTensor` under :func:`spec_for`: the batch is copied
     once to each distinct device of the mesh, and each slot's shard is cut
-    from it into its own allocation."""
-    if mesh is not None:
-        return _commit_sharded(host, mesh, rules, dtype)
+    from it into its own allocation. Runs in an ``hbm.commit`` span."""
+    nbytes = sum(t.numel() * t.element_size() for t in host.values())
+    with telemetry.span("hbm.commit", tensors=len(host), bytes=nbytes):
+        out = (_commit_sharded(host, mesh, rules, dtype) if mesh is not None
+               else _commit_tensors(host, device, dtype))
+    _M_COMMIT_BYTES.inc(nbytes)
+    _M_COMMIT_TENSORS.inc(len(host))
+    return out
+
+
+def _commit_tensors(host: dict[str, torch.Tensor], device,
+                    dtype: torch.dtype | None) -> dict:
     dev = resolve_device(device)
     host = {n: cast_floating(t, dtype) for n, t in host.items()}
     offsets, total = {}, 0
@@ -443,6 +462,11 @@ class HostRing:
                     if stalled_at is None:
                         stalled_at = time.monotonic()
                         self.stalls += 1
+                        _M_RING_STALLS.inc()
+                        telemetry.record(
+                            "ring_stall", bytes=nbytes,
+                            in_use_bytes=self._in_use_bytes,
+                            slots=self._in_use)
                     # Seen by the consumer (producer_waiting): a stalled
                     # producer may need slots its half-built group pins.
                     self._waiting = True
@@ -748,9 +772,12 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
             prev_name = name
         return runs
 
-    def decode_run(sr, slot, lo, hi):
+    def decode_run(sr, slot, lo, hi, run):
         with clock("decode") if clock is not None else contextlib.nullcontext():
-            sr.decode_range_into(lo, hi, memoryview(slot.view[lo % _ALIGN:]))
+            sr.decode_range_into(
+                lo, hi, memoryview(slot.view[lo % _ALIGN:]),
+                label=(f"{run[0]}+{len(run) - 1}" if len(run) > 1
+                       else run[0]))
         if clock is not None:
             clock.note_bytes("decode", hi - lo)
 
@@ -786,7 +813,7 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
                         origin = lo - lo % _ALIGN
                         slot = ring.acquire(hi - origin)
                         try:
-                            decode_run(sr, slot, lo, hi)
+                            decode_run(sr, slot, lo, hi, run)
                         except BaseException:
                             slot.release()
                             raise
@@ -844,8 +871,14 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         # One rule for every landing, hot-swap included: the JAX package
         # coalesces small tensors on its swap path to amortize the XLA
         # compiles of its splitter, and a torch commit compiles nothing.
-        # Preloaded tensors never reach a commit.
-        landed, done = committer.commit(batch)
+        # Preloaded tensors never reach a commit. The span covers queueing
+        # the group's copies; the copies run on the side stream, and the
+        # wait for them is in drain_one.
+        nbytes = sum(it[4] - it[3] for it in batch)
+        with telemetry.span("hbm.commit", tensors=len(batch), bytes=nbytes):
+            landed, done = committer.commit(batch)
+        _M_COMMIT_BYTES.inc(nbytes)
+        _M_COMMIT_TENSORS.inc(len(batch))
         params.update(landed)
         pending.append((done, [it[2] for it in batch],
                         [it[0] for it in batch]))

@@ -1,7 +1,8 @@
 """Per-peer health: latency EWMA, strike circuit breaker, quarantine.
 
-The port's copy of ``zest_tpu/p2p/health.py`` (its process-registry
-counters and flight-recorder events wait for the telemetry port), with
+The port's copy of ``zest_tpu/p2p/health.py``, with the same
+process-registry counters (``zest_peer_strikes_total``,
+``zest_peer_quarantines_total``) and flight-recorder events, and with
 one deliberate difference: a transport success clears transport strikes
 only. A corruption strike stands until it trips the breaker, because the
 swarm records a delivery's success before the bridge verifies its bytes:
@@ -39,7 +40,17 @@ import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
+from zest_tpu_torch import telemetry
+
 Addr = tuple[str, int]
+
+# Strikes and breaker trips outlive the swarm session that counted them:
+# "which host keeps quarantining peers" is a fleet question.
+_M_STRIKES = telemetry.counter(
+    "zest_peer_strikes_total", "Peer health strikes, by failure kind",
+    ("kind",))
+_M_QUARANTINES = telemetry.counter(
+    "zest_peer_quarantines_total", "Peer circuit-breaker trips")
 
 DEFAULT_STRIKES_TO_QUARANTINE = 3
 DEFAULT_QUARANTINE_BASE_S = 15.0
@@ -198,6 +209,7 @@ class HealthRegistry:
 
     def record_failure(self, addr: Addr, kind: str = "error") -> bool:
         """One strike; True when this strike tripped the breaker."""
+        peer = f"{addr[0]}:{addr[1]}"
         events: list[tuple[str, Addr]] = []
         with self._lock:
             p = self._peer_locked(addr)
@@ -207,8 +219,9 @@ class HealthRegistry:
                 p.corrupt_strikes += 1
             p.strike_kinds[kind] = p.strike_kinds.get(kind, 0) + 1
             p.strikes += 1
+            _M_STRIKES.inc(kind=kind)
             if p.strikes < self.strikes_to_quarantine:
-                tripped = False
+                tripped, window = False, 0.0
             else:
                 p.quarantines += 1
                 window = min(
@@ -222,8 +235,14 @@ class HealthRegistry:
                 p.strikes = self.strikes_to_quarantine - 1
                 p.corrupt_strikes = 0
                 self.quarantine_events += 1
+                _M_QUARANTINES.inc()
                 tripped = True
                 events.append(("quarantined", addr))
+        # The breaker's decisions in event order, outside the lock.
+        telemetry.record("peer_strike", peer=peer, strike=kind)
+        if tripped:
+            telemetry.record("peer_quarantined", peer=peer,
+                             window_s=round(window, 2))
         self._notify(events)
         return tripped
 
@@ -248,6 +267,8 @@ class HealthRegistry:
                                       self._time() + window)
             p.in_quarantine = True
             self.demotions += 1
+        telemetry.record("peer_demoted", peer=f"{addr[0]}:{addr[1]}",
+                         window_s=round(window, 2))
         # Same transition surface as the breaker: the swarm's
         # re-announce listener treats any membership-changing event
         # alike, and probation fires on expiry as usual.

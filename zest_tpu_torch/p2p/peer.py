@@ -19,7 +19,7 @@ import socket
 import threading
 from dataclasses import dataclass
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.p2p import bep_xet, wire
 
 # Our local id for the ut_xet extension, advertised in the ext handshake.
@@ -89,8 +89,9 @@ class BtPeer:
     ) -> "BtPeer":
         if faults.fire("peer_timeout", key=f"{host}:{port}"):
             raise TimeoutError(f"injected peer_timeout for {host}:{port}")
-        return cls._connect(host, port, info_hash, peer_id, listen_port,
-                            connect_timeout, io_timeout)
+        with telemetry.span("peer.connect", peer=f"{host}:{port}"):
+            return cls._connect(host, port, info_hash, peer_id, listen_port,
+                                connect_timeout, io_timeout)
 
     @classmethod
     def _connect(
@@ -185,12 +186,17 @@ class BtPeer:
         if self.address is not None:
             faults.sleep_if("peer_slow",
                             key=f"{self.address[0]}:{self.address[1]}")
-        with self.lock:
-            if io_timeout is not None:
-                self._arm_io_timeout_locked(io_timeout)
-            rid = self._alloc_request_id()
-            self._send_request(rid, chunk_hash, range_start, range_end)
-            return self._recv_response(rid)
+        peer = (f"{self.address[0]}:{self.address[1]}"
+                if self.address is not None else "?")
+        with telemetry.span("peer.request", peer=peer) as sp:
+            with self.lock:
+                if io_timeout is not None:
+                    self._arm_io_timeout_locked(io_timeout)
+                rid = self._alloc_request_id()
+                self._send_request(rid, chunk_hash, range_start, range_end)
+                result = self._recv_response(rid)
+            sp.add_bytes(len(result.data))
+            return result
 
     def request_chunks_pipelined(
         self, requests: list[tuple[bytes, int, int]]

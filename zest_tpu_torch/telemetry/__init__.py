@@ -1,18 +1,33 @@
-"""zest_tpu_torch.telemetry — process-wide observability.
+"""zest_tpu_torch.telemetry — process-wide observability for the pull path.
 
-The core of ``zest_tpu/telemetry``: the switch (:mod:`.state`,
-``ZEST_TELEMETRY``), metrics (:mod:`.metrics`: counters, gauges and
-histograms rendered as Prometheus text on the daemon's ``GET
-/v1/metrics``), spans (:mod:`.trace`, Chrome trace JSON under
-``ZEST_TRACE``), the flight recorder (:mod:`.recorder`), and of
-timelines and remediation the parts the collective exchange reaches
-(:mod:`.timeline`: posted cells and clock offsets; :mod:`.remediate`:
-the action-target registry), and pull sessions (:mod:`.session`: the
-bounded table of live and recent pulls behind ``GET /v1/pulls`` and
-``zest ps``). Critical-path analysis, the timeline sampler and anomaly
-detector, the remediation engine and fleet aggregation are not ported;
-of the fleet layer, only the trace identity (:mod:`.fleet`,
-``mint_trace_id``).
+The counterpart of ``zest_tpu/telemetry``. Its pieces, all thread-safe:
+
+- **Spans** (:mod:`.trace`): ``with telemetry.span("swarm.fetch",
+  xorb=h) as sp: ... sp.add_bytes(n)`` — nested wall-clock spans that
+  serialize to Chrome/Perfetto ``trace_event`` JSON. Armed by
+  ``ZEST_TRACE=path`` (written at exit) or ``zest trace``.
+- **Metrics** (:mod:`.metrics`): counters, gauges and histograms with
+  label sets in one process registry, rendered as Prometheus text on the
+  daemon's ``GET /v1/metrics`` and summarized by ``zest stats``.
+- **Fleet correlation** (:mod:`.fleet`): the cross-host trace identity
+  (``mint_trace_id``), merged multi-track traces (``merge_traces``) with
+  flow links and clock-offset normalization, and the pod-scope
+  Prometheus aggregation behind ``GET /v1/metrics?scope=pod``.
+- **The flight recorder** (:mod:`.recorder`): a bounded ring of the last
+  notable events (strikes, quarantines, fallbacks, faults, verify
+  rejections, budget declines), served at ``GET /v1/debug``.
+- **Pull sessions** (:mod:`.session`): the bounded table of live and
+  recent pulls behind ``GET /v1/pulls`` and ``zest ps``.
+- **Critical-path attribution** (:mod:`.critpath`): the blame-attributed
+  path through a trace's spans, per-stage and per-tier exclusive
+  seconds, ``stats["critical_path"]`` and ``zest analyze``.
+- Of timelines and remediation, the parts the collective exchange
+  reaches (:mod:`.timeline`: posted cells and clock offsets;
+  :mod:`.remediate`: the action-target registry). The timeline sampler,
+  the anomaly detector and the remediation engine are not ported.
+- **The switch** (:mod:`.state`): ``ZEST_TELEMETRY=0`` turns the whole
+  layer into flag checks; tracing also needs ``ZEST_TRACE`` or an
+  installed tracer.
 
 This package imports nothing from the rest of ``zest_tpu_torch``, so
 every module can use it without cycles.
@@ -45,6 +60,8 @@ from zest_tpu_torch.telemetry import timeline as timeline  # noqa: PLC0414
 from zest_tpu_torch.telemetry import remediate as remediate  # noqa: PLC0414
 from zest_tpu_torch.telemetry.recorder import record  # noqa: F401
 from zest_tpu_torch.telemetry import session as session  # noqa: PLC0414
+from zest_tpu_torch.telemetry import critpath as critpath  # noqa: PLC0414
+from zest_tpu_torch.telemetry import fleet as fleet  # noqa: PLC0414
 
 __all__ = [
     "REGISTRY",
@@ -57,7 +74,9 @@ __all__ = [
     "Span",
     "Tracer",
     "counter",
+    "critpath",
     "enabled",
+    "fleet",
     "gauge",
     "histogram",
     "record",

@@ -59,6 +59,19 @@ from zest_tpu_torch.p2p.health import PROVENANCE
 from zest_tpu_torch.storage import CacheFullError
 from zest_tpu_torch.transfer.tenancy import PullCancelled
 
+# Process-wide mirrors of the per-session FetchStats: the session object
+# is the pull's report, these outlive it so a daemon's /v1/metrics sums
+# every pull the process served.
+_M_XORBS = telemetry.counter(
+    "zest_fetch_xorbs_total", "Xorb fetches by source tier", ("source",))
+_M_BYTES = telemetry.counter(
+    "zest_fetch_bytes_total", "Fetched payload bytes by source tier",
+    ("source",))
+_M_EVENTS = telemetry.counter(
+    "zest_fetch_events_total",
+    "Resilience events on the fetch path (retries, hedges, heals)",
+    ("event",))
+
 
 class BridgeError(RuntimeError):
     pass
@@ -122,10 +135,13 @@ class FetchStats:
                     getattr(self, f"xorbs_from_{source}") + 1)
             setattr(self, f"bytes_from_{source}",
                     getattr(self, f"bytes_from_{source}") + nbytes)
+        _M_XORBS.inc(source=source)
+        _M_BYTES.inc(nbytes, source=source)
 
     def bump(self, name: str, amount: int = 1) -> None:
         with self._lock:
             setattr(self, name, getattr(self, name) + amount)
+        _M_EVENTS.inc(amount, event=name)
 
     @property
     def p2p_ratio(self) -> float:
@@ -290,6 +306,14 @@ class XetBridge:
             # Per-term cancellation point: a cancelled session stops at
             # the next term instead of finishing files it no longer wants.
             self.cancel.check()
+        with telemetry.span("fetch.term", xorb=term.hash_hex) as sp:
+            result = self._fetch_xorb_for_term(term, rec)
+            sp.set("source", result.source)
+            sp.add_bytes(len(result.data))
+            return result
+
+    def _fetch_xorb_for_term(self, term: recon.Term,
+                             rec: recon.Reconstruction) -> XorbFetchResult:
         fi = rec.find_fetch_info(term)
         if fi is None:
             raise BridgeError(f"no fetch info covers chunks "
@@ -465,9 +489,11 @@ class XetBridge:
         hash_hex = hash_hex or term.hash_hex
         if self.cas is None:
             raise BridgeError("no CAS client and no peer had the xorb")
-        data = self.cas.fetch_xorb_from_url(
-            self._absolute_url(fi.url),
-            (fi.url_range_start, fi.url_range_end))
+        with telemetry.span("cdn.fetch", xorb=hash_hex) as sp:
+            data = self.cas.fetch_xorb_from_url(
+                self._absolute_url(fi.url),
+                (fi.url_range_start, fi.url_range_end))
+            sp.add_bytes(len(data))
         self.stats.record("cdn", len(data))
         if not _blob_covers(data, term.range.start - fi.range.start,
                             term.range.end - fi.range.start):
@@ -619,6 +645,14 @@ class XetBridge:
         | ``cdn``): the cooperative round books its fallback bytes per
         tier. The caller caches what the network tiers return (with a
         singleflight table wired, the leader caches it first)."""
+        with telemetry.span("fetch.unit", xorb=hash_hex) as sp:
+            data, source = self._fetch_unit(hash_hex, fi)
+            sp.set("source", source)
+            sp.add_bytes(len(data))
+            return data, source
+
+    def _fetch_unit(self, hash_hex: str,
+                    fi: recon.FetchInfo) -> tuple[bytes, str]:
         if self.cancel is not None:
             self.cancel.check()  # per-unit cancellation point
         hit = self._probe_unit(hash_hex, fi)

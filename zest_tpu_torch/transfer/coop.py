@@ -78,6 +78,30 @@ from zest_tpu_torch.transfer.federated import (
     warm_units_parallel,
 )
 from zest_tpu_torch.transfer.pod import make_unit_verifier
+
+_M_COOP_BYTES = telemetry.counter(
+    "zest_coop_bytes_total",
+    "Cooperative-pull payload bytes by serving tier",
+    ("tier",))
+_M_COOP_FALLBACKS = telemetry.counter(
+    "zest_coop_fallbacks_total",
+    "Exchange units degraded to the per-host CDN fallback")
+# Pod-aggregation inputs: each host exports its exchange wall and its
+# fetch-phase bytes as gauges; a pod-scope scrape derives
+# zest_coop_straggler_seconds and the fetch-share skew from them.
+_M_COOP_EXCHANGE_WALL = telemetry.gauge(
+    "zest_coop_exchange_wall_seconds",
+    "This host's last cooperative exchange-phase wall time")
+_M_COOP_FETCH_BYTES = telemetry.gauge(
+    "zest_coop_fetch_bytes",
+    "This host's last cooperative fetch-phase bytes (its plan share)")
+# Units of one pipelined window complete together: each answered unit is
+# observed at the window's wall over its unit count.
+_M_COOP_UNIT_SECONDS = telemetry.histogram(
+    "zest_coop_exchange_unit_seconds",
+    "Amortized per-unit exchange latency (window wall over window units)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+             60.0))
 from zest_tpu_torch.transfer.tenancy import ByteBudget  # noqa: F401 - re-export
 
 # How long a host keeps retrying NOT_FOUND units (the owner may still be
@@ -350,13 +374,31 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     cross the exchange. ``dcn_pool`` is a ``DcnPool`` of the caller's
     (kept open; tests read its wire-tag counters). Raises
     :class:`CoopUnavailable` when no peer is addressable.
+
+    ``trace_id`` is the trace identity every host of the pull shares
+    (``pull_model`` mints it from ``repo@sha`` and a shared nonce);
+    without it the id is derived from the unit-key set, alike on every
+    host. The round runs under a thread-scoped trace context (host index
+    and trace id), so its spans split into per-host tracks even when
+    several hosts share one process.
     """
-    t0 = time.monotonic()
     if trace_id is None:
         trace_id = _derive_trace_id(recs)
+    with telemetry.trace.context(host=host_index, trace_id=trace_id), \
+            telemetry.span("coop.round", hosts=n_hosts):
+        return _coop_round(bridge, recs, host_index, n_hosts,
+                           host_addrs or {}, device, budget_bytes, server,
+                           quarantined, trace_id, priorities, units, clock,
+                           dcn_pool, log)
+
+
+def _coop_round(bridge, recs, host_index, n_hosts, host_addrs, device,
+                budget_bytes, server, quarantined, trace_id, priorities,
+                units, clock, dcn_pool, log) -> dict:
+    t0 = time.monotonic()
     if n_hosts <= 1:
         return {"host": host_index, "hosts": n_hosts, "skipped": True}
-    peers = {h: a for h, a in (host_addrs or {}).items() if h != host_index}
+    peers = {h: a for h, a in host_addrs.items() if h != host_index}
     if not peers:
         raise CoopUnavailable(
             f"cooperative pull over {n_hosts} hosts has no peer addresses "
@@ -393,10 +435,13 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     # ── Phase 1: fetch my share through the waterfall ──
     mine = _layer_order(plan.for_host(host_index), priorities)
     before = _tier_bytes(bridge.stats)
-    with stage("coop_fetch"):
+    with stage("coop_fetch"), telemetry.span("coop.fetch", units=len(mine)):
         fetch_stats = warm_units_parallel(bridge, recs,
                                           entries_map=entries_map, units=mine)
     fetch_tiers = _tier_delta(before, _tier_bytes(bridge.stats))
+    for tier, nbytes in fetch_tiers.items():
+        _M_COOP_BYTES.inc(nbytes, tier=tier)
+    _M_COOP_FETCH_BYTES.set(sum(fetch_tiers.values()))
 
     # ── Phase 2: the exchange, collective first ──
     budget = ByteBudget(budget_bytes)
@@ -419,21 +464,29 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     }
     clock_offsets: dict = {}
     collective_stats: dict | None = None
+    use_collective = bridge.cfg.coop_collective
+    t_exchange = time.monotonic()
     try:
-        with stage("coop_exchange"):
-            if bridge.cfg.coop_collective and any(foreign.values()):
+        with stage("coop_exchange"), telemetry.span(
+                "coop.exchange", collective=use_collective) as xsp:
+            if use_collective and any(foreign.values()):
                 collective_stats, foreign = _collective_tier(
                     bridge, plan, host_index, n_hosts, peers, pool, budget,
                     ex, verify, deadline, priorities, entries_map, device,
                     foreign, health)
             jobs = [(h, units) for h, units in foreign.items() if units]
+            xsp.set("owners", len(jobs))
             if jobs:
+                # Pool threads do not inherit the round's thread-scoped
+                # trace context: hand it over, so their spans stay on
+                # this host's track.
+                ctx = telemetry.trace.current_context()
                 with ThreadPoolExecutor(
                         len(jobs), thread_name_prefix="zest-coop-x") as tp:
                     futures = [tp.submit(_exchange_from, bridge,
                                          entries_map, pool, peers, h, units,
                                          budget, ex, verify, deadline,
-                                         health)
+                                         health, ctx)
                                for h, units in jobs]
                 for fut in futures:
                     fut.result()  # a worker's error is the round's error
@@ -442,6 +495,10 @@ def coop_round(bridge, recs: list[Reconstruction], host_index: int,
     finally:
         if dcn_pool is None:
             pool.close()
+    _M_COOP_EXCHANGE_WALL.set(time.monotonic() - t_exchange)
+    _M_COOP_BYTES.inc(ex.wire_bytes, tier="dcn")
+    if ex.fallback_bytes:
+        _M_COOP_BYTES.inc(ex.fallback_bytes, tier="fallback")
 
     # Headline ratio over network bytes (cache hits excluded), fallback
     # bytes booked under the tier that actually served them.
@@ -516,11 +573,13 @@ def _collective_tier(bridge, plan, host_index, n_hosts, peers, pool, budget,
 
 def _collect_clock_offsets(pool, peers, out: dict,
                            timeout_s: float = _CLK_HELLO_TIMEOUT_S) -> None:
-    """Per-peer hello clock offsets keyed by host index into ``out``.
-    Peers the exchange never dialed (a collective talks to its log N
-    partners only) get a hello dialed here, in named threads joined under
-    one bounded deadline; a hello that hangs is left to its daemon
-    thread, and its channel, should it complete, closes with the pool."""
+    """Per-peer hello clock offsets keyed by host index into ``out`` and
+    into the active tracer's ``clock_offsets`` metadata (the key
+    ``telemetry.fleet.merge_traces`` normalizes clocks by). Peers the
+    exchange never dialed (a collective talks to its log N partners
+    only) get a hello dialed here, in named threads joined under one
+    bounded deadline; a hello that hangs is left to its daemon thread,
+    and its channel, should it complete, closes with the pool."""
     by_addr = pool.clock_offsets()
     missing = [(idx, addr) for idx, addr in sorted(peers.items())
                if addr not in by_addr]
@@ -546,6 +605,11 @@ def _collect_clock_offsets(pool, peers, out: dict,
         if idx is not None:
             out[int(idx)] = {"offset_s": row["offset_s"],
                              "rtt_s": row["rtt_s"]}
+    tracer = telemetry.trace.active()
+    if out and tracer is not None:
+        # Merged per host: several in-process hosts share one tracer.
+        existing = tracer.metadata.get("clock_offsets", {})
+        tracer.add_metadata(clock_offsets={**existing, **out})
 
 
 def _layer_order(units, priorities):
@@ -558,12 +622,15 @@ def _layer_order(units, priorities):
 
 def _exchange_from(bridge, entries_map, pool, peers, owner, units,
                    budget, ex: _ExchangeStats, verify, deadline,
-                   health) -> None:
+                   health, trace_ctx=None) -> None:
     """Pull ``units`` from ``owner``: NOT_FOUND retries until the deadline
     (the owner may still be fetching), a dead channel or an expired
     deadline degrades the rest to the per-host CDN fallback. ``health``
     (the swarm's registry) is struck when the owner dies and credited
-    when a window comes back whole."""
+    when a window comes back whole. ``trace_ctx`` is the round's trace
+    context, installed on this worker thread."""
+    if trace_ctx:
+        telemetry.trace.use_context(trace_ctx)
     addr = peers.get(owner)
     if addr is None:
         _fallback(bridge, entries_map, units, ex, owner=owner)
@@ -584,6 +651,7 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
             window.append(pending.pop(0))
             wire_est += nbytes
         budget.acquire(wire_est)
+        t_window = time.monotonic()
         try:
             if faults.fire("peer_timeout", key=f"{host}:{port}"):
                 raise TimeoutError(f"injected peer_timeout for {host}:{port}")
@@ -593,14 +661,23 @@ def _exchange_from(bridge, entries_map, pool, peers, owner, units,
                  for hh, fi in window],
                 timeout=max(1.0, deadline - time.monotonic()),
                 tag=pool.window_tag())
-        except (ConnectionError, TimeoutError, OSError):
+        except (ConnectionError, TimeoutError, OSError) as exc:
             budget.release(wire_est)
             with ex.lock:
                 ex.dead_hosts.add(owner)
+            telemetry.record("exchange_dead_host", owner=owner,
+                             peer=f"{host}:{port}",
+                             error=type(exc).__name__)
             if health is not None:
                 health.record_failure(addr, kind="io_timeout")
             _fallback(bridge, entries_map, window + pending, ex, owner=owner)
             return
+        per_unit_s = (time.monotonic() - t_window) / max(1, len(window))
+        # Once per answered unit: a NOT_FOUND unit comes back in a later
+        # window and is observed there.
+        for reply in replies:
+            if isinstance(reply, DcnResponse):
+                _M_COOP_UNIT_SECONDS.observe(per_unit_s)
         missing = []
         try:
             for (hh, fi), reply in zip(window, replies):
@@ -696,6 +773,7 @@ def _fallback(bridge, entries_map, units, ex: _ExchangeStats,
         ex.book_fallback((hh, fi.range.start), source, len(data))
         telemetry.record("cdn_fallback", unit=hh[:16], owner=owner,
                          tier=source, bytes=len(data))
+        _M_COOP_FALLBACKS.inc()
 
 
 # ── Address and nonce exchange over the torch.distributed store ──

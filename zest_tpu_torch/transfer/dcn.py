@@ -22,10 +22,14 @@ on connect, then messages flow in either direction):
     GOSSIP    (5): one anti-entropy request, a JSON object
     GOSSIP_REPLY (6): its reply, a JSON object
 
-The port's trace block carries no trace id and no host index, only its
-wall clock; from the peer's block a channel estimates the peer's clock
-offset (the single-exchange NTP estimate, error within half the hello's
-round trip), which :meth:`DcnPool.clock_offsets` reports. A server
+The trace block carries the sender's trace id and coop host index from
+its trace context, and its wall clock; from the peer's block a channel
+estimates the peer's clock offset (the single-exchange NTP estimate,
+error within half the hello's round trip), which
+:meth:`DcnPool.clock_offsets` reports. A traced window carries a tag,
+and the server's ``dcn.serve`` span records it beside the client's host
+index: the key ``telemetry.fleet.merge_traces`` links client and server
+spans by. A server
 answers byte-exact by default; a request's flags let it answer lossy
 (``serve_chunk_range``: ``FLAG_QUANT_OK`` invites a quantized container
 of a cache hit, ``FLAG_LOSSY_OK`` accepts a staged one forwarded
@@ -49,12 +53,19 @@ import threading
 import time
 from dataclasses import dataclass
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.xorb import XorbFormatError, XorbReader, encode_frame
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.storage import XorbCache, read_chunk
 from zest_tpu_torch.transfer import lossy
+
+_M_CHUNKS_SERVED = telemetry.counter(
+    "zest_dcn_chunks_served_total",
+    "Chunks served to other pods over the DCN RPC")
+_M_BYTES_SERVED = telemetry.counter(
+    "zest_dcn_bytes_served_total",
+    "Payload bytes served over the DCN RPC")
 
 # The BT wire's message cap (zest_tpu/p2p/wire.py): a full xorb always fits.
 MAX_MESSAGE_SIZE = 64 * 1024 * 1024 + 1024
@@ -253,10 +264,31 @@ class HelloInfo:
     """What one connection's hello negotiated."""
 
     subversion: int = 1
+    peer_trace_id: str | None = None    # hex, from the peer's block
     peer_host: int | None = None        # the peer's coop host index
     rtt_s: float | None = None
     # Estimated peer wall clock minus ours; error within ±rtt/2.
     clock_offset_s: float | None = None
+
+
+def _our_trace_block() -> bytes:
+    """This side's 32-byte trace block, from the process or thread trace
+    context (the cooperative round sets it): the trace id and the coop
+    host index, all-zero id and host 0xFFFF when there is none. The
+    block is framing, sent whenever v2 was negotiated, so the wire's
+    shape does not depend on the telemetry switch."""
+    ctx = telemetry.trace.current_context()
+    tid = ctx.get("trace_id")
+    host = ctx.get("host")
+    try:
+        tid_bytes = bytes.fromhex(tid) if tid else b"\0" * 16
+    except ValueError:
+        tid_bytes = b"\0" * 16
+    if len(tid_bytes) != 16:
+        tid_bytes = (tid_bytes + b"\0" * 16)[:16]
+    host_u16 = host if isinstance(host, int) and 0 <= host < _NO_HOST \
+        else _NO_HOST
+    return _TRACE_BLOCK.pack(tid_bytes, host_u16, 0, time.time())
 
 
 def _exchange_hello(sock: socket.socket) -> HelloInfo:
@@ -274,9 +306,11 @@ def _exchange_hello(sock: socket.socket) -> HelloInfo:
     info = HelloInfo(subversion=min(HELLO_SUBVERSION, their_sub or 1))
     if info.subversion < 2:
         return info
-    sock.sendall(_TRACE_BLOCK.pack(b"\0" * 16, _NO_HOST, 0, time.time()))
-    _tid, host, _bflags, peer_epoch = _TRACE_BLOCK.unpack(
+    sock.sendall(_our_trace_block())
+    tid_bytes, host, _bflags, peer_epoch = _TRACE_BLOCK.unpack(
         _recv_exact(sock, _TRACE_BLOCK.size))
+    if tid_bytes != b"\0" * 16:
+        info.peer_trace_id = tid_bytes.hex()
     if host != _NO_HOST:
         info.peer_host = host
     info.rtt_s = max(0.0, time.monotonic() - t0)
@@ -379,9 +413,14 @@ class DcnServer:
     thread per connection, requests served in order per stream; clients
     pipeline by request ID."""
 
-    def __init__(self, cfg: Config, cache: XorbCache | None = None):
+    def __init__(self, cfg: Config, cache: XorbCache | None = None,
+                 span_attrs: dict | None = None):
         self.cfg = cfg
         self.cache = cache or XorbCache(cfg)
+        # Attrs stamped on every ``dcn.serve`` span (the in-process
+        # multi-host runs pass {"host": i}; a server in its own process
+        # takes the process trace context instead).
+        self.span_attrs = dict(span_attrs or {})
         # The gossip responder (attach_gossip): anti-entropy rounds ride
         # this listener's connections.
         self.gossip = None
@@ -451,12 +490,12 @@ class DcnServer:
                     return
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.settimeout(IDLE_TIMEOUT_S)
-                _exchange_hello(conn)
+                hello = _exchange_hello(conn)
                 while not self._shutdown.is_set():
                     msg = _recv_message(conn)
                     node = self.gossip
                     if isinstance(msg, DcnRequest):
-                        self._serve_request(conn, msg)
+                        self._serve_request(conn, msg, hello)
                     elif (isinstance(msg, DcnGossip) and not msg.reply
                           and node is not None):
                         conn.sendall(encode_message(DcnGossip(
@@ -470,7 +509,22 @@ class DcnServer:
         finally:
             self._conns.discard(conn)
 
-    def _serve_request(self, conn: socket.socket, req: DcnRequest) -> None:
+    def _serve_request(self, conn: socket.socket, req: DcnRequest,
+                       hello: HelloInfo | None = None) -> None:
+        # The serve span carries the window tag and the requester's host
+        # and trace id from its hello: the key a merged trace links to
+        # the client's ``dcn.request_many`` span by.
+        attrs = dict(self.span_attrs)
+        attrs["tag"] = req.tag
+        if hello is not None and hello.peer_host is not None:
+            attrs["client_host"] = hello.peer_host
+        if hello is not None and hello.peer_trace_id is not None:
+            attrs.setdefault("trace_id", hello.peer_trace_id)
+        with telemetry.span("dcn.serve", **attrs) as sp:
+            self._serve_request_inner(conn, req, sp)
+
+    def _serve_request_inner(self, conn: socket.socket, req: DcnRequest,
+                             sp) -> None:
         if not req.range_start < req.range_end:
             conn.sendall(encode_message(DcnError(
                 req.request_id,
@@ -479,6 +533,7 @@ class DcnServer:
         found = serve_chunk_range(self.cfg, self.cache, req.chunk_hash,
                                   req.range_start, req.range_end, req.flags)
         if found is None:
+            sp.set("outcome", "not_found")
             conn.sendall(encode_message(
                 DcnNotFound(req.request_id, req.chunk_hash)))
             return
@@ -487,6 +542,9 @@ class DcnServer:
             conn.sendall(encode_message(DcnError(
                 req.request_id, f"entry of {len(blob)} bytes over cap")))
             return
+        _M_CHUNKS_SERVED.inc()
+        _M_BYTES_SERVED.inc(len(blob))
+        sp.add_bytes(len(blob))
         # Scatter-gather: a whole xorb is up to 64 MiB, not to be joined
         # into one bytestring.
         _sendmsg_all(conn, [encode_response_prefix(
@@ -705,32 +763,44 @@ class DcnPool:
 
     def request_many(self, host: str, port: int,
                      wants: list[tuple[bytes, int, int]],
-                     timeout: float | None = None, tag: int = 0,
+                     timeout: float | None = None, tag: int | None = None,
                      flags: int = 0) -> list[DcnMessage]:
         """Pipelined batch through a pooled channel, reconnecting and
         retrying ONCE when a pooled channel turns out to be dead; a fresh
         connection's failure propagates. ``tag`` stamps every REQUEST of
-        the batch with a window tag, ``flags`` with the flag byte."""
+        the batch with a window tag, ``flags`` with the flag byte.
+
+        Without an explicit ``tag`` a window tag is taken only while a
+        tracer records: it links this window's ``dcn.request_many`` span
+        to the server's ``dcn.serve`` spans, and an untraced window keeps
+        the untagged wire bytes."""
+        if tag is None:
+            tag = (self.window_tag() if telemetry.enabled()
+                   and telemetry.trace.active() is not None else 0)
         with self._lock:
             self.counters["windows"] += 1
             self.counters["requests"] += len(wants)
             self.counters["tagged_windows" if tag
                           else "untagged_windows"] += 1
-        ch, reused = self._lease(host, port)
-        try:
-            return ch.request_many(wants, timeout=timeout, tag=tag,
-                                   flags=flags)
-        except (ConnectionError, TimeoutError, OSError):
-            self.drop(host, port)
-            if not reused:
+        attrs = {"peer": f"{host}:{port}", "requests": len(wants)}
+        if tag:
+            attrs["flow_tag"] = tag
+        with telemetry.span("dcn.request_many", **attrs):
+            ch, reused = self._lease(host, port)
+            try:
+                return ch.request_many(wants, timeout=timeout, tag=tag,
+                                       flags=flags)
+            except (ConnectionError, TimeoutError, OSError):
+                self.drop(host, port)
+                if not reused:
+                    raise
+            ch, _ = self._lease(host, port)
+            try:
+                return ch.request_many(wants, timeout=timeout, tag=tag,
+                                       flags=flags)
+            except (ConnectionError, TimeoutError, OSError):
+                self.drop(host, port)
                 raise
-        ch, _ = self._lease(host, port)
-        try:
-            return ch.request_many(wants, timeout=timeout, tag=tag,
-                                   flags=flags)
-        except (ConnectionError, TimeoutError, OSError):
-            self.drop(host, port)
-            raise
 
     def gossip_exchange(self, host: str, port: int, payload: dict,
                         timeout: float | None = None) -> dict:

@@ -23,9 +23,9 @@ a new byte-moving tier:
   (:func:`aligned_tensor_names`, beyond the JAX package).
 
 Everything is conservative: any metadata mismatch classifies as changed,
-which costs work, never correctness. The JAX package's telemetry (the
-``delta.plan`` span and the ``zest_delta_bytes_total`` counters) is not
-ported.
+which costs work, never correctness. Planning opens a ``delta.plan``
+span and books ``zest_delta_bytes_total{kind}``, as the JAX package
+does.
 """
 
 from __future__ import annotations
@@ -38,9 +38,16 @@ from pathlib import Path
 
 import numpy as np
 
-from zest_tpu_torch import storage
+from zest_tpu_torch import storage, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas import reconstruction as recon
+
+_M_DELTA_BYTES = telemetry.counter(
+    "zest_delta_bytes_total",
+    "Checkpoint bytes classified by the delta plan: reused = served "
+    "from the local cache with zero network, fetched = changed (or "
+    "evicted) bytes that crossed the waterfall/coop tiers",
+    ("kind",))
 
 MANIFEST_FORMAT = 1
 
@@ -433,8 +440,15 @@ def build_plan(base_manifest: dict, files_terms, units=None,
     ``files_terms`` is ``[(path, terms)]`` in the manifest wire shape;
     ``units`` B's deduplicated ``[(hash_hex, FetchInfo)]`` fetch units
     (``parallel.plan.collect_units``), which feed ``changed_units`` and,
-    with ``cache``, the stale-unit accounting."""
-    return _build_plan(base_manifest, files_terms, units, cache)
+    with ``cache``, the stale-unit accounting. Books the
+    ``zest_delta_bytes_total`` counters."""
+    with telemetry.span("delta.plan",
+                        base=base_manifest.get("revision", "")):
+        plan = _build_plan(base_manifest, files_terms, units, cache)
+    _M_DELTA_BYTES.inc(plan.reused_bytes, kind="reused")
+    _M_DELTA_BYTES.inc(plan.changed_bytes + plan.stale_bytes,
+                       kind="fetched")
+    return plan
 
 
 def _build_plan(base_manifest, files_terms, units, cache) -> DeltaPlan:

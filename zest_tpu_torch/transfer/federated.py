@@ -112,7 +112,14 @@ def warm_units_parallel(bridge, recs: list[Reconstruction],
     fetch completes, or after its last failed attempt (the landing's
     per-term waterfall is the last resort, so resolved does not mean
     cached). Returns ``{"units", "bytes", "failed"}`` (plus ``"retried"``
-    when the sequential retry pass rescued any)."""
+    when the sequential retry pass rescued any). Runs in a
+    ``warm.units`` span."""
+    with telemetry.span("warm.units", shards=len(recs)):
+        return _warm_units_parallel(bridge, recs, entries_map, units,
+                                    on_unit)
+
+
+def _warm_units_parallel(bridge, recs, entries_map, units, on_unit) -> dict:
     if entries_map is None:
         entries_map = _entries_by_hash(recs)
     if units is None:

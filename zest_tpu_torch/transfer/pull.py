@@ -41,6 +41,14 @@ from the landing's slots, ``waterfall`` through the reconstruction),
 block). ``fallback_files`` counts xet files whose reconstruction failed
 and that came whole from ``resolve`` instead.
 
+**Tracing**: the pull runs in a ``pull`` span, every stage in a
+``stage.<name>`` span; with a tracer installed (``ZEST_TRACE`` or
+``telemetry.trace.install``) the stats carry ``critical_path``, the
+blame-attributed path through this pull's window
+(:mod:`~zest_tpu_torch.telemetry.critpath`). The pull-path metrics
+(``zest_pulls_total``, ``zest_stage_seconds``, ``zest_time_to_hbm_seconds``,
+the ``zest_last_pull_*`` gauges, ...) carry the JAX package's names.
+
 **Delta pull and hot-swap** (``Config.delta_pull``, ``ZEST_DELTA``): a
 pull of revision B over a locally evidenced revision A diffs B's term
 lists against A's manifest before any byte moves
@@ -194,6 +202,52 @@ from zest_tpu_torch.transfer.tenancy import (  # noqa: F401 - re-export
     PullCancelled,
 )
 
+_M_PULLS = telemetry.counter(
+    "zest_pulls_total", "Pulls finished, by outcome", ("outcome",))
+_M_PULL_SECONDS = telemetry.histogram(
+    "zest_pull_seconds", "End-to-end pull wall time")
+_M_TTH_SECONDS = telemetry.histogram(
+    "zest_time_to_hbm_seconds", "Pull start → weights resident in HBM")
+_M_TTFL_SECONDS = telemetry.histogram(
+    "zest_time_to_first_layer_seconds",
+    "Pull start → first-token-capable set (embedding + layer 0) "
+    "resident in HBM (streaming landing)")
+# Last-pull gauges: how the most recent landing did (the histograms
+# aggregate every pull).
+_M_LAST_TTFL = telemetry.gauge(
+    "zest_last_pull_first_layer_seconds",
+    "time_to_first_layer_s of the most recent streaming landing")
+_M_LAST_TTH = telemetry.gauge(
+    "zest_last_pull_hbm_seconds",
+    "time_to_hbm_s of the most recent --device pull")
+_M_LAST_RING_STALLS = telemetry.gauge(
+    "zest_last_pull_ring_stalls",
+    "Ring producer stalls during the most recent streaming landing "
+    "(the cumulative zest_land_ring_stalls_total would misattribute "
+    "earlier pulls' stalls to the last one)")
+_M_LAST_DELTA_RATIO = telemetry.gauge(
+    "zest_last_pull_delta_ratio",
+    "Network-fetched fraction of the most recent pull's checkpoint "
+    "bytes when a delta plan ran (0.0 = fully reused from the local "
+    "cache); -1 when the last pull was not a delta")
+_M_LAST_SWAP = telemetry.gauge(
+    "zest_last_pull_swap_seconds",
+    "time_to_swap_s of the most recent in-place hot-swap delta pull "
+    "(0 when the last pull was not a hot-swap)")
+_M_STAGE_SECONDS = telemetry.histogram(
+    "zest_stage_seconds", "Per-entry stage wall time", ("stage",))
+_M_STAGE_BYTES = telemetry.counter(
+    "zest_stage_bytes_total", "Payload bytes attributed per stage",
+    ("stage",))
+_M_FILES_BYTES = telemetry.counter(
+    "zest_files_bytes_total",
+    "HF-cache bytes materialized by the background files lane, by lane",
+    ("lane",))
+_M_SLO_BREACHES = telemetry.counter(
+    "zest_slo_breaches_total",
+    "Pulls that breached an armed SLO budget (ZEST_SLO_TTHBM_S / "
+    "ZEST_SLO_TTFL_S)", ("slo",))
+
 
 class PullResult:
     """The snapshot path, stats, and the landed name→tensor tree. The
@@ -218,7 +272,12 @@ class StageClock:
     :meth:`busy_summary` its summed thread-seconds (``busy > wall`` shows
     parallelism within a stage), :meth:`span` the union over several
     stages, and :meth:`gbps_summary` the rate of stages with noted
-    bytes."""
+    bytes.
+
+    Every stage entry opens a ``stage.<name>`` span, so a trace shows the
+    intervals the stats report, and observes ``zest_stage_seconds``;
+    noted bytes go to ``zest_stage_bytes_total``. The summaries come from
+    the same intervals whether telemetry is on or off."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -242,7 +301,8 @@ class StageClock:
         t0 = time.monotonic()
         self._notify(stage, True)
         try:
-            yield
+            with telemetry.span(f"stage.{stage}"):
+                yield
         finally:
             self.note_interval(stage, t0, time.monotonic())
             self._notify(stage, False)
@@ -258,10 +318,12 @@ class StageClock:
             t0, t1 = t1, t0
         with self._lock:
             self._intervals.setdefault(stage, []).append((t0, t1))
+        _M_STAGE_SECONDS.observe(t1 - t0, stage=stage)
 
     def note_bytes(self, stage: str, nbytes: int) -> None:
         with self._lock:
             self._bytes[stage] = self._bytes.get(stage, 0) + int(nbytes)
+        _M_STAGE_BYTES.inc(int(nbytes), stage=stage)
 
     @staticmethod
     def _coverage(intervals: list[tuple[float, float]]) -> float:
@@ -402,6 +464,7 @@ class _FilePipeline:
     def note_lane(self, lane: str, nbytes: int) -> None:
         with self._lock:
             self.lane_bytes[lane] = self.lane_bytes.get(lane, 0) + int(nbytes)
+        _M_FILES_BYTES.inc(int(nbytes), lane=lane)
 
     def defer_commit(self, tmp: str, dest: Path) -> None:
         """Register a fully written temp file for the exit barrier."""
@@ -502,7 +565,8 @@ class _FilePipeline:
             pending, self._pending_commits = self._pending_commits, []
         if not pending:
             return
-        with self.clock("files"):
+        with self.clock("files"), telemetry.span("files.commit",
+                                                 files=len(pending)):
             futures = [self._prepared_pool.submit(storage.durable_replace,
                                                   tmp, dest)
                        for tmp, dest in pending]
@@ -799,8 +863,15 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         device=str(device) if land else None)
     if sess is not None:
         sess.cancel_token = cancel
+    # A coop pull installs its trace context (host, trace id): the
+    # previous one comes back at exit, so a daemon's next pull never
+    # records under a stale identity.
+    prev_ctx = telemetry.trace.base_context()
+    # The root span: every stage.*, fetch and landing span nests in it,
+    # and its window is what the critical path is computed over.
     with telemetry.session.bind(sess.id if sess else None), \
-            telemetry.span("pull", repo=repo_id, revision=revision):
+            telemetry.span("pull", repo=repo_id, revision=revision,
+                           device=str(device) if land else "") as root:
         try:
             with tenancy.admit(cfg, tenant_label, cancel=cancel,
                                session=sess) as ticket:
@@ -817,6 +888,7 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
             status = ("cancelled" if cancelled
                       else "rejected" if rejected else "error")
             try:
+                _M_PULLS.inc(outcome=status)
                 telemetry.record(
                     "pull_cancelled" if cancelled
                     else "pull_rejected" if rejected else "pull_failed",
@@ -826,8 +898,27 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
                 telemetry.session.finish(
                     sess, status, error=f"{type(exc).__name__}: {exc}")
             raise
+        finally:
+            telemetry.trace.replace_context(prev_ctx)
+    # A traced pull's stats carry the critical path, computed after the
+    # root span closed and pinned to this pull's own root, so a daemon's
+    # long-lived tracer never hands it another pull's window.
     try:
+        tracer = telemetry.trace.active()
+        if tracer is not None and telemetry.enabled():
+            try:
+                cp = telemetry.critpath.analyze_tracer(tracer,
+                                                       root_span=root)
+            except Exception:  # noqa: BLE001 - attribution is advisory
+                cp = None
+            if cp is not None:
+                result.stats["critical_path"] = cp
         _check_slos(cfg, repo_id, result.stats, sess)
+        _M_PULLS.inc(outcome="ok")
+        _M_PULL_SECONDS.observe(time.monotonic() - t0)
+        tth = result.stats.get("time_to_hbm_s")
+        if tth is not None:
+            _M_TTH_SECONDS.observe(tth)
     finally:
         telemetry.session.finish(sess, "ok", stats=result.stats)
     return result
@@ -836,12 +927,14 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
 def _check_slos(cfg: Config, repo_id: str, stats: dict, sess) -> None:
     """Per-session SLO check: the pull's time to HBM and to the first
     layer against ``ZEST_SLO_TTHBM_S`` / ``ZEST_SLO_TTFL_S``. A breach
-    records an ``slo_breach`` event with the session id; the burn counts
-    live on the session table (``/v1/pulls``' ``slo`` block).
-    ``blamed_stage`` stays None: the critical-path analyzer that names it
-    is not ported."""
+    bumps ``zest_slo_breaches_total{slo}`` and records an ``slo_breach``
+    event with the session id and ``blamed_stage``, the largest stage of
+    the pull's critical path (None when it ran untraced); the burn counts
+    live on the session table (``/v1/pulls``' ``slo`` block)."""
     budgets = (("tthbm", cfg.slo_tthbm_s, stats.get("time_to_hbm_s")),
                ("ttfl", cfg.slo_ttfl_s, stats.get("time_to_first_layer_s")))
+    cp_stages = (stats.get("critical_path") or {}).get("stages") or {}
+    blamed = max(cp_stages, key=cp_stages.get) if cp_stages else None
     for slo, budget, actual in budgets:
         if not budget or actual is None:
             continue
@@ -851,11 +944,12 @@ def _check_slos(cfg: Config, repo_id: str, stats: dict, sess) -> None:
             sess.note_slo(slo, {"budget_s": budget, "actual_s": actual,
                                 "breached": breached})
         if breached:
+            _M_SLO_BREACHES.inc(slo=slo)
             telemetry.record(
                 "slo_breach", slo=slo, repo=repo_id, budget_s=budget,
                 actual_s=actual,
                 session=sess.id if sess is not None else None,
-                blamed_stage=None)
+                blamed_stage=blamed)
 
 
 def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
@@ -1132,11 +1226,21 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
     }
     if land:
         stats["time_to_hbm_s"] = round(time_to_hbm, 3)
+        _M_LAST_TTH.set(time_to_hbm)
         stats["hbm"] = hbm_stats
         if mesh is not None:
             stats["mesh"] = mesh.shape
     if time_to_first_layer is not None:
         stats["time_to_first_layer_s"] = round(time_to_first_layer, 3)
+        _M_TTFL_SECONDS.observe(time_to_first_layer)
+        _M_LAST_TTFL.set(time_to_first_layer)
+        _M_LAST_RING_STALLS.set(float(
+            ((hbm_stats or {}).get("ring") or {}).get("stalls", 0)))
+    elif land:
+        # A landing that did not stream: no stale first-layer or stall
+        # figure of an earlier pull may sit beside this pull's.
+        _M_LAST_TTFL.set(0.0)
+        _M_LAST_RING_STALLS.set(0.0)
     if delta_plan is not None:
         dsum = delta_plan.summary()
         # Measured, not planned: the bytes that crossed the network
@@ -1153,11 +1257,19 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
             dsum["tensors"] = {"reused": swap["reused_tensors"],
                                "landed": swap["landed_tensors"]}
             stats["time_to_swap_s"] = stats["time_to_hbm_s"]
+            _M_LAST_SWAP.set(time_to_hbm)
             if base_params:
                 # Tensors the new revision dropped: the base dict is
                 # empty when a swap returns.
                 base_params.clear()
+        else:
+            _M_LAST_SWAP.set(0.0)
         stats["delta"] = dsum
+        _M_LAST_DELTA_RATIO.set(
+            dsum.get("fetched_ratio", dsum["delta_bytes_ratio"]))
+    else:
+        _M_LAST_DELTA_RATIO.set(-1.0)
+        _M_LAST_SWAP.set(0.0)
     if coop_stats is not None:
         stats["coop"] = coop_stats
         stats["peer_served_ratio"] = coop_stats.get("peer_served_ratio")
@@ -1347,6 +1459,14 @@ def _reused_tensors(cache, st, recs_with_headers, base_manifest,
     return reused
 
 
+def _swap_span(preloaded):
+    """The ``delta.swap`` span around a landing that reuses base tensors
+    in place; nothing for a landing that reuses none."""
+    if not preloaded:
+        return contextlib.nullcontext()
+    return telemetry.span("delta.swap", reused=len(preloaded))
+
+
 def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                       clock: StageClock, file_pipeline: _FilePipeline,
                       ensure_auth, delta_state=None, mesh=None, rules=None,
@@ -1443,7 +1563,7 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
 
             clock.ensure("fetch")  # the warm threads clock it
             pipeline.poke(0)
-            with clock("hbm_commit"):
+            with clock("hbm_commit"), _swap_span(preloaded):
                 params, hbm_stats = stage_cached_to_hbm(
                     bridge, recs_with_headers, dev, dtype=dtype,
                     prefetch_next=pipeline.poke, clock=clock, stream=True,
@@ -1473,7 +1593,7 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                                       skip_keys=skip_keys)
             with clock("fetch"):
                 pipeline.ensure(0)
-            with clock("hbm_commit"):
+            with clock("hbm_commit"), _swap_span(preloaded):
                 params, hbm_stats = stage_cached_to_hbm(
                     bridge, recs_with_headers, dev, dtype=dtype,
                     prefetch_next=pipeline.ensure,
@@ -1706,7 +1826,10 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
     The pull's trace id is minted from ``repo@sha`` and the nonce host 0
     shares over the store. Host 0 writes the nonce before it announces
     its address and the others read it only after the address exchange,
-    so every host that sees host 0 mints the same id. ``units`` is a
+    so every host that sees host 0 mints the same id. The id and the host
+    index become the process trace context (one host is one process in a
+    deployment), recorded in the tracer's metadata too, since
+    ``pull_model`` restores the previous context at exit. ``units`` is a
     delta pull's changed set: only those are planned."""
     host_index, n_hosts, addrs = coop_cfg
     pull_key = f"{repo_id}@{commit_sha}"
@@ -1732,10 +1855,17 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
                 "discovery over its store")
         if host_index != 0:
             nonce = share_nonce_via_kv(pull_key, host_index, timeout_s=5.0)
+    trace_id = mint_trace_id(pull_key, nonce)
+    if telemetry.enabled():
+        telemetry.trace.set_context(host=host_index, trace_id=trace_id)
+        tracer = telemetry.trace.active()
+        if tracer is not None:
+            tracer.add_metadata(
+                context={"host": host_index, "trace_id": trace_id})
     return coop_round(bridge, recs, host_index, n_hosts, addrs,
                       device=device, server=server,
                       budget_bytes=cfg.coop_inflight_bytes,
-                      trace_id=mint_trace_id(pull_key, nonce),
+                      trace_id=trace_id,
                       priorities=priorities, units=units, clock=clock,
                       log=log)
 

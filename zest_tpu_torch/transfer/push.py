@@ -40,7 +40,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from types import SimpleNamespace
 
-from zest_tpu_torch import ops, storage
+from zest_tpu_torch import ops, storage, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas import reconstruction as recon
 from zest_tpu_torch.cas.publish import Publisher, PublishedXorb, is_xet_path
@@ -247,7 +247,17 @@ def push_checkpoint(cfg: Config, repo_id: str,
     read. ``device`` (``cuda`` by default, or ``cpu``) is where the minted
     chunks are re-verified. With ``notify`` the publisher at
     ``notify_url`` (see :func:`notify_daemon`) is told, and wakes its
-    watchers; a no-op push notifies no one."""
+    watchers; a no-op push notifies no one. The push runs in a ``push``
+    span."""
+    with telemetry.span("push", repo=repo_id):
+        return _push_checkpoint(cfg, repo_id, checkpoint_dir, files,
+                                base_revision, device, notify, notify_url,
+                                log)
+
+
+def _push_checkpoint(cfg: Config, repo_id: str, checkpoint_dir, files,
+                     base_revision, device, notify: bool, notify_url,
+                     log) -> PushResult:
     t0 = time.monotonic()
     cfg.model_cache_dir(repo_id)  # repo-id validation (raises ValueError)
     device = resolve_device(device)  # fail before the encode

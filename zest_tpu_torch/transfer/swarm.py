@@ -41,7 +41,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Protocol
 
-from zest_tpu_torch import faults
+from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.config import Config
 from zest_tpu_torch.p2p import bencode, bep_xet, wire
 from zest_tpu_torch.p2p import peer_id as peer_id_mod
@@ -65,6 +65,12 @@ NEGATIVE_DISCOVERY_TTL_S = 2.0
 # emit O(swarms × transitions) tracker round trips when each swarm's
 # registration is already fresh.
 REANNOUNCE_WINDOW_S = 30.0
+
+_M_SWARM = telemetry.counter(
+    "zest_swarm_events_total", "Swarm events (attempts, failures, ...)",
+    ("event",))
+_M_PEER_BYTES = telemetry.counter(
+    "zest_swarm_bytes_total", "Payload bytes served by peers")
 
 # What a peer that speaks garbage raises: the codecs' ValueErrors. A
 # peer failure like an IO error (see the module docstring).
@@ -102,6 +108,10 @@ class SwarmStats:
     def bump(self, name: str, amount: int = 1) -> None:
         with self._lock:
             setattr(self, name, getattr(self, name) + amount)
+        if name == "bytes_from_peers":
+            _M_PEER_BYTES.inc(amount)
+        else:
+            _M_SWARM.inc(amount, event=name)
 
     def summary(self) -> dict:
         return {
@@ -250,30 +260,38 @@ class SwarmDownloader:
         ``deadline`` caps each attempt's connect/IO timeouts — when the
         budget runs dry the remaining candidates are abandoned and the
         caller's CDN tier takes over."""
-        info_hash = peer_id_mod.compute_info_hash(xorb_hash)
-        candidates = list(self.direct_peers)
-        for addr in self.discover_peers(info_hash):
-            if addr not in candidates:
-                candidates.append(addr)
-        if not candidates:
-            return None
-        ready, _shunned = self.health.partition(candidates)
-
-        for host, port in ready:
-            if deadline is not None and deadline.expired():
+        with telemetry.span("swarm.fetch", xorb=hash_hex) as sp:
+            info_hash = peer_id_mod.compute_info_hash(xorb_hash)
+            candidates = list(self.direct_peers)
+            for addr in self.discover_peers(info_hash):
+                if addr not in candidates:
+                    candidates.append(addr)
+            if not candidates:
+                sp.set("outcome", "no_candidates")
                 return None
-            self.stats.bump("peer_attempts")
-            result = self._attempt(
-                host, port, info_hash, xorb_hash, range_start, range_end,
-                deadline,
-            )
-            if result is None:
-                continue
-            self.stats.bump("chunks_from_peers")
-            self.stats.bump("bytes_from_peers", len(result.data))
-            self.announce_available(xorb_hash, hash_hex)
-            return result
-        return None
+            ready, _shunned = self.health.partition(candidates)
+            sp.set("candidates", len(ready))
+
+            for host, port in ready:
+                if deadline is not None and deadline.expired():
+                    sp.set("outcome", "deadline")
+                    return None
+                self.stats.bump("peer_attempts")
+                result = self._attempt(
+                    host, port, info_hash, xorb_hash, range_start, range_end,
+                    deadline,
+                )
+                if result is None:
+                    continue
+                self.stats.bump("chunks_from_peers")
+                self.stats.bump("bytes_from_peers", len(result.data))
+                self.announce_available(xorb_hash, hash_hex)
+                sp.set("outcome", "served")
+                sp.set("peer", f"{host}:{port}")
+                sp.add_bytes(len(result.data))
+                return result
+            sp.set("outcome", "exhausted")
+            return None
 
     def _attempt(
         self,
