@@ -302,6 +302,46 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    exactly the entries no pin holds, every xorb of A alone among them (at
    least one), and no pinned entry. 0 kernel launches on every path (see
    :func:`tenancy_phase`);
+17. the self-healing control plane, the timeline and the engine rebuilt
+   with a 1 s anomaly window, a 20 Hz sampler, a straggler patience of 1
+   and a token back every second (``HEAL_ENV``). 17a: node B's cache
+   seeded by its own ``serve`` process under ``seeder_stall`` (1.5 s a
+   response, under the 2 s io-timeout floor); a fresh node pulls A onto
+   ``cuda:0`` with it as its direct peer: ``stall`` (or
+   ``throughput_collapse``) on the pull's session, a ``hedge`` decision
+   executed with its before/after series (it arms the bridge; a
+   landing's unit fetches never hedge), phase 4's digest and files,
+   ``ring.in_use_bytes`` and ``ring.stalls`` sampled during the pull;
+   then a second fresh node pulls A's files only from the same seeder,
+   one fetch at a time: its hedge decision executed, and the CDN racing
+   the stalled peer on the later fetches (``hedges`` and ``hedges_won``
+   at least 1, CDN bytes), files equal to phase 4's; every
+   ``fetch.<tier>_bps`` series integrating to its counter's delta within
+   the samples' rounding. 17b:
+   a two-host collective round of A whose partner (a bare ``DcnServer``)
+   holds the first half of its units in the exchange's order: a
+   ``collective_straggler`` naming it, the engine's ``strike`` decision
+   executed with ``cmd: abort``, ``aborted == "remediation"``, the rest
+   down the ladder, phase 4's digest on ``cuda:0``, kernel #3's (and
+   #1's) rows exactly the held units' chunks. 17c: two streaming
+   landings of A from B's cache through ``stage_cached_to_hbm`` with a
+   4 MiB, 2-slot ring: a ``tune`` up decision, the second ring 8 MiB,
+   the rails at 32 MiB; an ``HbmPool`` on the card whose watermark holds
+   one of two Llama-3.2-1B-width trees (**depth cut 16 → 2**; GPT-2 is
+   not a pool family), requested X, Y, X with a sleep after each flush:
+   a ``hedge`` whose ``rush`` is seen on the pool, a ``shed`` on
+   ``pool_shed``, one tree's allocation after each request and at least
+   one tree given back at close. 17d: on node A's publisher, ``/v1/timeline`` paged by
+   cursor with no sample repeated, ``?scope=pod`` over a second daemon,
+   ``GET``/``POST /v1/remediations`` with the dry-run toggle, the
+   dashboard, ``zest top`` and ``zest heal`` exit 0, ``zest diff
+   --push-preview`` of revision D (A with ``ln_f.weight`` redrawn), D
+   pushed with ``notify_url`` (kernel #1's rows its minted chunks) and
+   swapped by a ``watch_and_swap`` onto ``cuda:0`` over 17c's tree: the
+   ``push.*`` series equal the push's numbers and the record's
+   ``propagation_s`` (see :func:`heal_phase`). Every earlier phase runs
+   with the engine on, as by default, and prints its decisions by action
+   and outcome;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -320,7 +360,8 @@ federated pull's pre-passes (``federated``), the hierarchical fill
 (``hier``), the lossy round's receipts (``lossy``), phase 15's four
 discovery paths (``tracker``, ``dht``, ``gossip``, ``files_parallel``)
 and phase 16's pull service (``tenancy``, ``tenancy_daemon``,
-``tenancy_swap``) among them), the
+``tenancy_swap``) and phase 17's (``heal_pull``, ``heal_collective``,
+``heal_tune``, ``heal_pool``, ``heal_push``) among them), the
 card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -5134,6 +5175,765 @@ def tenancy_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed,
             for path, counts in launches.items()}
 
 
+# Phase 17: the self-healing control plane. The reference's own knobs make
+# its rules fire in seconds: a 1 s anomaly window, the sampler at 20 Hz
+# (the engine's ring and pool rules compare two ticks, and a landing from
+# the cache lasts well under a second), 2048 samples a series (the
+# phase's ~100 s: 17a integrates its rate series from the sampler's
+# start), a straggler patience of 1 (the first firing aborts the
+# exchange), and a token back every second (17a's two pulls, then 17c's
+# rush, each get a hedge token within seconds of the last).
+HEAL_ENV = {"ZEST_ANOMALY_WINDOW_S": "1", "ZEST_TIMELINE_HZ": "20",
+            "ZEST_TIMELINE_SAMPLES": "2048", "ZEST_REMEDIATE_PATIENCE": "1",
+            "ZEST_REMEDIATE_RATE_S": "1"}
+# 17a: each seeder response sleeps this long, under the peer io-timeout
+# floor (2 s, p2p.health.io_timeout): no request times out, so nothing
+# strikes the seeder; only the stall detector sees it.
+HEAL_STALL_S = 1.5
+# 17c: a landing ring small enough to stall on GPT-2's 9.4 MB tensors.
+HEAL_RING = 4 * 1024 * 1024
+# 17c: the pool's trees: Llama-3.2-1B's published width, depth cut 16 → 2
+# (GPT-2 is not a pool family: POOL_FAMILIES), landed with a sleep after
+# each flush so that a decode waits at its layer gates.
+HEAL_POOL_LAYERS = 2
+HEAL_LAND_DELAY_S = 0.4
+
+
+def decision_counts() -> tuple[int, dict]:
+    """``(engine id, {(action, outcome): n})`` of the remediation engine
+    now in the process (``(0, {})`` before the first pull starts one)."""
+    from zest_tpu_torch import telemetry
+
+    eng = telemetry.remediate.ENGINE
+    if eng is None:
+        return 0, {}
+    with eng._lock:
+        return id(eng), dict(eng.counts)
+
+
+class DecisionLog:
+    """Prints the remediation engine's decisions, by action and outcome,
+    made since the previous mark: the engine is on by default, so every
+    phase shows what it decided there."""
+
+    def __init__(self):
+        self.eng, self.last = decision_counts()
+
+    def mark(self, label: str) -> dict:
+        eng, now = decision_counts()
+        last = self.last if eng == self.eng else {}
+        delta = {f"{a}/{o}": n - last.get((a, o), 0)
+                 for (a, o), n in sorted(now.items())
+                 if n != last.get((a, o), 0)}
+        self.eng, self.last = eng, now
+        print(f"{label} remediation decisions: {delta or 'none'}")
+        return delta
+
+
+def wait_decision(match, label: str, timeout: float = 5.0) -> dict:
+    """The first decision in the engine's log that ``match``\\ es, waited
+    for over the sampler's ticks."""
+    from zest_tpu_torch import telemetry
+
+    deadline = time.monotonic() + timeout
+    while True:
+        for e in telemetry.remediate.payload(limit=256)["recent"]:
+            if match(e):
+                return e
+        if time.monotonic() > deadline:
+            fail(f"{label}: no matching decision in "
+                 f"{telemetry.remediate.payload(limit=256)['recent']}")
+        time.sleep(0.05)
+
+
+def wait_ticks(n: int = 2) -> None:
+    """Until the sampler has run ``n`` more passes."""
+    from zest_tpu_torch import telemetry
+
+    store = telemetry.timeline.STORE
+    want = store.ticks + n
+    deadline = time.monotonic() + 10
+    while store.ticks < want:
+        if time.monotonic() > deadline:
+            fail("phase 17: the timeline sampler stopped ticking")
+        time.sleep(0.02)
+
+
+def fetch_totals() -> dict[str, float]:
+    """``zest_fetch_bytes_total`` by source, as the sampler reads it."""
+    from zest_tpu_torch import telemetry
+
+    for m in telemetry.REGISTRY.metrics():
+        if m.name == "zest_fetch_bytes_total":
+            out: dict[str, float] = {}
+            for labels, v in m.samples():
+                out[labels["source"]] = out.get(labels["source"], 0.0) + v
+            return out
+    return {}
+
+
+def heal_pull(work: Path, url: str, cfg_b, ckpt: Path, pushed,
+              digest: str, totals0: dict, dev) -> dict:
+    """17a: a fresh node pulls revision A onto the card with node B's
+    cache seeding it as its own process (phase 8a's seeder) under
+    ``seeder_stall``. The detector fires ``stall`` (or
+    ``throughput_collapse``) on the pull's session and the engine executes
+    a hedge on its bridge: it arms the bridge, and nothing more, since a
+    landing's unit fetches never hedge (in both packages); the tree lands
+    with phase 4's digest and the ring gauges are sampled while it lands.
+    Then a second fresh node pulls A's files only (``land=False``) from
+    the same stalled seeder, one fetch at a time: the first fetch stalls,
+    the engine arms that pull's hedge, and every later term fetch is raced
+    by the CDN after the hedge's head start: ``hedges`` and ``hedges_won``
+    at least 1, CDN bytes, files equal to phase 4's. Every
+    ``fetch.<tier>_bps`` series integrates to its counter's delta since
+    the sampler started (``totals0``)."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    tl = telemetry.timeline
+    cfg = Config(hf_home=work / "h17a" / "hf",
+                 cache_dir=work / "h17a" / "zest", endpoint=url,
+                 listen_port=0)
+    # The files-only node fetches one term at a time: the seeder serves
+    # one response at a time anyway, and a wider pool would start every
+    # fetch before the first stall is seen.
+    cfg_f = Config(hf_home=work / "h17f" / "hf",
+                   cache_dir=work / "h17f" / "zest", endpoint=url,
+                   listen_port=0, max_concurrent_downloads=1)
+    seeder = Seeder("phase 17a", cfg_b,
+                    ZEST_FAULTS=f"seeder_stall:1.0@{HEAL_STALL_S}")
+
+    def stalled_pull(c, **kw):
+        swarm = SwarmDownloader(c)
+        swarm.add_direct_peer("127.0.0.1", seeder.port)
+        try:
+            return pull_model(c, REPO, revision=pushed.revision,
+                              swarm=swarm, **kw)
+        finally:
+            swarm.close()
+
+    off0 = tl.STORE._wall_offset
+    reset_counters()
+    try:
+        t0 = time.time()
+        res = stalled_pull(cfg, device=dev)
+        t1 = time.time()
+        sess = telemetry.session.SESSIONS.recent()[0]
+        res_f = stalled_pull(cfg_f, land=False)
+        t2 = time.time()
+        sess_f = telemetry.session.SESSIONS.recent()[0]
+    finally:
+        served = seeder.stop()
+    launches = read_counters()
+    check_files("phase 17a", res, ckpt)
+    check_tree("phase 17a", res, digest, dev)
+    check_files("phase 17a files", res_f, ckpt)
+    hedges = {}
+    for label, s_ in (("device", sess), ("files", sess_f)):
+        kinds = set(s_.anomalies) & {tl.ANOMALY_STALL, tl.ANOMALY_COLLAPSE}
+        if not kinds:
+            fail(f"phase 17a: no stall or collapse on the {label} pull's "
+                 f"session: {s_.anomalies}")
+        hedge = wait_decision(
+            lambda e, sid=s_.id: e["action"] == "hedge"
+            and e["session"] == sid, "phase 17a")
+        if hedge["outcome"] != "success" \
+                or not hedge["detail"].get("armed"):
+            fail(f"phase 17a: the {label} pull's hedge decision {hedge}")
+        hedges[label] = (sorted(kinds)[0], hedge)
+    kind, hedge = hedges["device"]
+    fetch_f = res_f.stats["fetch"]
+    resil = fetch_f["resilience"]
+    if resil["hedges"] < 1 or resil["hedges_won"] < 1 \
+            or fetch_f["bytes"].get("cdn", 0) <= 0:
+        fail(f"phase 17a: the files pull's hedge raced nothing: bytes "
+             f"{fetch_f['bytes']}, resilience {resil}")
+    wait_ticks(2)  # the after-snapshot settles, the counters' last look
+    if not hedge["before"] or not hedge["after"]:
+        fail(f"phase 17a: the hedge carries no series: before "
+             f"{hedge['before']}, after {hedge['after']}")
+    doc = tl.payload()
+    for name in ("ring.in_use_bytes", "ring.stalls"):
+        s = doc["series"].get(name, {}).get("samples", [])
+        if not [t for t, _v in s if t0 <= t <= t1]:
+            fail(f"phase 17a: {name} was not sampled while the landing "
+                 f"ran ({len(s)} samples)")
+    totals = fetch_totals()
+    # Where the wall clock moved against the monotonic one by more than
+    # the store's step (1 ms), the stamps followed it: one interval each
+    # took that move.
+    shift = abs(tl.STORE._wall_offset - off0)
+    ints = {}
+    for name, s in doc["series"].items():
+        if not (name.startswith("fetch.") and name.endswith("_bps")):
+            continue
+        tier = name[len("fetch."):-len("_bps")]
+        pts = s["samples"]
+        got = tl.integrate(pts)
+        want = totals.get(tier, 0.0) - totals0.get(tier, 0.0)
+        # The samples' rounding: each rate rounds to 0.1 B/s over its
+        # interval, each stamp to 1 µs.
+        bound = 1.0 + sum(0.05 * (b[0] - a[0]) + 1e-6 * b[1]
+                          for a, b in zip(pts, pts[1:]))
+        bound += shift * max((v for _t, v in pts), default=0.0)
+        if abs(got - want) > bound:
+            fail(f"phase 17a: integrate({name}) {got:,.1f} B vs the "
+                 f"counter's {want:,.1f} B (bound {bound:.1f} B)")
+        ints[tier] = (round(got, 1), want, round(bound, 1))
+    if "cdn" not in ints or "peer" not in ints:
+        fail(f"phase 17a: fetch series {sorted(ints)}")
+    # The engine decides inside the detector's firing: the first hedge's
+    # stamp is the first firing's.
+    fired = [e for e in doc["anomalies"] if e.get("session") == sess.id]
+    fetch = res.stats["fetch"]
+    print(f"phase 17a self-healing pull ({card_label()}): {kind} on "
+          f"{sess.id}, first hedge {hedge['outcome']} {hedge['t'] - t0:.2f} "
+          f"s into the pull; {len(fired)} firings on the session ("
+          f"{sorted({e['kind'] for e in fired})}); decisions "
+          f"{telemetry.remediate.payload()['counts']}; "
+          f"{landing_summary(res.stats)}"
+          f"; bytes {fetch['bytes']}, resilience {fetch['resilience']}; "
+          f"files pull: {hedges['files'][0]}, hedge "
+          f"{hedges['files'][1]['outcome']} "
+          f"{hedges['files'][1]['t'] - t1:.2f} s into it, {t2 - t1:.2f} s "
+          f"in all, bytes {fetch_f['bytes']}, resilience {resil}; seeder "
+          f"served {served['chunks_served']} chunks; integrate vs counter "
+          f"delta [got, want, bound] by tier {ints} (the stamps' wall "
+          f"offset moved {shift * 1e6:.1f} µs); digest and files equal to "
+          f"phase 4's")
+    del res
+    shutil.rmtree(work / "h17a")
+    shutil.rmtree(work / "h17f")
+    return {"heal_pull": launches}
+
+
+def heal_collective(work: Path, url: str, cfg_a, ckpt: Path, pushed,
+                    digest: str, dev) -> dict:
+    """17b: a two-host collective round of revision A whose partner (host
+    0, a bare ``DcnServer``) holds half of the units it owns and answers
+    the rest NOT_FOUND for ever. The puller's barrier wait passes the
+    window: the detector blames host 0 (``collective_straggler``), the
+    engine's strike decision, at patience 1, aborts the exchange
+    (``aborted == "remediation"``), the rest comes down the ladder, and
+    the tree lands on the card with phase 4's digest. Kernel #3 (and #1)
+    verified exactly the held units' chunks, before the abort. This is
+    the process's only collective: the posted cells and the engine's
+    ``collective`` target are process-wide."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.direct import (
+        unit_layer_priorities,
+        unit_priority_sort_key,
+    )
+    from zest_tpu_torch.models.safetensors_io import SafetensorsFile
+    from zest_tpu_torch.transfer import coop
+    from zest_tpu_torch.transfer.dcn import DcnServer
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    partner = Config(hf_home=work / "h17p" / "hf",
+                     cache_dir=work / "h17p" / "zest", endpoint=url,
+                     dcn_port=0)
+    cfg = Config(hf_home=work / "h17b" / "hf",
+                 cache_dir=work / "h17b" / "zest", endpoint=url, dcn_port=0)
+    recs = gpt2_recs(cfg, pushed.revision)
+    with SafetensorsFile(ckpt / "model.safetensors") as sf:
+        header = sf.header
+    if len(recs) != 1:
+        fail(f"phase 17b: {len(recs)} xet files")
+    # The units in the order the exchange asks for them (layer order, as
+    # the pull's header probe ranks them): the partner holds the first
+    # half, so it delivers them all before it stalls.
+    owned = sorted(coop.CoopPlan.build(recs, 2).for_host(0),
+                   key=unit_priority_sort_key(unit_layer_priorities(
+                       [(recs[0], header)])))
+    held = owned[:len(owned) // 2]
+    if not held:
+        fail(f"phase 17b: host 0 owns {len(owned)} units")
+    want = [0, 0]  # BG4 chunks, other chunks of the held units
+    for hh, fi in held:
+        blob = cfg_a.xorb_cache_path(hh).read_bytes()
+        if (fi.range.start, fi.range.end) != (0, len(XorbReader(blob))):
+            fail(f"phase 17b: unit {hh[:12]} {fi.range} is not its xorb")
+        dst = partner.xorb_cache_path(hh)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(blob)
+        bg4, rest = bg4_chunks_of(blob)
+        want[0] += bg4
+        want[1] += rest
+    server = DcnServer(partner)
+    port = server.start()
+    reset_counters()
+    t0 = time.time()
+    try:
+        res = pull_model(cfg, REPO, revision=pushed.revision, device=dev,
+                         coop=True, coop_hosts=2, coop_index=1,
+                         coop_addrs={0: ("127.0.0.1", port)})
+    finally:
+        server.shutdown()
+    launches = read_counters()
+    c = res.stats["coop"]
+    cx = c.get("collective") or {}
+    if cx.get("aborted") != "remediation" or cx.get("dead_host") != 0:
+        fail(f"phase 17b: the collective {cx}")
+    ex = c["exchange"]
+    if ex["units"] != len(held) or c["fallbacks"] != len(owned) - len(held):
+        fail(f"phase 17b: exchanged {ex['units']} of {len(held)} held "
+             f"units, {c['fallbacks']} fallbacks of {len(owned) - len(held)}")
+    check_files("phase 17b", res, ckpt)
+    check_tree("phase 17b", res, digest, dev)
+    fu, b3 = launches["bg4_fused_verify"], launches["blake3_chunks"]
+    if not fu[0] or fu[1] != want[0] or b3[1] != want[1]:
+        fail(f"phase 17b: kernel #3 {fu}, #1 {b3} [launches, rows]; the "
+             f"held units have {want[0]} BG4 and {want[1]} other chunks")
+    strays = [e for e in telemetry.timeline.payload()["anomalies"]
+              if e["kind"] == "collective_straggler"]
+    if not strays or strays[0].get("partner") != 0:
+        fail(f"phase 17b: straggler anomalies {strays}")
+    strike = wait_decision(lambda e: e["action"] == "strike", "phase 17b")
+    if (strike["outcome"], strike["detail"].get("cmd"),
+            strike["detail"].get("partner")) != ("success", "abort", 0):
+        fail(f"phase 17b: the strike decision {strike}")
+    print(f"phase 17b straggler ({card_label()}): host 0 held "
+          f"{len(held)} of its {len(owned)} units; collective_straggler "
+          f"partner 0 {strays[0]['t'] - t0:.2f} s into the pull "
+          f"(barrier_wait_s {strays[0].get('barrier_wait_s')}), strike "
+          f"{strike['detail']} {strike['outcome']} "
+          f"{strike['t'] - strays[0]['t']:.3f} s after it, aborted "
+          f"{cx['aborted']} at elapsed {cx.get('elapsed_s')} s (barrier "
+          f"{cx.get('barrier_wait_s')} s); exchanged {ex['units']} units, "
+          f"{c['fallbacks']} down the ladder; {landing_summary(res.stats)};"
+          f" kernel #3 {fu}, #1 {b3} [launches, rows]; digest and files "
+          f"equal to phase 4's")
+    del res
+    shutil.rmtree(work / "h17p")
+    shutil.rmtree(work / "h17b")
+    return {"heal_collective": launches}
+
+
+def heal_tune(work: Path, url: str, cfg_b, ckpt: Path, pushed,
+              digest: str, dev):
+    """17c, the ring tuner: two streaming landings of revision A from node
+    B's cache onto the card through ``loader.stage_cached_to_hbm`` (the
+    pull's landing, here with no file sink: a pull writing its files
+    detaches each slot from the ring as it decodes, so its ring never
+    waits on a copy), the ring ``HEAL_RING`` and 2 slots. The first
+    stalls; the engine answers with a ``tune`` up decision (×2); the
+    second lands with the override, inside the rails (≤ 8 × base). Both
+    trees have phase 4's digest. Returns the second tree (17d swaps over
+    it) and the path's launches."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.cas.hub import HubClient
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import params_digest, stage_cached_to_hbm
+    from zest_tpu_torch.models.safetensors_io import SafetensorsFile
+    from zest_tpu_torch.transfer.bridge import XetBridge
+
+    cfg = Config(hf_home=work / "h17r" / "hf", cache_dir=cfg_b.cache_dir,
+                 endpoint=url, land_ring_bytes=HEAL_RING, land_ring_slots=2)
+    with SafetensorsFile(ckpt / "model.safetensors") as sf:
+        header = sf.header
+    bridge = XetBridge(cfg)
+    runs, params = [], None
+    reset_counters()
+    try:
+        bridge.authenticate(REPO, pushed.revision)
+        (rec,) = [bridge.get_reconstruction(e.xet_hash)
+                  for e in HubClient(cfg).list_files(REPO, pushed.revision)
+                  if e.is_xet]
+        for i in range(2):
+            params = None  # the first tree goes before the second lands
+            params, hbm = stage_cached_to_hbm(bridge, [(rec, header)], dev,
+                                              stream=True)
+            if params_digest(params) != digest:
+                fail(f"phase 17c: landing {i}'s digest")
+            ring = hbm["ring"]
+            runs.append((ring["budget_bytes"], ring["stalls"],
+                         hbm["elapsed_s"]))
+            if i == 0:
+                tune = wait_decision(
+                    lambda e: e["action"] == "tune"
+                    and e["detail"].get("from") == HEAL_RING, "phase 17c")
+                if (tune["outcome"], tune["detail"].get("dir"),
+                        tune["detail"].get("to")) != ("success", "up",
+                                                      2 * HEAL_RING):
+                    fail(f"phase 17c: the tune decision {tune}")
+    finally:
+        bridge.close()
+    knob = telemetry.remediate.payload()["knobs"]["land_ring_bytes"]
+    if runs[0][1] < 1 or runs[1][0] != 2 * HEAL_RING \
+            or knob["max"] != 8 * HEAL_RING or runs[1][0] > knob["max"]:
+        fail(f"phase 17c: landings [budget, stalls, s] {runs}, knob "
+             f"{knob}")
+    print(f"phase 17c ring tuner: landing 0 ring {runs[0][0]:,} B, "
+          f"{runs[0][1]} stalls in {runs[0][2]} s; tune {tune['detail']} "
+          f"{tune['outcome']}; landing 1 ring {runs[1][0]:,} B (the "
+          f"override), {runs[1][1]} stalls in {runs[1][2]} s; rails "
+          f"[{knob['min']:,}, {knob['max']:,}]; digests equal")
+    return params, {"heal_tune": read_counters()}
+
+
+def heal_pool(work: Path, seed: int, dev) -> dict:
+    """17c, the pool rules: an ``HbmPool`` on the card whose watermark
+    (1.5 trees) holds one of two Llama-family trees (``HEAL_POOL_LAYERS``
+    layers at Llama-3.2-1B's width, random bf16 from ``seed + 17``; the
+    second is the first's file under another snapshot), requested X, Y,
+    X. The first cold land's decode waits at its gates while the land
+    sleeps after each flush: the gate stall grows with a land in flight
+    and the engine's hedge rushes the flushes (``pool_land``), the rush
+    seen set on the pool; each request evicts the other tree and the
+    eviction growth gives a ``shed`` decision on ``pool_shed``. The
+    allocation is one tree's after each request (the evicted tree's
+    memory went back), and closing the pool gives back at least the
+    resident tree."""
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import hbm_pool
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+
+    cfg_l = dict(LLAMA_CONFIG, num_hidden_layers=HEAL_POOL_LAYERS)
+    tensors = llama_checkpoint(seed + 17, cfg_l)
+    tree = sum(t.numel() * t.element_size() for t in tensors.values())
+    snaps = [work / "h17x", work / "h17y"]
+    for s in snaps:
+        s.mkdir()
+        (s / "config.json").write_text(json.dumps(cfg_l, indent=2))
+    write_safetensors(snaps[0] / "model.safetensors", tensors)
+    os.link(snaps[0] / "model.safetensors", snaps[1] / "model.safetensors")
+    del tensors
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pool = hbm_pool.HbmPool(Config(
+        hf_home=work / "h17l" / "hf", cache_dir=work / "h17l" / "zest",
+        hbm_pool_bytes=int(1.5 * tree)), dev)
+    pool.land_delay_s = HEAL_LAND_DELAY_S
+    rush, stop = [], threading.Event()
+
+    def watch_rush():
+        while not stop.is_set():
+            if pool._rush.is_set() and not rush:
+                rush.append(time.time())
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch_rush, name="phase-17c-rush")
+    watcher.start()
+    rows = []
+    reset_counters()
+    try:
+        for s in (snaps[0], snaps[1], snaps[0]):
+            t0 = time.monotonic()
+            _ids, info = pool.generate_for(s, s.name, [[1, 2, 3, 4]], 2,
+                                           stop_at_eos=False)
+            # The land thread keeps its pin through its last sleep: the
+            # tree is evictable once it is published resident.
+            deadline = time.monotonic() + 30
+            while pool._landing_count():
+                if time.monotonic() > deadline:
+                    fail("phase 17c pool: a land never ended")
+                time.sleep(0.01)
+            torch.cuda.synchronize(dev)
+            held = torch.cuda.memory_allocated(dev) - base
+            rows.append((s.name, info["temp"], info["gate_stall_s"],
+                         round(time.monotonic() - t0, 3), held))
+            if held > tree + (64 << 20):
+                fail(f"phase 17c pool: {held:,} B held after {s.name}, "
+                     f"above one tree's {tree:,} B")
+        hedge = wait_decision(
+            lambda e: e["action"] == "hedge"
+            and e["detail"].get("cmd") == "rush", "phase 17c pool")
+        shed = wait_decision(
+            lambda e: e["action"] == "shed"
+            and e["detail"].get("cmd") == "shed_coldest", "phase 17c pool")
+        summary = pool.summary()
+    finally:
+        stop.set()
+        watcher.join()
+        pool.close()
+    if hedge["outcome"] != "success" or not rush:
+        fail(f"phase 17c pool: the rush decision {hedge}, rush seen {rush}")
+    if shed["outcome"] != "success" or summary["evictions"] < 2:
+        fail(f"phase 17c pool: the shed decision {shed}, pool {summary}")
+    torch.cuda.synchronize(dev)
+    left = torch.cuda.memory_allocated(dev) - base
+    # Phase 9a's rule: closing gives back at least the resident tree (the
+    # decode's first matmul may leave cuBLAS's workspace behind).
+    if left > rows[-1][4] - tree:
+        fail(f"phase 17c pool: {left:,} B still allocated after close, "
+             f"{rows[-1][4]:,} B before it")
+    print(f"phase 17c pool rules: tree {tree:,} B, watermark "
+          f"{int(1.5 * tree):,} B; requests [snapshot, temp, gate_stall_s, "
+          f"s, allocated above the start] {rows}; hedge {hedge['detail']} "
+          f"{hedge['outcome']}, rush seen {rush[0] - hedge['t']:+.3f} s "
+          f"from it; shed {shed['detail']} {shed['outcome']}; evictions "
+          f"{summary['evictions']}; {left:,} B above the start after "
+          f"close")
+    for s in snaps:
+        shutil.rmtree(s)
+    return {"heal_pool": read_counters()}
+
+
+def heal_surfaces(work: Path, url: str, publisher, cfg_a, cfg_b,
+                  ckpt: Path, pushed, tree: dict, seed: int, dev) -> dict:
+    """17d: the surfaces on node A's publisher (this process's daemon).
+    ``GET /v1/timeline`` paged by cursor with no sample repeated;
+    ``?scope=pod`` over a second daemon naming A's as pod peer 1 (its
+    clock offset applied, or ``applied_offset_s: null``); ``GET`` and
+    ``POST /v1/remediations`` with the dry-run toggle; ``GET /`` the
+    dashboard; ``zest top`` (one frame) and ``zest heal`` exit 0 against
+    A's daemon. Revision D (A with ``ln_f.weight`` drawn again from
+    ``seed``) is pushed with ``notify_url`` (kernel #1 re-verifies its
+    minted chunks): the daemon posts ``push.new_xorb_bytes`` and
+    ``push.dedup_ratio``, and a ``watch_and_swap`` onto ``cuda:0`` over
+    17c's second tree (``tree``, handed over), on a node over B's cache,
+    posts ``push.propagation_s``; ``zest diff --push-preview`` prints D's
+    preview first."""
+    import contextlib
+    import io
+    import urllib.error
+    import urllib.request
+
+    from zest_tpu_torch import cli, telemetry
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.transfer.push import push_checkpoint, watch_and_swap
+
+    def get(base_url, path):
+        with urllib.request.urlopen(base_url + path, timeout=10) as r:
+            body = r.read()
+            return r.headers.get("Content-Type", ""), body
+
+    def get_json(base_url, path):
+        return json.loads(get(base_url, path)[1].decode())
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=body, method="POST",
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                return r.status, json.loads(r.read().decode())
+        except urllib.error.HTTPError as exc:
+            return exc.code, None
+
+    # The cursor-paged timeline: three pages over the live sampler.
+    doc = get_json(url, "/v1/timeline")
+    seen = {(n, t) for n, s in doc["series"].items()
+            for t, _v in s["samples"]}
+    cursor, pages = doc["cursor"], []
+    for _ in range(3):
+        wait_ticks(1)
+        page = get_json(url, f"/v1/timeline?since={cursor}")
+        new = [(n, t) for n, s in page["series"].items()
+               for t, _v in s["samples"]]
+        if page["cursor"] <= cursor or not new or seen & set(new) \
+                or len(set(new)) != len(new):
+            fail(f"phase 17d: page past {cursor}: cursor {page['cursor']}, "
+                 f"{len(new)} samples, {len(seen & set(new))} repeated")
+        seen |= set(new)
+        pages.append(len(new))
+        cursor = page["cursor"]
+    # Pod scope over two daemons.
+    port_a = int(url.rsplit(":", 1)[1])
+    cfg_p = Config(hf_home=work / "h17d" / "hf",  # nothing is written
+                   cache_dir=work / "h17d" / "zest", coop_index=0,
+                   pod_peers={1: ("127.0.0.1", port_a)})
+    with PublisherServer(cfg_p, device=dev) as coord:
+        pod = get_json(coord.url, "/v1/timeline?scope=pod")
+    norm = pod.get("clock_normalization", {})
+    if pod.get("hosts") != ["0", "1"] or set(norm) != {"0", "1"} \
+            or pod.get("scrape_errors") \
+            or not any(n.startswith("h1.") for n in pod["series"]):
+        fail(f"phase 17d: pod timeline hosts {pod.get('hosts')}, "
+             f"normalization {norm}, errors {pod.get('scrape_errors')}")
+    # The remediations surface and the dry-run toggle.
+    rem = get_json(url, "/v1/remediations?limit=5")
+    flips = [post("/v1/remediations", b'{"dry_run": true}'),
+             (200, {"dry_run": get_json(url, "/v1/remediations")
+                    ["dry_run"]}),
+             post("/v1/remediations", b'{"dry_run": false}'),
+             (post("/v1/remediations", b"not json")[0], None)]
+    if not rem["enabled"] or rem["dry_run"] or not rem["counts"] \
+            or flips != [(200, {"dry_run": True}), (200, {"dry_run": True}),
+                         (200, {"dry_run": False}), (400, None)]:
+        fail(f"phase 17d: /v1/remediations {rem.get('counts')}, the "
+             f"toggle {flips}")
+    ctype, page = get(url, "/")
+    if not ctype.startswith("text/html") or b"zest-tpu-torch" not in page:
+        fail(f"phase 17d: GET / answered {ctype}, {len(page)} B")
+    # The CLI against A's daemon.
+    env_keep = {k: os.environ.get(k) for k in ("ZEST_HTTP_PORT", "HF_HOME",
+                                               "ZEST_CACHE_DIR")}
+    os.environ.update(ZEST_HTTP_PORT=str(port_a),
+                      HF_HOME=str(cfg_a.hf_home),
+                      ZEST_CACHE_DIR=str(cfg_a.cache_dir))
+    outs = {}
+    try:
+        for argv in (["top", "--count", "1"], ["heal"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            outs[argv[0]] = buf.getvalue()
+            if rc != 0:
+                fail(f"phase 17d: zest {' '.join(argv)} exited {rc}")
+        if "zest top" not in outs["top"] \
+                or "self-healing: live" not in outs["heal"]:
+            fail(f"phase 17d: zest top / heal printed {outs}")
+        # Revision D, its preview, its push and the watcher's swap.
+        tensors_d = revision_b(load_checkpoint(ckpt, "cpu"), seed,
+                               names=("ln_f.weight",))
+        ckpt_d = work / "checkpoint-d"
+        ckpt_d.mkdir()
+        (ckpt_d / "config.json").write_text(json.dumps(GPT2_CONFIG,
+                                                       indent=2))
+        write_safetensors(ckpt_d / "model.safetensors", tensors_d)
+        del tensors_d
+        digest_d = params_digest(load_checkpoint(ckpt_d, "cpu"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["diff", f"{REPO}@{pushed.revision}",
+                           "--push-preview", str(ckpt_d)])
+        preview = buf.getvalue()
+        if rc != 0 or "push preview" not in preview \
+                or "dedup ratio" not in preview:
+            fail(f"phase 17d: zest diff --push-preview exited {rc}: "
+                 f"{preview}")
+    finally:
+        for k, v in env_keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cfg_w = Config(hf_home=work / "h17w" / "hf", cache_dir=cfg_b.cache_dir,
+                   endpoint=url)
+    seen_swap, errors = [], []
+
+    def watch():
+        try:
+            watch_and_swap(cfg_w, REPO, publisher_url=url, device=dev,
+                           base_params=tree,
+                           base_revision=pushed.revision, max_events=1,
+                           timeout_s=120,
+                           on_swap=lambda rec, res: seen_swap.append(
+                               (rec, res)),
+                           log=lambda *a, **k: None)
+        except Exception as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    watcher = threading.Thread(target=watch, name="phase-17d-watch")
+    watcher.start()
+    try:
+        deadline = time.monotonic() + 60
+        while publisher.hub.watchers() < 1:
+            if time.monotonic() > deadline or not watcher.is_alive():
+                fail("phase 17d: the watcher never subscribed")
+            time.sleep(0.01)
+        reset_counters()
+        pushed_d = push_checkpoint(cfg_a, REPO, ckpt_d,
+                                   base_revision=pushed.revision,
+                                   notify=True, notify_url=url, device=dev)
+        push_launches = read_counters()
+    finally:
+        watcher.join(timeout=300)
+    if errors:
+        raise errors[0]
+    if len(seen_swap) != 1:
+        fail(f"phase 17d: the watcher swapped {len(seen_swap)} revisions")
+    b1 = push_launches["blake3_chunks"]
+    if b1[0] < 1 or b1[1] != pushed_d.minted_chunks:
+        fail(f"phase 17d: the push's kernel #1 {b1} [launches, rows], "
+             f"{pushed_d.minted_chunks} minted chunks")
+    rec, res = seen_swap[0]
+    check_tree("phase 17d swap", res, digest_d, dev)
+    wait_ticks(2)
+    push_series = telemetry.timeline.payload(prefix="push.")["series"]
+    last = {n: s["samples"][-1][1] for n, s in push_series.items()}
+    if last.get("push.new_xorb_bytes") != float(pushed_d.new_xorb_bytes) \
+            or abs(last.get("push.dedup_ratio", -1)
+                   - round(pushed_d.dedup_ratio, 4)) > 1e-12 \
+            or abs(last.get("push.propagation_s", -1)
+                   - rec["propagation_s"]) > 1e-3:
+        fail(f"phase 17d: push series {last}; push "
+             f"{pushed_d.new_xorb_bytes} B, dedup "
+             f"{pushed_d.dedup_ratio}, record {rec}")
+    print(f"phase 17d surfaces: /v1/timeline pages of {pages} new samples "
+          f"past each cursor, none repeated; ?scope=pod hosts "
+          f"{pod['hosts']}, normalization {norm}; /v1/remediations counts "
+          f"{rem['counts']}, dry-run toggled on and off, bad body 400; "
+          f"GET / {len(page):,} B of {ctype}; zest top {len(outs['top'].splitlines())} "
+          f"lines, zest heal {len(outs['heal'].splitlines())} lines; "
+          f"preview {' '.join(preview.split())}; push D "
+          f"{pushed_d.new_xorbs} xorbs, {pushed_d.minted_chunks} chunks, "
+          f"kernel #1 {b1}; swap time_to_swap_s "
+          f"{res.stats.get('time_to_swap_s')}, propagation_s "
+          f"{rec['propagation_s']}; push series {last}")
+    res.params = None
+    del res
+    shutil.rmtree(ckpt_d)
+    shutil.rmtree(work / "h17w")
+    return {"heal_push": push_launches}
+
+
+def heal_phase(work: Path, url: str, publisher, cfg_a, cfg_b, ckpt: Path,
+               pushed, digest: str, seed: int, dev) -> dict:
+    """Phase 17: the self-healing control plane on the card (see 17a–17d
+    above), under ``HEAL_ENV``: the timeline and the engine are rebuilt
+    with those knobs for this phase and rebuilt from the environment
+    after it. Returns each path's ``[launches, rows]`` by kernel."""
+    import torch
+
+    from zest_tpu_torch import telemetry
+
+    tl, rm = telemetry.timeline, telemetry.remediate
+    keep = {k: os.environ.get(k) for k in HEAL_ENV}
+    os.environ.update(HEAL_ENV)
+    tl.reset()
+    rm.reset()
+    wall0 = time.monotonic()
+    try:
+        totals0 = fetch_totals()
+        if not (tl.ensure_started() and rm.ensure_started()):
+            fail("phase 17: the timeline or the engine is off")
+        paths = heal_pull(work, url, cfg_b, ckpt, pushed, digest, totals0,
+                          dev)
+        t = time.monotonic()
+        paths.update(heal_collective(work, url, cfg_a, ckpt, pushed, digest,
+                                     dev))
+        t_b = time.monotonic() - t
+        tree, tune_paths = heal_tune(work, url, cfg_b, ckpt, pushed,
+                                     digest, dev)
+        paths.update(tune_paths)
+        paths.update(heal_pool(work, seed, dev))
+        torch.cuda.empty_cache()
+        paths.update(heal_surfaces(work, url, publisher, cfg_a, cfg_b, ckpt,
+                                   pushed, tree, seed + 17, dev))
+        del tree
+        counts = rm.payload(limit=256)["counts"]
+        anomalies = sorted({e["kind"] for e in tl.payload()["anomalies"]})
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tl.reset()
+        rm.reset()
+    for path, counts_k in paths.items():
+        if path not in ("heal_collective", "heal_push") \
+                and any(n for n, _rows in counts_k.values()):
+            fail(f"phase 17: kernel launches on {path}: {counts_k}")
+    print(f"phase 17 wall {time.monotonic() - wall0:.2f} s (17b "
+          f"{t_b:.2f} s); anomaly kinds {anomalies}; decisions by action "
+          f"and outcome {counts}; kernel [launches, rows] by path {paths}")
+    return {path: {k: n for k, (n, _rows) in c.items()}
+            for path, c in paths.items()}
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -5157,6 +5957,7 @@ def run(args, work: Path) -> dict:
 
     # ── 1. build ──
     sass = build_all(work)
+    dlog = DecisionLog()  # the remediation engine's decisions, by phase
 
     # ── 2. kernel vs plain vs native host BLAKE3, on the card ──
     chunks = [rng.bytes(n) for n in KERNEL_LENGTHS]
@@ -5215,6 +6016,7 @@ def run(args, work: Path) -> dict:
                                            pushed, dev)
         tth_a = pulled.stats["time_to_hbm_s"]
         tfl_a = pulled.stats["time_to_first_layer_s"]
+        dlog.mark("phase 4")
 
         # ── 4b. the same tensors as a three-shard checkpoint, tight ring ──
         sharded_launches = sharded_phase(work, publisher.url, cfg_a, tensors,
@@ -5224,6 +6026,7 @@ def run(args, work: Path) -> dict:
         shutil.rmtree(work / "d")
         # ── 4c. phase 4's repo again: complete files stage from disk ──
         resume_phase(cfg_b, digest, dev)
+        dlog.mark("phases 4b, 4c")
 
         # ── 5. greedy decode from the landed tree vs the CPU float32 run ──
         _, gen_cuda = load_generator(pulled.snapshot_dir, device="cuda",
@@ -5255,6 +6058,7 @@ def run(args, work: Path) -> dict:
             pushed.revision, tensors_b, prompts, args.steps,
             pulled.stats["time_to_hbm_s"], dev)
         delta_launches = swap_ref["launches"]
+        dlog.mark("phases 5, 5b")
         del pulled, tensors_b  # free phase 4/5's trees
         shutil.rmtree(work / "b" / "hf")  # phase 8 seeds B's xorb cache
         torch.cuda.empty_cache()
@@ -5272,24 +6076,29 @@ def run(args, work: Path) -> dict:
             work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
             pushed.revision, label="phase 6d", schedule="hierarchical",
             collective_backend="jax", coop_topology=(0, 0, 1, 1))
+        dlog.mark("phases 6, 6c, 6d")
         torch.cuda.empty_cache()  # phase 4's and 6's trees are gone
 
         # ── 10. the pod round over four slots on cuda:0 ──
         pod_launches = pod_phase(work, publisher.url, ckpt, pushed, cfg_a,
                                  digest, dev, pushed.revision)
+        dlog.mark("phase 10")
         torch.cuda.empty_cache()
 
         # ── 7. Llama-3.2-1B: push → pull → cached, sampled decode ──
         llama_ref = llama_phase(work, publisher.url, cfg_a, args.seed,
                                 args.steps, dev)
+        dlog.mark("phase 7")
 
         # ── 8. the swarm: node B seeds, fresh nodes pull from it ──
         swarm_launches = swarm_phase(work, publisher.url, cfg_b, ckpt,
                                      pushed, digest, tth_a, tfl_a, dev)
+        dlog.mark("phase 8")
 
         # ── 15. peer discovery: tracker, DHT, gossip; the parallel rung ──
         discovery_launches = discovery_phase(work, publisher.url, cfg_b,
                                              ckpt, pushed, digest, dev)
+        dlog.mark("phase 15")
 
         # ── 9. the serving pool in-process, then the daemon over HTTP ──
         pool_out = pool_phase(work, publisher.url, cfg_a, llama_ref,
@@ -5297,10 +6106,12 @@ def run(args, work: Path) -> dict:
         daemon_launches = daemon_phase(
             work, publisher.url, pool_out, llama_ref["prompts"][0], gpt2_b1,
             pushed.revision, args.steps)
+        dlog.mark("phase 9")
 
         # ── 11. the mesh landing and the tensor-parallel decode ──
         mesh_launches = mesh_phase(work, publisher.url, cfg_a, llama_ref,
                                    pool_out, args.steps, dev)
+        dlog.mark("phase 11")
 
         # ── 12. the training plane: GPT-2 AdamW with a train-state
         # checkpoint, the Llama-3.2-1B fine-tune pushed back and
@@ -5313,6 +6124,7 @@ def run(args, work: Path) -> dict:
             work, publisher.url, cfg_a, llama_ref, args.seed, args.steps, dev)
         finetune_launches = ft_ref["launches"]
         parallel_train_phase(args.seed, dev)
+        dlog.mark("phase 12")
 
         # ── 13. the sharded tree's life cycle: the hot-swap over a slot
         # mesh, and tensor-, data-, context- and expert-parallel AdamW ──
@@ -5324,6 +6136,7 @@ def run(args, work: Path) -> dict:
         sharded_train_phase(work, publisher.url, llama_ref, ft_ref, dev)
         tp_cp_phase(args.seed, dev)
         expert_train_phase(args.seed, dev)
+        dlog.mark("phase 13")
 
         # ── 14. the multi-pod pull: the federated round across two pods,
         # the hierarchical distributor, the lossy cross-pod tier ──
@@ -5336,6 +6149,7 @@ def run(args, work: Path) -> dict:
                                         dev)
         lossy_launches = lossy_phase(work, publisher.url, ckpt, pushed, dev)
         print(f"phase 14 wall {time.monotonic() - t14:.2f} s")
+        dlog.mark("phase 14")
 
         # ── 16. the multi-tenant pull service: concurrent tenants, a
         # cancel mid-landing, the daemon's queue, eviction under pins ──
@@ -5343,6 +6157,15 @@ def run(args, work: Path) -> dict:
         tenancy_launches = tenancy_phase(work, publisher.url, cfg_a, ckpt,
                                          pushed, digest, swap_ref,
                                          args.seed, dev)
+        dlog.mark("phase 16")
+
+        # ── 17. the self-healing control plane: a stalled seeder hedged,
+        # a straggling collective aborted, the ring tuner and the pool
+        # rules, the timeline and remediation surfaces ──
+        torch.cuda.empty_cache()
+        heal_launches = heal_phase(work, publisher.url, publisher, cfg_a,
+                                   cfg_b, ckpt, pushed, digest, args.seed,
+                                   dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -5417,7 +6240,8 @@ def run(args, work: Path) -> dict:
                                  "federated": fed_launches["blake3_chunks"],
                                  "hier": hier_launches["blake3_chunks"],
                                  "lossy": lossy_launches["blake3_chunks"]}}
-    phase_paths = {**discovery_launches, **tenancy_launches}
+    phase_paths = {**discovery_launches, **tenancy_launches,
+                   **heal_launches}
     for path, counts in phase_paths.items():
         by_path["blake3_chunks"][path] = counts["blake3_chunks"]
     for k in kernels:

@@ -4,7 +4,9 @@
   ``jax`` and ``zest_tpu`` out of ``sys.modules``;
 - no source file of the port (nor ``chip_smoke.py``) imports them;
 - the entry points default to ``cuda`` and raise where there is no card
-  instead of falling back to the CPU.
+  instead of falling back to the CPU;
+- the timeline's probes and the remediation engine's targets launch no
+  kernel and never synchronize a card.
 """
 
 from __future__ import annotations
@@ -299,3 +301,57 @@ def test_fused_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     assert len(got) == 1
     assert (bg4_cuda.FUSED_COUNTER.launches, bg4_cuda.COUNTER.launches) == (
         0, 0)
+
+
+def test_probes_and_targets_launch_nothing(tmp_path, monkeypatch):
+    """Every timeline probe and remediation target the port registers is
+    host bookkeeping: a sampling pass over all of them and a call of each
+    target launch no kernel and never synchronize a card, so the
+    sampler's "a dying probe drops out" and the engine's "failed target"
+    catches can hide no device fault."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import hbm_pool
+    from zest_tpu_torch.models.loader import HostRing
+    from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
+    from zest_tpu_torch.transfer import tenancy
+    from zest_tpu_torch.transfer.swarm import SwarmDownloader
+
+    def forbidden(*_a, **_k):
+        raise AssertionError("a probe or target touched the card")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", forbidden)
+    telemetry.reset_all()
+    tenancy.reset()
+    assert telemetry.remediate.ensure_started()
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "zest")
+    for c in (blake3_cuda.COUNTER, bg4_cuda.COUNTER, bg4_cuda.FUSED_COUNTER):
+        c.reset()
+    pool = hbm_pool.HbmPool(cfg, "cpu")
+    ring = HostRing(1 << 20, 2)
+    swarm = SwarmDownloader(cfg)
+    tenancy.state(cfg)
+    try:
+        probes = dict(telemetry.timeline.STORE._probes)
+        assert len(probes) == 12
+        for name, fn in probes.items():
+            assert fn() is not None, name
+        telemetry.timeline.STORE.tick()
+        eng = telemetry.remediate.ENGINE
+        assert set(eng._targets) == {"pool_land", "pool_shed", "shed",
+                                     "peer_health", "demote"}
+        assert telemetry.remediate.invoke("pool_land", "rush") is True
+        assert telemetry.remediate.invoke("pool_shed", "shed") is False
+        assert telemetry.remediate.invoke("shed", "shed")["shed"] == 0
+        assert telemetry.remediate.invoke("shed", "recover")["was_shedding"]
+        assert telemetry.remediate.invoke("peer_health")["rows"] == []
+        assert telemetry.remediate.invoke(
+            "demote", ("127.0.0.1", 9))["window_s"] > 0
+    finally:
+        swarm.close()
+        ring.close()
+        pool.close()
+        tenancy.reset()
+        telemetry.reset_all()
+    assert (blake3_cuda.COUNTER.launches, bg4_cuda.COUNTER.launches,
+            bg4_cuda.FUSED_COUNTER.launches) == (0, 0, 0)

@@ -1281,3 +1281,93 @@ def test_traced_pull_on_card(cuda_device, tmp_path):
     for s in commits:
         assert any(a <= s.t0 and s.t1 <= b for a, b in stages), s.name
     telemetry.reset_all()
+
+
+def test_pool_rush_on_card(cuda_device, tmp_path):
+    """The remediation engine's pool rule on ``cuda``: a cold decode
+    waiting at its gates while the land sleeps after each flush grows
+    ``hbm_pool.gate_stall_s``; the engine's next tick sees it with the
+    land in flight and rushes the flushes (``pool_land``), and the rushed
+    cold decode's tokens equal a hot decode's."""
+    import threading
+    import time
+
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.models import hbm_pool
+
+    telemetry.reset_all()
+    assert telemetry.remediate.ensure_started()
+    cfg_json, host = _tiny_llama_tensors(4)
+    snap = _snapshot(tmp_path / "llama", cfg_json, host)
+    pool = hbm_pool.HbmPool(Config(hf_home=tmp_path / "hf",
+                                   cache_dir=tmp_path / "zest"), cuda_device)
+    pool.group_bytes = 1
+    pool.land_delay_s = 0.2
+    rush, done = [], threading.Event()
+
+    def ticks():
+        while not done.is_set():
+            telemetry.timeline.STORE.tick()
+            rush.append(pool._rush.is_set())
+            time.sleep(0.02)
+
+    ticker = threading.Thread(target=ticks)
+    ticker.start()
+    try:
+        cold, info = pool.generate_for(snap, "org/l", [[1, 2, 3]], 6)
+    finally:
+        done.set()
+        ticker.join()
+    try:
+        assert info["temp"] == "cold" and info["gate_stall_s"] > 0
+        assert any(rush)
+        (row,) = [e for e in telemetry.remediate.payload()["recent"]
+                  if e["detail"].get("cmd") == "rush"][:1]
+        assert row["action"] == "hedge" and row["outcome"] == "success"
+        deadline = time.monotonic() + 30
+        while pool._landing_count():  # the land's last sleep
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        hot, info = pool.generate_for(snap, "org/l", [[1, 2, 3]], 6)
+        assert info["temp"] == "hot"
+        np.testing.assert_array_equal(cold, hot)
+    finally:
+        pool.close()
+        telemetry.reset_all()
+
+
+def test_ring_override_on_card(cuda_device, tmp_path):
+    """The landing on ``cuda`` reads ``land_ring_bytes`` through the
+    engine's tuner: with an override of twice the base the ring's budget
+    is doubled and the tree's digest is the CPU landing's; an explicit
+    ``ring_bytes`` still wins."""
+    from zest_tpu_torch import telemetry
+    from zest_tpu_torch.api.http_api import PublisherServer
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    telemetry.reset_all()
+    ckpt = _tiny_gpt2(tmp_path / "ckpt")
+    cfg_a = Config(hf_home=tmp_path / "a" / "hf",
+                   cache_dir=tmp_path / "a" / "zest", push_chunks_per_xorb=2)
+    push_checkpoint(cfg_a, "org/tiny", ckpt, notify=False)
+    base = 64 * 1024
+    assert telemetry.remediate.ensure_started()
+    telemetry.remediate.set_knob_base("land_ring_bytes", base)
+    telemetry.remediate.ENGINE._apply_knob("land_ring_bytes", 2 * base, 1,
+                                           0.0)
+    try:
+        with PublisherServer(cfg_a) as server:
+            res = pull_model(Config(hf_home=tmp_path / "b" / "hf",
+                                    cache_dir=tmp_path / "b" / "zest",
+                                    endpoint=server.url,
+                                    land_ring_bytes=base), "org/tiny",
+                             device=cuda_device, no_p2p=True)
+        assert res.stats["hbm"]["ring"]["budget_bytes"] == 2 * base
+        assert params_digest(res.params) == params_digest(
+            load_checkpoint(ckpt, "cpu"))
+        knob = telemetry.remediate.payload()["knobs"]["land_ring_bytes"]
+        assert knob["max"] == 8 * base and knob["value"] == 2 * base
+    finally:
+        telemetry.reset_all()

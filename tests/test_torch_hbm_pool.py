@@ -2,7 +2,7 @@
 
 Mirrors tests/test_hbm_pool.py's knob, admission, re-land, parity,
 pager, knob-off and observability cases for the port (its timeline and
-remediation cases wait for those subsystems), and holds the two pools
+remediation cases are in tests/test_torch_remediate.py), and holds the two pools
 to each other: the landed tree's ``params_digest``, and the tokens,
 greedy and sampled under the JAX key grid's injected Gumbel noise, for
 Llama and Mixtral. The port's pool also matches its own family paths

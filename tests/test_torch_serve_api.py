@@ -174,12 +174,13 @@ def test_status_and_models_schema_pool_on_off(hub, tmp_path):
         assert set(s_on["hbm_pool"]) == set(j_on.status_payload()["hbm_pool"])
         assert set(s_on["telemetry"]) == set(
             j_on.status_payload()["telemetry"])
-        # The pull service's blocks carry the JAX package's keys; blocks
-        # of subsystems the port does not run are absent.
+        # The pull service's and the timeline's blocks carry the JAX
+        # package's keys; the mesh block of a landing mesh is absent.
         j_status = j_on.status_payload()
         assert set(s_on["tenancy"]) == set(j_status["tenancy"])
         assert set(s_on["pulls"]) == set(j_status["pulls"])
-        assert not {"timeline", "mesh_axes"} & set(s_on)
+        assert set(s_on["timeline"]) == set(j_status["timeline"])
+        assert "mesh_axes" not in s_on
         m_on, m_off = on.models_payload(), off.models_payload()
         assert set(m_on) == {"models", "resident"}
         assert set(m_off) == {"models"}

@@ -32,7 +32,7 @@ from zest_tpu.transfer import pull as j_pull
 from zest_tpu.transfer import tenancy as j_tenancy
 from zest_tpu_torch import storage, telemetry
 from zest_tpu_torch.config import Config
-from zest_tpu_torch.models import loader
+from zest_tpu_torch.models import direct, loader
 from zest_tpu_torch.telemetry import session as session_mod
 from zest_tpu_torch.transfer import pull as pull_mod
 from zest_tpu_torch.transfer import tenancy
@@ -434,19 +434,48 @@ def test_shed_evicts_queued_waiters_with_retry_after():
     assert c.recover() == {"was_shedding": True, "queued": 0}
 
 
-def test_state_registers_the_shed_target_and_no_timeline_probe(tmp_path):
+def test_state_registers_the_shed_target_and_no_timeline_probe(
+        tmp_path, monkeypatch):
     """The process state registers the ``shed`` remediation target, as
-    the JAX package's does; the JAX package's four timeline probes wait
-    for the port's timeline sampler, which has no probe registry yet."""
+    the JAX package's does; with ``ZEST_TIMELINE=0`` it registers no
+    timeline probe (the knob-off store stays empty)."""
     cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "z")
     st = tenancy.state(cfg)
     assert telemetry.remediate.invoke("shed", "shed")["shed"] == 0
     assert st.controller.shedding
     assert telemetry.remediate.invoke("shed", "recover") \
         == {"was_shedding": True, "queued": 0}
-    assert not hasattr(telemetry.timeline, "register_probe")
     tenancy.reset()
     assert telemetry.remediate.invoke("shed", "recover") is None
+    monkeypatch.setenv("ZEST_TIMELINE", "0")
+    telemetry.reset_all()
+    tenancy.state(cfg)
+    assert telemetry.timeline.STORE._probes == {}
+    assert telemetry.remediate.invoke("shed", "shed") is None
+
+
+def test_state_registers_the_four_timeline_probes_and_unregisters_them(
+        tmp_path):
+    """The JAX package's four tenancy probes, by name and by value on
+    the same controller state; ``reset`` takes them back."""
+    cfg = Config(hf_home=tmp_path / "hf", cache_dir=tmp_path / "z")
+    jcfg = JConfig(hf_home=tmp_path / "hf", cache_dir=tmp_path / "jz")
+    states = {"port": tenancy.state(cfg), "reference": j_tenancy.state(jcfg)}
+    probes = {"port": telemetry.timeline.STORE._probes,
+              "reference": j_telemetry.timeline.STORE._probes}
+    assert set(probes["port"]) == set(probes["reference"]) \
+        == set(tenancy.TIMELINE_PROBES)
+    for st in states.values():
+        st.controller.acquire("a")
+    values = {k: {n: float(fn()) for n, fn in probes[k].items()}
+              for k in probes}
+    assert values["port"] == values["reference"]
+    assert values["port"]["tenancy.active_pulls"] == 1.0
+    for st in states.values():
+        st.controller.release()
+    tenancy.reset()
+    assert not set(tenancy.TIMELINE_PROBES) & \
+        set(telemetry.timeline.STORE._probes)
 
 
 def test_pull_model_rejects_when_saturated(tmp_path):
@@ -703,6 +732,18 @@ def test_cancel_mid_landing_leaves_nothing_behind(tmp_path, monkeypatch):
         return real(*a, on_first_layer=fire, **k)
 
     monkeypatch.setattr(pull_mod, "stage_cached_to_hbm", hooked)
+    # The timeline sampler and the term-decode pool are the process's,
+    # started by the first pull and kept for the process's life (the
+    # pool grows a thread a task up to its width): start both in full
+    # before counting, so that what is left is the pull's own.
+    telemetry.timeline.ensure_started()
+    width = direct.resolve_decode_workers()
+    pool = direct._shared_decode_pool(width)
+    if pool is not None:
+        gate = threading.Barrier(width + 1)
+        for _ in range(width):
+            pool.submit(gate.wait, 10)
+        gate.wait(10)
     before = set(threading.enumerate())
     with FixtureHub(FixtureRepo("acme/land", GPT2_FILES,
                                 chunks_per_xorb=2)) as hub:

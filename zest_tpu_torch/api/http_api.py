@@ -21,7 +21,8 @@ and the control, pull and serving routes of :class:`HttpApi`:
 
     GET  /v1/health   -> {"status": "ok"}
     GET  /v1/status   -> node, seeding, swarm, telemetry, kernels, pulls,
-                         ``tenancy`` and ``hbm_pool`` blocks
+                         ``tenancy``, ``timeline``, ``remediation`` and
+                         ``hbm_pool`` blocks
     GET  /v1/models   -> {"models": [...], "resident": [...]}
     GET  /v1/metrics  -> Prometheus text; ``?scope=pod`` sums it with every
                          pod peer's (``Config.pod_peers``)
@@ -37,6 +38,12 @@ and the control, pull and serving routes of :class:`HttpApi`:
     GET  /v1/pulls/{id}         -> one session, with stages and stats
     GET  /v1/pulls/{id}/events  -> SSE: start, [progress...], done | error
     DELETE /v1/pulls/{id}       -> 202 cancelling | 404 | 409
+    GET  /v1/timeline?since=&series= -> cursor-paged series + anomalies;
+                         ``?scope=pod`` merges every pod peer's onto this
+                         host's clock (``timeline.merge_timelines``)
+    GET  /v1/remediations?limit=N -> the engine's state and decision log
+    POST /v1/remediations {"dry_run": bool} -> {"dry_run"}
+    GET  /            -> the dashboard (status, pulls, timelines, pool)
     POST /v1/generate {"repo_id", "ids" | "prompt", "steps", ...}
                       -> SSE: start, pulled, [token...], done | error
     POST /v1/stop     -> {"status": "stopping"}
@@ -61,8 +68,10 @@ the decode reaches the client as an ``error`` event.
 ``xorbs`` ([[hex, size], ...]) also makes them seedable at once: they
 enter the daemon's ``XorbRegistry``, its swarm announces them, and its
 gossip node puts ``repo@revision`` on the gossip plane (each
-best-effort). Blocks and routes of subsystems the port does not run
-(timelines, remediation, the dashboard) are absent.
+best-effort), and its ``new_xorb_bytes`` and ``dedup_ratio`` are posted
+to the timeline as ``push.new_xorb_bytes`` / ``push.dedup_ratio``. The
+daemon runs the timeline sampler from :meth:`PublisherServer.start` on
+(``ZEST_TIMELINE=0``: none).
 """
 
 from __future__ import annotations
@@ -185,6 +194,11 @@ def push_notify(hub: WatchHub, req: dict, registry=None, swarm=None,
                  "pushed_at": req.get("pushed_at")})
         except Exception:  # noqa: BLE001 - gossip is best-effort
             pass
+    telemetry.timeline.post("push.new_xorb_bytes",
+                            float(req.get("new_xorb_bytes") or 0))
+    if req.get("dedup_ratio") is not None:
+        telemetry.timeline.post("push.dedup_ratio",
+                                float(req["dedup_ratio"]))
     event = {"event": "revision", "repo": repo, "revision": revision,
              "parent": req.get("parent"),
              "pushed_at": req.get("pushed_at"),
@@ -321,6 +335,14 @@ class HttpApi:
         tn = tenancy.summary(self.cfg)
         if tn is not None:
             payload["tenancy"] = tn
+        # The timeline store and the remediation engine: absent when
+        # off, like tenancy.
+        tl = telemetry.timeline.status_block()
+        if tl.get("enabled"):
+            payload["timeline"] = tl
+        rm = telemetry.remediate.status_block()
+        if rm.get("enabled"):
+            payload["remediation"] = rm
         # The serving pool: absent with ZEST_HBM_POOL=0.
         hp = hbm_pool.pool(self.cfg, self.device)
         if hp is not None:
@@ -465,35 +487,57 @@ class HttpApi:
                 return m.samples()
         return []
 
-    def pod_metrics_text(self) -> str:
-        """``GET /v1/metrics?scope=pod``: this host's exposition and every
-        pod peer's, scraped at once on ``fleet.scrape_pool`` and summed by
-        ``fleet.aggregate_prometheus``. A peer that fails the scrape shows
-        as ``zest_pod_scrape_errors{host=...}`` instead of failing the
-        surface."""
+    def _scrape_pod(self, path: str, local,
+                    parse=lambda text: text) -> tuple[str, dict, dict]:
+        """``path`` from every pod peer at once on ``fleet.scrape_pool``,
+        each answer through ``parse``, beside ``local`` (this host's):
+        ``(this host's label, {label: answer}, {label: error})``. A peer
+        that fails the scrape or the parse is reported, not raised."""
         local_label = str(
             self.cfg.coop_index if self.cfg.coop_index is not None
             else self.cfg.mesh.process_id)
-        texts = {local_label: telemetry.render_prometheus()}
+        answers = {local_label: local}
         errors: dict = {}
         peers = {str(k): v for k, v in self.pod_peers.items()
                  if str(k) != local_label}
         if peers:
             def scrape(item):
                 label, (host, port) = item
-                url = f"http://{host}:{port}/v1/metrics"
+                url = f"http://{host}:{port}{path}"
                 try:
                     with urllib.request.urlopen(url, timeout=2.0) as r:
-                        return label, r.read().decode(), None
+                        return label, parse(r.read().decode()), None
                 except Exception as exc:  # noqa: BLE001 - per-host report
                     return label, None, str(exc)
 
             pool = fleet.scrape_pool(self.cfg.pod_scrape_workers)
-            for label, text, err in pool.map(scrape, peers.items()):
-                if text is not None:
-                    texts[label] = text
+            for label, answer, err in pool.map(scrape, peers.items()):
+                if err is None:
+                    answers[label] = answer
                 else:
                     errors[label] = err
+        return local_label, answers, errors
+
+    def pod_timeline_payload(self) -> dict:
+        """``GET /v1/timeline?scope=pod``: this host's timeline and every
+        pod peer's, merged onto this host's clock by the offsets the last
+        coop round recorded. A peer that fails the scrape is listed under
+        ``scrape_errors`` instead of failing the surface."""
+        local, docs, errors = self._scrape_pod(
+            "/v1/timeline", telemetry.timeline.payload(), json.loads)
+        merged = telemetry.timeline.merge_timelines(docs, reference=local)
+        if errors:
+            merged["scrape_errors"] = errors
+        return merged
+
+    def pod_metrics_text(self) -> str:
+        """``GET /v1/metrics?scope=pod``: this host's exposition and every
+        pod peer's, scraped at once on ``fleet.scrape_pool`` and summed by
+        ``fleet.aggregate_prometheus``. A peer that fails the scrape shows
+        as ``zest_pod_scrape_errors{host=...}`` instead of failing the
+        surface."""
+        _local, texts, errors = self._scrape_pod(
+            "/v1/metrics", telemetry.render_prometheus())
         return fleet.aggregate_prometheus(texts, errors)
 
     def pulls_payload(self) -> dict:
@@ -957,6 +1001,24 @@ class _Handler(BaseHTTPRequestHandler):
                     else telemetry.render_prometheus())
             self._text(text.encode(),
                        "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/v1/timeline":
+            if query.get("scope", [""])[0] == "pod":
+                self._json(self.api.pod_timeline_payload())
+            else:
+                try:
+                    since = int(query.get("since", ["0"])[0])
+                except ValueError:
+                    since = 0
+                self._json(telemetry.timeline.payload(
+                    since=since, prefix=query.get("series", [None])[0]))
+        elif path == "/v1/remediations":
+            try:
+                limit = int(query.get("limit", ["50"])[0])
+            except ValueError:
+                limit = 50
+            self._json(telemetry.remediate.payload(limit=limit))
+        elif path == "/":
+            self._text(DASHBOARD_HTML.encode(), "text/html; charset=utf-8")
         elif path == "/v1/trace":
             self._json(self.api.trace_payload())
         elif path == "/v1/debug":
@@ -1115,6 +1177,18 @@ class _Handler(BaseHTTPRequestHandler):
                 return
             self._stream_sse(self.api.watch_hub.subscribe(repos=repos))
             return
+        if self.path == "/v1/remediations":
+            # zest heal --dry-run on|off: decisions are logged and
+            # counted, none executes.
+            try:
+                dry = bool(json.loads(raw or b"{}")["dry_run"])
+            except (json.JSONDecodeError, KeyError, TypeError,
+                    ValueError):
+                self._json({"error": "body must be JSON with dry_run"},
+                           400)
+                return
+            self._json({"dry_run": telemetry.remediate.set_dry_run(dry)})
+            return
         if self.path == "/v1/push":
             req = self._json_body(raw)
             if req is None:
@@ -1191,6 +1265,9 @@ class PublisherServer:
 
     def start(self) -> "PublisherServer":
         self._thread.start()
+        # A daemon samples for its whole life, so /v1/timeline and zest
+        # top have history when the first pull starts.
+        telemetry.timeline.ensure_started()
         return self
 
     def close(self) -> None:
@@ -1205,3 +1282,181 @@ class PublisherServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# The dashboard behind GET /: the status, pulls, timeline sparklines (polled
+# by cursor), coop, recorder, cached models and serving-pool panels.
+DASHBOARD_HTML = """<!doctype html>
+<html><head><meta charset="utf-8"><title>zest-tpu-torch</title>
+<style>
+ body{font-family:system-ui,sans-serif;margin:2rem;background:#101418;color:#e6e6e6}
+ h1{font-size:1.3rem} .k{color:#8ab4f8} table{border-collapse:collapse}
+ td,th{padding:.3rem .8rem;border-bottom:1px solid #333;text-align:left}
+ .card{background:#1a2027;border-radius:8px;padding:1rem 1.4rem;margin:1rem 0;
+       max-width:42rem}
+ code{color:#7ee787}
+</style></head><body>
+<h1>zest-tpu-torch <span id="ver" class="k"></span></h1>
+<div class="card"><table id="status"></table></div>
+<div class="card"><h2 style="font-size:1.05rem">Pulls</h2>
+<table id="pulls"><thead><tr><th>id</th><th>repo</th><th>tenant</th>
+<th>phase</th><th>progress</th><th>elapsed</th></tr></thead>
+<tbody></tbody></table></div>
+<div class="card"><h2 style="font-size:1.05rem">Timelines</h2>
+<table id="spark"><tbody></tbody></table>
+<div id="anomalies" style="font-size:.85rem;color:#f28b82"></div></div>
+<div class="card"><h2 style="font-size:1.05rem">Cooperative pull</h2>
+<table id="coop"></table>
+<h3 style="font-size:.95rem;margin-bottom:.2rem">Flight recorder</h3>
+<table id="recorder"><tbody></tbody></table></div>
+<div class="card"><h2 style="font-size:1.05rem">Cached models</h2>
+<table id="models"><thead><tr><th>repo</th><th>revision</th><th>files</th>
+</tr></thead><tbody></tbody></table></div>
+<div class="card" id="poolcard" style="display:none">
+<h2 style="font-size:1.05rem">HBM pool</h2>
+<div id="poolsum" style="font-size:.85rem;margin-bottom:.4rem"></div>
+<table id="pool"><thead><tr><th>repo</th><th>state</th><th>bytes</th>
+<th>pins</th><th>lands</th><th>gate stall</th><th>experts</th></tr></thead>
+<tbody></tbody></table></div>
+<script>
+let tlCursor=0,tlSeries={};
+async function tick(){
+ try{
+  const s=await (await fetch('/v1/status')).json();
+  // Every value from the daemon goes into the markup through esc():
+  // repo ids, peer addresses and recorder fields come from outside.
+  const esc=v=>String(v??'').replace(/[&<>"']/g,c=>'&#'+c.charCodeAt(0)+';');
+  document.getElementById('ver').textContent='v'+s.version;
+  const rows=Object.entries(s).filter(([k])=>k!=='version')
+   .map(([k,v])=>`<tr><td class="k">${esc(k)}</td><td><code>${
+     esc(typeof v==='object'?JSON.stringify(v):v)}</code></td></tr>`).join('');
+  document.getElementById('status').innerHTML=rows;
+  const P=await (await fetch('/v1/pulls')).json();
+  const prow=s=>{
+   const pct=s.progress!=null?(s.progress*100).toFixed(0)+'%':'';
+   const eta=s.eta_s!=null?' (eta '+Number(s.eta_s)+'s)':'';
+   const st=s.status==='running'?s.phase:s.status;
+   return `<tr><td><code>${esc(s.id)}</code></td><td>${esc(s.repo)}</td>
+    <td>${esc(s.tenant||'')}</td><td class="k">${esc(st)}</td>
+    <td>${pct}${eta}</td><td>${Number(s.elapsed_s)}s</td></tr>`;
+  };
+  document.querySelector('#pulls tbody').innerHTML=
+   [...(P.active||[]),...(P.recent||[]).slice(0,4)].map(prow).join('')
+   ||'<tr><td colspan="6">no pulls yet</td></tr>';
+  const m=await (await fetch('/v1/models')).json();
+  document.querySelector('#models tbody').innerHTML=m.models.map(x=>
+   `<tr><td>${esc(x.repo_id)}${x.pool_state?' <span class="k">['
+    +esc(x.pool_state)+']</span>':''}</td>
+    <td><code>${esc((x.revision||'').slice(0,12))}</code>
+    </td><td>${esc(x.files)}</td></tr>`).join('');
+  const HP=s.hbm_pool;
+  document.getElementById('poolcard').style.display=HP?'':'none';
+  if(HP){
+   const MB=v=>(v/1048576).toFixed(1)+' MiB';
+   document.getElementById('poolsum').textContent=
+    'used '+MB(HP.used_bytes)+' ('+MB(HP.pinned_bytes)+' pinned) / '
+    +(HP.budget_bytes?MB(HP.budget_bytes):'unbounded')
+    +' · hits '+HP.hits+' · misses '+HP.misses
+    +' · evictions '+HP.evictions+(HP.rush?' · RUSH':'');
+   document.querySelector('#pool tbody').innerHTML=
+    (HP.models||[]).map(r=>
+     `<tr><td>${esc(r.repo)}</td><td class="k">${esc(r.state)}</td>
+      <td>${esc(MB(r.bytes))}</td><td>${esc(r.pins)}</td>
+      <td>${esc(r.lands)}</td><td>${esc(r.gate_stall_s)}s</td><td>${esc(
+       r.experts?(r.experts.residency*100).toFixed(0)+'% resident':'')}</td>
+      </tr>`
+    ).join('')||'<tr><td colspan="7">empty</td></tr>';
+  }
+  const d=await (await fetch('/v1/debug?tail=8')).json();
+  const c=d.coop||{}, crows=[];
+  const L=d.landing||{};
+  if(L.first_layer_s!=null)
+   crows.push(['first_layer_s',L.first_layer_s+(L.first_layer_ratio!=null?
+    ' ('+(L.first_layer_ratio*100).toFixed(0)+'% of hbm)':'')]);
+  if(L.time_to_hbm_s!=null) crows.push(['time_to_hbm_s',L.time_to_hbm_s]);
+  if(L.ring_stalls!=null) crows.push(['ring_stalls',L.ring_stalls]);
+  if(L.delta_ratio!=null)
+   crows.push(['delta_fetched',(L.delta_ratio*100).toFixed(1)+'% of bytes']);
+  if(L.swap_s!=null) crows.push(['time_to_swap_s',L.swap_s]);
+  if(c.peer_served_ratio!=null)
+   crows.push(['peer_served_ratio',(c.peer_served_ratio*100).toFixed(1)+'%']);
+  for(const [t,b] of Object.entries(c.tier_bytes||{}))
+   crows.push(['bytes['+t+']',b.toLocaleString()]);
+  if(c.exchange_wall_s!=null)
+   crows.push(['exchange_wall_s',c.exchange_wall_s]);
+  const CX=c.collective||{};
+  if(CX.phases!=null)
+   crows.push(['collective',CX.phases+' phase(s)'
+    +(CX.wall_s!=null?' in '+CX.wall_s+'s':'')
+    +(CX.aborts?'; '+CX.aborts+' abort(s)':'')]);
+  for(const [lk,b] of Object.entries(CX.link_bytes||{}))
+   crows.push(['collective_bytes['+lk+']',b.toLocaleString()]);
+  if(c.fallbacks!=null) crows.push(['fallbacks',c.fallbacks]);
+  const SD=s.seeding||{};
+  if(SD.chunks_served!=null)
+   crows.push(['seeding',SD.bytes_served.toLocaleString()+' B in '
+    +SD.chunks_served+' chunks; unchoked '+SD.unchoked+'/'
+    +(SD.unchoked+SD.choked)+(SD.refused_quarantined?
+    '; refused '+SD.refused_quarantined:'')+(SD.rate_bps?
+    '; shaped '+SD.rate_bps+' B/s':'')]);
+  const q=(d.quarantined_peers||[]).map(p=>p.peer).join(', ');
+  if(crows.length||q) crows.push(['quarantined',q||'none']);
+  document.getElementById('coop').innerHTML=crows.map(([k,v])=>
+   `<tr><td class="k">${esc(k)}</td><td><code>${esc(v)}</code></td></tr>`
+   ).join('')
+   ||'<tr><td>no cooperative round yet</td></tr>';
+  const page=await (await fetch('/v1/timeline?since='+tlCursor)).json();
+  if(page.enabled!==false){
+   if(page.cursor<tlCursor) tlSeries={};  // daemon/store restarted
+   tlCursor=page.cursor||0;
+   for(const [n,s] of Object.entries(page.series||{})){
+    const row=tlSeries[n]||(tlSeries[n]={kind:s.kind,samples:[]});
+    row.samples.push(...s.samples);
+    if(row.samples.length>150) row.samples.splice(0,row.samples.length-150);
+   }
+   const names=Object.keys(tlSeries);
+   if(names.length>30){
+    names.sort((a,b)=>(tlSeries[a].samples.at(-1)?.[0]||0)
+                     -(tlSeries[b].samples.at(-1)?.[0]||0));
+    for(const n of names.slice(0,names.length-30)) delete tlSeries[n];
+   }
+  }
+  const T={enabled:page.enabled,series:tlSeries,
+           anomalies:page.anomalies||[]};
+  const spark=(pts)=>{
+   if(pts.length<2) return '<code>·</code>';
+   const vs=pts.map(p=>p[1]),ts=pts.map(p=>p[0]);
+   const [v0,v1]=[Math.min(...vs),Math.max(...vs)];
+   const [t0,t1]=[Math.min(...ts),Math.max(...ts)];
+   const W=140,H=22,sx=t1>t0?W/(t1-t0):0,sy=v1>v0?(H-2)/(v1-v0):0;
+   const pl=pts.map(p=>((p[0]-t0)*sx).toFixed(1)+','
+     +(H-1-(p[1]-v0)*sy).toFixed(1)).join(' ');
+   return `<svg width="${W}" height="${H}"><polyline points="${pl}"
+     fill="none" stroke="#8ab4f8" stroke-width="1.2"/></svg>`;
+  };
+  const fmt=v=>v>=1e9?(v/1e9).toFixed(2)+'G':v>=1e6?(v/1e6).toFixed(1)+'M'
+    :v>=1e3?(v/1e3).toFixed(1)+'k':String(Math.round(v*100)/100);
+  const srows=Object.entries(T.series||{}).slice(0,14).map(([n,s])=>{
+   const pts=s.samples||[],last=pts.length?pts[pts.length-1][1]:0;
+   return `<tr><td class="k">${esc(n)}</td><td>${spark(pts)}</td>
+     <td><code>${esc(fmt(last))}${s.kind==='rate'?'/s':''}</code></td></tr>`;
+  }).join('');
+  document.querySelector('#spark tbody').innerHTML=srows
+   ||`<tr><td>${T.enabled===false?'timelines off (ZEST_TIMELINE=0)'
+       :'no samples yet'}</td></tr>`;
+  document.getElementById('anomalies').textContent=
+   (T.anomalies||[]).slice(-4).map(a=>a.kind
+     +(a.session?' ['+a.session+']':'')).join('  ');
+  const evs=(d.recorder||{}).events||[];
+  document.querySelector('#recorder tbody').innerHTML=evs.map(e=>{
+   const t=new Date(e.t*1000).toISOString().slice(11,23);
+   const extra=Object.entries(e).filter(([k])=>!['t','kind'].includes(k))
+    .map(([k,v])=>k+'='+v).join(' ');
+   return `<tr><td><code>${esc(t)}</code></td><td class="k">${esc(e.kind)}</td>
+    <td><code>${esc(extra)}</code></td></tr>`;
+  }).join('')||'<tr><td>no events</td></tr>';
+ }catch(e){}
+}
+tick();setInterval(tick,2000);
+</script></body></html>
+"""

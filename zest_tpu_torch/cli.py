@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,stats,debug,analyze,trace,version,seed,pull,generate,watch,diff,models}``.
+"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,top,heal,stats,debug,analyze,trace,version,seed,pull,generate,watch,diff,models}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -30,7 +30,9 @@ device when it is set, and its summary says so.
 ``push`` notifies the publisher (``--publisher URL``, default the local
 ``ZEST_HTTP_PORT``) unless ``--no-notify``; ``watch REPO --publisher URL``
 delta-pulls and swaps each pushed revision; ``diff REPO@A [REV_B]``
-prints the chunk-level delta from metadata alone. ``generate REPO --ids
+prints the chunk-level delta from metadata alone, and ``diff REPO[@REV]
+--push-preview DIR`` the dedup outcome of pushing ``DIR`` with nothing
+written. ``generate REPO --ids
 ... | --prompt TEXT`` pulls and decodes a GPT-2 or Llama-family model,
 greedy or sampled (``--temperature``, ``--top-k``, ``--top-p``,
 ``--seed``). ``serve`` also answers ``POST /v1/generate`` from the
@@ -51,7 +53,10 @@ its ``/v1/debug`` report, ``trace REPO [--out F] [--coop --peer-api
 I=HOST:PORT]`` pulls with a tracer installed and writes the Chrome trace
 (``trace --merge a.json b.json`` merges per-host exports offline), and
 ``analyze TRACE.json [--json] [--host H] [--top K]`` prints a trace's
-critical path.
+critical path. ``top [--count N | --json]`` is the live view over
+``/v1/pulls`` and ``/v1/timeline`` (progress bars, tier rates, ring and
+queue, anomalies); ``heal [--watch | --json | --dry-run on|off]`` the
+self-healing engine's decisions (``/v1/remediations``).
 """
 
 from __future__ import annotations
@@ -126,14 +131,17 @@ def _daemon_get(cfg: Config, path: str, timeout: float = 2.0) -> dict | None:
     return payload if isinstance(payload, dict) else None
 
 
-def _daemon_post(cfg: Config, path: str, timeout: float = 5.0) -> bool:
-    """POST an empty body to a local daemon endpoint; True on a 2xx."""
+def _daemon_post(cfg: Config, path: str, body: dict | None = None,
+                 timeout: float = 5.0) -> bool:
+    """POST ``body`` as JSON (or nothing) to a local daemon endpoint; True
+    on a 2xx."""
     import urllib.error
     import urllib.request
 
     req = urllib.request.Request(
-        f"http://127.0.0.1:{cfg.effective_http_port()}{path}", data=b"",
-        method="POST")
+        f"http://127.0.0.1:{cfg.effective_http_port()}{path}",
+        data=b"" if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return 200 <= r.status < 300
@@ -290,6 +298,223 @@ def cmd_ps(args) -> int:
                 if args.watch and sys.stdout.isatty():
                     sys.stdout.write("\x1b[H\x1b[2J")
                 print("\n".join(_ps_lines(payload)))
+            frames += 1
+            if not args.watch or (args.count and frames >= args.count):
+                return 0
+            time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _fmt_rate(bps: float) -> str:
+    """Human B/s: 1.25 GB/s, 310 MB/s, 12 kB/s, 0 B/s."""
+    if bps >= 1e9:
+        return f"{bps / 1e9:.2f} GB/s"
+    if bps >= 1e6:
+        return f"{bps / 1e6:.1f} MB/s"
+    if bps >= 1e3:
+        return f"{bps / 1e3:.0f} kB/s"
+    return f"{bps:.0f} B/s"
+
+
+def _bar(frac: float, width: int = 24) -> str:
+    frac = min(1.0, max(0.0, frac))
+    filled = int(round(frac * width))
+    return "[" + "#" * filled + "-" * (width - filled) + "]"
+
+
+def _series_last(tl: dict, name: str):
+    s = (tl.get("series") or {}).get(name)
+    if not s or not s.get("samples"):
+        return None
+    return s["samples"][-1][1]
+
+
+def _series_rate(tl: dict, name: str):
+    """The latest per-second change of a gauge series (a session's byte
+    progress) from its last two samples."""
+    s = (tl.get("series") or {}).get(name)
+    pts = (s or {}).get("samples") or []
+    if len(pts) < 2:
+        return None
+    (t0, v0), (t1, v1) = pts[-2], pts[-1]
+    if t1 <= t0:
+        return None
+    return max(0.0, (v1 - v0) / (t1 - t0))
+
+
+def _top_lines(status: dict, pulls: dict, tl: dict,
+               width: int = 78) -> list[str]:
+    """One ``zest top`` frame: the header, each session's progress bar
+    with its live byte rate, the tier-rate, ring and queue lines from
+    the timeline's latest samples, and the anomaly tail."""
+    active = pulls.get("active") or []
+    recent = pulls.get("recent") or []
+    tn = pulls.get("tenancy") or {}
+    anomalies = tl.get("anomalies") or []
+    lines = [
+        f"zest top — v{status.get('version', '?')}  "
+        f"active {len(active)}"
+        + (f"  queued {tn.get('queued', 0)}" if tn else "")
+        + f"  recent {len(recent)}"
+        + (f"  anomalies {len(anomalies)}" if anomalies else "")
+    ]
+    for s in active:
+        sid = s.get("id", "?")
+        frac = s.get("progress")
+        rate = _series_rate(tl, f"session.{sid}.bytes")
+        anns = ",".join(sorted((s.get("anomalies") or {})))
+        row = (f"  {sid}  {s.get('repo', '?')}  "
+               f"{s.get('phase', ''):<10} ")
+        row += _bar(frac if frac is not None else 0.0)
+        if frac is not None:
+            row += f" {frac:>4.0%}"
+        if rate is not None:
+            row += f"  {_fmt_rate(rate)}"
+        if s.get("eta_s") is not None:
+            row += f"  eta {s['eta_s']}s"
+        if anns:
+            row += f"  !{anns}"
+        lines.append(row[:width + 30])
+    if not active:
+        lines.append("  (no active pulls)")
+    tiers = []
+    for tier in ("cdn", "peer", "cache", "dcn"):
+        v = _series_last(tl, f"fetch.{tier}_bps")
+        if v is not None:
+            tiers.append(f"{tier}={_fmt_rate(v)}")
+    for name, label in (("dcn.bps", "dcn_serve"), ("seed.bps", "seed"),
+                        ("collective.ici_bps", "coll_ici"),
+                        ("collective.dcn_bps", "coll_dcn")):
+        v = _series_last(tl, name)
+        if v:
+            tiers.append(f"{label}={_fmt_rate(v)}")
+    if tiers:
+        lines.append("rates: " + "  ".join(tiers))
+    ring = _series_last(tl, "ring.in_use_bytes")
+    if ring is not None:
+        stalls = _series_last(tl, "ring.stalls")
+        lines.append(f"ring:  {int(ring):,} B in flight"
+                     + (f"  stalls={int(stalls)}" if stalls else ""))
+    depth = _series_last(tl, "tenancy.queue_depth")
+    if depth is not None:
+        adm = int(_series_last(tl, "tenancy.active_pulls") or 0)
+        flights = int(_series_last(tl, "tenancy.inflight_fetches") or 0)
+        lines.append(f"queue: depth={int(depth)}  active={adm}"
+                     f"  inflight_fetches={flights}")
+    for ev in anomalies[-4:]:
+        row = f"anomaly: {ev.get('kind')}"
+        if ev.get("session"):
+            row += f"  session={ev['session']}"
+        for k in ("phase", "partner", "depth", "rate_bps"):
+            if k in ev:
+                row += f"  {k}={ev[k]}"
+        lines.append(row)
+    if tl.get("enabled") is False:
+        lines.append("timelines off (ZEST_TIMELINE=0) — rates and "
+                     "anomalies unavailable")
+    return lines
+
+
+def cmd_top(args) -> int:
+    """The live view over ``/v1/pulls`` and ``/v1/timeline``, redrawn
+    until Ctrl-C (or ``--count`` frames); ``--json`` prints one raw
+    document."""
+    cfg = Config.load()
+    frames = 0
+    try:
+        while True:
+            status = _daemon_get(cfg, "/v1/status")
+            if status is None:
+                print("daemon not running", file=sys.stderr)
+                return 1
+            pulls = _daemon_get(cfg, "/v1/pulls") or {}
+            tl = _daemon_get(cfg, "/v1/timeline") or {}
+            if args.json:
+                print(json.dumps({"status": status, "pulls": pulls,
+                                  "timeline": tl}, indent=2))
+                return 0
+            if sys.stdout.isatty():
+                sys.stdout.write("\x1b[H\x1b[2J")
+            print("\n".join(_top_lines(status, pulls, tl)))
+            frames += 1
+            if args.count and frames >= args.count:
+                return 0
+            time.sleep(max(0.1, args.interval))
+    except KeyboardInterrupt:
+        return 0
+
+
+def _heal_lines(doc: dict) -> list[str]:
+    """``/v1/remediations`` as the operator view: the engine's mode,
+    knob overrides, outcome counts per action, recent decisions."""
+    lines: list[str] = []
+    if not doc.get("enabled"):
+        return ["self-healing off (ZEST_REMEDIATE=0 or timelines off) "
+                "— the process is a pure observer"]
+    mode = "DRY-RUN (decisions only)" if doc.get("dry_run") else "live"
+    lines.append(
+        f"self-healing: {mode}  "
+        f"actions={','.join(doc.get('actions') or []) or '-'}  "
+        f"rate={doc.get('rate_s')}s/token burst={doc.get('burst')}")
+    if doc.get("shedding"):
+        lines.append("LOAD SHEDDING ACTIVE — new queued pulls answer "
+                     "429 until the SLO burn recovers")
+    for name, k in sorted((doc.get("knobs") or {}).items()):
+        if k.get("value") != k.get("base"):
+            lines.append(
+                f"knob {name}: {k.get('value')} "
+                f"(base {k.get('base')}, rails "
+                f"[{k.get('min')}, {k.get('max')}])")
+    counts = doc.get("counts") or {}
+    if counts:
+        lines.append("decisions:")
+        for action, outcomes in sorted(counts.items()):
+            pairs = "  ".join(f"{o}={n}"
+                              for o, n in sorted(outcomes.items()))
+            lines.append(f"  {action:<8} {pairs}")
+    else:
+        lines.append("decisions: none yet")
+    recent = doc.get("recent") or []
+    if recent:
+        lines.append("recent:")
+    for e in recent[-10:]:
+        ts = time.strftime("%H:%M:%S", time.localtime(e.get("t", 0)))
+        row = (f"  {ts}  {e.get('action', '?'):<8} "
+               f"{e.get('outcome', '?'):<12} {e.get('reason', '')}")
+        if e.get("session"):
+            row += f"  session={e['session']}"
+        lines.append(row)
+    return lines
+
+
+def cmd_heal(args) -> int:
+    """The daemon's self-healing engine (``/v1/remediations``): what it
+    decided, on which anomaly, with which outcome; ``--dry-run on|off``
+    flips decision-only mode on the live engine."""
+    cfg = Config.load()
+    if args.dry_run is not None:
+        want = args.dry_run == "on"
+        if not _daemon_post(cfg, "/v1/remediations", {"dry_run": want},
+                            timeout=2.0):
+            print("daemon not running", file=sys.stderr)
+            return 1
+        print(f"dry-run {'on' if want else 'off'}")
+        return 0
+    frames = 0
+    try:
+        while True:
+            payload = _daemon_get(cfg, f"/v1/remediations?limit="
+                                       f"{args.limit}")
+            if payload is None:
+                print("daemon not running", file=sys.stderr)
+                return 1
+            if args.json:
+                print(json.dumps(payload, indent=2))
+            else:
+                if args.watch and sys.stdout.isatty():
+                    sys.stdout.write("\x1b[H\x1b[2J")
+                print("\n".join(_heal_lines(payload)))
             frames += 1
             if not args.watch or (args.count and frames >= args.count):
                 return 0
@@ -994,6 +1219,31 @@ def cmd_diff(args) -> int:
         return (repo, rev) if sep and rev else (repo, "main")
 
     repo_a, rev_a = parse_spec(args.base)
+    if args.push_preview:
+        # zest diff REPO[@BASE] --push-preview DIR: what pushing DIR
+        # would mint and dedup against the cached base, nothing written.
+        from zest_tpu_torch.transfer import push as push_mod
+
+        try:
+            out = push_mod.preview_push(
+                Config.load(), repo_a, args.push_preview,
+                base_revision=rev_a if "@" in args.base else None)
+        except (ValueError, OSError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(out, indent=2))
+        else:
+            print(f"push preview: {repo_a} <- {args.push_preview}")
+            print(f"  base revision : {str(out['parent'])[:12] or '(none)'}")
+            print(f"  files         : {out['files']} "
+                  f"({out['xet_files']} xet)")
+            print(f"  total bytes   : {out['total_bytes']:,}")
+            print(f"  reused bytes  : {out['reused_bytes']:,}")
+            print(f"  new xorbs     : {out['new_xorbs']} "
+                  f"({out['new_xorb_bytes']:,} bytes)")
+            print(f"  dedup ratio   : {out['dedup_ratio']:.4f}")
+        return 0
     if args.target is None:
         repo_b, rev_b = repo_a, "main"
     elif "/" in args.target.partition("@")[0]:
@@ -1203,6 +1453,32 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--count", type=int, default=0,
                     help="with --watch: stop after N frames")
     ps.set_defaults(fn=cmd_ps)
+    heal = sub.add_parser(
+        "heal", help="self-healing control plane: the remediation "
+                     "engine's decisions, knob overrides, shed state")
+    heal.add_argument("--json", action="store_true",
+                      help="the raw /v1/remediations document")
+    heal.add_argument("--watch", action="store_true",
+                      help="redraw until Ctrl-C")
+    heal.add_argument("--interval", type=float, default=1.0,
+                      help="redraw interval in seconds")
+    heal.add_argument("--count", type=int, default=0,
+                      help="with --watch: stop after N frames")
+    heal.add_argument("--limit", type=int, default=50,
+                      help="recent decisions to fetch")
+    heal.add_argument("--dry-run", choices=["on", "off"], default=None,
+                      help="flip decision-only mode on the live engine")
+    heal.set_defaults(fn=cmd_heal)
+    top = sub.add_parser(
+        "top", help="live view: session progress bars, tier rates, "
+                    "queue, anomalies (/v1/timeline)")
+    top.add_argument("--json", action="store_true",
+                     help="one raw status + pulls + timeline document")
+    top.add_argument("--interval", type=float, default=1.0,
+                     help="redraw interval in seconds")
+    top.add_argument("--count", type=int, default=0,
+                     help="stop after N frames (0: until Ctrl-C)")
+    top.set_defaults(fn=cmd_top)
     sub.add_parser("version", help="print the version") \
         .set_defaults(fn=cmd_version)
 
@@ -1312,6 +1588,9 @@ def build_parser() -> argparse.ArgumentParser:
                       help="target revision (default: the base repo's "
                            "main)")
     diff.add_argument("--json", action="store_true")
+    diff.add_argument("--push-preview", metavar="DIR", default=None,
+                      help="the would-be dedup outcome of pushing DIR "
+                           "against REPO[@REV], nothing written")
     diff.set_defaults(fn=cmd_diff)
     return p
 

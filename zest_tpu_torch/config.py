@@ -24,7 +24,11 @@ the peer tier's ``ZEST_LISTEN_PORT``, ``ZEST_MAX_PEERS``,
 ``ZEST_SLO_TTHBM_S`` and ``ZEST_SLO_TTFL_S`` (the session table reads its
 ring size, ``ZEST_SESSIONS_RECENT``, itself), and the landing mesh's
 ``ZEST_TPU_MESH``, ``ZEST_TPU_COORDINATOR``, ``ZEST_TPU_PROCESS_ID`` and
-``ZEST_TPU_NUM_PROCESSES``),
+``ZEST_TPU_NUM_PROCESSES``, and the live timeline's and the
+self-healing engine's ``ZEST_TIMELINE``, ``ZEST_TIMELINE_HZ``,
+``ZEST_ANOMALY_WINDOW_S``, ``ZEST_REMEDIATE``,
+``ZEST_REMEDIATE_ACTIONS``, ``ZEST_REMEDIATE_DRY``,
+``ZEST_REMEDIATE_RATE_S`` and ``ZEST_REMEDIATE_BURST``),
 the same defaults and the same HF cache layout, so a tree pulled by either
 package reads the same on disk.
 
@@ -40,6 +44,13 @@ import math
 import os
 import re
 from pathlib import Path
+
+from zest_tpu_torch.telemetry.remediate import ACTIONS as REMEDIATE_ACTIONS
+from zest_tpu_torch.telemetry.state import _OFF_VALUES as _TELEMETRY_OFF_VALUES
+from zest_tpu_torch.telemetry.timeline import (
+    DEFAULT_HZ as DEFAULT_TIMELINE_HZ,
+    DEFAULT_WINDOW_S as DEFAULT_ANOMALY_WINDOW_S,
+)
 
 DEFAULT_LISTEN_PORT = 6881          # BT seeding listener
 DEFAULT_HTTP_PORT = 9847            # localhost REST / publisher endpoint
@@ -185,6 +196,24 @@ def _opt_pos_float(env: dict[str, str], name: str) -> float | None:
         raise ValueError(f"{name} must be a finite value >= 0 "
                          f"(0 = unarmed), got {raw!r}")
     return v if v > 0 else None
+
+
+def _parse_remediate_actions(spec: str) -> tuple[str, ...] | None:
+    """The ``ZEST_REMEDIATE_ACTIONS`` enable mask, strictly: empty or
+    ``all`` is every action (None); otherwise each name must be a known
+    action, since a typo would silently disarm a remediation the
+    operator thinks is armed. (The engine's own ``parse_actions`` stays
+    lenient: a typo must not crash a pull.)"""
+    spec = (spec or "").strip().lower()
+    if not spec or spec == "all":
+        return None
+    names = tuple(p.strip() for p in spec.split(",") if p.strip())
+    bad = sorted(set(names) - set(REMEDIATE_ACTIONS))
+    if bad:
+        raise ValueError(
+            f"ZEST_REMEDIATE_ACTIONS names unknown action(s) {bad}; "
+            f"valid: {', '.join(REMEDIATE_ACTIONS)}")
+    return names
 
 
 def _strict_bool(name: str, value: str) -> bool:
@@ -403,6 +432,20 @@ class Config:
     tenant: str | None = None
     slo_tthbm_s: float | None = None
     slo_ttfl_s: float | None = None
+    # Live timelines and the self-healing engine: the sampler and the
+    # engine read the environment themselves (leniently), and nothing
+    # reads these fields; they give a strict check when the config loads.
+    # The rate and window parse strictly here (a daemon started with a
+    # mistyped sampling rate fails loud), as does the action mask (None =
+    # every action).
+    timeline_enabled: bool = True
+    timeline_hz: float = DEFAULT_TIMELINE_HZ
+    anomaly_window_s: float = DEFAULT_ANOMALY_WINDOW_S
+    remediate_enabled: bool = True
+    remediate_actions: tuple[str, ...] | None = None
+    remediate_dry_run: bool = False
+    remediate_rate_s: float = 10.0
+    remediate_burst: int = 3
     # The landing mesh (ZEST_TPU_MESH and the process topology).
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
@@ -561,6 +604,24 @@ class Config:
             tenant=env.get("ZEST_TENANT") or None,
             slo_tthbm_s=_opt_pos_float(env, "ZEST_SLO_TTHBM_S"),
             slo_ttfl_s=_opt_pos_float(env, "ZEST_SLO_TTFL_S"),
+            timeline_enabled=env.get("ZEST_TIMELINE", "").strip().lower()
+            not in _TELEMETRY_OFF_VALUES,
+            timeline_hz=_strict_pos_float(
+                env, "ZEST_TIMELINE_HZ", DEFAULT_TIMELINE_HZ, floor=0.01),
+            anomaly_window_s=_strict_pos_float(
+                env, "ZEST_ANOMALY_WINDOW_S", DEFAULT_ANOMALY_WINDOW_S,
+                floor=0.05),
+            remediate_enabled=env.get("ZEST_REMEDIATE", "").strip().lower()
+            not in _TELEMETRY_OFF_VALUES,
+            remediate_actions=_parse_remediate_actions(
+                env.get("ZEST_REMEDIATE_ACTIONS", "")),
+            remediate_dry_run=env.get(
+                "ZEST_REMEDIATE_DRY", "").strip().lower()
+            in ("1", "true", "yes", "on"),
+            remediate_rate_s=_strict_pos_float(
+                env, "ZEST_REMEDIATE_RATE_S", 10.0, floor=0.01),
+            remediate_burst=_strict_nonneg_int(
+                env, "ZEST_REMEDIATE_BURST", default=3, floor=1),
             mesh=MeshConfig.from_env(env),
         )
 

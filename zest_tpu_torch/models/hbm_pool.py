@@ -33,8 +33,11 @@ Metrics: ``zest_hbm_pool_bytes{state}``,
 ``ZEST_SLO_TTFT_S``, ``zest_slo_breaches_total{slo="ttft"}`` and the
 session table's ``ttft`` SLO burn; flight
 events ``pool_land``, ``pool_land_done``, ``pool_land_error``,
-``pool_evict``, ``pool_swap``, ``slo_breach``. The JAX package's timeline
-probes and remediation targets are not ported.
+``pool_evict``, ``pool_swap``, ``slo_breach``. Timeline series
+``hbm_pool.{resident_bytes,pinned_bytes,models,gate_stall_s,evictions,
+landing}`` and the remediation targets ``pool_land`` (``rush``: every
+layer boundary flushes while a gate stalls) and ``pool_shed`` (drop the
+coldest unpinned tree when evictions grow).
 
 ``ZEST_HBM_POOL=0`` removes the pool (:func:`pool` returns None): the
 daemon then serves every model on the single-model path.
@@ -416,13 +419,55 @@ class HbmPool:
         self.land_delay_s = 0.0     # test hook: sleep between flushes
         self._lock = threading.RLock()
         self._entries: dict[str, PoolEntry] = {}
-        # Every layer boundary flushes while set (the JAX package's
-        # remediation arms it; here only tests do).
+        # Every layer boundary flushes while set (the remediation
+        # engine's pool_land "rush"; cleared when no land is in flight).
         self._rush = threading.Event()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
         self.pinned_survivals = 0
+        self._register_hooks()
+
+    # ── wiring ──
+
+    def _register_hooks(self) -> None:
+        # Kept so that close() takes back exactly these: a newer pool's
+        # registrations under the same names stay.
+        self._probes = {
+            "hbm_pool.resident_bytes": lambda: float(self.used_bytes()),
+            "hbm_pool.pinned_bytes": lambda: float(self.pinned_bytes()),
+            "hbm_pool.models": lambda: float(len(self.resident())),
+            "hbm_pool.gate_stall_s": self._total_stall_s,
+            "hbm_pool.evictions": lambda: float(self.evictions),
+            "hbm_pool.landing": lambda: float(self._landing_count()),
+        }
+        # Bound methods taken once: the unregister checks identity.
+        self._targets = {"pool_shed": self._shed_cmd,
+                         "pool_land": self._land_cmd}
+        for name, fn in self._probes.items():
+            telemetry.timeline.register_probe(name, fn)
+        for name, fn in self._targets.items():
+            telemetry.remediate.register_target(name, fn)
+
+    def _unregister_hooks(self) -> None:
+        for name, fn in self._probes.items():
+            telemetry.timeline.unregister_probe(name, fn)
+        for name, fn in self._targets.items():
+            telemetry.remediate.unregister_target(name, fn)
+
+    def _shed_cmd(self, cmd: str) -> bool:
+        """Remediation target: pool thrash drops the coldest unpinned
+        resident tree."""
+        return self.shed_coldest(reason="shed") is not None
+
+    def _land_cmd(self, cmd: str) -> bool:
+        """Remediation target: ``rush`` makes every layer boundary
+        flush at once instead of batching to ``group_bytes``, trading
+        commit batching for gate latency."""
+        if cmd == "rush":
+            self._rush.set()
+            return True
+        return False
 
     # ── accounting ──
 
@@ -855,6 +900,7 @@ class HbmPool:
                 # evicted entry keeps it: a re-land reads the snapshot).
                 tenancy.release_tree(self.cfg, entry.repo)
             self._entries.clear()
+        self._unregister_hooks()
 
 
 class PoolLandError(RuntimeError):

@@ -435,6 +435,24 @@ class HostRing:
         self.allocs = 0
         self.reuses = 0
         self.detached = 0
+        # The timeline's ring gauges: the newest ring is the one sampled
+        # (register_probe replaces), and close() unregisters it. The
+        # bound methods are taken once, because each attribute access
+        # makes a new object and the unregister checks identity.
+        self._probe_in_use = self._probe_in_use_bytes
+        self._probe_stall_count = self._probe_stalls
+        telemetry.timeline.register_probe(
+            "ring.in_use_bytes", self._probe_in_use)
+        telemetry.timeline.register_probe(
+            "ring.stalls", self._probe_stall_count)
+
+    def _probe_in_use_bytes(self) -> int:
+        with self._cv:
+            return self._in_use_bytes
+
+    def _probe_stalls(self) -> int:
+        with self._cv:
+            return self.stalls
 
     def _trim_free_locked(self, incoming: int) -> None:
         while self._free and (self._in_use_bytes + self._free_bytes
@@ -531,6 +549,10 @@ class HostRing:
     def close(self) -> None:
         """Wake any waiter with :class:`RingClosed` (the consumer's error
         path, a pull's cancel) and drop the free buffers."""
+        telemetry.timeline.unregister_probe(
+            "ring.in_use_bytes", self._probe_in_use)
+        telemetry.timeline.unregister_probe(
+            "ring.stalls", self._probe_stall_count)
         with self._cv:
             self._closed = True
             self._free.clear()
@@ -976,6 +998,11 @@ def _stage_streaming(bridge, recs_with_headers, dev, dtype, prefetch_next,
         finally:
             if untie is not None:
                 untie()
+            # Ended either way: the free buffers go, and with them the
+            # timeline's ring probes (the JAX package closes the ring on
+            # an error only, and its probes hold the last ring's buffers
+            # until the next ring replaces them).
+            ring.close()
         committer.finish()
         dt = time.monotonic() - t0
     stats = _commit_stats(params, dt, direct=True, mesh=mesh)
@@ -1086,6 +1113,13 @@ def stage_cached_to_hbm(bridge, recs_with_headers, device=DEFAULT_DEVICE,
         stream = getattr(cfg, "land_stream", DEFAULT_LAND_STREAM)
     if ring_bytes is None:
         ring_bytes = getattr(cfg, "land_ring_bytes", DEFAULT_LAND_RING_BYTES)
+        # The remediation engine's ring tuner may hold an override within
+        # [base, min(8 x base, 4 GiB)]; an explicit ring_bytes wins, and
+        # with ZEST_REMEDIATE=0 there is none.
+        telemetry.remediate.set_knob_base("land_ring_bytes", ring_bytes)
+        override = telemetry.remediate.knob_override("land_ring_bytes")
+        if override:
+            ring_bytes = override
     if ring_slots is None:
         ring_slots = getattr(cfg, "land_ring_slots", DEFAULT_LAND_RING_SLOTS)
     if (stream and decode_ahead and on_host_ready is None

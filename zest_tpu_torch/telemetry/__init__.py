@@ -21,10 +21,14 @@ The counterpart of ``zest_tpu/telemetry``. Its pieces, all thread-safe:
 - **Critical-path attribution** (:mod:`.critpath`): the blame-attributed
   path through a trace's spans, per-stage and per-tier exclusive
   seconds, ``stats["critical_path"]`` and ``zest analyze``.
-- Of timelines and remediation, the parts the collective exchange
-  reaches (:mod:`.timeline`: posted cells and clock offsets;
-  :mod:`.remediate`: the action-target registry). The timeline sampler,
-  the anomaly detector and the remediation engine are not ported.
+- **Live timelines** (:mod:`.timeline`): the sampler's bounded series
+  (counter rates, probes, posted cells, session progress) and the
+  streaming anomaly detector, behind ``GET /v1/timeline`` and ``zest
+  top``.
+- **Self-healing** (:mod:`.remediate`): the engine that maps anomalies
+  and sampler ticks to hedge / strike / demote / shed / tune decisions
+  through injected targets, behind ``GET /v1/remediations`` and ``zest
+  heal``.
 - **The switch** (:mod:`.state`): ``ZEST_TELEMETRY=0`` turns the whole
   layer into flag checks; tracing also needs ``ZEST_TRACE`` or an
   installed tracer.

@@ -863,6 +863,11 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         device=str(device) if land else None)
     if sess is not None:
         sess.cancel_token = cancel
+    # The process sampler and the remediation engine run for the life of
+    # the process from the first pull on; each is one flag check, and
+    # with ZEST_TIMELINE=0 / ZEST_REMEDIATE=0 nothing starts.
+    telemetry.timeline.ensure_started()
+    telemetry.remediate.ensure_started()
     # A coop pull installs its trace context (host, trace id): the
     # previous one comes back at exit, so a daemon's next pull never
     # records under a stale identity.
@@ -1095,6 +1100,15 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
         env = os.environ.get("ZEST_TPU_POD")
         pod = env == "1" if env in ("0", "1") else dev.type == "cuda"
     fed = pods is not None and pods > 1 and pod_index is not None
+    # The remediation target: a stall or throughput-collapse anomaly on
+    # this session arms a mid-flight hedge on its bridge (no deadline
+    # needed). Bound once, since the unregister checks identity; taken
+    # back before the bridge closes, so a late anomaly never arms a
+    # closed bridge. With ZEST_REMEDIATE=0 nothing is kept.
+    hedge_target = hedge_fn = None
+    if session is not None:
+        hedge_target, hedge_fn = f"hedge:{session.id}", bridge.arm_hedge
+        telemetry.remediate.register_target(hedge_target, hedge_fn)
     try:
         coop_stats = pod_stats = fed_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
@@ -1185,6 +1199,8 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
         file_pipeline.abort()
         raise
     finally:
+        if hedge_target is not None:
+            telemetry.remediate.unregister_target(hedge_target, hedge_fn)
         bridge.close()
         if own_swarm is not None:
             own_swarm.close()

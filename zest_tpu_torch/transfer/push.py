@@ -24,8 +24,10 @@ The continuous fan-out: a push notifies the publisher
 (:func:`notify_daemon`, ``POST /v1/push``), which wakes every ``POST
 /v1/watch`` subscriber; :func:`watch_and_swap` is the subscriber, which
 delta-pulls each pushed revision and swaps it into its resident tree, and
-into the serving pool when the pool holds the old revision. The timeline
-of the JAX package's watch is not ported.
+into the serving pool when the pool holds the old revision, and posts
+each swap's push-to-swap latency to the live timeline
+(``push.propagation_s``). :func:`preview_push` is ``zest diff
+--push-preview``: the dedup outcome of a push, with nothing written.
 """
 
 from __future__ import annotations
@@ -52,6 +54,10 @@ from zest_tpu_torch.transfer import delta
 # exists for API-shape parity with the real hub, not as a secret.
 PUBLISHER_TOKEN = "zest-publisher-token"
 
+# The timeline series a subscriber posts after every completed swap:
+# trainer ``pushed_at`` to swap complete, in seconds.
+SERIES_PROPAGATION = "push.propagation_s"
+
 
 @dataclass
 class PushResult:
@@ -60,6 +66,7 @@ class PushResult:
     repo_id: str
     revision: str
     parent: str | None
+    preview: bool = False
     files: int = 0
     xet_files: int = 0
     total_bytes: int = 0
@@ -88,6 +95,7 @@ class PushResult:
             "repo": self.repo_id,
             "revision": self.revision,
             "parent": self.parent,
+            "preview": self.preview,
             "files": self.files,
             "xet_files": self.xet_files,
             "total_bytes": self.total_bytes,
@@ -255,12 +263,25 @@ def push_checkpoint(cfg: Config, repo_id: str,
                                 log)
 
 
+def preview_push(cfg: Config, repo_id: str, checkpoint_dir: str | Path,
+                 base_revision: str | None = None) -> dict:
+    """``zest diff --push-preview``: what pushing ``checkpoint_dir``
+    would mint and dedup against ``base_revision``, with nothing written,
+    verified or notified (so no device is touched)."""
+    with telemetry.span("push", repo=repo_id):
+        return _push_checkpoint(cfg, repo_id, checkpoint_dir, None,
+                                base_revision, None, False, None,
+                                lambda *a, **k: None,
+                                preview=True).summary()
+
+
 def _push_checkpoint(cfg: Config, repo_id: str, checkpoint_dir, files,
                      base_revision, device, notify: bool, notify_url,
-                     log) -> PushResult:
+                     log, preview: bool = False) -> PushResult:
     t0 = time.monotonic()
     cfg.model_cache_dir(repo_id)  # repo-id validation (raises ValueError)
-    device = resolve_device(device)  # fail before the encode
+    if not preview:
+        device = resolve_device(device)  # fail before the encode
     if files is None:
         if checkpoint_dir is None:
             raise ValueError("push needs a checkpoint_dir or files dict")
@@ -281,7 +302,7 @@ def _push_checkpoint(cfg: Config, repo_id: str, checkpoint_dir, files,
     identities: dict[str, str] = {}
     result = PushResult(repo_id=repo_id, revision="",
                         parent=base_sha if base_man else None,
-                        files=len(files),
+                        preview=preview, files=len(files),
                         seeded_base_xorbs=seeded)
     for path, data in files.items():
         result.total_bytes += len(data)
@@ -306,6 +327,9 @@ def _push_checkpoint(cfg: Config, repo_id: str, checkpoint_dir, files,
             cfg, repo_id, result.parent, base_man):
         result.revision = result.parent
         result.parent = (base_man or {}).get("parent")
+        result.elapsed_s = time.monotonic() - t0
+        return result
+    if preview:
         result.elapsed_s = time.monotonic() - t0
         return result
 
@@ -415,6 +439,7 @@ def watch_and_swap(cfg: Config, repo_id: str,
     publisher_url = publisher_url.rstrip("/")
     if cfg.endpoint.rstrip("/") != publisher_url:
         cfg = dataclasses.replace(cfg, endpoint=publisher_url)
+    telemetry.timeline.ensure_started()
     records: list[dict] = []
     for ev in watch_events(publisher_url, repos=[repo_id],
                            timeout_s=timeout_s):
@@ -457,8 +482,9 @@ def watch_and_swap(cfg: Config, repo_id: str,
                         exc, hbm_pool.PoolLandError) else exc).__name__
         pushed_at = ev.get("pushed_at")
         if isinstance(pushed_at, (int, float)):
-            record["propagation_s"] = round(
-                max(0.0, time.time() - pushed_at), 4)
+            propagation = max(0.0, time.time() - pushed_at)
+            record["propagation_s"] = round(propagation, 4)
+            telemetry.timeline.post(SERIES_PROPAGATION, propagation)
         records.append(record)
         if on_swap is not None:
             on_swap(record, result)

@@ -177,6 +177,18 @@ class SwarmDownloader:
         # for it alone).
         self._owned_sources = list(self.peer_sources) if own_sources else []
         self.health.subscribe(self._on_health_transition)
+        # The remediation engine's seeder scan reads the health book
+        # through ``peer_health`` and demotes a collapsing seeder
+        # through ``demote``. The latest swarm wins; close() takes them
+        # back by identity, so each callable is bound once here.
+        self._remediate_monitor = lambda: {
+            "rows": self.health.detail(),
+            "strike_budget": self.health.strikes_to_quarantine,
+        }
+        telemetry.remediate.register_target("peer_health",
+                                            self._remediate_monitor)
+        self._demote_fn = self._demote_peer
+        telemetry.remediate.register_target("demote", self._demote_fn)
 
     def attach_gossip(self, node) -> None:
         """Adopt ``node`` (transfer.gossip.GossipNode) as the primary
@@ -195,11 +207,22 @@ class SwarmDownloader:
         if addr not in self.direct_peers:
             self.direct_peers.append(addr)
 
+    def _demote_peer(self, addr: tuple[str, int]) -> dict:
+        """The engine's proactive demote: a strike-free re-rank window
+        through :meth:`HealthRegistry.demote`, whose "demoted" transition
+        drives the same re-announce sweep a breaker trip does."""
+        window = self.health.demote(addr)
+        self.stats.bump("peers_demoted")
+        return {"window_s": round(window, 2)}
+
     def close(self) -> None:
         # Detach from the (possibly shared, longer-lived) health
         # registry first: a closed swarm must not keep re-announcing on
         # its transitions or be pinned in memory by the listener ref.
         self.health.unsubscribe(self._on_health_transition)
+        telemetry.remediate.unregister_target("peer_health",
+                                              self._remediate_monitor)
+        telemetry.remediate.unregister_target("demote", self._demote_fn)
         self.pool.close_all()
         for source in self._owned_sources:
             close = getattr(source, "close", None)

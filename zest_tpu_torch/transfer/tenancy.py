@@ -44,6 +44,10 @@ from collections import deque
 
 from zest_tpu_torch import storage, telemetry
 
+# The timeline gauges the process state registers (and reset() drops).
+TIMELINE_PROBES = ("tenancy.queue_depth", "tenancy.active_pulls",
+                   "tenancy.admitted_total", "tenancy.inflight_fetches")
+
 _M_DEDUPE_HITS = telemetry.counter(
     "zest_inflight_dedupe_hits_total",
     "Fetches served from another session's in-flight fetch "
@@ -866,9 +870,20 @@ class TenancyState:
             cfg.tenant_disk_low, self.pins)
         self.byte_budget = ByteBudget(cfg.tenant_inflight_bytes)
         storage.set_disk_full_hook(self.evictor.on_enospc)
-        # The timeline sampler's probes (queue depth, admitted sessions,
-        # in-flight fetches) are not registered: the port's timeline
-        # has no sampler yet.
+        # The timeline sampler's gauges: queue depth, admitted sessions
+        # and in-flight fetches, the history the queue-growth rule
+        # reads. Replace semantics: a knob rebuild re-registers them
+        # over the old state's probes.
+        c = self.controller
+        telemetry.timeline.register_probe(
+            "tenancy.queue_depth", lambda: c.summary()["queued"])
+        telemetry.timeline.register_probe(
+            "tenancy.active_pulls", lambda: c.summary()["active"])
+        telemetry.timeline.register_probe(
+            "tenancy.admitted_total",
+            lambda: c.summary()["admitted_total"])
+        telemetry.timeline.register_probe(
+            "tenancy.inflight_fetches", self.flights.in_flight)
         # Remediation action target: "shed" evicts the lowest-deficit
         # tenant's queued sessions, "recover" leaves shed mode. Replace
         # semantics: a knob rebuild re-registers over the old state.
@@ -1043,4 +1058,6 @@ def reset() -> None:
     with _lock:
         _state = None
     storage.set_disk_full_hook(None)
+    for name in TIMELINE_PROBES:
+        telemetry.timeline.unregister_probe(name)
     telemetry.remediate.unregister_target("shed")
