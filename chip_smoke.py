@@ -24,8 +24,12 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    and keyed, with garbage in every planar slot past its plane;
 3. ``push_checkpoint`` into node A's cache — every minted chunk is
    re-verified by the BLAKE3 kernel;
-4. ``pull_model(device="cuda")`` into a fresh node B through node A's
-   loopback publisher endpoint. It lands directly: tensors decode from
+4. ``pull_model(device="cuda", no_p2p=True)`` into a fresh node B
+   through node A's loopback publisher endpoint. With no swarm the warm
+   fetch streams each unit's CDN body into its cache file (the stream
+   tier): the cache holds no short or temp entry, its bytes are the CDN
+   bytes, the files' lanes the tensors' and config.json's. It lands
+   directly: tensors decode from
    the xorb cache into a pinned ring and commit to ``cuda:0`` in layer
    order, embedding and layer 0 first, and the HF-cache files are written
    from the same ring slots. Gates: one copy of the xorbs from the CDN
@@ -117,7 +121,10 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    covers ≥ 90% of ``time_to_hbm_s`` and its stages sum to it within 1 ms,
    ``analyze --json`` over the exported trace gives every stage within
    1 ms, and the ``slo_breach`` event blames the path's largest stage; the
-   traced ``time_to_hbm_s`` is printed beside the untraced spread;
+   traced ``time_to_hbm_s`` is printed beside the untraced spread. The
+   pull has no swarm: its trace holds one ``cdn.stream`` span per unit
+   the warm fetch streamed, their bytes the warm fetch's, and its CDN
+   bytes are theirs and the header prefetch's terms';
 8. the swarm peer tier, revision A by its sha (phase 4's repo, every
    tensor at full width and depth): node B, which holds A's xorbs from
    phase 4, seeds its cache as its own process (``python -m
@@ -239,13 +246,14 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    plan's whole-xorb units (a unit that is only a prefix of its xorb is
    rejected, as predicted), greedy tokens at batch 1 and 4 5b's. 13b:
    phase 7's push pulled at float32 over ``{"data": 2, "model": 2}``,
-   ``llama.params_from_hf(..., train=True)``, three AdamW steps with 12b's
-   recipe on 12b's batch cut over ``data``: step-1 loss 12b's within 1e-4
+   ``llama.params_from_hf`` (the one sharded tree), three AdamW steps
+   with 12b's recipe on 12b's batch cut over ``data``: step-1 loss 12b's within 1e-4
    relative, layer 0's first moments and parameters after step 2 12b's
    (``SHARD_MU_TOL``, ``SHARD_PARAM_BOUND``), the data replicas bit-equal
    after every step, the loss falling, the peak rise within its
-   reckoning. 13c: ``cp_train_step`` over ``{"seq": 2, "model": 2}`` at
-   12c's cut against ``train_step`` (loss and ``down_w``). 13d: Mixtral
+   reckoning. 13c: ``cp_train_step`` on the ``ShardedTensor`` tree over
+   ``{"seq": 2, "model": 2}`` at 12c's cut against ``train_step`` (loss
+   and the gathered ``down_w``). 13d: Mixtral
    at its published width, 1 layer, float32, under ``moe.param_specs``
    over ``{"expert": 4}``: the step-1 loss the CPU float32 loss's within
    ``LOGITS_TOL``, each expert's gradient on its slot, the loss falling,
@@ -342,6 +350,17 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    ``propagation_s`` (see :func:`heal_phase`). Every earlier phase runs
    with the engine on, as by default, and prints its decisions by action
    and outcome;
+18. GPT-2's sharded step at its published width (124,439,808 float32
+   params): a ``pull --device=cuda`` of revision A over ``{"data": 2,
+   "model": 2}`` on four slots of ``cuda:0`` with its pod pre-pass
+   (kernel #3's and #1's launches and rows the plan's whole-xorb units),
+   ``params_from_hf`` of that landing (no flag: the one sharded tree),
+   two AdamW steps with 12a's recipe on 12a's batch cut over ``data``:
+   the losses 12a's within 1e-5 relative, the gathered parameters and
+   first moments 12a's after step 2 (13b's rules), the replicas
+   bit-equal after each step; then greedy decode at batch 1 and 4
+   through the ``TPParams`` tree built from the trained tree, its tokens
+   those of the unsharded decode of the same trained params;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -361,7 +380,8 @@ federated pull's pre-passes (``federated``), the hierarchical fill
 discovery paths (``tracker``, ``dht``, ``gossip``, ``files_parallel``)
 and phase 16's pull service (``tenancy``, ``tenancy_daemon``,
 ``tenancy_swap``) and phase 17's (``heal_pull``, ``heal_collective``,
-``heal_tune``, ``heal_pool``, ``heal_push``) among them), the
+``heal_tune``, ``heal_pool``, ``heal_push``) and phase 18's mesh
+landing's pre-pass (``mesh_train``) among them), the
 card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -847,7 +867,8 @@ def pull_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed, dev):
 
     cfg_b = Config(hf_home=work / "b" / "hf",
                    cache_dir=work / "b" / "zest", endpoint=url)
-    pulled = pull_model(cfg_b, REPO, device=dev)
+    # No swarm (the CLI's --no-p2p): the warm fetch's stream tier.
+    pulled = pull_model(cfg_b, REPO, device=dev, no_p2p=True)
     st = pulled.stats
     if st["fallback_files"]:
         fail(f"{st['fallback_files']} xet files fell back to a "
@@ -862,10 +883,43 @@ def pull_phase(work: Path, url: str, cfg_a, ckpt: Path, pushed, dev):
     digest = params_digest(load_checkpoint(pulled.snapshot_dir, "cpu"))
     check_tree("phase 4", pulled, digest, dev)
     check_direct("phase 4", pulled)
+    # The stream tier (no swarm): every wanted unit streamed into the
+    # cache; the cache holds no temp file and no short entry (a full key
+    # hashes to its xorb, a partial one parses), and every CDN byte is in
+    # it exactly once (the streamed units and the header prefetch's).
+    from zest_tpu_torch.cas import hashing
+    from zest_tpu_torch.cas.xorb import XorbReader
+
+    warm = st["hbm"].get("warm") or {}
+    files = [f for f in cfg_b.xorb_cache_dir().rglob("*") if f.is_file()]
+    short = [f.name for f in files if f.name.startswith(".tmp-")]
+    for f in files:
+        data = f.read_bytes()
+        try:
+            whole = len(f.name) == 64
+            if whole and XorbReader(data).xorb_hash() != \
+                    hashing.hex_to_hash(f.name):
+                short.append(f.name)
+            elif not whole:
+                XorbReader(data)
+        except ValueError:
+            short.append(f.name)
+    cached = sum(f.stat().st_size for f in files)
+    lanes = st["files_pipeline"]["lane_bytes"]
+    want_lanes = {"tensors": (ckpt / "model.safetensors").stat().st_size,
+                  "waterfall": (ckpt / "config.json").stat().st_size}
+    if "swarm" in st or short or not warm.get("units") or warm["failed"] \
+            or cdn != cached or warm["bytes"] > cdn or lanes != want_lanes:
+        fail(f"phase 4: warm {warm}, fetch {st['fetch']}, cache {cached:,} "
+             f"B, short or temp entries {short}; lanes {lanes} (want "
+             f"{want_lanes})")
     print(f"phase 4 pull: {landing_summary(st)}; ring "
           f"{st['hbm']['ring']}; {cdn:,} bytes in "
           f"{st['fetch']['xorbs']['cdn']} CDN fetches, 0 fallbacks; "
-          f"files by lane {st['files_pipeline']['lane_bytes']}; "
+          f"fetch by tier {st['fetch']['xorbs']} xorbs, "
+          f"{st['fetch']['bytes']} B; stream tier: warm {warm}, the cache's "
+          f"{len(files)} entries hold {cached:,} B = the CDN bytes, no short "
+          f"entry; files by lane {lanes}; "
           f"{st['hbm']['tensors']} tensors on {dev}, digest "
           f"{digest[:16]}")
     return pulled, cfg_b, digest
@@ -2316,7 +2370,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
                    endpoint=url, slo_tthbm_s=1e-6)
     tracer = telemetry.trace.install(None)
     try:
-        res = pull_model(cfg_l, LLAMA_REPO, device=dev)
+        res = pull_model(cfg_l, LLAMA_REPO, device=dev, no_p2p=True)
     finally:
         telemetry.trace.uninstall()
     st = res.stats
@@ -2468,6 +2522,29 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     return ref
 
 
+def stream_span_gates(label: str, spans, st: dict) -> str:
+    """The stream tier in a traced pull with no swarm: one ``cdn.stream``
+    span per unit the warm fetch streamed, none failed, their bytes the
+    warm fetch's, and every CDN byte theirs or a header term's (the
+    header prefetch's ``fetch.term`` spans). Returns the summary."""
+    streams = [sp for sp in spans if sp.name == "cdn.stream"]
+    sbytes = sum(sp.attrs.get("bytes", 0) for sp in streams)
+    tbytes = sum(sp.attrs.get("bytes", 0) for sp in spans
+                 if sp.name == "fetch.term"
+                 and sp.attrs.get("source") == "cdn")
+    warm = st["hbm"].get("warm") or {}
+    if not streams or len(streams) != warm.get("units") or warm["failed"] \
+            or sbytes != warm["bytes"] \
+            or any("error" in sp.attrs for sp in streams) \
+            or st["fetch"]["bytes"]["cdn"] != sbytes + tbytes:
+        fail(f"{label}: {len(streams)} cdn.stream spans of {sbytes:,} B, "
+             f"header terms {tbytes:,} B; warm {warm}, fetch "
+             f"{st['fetch']['bytes']}")
+    return (f"{len(streams)} cdn.stream spans = the warm fetch's units, "
+            f"{sbytes:,} B = its bytes; CDN bytes = those + the header "
+            f"terms' {tbytes:,} B")
+
+
 def llama_trace_gates(work: Path, tracer, st: dict) -> str:
     """Phase 7's traced pull: the critical path covers >= 90% of
     ``time_to_hbm_s`` and its stages sum to it within 1 ms; ``analyze
@@ -2507,8 +2584,10 @@ def llama_trace_gates(work: Path, tracer, st: dict) -> str:
     if not breaches or breaches[-1].get("blamed_stage") != top:
         fail(f"phase 7 traced: slo_breach {breaches[-1:]} does not blame "
              f"the largest stage {top}")
+    streamed = stream_span_gates("phase 7 traced", tracer.spans(), st)
     lo, hi = LLAMA_TTH_UNTRACED_S
-    return (f"{n_spans} spans; time_to_hbm_s {tth} s traced (untraced "
+    return (f"{n_spans} spans; {streamed}; "
+            f"time_to_hbm_s {tth} s traced (untraced "
             f"{lo}-{hi} s in earlier runs), path {cp['path_s']} s "
             f"({cp['path_s'] / tth:.1%} of it), idle {cp['idle_s']} s, "
             f"stages {cp['stages']}, tiers {cp.get('tiers')}; analyze "
@@ -3131,12 +3210,18 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
 
     cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
     t0 = time.monotonic()
-    params = llama.params_from_hf(res.params, cfg)
-    build_s = time.monotonic() - t0
+    train = llama.params_from_hf(res.params, cfg)
     res.params = None  # the float32 tree holds its own casts
-    if not isinstance(params, tp.TPParams):
-        fail("phase 11a: params_from_hf of the sharded tree is not a "
-             "tensor-parallel tree")
+    params = tp.decode_params(train, cfg)
+    build_s = time.monotonic() - t0
+    q_w = train["blocks"]["attn"]["q_w"]
+    if not isinstance(params, tp.TPParams) or any(
+            params.local[j]["attn"]["q_w"].data_ptr()
+            != q_w.shard(s).data_ptr()
+            for j, s in enumerate(params.group.slots)):
+        fail("phase 11a: the decode tree is not the tensor-parallel tree "
+             "of params_from_hf's sharded tree")
+    del train, q_w
     prompts = llama_ref["prompts"]
     rates, notes, errs = {}, {}, {}
     tol = 2 * LOGITS_TOL  # the TP logits' error plus phase 7's
@@ -3179,9 +3264,9 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
           f"specs {sorted(specs)}; peak allocation rise {rise:,} B (landed "
           f"{landed:,} B, allowed {allowed:,}); every shard byte-equal to "
           f"the file's slice ({cmp_s:.2f} s), digest = phase 7's; "
-          f"tensor-parallel float32 tree built in {build_s:.2f} s, "
-          f"gathered {gather:,} B (tensors off the Megatron layout: the "
-          f"vocab-sharded embedding, the norms); tok/s tensor-parallel "
+          f"the sharded float32 tree and its tensor-parallel decode tree "
+          f"built in {build_s:.2f} s (the decode tree gathered "
+          f"{gather:,} B: the head, tied here); tok/s tensor-parallel "
           f"b1 {rates[1]:.1f}, b4 {rates[4]:.1f} against unsharded "
           f"(phase 7, same card) b1 {llama_ref['rates'][1]:.1f}, b4 "
           f"{llama_ref['rates'][4]:.1f}; logits max |TP - CPU| b1 "
@@ -3247,24 +3332,26 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
         fail("phase 11b: the sharded tree's digest != the file's")
 
     # The raw landing decodes in place: each expert's FFN stays
-    # tensor-parallel as the rules landed it, and only the tensors off the
-    # rules' layout (embedding, norms, head) are gathered.
+    # params_from_hf of the raw landing: the one sharded tree (each
+    # expert gathered once onto the slot that holds it whole), and the
+    # expert-parallel decode tree built from it.
     mcfg = moe.MoEConfig.from_hf(MIXTRAL_CONFIG)
     fam_want, mmargin, mtol = pool_out["mixtral_family"]
     prompt = pool_out["mixtral_prompt"]
-    off_layout = sum(t.nbytes for n, t in res.params.items()
-                     if "experts." not in n and "self_attn." not in n
-                     and any(a is not None for a in t.spec))
     t0 = time.monotonic()
-    params = moe.params_from_hf(res.params, mcfg, dtype=torch.bfloat16)
+    raw_tree = moe.params_from_hf(res.params, mcfg, dtype=torch.bfloat16)
+    res.params = None
+    params = tp.decode_params(raw_tree, mcfg)
     torch.cuda.synchronize(dev)
     raw_build_s = time.monotonic() - t0
-    res.params = None
     raw_gather = params.gather_bytes
-    if params.experts != [range(8)] * 4 or raw_gather != off_layout:
+    head_bytes = raw_tree["lm_head"].nbytes
+    del raw_tree
+    if params.experts != [range(2 * s, 2 * s + 2) for s in range(4)] \
+            or raw_gather != head_bytes:
         fail(f"phase 11b: the raw landing's tree holds experts "
-             f"{params.experts}, gathered {raw_gather:,} B (off-layout "
-             f"tensors {off_layout:,} B)")
+             f"{params.experts}, its decode tree gathered {raw_gather:,} B "
+             f"(the head {head_bytes:,} B)")
     moe.generate_cached(params, mcfg, [prompt], 2)  # warm-up
     torch.cuda.synchronize(dev)
     t0 = time.monotonic()
@@ -3272,7 +3359,7 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
                                             steps).cpu().numpy())
     raw_rate = steps / (time.monotonic() - t0)
     raw_note, raw_compared = tokens_near(
-        "phase 11b mixtral tensor-parallel greedy batch 1", raw, fam_want,
+        "phase 11b mixtral raw-landing greedy batch 1", raw, fam_want,
         mmargin, mtol)
     del params
     torch.cuda.empty_cache()
@@ -3319,9 +3406,11 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
           f"plan's, 0 failed, ici_bytes_saved {pod['ici_bytes_saved']:,}; "
           f"shared round {shared['filled']}/{shared['units']} units, "
           f"kernel launches (rows) {launches} = the shared plan's; "
-          f"digest = the file's; tensor-parallel tree from the raw "
-          f"landing built in {raw_build_s:.2f} s, gathered {raw_gather:,} B "
-          f"(no expert byte), bf16 greedy {raw_rate:.2f} tok/s, tokens vs "
+          f"digest = the file's; the sharded tree of the raw landing "
+          f"(whole experts a slot) and its expert-parallel decode tree "
+          f"built in {raw_build_s:.2f} s, the decode tree gathered "
+          f"{raw_gather:,} B (the head), bf16 greedy {raw_rate:.2f} tok/s, "
+          f"tokens vs "
           f"phase 9's {raw_note} "
           f"({raw_compared} positions); "
           f"land_moe_expert_sharded {land_s:.2f} s, "
@@ -3380,12 +3469,14 @@ def ft_batch(vocab: int, seed: int, dev, shape=FT_BATCH):
         0, vocab, shape)).to(dev)
 
 
-def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> None:
+def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> dict:
     """Phase 12a: GPT-2 at its published width from phase 3's checkpoint:
     three AdamW steps, ``save_train_state``, ``restore_train_state`` onto
     ``dev``, two more steps; the parameters and moments bit-equal to an
     uninterrupted five-step run, the first loss within 1e-4 of the port's
-    CPU float32 ``loss_fn`` on the same tree."""
+    CPU float32 ``loss_fn`` on the same tree. Returns phase 18's
+    reference: the batch seed, the first two losses and the parameters and
+    first moments after step 2, on the host."""
     import functools
 
     import torch
@@ -3411,10 +3502,15 @@ def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> None:
             lambda t: t.to(dev, copy=True), params_cpu), tx)
 
     state, losses, times = fresh(), [], []
-    for _ in range(FT_STEPS):
+    for k in range(FT_STEPS):
         ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
         times.append(ms)
         losses.append(float(loss))
+        if k == 1:  # phase 18's reference: the state after step 2
+            after2 = {name: training.tree_map(
+                lambda t: t.detach().to("cpu", copy=True), tree)
+                for name, tree in (("params", state.params),
+                                   ("mu", state.opt_state.mu))}
     first = losses[0]
     if not abs(first - cpu_loss) <= 1e-4:
         fail(f"phase 12a: first loss {first} off the CPU's {cpu_loss} by "
@@ -3461,6 +3557,7 @@ def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> None:
           f"{save_s:.2f} s ({state_bytes:,} B), restore {restore_s:.2f} s; "
           f"3 + restore + 2 steps bit-equal to 5 (params, mu, nu); phase "
           f"wall {time.monotonic() - wall0:.2f} s")
+    return {"batch_seed": seed + 12, "losses": losses[:2], **after2}
 
 
 def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
@@ -3928,7 +4025,7 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
     """Phase 13b: AdamW on a sharded tree at Llama-3.2-1B's published
     width and depth. Phase 7's push is pulled at float32 over
     ``TRAIN_MESH`` on four slots of ``dev``, turned into the training tree
-    (``params_from_hf(..., train=True)``: every leaf under
+    (``params_from_hf``: every leaf under
     ``param_specs``), and trained ``SHARD_STEPS`` steps with 12b's recipe
     on 12b's batch cut over ``data``: the step-1 loss 12b's, layer 0's
     q_w and down_w after step 2 12b's, the data replicas bit-equal after
@@ -3957,7 +4054,7 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
                      device=dev, mesh=mesh, pod=False)
     pull_s = time.monotonic() - t0
     t0 = time.monotonic()
-    tree = llama.params_from_hf(res.params, cfg, torch.float32, train=True)
+    tree = llama.params_from_hf(res.params, cfg, torch.float32)
     torch.cuda.synchronize(dev)
     build_s = time.monotonic() - t0
     res.params = None
@@ -4054,12 +4151,14 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
 def tp_cp_phase(seed: int, dev) -> None:
     """Phase 13c: TP×CP at Llama-3.2-1B's width, depth cut to
     ``CP_LAYERS`` as in 12c: ``cp_train_step`` over ``TP_CP_MESH`` on four
-    slots of ``dev`` (local heads in the ring, the o/down sums on each
+    slots of ``dev`` on the ``ShardedTensor`` tree laid out by
+    ``param_specs`` (local heads in the ring, the o/down sums on each
     model row's lead) against the dense ``train_step``."""
     import torch
 
     from zest_tpu_torch.models import llama, training
     from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.parallel.sharding import shard_tree
 
     wall0 = time.monotonic()
     cfg = llama.LlamaConfig.from_hf(dict(LLAMA_CONFIG,
@@ -4069,23 +4168,28 @@ def tp_cp_phase(seed: int, dev) -> None:
     n_params = sum(t.numel() for t in training.tree_leaves(params))
     batch = ft_batch(cfg.vocab_size, seed + 14, dev)
     mesh = model_mesh(TP_CP_MESH, [dev] * 4)
-    llama.cp_train_step(params, batch, cfg, mesh)  # warm-up
+    sharded = shard_tree(params, llama.param_specs(cfg), mesh)
+    llama.cp_train_step(sharded, batch, cfg, mesh)  # warm-up
     ms, (want, loss) = step_ms(dev, lambda: llama.train_step(params, batch,
                                                              cfg))
     cp_ms, (got, cp_loss) = step_ms(dev, lambda: llama.cp_train_step(
-        params, batch, cfg, mesh))
+        sharded, batch, cfg, mesh))
     loss_d = abs(float(cp_loss) - float(loss))
-    g, w = got["blocks"]["mlp"]["down_w"], want["blocks"]["mlp"]["down_w"]
+    if not _replicas_equal(got):
+        fail("phase 13c: the seq replicas differ after the step")
+    g = got["blocks"]["mlp"]["down_w"].full()
+    w = want["blocks"]["mlp"]["down_w"]
     down_d = float((g - w).abs().max())
     if not loss_d <= TP_CP_TOL + TP_CP_TOL * abs(float(loss)) \
             or not torch.allclose(g, w, atol=TP_CP_ATOL, rtol=TP_CP_RTOL):
         fail(f"phase 13c: cp_train_step over {TP_CP_MESH} loss off by "
              f"{loss_d:.2e}, down_w by {down_d:.2e}")
-    del params, got, want
+    del params, sharded, got, want
     torch.cuda.empty_cache()
     print(f"phase 13c TP x CP ({card_label()}): Llama-3.2-1B width, "
           f"{CP_LAYERS} layers ({n_params:,} params), batch {FT_BATCH}: "
-          f"cp_train_step over {TP_CP_MESH} on [{dev}] * 4 loss "
+          f"cp_train_step on the ShardedTensor tree (param_specs) over "
+          f"{TP_CP_MESH} on [{dev}] * 4 loss "
           f"{float(cp_loss):.6f}, |d| vs train_step {loss_d:.2e} (atol "
           f"and rtol {TP_CP_TOL:.0e}), down_w max |d| {down_d:.2e} (atol "
           f"{TP_CP_ATOL:.0e}, rtol {TP_CP_RTOL:.0e}); step {cp_ms:.1f} ms vs "
@@ -5934,6 +6038,163 @@ def heal_phase(work: Path, url: str, publisher, cfg_a, cfg_b, ckpt: Path,
             for path, c in paths.items()}
 
 
+# ── Phase 18: GPT-2's sharded step ──
+
+GPT2_TRAIN_MESH = {"data": 2, "model": 2}
+GPT2_PARAMS = 124_439_808
+# 18 against 12a: the same start, batch and recipe, the sums in other
+# orders: the losses within 1e-5 relative; after step 2 the first moments
+# and parameters by 13b's rules (SHARD_MU_TOL, SHARD_PARAM_BOUND and
+# SHARD_PARAM_SHARE), over every leaf.
+GPT2_LOSS_RTOL = 1e-5
+
+
+def sharded_gpt2_phase(work: Path, url: str, sha_a: str, ref: dict,
+                       prompts: list, steps: int, dev) -> dict:
+    """Phase 18: GPT-2's sharded step at its published width. A fresh
+    node pulls phase 3's revision A over ``GPT2_TRAIN_MESH`` on four slots
+    of ``dev`` with the pod pre-pass (kernel #3's and #1's launches and
+    rows those of the plan's whole-xorb units); ``params_from_hf`` of the
+    landing (no flag) gives the one sharded tree under
+    ``gpt2.param_specs``, which takes two AdamW steps with 12a's recipe on
+    12a's batch cut over ``data``: the losses and, after step 2, the
+    gathered parameters and first moments 12a's (``ref``), the replicas
+    bit-equal after each step. Then greedy decode at batch 1 and 4
+    through the ``TPParams`` tree built from the trained tree (the q|k|v
+    columns regrouped into whole heads a slot): its tokens those of the
+    unsharded decode of the same trained params. Returns the kernels'
+    launches in the pull."""
+    import functools
+
+    import torch
+
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models import gpt2, training
+    from zest_tpu_torch.models import tensor_parallel as tp
+    from zest_tpu_torch.parallel import DistributionPlan
+    from zest_tpu_torch.parallel.mesh import model_mesh
+    from zest_tpu_torch.transfer.pull import pull_model
+
+    wall0 = time.monotonic()
+    cfg = gpt2.GPT2Config.from_hf(GPT2_CONFIG)
+    mesh = model_mesh(GPT2_TRAIN_MESH, [dev] * 4)
+    cfg_g = Config(hf_home=work / "g18" / "hf",
+                   cache_dir=work / "g18" / "zest", endpoint=url,
+                   hbm_staging_bytes=POD_BUDGET)
+    reset_counters()  # counts from here are the mesh landing's
+    t0 = time.monotonic()
+    res = pull_model(cfg_g, REPO, revision=sha_a, device=dev, mesh=mesh,
+                     pod=True)
+    pull_s = time.monotonic() - t0
+    launches = read_counters()
+    st, pod = res.stats, res.stats.get("pod")
+    plan = DistributionPlan.build(gpt2_recs(cfg_g, sha_a), mesh.size)
+    want, prefixes = plan_launches(plan, cfg_g)
+    if not st["hbm"]["sharded"] or not pod or pod.get("skipped") \
+            or not 0 < pod["filled"] == pod["units"] or prefixes \
+            or launches != want or want["bg4_fused_verify"][0] < 1:
+        fail(f"phase 18: sharded {st['hbm']['sharded']}, pod {pod}; kernel "
+             f"launches (rows) {launches}, the plan's whole-xorb units "
+             f"predict {want} ({prefixes} prefixes)")
+    t0 = time.monotonic()
+    tree = gpt2.params_from_hf(res.params, cfg)
+    torch.cuda.synchronize(dev)
+    build_s = time.monotonic() - t0
+    res.params = None
+    n_params = sum(int(np.prod(t.shape)) for t in training.tree_leaves(tree))
+    specs = {"/".join(p): tuple(t.spec) for p, t in training.tree_paths(tree)}
+    if n_params != GPT2_PARAMS or specs["blocks/attn/qkv_w"] != (
+            None, None, "model") or specs["wte"] != ():
+        fail(f"phase 18: the sharded tree holds {n_params:,} params, specs "
+             f"{specs}")
+    batch = ft_batch(cfg.vocab_size, ref["batch_seed"], dev)
+    tx = training.adamw(**FT_ADAMW)
+    step = training.make_train_step(tx, functools.partial(gpt2.loss_fn,
+                                                          cfg=cfg))
+    state = training.create_state(tree, tx)
+    del tree
+    losses, times = [], []
+    for k in range(2):
+        ms, (state, loss) = step_ms(dev, lambda s=state: step(s, batch))
+        times.append(ms)
+        losses.append(float(loss))
+        if not (_replicas_equal(state.params)
+                and _replicas_equal(state.opt_state.mu)
+                and _replicas_equal(state.opt_state.nu)):
+            fail(f"phase 18: the replicas differ after step {k + 1}")
+    for got, want_loss in zip(losses, ref["losses"]):
+        if not abs(got - want_loss) <= GPT2_LOSS_RTOL * abs(want_loss):
+            fail(f"phase 18: losses {losses} off 12a's {ref['losses']} by "
+                 f"more than {GPT2_LOSS_RTOL:.0e} relative")
+    errs, worst_share = {}, 0.0
+    for name, tree in (("params", state.params), ("mu", state.opt_state.mu)):
+        want_tree = dict(training.tree_paths(ref[name]))
+        for path, t in training.tree_paths(tree):
+            w = want_tree[path]
+            d = (t.full().cpu() - w).abs()
+            key = f"{name} {'/'.join(path)}"
+            errs[key] = float(d.max())
+            if name == "mu":
+                bound = SHARD_MU_TOL * float(w.abs().max())
+                if not errs[key] <= bound:
+                    fail(f"phase 18: {key} after step 2 off 12a's by "
+                         f"{errs[key]:.3e} > {bound:.3e}")
+                continue
+            share = float((d > 1e-6).float().mean())
+            worst_share = max(worst_share, share)
+            if not (errs[key] <= SHARD_PARAM_BOUND
+                    and share <= SHARD_PARAM_SHARE):
+                fail(f"phase 18: {key} after step 2 off 12a's by "
+                     f"{errs[key]:.3e} (bound {SHARD_PARAM_BOUND:.0e}), "
+                     f"{share:.2e} of it beyond 1e-6")
+    # Decode: the TPParams tree of the trained tree against the unsharded
+    # decode of the same trained params.
+    trained = state.params
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    dec = tp.decode_params(trained, cfg)
+    dec_s = time.monotonic() - t0
+    plain = training.tree_map(lambda t: t.full(), trained)
+    rates, plain_rates = {}, {}
+    for b in (1, 4):
+        rows = prompts[:b]
+        gpt2.generate_cached(dec, cfg, rows, 2)  # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        got = gpt2.generate_cached(dec, cfg, rows, steps).cpu().numpy()
+        rates[b] = b * steps / (time.monotonic() - t0)
+        t0 = time.monotonic()
+        want_tokens = gpt2.generate_cached(plain, cfg, rows,
+                                           steps).cpu().numpy()
+        plain_rates[b] = b * steps / (time.monotonic() - t0)
+        if not np.array_equal(got, want_tokens):
+            fail(f"phase 18: batch {b}: tensor-parallel tokens differ from "
+                 "the unsharded decode of the trained params")
+    gather = dec.gather_bytes
+    del dec, plain, trained
+    shutil.rmtree(work / "g18")
+    torch.cuda.empty_cache()
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    print(f"phase 18 sharded GPT-2 ({card_label()}): {REPO} revision A "
+          f"({n_params:,} float32 params) over {GPT2_TRAIN_MESH} on "
+          f"[{dev}] * 4: pulled in {pull_s:.2f} s, {landing_summary(st)}; "
+          f"pod {pod}, kernel launches (rows) {launches} = the plan's "
+          f"whole-xorb units; params_from_hf (the sharded tree) in "
+          f"{build_s:.2f} s; AdamW {FT_ADAMW} on 12a's batch {FT_BATCH} cut "
+          f"over data: losses {[round(x, 6) for x in losses]} (12a "
+          f"{[round(x, 6) for x in ref['losses']]}), step ms "
+          f"{[round(t, 2) for t in times]}; after step 2 vs 12a: largest "
+          f"|d| {[(k, f'{v:.2e}') for k, v in top]}, worst share beyond "
+          f"1e-6 {worst_share:.2e}; replicas bit-equal; TPParams from the "
+          f"trained tree in {dec_s:.2f} s (gathered {gather:,} B: the fused "
+          f"q|k|v, regrouped), greedy tok/s b1 {rates[1]:.1f}, b4 "
+          f"{rates[4]:.1f} (unsharded {plain_rates[1]:.1f}, "
+          f"{plain_rates[4]:.1f}), tokens = the unsharded decode's at "
+          f"batch 1 and 4; phase wall {time.monotonic() - wall0:.2f} s")
+    return {name: n for name, (n, _rows) in launches.items()}
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -6119,7 +6380,7 @@ def run(args, work: Path) -> dict:
         torch.cuda.empty_cache()  # every earlier phase's tree is gone
         print(f"phase 12 starts with {torch.cuda.memory_allocated(dev):,} B "
               "allocated on the card")
-        gpt2_finetune_phase(ckpt, work, args.seed, dev)
+        gpt2_ref = gpt2_finetune_phase(ckpt, work, args.seed, dev)
         ft_ref = llama_finetune_phase(
             work, publisher.url, cfg_a, llama_ref, args.seed, args.steps, dev)
         finetune_launches = ft_ref["launches"]
@@ -6166,6 +6427,15 @@ def run(args, work: Path) -> dict:
         heal_launches = heal_phase(work, publisher.url, publisher, cfg_a,
                                    cfg_b, ckpt, pushed, digest, args.seed,
                                    dev)
+
+        # ── 18. GPT-2's sharded step: a mesh pull with its pre-pass,
+        # params_from_hf's one sharded tree, two AdamW steps against 12a,
+        # tensor-parallel decode of the trained tree ──
+        torch.cuda.empty_cache()
+        mesh_train_launches = sharded_gpt2_phase(
+            work, publisher.url, pushed.revision, gpt2_ref, prompts,
+            args.steps, dev)
+        del gpt2_ref
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -6239,7 +6509,9 @@ def run(args, work: Path) -> dict:
                                  "swarm": swarm_launches["blake3_chunks"],
                                  "federated": fed_launches["blake3_chunks"],
                                  "hier": hier_launches["blake3_chunks"],
-                                 "lossy": lossy_launches["blake3_chunks"]}}
+                                 "lossy": lossy_launches["blake3_chunks"],
+                                 "mesh_train": mesh_train_launches[
+                                     "blake3_chunks"]}}
     phase_paths = {**discovery_launches, **tenancy_launches,
                    **heal_launches}
     for path, counts in phase_paths.items():
@@ -6258,6 +6530,8 @@ def run(args, work: Path) -> dict:
                                         "federated": fed_launches[k["name"]],
                                         "hier": hier_launches[k["name"]],
                                         "lossy": lossy_launches[k["name"]],
+                                        "mesh_train": mesh_train_launches[
+                                            k["name"]],
                                         "serve": pool_out["launches"][
                                             k["name"]],
                                         "serve_daemon": daemon_launches[

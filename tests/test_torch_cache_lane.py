@@ -92,7 +92,12 @@ def test_declined_handoff_materializes_from_cache_byte_identical(
         hub, tmp_path, monkeypatch):
     """No file from the landing's slots: every shard is written by the
     cache lane after the landing, byte for byte, with the JAX package's
-    lane bytes (its handoff declined the same way)."""
+    lane bytes (its handoff declined the same way). ``config.json`` books
+    its 311 B on the port's waterfall lane on every pull: the port's
+    early read of it is a private download. The reference's early read
+    writes the snapshot's copy and races its file loop for it (ROADMAP
+    Queue 3, the reference's flaky tests), so its waterfall lane holds
+    the file or nothing; every other lane is held equal."""
     monkeypatch.setattr(port_pull, "_tensors_tile", lambda *a: False)
     monkeypatch.setattr(port_pull, "_write_file_from_tensors",
                         lambda *a, **k: None)
@@ -111,7 +116,11 @@ def test_declined_handoff_materializes_from_cache_byte_identical(
         lanes = res.stats["files_pipeline"]["lane_bytes"]
         assert lanes.get("tensors", 0) == 0
         assert lanes["copy"] > 0
-        assert lanes == ref.stats["files_pipeline"]["lane_bytes"]
+        assert lanes["waterfall"] == len(FILES["config.json"])
+        ref_lanes = dict(ref.stats["files_pipeline"]["lane_bytes"])
+        assert ref_lanes.pop("waterfall", 0) in (0, lanes["waterfall"])
+        assert {k: v for k, v in lanes.items() if k != "waterfall"} == \
+            ref_lanes
         assert lanes["copy"] + lanes.get("decode", 0) == sum(
             len(FILES[s]) for s in SHARDS)
         for name, data in FILES.items():

@@ -333,20 +333,17 @@ def test_analyze_tracer_equals_reference():
 
 # ── The span schema of a traced pull ──
 
-# Names only one package's traced pull records, each with the divergence
-# it records. Categories: fetch.unit, cdn.stream → fetch; stage.coop and
-# the coop phase stages → other; stage.coop_verify → verify.
+# Names only the port's traced coop pull records, each with the divergence
+# it records. Categories: stage.coop and the coop phase stages → other;
+# stage.coop_verify → verify. A plain pull records the reference's names,
+# cdn.stream (fetch) included: with no peer tier both warm fetches stream
+# each CDN unit into the cache.
 PORT_ONLY = {
-    # The port's warm fetch takes each unit through
-    # XetBridge.fetch_unit_tiered; the reference streams a CDN unit into
-    # the cache (cdn.stream), which waits for stream_unit_from_cdn.
-    "fetch.unit",
     # The port's StageClock also times the cooperative round and its
     # phases and receipt verification, as stats["stages"] keys.
     "stage.coop", "stage.coop_fetch", "stage.coop_exchange",
     "stage.coop_verify",
 }
-REF_ONLY = {"cdn.stream"}
 # A files-only coop pull: the port's copy-range cache lane writes the
 # file to a temp name committed at the exit barrier; the reference's
 # files-only lane writes it in place.
@@ -412,19 +409,19 @@ def test_span_schema_equals_reference(hub, tmp_path, kind):
     run = _plain_pull if kind == "plain" else _coop_pull
     port = run("port", hub, tmp_path / "port")
     ref = run("ref", hub, tmp_path / "ref")
-    port_only = PORT_ONLY | (PORT_ONLY_FILES if kind == "coop" else set())
-    assert port - port_only == ref - REF_ONLY, (
-        sorted(port - ref), sorted(ref - port))
+    port_only = PORT_ONLY | PORT_ONLY_FILES if kind == "coop" else set()
+    assert port - port_only == ref, (sorted(port - ref), sorted(ref - port))
     assert {critpath.categorize(n) for n in port - port_only} == \
-        {j_critpath.categorize(n) for n in ref - REF_ONLY}
+        {j_critpath.categorize(n) for n in ref}
     # Every listed divergence is one that this pull shows.
-    assert port & port_only and ref & REF_ONLY
+    assert port & port_only if kind == "coop" else not port_only
     if kind == "coop":
         assert {"coop.round", "coop.fetch", "coop.exchange",
                 "dcn.request_many", "dcn.serve"} <= port
     else:
         assert {"stage.hbm_commit", "hbm.commit", "land.slice",
-                "cas.reconstruction", "cdn.get"} <= port
+                "cas.reconstruction", "cdn.get", "cdn.stream"} <= port
+        assert "fetch.unit" not in port
 
 
 # ── scripts/critpath_smoke.py's first two gates on a fixture landing ──

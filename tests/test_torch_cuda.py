@@ -999,10 +999,13 @@ def test_mesh_pull_and_tensor_parallel_decode_on_card(cuda_device,
             assert np.array_equal(gen(prompts, 8, stop_at_eos=False),
                                   gen_cpu(prompts, 8, stop_at_eos=False))
             if name == "moe":
-                params = moe.params_from_hf(res.params,
-                                            moe.MoEConfig.from_hf(mix_json))
+                mcfg = moe.MoEConfig.from_hf(mix_json)
+                params = tensor_parallel.decode_params(
+                    moe.params_from_hf(res.params, mcfg), mcfg)
                 assert isinstance(params, tensor_parallel.TPParams)
-                assert params.experts == [range(8)] * 4  # columns in place
+                # Whole experts a slot, each gathered once onto it.
+                assert params.experts == [range(2 * s, 2 * s + 2)
+                                          for s in range(4)]
 
 
 def test_adamw_step_on_card_matches_cpu(cuda_device):

@@ -226,6 +226,64 @@ def test_files_only_pull_through_a_dht_equals_reference(hub, seeder,
     _assert_parity(mine, theirs, rungs, my_logs, their_logs, port)
 
 
+def test_a_leecher_on_port_0_registers_no_address_where_the_reference_does(
+        hub, seeder, tracker, tmp_path):
+    """ROADMAP Queue 3 fault 3, repaired in the port: a node whose
+    ``listen_port`` is 0 serves nothing, so its swarm announces to no
+    tracker or DHT. Leechers pull through one DHT router that the
+    seeder's node announced to: the reference's leecher leaves
+    ``(ip, 0)`` in the router's store, the port's leaves nothing there,
+    and a second port leecher through the same router counts no peer
+    failure. Through the tracker the port's leecher sends no ``started``
+    announce."""
+    cfg_s, port = seeder
+    keys = storage.list_cached_xorbs(cfg_s)
+    ihs = [compute_info_hash(hashing.hex_to_hash(k)) for k in keys]
+    for pkg in ("ref", "port"):
+        router = Dht(bind=("127.0.0.1", 0))
+        seeder_node = Dht(bind=("127.0.0.1", 0))
+        try:
+            seeder_node.bootstrap([("127.0.0.1", router.port)])
+            announcer = SwarmDownloader(cfg_s, peer_sources=[seeder_node])
+            announcer.announce_xorbs(keys)
+            announcer.close()
+            for i in range(1 if pkg == "ref" else 2):
+                root = tmp_path / f"{pkg}{i}"
+                if pkg == "ref":
+                    node = j_dht.Dht(bind=("127.0.0.1", 0))
+                    node.bootstrap([("127.0.0.1", router.port)])
+                    jcfg = _jcfg(hub, root)
+                    try:
+                        res = _ref_pull(jcfg, JSwarmDownloader(
+                            jcfg, peer_sources=[node]), [])
+                    finally:
+                        node.close()
+                else:
+                    node = Dht(bind=("127.0.0.1", 0))
+                    node.bootstrap([("127.0.0.1", router.port)])
+                    cfg = _cfg(hub, root)
+                    res, _ = _port_pull(cfg, SwarmDownloader(
+                        cfg, peer_sources=[node], own_sources=True), [])
+                sw = res.stats["swarm"]
+                assert sw["peers_discovered"] > 0
+                assert sw["peer_failures"] == 0
+                assert res.stats["fetch"]["bytes"]["peer"] > 0
+                stored = {a for ih in ihs
+                          for a in router.peer_store.get(ih, ())}
+                assert ("127.0.0.1", port) in stored
+                assert (("127.0.0.1", 0) in stored) == (pkg == "ref")
+        finally:
+            router.close()
+            seeder_node.close()
+    cfg = _cfg(hub, tmp_path / "tracked")
+    swarm = cli._build_swarm(cfg, tracker=tracker.url, dht=False)
+    leecher_id = swarm.peer_sources[0].peer_id
+    res, _ = _port_pull(cfg, swarm, [])
+    assert res.stats["fetch"]["bytes"]["peer"] > 0
+    mine = [a for a in tracker.announces if a["peer_id"] == leecher_id]
+    assert mine and all(a["event"] != "started" for a in mine)
+
+
 def test_registry_scan_equals_reference(seeder, tmp_path):
     import shutil
 

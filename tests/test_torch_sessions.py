@@ -444,13 +444,14 @@ def test_post_pull_landing_stream(api):
     assert ei.value.code == 400
 
 
-def test_device_pull_over_http_keeps_its_tree_pin_as_the_reference_does(
+def test_device_pull_over_http_releases_its_tree_pin_where_the_reference_keeps_it(
         hub, tmp_path):
-    """A fault the port shares with the reference (ROADMAP Queue 3):
-    ``pull_events`` drops the tree a device pull landed but not its
-    ``tree:<repo>`` pin, so the revision's xorbs stay pinned for the
-    daemon's life and an eviction pass under the disk watermark frees
-    none of them; only ``release_tree`` (the pool's ``close``) would."""
+    """ROADMAP Queue 3 fault 2, repaired in the port: ``pull_events``
+    drops the tree a device pull landed and, in the port, its
+    ``tree:<repo>`` pin with it, so an eviction pass under the disk
+    watermark evicts the revision's xorbs. The reference keeps the pin
+    for the daemon's life (only ``release_tree``, the pool's ``close``,
+    frees it)."""
     from zest_tpu.api.http_api import HttpApi as JHttpApi
     from zest_tpu_torch.api.http_api import HttpApi
 
@@ -460,10 +461,10 @@ def test_device_pull_over_http_keeps_its_tree_pin_as_the_reference_does(
                     endpoint=hub.url)
     # The reference lands for the device word "tpu" only: on JAX's CPU
     # platform that is the CPU.
-    for make, mod, cfg, device in (
+    for make, mod, cfg, device, keeps in (
             (lambda c: HttpApi(c, device="cpu"), tenancy,
-             _cfg(hub, tmp_path / "port"), "cpu"),
-            (JHttpApi, j_tenancy, j_cfg, "tpu")):
+             _cfg(hub, tmp_path / "port"), "cpu", False),
+            (JHttpApi, j_tenancy, j_cfg, "tpu", True)):
         api = make(cfg)
         try:
             events = list(api.pull_events(repo, "main", device))
@@ -474,13 +475,22 @@ def test_device_pull_over_http_keeps_its_tree_pin_as_the_reference_does(
         st = mod.state(cfg)
         cached = {f.name.split(".", 1)[0]
                   for f in cfg.xorb_cache_dir().rglob("*") if f.is_file()}
-        assert cached and all(st.pins.pinned(h) for h in cached)
-        assert st.pins.summary()["owners"] == 1
+        assert cached
         armed = dataclasses.replace(cfg, tenant_disk_high=1,
                                     tenant_disk_low=1)
-        assert mod.state(armed).evictor.maybe_evict(force=True) == 0
-        assert mod.release_tree(armed, repo)
+        if keeps:
+            assert all(st.pins.pinned(h) for h in cached)
+            assert st.pins.summary()["owners"] == 1
+            assert mod.state(armed).evictor.maybe_evict(force=True) == 0
+            assert mod.release_tree(armed, repo)
+        else:
+            assert not any(st.pins.pinned(h) for h in cached)
+            assert st.pins.summary()["owners"] == 0
+            assert not mod.release_tree(armed, repo)
         assert mod.state(armed).evictor.maybe_evict(force=True) > 0
+        left = {f.name.split(".", 1)[0]
+                for f in cfg.xorb_cache_dir().rglob("*") if f.is_file()}
+        assert left < cached
 
 
 def test_post_pull_answers_429_before_the_stream(api):

@@ -22,9 +22,13 @@ meshes (its 8-device virtual mesh, tests/conftest.py):
   gathered state's; the restore lays each array out under its spec and
   continues bit-equal) and the sharded export, byte-equal to the export
   of the gathered tree;
-- the training tree of a mesh landing (``params_from_hf(..., train=True)``)
-  equals ``shard_tree`` of the unsharded tree shard for shard, and the
-  decode tree of the same landing is still the ``TPParams`` decode tree.
+- the training tree of a mesh landing (``params_from_hf``, which takes no
+  ``train=`` flag) equals ``shard_tree`` of the unsharded tree shard for
+  shard, and the ``TPParams`` decode tree is built from it;
+- GPT-2's sharded step over ``{"data": 2, "model": 4}`` against the
+  reference's GSPMD step on its 8 virtual devices (loss 1e-6, params
+  1e-5), and a sharded GPT-2 train state saved and exported equal to the
+  gathered one (the export read back through ``params_from_hf``).
 
 Tolerances (the reference tests'): the sharded loss within 1e-6 of the
 unsharded one and 1e-5 of the reference's; SGD-updated params 1e-5 abs /
@@ -47,10 +51,11 @@ import torch
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as JP
 
 from tests.fixtures import llama_checkpoint_files
+from zest_tpu.models import gpt2 as j_gpt2
 from zest_tpu.models import llama as j_llama
 from zest_tpu.models import moe as j_moe
 from zest_tpu.models import training as j_training
-from zest_tpu_torch.models import llama, loader, moe, training
+from zest_tpu_torch.models import gpt2, llama, loader, moe, training
 from zest_tpu_torch.models import tensor_parallel as tp
 from zest_tpu_torch.models.checkpoint import (export_hf_safetensors,
                                               restore_train_state,
@@ -448,11 +453,12 @@ def test_sharded_export_equals_gathered_export(tmp_path, tied):
 
 
 def test_training_tree_of_a_mesh_landing(tmp_path):
-    """``params_from_hf(..., train=True)`` of a landing over ``{data,
-    model}`` equals ``shard_tree`` of the unsharded tree, shard for shard
-    (slot-local where the landing cut a tensor as ``param_specs`` wants
-    it, gathered where not: the embedding and the norms), and it trains;
-    the default stays the ``TPParams`` decode tree."""
+    """``params_from_hf`` of a landing over ``{data, model}`` (no
+    ``train=`` flag) equals ``shard_tree`` of the unsharded tree, shard
+    for shard (slot-local where the landing cut a tensor as
+    ``param_specs`` wants it, gathered where not: the embedding and the
+    norms), and it trains; the ``TPParams`` decode tree is built from
+    it."""
     files = llama_checkpoint_files(seed=21)
     for name, data in files.items():
         (tmp_path / name).write_bytes(data)
@@ -462,7 +468,7 @@ def test_training_tree_of_a_mesh_landing(tmp_path):
                                     rules=llama.checkpoint_shard_rules())
     plain = llama.params_from_hf(loader.load_checkpoint(tmp_path, "cpu"),
                                  cfg)
-    tree = llama.params_from_hf(landed, cfg, train=True)
+    tree = llama.params_from_hf(landed, cfg)
     want = shard_tree(plain, llama.param_specs(cfg), mesh)
     for (path, a), (_, b) in zip(tree_paths(tree), tree_paths(want)):
         assert a.spec == b.spec and a.shape == b.shape, path
@@ -474,4 +480,100 @@ def test_training_tree_of_a_mesh_landing(tmp_path):
     np.testing.assert_allclose(float(llama.loss_fn(tree, batch, cfg)),
                                float(llama.loss_fn(plain, batch, cfg)),
                                atol=1e-6, rtol=1e-6)
-    assert isinstance(llama.params_from_hf(landed, cfg), tp.TPParams)
+    dec = tp.decode_params(tree, cfg)
+    assert isinstance(dec, tp.TPParams)
+    q_w = tree["blocks"]["attn"]["q_w"]
+    assert dec.local[0]["attn"]["q_w"].data_ptr() == \
+        q_w.shard(dec.group.slots[0]).data_ptr()
+
+
+def _gpt2_case(seed):
+    jcfg = j_gpt2.GPT2Config.tiny()
+    jparams = j_gpt2.init_params(jax.random.key(seed), jcfg)
+    cfg = gpt2.GPT2Config(**dataclasses.asdict(jcfg))
+    return jcfg, jparams, cfg, gpt2.params_from_jax(
+        jax.tree.map(np.asarray, jparams))
+
+
+def test_gpt2_sharded_step_matches_gspmd_reference():
+    """Two AdamW steps on GPT-2's tree laid out by ``gpt2.param_specs``
+    over ``{"data": 2, "model": 4}`` (the q|k|v blocks joined on each
+    row's lead, the MLP split) against the reference's GSPMD step on the
+    same layout of its 8 virtual devices and the port's unsharded step."""
+    jcfg, jparams, cfg, params = _gpt2_case(41)
+    batch = _batch(42, cfg.vocab_size, (4, 17))
+    tx = training.adamw(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = training.make_train_step(tx, functools.partial(gpt2.loss_fn,
+                                                          cfg=cfg))
+    ref = training.create_state(_clone(params), tx)
+    sharded = training.create_state(
+        shard_tree(params, gpt2.param_specs(cfg), _mesh(DM)), tx)
+    jtx = j_training.adamw(lr=1e-3, warmup_steps=1, total_steps=10)
+    jstep = j_training.make_train_step(
+        jtx, functools.partial(j_gpt2.loss_fn, cfg=jcfg))
+    jmesh = _jmesh(DM)
+    jstate = j_training.create_state(jax.tree.map(
+        lambda x, sp: jax.device_put(x, NamedSharding(jmesh, sp)),
+        jparams, j_gpt2.param_specs(jcfg),
+        is_leaf=lambda v: isinstance(v, JP)), jtx)
+    jbatch = jax.device_put(jnp.asarray(batch),
+                            NamedSharding(jmesh, JP("data", None)))
+    tb = torch.from_numpy(batch).long()
+    for _ in range(2):
+        ref, loss = step(ref, tb)
+        sharded, s_loss = step(sharded, tb)
+        jstate, j_loss = jstep(jstate, jbatch)
+        np.testing.assert_allclose(float(s_loss), float(j_loss), atol=1e-6,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(float(s_loss), float(loss), atol=1e-6,
+                                   rtol=1e-6)
+        _assert_replicas_equal(sharded.params)
+        _assert_close(_full(sharded.params),
+                      jax.tree.map(np.asarray, jstate.params), 1e-5, 0)
+        _assert_close(_full(sharded.params), ref.params, 1e-5, 0)
+    assert sharded.params["blocks"]["attn"]["qkv_w"].spec == \
+        P(None, None, "model")
+
+
+def test_sharded_gpt2_state_saves_and_exports_as_the_gathered_one(tmp_path):
+    """A sharded GPT-2 train state saves byte-equal to the gathered state
+    and restores under the template's specs; its export equals the
+    gathered tree's and the unsharded tree's, and reads back through
+    ``params_from_hf`` leaf for leaf."""
+    _, _, cfg, params = _gpt2_case(43)
+    batch = torch.from_numpy(_batch(44, cfg.vocab_size, (4, 17))).long()
+    tx = training.adamw(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = training.make_train_step(tx, functools.partial(gpt2.loss_fn,
+                                                          cfg=cfg))
+    specs, mesh = gpt2.param_specs(cfg), _mesh(DM)
+    state = training.create_state(shard_tree(params, specs, mesh), tx)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    save_train_state(tmp_path / "sharded", state)
+    gathered = training.TrainState(state.step, _full(state.params),
+                                   training.AdamWState(
+                                       state.opt_state.count,
+                                       _full(state.opt_state.mu),
+                                       _full(state.opt_state.nu)))
+    save_train_state(tmp_path / "gathered", gathered)
+    assert (tmp_path / "sharded" / "arrays.safetensors").read_bytes() == \
+        (tmp_path / "gathered" / "arrays.safetensors").read_bytes()
+    back = restore_train_state(tmp_path / "sharded", training.create_state(
+        shard_tree(params, specs, mesh), tx))
+    for (path, a), (_, b) in zip(tree_paths(back.params),
+                                 tree_paths(state.params)):
+        assert a.spec == b.spec, path
+        for sl in a.shards:
+            assert torch.equal(a.shards[sl], b.shards[sl]), (path, sl)
+    export_hf_safetensors(tmp_path / "s.safetensors", state.params, cfg)
+    export_hf_safetensors(tmp_path / "g.safetensors", gathered.params, cfg)
+    assert (tmp_path / "s.safetensors").read_bytes() == \
+        (tmp_path / "g.safetensors").read_bytes()
+    from zest_tpu_torch.models.safetensors_io import SafetensorsFile
+
+    with SafetensorsFile(tmp_path / "s.safetensors") as sf:
+        back = gpt2.params_from_hf({n: sf.tensor(n).clone()
+                                    for n in sf.names()}, cfg)
+    want = dict(tree_paths(gathered.params))
+    for path, a in tree_paths(back):
+        assert torch.equal(a, want[path]), path

@@ -7,11 +7,14 @@ JAX package's forward over its sharded tree, on the CPU.
   the reference's ``NamedSharding`` tree, greedy tokens equal to its
   ``generate_cached``, sampled tokens under injected noise equal to the
   port's unsharded decode;
-- Mixtral over ``{"expert": 4}``, both from the raw landing (each expert
-  gathered onto its slot) and from the stacked expert-parallel tree:
-  prefill logits within 1e-5 of the reference's ``decode_window`` over
-  its ``param_specs`` tree, greedy tokens equal;
-- GPT-2's tree is gathered: the same tree, the same tokens;
+- Mixtral over ``{"expert": 4}``, both from the raw landing (its
+  ``params_from_hf`` gathers each expert onto the slot that holds it
+  whole) and from the stacked expert-parallel tree: prefill logits within
+  1e-5 of the reference's ``decode_window`` over its ``param_specs``
+  tree, greedy tokens equal;
+- GPT-2's sharded tree gathers to the plain tree, and decodes
+  tensor-parallel with its q|k|v columns regrouped into whole heads a
+  slot: logits within 1e-5 of the reference's, the same tokens;
 - a tree whose heads do not divide the axis raises ``MeshUnsupported``;
 - two processes (gloo), one slot each: the prefill logits and tokens of
   the one-process decode.
@@ -40,11 +43,18 @@ from zest_tpu_torch.models import gpt2, llama, loader, moe
 from zest_tpu_torch.models import tensor_parallel as tp
 from zest_tpu_torch.models.generate import load_generator
 from zest_tpu_torch.models.safetensors_io import write_safetensors
+from zest_tpu_torch.models.training import tree_paths
 from zest_tpu_torch.parallel.mesh import model_mesh
 from zest_tpu_torch.parallel.sharding import MeshUnsupported, shard_tensor
 
 ROOT = Path(__file__).resolve().parent.parent
 TOL = 1e-5
+
+
+def tree_paths_spec(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
 E, L, V, H, KV, F, X = 64, 2, 256, 8, 4, 128, 8
 D = E // H
 
@@ -127,16 +137,19 @@ def test_llama_tensor_parallel_matches_reference(case, axes):
     mesh, jmesh = _meshes(axes)
     tree = loader.commit_tensors(_host(t), mesh=mesh,
                                  rules=llama.checkpoint_shard_rules())
-    params = llama.params_from_hf(tree, cfg)
+    train = llama.params_from_hf(tree, cfg)
+    params = tp.decode_params(train, cfg)
     assert isinstance(params, tp.TPParams)
     assert params.group.size == axes["model"]
     assert len(params.local) == axes["model"]
-    assert params.gather_bytes > 0  # the vocab-sharded embedding at least
-    # The Megatron tensors stay in place: the slot's landed shard itself.
-    q0 = tree["model.layers.0.self_attn.q_proj.weight"]
+    # Only a vocabulary-parallel head is gathered.
+    assert params.gather_bytes == (0 if cfg.tie_embeddings
+                                   else train["lm_head"].nbytes)
+    # The Megatron tensors stay in place: the training tree's shard itself.
+    q_w = train["blocks"]["attn"]["q_w"]
     for j, s in enumerate(params.group.slots):
-        assert params.local[j]["attn"]["q_w"][0].data_ptr() == \
-            q0.shard(s).data_ptr()
+        assert params.local[j]["attn"]["q_w"].data_ptr() == \
+            q_w.shard(s).data_ptr()
     jparams = j_llama.params_from_hf(
         j_loader.commit_tensors(t, jmesh, j_llama.checkpoint_shard_rules()),
         jcfg)
@@ -180,21 +193,17 @@ def test_mixtral_expert_parallel_matches_reference(source):
     if source == "raw_landing":
         tree = loader.commit_tensors(_host(t), mesh=mesh,
                                      rules=moe.checkpoint_shard_rules())
-        params = moe.params_from_hf(tree, cfg)
-        # Every slot holds its columns of every expert, as landed: nothing
-        # of an expert is gathered, only the tensors off the rules' layout.
-        assert params.experts == [range(0, X)] * 4
-        assert params.gather_bytes == sum(
-            t.nbytes for n, t in tree.items()
-            if "experts." not in n and "self_attn." not in n
-            and any(a is not None for a in t.spec))
+        params = tp.decode_params(moe.params_from_hf(tree, cfg), cfg)
+        # The raw landing cut each expert's features; the tree holds whole
+        # experts a slot, each gathered once onto it.
         for j, s in enumerate(params.group.slots):
-            for x in range(X):
+            for x in params.experts[j]:
                 name = f"model.layers.0.block_sparse_moe.experts.{x}"
-                assert torch.equal(params.local[j]["moe"]["w1"][0][x],
-                                   tree[f"{name}.w1.weight"].shard(s).T)
-                assert torch.equal(params.local[j]["moe"]["w2"][0][x],
-                                   tree[f"{name}.w2.weight"].shard(s).T)
+                k = x - params.experts[j].start
+                assert torch.equal(params.local[j]["moe"]["w1"][0][k],
+                                   tree[f"{name}.w1.weight"].full().T)
+                assert torch.equal(params.local[j]["moe"]["w2"][0][k],
+                                   tree[f"{name}.w2.weight"].full().T)
     else:
         stacked = moe.params_from_hf(_host(t), cfg)
 
@@ -209,8 +218,8 @@ def test_mixtral_expert_parallel_matches_reference(source):
         for j, s in enumerate(params.group.slots):
             assert params.local[j]["moe"]["w1"].data_ptr() == \
                 w1.shard(s).data_ptr()
-        assert params.experts == [range(0, 2), range(2, 4), range(4, 6),
-                                  range(6, 8)]
+    assert params.experts == [range(0, 2), range(2, 4), range(4, 6),
+                              range(6, 8)]
     jparams = _j_moe_sharded(t, jcfg, jmesh)
     ids = _ids()
     want, _ = j_moe.decode_window(jparams, j_moe.init_kv_cache(jcfg, 2, 12),
@@ -253,17 +262,26 @@ def test_gpt2_sharded_tree_is_gathered(tmp_path):
     assert tuple(tree["h.0.attn.c_attn.weight"].spec) == (None, "model")
     sharded, plain = gpt2.params_from_hf(tree, cfg), \
         gpt2.params_from_hf(_host(t), cfg)
-    flat = lambda p: {f"{g}.{k}": v for g, leaves in p["blocks"].items()
-                      for k, v in leaves.items()}
-    for name, v in flat(plain).items():
-        assert torch.equal(flat(sharded)[name], v), name
+    flat = dict(tree_paths(plain))
+    for path, v in tree_paths(sharded):
+        assert v.spec == tree_paths_spec(gpt2.param_specs(cfg), path), path
+        assert torch.equal(v.full(), flat[path]), path
+    # The fused columns the landing cut stay in place on each slot.
+    qkv = sharded["blocks"]["attn"]["qkv_w"]
+    assert torch.equal(qkv.shard(1)[0], tree["h.0.attn.c_attn.weight"]
+                       .shard(1))
     ids = _ids()
     jcfg = j_gpt2.GPT2Config.from_hf(cfg_json)
     jparams = j_gpt2.params_from_hf(j_loader.commit_tensors(
         t, jmesh, j_gpt2.checkpoint_shard_rules()), jcfg)
     want = np.asarray(j_gpt2.forward(jparams, jnp.asarray(ids), jcfg))
-    got = gpt2.forward(sharded, torch.from_numpy(ids), cfg).numpy()
+    params = tp.decode_params(sharded, cfg)
+    assert params.group.size == 4 and params.cfg_local.n_head == 1
+    got = tp.forward(params, torch.from_numpy(ids), cfg).numpy()
     assert np.abs(got - want).max() <= TOL
+    np.testing.assert_allclose(
+        got, gpt2.forward(plain, torch.from_numpy(ids), cfg).numpy(),
+        atol=TOL, rtol=0)
     (tmp_path / "config.json").write_text(json.dumps(cfg_json))
     write_safetensors(tmp_path / "model.safetensors", _host(t))
     _, gen = load_generator(tmp_path, device="cpu", tensors=tree)
@@ -298,7 +316,7 @@ def test_heads_that_do_not_divide_raise():
                                  rules=llama.checkpoint_shard_rules())
     cfg = llama.LlamaConfig.tiny(n_head=H, n_kv_head=2, d_ff=F)
     with pytest.raises(MeshUnsupported, match="kv heads"):
-        llama.params_from_hf(tree, cfg)
+        tp.decode_params(llama.params_from_hf(tree, cfg), cfg)
     wrong_axis = loader.commit_tensors(
         _host(t), mesh=model_mesh({"expert": 4}, ["cpu"] * 4))
     with pytest.raises(MeshUnsupported, match="no 'model' axis"):

@@ -624,7 +624,9 @@ class HttpApi:
                                  tenant=tenant, cancel=token, log=log)
                 result["ok"] = {"snapshot_dir": str(res.snapshot_dir),
                                 "stats": res.stats}
-                del res  # the landed tree goes with the request
+                del res  # the landed tree goes with the request,
+                if device is not None:  # and with it the tree's pin
+                    tenancy.release_tree(self.cfg, repo_id)
             except tenancy.PullCancelled as exc:
                 result["cancelled"] = str(exc)
             except tenancy.AdmissionRejected as exc:

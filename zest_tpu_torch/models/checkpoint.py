@@ -106,10 +106,13 @@ def restore_train_state(path: str | Path, state_like: TrainState
 def export_hf_safetensors(path: str | Path, params: dict, cfg) -> None:
     """Trained Llama-family params → one HF-format safetensors file
     (``llama.params_to_hf``: HF names, ``[out, in]`` Linears), byte for
-    byte the JAX package's export of the same tree. A sharded tree is
+    byte the JAX package's export of the same tree; a GPT-2 tree through
+    ``gpt2.params_to_hf`` (the hub's names, which ``gpt2.params_from_hf``
+    reads back), which the JAX package does not export. A sharded tree is
     gathered leaf by leaf first."""
-    from zest_tpu_torch.models import llama
+    from zest_tpu_torch.models import gpt2, llama
 
     params = tree_map(
         lambda t: t.full() if isinstance(t, ShardedTensor) else t, params)
-    write_safetensors(path, llama.params_to_hf(params, cfg))
+    fam = gpt2 if isinstance(cfg, gpt2.GPT2Config) else llama
+    write_safetensors(path, fam.params_to_hf(params, cfg))

@@ -13,10 +13,14 @@ The KV cache is updated in place (the JAX version returns a new cache);
 
 :func:`checkpoint_shard_rules` lays a raw checkpoint out over a named mesh
 as the JAX package's do. GPT-2 does not decode tensor-parallel from that
-layout: ``attn.c_attn.weight`` shards the fused q|k|v columns, so no
-slot holds the q, k and v of the same heads (at ``model=4``, 576 of 2304
-columns a slot, across the q/k/v borders). :func:`params_from_hf` gathers
-a sharded tree once.
+layout as it is: ``attn.c_attn.weight`` shards the fused q|k|v columns,
+so no slot holds the q, k and v of the same heads (at ``model=4``, 576 of
+2304 columns a slot, across the q/k/v borders). :func:`params_from_hf`
+keeps a sharded tree sharded (under :func:`param_specs`, as the JAX
+package's GSPMD step takes it): the sharded step
+(``tensor_parallel.gpt2_loss``) joins each row's q|k|v blocks on the
+row's lead and runs the MLP split; decode regroups the columns into whole
+heads a slot (``tensor_parallel.decode_params``).
 
 The training half (:func:`init_params`, :func:`loss_fn`,
 :func:`train_step`, ``remat``) runs the same body as :func:`forward`
@@ -38,9 +42,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from zest_tpu_torch.config import DEFAULT_DEVICE, resolve_device
+from zest_tpu_torch.models import tensor_parallel as tp
 from zest_tpu_torch.models.training import (cross_entropy, sgd,
                                             value_and_grad)
-from zest_tpu_torch.parallel.sharding import P, gather_tree
+from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
+                                              is_sharded_tree)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -147,9 +153,10 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
     """Map an HF gpt2 checkpoint (flat name→tensor) onto the param tree,
     on the tensors' device. Accepts bare or ``transformer.``-prefixed
     names; skips ``lm_head.weight`` (tied) and the ``attn.bias`` buffers.
-    A tree of ``ShardedTensor``s is gathered first, each tensor once onto
-    its first slot's device."""
-    tensors = gather_tree(tensors)
+    A tree of ``ShardedTensor``s (a landing over a mesh) gives the tree of
+    ``ShardedTensor``s under :func:`param_specs` on the landing's mesh
+    (``tensor_parallel.stack_sharded``: a slot's block from its own shard
+    where the landing cut it so)."""
     flat = {(n[len("transformer."):] if n.startswith("transformer.")
              else n): t for n, t in tensors.items()}
     stacks: dict[tuple[str, str], list] = {
@@ -158,20 +165,50 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: GPT2Config,
         m = _HF_BLOCK.match(name)
         if m and m.group(2) in _HF_LEAF:
             stacks[_HF_LEAF[m.group(2)]][int(m.group(1))] = t
-    out = {
-        "wte": flat["wte.weight"].to(dtype),
-        "wpe": flat["wpe.weight"].to(dtype),
-        "ln_f": {"g": flat["ln_f.weight"].to(dtype),
-                 "b": flat["ln_f.bias"].to(dtype)},
-        "blocks": {},
-    }
     for (group, leaf), layers in stacks.items():
         missing = [i for i, t in enumerate(layers) if t is None]
         if missing:
             raise ValueError(f"checkpoint missing {group}.{leaf} "
                              f"for layers {missing}")
-        out["blocks"].setdefault(group, {})[leaf] = torch.stack(
-            layers).to(dtype)
+    sharded = is_sharded_tree(tensors)
+    if sharded:
+        mesh = next(t.mesh for t in tensors.values() if hasattr(t, "mesh"))
+        if MODEL_AXIS not in mesh.axis_names:
+            raise MeshUnsupported(f"the tree's mesh {mesh.shape} has no "
+                                  f"{MODEL_AXIS!r} axis")
+        specs = param_specs(cfg)
+
+    def leaf(pieces, path, stacked=True):
+        if not sharded:
+            return (torch.stack(pieces) if stacked else pieces[0]).to(dtype)
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return tp.stack_sharded(pieces, spec, dtype, stacked=stacked)
+
+    out = {
+        "wte": leaf([flat["wte.weight"]], ("wte",), False),
+        "wpe": leaf([flat["wpe.weight"]], ("wpe",), False),
+        "ln_f": {"g": leaf([flat["ln_f.weight"]], ("ln_f", "g"), False),
+                 "b": leaf([flat["ln_f.bias"]], ("ln_f", "b"), False)},
+        "blocks": {},
+    }
+    for (group, name), layers in sorted(stacks.items()):
+        out["blocks"].setdefault(group, {})[name] = leaf(
+            layers, ("blocks", group, name))
+    return out
+
+
+def params_to_hf(params: dict, cfg: GPT2Config) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`params_from_hf`: the stacked tree back to the
+    hub's bare GPT-2 names, per layer (Conv1D weights stay ``[in, out]``).
+    The JAX package exports Llama-family trees only."""
+    out = {"wte.weight": params["wte"], "wpe.weight": params["wpe"],
+           "ln_f.weight": params["ln_f"]["g"],
+           "ln_f.bias": params["ln_f"]["b"]}
+    for layer in range(cfg.n_layer):
+        for hf, (group, leaf) in _HF_LEAF.items():
+            out[f"h.{layer}.{hf}"] = params["blocks"][group][leaf][layer]
     return out
 
 
@@ -253,6 +290,12 @@ def _mlp(x, p, cfg: GPT2Config):
 
 
 def _block(x, p, cfg: GPT2Config):
+    return _mlp(_attn(x, p, cfg), p, cfg)
+
+
+def _attn(x, p, cfg: GPT2Config):
+    """The block's attention half: ``x`` plus causal self-attention of
+    its layer norm."""
     B, T, E = x.shape
     H = cfg.n_head
     h = _layer_norm(x, p["ln_1"]["g"], p["ln_1"]["b"], cfg.layer_norm_eps)
@@ -264,8 +307,7 @@ def _block(x, p, cfg: GPT2Config):
     scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
     att = torch.softmax(scores, dim=-1)
     out = (att @ v).transpose(1, 2).reshape(B, T, E)
-    x = x + out @ p["attn"]["proj_w"] + p["attn"]["proj_b"]
-    return _mlp(x, p, cfg)
+    return x + out @ p["attn"]["proj_w"] + p["attn"]["proj_b"]
 
 
 def _forward(params: dict, input_ids: torch.Tensor, cfg: GPT2Config,
@@ -295,7 +337,11 @@ def forward(params: dict, input_ids: torch.Tensor,
 
 def loss_fn(params: dict, batch: torch.Tensor, cfg: GPT2Config,
             remat: bool = False) -> torch.Tensor:
-    """Next-token cross entropy over ``batch`` (B, T+1) ids, float32."""
+    """Next-token cross entropy over ``batch`` (B, T+1) ids, float32. A
+    tree of ``ShardedTensor``s runs over its mesh's ``model`` axis with the
+    batch cut over ``data`` (``tensor_parallel.gpt2_loss``)."""
+    if tp.is_sharded_train_tree(params):
+        return tp.gpt2_loss(params, batch, cfg, remat)
     return cross_entropy(_forward(params, batch[:, :-1], cfg, remat),
                          batch[:, 1:])
 

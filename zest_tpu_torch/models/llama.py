@@ -15,11 +15,16 @@ The KV cache, ``(L, B, max_len, KV, head_dim)``, is updated in place
 returns it so the two read alike.
 
 :func:`checkpoint_shard_rules` lays a raw checkpoint out Megatron-style
-over a named mesh, as the JAX package's; :func:`params_from_hf` of such a
-tree (``ShardedTensor`` values) builds a tensor-parallel tree that
-:func:`generate_cached` runs with each slot's local heads and FFN columns
-(``models/tensor_parallel.py``, whose ``forward`` and ``decode_window``
-take the tree directly).
+over a named mesh, as the JAX package's. :func:`params_from_hf` of such a
+landing (``ShardedTensor`` values) gives the one sharded tree: the family
+tree with a ``ShardedTensor`` at every leaf, laid out by
+:func:`param_specs` (as ``sharding.shard_tree`` of a plain tree). It
+trains tensor- and data-parallel through :func:`loss_fn` and
+:func:`train_step` (and ``training.make_train_step``;
+``models/tensor_parallel.llama_loss``), runs TP×CP through
+:func:`cp_forward`, and decodes through :func:`generate_cached` with each
+slot's local heads and FFN columns (the ``TPParams`` tree
+``tensor_parallel.decode_params`` builds from it).
 
 The training half (:func:`init_params`, :func:`loss_fn`,
 :func:`train_step`, ``remat``) runs the same body as :func:`forward`
@@ -27,19 +32,13 @@ through ``_forward``, outside inference mode; ``forward`` and the decode
 keep it. Context parallelism (:func:`cp_forward`, :func:`cp_loss_fn`,
 :func:`cp_train_step`) shards the sequence over the ``seq`` axis of a
 slot mesh and the batch over its ``data`` axis: every slot runs the layer
-body on its block with its RoPE offset, attention is the K/V ring of
-``parallel/ring.py``, and each slot reads the one tree through ``.to``
-its device, so autograd sums every replica's gradient into it. A
-``model`` axis beside ``seq`` (the JAX package's TP×CP) cuts each slot's
-share of the tree Megatron-style by :func:`param_specs`: the ring
-carries the slot's local heads, and the o/down partial sums meet on the
-lead slot of the ``model`` row.
-
-A tree of ``ShardedTensor``s laid out by :func:`param_specs`
-(``sharding.shard_tree``, or :func:`params_from_hf` with ``train=True``
-of a mesh landing) trains through :func:`loss_fn` and
-:func:`train_step` (and ``training.make_train_step``) tensor- and
-data-parallel: ``models/tensor_parallel.llama_loss``.
+body on its block with its RoPE offset, and attention is the K/V ring of
+``parallel/ring.py``. It runs on the sharded tree: a ``model`` axis
+beside ``seq`` (the JAX package's TP×CP) gives each slot its share of
+the tree Megatron-style, the ring carries the slot's local heads, and
+the o/down partial sums meet on the lead slot of the ``model`` row. A
+plain tree is laid out as that tree first, each slot's shard a view of
+it (:func:`cp_specs`), so every slot's gradient flows into the one tree.
 """
 
 from __future__ import annotations
@@ -61,7 +60,8 @@ from zest_tpu_torch.models.training import (cross_entropy, sgd, tree_map,
                                             value_and_grad)
 from zest_tpu_torch.parallel.ring import SEQ_AXIS
 from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
-                                              is_sharded_tree)
+                                              ShardedTensor, is_sharded_tree,
+                                              shard_index)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -255,8 +255,7 @@ def _stack(layers: list[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
 
 
 def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
-                   dtype: torch.dtype = torch.float32,
-                   train: bool = False) -> dict:
+                   dtype: torch.dtype = torch.float32) -> dict:
     """Map an HF Llama-family checkpoint (flat name→tensor) onto the tree,
     on the tensors' device.
 
@@ -266,15 +265,13 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
     without ``lm_head.weight`` raises, as any missing tensor does, with
     its name.
 
-    A tree of ``ShardedTensor``s (a landing over a mesh) gives the
-    tensor-parallel decode tree of ``models/tensor_parallel.py`` over the
-    ``model`` axis, or with ``train=True`` the nested training tree: every
-    leaf a ``ShardedTensor`` under :func:`param_specs` on the landing's
-    mesh (``tensor_parallel.stack_sharded``)."""
+    A tree of ``ShardedTensor``s (a landing over a mesh) gives the one
+    sharded tree: every leaf a ``ShardedTensor`` under :func:`param_specs`
+    on the landing's mesh (``tensor_parallel.stack_sharded``). It trains
+    (:func:`loss_fn`), runs TP×CP (:func:`cp_forward`) and decodes
+    tensor-parallel (``tensor_parallel.decode_params``)."""
     if is_sharded_tree(tensors):
-        if train:
-            return _sharded_tree(tensors, cfg, dtype)
-        return tp.llama_params(tensors, cfg, dtype)
+        return _sharded_tree(tensors, cfg, dtype)
 
     def take(name):
         t = tensors.get(name)
@@ -321,6 +318,11 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: LlamaConfig,
 def _sharded_tree(tensors: dict, cfg: LlamaConfig, dtype) -> dict:
     """The training tree of a landing over a mesh, leaf by leaf under
     :func:`param_specs`."""
+    mesh = next(t.mesh for t in tensors.values()
+                if isinstance(t, ShardedTensor))
+    if MODEL_AXIS not in mesh.axis_names:
+        raise MeshUnsupported(f"the tree's mesh {mesh.shape} has no "
+                              f"{MODEL_AXIS!r} axis")
     specs = param_specs(cfg)
 
     def take(name):
@@ -598,55 +600,78 @@ def train_step(params: dict, batch: torch.Tensor, cfg: LlamaConfig,
 
 
 def _cp_grid(mesh, seq_axis: str, data_axis: str) -> list[list[list]]:
-    """The mesh's slot devices as a data × seq grid of ``model`` rows: cell
-    ``[r][s]`` lists the devices along the ``model`` axis (one device
-    without one) at data index ``r`` and seq index ``s``."""
+    """The mesh's slots as a data × seq grid of ``model`` rows: cell
+    ``[r][s]`` lists the slots along the ``model`` axis (one slot without
+    one) at data index ``r`` and seq index ``s``."""
+    if len(mesh.local_slots()) < mesh.size:
+        raise MeshUnsupported("context parallelism needs every slot of the "
+                              "mesh in this process")
     n_data = mesh.shape.get(data_axis, 1)
     n_seq = mesh.shape[seq_axis]
     if MODEL_AXIS not in mesh.axis_names:
-        return [[[d] for d in mesh.axis_devices(seq_axis, {data_axis: r})]
+        return [[[s] for s in mesh.axis_slots(seq_axis, {data_axis: r})]
                 for r in range(n_data)]
-    return [[mesh.axis_devices(MODEL_AXIS, {data_axis: r, seq_axis: s})
+    return [[mesh.axis_slots(MODEL_AXIS, {data_axis: r, seq_axis: s})
              for s in range(n_seq)] for r in range(n_data)]
 
 
-def _model_cut(params: dict, cfg: LlamaConfig, m: int, n: int) -> dict:
-    """Slot ``m`` of ``n`` along the ``model`` axis: every leaf
-    :func:`param_specs` cuts over it narrowed to the slot's block (local
-    heads, FFN columns, head columns), the rest whole. Views of
-    ``params``, so gradients flow back into it."""
-    if n == 1:
-        return params
-    if cfg.d_ff % n:
-        raise MeshUnsupported(f"{cfg.d_ff} FFN columns do not divide over "
-                              f"the {n} slots of the {MODEL_AXIS!r} axis")
-
-    def cut(t, spec):
-        for dim, axis in enumerate(spec):
-            if axis == MODEL_AXIS:
-                size = t.shape[dim] // n
-                return t.narrow(dim, m * size, size)
-        return t
-
-    return tree_map(cut, params, param_specs(cfg))
+def cp_specs(cfg: LlamaConfig, mesh) -> dict:
+    """:func:`param_specs` over ``mesh``: without a ``model`` axis every
+    leaf is whole on every slot."""
+    specs = param_specs(cfg)
+    if MODEL_AXIS in mesh.axis_names:
+        return specs
+    return tree_map(lambda _s: P(), specs)
 
 
-def _cp_cell(replicas: dict, local: dict, cell: list, i: int,
-             cfg: LlamaConfig) -> dict:
-    """Layer ``i``'s leaves for one grid cell (its devices along
-    ``model``), as ``tensor_parallel.llama_layer`` takes them. Attention
-    runs whole on the cell's lead when the heads do not divide over the
-    cell, as the sharded train step's does."""
-    lead = cell[0]
-    whole = _layer(replicas[lead], i)
-    cols = [(_layer(local[(d, m)], i), d) for m, d in enumerate(cell)]
-    cols_attn = (cols if tp.heads_divide(cfg, len(cell))
-                 else [(whole, lead)])
-    return {"ln_attn": whole["ln_attn"]["g"], "ln_mlp": whole["ln_mlp"]["g"],
-            "o_b": whole["attn"].get("o_b"),
-            "attn": [({k: v for k, v in lp["attn"].items() if k != "o_b"}, d)
-                     for lp, d in cols_attn],
-            "mlp": [(lp["mlp"], d) for lp, d in cols]}
+def _laid_out(params: dict, cfg: LlamaConfig, mesh) -> dict:
+    """A plain tree as the sharded tree :func:`cp_specs` gives, each
+    slot's shard a view of it moved to the slot's device (on the tree's
+    own device no copy), so every slot's gradient flows back into the
+    one tree."""
+    def lay(t, spec):
+        return ShardedTensor(
+            {s: t[shard_index(tuple(t.shape), mesh, spec, s)].to(
+                mesh.device_of(s)) for s in mesh.local_slots()},
+            t.shape, t.dtype, spec, mesh)
+
+    return tree_map(lay, params, cp_specs(cfg, mesh))
+
+
+def _cp_cells(params: dict, cfg: LlamaConfig, grid, mesh) -> dict:
+    """Each grid cell's leaves (by its lead slot), the stacked form of
+    what ``tensor_parallel.llama_layer`` takes a layer: the norms and
+    ``o_b`` whole on the lead, attention and MLP as columns over the
+    cell's ``model`` slots. Attention runs whole on the lead when the
+    heads do not divide over the cell, as the sharded train step's
+    does."""
+    blocks = params["blocks"]
+    attn = blocks["attn"]
+    out = {}
+    for row in grid:
+        for cell in row:
+            lead = cell[0]
+            out[lead] = {
+                "ln_attn": tp._whole(blocks["ln_attn"]["g"], lead),
+                "ln_mlp": tp._whole(blocks["ln_mlp"]["g"], lead),
+                "o_b": (tp._whole(attn["o_b"], lead) if "o_b" in attn
+                        else None),
+                "attn": list(zip(*tp._columns(
+                    attn, {k: d for k, d in tp._LLAMA_ATTN.items()
+                           if k in attn}, cell, MODEL_AXIS, mesh,
+                    tp.heads_divide(cfg, len(cell))))),
+                "mlp": list(zip(*tp._columns(blocks["mlp"], tp._LLAMA_MLP,
+                                             cell, MODEL_AXIS, mesh)))}
+    return out
+
+
+def _cp_cell(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of one cell's stacked leaves."""
+    return {"ln_attn": stacked["ln_attn"][i],
+            "ln_mlp": stacked["ln_mlp"][i],
+            "o_b": None if stacked["o_b"] is None else stacked["o_b"][i],
+            "attn": [(tp._at(c, i), d) for c, d in stacked["attn"]],
+            "mlp": [(tp._at(c, i), d) for c, d in stacked["mlp"]]}
 
 
 def _cp_layer(xs: list, cells: list, cfg: LlamaConfig, t: int) -> list:
@@ -660,26 +685,28 @@ def _cp_logits(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
                mesh, seq_axis: str, data_axis: str,
                remat: bool) -> list[list[torch.Tensor]]:
     """Every cell's (B/D, T/S, vocab) logits on its lead, as a data × seq
-    grid."""
+    grid, from the sharded tree (a plain tree laid out by
+    :func:`_laid_out`)."""
     grid = _cp_grid(mesh, seq_axis, data_axis)
     n_data, n_seq, n_model = len(grid), len(grid[0]), len(grid[0][0])
     B, T = input_ids.shape
     if B % n_data or T % n_seq:
         raise ValueError(f"batch ({B}, {T}) does not divide over "
                          f"{data_axis}={n_data}, {seq_axis}={n_seq}")
+    if cfg.d_ff % n_model:
+        raise MeshUnsupported(f"{cfg.d_ff} FFN columns do not divide over "
+                              f"the {n_model} slots of the {MODEL_AXIS!r} "
+                              "axis")
+    if not tp.is_sharded_train_tree(params):
+        params = _laid_out(params, cfg, mesh)
     b, t = B // n_data, T // n_seq
-    # One replica of the tree a device; on the tree's own device .to is
-    # the identity, so every slot there reads (and grads into) the tree.
-    replicas = {d: tree_map(lambda v, d=d: v.to(d), params)
-                for d in {dev for row in grid for cell in row
-                          for dev in cell}}
-    local = {(d, m): _model_cut(replicas[d], cfg, m, n_model)
-             for d in replicas for m in range(n_model)}
-    xs = [[replicas[cell[0]]["wte"][
-        input_ids[r * b:(r + 1) * b, s * t:(s + 1) * t].to(cell[0])]
+    stacked = _cp_cells(params, cfg, grid, mesh)
+    xs = [[tp._whole(params["wte"], cell[0])[
+        input_ids[r * b:(r + 1) * b, s * t:(s + 1) * t].to(
+            mesh.device_of(cell[0]))]
         for s, cell in enumerate(row)] for r, row in enumerate(grid)]
     for i in range(cfg.n_layer):
-        cells = [[_cp_cell(replicas, local, cell, i, cfg) for cell in row]
+        cells = [[_cp_cell(stacked[cell[0]], i) for cell in row]
                  for row in grid]
         if remat:
             xs = checkpoint(_cp_layer, xs, cells, cfg, t,
@@ -690,13 +717,10 @@ def _cp_logits(params: dict, input_ids: torch.Tensor, cfg: LlamaConfig,
     for xrow, row in zip(xs, grid):
         cells = []
         for x, cell in zip(xrow, row):
-            x = _rms_norm(x, replicas[cell[0]]["ln_f"]["g"], cfg.rms_eps)
-            if replicas[cell[0]].get("lm_head") is None:
-                cells.append(_unembed(replicas[cell[0]], x))
-                continue
-            cells.append(torch.cat(
-                [(x.to(d) @ local[(d, m)]["lm_head"]).to(x.device)
-                 for m, d in enumerate(cell)], dim=-1))
+            x = _rms_norm(x, tp._whole(params["ln_f"]["g"], cell[0]),
+                          cfg.rms_eps)
+            cells.append(tp._head_logits(params, x, cell, MODEL_AXIS, mesh,
+                                         mesh.device_of(cell[0])))
         out.append(cells)
     return out
 

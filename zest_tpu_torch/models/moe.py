@@ -47,7 +47,8 @@ from zest_tpu_torch.models.gpt2 import normal, params_from_jax  # noqa: F401
 from zest_tpu_torch.models.llama import _rms_norm  # noqa: F401 - same math
 from zest_tpu_torch.models.training import (cross_entropy, sgd,
                                             value_and_grad)
-from zest_tpu_torch.parallel.sharding import P, is_sharded_tree
+from zest_tpu_torch.parallel.sharding import (MeshUnsupported, P,
+                                              is_sharded_tree, shard_tensor)
 
 DATA_AXIS = "data"
 EXPERT_AXIS = "expert"
@@ -195,10 +196,14 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: MoEConfig,
     stacked tree, on the tensors' device. Every Linear is transposed to
     ``x @ W``; per-(layer, expert) tensors stack into ``[L, X, ...]``
     leaves. A missing tensor raises with its name. A tree of
-    ``ShardedTensor``s gives the expert-parallel tree of
-    ``models/tensor_parallel.py`` over the ``expert`` axis."""
+    ``ShardedTensor``s (a landing over a mesh) gives the tree of
+    ``ShardedTensor``s under :func:`param_specs` on the landing's mesh:
+    attention and the head from each slot's own shard where the landing
+    cut them so, each expert gathered once onto the slot that holds it
+    whole. It trains (:func:`loss_fn`) and decodes expert-parallel
+    (``tensor_parallel.decode_params``)."""
     if is_sharded_tree(tensors):
-        return tp.moe_params_from_hf(tensors, cfg, dtype)
+        return _sharded_tree(tensors, cfg, dtype)
 
     def take(name):
         t = tensors.get(name)
@@ -232,6 +237,57 @@ def params_from_hf(tensors: dict[str, torch.Tensor], cfg: MoEConfig,
                            for leaf, items in leaves.items()}
                      for grp, leaves in blocks.items()}
     return out
+
+
+def _sharded_tree(tensors: dict, cfg: MoEConfig, dtype) -> dict:
+    """The stacked tree of a landing over a mesh, leaf by leaf under
+    :func:`param_specs`."""
+    mesh = next(t.mesh for t in tensors.values()
+                            if hasattr(t, "mesh"))
+    if EXPERT_AXIS not in mesh.axis_names:
+        raise MeshUnsupported(f"the tree's mesh {mesh.shape} has no "
+                              f"{EXPERT_AXIS!r} axis")
+    specs = param_specs(cfg)
+    b = specs["blocks"]
+
+    def take(name):
+        t = tensors.get(name)
+        if t is None:
+            raise ValueError(f"checkpoint missing {name}")
+        return t
+
+    def per_layer(hf, spec, transpose):
+        return tp.stack_sharded(
+            [take(f"model.layers.{i}.{hf}") for i in range(cfg.n_layer)],
+            spec, dtype, transpose=transpose)
+
+    wte = take("model.embed_tokens.weight")
+    blocks: dict = {
+        grp: {leaf: per_layer(f"{hf}.weight", b[grp][leaf], False)}
+        for hf, (grp, leaf) in _HF_NORM.items()}
+    blocks["attn"] = {leaf: per_layer(f"{hf}.weight", b[grp][leaf], True)
+                      for hf, (grp, leaf) in _HF_ATTN.items()}
+    blocks["moe"] = {"router_w": per_layer("block_sparse_moe.gate.weight",
+                                           b["moe"]["router_w"], True)}
+    for leaf in ("w1", "w3", "w2"):
+        # A raw landing cuts each expert's features, the tree holds whole
+        # experts a slot: each expert is gathered once.
+        whole = _stacked([[take(
+            f"model.layers.{i}.block_sparse_moe.experts.{x}.{leaf}.weight"
+        ).full().T for x in range(cfg.n_experts)]
+            for i in range(cfg.n_layer)], dtype)
+        blocks["moe"][leaf] = shard_tensor(whole, mesh, b["moe"][leaf])
+        del whole
+    return {
+        "wte": tp.stack_sharded([wte], specs["wte"], dtype, stacked=False),
+        "ln_f": {"g": tp.stack_sharded([take("model.norm.weight")],
+                                       specs["ln_f"]["g"], dtype,
+                                       stacked=False)},
+        "lm_head": tp.stack_sharded([take("lm_head.weight")],
+                                    specs["lm_head"], dtype, transpose=True,
+                                    stacked=False),
+        "blocks": blocks,
+    }
 
 
 # ── Sharding (data + expert parallel; the expert axis doubles as TP) ──

@@ -138,9 +138,13 @@ def cached_decode_loop(init_kv_cache: Callable, decode_step: Callable,
     positions too (filter on ``pos >= T0`` either way). An exception it
     raises is printed and dropped; the decode goes on.
 
-    A tree sharded over a mesh (``tensor_parallel.TPParams``) decodes
-    through that module's cache and steps in place of the family's."""
+    A tree sharded over a mesh decodes through ``tensor_parallel``'s
+    cache and steps in place of the family's: a ``TPParams`` tree as it
+    is, a training tree of ``ShardedTensor``s through the ``TPParams``
+    built from it (``tensor_parallel.decode_params``)."""
     check_top_p(top_p)
+    if tp.is_sharded_train_tree(params):
+        params = tp.decode_params(params, cfg)
     init_kv_cache, decode_step, prefill_step = tp.decode_fns(
         params, init_kv_cache, decode_step, prefill_step)
     device = params["wte"].device

@@ -1,66 +1,70 @@
-"""Tensor- and expert-parallel decoding from a tree sharded over a mesh.
+"""Tensor- and expert-parallel decoding and training over a tree sharded
+over a mesh.
 
-The counterpart of the JAX package's jitted forward over a
+The counterpart of the JAX package's jitted forward and step over a
 ``NamedSharding`` tree, where GSPMD inserts the collectives: here the
-collectives are written out. A landing over a named slot mesh
-(``models/loader.py``) gives ``ShardedTensor``s laid out by the family's
-shard rules; :func:`llama_params` and :func:`moe_params_from_hf` (reached
-through the families' ``params_from_hf``) and :func:`moe_params` (the
-stacked tree of ``direct.land_moe_expert_sharded``) turn it into a
-:class:`TPParams` tree:
+collectives are written out. There is one sharded tree: the family's
+stacked tree with a ``ShardedTensor`` at every leaf, laid out by its
+``param_specs`` (``sharding.shard_tree`` of a plain tree, or the
+family's ``params_from_hf`` of a mesh landing). :func:`decode_params`
+turns it into a :class:`TPParams` decode tree (:func:`llama_params`,
+:func:`gpt2_params`, :func:`moe_params`):
 
-- tensors the rules lay out Megatron-style stay in place on their slots:
-  q/k/v (and gate/up, and each expert's w1/w3) are column-parallel, o
-  (and down, and each expert's w2) row-parallel, so each slot runs
-  attention on its local heads and the FFN on its local columns, and the
-  row-parallel partial sums are reduced over the group
-  (:meth:`TPGroup.reduce`: a sum on one device when the slots share it,
-  ``dist.all_reduce`` across processes);
+- the leaves ``param_specs`` lays out Megatron-style stay in place on
+  their slots: q/k/v (and gate/up, fc) are column-parallel, o (and down,
+  GPT-2's projections) row-parallel, so each slot runs attention on its
+  local heads and the FFN on its local columns, and the row-parallel
+  partial sums are reduced over the group (:meth:`TPGroup.reduce`: a sum
+  on one device when the slots share it, ``dist.all_reduce`` across
+  processes). GPT-2's fused q|k|v columns give no slot whole heads, so
+  they are gathered once and regrouped: slot ``j`` takes its ``j``-th
+  block of q, k and v;
 - Mixtral's attention is the same tensor-parallel code over the
-  ``expert`` axis. In the stacked tree each expert runs on the slot that
-  holds it (slot ``s`` holds the contiguous block ``ExpertPlacement``
-  routes to it); in a raw landing every slot holds its columns of every
-  expert. Either way the slots' routed outputs are summed where the
-  residual lives;
-- every other tensor (embeddings, norms, the router, the head) is gathered
-  once, when the tree is built, onto the group's lead device, where the
-  residual stream lives; ``TPParams.gather_bytes`` counts those bytes, and
-  a Megatron tensor landed under another spec (a rule that did not fit)
-  is gathered and cut too.
+  ``expert`` axis, and each expert runs on the slot that holds it (slot
+  ``s`` holds the contiguous block ``ExpertPlacement`` routes to it); the
+  slots' routed outputs are summed where the residual lives;
+- the replicated leaves (embeddings, norms, the router, biases) are read
+  from the lead slot's replica, where the residual stream lives; a cut
+  leaf the decode reads whole (a vocabulary-parallel head) is gathered
+  once, and ``TPParams.gather_bytes`` counts those bytes.
 
 A :class:`TPParams` tree decodes through the families' ``generate_cached``
 (``sampling.cached_decode_loop`` takes this module's loop from
-:func:`decode_fns`), or directly through :func:`forward` and
-:func:`decode_window`. The KV cache is per slot, each holding its local kv
-heads. Row-parallel sums change the float32 summation order, so logits
-agree with the unsharded forward to a tolerance, not bit for bit.
+:func:`decode_fns`, and builds the tree from a sharded one itself), or
+directly through :func:`forward` and :func:`decode_window`. The KV cache
+is per slot, each holding its local kv heads. Row-parallel sums change
+the float32 summation order, so logits agree with the unsharded forward
+to a tolerance, not bit for bit.
 
-**Training** (:func:`llama_loss`, :func:`moe_loss`, reached through the
-families' ``loss_fn``) runs over the nested training tree itself: the
-family's stacked tree with a ``ShardedTensor`` at every leaf, laid out by
-its ``param_specs`` (``sharding.shard_tree``, or the family's
-``params_from_hf(..., train=True)`` of a mesh landing). The batch is cut
-into rows over the ``data`` axis; each row runs on its slots along the
-tensor-parallel axis (``model`` for Llama, ``expert`` for Mixtral) with
-each slot's shards in place: q/k/v and gate/up column-parallel, o and
-down row-parallel, their partial sums reduced on the row's lead slot,
-where the residual stream and the replicated leaves (embeddings, norms)
-are read; an untied head is column-parallel over the vocabulary. Llama's
-layer body, :func:`llama_layer`, is also ``llama.cp_forward``'s under
-TP×CP, where each seq slot's columns run the K/V ring. Heads that do not
-divide the axis run whole on the lead in both. Every
-hop is a ``.to`` of an autograd graph outside inference mode, so the
-backward gives each shard its own gradient across the slot devices
-(``training.value_and_grad`` then sums the replicas). Mixtral routes the
-whole batch as one dispatch group on the first row's lead slot, as the
-reference's global einsums do, and each row's tokens go to the slots that
-own their experts and come back combined (the counterpart of the
-all-to-alls GSPMD puts around the dispatch einsums).
+**Training** (:func:`llama_loss`, :func:`gpt2_loss`, :func:`moe_loss`,
+reached through the families' ``loss_fn``) runs over the sharded tree
+itself. The batch is cut into rows over the ``data`` axis; each row runs
+on its slots along the tensor-parallel axis (``model`` for Llama and
+GPT-2, ``expert`` for Mixtral) with each slot's shards in place: q/k/v
+and gate/up column-parallel, o and down row-parallel, their partial sums
+reduced on the row's lead slot, where the residual stream and the
+replicated leaves (embeddings, norms) are read; an untied head is
+column-parallel over the vocabulary. Llama's layer body,
+:func:`llama_layer`, is also ``llama.cp_forward``'s under TP×CP, where
+each seq slot's columns run the K/V ring. Heads that do not divide the
+axis run whole on the lead in both, and so does GPT-2's attention (its
+fused q|k|v blocks joined there). Every hop is a ``.to`` of an autograd
+graph outside inference mode, so the backward gives each shard its own
+gradient across the slot devices (``training.value_and_grad`` then sums
+the replicas). Where the mesh spans processes each process runs the rows
+it holds whole; the loss's value is summed over the processes and the
+replicas' gradients all-reduced (``sharding.sum_replicas``). Mixtral
+routes the whole batch as one dispatch group on the first row's lead
+slot, as the reference's global einsums do, and each row's tokens go to
+the slots that own their experts and come back combined (the counterpart
+of the all-to-alls GSPMD puts around the dispatch einsums); it needs
+every row in one process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.distributed as dist
@@ -141,7 +145,8 @@ class TPParams(dict):
 def decode_fns(params, init_kv_cache, decode_step, prefill_step):
     """The ``(init_kv_cache, decode_step, prefill_step)`` a decode loop
     over ``params`` takes: the family's own for a single-device tree, this
-    module's for a :class:`TPParams` tree."""
+    module's for a :class:`TPParams` tree (:func:`decode_params` of a
+    sharded training tree)."""
     if not isinstance(params, TPParams):
         return init_kv_cache, decode_step, prefill_step
     return (lambda _cfg, batch, max_len, dtype=None, device=None:
@@ -195,13 +200,6 @@ def _check_heads(cfg, n: int, axis: str, d_ff: int | None) -> None:
                 f"{axis!r} axis: gather the tree (ShardedTensor.full)")
 
 
-def _tree_mesh(tensors: dict):
-    for t in tensors.values():
-        if isinstance(t, ShardedTensor):
-            return t.mesh
-    raise ValueError("no ShardedTensor in the tree")
-
-
 def _new(family, group, cfg_local, local, experts=()) -> TPParams:
     out = TPParams()
     out.family = family
@@ -212,76 +210,100 @@ def _new(family, group, cfg_local, local, experts=()) -> TPParams:
     return out
 
 
-def _split_leaves(b: _Leaves, take, local: list[dict], group: str,
-                  leaves, n_layer: int, transpose: bool = True) -> None:
-    """Each slot's per-layer blocks of HF tensors ``(leaf, name, dim)``
-    into ``local[j][group][leaf]``, transposed to the ``x @ W`` layout."""
-    for leaf, name, dim in leaves:
-        per = [[] for _ in local]
-        for layer in range(n_layer):
-            for j, part in enumerate(b.split(take(layer, name), dim)):
-                per[j].append(part.T if transpose else part)
-        for j, parts in enumerate(per):
-            local[j].setdefault(group, {})[leaf] = parts
+def _split_group(b: _Leaves, local: list[dict], group: str, leaves: dict,
+                 dims: dict) -> None:
+    """Each slot's block of the stacked leaves ``dims`` names (leaf →
+    the dim cut over the group's axis) into ``local[j][group]``."""
+    for leaf, dim in dims.items():
+        if leaf in leaves:
+            for j, part in enumerate(b.split(leaves[leaf], dim)):
+                local[j].setdefault(group, {})[leaf] = part
 
 
-def _attn_local(take, b: _Leaves, n_layer: int, biases: bool) -> list[dict]:
-    """Each slot's attention leaves: q/k/v column-parallel (HF dim 0), o
-    row-parallel (HF dim 1)."""
-    local = [{} for _ in b.group.slots]
-    _split_leaves(b, take, local, "attn", [
-        (f"{p}_w", f"self_attn.{p}_proj.weight", 0 if p != "o" else 1)
-        for p in "qkvo"], n_layer)
-    if biases:
-        _split_leaves(b, take, local, "attn", [
-            (f"{p}_b", f"self_attn.{p}_proj.bias", 0) for p in "qkv"],
-            n_layer, transpose=False)
-    return local
-
-
-def _taker(tensors: dict):
-    def take(layer, leaf):
-        name = f"model.layers.{layer}.{leaf}" if layer is not None else leaf
-        t = tensors.get(name)
-        if t is None:
-            raise ValueError(f"checkpoint missing {name}")
-        return t
-    return take
-
-
-def llama_params(tensors: dict, cfg, dtype: torch.dtype) -> TPParams:
-    """The tensor-parallel Llama tree (over the ``model`` axis) from a
-    flat HF-named tree of ``ShardedTensor``s."""
-    group = TPGroup(_tree_mesh(tensors), "model")
+def llama_params(tree: dict, cfg, dtype: torch.dtype | None = None
+                 ) -> TPParams:
+    """The tensor-parallel Llama decode tree (over the ``model`` axis)
+    from the training tree laid out by ``llama.param_specs``: every cut
+    leaf stays in place on its slot, the replicated ones are read from
+    the lead's replica, and a vocabulary-parallel head is gathered."""
+    blocks, attn = tree["blocks"], tree["blocks"]["attn"]
+    group = TPGroup(attn["q_w"].mesh, "model")
     _check_heads(cfg, group.size, group.axis, cfg.d_ff)
-    b = _Leaves(group, dtype)
-    take = _taker(tensors)
-    L = cfg.n_layer
-    local = _attn_local(take, b, L, cfg.attn_bias)
-    _split_leaves(b, take, local, "mlp", [
-        ("gate_w", "mlp.gate_proj.weight", 0),
-        ("up_w", "mlp.up_proj.weight", 0),
-        ("down_w", "mlp.down_proj.weight", 1)], L)
-    blocks = {"ln_attn": {"g": [b.replicated(take(i, "input_layernorm.weight"))
-                                for i in range(L)]},
-              "ln_mlp": {"g": [b.replicated(take(
-                  i, "post_attention_layernorm.weight")) for i in range(L)]},
-              "attn": {}}
-    if cfg.o_bias:
-        blocks["attn"]["o_b"] = [b.replicated(take(
-            i, "self_attn.o_proj.bias")) for i in range(L)]
+    b = _Leaves(group, dtype or tree["wte"].dtype)
+    local = [{} for _ in group.slots]
+    _split_group(b, local, "attn", attn, _LLAMA_ATTN)
+    _split_group(b, local, "mlp", blocks["mlp"], _LLAMA_MLP)
     cfg_local = dataclasses.replace(
         cfg, n_head=cfg.n_head // group.size,
         n_kv_head=cfg.n_kv_head // group.size,
         d_ff=cfg.d_ff // group.size, head_dim_override=cfg.head_dim)
     out = _new("llama", group, cfg_local, local)
-    out["wte"] = b.replicated(take(None, "model.embed_tokens.weight"))
-    out["ln_f"] = {"g": b.replicated(take(None, "model.norm.weight"))}
-    if not cfg.tie_embeddings:
-        out["lm_head"] = b.replicated(take(None, "lm_head.weight")).T
-    out["blocks"] = blocks
+    out["wte"] = b.replicated(tree["wte"])
+    out["ln_f"] = {"g": b.replicated(tree["ln_f"]["g"])}
+    if "lm_head" in tree:
+        out["lm_head"] = b.replicated(tree["lm_head"])
+    out["blocks"] = {
+        "ln_attn": {"g": b.replicated(blocks["ln_attn"]["g"])},
+        "ln_mlp": {"g": b.replicated(blocks["ln_mlp"]["g"])},
+        "attn": ({"o_b": b.replicated(attn["o_b"])} if "o_b" in attn
+                 else {})}
     out.gather_bytes = b.gather_bytes
     return out
+
+
+def gpt2_params(tree: dict, cfg, dtype: torch.dtype | None = None
+                ) -> TPParams:
+    """The tensor-parallel GPT-2 decode tree (over the ``model`` axis)
+    from the training tree laid out by ``gpt2.param_specs``. The fused
+    q|k|v columns are cut across the q/k/v borders, so they are gathered
+    once and regrouped: slot ``j`` takes its ``j``-th block of the q, k
+    and v columns (whole heads). The projections and the MLP stay in
+    place."""
+    blocks, attn = tree["blocks"], tree["blocks"]["attn"]
+    group = TPGroup(attn["qkv_w"].mesh, "model")
+    n, E = group.size, cfg.n_embd
+    if cfg.n_head % n:
+        raise MeshUnsupported(
+            f"{cfg.n_head} attention heads do not divide over the {n} slots "
+            f"of the {group.axis!r} axis: gather the tree "
+            "(ShardedTensor.full)")
+    b = _Leaves(group, dtype or tree["wte"].dtype)
+    qkv_w, qkv_b = b.replicated(attn["qkv_w"]), b.replicated(attn["qkv_b"])
+    w = E // n
+    local = []
+    for s, d in zip(group.slots, group.devices):
+        r = group.rank[s]
+        cols = torch.cat([torch.arange(k * E + r * w, k * E + (r + 1) * w)
+                          for k in range(3)]).to(qkv_w.device)
+        local.append({"attn": {"qkv_w": qkv_w[..., cols].to(d),
+                               "qkv_b": qkv_b[..., cols].to(d)}})
+    _split_group(b, local, "attn", attn, {"proj_w": 1})
+    _split_group(b, local, "mlp", blocks["mlp"], _GPT2_MLP)
+    cfg_local = _SlotAttention(cfg.n_layer, cfg.n_head // n,
+                               cfg.n_head // n, E // cfg.n_head, 0.0)
+    out = _new("gpt2", group, cfg_local, local)
+    out["wte"] = b.replicated(tree["wte"])
+    out["wpe"] = b.replicated(tree["wpe"])
+    out["ln_f"] = {k: b.replicated(v) for k, v in tree["ln_f"].items()}
+    out["blocks"] = {
+        g: {k: b.replicated(blocks[g][k]) for k in keys}
+        for g, keys in (("ln_1", ("g", "b")), ("ln_2", ("g", "b")),
+                        ("attn", ("proj_b",)), ("mlp", ("proj_b",)))}
+    out.gather_bytes = b.gather_bytes
+    return out
+
+
+def decode_params(tree: dict, cfg, dtype: torch.dtype | None = None
+                  ) -> TPParams:
+    """The :class:`TPParams` decode tree of a family's training tree of
+    ``ShardedTensor``s (``params_from_hf`` of a mesh landing, or
+    ``sharding.shard_tree`` under the family's ``param_specs``): GPT-2
+    and Llama over ``model``, Mixtral expert-parallel over ``expert``."""
+    if "wpe" in tree:
+        return gpt2_params(tree, cfg, dtype)
+    if "moe" in tree["blocks"]:
+        return moe_params(tree, cfg, dtype)
+    return llama_params(tree, cfg, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,46 +333,6 @@ def _expert_blocks(cfg, group: TPGroup) -> list[range]:
     per = cfg.n_experts // group.size
     return [range(group.rank[s] * per, (group.rank[s] + 1) * per)
             for s in group.slots]
-
-
-def moe_params_from_hf(tensors: dict, cfg, dtype: torch.dtype) -> TPParams:
-    """The Mixtral tree over the ``expert`` axis from a flat HF-named tree
-    of ``ShardedTensor``s (``checkpoint_shard_rules``): attention stays in
-    place, and so does every expert's FFN, tensor-parallel as the rules
-    land it (w1/w3 on HF dim 0, w2 on dim 1), so every slot runs its
-    columns of every chosen expert. Nothing of an expert is gathered."""
-    group = TPGroup(_tree_mesh(tensors), "expert")
-    _check_heads(cfg, group.size, group.axis, cfg.d_ff)
-    b = _Leaves(group, dtype)
-    take = _taker(tensors)
-    L = cfg.n_layer
-    local = _attn_local(take, b, L, False)
-    for j in range(len(local)):
-        local[j]["moe"] = {"w1": [], "w3": [], "w2": []}
-    for layer in range(L):
-        for leaf, dim in (("w1", 0), ("w3", 0), ("w2", 1)):
-            # (X, ...) of each slot's blocks, in the ``x @ W`` layout.
-            per = zip(*(b.split(take(
-                layer, f"block_sparse_moe.experts.{x}.{leaf}.weight"), dim)
-                for x in range(cfg.n_experts)))
-            for j, parts in enumerate(per):
-                local[j]["moe"][leaf].append(
-                    torch.stack([p.T for p in parts]))
-    out = _new("mixtral", group, _moe_local_cfg(cfg, group.size), local,
-               [range(cfg.n_experts)] * len(local))
-    out["wte"] = b.replicated(take(None, "model.embed_tokens.weight"))
-    out["ln_f"] = {"g": b.replicated(take(None, "model.norm.weight"))}
-    out["lm_head"] = b.replicated(take(None, "lm_head.weight")).T
-    out["blocks"] = {
-        "ln_attn": {"g": [b.replicated(take(i, "input_layernorm.weight"))
-                          for i in range(L)]},
-        "ln_moe": {"g": [b.replicated(take(
-            i, "post_attention_layernorm.weight")) for i in range(L)]},
-        "moe": {"router_w": [b.replicated(take(
-            i, "block_sparse_moe.gate.weight")).T for i in range(L)]},
-    }
-    out.gather_bytes = b.gather_bytes
-    return out
 
 
 def moe_params(tree: dict, cfg, dtype: torch.dtype | None = None
@@ -415,6 +397,8 @@ def decode_window(params: TPParams, cache: dict, tokens: torch.Tensor,
     per-slot cache (:meth:`TPParams.init_kv_cache`)."""
     from zest_tpu_torch.models import llama, moe
 
+    if params.family == "gpt2":
+        return _gpt2_window(params, cache, tokens, pos, cfg, last_only)
     g = params.group
     blocks = params["blocks"]
     mixtral = params.family == "mixtral"
@@ -443,6 +427,60 @@ def decode_window(params: TPParams, cache: dict, tokens: torch.Tensor,
     return x @ (head if head is not None else params["wte"].T), cache
 
 
+def _gpt2_attention_cached(h, p, c: _SlotAttention, cache_k, cache_v,
+                           pos: int):
+    """One slot's share of GPT-2's cached attention: its heads' q, k and
+    v, the cache window written, and the output through its rows of the
+    projection (a partial sum)."""
+    B, S, _ = h.shape
+    H, D = c.n_head, c.head_dim
+    qkv = h @ p["qkv_w"] + p["qkv_b"]
+    q, k, v = (t.reshape(B, S, H, D) for t in qkv.split(H * D, -1))
+    cache_k[:, pos:pos + S] = k
+    cache_v[:, pos:pos + S] = v
+    max_len = cache_k.shape[1]
+    valid = (torch.arange(max_len, device=h.device)[None, :]
+             <= pos + torch.arange(S, device=h.device)[:, None])
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, cache_k) / math.sqrt(D)
+    scores = scores.masked_fill(~valid[None, None],
+                                torch.finfo(scores.dtype).min)
+    att = torch.softmax(scores.float(), dim=-1).to(h.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", att, cache_v).reshape(B, S, H * D)
+    return out @ p["proj_w"]
+
+
+def _gpt2_window(params: TPParams, cache: dict, tokens: torch.Tensor,
+                 pos: int, cfg, last_only: bool):
+    """``gpt2.decode_window`` over a GPT-2 :class:`TPParams` tree: each
+    slot runs its heads and MLP columns, the partial sums meet on the
+    lead, where the residual stream, the norms and the biases live."""
+    from zest_tpu_torch.models import gpt2
+
+    g, blocks, eps = params.group, params["blocks"], cfg.layer_norm_eps
+    S = tokens.shape[1]
+    x = params["wte"][tokens.to(g.lead)] + params["wpe"][pos:pos + S][None]
+    for i in range(cfg.n_layer):
+        h = gpt2._layer_norm(x, blocks["ln_1"]["g"][i],
+                             blocks["ln_1"]["b"][i], eps)
+        x = x + g.reduce([_gpt2_attention_cached(
+            h.to(d), _leaves(loc, "attn", i), params.cfg_local, ck[i], cv[i],
+            pos) for loc, d, ck, cv in zip(params.local, g.devices,
+                                           cache["k"], cache["v"])]
+        ) + blocks["attn"]["proj_b"][i]
+        h = gpt2._layer_norm(x, blocks["ln_2"]["g"][i],
+                             blocks["ln_2"]["b"][i], eps)
+        x = x + g.reduce([torch.nn.functional.gelu(
+            h.to(d) @ p["fc_w"] + p["fc_b"], approximate="tanh")
+            @ p["proj_w"] for p, d in ((_leaves(loc, "mlp", i), d)
+                                       for loc, d in zip(params.local,
+                                                         g.devices))]
+        ) + blocks["mlp"]["proj_b"][i]
+    x = gpt2._layer_norm(x, params["ln_f"]["g"], params["ln_f"]["b"], eps)
+    if last_only:
+        x = x[:, -1:, :]
+    return x @ params["wte"].T, cache
+
+
 def _decode_step(params: TPParams, cache: dict, token: torch.Tensor,
                  pos: int, cfg):
     """One incremental step: (B,) ids at ``pos`` → ((B, vocab), cache)."""
@@ -454,7 +492,10 @@ def forward(params: TPParams, input_ids: torch.Tensor, cfg) -> torch.Tensor:
     """(B, T) ids → (B, T, vocab) logits: one window over a fresh cache
     (Llama's prefill equals its forward; Mixtral's dispatches every token
     as its own group, as ``moe.decode_window`` does, where ``moe.forward``
-    makes the batch one group)."""
+    makes the batch one group). A sharded training tree decodes through
+    its :func:`decode_params`."""
+    if is_sharded_train_tree(params):
+        params = decode_params(params, cfg)
     B, T = input_ids.shape
     cache = params.init_kv_cache(B, T, params["wte"].dtype)
     return decode_window(params, cache, input_ids, 0, cfg)[0]
@@ -483,22 +524,46 @@ def is_sharded_train_tree(tree) -> bool:
 def _train_rows(mesh, axis: str, data_axis: str = "data") -> list[list[int]]:
     """The mesh's slots as rows of ``data_axis``, each row the slots along
     ``axis`` in axis order (one slot when the mesh has no ``axis``). Every
-    other axis must have size 1, and every slot be this process's."""
+    other axis must have size 1. Where the mesh spans processes each row
+    must lie in one process (:func:`_local_rows` picks this process's)."""
     extra = [a for a, n in mesh.shape.items()
              if a not in (axis, data_axis) and n > 1]
     if extra:
         raise MeshUnsupported(
             f"a sharded train step runs over {data_axis!r} and {axis!r}; "
             f"the mesh {mesh.shape} has {extra} too")
-    if len(mesh.local_slots()) < mesh.size:
-        raise MeshUnsupported("a sharded train step needs every slot of "
-                              "the mesh in this process")
     rows: dict[int, list] = {}
     for s in range(mesh.size):
         c = mesh.coords(s)
         rows.setdefault(int(c.get(data_axis, 0)), []).append(
             (int(c.get(axis, 0)), s))
-    return [[s for _, s in sorted(r)] for _, r in sorted(rows.items())]
+    out = [[s for _, s in sorted(r)] for _, r in sorted(rows.items())]
+    for row in out:
+        held = {mesh.devices.flat[s] is not None for s in row}
+        if len(held) > 1:
+            raise MeshUnsupported(
+                f"a row of the {axis!r} axis ({row}) is split across "
+                "processes: the sharded train step runs each row in one "
+                f"process (the mesh {mesh.shape} over {world_size()})")
+    return out
+
+
+def _local_rows(mesh, rows: list[list[int]]) -> list[int]:
+    """The indices of the rows this process holds."""
+    return [r for r, row in enumerate(rows)
+            if mesh.devices.flat[row[0]] is not None]
+
+
+def _global_loss(local: torch.Tensor, mesh) -> torch.Tensor:
+    """A loss over this process's rows, valued as the sum over every
+    process's (the others' parts come over the default group, outside
+    autograd): its gradient stays this process's share, which
+    ``sum_replicas`` then sums over the processes."""
+    if world_size() == 1 or len(mesh.local_slots()) == mesh.size:
+        return local
+    total = local.detach().clone()
+    dist.all_reduce(total)
+    return local + (total - local.detach())
 
 
 def _cut(t: ShardedTensor, dim: int, axis: str) -> bool:
@@ -675,23 +740,83 @@ def _llama_row(params: dict, ids: torch.Tensor, cfg, row: list[int],
     return _head_logits(params, x, row, "model", mesh, lead)
 
 
-def llama_loss(params: dict, batch: torch.Tensor, cfg,
-               remat: bool = False) -> torch.Tensor:
-    """Llama's next-token cross entropy over ``batch`` (B, T+1) ids on a
-    nested tree of ``ShardedTensor``s (``llama.param_specs``): B cut over
-    the ``data`` axis, each row tensor-parallel over ``model``; the rows'
-    NLL sums meet on the first row's lead slot."""
+def _sharded_loss(params: dict, batch: torch.Tensor, cfg, remat: bool,
+                  row_logits) -> torch.Tensor:
+    """Next-token cross entropy over ``batch`` (B, T+1) ids on a nested
+    tree of ``ShardedTensor``s: B cut over the ``data`` axis, each of this
+    process's rows run by ``row_logits`` tensor-parallel over ``model``;
+    the rows' NLL sums meet on this process's first row's lead slot."""
     mesh = _first_sharded(params).mesh
     rows = _train_rows(mesh, "model")
     b = _split_batch(batch, rows)
     inputs, targets = batch[:, :-1], batch[:, 1:]
-    lead = mesh.device_of(rows[0][0])
+    mine = _local_rows(mesh, rows)
+    lead = mesh.device_of(rows[mine[0]][0])
     total = 0.0
-    for r, row in enumerate(rows):
-        logits = _llama_row(params, inputs[r * b:(r + 1) * b], cfg, row,
+    for r in mine:
+        logits = row_logits(params, inputs[r * b:(r + 1) * b], cfg, rows[r],
                             mesh, remat)
         total = total + _nll_sum(logits, targets[r * b:(r + 1) * b]).to(lead)
-    return total / targets.numel()
+    return _global_loss(total / targets.numel(), mesh)
+
+
+def llama_loss(params: dict, batch: torch.Tensor, cfg,
+               remat: bool = False) -> torch.Tensor:
+    """Llama's loss on a tree laid out by ``llama.param_specs``."""
+    return _sharded_loss(params, batch, cfg, remat, _llama_row)
+
+
+_GPT2_ATTN = {"qkv_w": 2, "qkv_b": 1, "proj_w": 1}
+_GPT2_MLP = {"fc_w": 2, "fc_b": 1, "proj_w": 1}
+
+
+def _gpt2_row(params: dict, ids: torch.Tensor, cfg, row: list[int], mesh,
+              remat: bool) -> torch.Tensor:
+    """One data row's (b, T, vocab) GPT-2 logits on its lead slot. The
+    fused q|k|v columns give no slot whole heads, so the row's attention
+    blocks are joined on the lead and attention runs whole there; the MLP
+    runs split (fc column-parallel, its projection row-parallel, the
+    partial sums on the lead)."""
+    from zest_tpu_torch.models import gpt2
+
+    lead_slot = row[0]
+    lead = mesh.device_of(lead_slot)
+    blocks = params["blocks"]
+    (attn,), _ = _columns(blocks["attn"], _GPT2_ATTN, row, "model", mesh,
+                          split=False)
+    m_cols, m_devs = _columns(blocks["mlp"], _GPT2_MLP, row, "model", mesh)
+    whole = {(g, k): _whole(blocks[g][k], lead_slot)
+             for g, k in (("ln_1", "g"), ("ln_1", "b"), ("ln_2", "g"),
+                          ("ln_2", "b"), ("attn", "proj_b"),
+                          ("mlp", "proj_b"))}
+
+    def layer(x, i):
+        p = {"ln_1": {"g": whole["ln_1", "g"][i], "b": whole["ln_1", "b"][i]},
+             "attn": {**_at(attn, i), "proj_b": whole["attn", "proj_b"][i]}}
+        x = gpt2._attn(x, p, cfg)
+        h = gpt2._layer_norm(x, whole["ln_2", "g"][i], whole["ln_2", "b"][i],
+                             cfg.layer_norm_eps)
+        parts = [torch.nn.functional.gelu(
+            h.to(d) @ c["fc_w"][i] + c["fc_b"][i], approximate="tanh")
+            @ c["proj_w"][i] for c, d in zip(m_cols, m_devs)]
+        return x + _sum_on(parts, lead) + whole["mlp", "proj_b"][i]
+
+    T = ids.shape[1]
+    x = (_whole(params["wte"], lead_slot)[ids.to(lead)]
+         + _whole(params["wpe"], lead_slot)[:T])
+    for i in range(cfg.n_layer):
+        x = (checkpoint(layer, x, i, use_reentrant=False) if remat
+             else layer(x, i))
+    f = params["ln_f"]
+    x = gpt2._layer_norm(x, _whole(f["g"], lead_slot),
+                         _whole(f["b"], lead_slot), cfg.layer_norm_eps)
+    return _head_logits(params, x, row, "model", mesh, lead)
+
+
+def gpt2_loss(params: dict, batch: torch.Tensor, cfg,
+              remat: bool = False) -> torch.Tensor:
+    """GPT-2's loss on a tree laid out by ``gpt2.param_specs``."""
+    return _sharded_loss(params, batch, cfg, remat, _gpt2_row)
 
 
 _MOE_ATTN = {"q_w": 2, "k_w": 2, "v_w": 2, "o_w": 1}
@@ -713,6 +838,10 @@ def moe_loss(params: dict, batch: torch.Tensor, cfg,
 
     mesh = _first_sharded(params).mesh
     rows = _train_rows(mesh, "expert")
+    if len(_local_rows(mesh, rows)) < len(rows):
+        raise MeshUnsupported(
+            "Mixtral's sharded step routes the whole batch as one dispatch "
+            "group: every row of the mesh must be in this process")
     b = _split_batch(batch, rows)
     inputs, targets = batch[:, :-1], batch[:, 1:]
     T = inputs.shape[1]

@@ -112,6 +112,19 @@ class SlotMesh:
                              "slots")
         return list(row)
 
+    def axis_slots(self, axis: str,
+                   at: dict[str, int] | None = None) -> list[int]:
+        """The flat indices of the slots along ``axis``, in axis order,
+        every other axis at its index in ``at`` (0 where ``at`` names
+        none); they may belong to other processes."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {axis!r}")
+        at = at or {}
+        index = tuple(slice(None) if a == axis else at.get(a, 0)
+                      for a in self.axis_names)
+        flat = np.arange(self.size).reshape(self.devices.shape)
+        return [int(s) for s in flat[index]]
+
     def coords(self, slot: int) -> dict[str, int]:
         """The slot's index along each axis."""
         return dict(zip(self.axis_names,

@@ -234,8 +234,13 @@ def sum_replicas(t: ShardedTensor, like: ShardedTensor | None = None
     is the sum of the gradients its replicas got (a ``data`` replica each
     row of the batch, say). A None shard (no gradient reached that
     replica) adds nothing; a group of None shards sums to zeros of
-    ``like``'s shards. Slots of other processes are not summed over."""
+    ``like``'s shards. Where the mesh spans processes each local sum is
+    then all-reduced over the default group: every process must hold the
+    same blocks (whole rows of the tensor-parallel axis, as the sharded
+    train step lays them out), and every replica ends with the same
+    sum."""
     ref = like if like is not None else t
+    remote = world_size() > 1 and len(t.mesh.local_slots()) < t.mesh.size
     out = {}
     for group in t.replica_groups():
         dev = ref.shards[group[0]].device
@@ -246,6 +251,11 @@ def sum_replicas(t: ShardedTensor, like: ShardedTensor | None = None
                 total = g.to(dev) if total is None else total + g.to(dev)
         if total is None:
             total = torch.zeros_like(ref.shards[group[0]])
+        if remote:
+            # A raw gradient may be a strided view (a slice of the
+            # gradient of a join): reduce a contiguous copy.
+            total = total.contiguous()
+            dist.all_reduce(total)
         out[group[0]] = total
         for slot in group[1:]:
             d = ref.shards[slot].device

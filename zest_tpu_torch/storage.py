@@ -70,18 +70,29 @@ def atomic_write(path: Path, data: bytes) -> None:
     ENOSPC raises :class:`CacheFullError`; the payload is replayable, so
     the write is retried once when the eviction hook freed space."""
     try:
-        _atomic_write(path, data)
+        atomic_write_stream(path, (data,))
     except CacheFullError:
         # note_disk_full (and the eviction pass) already ran: one retry.
-        _atomic_write(path, data, _retry=True)
+        atomic_write_stream(path, (data,), _retry=True)
 
 
-def _atomic_write(path: Path, data: bytes, _retry: bool = False) -> None:
+def atomic_write_stream(path: Path, chunks, _retry: bool = False) -> int:
+    """:func:`atomic_write` fed by an iterator of byte chunks; returns
+    the byte count. The warm fetch streams CDN bodies straight to their
+    cache file through this, so no whole-unit buffer is built.
+
+    ENOSPC raises :class:`CacheFullError` after the temp file is gone and
+    :func:`note_disk_full` ran. There is no retry: the iterator is used
+    up. Any error the iterator raises (a body cut short) removes the temp
+    file too, so nothing is renamed into place."""
     path.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=".tmp-")
+    n = 0
     try:
         with os.fdopen(fd, "wb") as f:
-            f.write(data)
+            for chunk in chunks:
+                f.write(chunk)
+                n += len(chunk)
         os.replace(tmp, path)
     except BaseException as exc:
         try:
@@ -95,6 +106,7 @@ def _atomic_write(path: Path, data: bytes, _retry: bool = False) -> None:
             raise CacheFullError(
                 f"cache write of {path} hit ENOSPC", path) from exc
         raise
+    return n
 
 
 def durable_replace(tmp: str | Path, dest: Path) -> None:
@@ -258,6 +270,14 @@ class XorbCache:
     def put_partial(self, hash_hex: str, range_start: int,
                     data: bytes) -> None:
         atomic_write(self._path(f"{hash_hex}.{range_start}"), data)
+
+    def put_stream(self, hash_hex: str, chunks) -> int:
+        return atomic_write_stream(self._path(hash_hex), chunks)
+
+    def put_partial_stream(self, hash_hex: str, range_start: int,
+                           chunks) -> int:
+        return atomic_write_stream(
+            self._path(f"{hash_hex}.{range_start}"), chunks)
 
 
 def list_cached_xorbs(cfg: Config) -> list[str]:

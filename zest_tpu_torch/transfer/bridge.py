@@ -39,6 +39,12 @@ sessions want it; ``cancel``, the session's ``CancelToken``, checked at
 every term and unit; and ``on_reconstruction``, which pins each resolved
 plan's xorbs against eviction. A cache write that hits ENOSPC
 (``storage.CacheFullError``) is absorbed: the fetched bytes still serve.
+
+With no peer tier, the warm fetch streams each unit's CDN body straight
+into its cache file (:meth:`XetBridge.stream_unit_from_cdn`, a
+``cdn.stream`` span). There a full disk or a body cut short raises (no
+entry is written, and the unit falls to the landing's per-term
+waterfall).
 """
 
 from __future__ import annotations
@@ -189,6 +195,19 @@ def _blob_covers(data: bytes, local_start: int, local_end: int) -> bool:
         return len(XorbReader(data)) >= local_end
     except ValueError:
         return False
+
+
+def _exactly(pieces, want: int, url: str):
+    """Yield ``pieces``, then raise :class:`CasError` when they did not
+    add up to ``want`` bytes: inside ``atomic_write_stream`` that drops
+    the temp file, so a body cut short never becomes a cache entry."""
+    got = 0
+    for piece in pieces:
+        got += len(piece)
+        yield piece
+    if got != want:
+        raise CasError(f"GET {url} returned {got} bytes for a {want}-byte "
+                       "range")
 
 
 def provably_whole(entries, chunk_offset: int) -> bool:
@@ -710,6 +729,53 @@ class XetBridge:
             (fi.url_range_start, fi.url_range_end))
         self.stats.record("cdn", len(data))
         return data, "cdn"
+
+    def stream_unit_from_cdn(self, hash_hex: str, fi: recon.FetchInfo,
+                             full_key: bool) -> int:
+        """The CDN tier streamed straight into the cache file, with no
+        whole-unit buffer (``storage.atomic_write_stream``); returns the
+        entry's size. The caller has checked the cache, and there is no
+        peer tier. ``full_key`` is the whole-xorb evidence (the full key
+        also needs this bridge's evidence complete). Cached bytes are
+        verified at extraction, as every other entry is. Deduped on the
+        unit and term paths' key, so one transfer serves every session;
+        a waiter's result is the size of the entry the winner wrote."""
+        if self.cancel is not None:
+            self.cancel.check()  # per-unit cancellation point
+        return self._deduped(
+            (hash_hex, fi.range.start, fi.range.end),
+            lambda: self._stream_unit_from_cdn(hash_hex, fi, full_key),
+            lambda: self._probe_stream(hash_hex, fi))
+
+    def _probe_stream(self, hash_hex: str,
+                      fi: recon.FetchInfo) -> int | None:
+        located = self.cache.locate_with_range(hash_hex, fi.range.start)
+        if located is None:
+            return None
+        try:
+            n = located[0].stat().st_size
+        except OSError:
+            return None  # evicted between locate and stat: refetch
+        self.stats.record("cache", n)
+        return n
+
+    def _stream_unit_from_cdn(self, hash_hex: str, fi: recon.FetchInfo,
+                              full_key: bool) -> int:
+        if self.cas is None:
+            raise BridgeError("no CAS client and the unit is not cached")
+        url = self._absolute_url(fi.url)
+        want = fi.url_range_end - fi.url_range_start
+        with telemetry.span("cdn.stream", xorb=hash_hex) as sp:
+            it = _exactly(self.cas.fetch_xorb_iter(
+                url, (fi.url_range_start, fi.url_range_end)), want, url)
+            if full_key and not self.evidence_incomplete:
+                n = self.cache.put_stream(hash_hex, it)
+            else:
+                n = self.cache.put_partial_stream(hash_hex, fi.range.start,
+                                                  it)
+            sp.add_bytes(n)
+        self.stats.record("cdn", n)
+        return n
 
     def _cached_unit(self, hash_hex: str,
                      fi: recon.FetchInfo) -> bytes | None:

@@ -145,6 +145,14 @@ def _warm_units_parallel(bridge, recs, entries_map, units, on_unit) -> dict:
     def fetch(unit) -> int | None:
         hash_hex, fi = unit
         try:
+            if bridge.swarm is None and bridge.cas is not None:
+                # No peer tier, and the cache was checked above: stream
+                # the CDN body straight into its cache file. A short
+                # body or a full disk (CacheFullError) leaves no entry
+                # and fails the unit.
+                return bridge.stream_unit_from_cdn(
+                    hash_hex, fi, bridge.whole_xorb_provable(
+                        entries_map.get(hash_hex, []), fi.range.start))
             data = bridge.fetch_unit(hash_hex, fi)
         except FETCH_ERRORS:
             return None

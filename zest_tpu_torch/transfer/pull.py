@@ -175,6 +175,7 @@ from zest_tpu_torch.parallel.plan import collect_units
 from zest_tpu_torch.resilience import Deadline
 from zest_tpu_torch.telemetry.fleet import mint_trace_id
 from zest_tpu_torch.transfer import delta
+from zest_tpu_torch.transfer import pod as pod_mod
 from zest_tpu_torch.transfer.bridge import FETCH_ERRORS, XetBridge
 from zest_tpu_torch.transfer.coop import (
     CoopUnavailable,
@@ -1080,12 +1081,16 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
     early: list = []
 
     def early_cfg() -> dict | None:
-        """config.json, fetched once before the landing (the family
-        dispatch of the rules and the expert round needs it first)."""
+        """config.json, read once before the landing (the family dispatch
+        of the rules and the expert round needs it first): the landing's
+        background read, else a read now."""
         if not early:
-            early.append(_early_config(hub, repo_id, revision, files,
-                                       snapshot_dir))
+            early.append(early_read.result() if early_read is not None
+                         else _early_config(hub, repo_id, revision, files,
+                                            snapshot_dir))
         return early[0]
+
+    early_read = headers_read = None
 
     file_pipeline = _FilePipeline(
         1, cfg.pull_inflight_bytes, clock, file_work,
@@ -1113,6 +1118,17 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
         coop_stats = pod_stats = fed_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
                                  coop_addrs, log)
+        # A pull that lands reads config.json and fans the safetensors
+        # headers out on the term pool from here, so the pod pre-pass and
+        # the landing's header pass find them in hand. A cooperative or
+        # federated round fetches each head unit once across hosts, so
+        # there the landing reads the headers from what the round cached.
+        if land:
+            early_read = term_pool.submit(_early_config, hub, repo_id,
+                                          revision, files, snapshot_dir)
+            if not (coop_cfg or fed):
+                headers_read = term_pool.submit(_prefetch_headers, bridge,
+                                                files, ensure_auth)
         pending = [e for e in files
                    if e.is_xet and not _is_complete(snapshot_dir, e)]
         if cfg.delta_pull:
@@ -1167,6 +1183,8 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
                     "with the per-host waterfall", file=sys.stderr)
         cancel_point()
         if pod and pending:
+            if headers_read is not None:
+                headers_read.result()
             pod_stats = _pod_stage(bridge, pending, recs, dev, log,
                                    early_cfg, mesh)
         cancel_point()
@@ -1181,7 +1199,8 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
                 file_pipeline, ensure_auth,
                 delta_state=((delta_base, base_params, delta_plan)
                              if delta_plan is not None else None),
-                mesh=mesh, rules=rules, cancel=cancel)
+                mesh=mesh, rules=rules, cancel=cancel,
+                headers_read=headers_read)
         if hbm_stats is not None:
             hbm_done_at = time.monotonic()
             time_to_hbm = hbm_done_at - t0
@@ -1486,7 +1505,7 @@ def _swap_span(preloaded):
 def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                       clock: StageClock, file_pipeline: _FilePipeline,
                       ensure_auth, delta_state=None, mesh=None, rules=None,
-                      cancel: CancelToken | None = None):
+                      cancel: CancelToken | None = None, headers_read=None):
     """Land every safetensors file straight from the cache, before any
     file write; the HF-cache files are written from the landing's decoded
     bytes. Returns ``(None, None)``, before any work, when ineligible: a
@@ -1517,6 +1536,10 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
             rec = bridge.get_reconstruction(e.xet_hash)
             return rec, fetch_file_header(bridge, rec)
 
+        if headers_read is not None:
+            # The prefetch put the head units in the cache: this pass
+            # reads them there.
+            headers_read.result()
         recs_with_headers = _hdr_fan(rec_with_header, st)
         # The full-vs-partial cache-key evidence must see every reference
         # to a xorb: resolve the other xet files too (memoized for the
@@ -1888,26 +1911,48 @@ def _coop_stage(bridge, recs, cfg, coop_cfg, repo_id, commit_sha, device,
 
 def _early_config(hub, repo_id, revision, files, snapshot_dir
                   ) -> dict | None:
-    """config.json, downloaded into the snapshot before the file loop
-    (which then skips it) and parsed; None on any miss: the callers
-    degrade to the family-agnostic path."""
+    """config.json parsed before the file loop; None on any miss: the
+    callers degrade to the family-agnostic path. Before the snapshot has
+    it, this reads a private download, and the file loop writes the
+    snapshot's copy (so its waterfall lane books the file on every
+    pull)."""
     import json
 
     dest = snapshot_dir / "config.json"
-    if not dest.exists():
-        entry = next((e for e in files if e.path == "config.json"), None)
-        if entry is None:
-            return None
-        try:
-            dest.parent.mkdir(parents=True, exist_ok=True)
-            hub.download_regular_file(repo_id, revision, entry.path, dest)
-        except (HubError, OSError):
-            return None
     try:
-        cfg = json.loads(dest.read_text())
-    except (OSError, ValueError):
+        if dest.exists():
+            text = dest.read_text()
+        else:
+            entry = next((e for e in files if e.path == "config.json"),
+                         None)
+            if entry is None:
+                return None
+            home = snapshot_dir.parent.parent
+            home.mkdir(parents=True, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=home,
+                                             prefix=".early-") as d:
+                own = Path(d) / "config.json"
+                hub.download_regular_file(repo_id, revision, entry.path,
+                                          own)
+                text = own.read_text()
+        cfg = json.loads(text)
+    except (HubError, OSError, ValueError):
         return None
     return cfg if isinstance(cfg, dict) else None
+
+
+def _prefetch_headers(bridge, files, ensure_auth) -> None:
+    """Fetch every xet safetensors file's header through the waterfall
+    (the head units land in the cache). Best effort: a miss leaves the
+    header to whoever reads it next."""
+    try:
+        ensure_auth()
+        _hdr_fan(lambda e: pod_mod.fetch_file_header(
+                     bridge, bridge.get_reconstruction(e.xet_hash)),
+                 [e for e in files
+                  if e.is_xet and e.path.endswith(".safetensors")])
+    except Exception:  # noqa: BLE001 - an advisory warm-up
+        pass
 
 
 def _landing_rules(early_cfg):

@@ -442,7 +442,8 @@ class SwarmDownloader:
         info_hash = peer_id_mod.compute_info_hash(xorb_hash)
         first = info_hash not in self._announced
         self._announced.add(info_hash)
-        for source in self.peer_sources:
+        announced = False
+        for source in self._announce_sources():
             # With gossip attached the tracker/DHT tier is bootstrap
             # only: it sees the FIRST announce per swarm (seeding the
             # epidemic); every refresh is a local digest update that the
@@ -450,12 +451,23 @@ class SwarmDownloader:
             if self.gossip is not None and source is not self.gossip \
                     and not first:
                 continue
+            announced = True
             try:
                 source.announce(info_hash, self.cfg.listen_port)
             except Exception:
                 continue
-        if self.peer_sources:
+        if announced:
             self.stats.bump("announces")
+
+    def _announce_sources(self) -> list:
+        """The sources this node registers with. A node that does not
+        seed (``listen_port`` 0) registers with no tracker or DHT, which
+        would hand ``(ip, 0)`` to every later lookup; gossip keeps its
+        holder record (its lookups take the port from the address
+        book)."""
+        if self.cfg.listen_port:
+            return list(self.peer_sources)
+        return [s for s in self.peer_sources if s is self.gossip]
 
     def _on_health_transition(self, event: str, addr: tuple[str, int]) -> None:
         """Quarantine-aware announce: a breaker trip or probation
@@ -490,7 +502,7 @@ class SwarmDownloader:
                     continue
                 self._last_reannounce[info_hash] = now
                 swept = True
-                for source in self.peer_sources:
+                for source in self._announce_sources():
                     try:
                         source.announce(info_hash, self.cfg.listen_port)
                     except Exception:
