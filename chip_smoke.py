@@ -220,15 +220,16 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    ``restore_train_state`` onto ``cuda:0``, two more; parameters and
    moments bit-equal to an uninterrupted five-step run, the first loss
    within 1e-4 of the port's CPU float32 ``loss_fn``. 12b: Llama-3.2-1B
-   at its published width and depth from phase 7's snapshot (node ``l``,
-   kept since phase 7) as a float32 tree on ``cuda:0``: five AdamW steps
+   at its published width, **depth cut 16 → ``FT_LAYERS`` (2)**, from
+   phase 7's snapshot (node ``l``, kept since phase 7; its first layers)
+   as a float32 tree on ``cuda:0``: five AdamW steps
    on one seeded (2, 129) batch (the first loss within ``LOGITS_TOL`` of
    the CPU float32 loss, the fifth below the first, no NaN),
    ``export_hf_safetensors``, ``push_checkpoint`` as a new revision of
    phase 7's repo (kernel rows = minted chunks), a delta pull on node
-   ``l`` with revision A's tree on ``cuda:0`` as ``base_params``: its
-   digest the export's, its greedy tokens at batch 1 and 4 the trainer's
-   own tree's. 12c: Llama-3.2-1B's width cut to 2 layers:
+   ``l`` with revision A's whole tree on ``cuda:0`` as ``base_params``:
+   its tensors the export's, its digest the export's, its greedy tokens
+   at batch 1 and 4 the trainer's own tree's. 12c: Llama-3.2-1B's width cut to 2 layers:
    ``cp_train_step`` over ``{"data": 2, "seq": 4}`` on ``[cuda:0] * 8``
    against ``train_step`` (loss within 1e-5, params within
    ``CP_PARAM_TOL``), and ``pipeline_blocks`` over ``{"pipe": 2}`` (4
@@ -246,11 +247,14 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    plan's whole-xorb units (a unit that is only a prefix of its xorb is
    rejected, as predicted), greedy tokens at batch 1 and 4 5b's. 13b:
    phase 7's push pulled at float32 over ``{"data": 2, "model": 2}``,
-   ``llama.params_from_hf`` (the one sharded tree), three AdamW steps
+   ``llama.params_from_hf`` at 12b's depth (the one sharded tree of its
+   first ``FT_LAYERS`` layers), three AdamW steps
    with 12b's recipe on 12b's batch cut over ``data``: step-1 loss 12b's within 1e-4
    relative, layer 0's first moments and parameters after step 2 12b's
    (``SHARD_MU_TOL``, ``SHARD_PARAM_BOUND``), the data replicas bit-equal
-   after every step, the loss falling, the peak rise within its
+   after every step, the loss falling, the landing's peak rise (all 16
+   layers and the tree built from them) within the landed storages, the
+   tree's and two float32 commit groups, the training's within its
    reckoning. 13c: ``cp_train_step`` on the ``ShardedTensor`` tree over
    ``{"seq": 2, "model": 2}`` at 12c's cut against ``train_step`` (loss
    and the gathered ``down_w``). 13d: Mixtral
@@ -361,6 +365,23 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    bit-equal after each step; then greedy decode at batch 1 and 4
    through the ``TPParams`` tree built from the trained tree, its tokens
    those of the unsharded decode of the same trained params;
+19. the benches: 19a ``python -m zest_tpu_torch bench --json`` in a
+   child on the card (every bench of the JAX package's suite present,
+   the device ones included), then ``bench_blake3_device`` in-process,
+   its last batch's kernel-#1 digests equal to the plain version's and
+   its launches 1 + 3 x 8 of 256 rows (path ``bench``); 19b
+   ``bench_gb_pull`` at full Llama-8B width (0.961 GB asked: 2 layers,
+   21 tensors, 1,396,744,192 tensor bytes), one timed run onto
+   ``cuda:0``: every tensor there, the landed bytes the fixture's, the
+   direct landing (path ``bench_gb``); 19c ``bench_coop_pull`` (64 MB,
+   four hosts, every DCN server shaped to 50 MB/s and 5 ms a window): 0
+   fallbacks, kernel #3's launches the received units with BG4 chunks
+   and its rows their BG4 chunks, kernel #1's rows their other chunks
+   (path ``bench_coop``), every server's ``DcnServerStats.bytes_served``
+   equal to what its peers received and to what it charged its token
+   bucket (an unshaped server charges nothing), and its span from its
+   first charge to its last charge's return at least (bytes - burst) /
+   rate; 19d ``bench_fleet`` at 256 hosts, every gate;
 
 then time each kernel at its path's shapes against its bound, its plain
 version and, where one exists, the one PyTorch call that computes the same
@@ -381,7 +402,8 @@ discovery paths (``tracker``, ``dht``, ``gossip``, ``files_parallel``)
 and phase 16's pull service (``tenancy``, ``tenancy_daemon``,
 ``tenancy_swap``) and phase 17's (``heal_pull``, ``heal_collective``,
 ``heal_tune``, ``heal_pool``, ``heal_push``) and phase 18's mesh
-landing's pre-pass (``mesh_train``) among them), the
+landing's pre-pass (``mesh_train``) and phase 19's (``bench``,
+``bench_gb``, ``bench_coop``) among them), the
 card's name and power limit,
 and
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -2225,26 +2247,35 @@ def time_bg4(cfg_a, pushed, dev, sass: tuple[int, int]) -> list[dict]:
     ]
 
 
-def llama_checkpoint(seed: int, cfg: dict) -> dict:
-    """HF-named bf16 Llama tensors from a numpy seed: every matrix
-    N(0, 0.02), the norms 1 + N(0, 0.02), each drawn in float32 and
-    rounded to bf16 as the landing's cast rounds (nearest even). Tied
-    embeddings: no ``lm_head.weight``."""
+def bf16_draws(seed: int, dev):
+    """``w(*shape, one=False)``: a host bf16 tensor of N(0, 0.02) (1 +
+    N(0, 0.02) with ``one``), drawn in float32 on ``dev`` from a torch
+    generator seeded with ``seed`` and rounded to bf16 there (nearest
+    even, as the landing's cast rounds). Drawing a GB-scale checkpoint
+    on the card takes a second, against ~20 s with numpy on the host."""
     import torch
 
-    from zest_tpu_torch.models.loader import cast_floating
+    dev = torch.device(dev)
+    gen = torch.Generator(dev).manual_seed(seed)
 
-    rng = np.random.default_rng(seed)
+    def w(*shape, one=False):
+        v = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32).mul_(0.02)
+        if one:
+            v += 1.0
+        return v.to(torch.bfloat16).cpu()
+
+    return w
+
+
+def llama_checkpoint(seed: int, cfg: dict, dev="cpu") -> dict:
+    """HF-named bf16 Llama tensors drawn by :func:`bf16_draws` on
+    ``dev``: every matrix N(0, 0.02), the norms 1 + N(0, 0.02). Tied
+    embeddings: no ``lm_head.weight``."""
     E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     qE = cfg["num_attention_heads"] * cfg["head_dim"]
     kvE = cfg["num_key_value_heads"] * cfg["head_dim"]
-
-    def w(*shape, one=False):
-        v = rng.standard_normal(shape, dtype=np.float32)
-        v *= np.float32(0.02)
-        if one:
-            v += np.float32(1.0)
-        return cast_floating(torch.from_numpy(v), torch.bfloat16)
+    w = bf16_draws(seed, dev)
 
     t = {"model.embed_tokens.weight": w(V, E)}
     for i in range(cfg["num_hidden_layers"]):
@@ -2342,7 +2373,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     ckpt.mkdir()
     (ckpt / "config.json").write_text(json.dumps(LLAMA_CONFIG, indent=2))
     t0 = time.monotonic()
-    tensors = llama_checkpoint(seed + 7, LLAMA_CONFIG)
+    tensors = llama_checkpoint(seed + 7, LLAMA_CONFIG, dev)
     n_params = sum(t.numel() for t in tensors.values())
     if len(tensors) != LLAMA_TENSORS or n_params != LLAMA_PARAMS:
         fail(f"phase 7: {len(tensors)} tensors, {n_params:,} parameters")
@@ -2594,24 +2625,13 @@ def llama_trace_gates(work: Path, tracer, st: dict) -> str:
             f"--json equal; slo_breach blamed {top}")
 
 
-def mixtral_checkpoint(seed: int, cfg: dict) -> dict:
-    """HF-named bf16 Mixtral tensors from a numpy seed, as
-    :func:`llama_checkpoint` draws them (untied: ``lm_head.weight``)."""
-    import torch
-
-    from zest_tpu_torch.models.loader import cast_floating
-
-    rng = np.random.default_rng(seed)
+def mixtral_checkpoint(seed: int, cfg: dict, dev="cpu") -> dict:
+    """HF-named bf16 Mixtral tensors, drawn as :func:`llama_checkpoint`
+    draws them (untied: ``lm_head.weight``)."""
     E, F, V = cfg["hidden_size"], cfg["intermediate_size"], cfg["vocab_size"]
     D = E // cfg["num_attention_heads"]
     kvE = cfg["num_key_value_heads"] * D
-
-    def w(*shape, one=False):
-        v = rng.standard_normal(shape, dtype=np.float32)
-        v *= np.float32(0.02)
-        if one:
-            v += np.float32(1.0)
-        return cast_floating(torch.from_numpy(v), torch.bfloat16)
+    w = bf16_draws(seed, dev)
 
     t = {"model.embed_tokens.weight": w(V, E)}
     for i in range(cfg["num_hidden_layers"]):
@@ -2866,7 +2886,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
     ckpt.mkdir()
     (ckpt / "config.json").write_text(json.dumps(MIXTRAL_CONFIG, indent=2))
     t0 = time.monotonic()
-    tensors = mixtral_checkpoint(seed + 9, MIXTRAL_CONFIG)
+    tensors = mixtral_checkpoint(seed + 9, MIXTRAL_CONFIG, dev)
     n_params = sum(t.numel() for t in tensors.values())
     if n_params != MIXTRAL_PARAMS:
         fail(f"phase 9: {n_params:,} Mixtral parameters")
@@ -3428,6 +3448,11 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
 # 1000 total steps) with one warmup step, on one fixed seeded (2, 129)
 # batch.
 FT_BATCH = (2, 129)
+# 12b and 13b train Llama-3.2-1B's width at this depth, its first layers
+# (depth cut 16 → 2: the float32 export, push and delta pull of all 16
+# took ~135 s of the command's 1200 s once phase 19 came).
+FT_LAYERS = 2
+FT_CONFIG = dict(LLAMA_CONFIG, num_hidden_layers=FT_LAYERS)
 FT_ADAMW = {"lr": 1e-4, "warmup_steps": 1, "total_steps": 1000}
 FT_STEPS = 5
 # 12c: Llama-3.2-1B's width with its depth cut to 2 layers.
@@ -3562,8 +3587,9 @@ def gpt2_finetune_phase(ckpt: Path, work: Path, seed: int, dev) -> dict:
 
 def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
                          seed: int, steps: int, dev) -> dict:
-    """Phase 12b: Llama-3.2-1B at its published width and depth from
-    phase 7's push (node ``l``'s snapshot): the float32 tree on ``dev``,
+    """Phase 12b: Llama-3.2-1B at its published width, its first
+    ``FT_LAYERS`` layers, from phase 7's push (node ``l``'s snapshot): the
+    float32 tree on ``dev``,
     five AdamW steps, ``export_hf_safetensors``, ``push_checkpoint`` as a
     new revision of phase 7's repo (the kernel re-verifies every minted
     chunk), a delta pull on node ``l`` over revision A's landed tree, and
@@ -3586,7 +3612,7 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     from zest_tpu_torch.transfer.push import push_checkpoint
 
     wall0 = time.monotonic()
-    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    cfg = llama.LlamaConfig.from_hf(FT_CONFIG)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3649,12 +3675,14 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     ck = work / "llama-finetuned"
     ck.mkdir()
     (ck / "config.json").write_text(json.dumps(
-        dict(LLAMA_CONFIG, torch_dtype="float32"), indent=2))
+        dict(FT_CONFIG, torch_dtype="float32"), indent=2))
     t0 = time.monotonic()
     export_hf_safetensors(ck / "model.safetensors", trained, cfg)
     export_s = time.monotonic() - t0
     export_bytes = (ck / "model.safetensors").stat().st_size
-    want_digest = params_digest(load_checkpoint(ck, "cpu"))
+    exported = load_checkpoint(ck, "cpu")
+    want_digest, n_export = params_digest(exported), len(exported)
+    del exported
     blake3_cuda.COUNTER.reset()  # counts from here are the push's
     t0 = time.monotonic()
     pushed = push_checkpoint(cfg_a, LLAMA_REPO, ck,
@@ -3669,7 +3697,6 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     # ── the delta pull on node l over revision A's tree ──
     cfg_l = Config(hf_home=work / "l" / "hf", cache_dir=work / "l" / "zest",
                    endpoint=url)
-    n_base = len(base)
     t0 = time.monotonic()
     res = pull_model(cfg_l, LLAMA_REPO, revision=pushed.revision,
                      device=dev, base_params=base,
@@ -3679,9 +3706,9 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     d, swap = st.get("delta"), st["hbm"].get("swap", {})
     if not d or d.get("base_revision") != llama_ref["revision"]:
         fail(f"phase 12b: no delta over revision A: {d}")
-    if len(res.params) != n_base:
-        fail(f"phase 12b: {len(res.params)} tensors swapped in, A had "
-             f"{n_base}")
+    if len(res.params) != n_export:
+        fail(f"phase 12b: {len(res.params)} tensors swapped in, the export "
+             f"has {n_export}")
     got_digest = params_digest(res.params)
     if got_digest != want_digest:
         fail("phase 12b: the swapped tree's digest is not the export's")
@@ -3703,7 +3730,8 @@ def llama_finetune_phase(work: Path, url: str, cfg_a, llama_ref: dict,
         torch.cuda.empty_cache()
     d_print = {k: v for k, v in d.items() if k != "files"}
     print(f"phase 12b llama finetune ({card_label()}): {LLAMA_REPO} at its "
-          f"published width and depth, float32 ({n_params:,} params), AdamW "
+          f"published width, its first {FT_LAYERS} layers, float32 "
+          f"({n_params:,} params), AdamW "
           f"{FT_ADAMW}, batch {FT_BATCH}: losses "
           f"{[round(x, 6) for x in losses]}; first vs CPU float32 "
           f"{cpu_loss:.6f} (|d| {abs(losses[0] - cpu_loss):.2e} <= "
@@ -3853,6 +3881,18 @@ def _replicas_equal(tree) -> bool:
     return all(torch.equal(t.shards[g[0]], t.shards[s])
                for t in tree_leaves(tree) for g in t.replica_groups()
                for s in g[1:])
+
+
+def _storages(sharded) -> dict[int, int]:
+    """The bytes of each storage the shards of ``sharded`` (an iterable
+    of sharded tensors) sit in, by the storage's address: shards that
+    share a buffer count it once."""
+    out = {}
+    for t in sharded:
+        for x in t.shards.values():
+            st = x.untyped_storage()
+            out[st.data_ptr()] = st.nbytes()
+    return out
 
 
 def _slot_bytes(tree) -> int:
@@ -4023,25 +4063,27 @@ def mesh_swap_phase(work: Path, url: str, sha_a: str, swap_ref: dict,
 def sharded_train_phase(work: Path, url: str, llama_ref: dict,
                         ft_ref: dict, dev) -> None:
     """Phase 13b: AdamW on a sharded tree at Llama-3.2-1B's published
-    width and depth. Phase 7's push is pulled at float32 over
-    ``TRAIN_MESH`` on four slots of ``dev``, turned into the training tree
-    (``params_from_hf``: every leaf under
+    width, 12b's depth. Phase 7's push is pulled at float32 over
+    ``TRAIN_MESH`` on four slots of ``dev``, its first ``FT_LAYERS``
+    layers turned into the training tree (``params_from_hf``: every leaf
+    under
     ``param_specs``), and trained ``SHARD_STEPS`` steps with 12b's recipe
     on 12b's batch cut over ``data``: the step-1 loss 12b's, layer 0's
     q_w and down_w after step 2 12b's, the data replicas bit-equal after
-    every step, the loss falling, the peak allocation rise within the
-    written reckoning."""
+    every step, the loss falling, the landing's and the training's peak
+    allocation rises each within its written reckoning."""
     import functools
 
     import torch
 
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.models import llama, training
+    from zest_tpu_torch.models.loader import _STREAM_COMMIT_BYTES
     from zest_tpu_torch.parallel.mesh import model_mesh
     from zest_tpu_torch.transfer.pull import pull_model
 
     wall0 = time.monotonic()
-    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    cfg = llama.LlamaConfig.from_hf(FT_CONFIG)
     mesh = model_mesh(TRAIN_MESH, [dev] * 4)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4057,9 +4099,30 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
     tree = llama.params_from_hf(res.params, cfg, torch.float32)
     torch.cuda.synchronize(dev)
     build_s = time.monotonic() - t0
+    # The landing holds all 16 layers, so its peak has a reckoning of its
+    # own (phase 11a's rule, with the tree built from it), written before
+    # its first card run: the landed storages, the tree's new ones, and
+    # two commit groups, the one being cut and the next (a group is
+    # ``_STREAM_COMMIT_BYTES`` of bf16 file bytes cast to float32 on the
+    # host, or one larger tensor alone).
+    landed_st = _storages(res.params.values())
+    tree_st = {k: v for k, v in _storages(training.tree_leaves(tree)).items()
+               if k not in landed_st}
+    group = max(2 * _STREAM_COMMIT_BYTES,
+                max(t.nbytes for t in res.params.values()))
+    land_peak = torch.cuda.max_memory_allocated(dev) - mem0
+    land_reckoning = (sum(landed_st.values()) + sum(tree_st.values())
+                      + 2 * group)
+    if land_peak > land_reckoning:
+        fail(f"phase 13b: the landing and tree build rose {land_peak:,} B, "
+             f"above landed {sum(landed_st.values()):,} + tree "
+             f"{sum(tree_st.values()):,} + two groups of {group:,} B")
     res.params = None
     shutil.rmtree(work / "t13")
     torch.cuda.empty_cache()
+    # The training's reckoning, from the tree of 12b's depth on (mem0 is
+    # still the level before the landing).
+    torch.cuda.reset_peak_memory_stats(dev)
     held = _slot_bytes(tree)
     largest = max(x.numel() * x.element_size()
                   for t in training.tree_leaves(tree)
@@ -4129,7 +4192,8 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
              f"reckoning {reckoning:,} B")
     step_s = sum(times[1:]) / (len(times) - 1) / 1e3
     print(f"phase 13b sharded AdamW ({card_label()}): {LLAMA_REPO} at its "
-          f"published width and depth, float32, over {TRAIN_MESH} on "
+          f"published width, its first {FT_LAYERS} layers, float32, over "
+          f"{TRAIN_MESH} on "
           f"[{dev}] * 4: pulled in {pull_s:.2f} s, training tree built in "
           f"{build_s:.2f} s ({held:,} B on the slots; the state "
           f"{held_state:,} B); AdamW {FT_ADAMW} on 12b's batch {FT_BATCH} "
@@ -4144,7 +4208,10 @@ def sharded_train_phase(work: Path, url: str, llama_ref: dict,
           f"{step_s:.4f} (steps 2-{SHARD_STEPS}) vs 12b's unsharded "
           f"{ft_ref['step_s']:.4f}; peak allocation rise {peak:,} B "
           f"(reckoning {reckoning:,} B = 4 x {held:,} + 3 x {largest:,} + "
-          f"12b's {ft_ref['overhead']:,}); phase wall "
+          f"12b's {ft_ref['overhead']:,}); the landing and tree build's "
+          f"peak rise {land_peak:,} B (<= landed {sum(landed_st.values()):,}"
+          f" + tree {sum(tree_st.values()):,} + 2 x {group:,} B); "
+          f"phase wall "
           f"{time.monotonic() - wall0:.2f} s")
 
 
@@ -5700,7 +5767,7 @@ def heal_pool(work: Path, seed: int, dev) -> dict:
     from zest_tpu_torch.models.safetensors_io import write_safetensors
 
     cfg_l = dict(LLAMA_CONFIG, num_hidden_layers=HEAL_POOL_LAYERS)
-    tensors = llama_checkpoint(seed + 17, cfg_l)
+    tensors = llama_checkpoint(seed + 17, cfg_l, dev)
     tree = sum(t.numel() * t.element_size() for t in tensors.values())
     snaps = [work / "h17x", work / "h17y"]
     for s in snaps:
@@ -6195,6 +6262,339 @@ def sharded_gpt2_phase(work: Path, url: str, sha_a: str, ref: dict,
     return {name: n for name, (n, _rows) in launches.items()}
 
 
+# ── Phase 19: zest bench and the scale benches ──
+
+# The JAX package's synthetic suite, by name (zest_tpu/bench_suite.py).
+REFERENCE_BENCHES = (
+    "bencode_encode", "bencode_decode", "blake3_64kb", "sha1_info_hash",
+    "bt_wire_frame", "gearhash_cdc_4mb", "xet_frame_64kb",
+    "dcn_fetch_pipelined", "blake3_64kb_device", "ici_all_gather",
+    "ring_attention", "pipeline_gpipe")
+# 19a: bench_blake3_device's batch (256 chunks of 64 KiB) and launches.
+BENCH_BLAKE3 = {"batch": 256, "iters": 8}
+# 19b: the smallest checkpoint at full Llama-8B width with two layers.
+BENCH_GB = 0.961
+BENCH_SCALE = 1
+# 19c: bench_coop_pull's default 64 MB over four hosts, each host's DCN
+# server shaped to a rate whose burst (a quarter second of it) is below
+# what a server sends in one exchange, so the bucket paces it.
+BENCH_COOP = {"gb": 0.064, "n_hosts": 4, "dcn_bps": 50_000_000,
+              "dcn_rtt_s": 0.005}
+COOP_LEGS = ("coop", "xp2p", "xcol")  # the three rounds that exchange
+# 19d: one fleet size, the JAX package's smallest.
+BENCH_FLEET = {"fleet_sizes": (256,), "pod_size": 64}
+
+
+def bench_cli_phase(dev) -> dict:
+    """19a: ``python -m zest_tpu_torch bench --json`` in a child on the
+    card: every bench of the JAX package's suite, the device ones
+    included. Then ``bench_blake3_device`` in-process: its last batch's
+    kernel-#1 digests equal the plain version's. Returns the in-process
+    run's launches by kernel."""
+    import torch
+
+    from zest_tpu_torch import bench_suite
+    from zest_tpu_torch.ops import blake3_cuda
+    from zest_tpu_torch.ops import blake3 as plain
+
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "zest_tpu_torch", "bench", "--json"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        fail(f"phase 19a: zest bench exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    rows = json.loads(proc.stdout)
+    names = [r["name"] for r in rows]
+    missing = [n for n in REFERENCE_BENCHES if n not in names]
+    if missing:
+        fail(f"phase 19a: zest bench lacks {missing}; it ran {names}")
+    cli_s = time.monotonic() - t0
+    print(f"phase 19a zest bench ({card_label()}) in {cli_s:.2f} s: "
+          + ", ".join(f"{r['name']} {r['mb_per_s']} MB/s" for r in rows))
+
+    seen = {}
+    real = blake3_cuda.CudaHasher.hash_device
+
+    def hash_device(self, words, lengths):
+        out = real(self, words, lengths)
+        seen.update(hasher=self, words=words, lengths=lengths, out=out)
+        return out
+
+    reset_counters()
+    blake3_cuda.CudaHasher.hash_device = hash_device
+    try:
+        res = bench_suite.bench_blake3_device(device=str(dev),
+                                              **BENCH_BLAKE3)
+    finally:
+        blake3_cuda.CudaHasher.hash_device = real
+    counts = read_counters()
+    hasher, words = seen["hasher"], seen["words"]
+    want = plain.hash_words(words, seen["lengths"], hasher.key_words,
+                            hasher.base_flags)
+    torch.cuda.synchronize()
+    batch = BENCH_BLAKE3["batch"]
+    if words.shape != (batch, 64 * 1024 // 4) or words.device != dev:
+        fail(f"phase 19a: the bench hashed {tuple(words.shape)} on "
+             f"{words.device}")
+    if max_abs_err(seen["out"], want):
+        fail("phase 19a: the bench's kernel-#1 digests differ from the "
+             "plain version's")
+    launches, batch_rows = counts["blake3_chunks"]
+    if launches != 1 + 3 * res.iters or batch_rows != batch * launches:
+        fail(f"phase 19a: kernel #1 launched {counts['blake3_chunks']}, "
+             f"not 1 + 3 x {res.iters} batches of {batch}")
+    print(f"phase 19a bench_blake3_device: {res.as_dict()}; its {batch} "
+          f"digests equal the plain version's; kernel #1 [launches, rows] "
+          f"{counts['blake3_chunks']}")
+    return {k: n for k, (n, _rows) in counts.items()}
+
+
+def bench_gb_phase(dev) -> dict:
+    """19b: ``bench_gb_pull`` at full Llama-8B width (``BENCH_GB``, two
+    layers, 1,396,744,192 tensor bytes), one timed run onto ``dev`` (the
+    warm-up skipped by a spent budget). Gates, on the pull the bench
+    times: every tensor on ``dev``, the landed bytes the fixture's tensor
+    bytes, the direct landing. Returns the pull's launches by kernel."""
+    from zest_tpu_torch import bench_scale
+    from zest_tpu_torch.transfer import pull as pull_mod
+
+    want_bytes = bench_scale.llama_tensor_bytes(BENCH_GB, BENCH_SCALE)
+    want_tensors = 3 + 9 * bench_scale.llama_layers(BENCH_GB, BENCH_SCALE)
+    landed = []
+    real = pull_mod.pull_model
+
+    def pull_model(*a, **k):
+        res = real(*a, **k)
+        params = res.params or {}
+        landed.append({
+            "tensors": len(params),
+            "on_device": sum(t.device == dev for t in params.values()),
+            "bytes": sum(t.nbytes for t in params.values()),
+            "hbm_bytes": res.stats["hbm"]["bytes"],
+            "direct": res.stats["hbm"]["direct"]})
+        return res
+
+    reset_counters()
+    pull_mod.pull_model = pull_model
+    try:
+        r = bench_scale.bench_gb_pull(gb=BENCH_GB, runs=1,
+                                      scale=BENCH_SCALE, budget_s=1.0,
+                                      device=str(dev))
+    finally:
+        pull_mod.pull_model = real
+    counts = read_counters()
+    if len(landed) != 1:
+        fail(f"phase 19b: {len(landed)} pulls ran, not one timed pull")
+    got = landed[0]
+    if (got["tensors"], got["on_device"]) != (want_tensors, want_tensors):
+        fail(f"phase 19b: {got['on_device']} of {got['tensors']} tensors "
+             f"on {dev}, {want_tensors} expected")
+    if got["bytes"] != want_bytes or got["hbm_bytes"] != want_bytes:
+        fail(f"phase 19b: landed {got['bytes']:,} B (hbm {got['hbm_bytes']:,}"
+             f"), the fixture holds {want_bytes:,} tensor bytes")
+    if not (got["direct"] and r["direct"]):
+        fail(f"phase 19b: the landing was not direct: {r}")
+    stages = {k: v["s"] for k, v in r["stages"].items()}
+    print(f"phase 19b bench_gb_pull ({card_label()}): {r['checkpoint_gb']} "
+          f"GB {r['geometry']}, {want_tensors} tensors on {dev}, "
+          f"{want_bytes:,} B landed directly; time_to_hbm_s "
+          f"{r['time_to_hbm_s']}, time_to_first_layer_s "
+          f"{r.get('time_to_first_layer_s')}, {r['pull_gbps']} GB/s, hbm "
+          f"{r['hbm_gbps']} GB/s; stage medians {stages}; fixture gen "
+          f"{r['fixture_gen_s']} s, encode {r['fixture_encode_s']} s, "
+          f"{r['xorbs']} xorbs, warm-up skipped {r['warmup_skipped']}; "
+          f"kernel [launches, rows] {counts}")
+    return {k: n for k, (n, _rows) in counts.items()}
+
+
+def bench_coop_phase(dev) -> dict:
+    """19c: ``bench_coop_pull`` (``BENCH_COOP``: 64 MB, four hosts, every
+    DCN server shaped). Gates: 0 fallbacks in each round; kernel #3's
+    launches the received units holding BG4 chunks, its rows their BG4
+    chunks, kernel #1's rows their other chunks (each host receives every
+    unit it does not own, in each of the three exchanging rounds); every
+    shaped server's ``DcnServerStats.bytes_served`` equal to the bytes its
+    peers received from it and to the bytes it charged its token bucket,
+    and the span from its first charge to its last charge's return at
+    least (charged - burst) / rate: the bucket starts at most full, so
+    no more than burst + rate x span can pass it. Returns the launches by
+    kernel."""
+    from zest_tpu_torch import bench_hub, bench_scale
+    from zest_tpu_torch.cas.compression import Scheme
+    from zest_tpu_torch.cas.xorb import XorbReader
+    from zest_tpu_torch.parallel.plan import collect_units
+    from zest_tpu_torch.transfer import dcn
+
+    repos, servers, by_port = [], [], {}
+
+    class Repo(bench_hub.FixtureRepo):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            repos.append(self)
+
+    class Server(dcn.DcnServer):
+        def start(self):
+            self.received = self.charged = 0
+            self.waited, self.charges = 0.0, []
+            self.opened = time.monotonic()
+            bucket, lock = self._bucket, threading.Lock()
+            if bucket is not None:
+                real_acquire = bucket.acquire
+
+                def acquire(n, give_up_at=None):
+                    t0 = time.monotonic()
+                    ok = real_acquire(n, give_up_at)
+                    t1 = time.monotonic()
+                    with lock:
+                        self.charged += n
+                        self.waited += t1 - t0
+                        self.charges.append((t0, t1))
+                    return ok
+
+                bucket.acquire = acquire
+            port = super().start()
+            servers.append(self)
+            by_port[port] = self
+            return port
+
+        def shutdown(self):
+            self.closed = time.monotonic()
+            super().shutdown()
+
+    real_many = dcn.DcnPool.request_many
+
+    def request_many(self, host, port, wants, *a, **k):
+        replies = real_many(self, host, port, wants, *a, **k)
+        owner = by_port.get(port)
+        if owner is not None:
+            owner.received += sum(len(r.data) for r in replies
+                                  if isinstance(r, dcn.DcnResponse))
+        return replies
+
+    saved = bench_hub.FixtureRepo, dcn.DcnServer
+    reset_counters()
+    bench_hub.FixtureRepo, dcn.DcnServer = Repo, Server
+    dcn.DcnPool.request_many = request_many
+    try:
+        r = bench_scale.bench_coop_pull(device=str(dev), **BENCH_COOP)
+    finally:
+        bench_hub.FixtureRepo, dcn.DcnServer = saved
+        dcn.DcnPool.request_many = real_many
+    counts = read_counters()
+    if r.get("errors"):
+        fail(f"phase 19c: {r['errors']}")
+    n = BENCH_COOP["n_hosts"]
+    blocks = {"coop": r["coop"], "xp2p": r["exchange"]["p2p"],
+              "xcol": r["exchange"]["collective"]}
+    for leg, b in blocks.items():
+        if b["hosts_completed"] != n or b["fallbacks"]:
+            fail(f"phase 19c {leg}: {b['hosts_completed']} hosts done, "
+                 f"{b['fallbacks']} fallbacks")
+
+    repo = repos[0]
+    schemes = {h: XorbReader(x.full or x.blob).chunk_schemes
+               for h, x in repo.xorbs.items()}
+    units = [(hh, fi) for (hh, _s), fi in
+             collect_units(list(repo.reconstructions.values()))]
+    bg4_units = bg4 = rest = 0
+    for hh, fi in units:
+        sch = schemes[hh][fi.range.start:fi.range.end]
+        k = int((sch == int(Scheme.BG4_LZ4)).sum())
+        bg4_units += k > 0
+        bg4 += k
+        rest += len(sch) - k
+    legs = len(COOP_LEGS) * (n - 1)  # receivers of each unit, all rounds
+    want = {"bg4_fused_verify": [legs * bg4_units, legs * bg4],
+            "blake3_chunks": [None, legs * rest]}
+    fu = counts["bg4_fused_verify"]
+    if fu != want["bg4_fused_verify"] or \
+            counts["blake3_chunks"][1] != want["blake3_chunks"][1]:
+        fail(f"phase 19c: kernel [launches, rows] {counts}; the rounds "
+             f"received {want} ({len(units)} units a round, x{n - 1} "
+             f"receivers, x{len(COOP_LEGS)} rounds)")
+    if counts["bg4_regroup"][0]:
+        fail(f"phase 19c: the standalone regroup ran {counts['bg4_regroup']}")
+
+    rate = BENCH_COOP["dcn_bps"]
+    if len(servers) != len(COOP_LEGS) * n:
+        fail(f"phase 19c: {len(servers)} DCN servers, not "
+             f"{len(COOP_LEGS) * n}")
+    rows = []
+    for i, srv in enumerate(servers):
+        st = srv.stats
+        wall = srv.closed - srv.opened
+        if st.bytes_served != srv.received:
+            fail(f"phase 19c server {i}: served {st.bytes_served:,} B, its "
+                 f"peers received {srv.received:,} B")
+        if srv._bucket is None or srv.charged != st.bytes_served:
+            fail(f"phase 19c server {i}: served {st.bytes_served:,} B, "
+                 f"charged its bucket {srv.charged:,} B")
+        burst = srv._bucket.capacity
+        span = (max(t1 for _t0, t1 in srv.charges)
+                - min(t0 for t0, _t1 in srv.charges)) if srv.charges else 0.0
+        need = (srv.charged - burst) / rate
+        if span < need - 1e-3:
+            fail(f"phase 19c server {i}: {srv.charged:,} B passed its "
+                 f"bucket in {span:.3f} s, under ({srv.charged:,} - "
+                 f"{burst:,}) B / {rate:,} B/s = {need:.3f} s")
+        rows.append((st.connections, st.chunks_served, st.bytes_served,
+                     st.not_found, round(wall, 3), round(span, 3),
+                     round(need, 3), round(srv.waited, 3)))
+    host0 = servers[-n].stats  # host 0 of the collective exchange
+    print(f"phase 19c bench_coop_pull ({card_label()}): {r['model_bytes']:,}"
+          f" B, {n} hosts, DCN shaped to {rate:,} B/s and "
+          f"{BENCH_COOP['dcn_rtt_s']} s a window; baseline "
+          f"{r['baseline']['wall_s']} s, coop {r['coop']['wall_s']} s "
+          f"(peer-served {r['coop']['peer_served_ratio']}, speedup "
+          f"{r['speedup']}), exchange p2p {r['exchange']['p2p_wall_s']} s vs "
+          f"collective {r['exchange']['collective_wall_s']} s (speedup "
+          f"{r['exchange']['collective_speedup']}); wire "
+          f"{r['coop']['wire']}; kernel [launches, rows] {counts} = the "
+          f"{len(units)} units' {bg4} BG4 and {rest} other chunks x{legs} "
+          f"receipts; host 0's collective server stats {host0}; every "
+          f"server's (connections, chunks, bytes, not_found, wall s, "
+          f"charge span s, its bound (bytes - burst) / rate s, s waited in "
+          f"the bucket) {rows}")
+    return {k: nl for k, (nl, _rows) in counts.items()}
+
+
+def bench_fleet_phase() -> None:
+    """19d: ``bench_fleet`` at ``BENCH_FLEET``: every in-artifact gate."""
+    from zest_tpu_torch import bench_scale
+
+    t0 = time.monotonic()
+    r = bench_scale.bench_fleet(**BENCH_FLEET)
+    bad = [k for k, v in r["gates"].items() if v is False]
+    if bad or not r["gates"]["all_ok"]:
+        fail(f"phase 19d: bench_fleet gates {bad}: {r['gates']}")
+    f = r["fleets"][str(BENCH_FLEET["fleet_sizes"][0])]
+    print(f"phase 19d bench_fleet in {time.monotonic() - t0:.2f} s (a model, "
+          f"no device): {f['hosts']} hosts in {f['pods']} pods, "
+          f"peer-served {f['peer_served_ratio']}, federated speedup "
+          f"{f['federated_speedup']}, gossip {f['gossip']['sweeps_to_converge']}"
+          f" of {f['gossip']['sweep_bound']} sweeps; gates {r['gates']}")
+
+
+def bench_phase(work: Path, dev) -> dict:
+    """Phase 19: 19a–19d (above), the benches' temporary dirs under
+    ``work``. Returns each path's launches by kernel: ``bench``,
+    ``bench_gb`` and ``bench_coop``."""
+    t0 = time.monotonic()
+    saved, tempfile.tempdir = tempfile.tempdir, str(work)
+    try:
+        paths = {"bench": bench_cli_phase(dev)}
+        paths["bench_gb"] = bench_gb_phase(dev)
+        paths["bench_coop"] = bench_coop_phase(dev)
+        bench_fleet_phase()
+    finally:
+        tempfile.tempdir = saved
+    print(f"phase 19 wall {time.monotonic() - t0:.2f} s; launches by path "
+          f"{paths}")
+    return paths
+
+
 def run(args, work: Path) -> dict:
     import torch
 
@@ -6436,6 +6836,11 @@ def run(args, work: Path) -> dict:
             work, publisher.url, pushed.revision, gpt2_ref, prompts,
             args.steps, dev)
         del gpt2_ref
+
+        # ── 19. zest bench, a GB pull at full Llama-8B width, the shaped
+        # cooperative bench and the fleet model ──
+        torch.cuda.empty_cache()
+        bench_launches = bench_phase(work, dev)
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -6513,7 +6918,7 @@ def run(args, work: Path) -> dict:
                                  "mesh_train": mesh_train_launches[
                                      "blake3_chunks"]}}
     phase_paths = {**discovery_launches, **tenancy_launches,
-                   **heal_launches}
+                   **heal_launches, **bench_launches}
     for path, counts in phase_paths.items():
         by_path["blake3_chunks"][path] = counts["blake3_chunks"]
     for k in kernels:

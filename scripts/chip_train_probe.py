@@ -77,7 +77,8 @@ def main(argv=None) -> int:
         llama_ckpt.mkdir()
         (llama_ckpt / "config.json").write_text(json.dumps(cs.LLAMA_CONFIG))
         write_safetensors(llama_ckpt / "model.safetensors",
-                          cs.llama_checkpoint(args.seed + 7, cs.LLAMA_CONFIG))
+                          cs.llama_checkpoint(args.seed + 7, cs.LLAMA_CONFIG,
+                                              dev))
         pushed = push_checkpoint(cfg_a, cs.LLAMA_REPO, llama_ckpt,
                                  device=dev, notify=False)
         with PublisherServer(cfg_a) as publisher:

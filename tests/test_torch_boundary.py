@@ -71,7 +71,8 @@ SLICE_MODULES = [
     "zest_tpu_torch.transfer.parallel", "zest_tpu_torch.transfer.tenancy",
     "zest_tpu_torch.telemetry.session", "zest_tpu_torch.api.client",
     "zest_tpu_torch.api.daemon", "zest_tpu_torch.api.hf_backend",
-    "zest_tpu_torch.telemetry.critpath",
+    "zest_tpu_torch.telemetry.critpath", "zest_tpu_torch.bench_suite",
+    "zest_tpu_torch.bench_scale", "zest_tpu_torch.bench_hub",
 ]
 
 

@@ -213,3 +213,50 @@ def test_pull_with_truncated_entries_heals_through_the_waterfall(
     assert tmp is not None and healed.get("copy", 0) > 0
     with open(tmp, "rb") as f:
         assert f.read() == FILES[SHARDS[-1]]
+
+
+@pytest.mark.parametrize("pin", ["cycle", "kept_error"])
+def test_decode_error_pinned_by_a_cycle_declines(hub, tmp_path,
+                                                 monkeypatch, pin):
+    """A decode error that leaves a slice of the lane's mmap reachable
+    declines like any decode miss, instead of failing the pull with the
+    mmap close's BufferError (seen under concurrent pulls of one cache):
+    ``cycle``, an object in a reference cycle holding the slice (the
+    collector frees it); ``kept_error``, the error itself kept alive
+    after the read, its traceback reaching the reading frame (the lane
+    drops the tracebacks of what it catches)."""
+    import gc
+
+    bridge, entries = _warm_bridge(hub, tmp_path)
+    entry = entries[SHARDS[0]]
+    monkeypatch.setattr(direct.CachedFileReader, "copy_plan",
+                        lambda self, lo, hi: ([], [(lo, hi)]))
+    kept = []
+
+    class Pinned:
+        pass
+
+    def read_into(self, lo, hi, out):
+        view = memoryview(out).cast("B")
+        if pin == "cycle":
+            p = Pinned()
+            p.cycle, p.view = p, view
+            raise direct.DirectLandingError("unit not in cache")
+        try:
+            raise ValueError("chunk range out of bounds")
+        except ValueError as exc:
+            err = direct.DirectLandingError("failed to decode")
+            err.__cause__ = exc
+            kept.append(err)
+        raise err
+
+    monkeypatch.setattr(direct.CachedFileReader, "read_into", read_into)
+    dest = tmp_path / "out" / SHARDS[0]
+    gc.disable()
+    try:
+        assert port_pull._write_file_from_cache(
+            bridge, entry.xet_hash, dest) is None
+    finally:
+        gc.enable()
+    assert not list(dest.parent.glob(".tmp-*"))
+    assert all(e.__traceback__ is None for e in kept)

@@ -163,6 +163,41 @@ def test_doc_round_trip_matches_live(hub, tmp_path):
     assert j_critpath.analyze_doc(doc) == offline
 
 
+SPAWN_DELAY_S = 0.05
+
+
+def test_landing_starts_no_thread_outside_a_span(hub, tmp_path, monkeypatch):
+    """Every thread the pull's own thread starts during a CPU landing is
+    started under a span (or, for the process's sampler, before ``t0``):
+    with each such start slowed by ``SPAWN_DELAY_S``, the uncovered wall
+    stays under one delay and the 0.9 gate holds. A start outside every
+    span (a header prefetch on a CPU landing, the file workers' first
+    submit, the warm fetch's first poke) would add a whole delay to
+    ``idle_s``. This is what a loaded machine does to a thread's start,
+    made large enough to see on one pull."""
+    import threading
+    import time
+
+    pulling = threading.current_thread()
+    start = threading.Thread.start
+
+    def slow_start(self):
+        if threading.current_thread() is pulling:
+            time.sleep(SPAWN_DELAY_S)
+        return start(self)
+
+    tracer = telemetry.trace.install(None)
+    monkeypatch.setattr(threading.Thread, "start", slow_start)
+    res = pull_model(_cfg(hub, tmp_path), "acme/session-ckpt",
+                     device="cpu", no_p2p=True, log=_quiet)
+    monkeypatch.undo()
+    cp = res.stats["critical_path"]
+    assert cp["idle_s"] < SPAWN_DELAY_S, cp
+    assert cp["path_s"] >= 0.9 * res.stats["time_to_hbm_s"], cp
+    assert {s.name for s in tracer.spans()} >= {"stage.files",
+                                                "stage.fetch"}
+
+
 def test_untraced_pull_has_no_critical_path(hub, tmp_path):
     res = pull_model(_cfg(hub, tmp_path), "acme/session-model",
                      device="cpu", land=False, no_p2p=True, log=_quiet)

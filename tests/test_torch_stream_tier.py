@@ -199,6 +199,10 @@ def test_stream_tier_pull_equals_reference(hub, ref, tmp_path, monkeypatch):
 
     monkeypatch.setattr(XetBridge, "stream_unit_from_cdn", stream)
     monkeypatch.setattr(XetBridge, "fetch_unit_tiered", unit)
+    # The reference's device="tpu" pull prefetches the headers (its cache
+    # counts read them back): the port's card path does too, and the CPU
+    # stands in for the card here.
+    monkeypatch.setattr(port_pull, "_background_metadata", lambda dev: True)
     res = _pull(hub, tmp_path)
     jres, jdigest = ref
     _assert_files_exact(res)
@@ -363,7 +367,14 @@ def test_landing_header_pass_reads_the_prefetched_headers(hub, tmp_path,
         return out
 
     monkeypatch.setattr(port_pull, "_hdr_fan", fan)
-    res = _pull(hub, tmp_path)
+    # A CPU landing reads its headers itself: one fan, over the network.
+    res = _pull(hub, tmp_path / "cpu")
+    _assert_files_exact(res)
+    assert len(calls) == 1 and calls[0] > 0
+    # The card's landing prefetches them; the CPU stands in for the card.
+    calls.clear()
+    monkeypatch.setattr(port_pull, "_background_metadata", lambda dev: True)
+    res = _pull(hub, tmp_path / "card")
     _assert_files_exact(res)
     # The prefetch's fan first (reconstructions and head units over the
     # network), then the landing's: every header from the cache.

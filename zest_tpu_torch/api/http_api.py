@@ -213,8 +213,9 @@ class HttpApi:
     watch fan-out, and the serving path over ``cfg``'s caches on
     ``device``. ``swarm`` (the node's ``SwarmDownloader``) carries every
     generate's pull; ``bt_server`` (its ``BtServer``) feeds ``/v1/status``
-    and the metrics; ``registry`` (its ``XorbRegistry``) and
-    ``gossip_node`` take what ``POST /v1/push`` announces. ``pod_peers``
+    and the metrics; ``dcn_server`` (its ``DcnServer``) feeds the
+    ``dcn`` block of ``/v1/status``; ``registry`` (its ``XorbRegistry``)
+    and ``gossip_node`` take what ``POST /v1/push`` announces. ``pod_peers``
     (host index → ``(host, http_port)`` of the other hosts' daemons, else
     ``cfg.pod_peers``) are scraped for ``/v1/metrics?scope=pod``."""
 
@@ -222,13 +223,14 @@ class HttpApi:
 
     def __init__(self, cfg: Config, device=DEFAULT_DEVICE, swarm=None,
                  bt_server=None, registry=None, gossip_node=None,
-                 pod_peers: dict | None = None):
+                 pod_peers: dict | None = None, dcn_server=None):
         self.cfg = cfg
         self.pod_peers = dict(pod_peers if pod_peers is not None
                               else cfg.pod_peers)
         self.device = device
         self.swarm = swarm
         self.bt_server = bt_server
+        self.dcn_server = dcn_server
         self.registry = registry
         self.gossip_node = gossip_node
         self.index = PublisherIndex(cfg)
@@ -313,6 +315,15 @@ class HttpApi:
                 "rate_bps": self.cfg.seed_rate_bps or None,
                 "peer_bps": self.cfg.seed_peer_bps or None,
                 "slots": self.cfg.seed_slots,
+            }
+        if self.dcn_server is not None and self.dcn_server.port is not None:
+            d = self.dcn_server.stats
+            payload["dcn"] = {
+                "port": self.dcn_server.port,
+                "connections": d.connections,
+                "chunks_served": d.chunks_served,
+                "bytes_served": d.bytes_served,
+                "not_found": d.not_found,
             }
         if self.swarm is not None:
             payload["swarm"] = self.swarm.summary()
@@ -1238,17 +1249,17 @@ class PublisherServer:
     """Threaded loopback daemon over ``cfg``'s caches. ``port=0`` binds an
     ephemeral port; use as a context manager or call :meth:`start` /
     :meth:`close`. ``api`` is its :class:`HttpApi` (``device``, ``swarm``,
-    ``bt_server``, ``registry``, ``gossip_node`` and ``pod_peers`` go to
-    it), ``hub`` its
-    watch fan-out."""
+    ``bt_server``, ``registry``, ``gossip_node``, ``pod_peers`` and
+    ``dcn_server`` go to it), ``hub`` its watch fan-out."""
 
     def __init__(self, cfg: Config, host: str = "127.0.0.1", port: int = 0,
                  device=DEFAULT_DEVICE, swarm=None, bt_server=None,
                  registry=None, gossip_node=None,
-                 pod_peers: dict | None = None):
+                 pod_peers: dict | None = None, dcn_server=None):
         self.api = HttpApi(cfg, device=device, swarm=swarm,
                            bt_server=bt_server, registry=registry,
-                           gossip_node=gossip_node, pod_peers=pod_peers)
+                           gossip_node=gossip_node, pod_peers=pod_peers,
+                           dcn_server=dcn_server)
         handler = type("DaemonHandler", (_Handler,), {"api": self.api})
         self._httpd = ThreadingHTTPServer((host, port), handler)
         self._httpd.daemon_threads = True

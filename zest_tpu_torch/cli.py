@@ -1,4 +1,4 @@
-"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,top,heal,stats,debug,analyze,trace,version,seed,pull,generate,watch,diff,models}``.
+"""``python -m zest_tpu_torch {push,serve,start,stop,status,ps,top,heal,stats,debug,analyze,trace,version,seed,pull,generate,watch,diff,models,bench}``.
 
 The push → pull → generate subset of ``zest_tpu/cli.py``, on ``cuda`` by
 default (``--device cpu`` runs on the CPU). ``serve`` starts the
@@ -56,7 +56,10 @@ I=HOST:PORT]`` pulls with a tracer installed and writes the Chrome trace
 critical path. ``top [--count N | --json]`` is the live view over
 ``/v1/pulls`` and ``/v1/timeline`` (progress bars, tier rates, ring and
 queue, anomalies); ``heal [--watch | --json | --dry-run on|off]`` the
-self-healing engine's decisions (``/v1/remediations``).
+self-healing engine's decisions (``/v1/remediations``). ``bench
+[--json] [--no-device]`` runs the synthetic suite (``bench_suite``): the
+host benches, then the device benches on ``cuda``; without a card it
+fails unless ``--no-device``.
 """
 
 from __future__ import annotations
@@ -932,7 +935,8 @@ def cmd_serve(args) -> int:
         server = PublisherServer(cfg, host=args.host, port=port,
                                  device=args.device, swarm=swarm,
                                  bt_server=bt, registry=registry,
-                                 gossip_node=gossip_node).start()
+                                 gossip_node=gossip_node,
+                                 dcn_server=dcn).start()
         bound = server.api.port
         try:
             storage.atomic_write(cfg.http_port_file(), str(bound).encode())
@@ -1259,6 +1263,14 @@ def cmd_diff(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 1
     print(json.dumps(out, indent=2) if args.json else delta.format_diff(out))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from zest_tpu_torch import bench_suite
+
+    results = bench_suite.run_synthetic(device=not args.no_device)
+    print(bench_suite.format_results(results, as_json=args.json))
     return 0
 
 
@@ -1592,6 +1604,16 @@ def build_parser() -> argparse.ArgumentParser:
                       help="the would-be dedup outcome of pushing DIR "
                            "against REPO[@REV], nothing written")
     diff.set_defaults(fn=cmd_diff)
+
+    bench = sub.add_parser("bench", help="run the synthetic benchmark "
+                           "suite (host benches, then the device benches "
+                           "on cuda)")
+    bench.add_argument("--json", action="store_true")
+    bench.add_argument("--no-device", action="store_true",
+                       help="the host benches only")
+    bench.add_argument("--synthetic", action="store_true",
+                       help="accepted for the reference CLI (the default)")
+    bench.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -57,6 +57,7 @@ from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.xorb import XorbFormatError, XorbReader, encode_frame
 from zest_tpu_torch.config import Config
+from zest_tpu_torch.shaping import TokenBucket
 from zest_tpu_torch.storage import XorbCache, read_chunk
 from zest_tpu_torch.transfer import lossy
 
@@ -408,19 +409,47 @@ class ConnTracker:
                 pass
 
 
+@dataclass
+class DcnServerStats:
+    connections: int = 0
+    chunks_served: int = 0
+    bytes_served: int = 0
+    not_found: int = 0
+
+
 class DcnServer:
     """Chunk-RPC listener bound to ``cfg.dcn_port`` (0 = ephemeral). One
     thread per connection, requests served in order per stream; clients
-    pipeline by request ID."""
+    pipeline by request ID.
+
+    Link shaping, for the in-process multi-host benches (all off by
+    default; serving is unshaped): ``rate_bps`` bounds the served payload
+    bytes of shaped links through one shared ``shaping.TokenBucket``, and
+    ``window_rtt_s`` charges one round trip per request window (an
+    untagged request, or a new tag, starts one), so a tagged
+    ``request_many`` window pays it once and untagged traffic per request.
+    With ``shape_slices`` (a coop topology) and ``shape_host`` (this
+    server's host index) only cross-slice connections are shaped: the
+    client's slice comes from its hello's ``peer_host``, and an anonymous
+    client counts as cross-slice."""
 
     def __init__(self, cfg: Config, cache: XorbCache | None = None,
-                 span_attrs: dict | None = None):
+                 span_attrs: dict | None = None, rate_bps: int = 0,
+                 window_rtt_s: float = 0.0,
+                 shape_slices: tuple[int, ...] | None = None,
+                 shape_host: int | None = None):
         self.cfg = cfg
         self.cache = cache or XorbCache(cfg)
         # Attrs stamped on every ``dcn.serve`` span (the in-process
         # multi-host runs pass {"host": i}; a server in its own process
         # takes the process trace context instead).
         self.span_attrs = dict(span_attrs or {})
+        self._bucket = TokenBucket(rate_bps) if rate_bps else None
+        self.window_rtt_s = float(window_rtt_s)
+        self.shape_slices = shape_slices
+        self.shape_host = shape_host
+        self.stats = DcnServerStats()
+        self._stats_lock = threading.Lock()
         # The gossip responder (attach_gossip): anti-entropy rounds ride
         # this listener's connections.
         self.gossip = None
@@ -475,6 +504,8 @@ class DcnServer:
                 continue
             except OSError:
                 return  # listener closed
+            with self._stats_lock:
+                self.stats.connections += 1
             # Each serving thread ends when its peer disconnects, idles
             # past IDLE_TIMEOUT_S, or the listener shuts down.
             threading.Thread(target=self._serve_conn, args=(conn,),
@@ -491,16 +522,27 @@ class DcnServer:
                 conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 conn.settimeout(IDLE_TIMEOUT_S)
                 hello = _exchange_hello(conn)
+                rtt, bucket = self._link_shaping(self._conn_link(hello))
+                # The tag of the window in progress: an untagged request
+                # or a new tag opens a window, which pays one round trip.
+                last_tag = None
                 while not self._shutdown.is_set():
                     msg = _recv_message(conn)
                     node = self.gossip
                     if isinstance(msg, DcnRequest):
-                        self._serve_request(conn, msg, hello)
+                        if rtt > 0:
+                            if msg.tag == 0 or msg.tag != last_tag:
+                                time.sleep(rtt)
+                            last_tag = msg.tag or None
+                        self._serve_request(conn, msg, hello, bucket)
                     elif (isinstance(msg, DcnGossip) and not msg.reply
                           and node is not None):
+                        reply = node.handle_exchange(msg.payload)
+                        if rtt > 0:
+                            time.sleep(rtt)
+                            last_tag = None
                         conn.sendall(encode_message(DcnGossip(
-                            msg.request_id,
-                            node.handle_exchange(msg.payload), reply=True)))
+                            msg.request_id, reply, reply=True)))
                     else:
                         conn.sendall(encode_message(DcnError(
                             msg.request_id, "server accepts only REQUEST")))
@@ -509,8 +551,30 @@ class DcnServer:
         finally:
             self._conns.discard(conn)
 
+    def _conn_link(self, hello: HelloInfo | None) -> str:
+        """This connection's link class: ``"ici"`` (same slice,
+        unshaped) or ``"dcn"`` (cross-slice). Without a slice map, or for
+        a client that names no host in range, it is ``"dcn"``."""
+        if self._bucket is None and self.window_rtt_s <= 0:
+            return "ici"  # shaping off
+        slices, me = self.shape_slices, self.shape_host
+        if slices is None or me is None:
+            return "dcn"
+        peer = getattr(hello, "peer_host", None)
+        if peer is None or not 0 <= peer < len(slices) \
+                or not 0 <= me < len(slices):
+            return "dcn"
+        return "dcn" if slices[peer] != slices[me] else "ici"
+
+    def _link_shaping(self, link: str):
+        """``(window_rtt_s, bucket)`` of a link class."""
+        if link == "dcn":
+            return self.window_rtt_s, self._bucket
+        return 0.0, None
+
     def _serve_request(self, conn: socket.socket, req: DcnRequest,
-                       hello: HelloInfo | None = None) -> None:
+                       hello: HelloInfo | None = None,
+                       bucket: TokenBucket | None = None) -> None:
         # The serve span carries the window tag and the requester's host
         # and trace id from its hello: the key a merged trace links to
         # the client's ``dcn.request_many`` span by.
@@ -521,10 +585,10 @@ class DcnServer:
         if hello is not None and hello.peer_trace_id is not None:
             attrs.setdefault("trace_id", hello.peer_trace_id)
         with telemetry.span("dcn.serve", **attrs) as sp:
-            self._serve_request_inner(conn, req, sp)
+            self._serve_request_inner(conn, req, sp, bucket)
 
     def _serve_request_inner(self, conn: socket.socket, req: DcnRequest,
-                             sp) -> None:
+                             sp, bucket: TokenBucket | None = None) -> None:
         if not req.range_start < req.range_end:
             conn.sendall(encode_message(DcnError(
                 req.request_id,
@@ -533,6 +597,8 @@ class DcnServer:
         found = serve_chunk_range(self.cfg, self.cache, req.chunk_hash,
                                   req.range_start, req.range_end, req.flags)
         if found is None:
+            with self._stats_lock:
+                self.stats.not_found += 1
             sp.set("outcome", "not_found")
             conn.sendall(encode_message(
                 DcnNotFound(req.request_id, req.chunk_hash)))
@@ -542,6 +608,13 @@ class DcnServer:
             conn.sendall(encode_message(DcnError(
                 req.request_id, f"entry of {len(blob)} bytes over cap")))
             return
+        # Counted before the send: a client holding the last response sees
+        # the stats it implies. A shaped link's bucket paces the payload.
+        with self._stats_lock:
+            self.stats.chunks_served += 1
+            self.stats.bytes_served += len(blob)
+        if bucket is not None:
+            bucket.acquire(len(blob))
         _M_CHUNKS_SERVED.inc()
         _M_BYTES_SERVED.inc(len(blob))
         sp.add_bytes(len(blob))

@@ -128,6 +128,7 @@ from __future__ import annotations
 
 import contextlib
 import errno
+import gc
 import mmap
 import os
 import sys
@@ -855,6 +856,12 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
     behind ``GET /v1/pulls`` and ``zest ps``. ``tenant`` labels it (else
     ``cfg.tenant``, ``ZEST_TENANT``). With ``ZEST_TELEMETRY=0`` no session
     is registered."""
+    # The process sampler and the remediation engine run for the life of
+    # the process from the first pull on; each is one flag check, and
+    # with ZEST_TIMELINE=0 / ZEST_REMEDIATE=0 nothing starts. Their
+    # threads' start is the process's, not this pull's: it precedes t0.
+    telemetry.timeline.ensure_started()
+    telemetry.remediate.ensure_started()
     t0 = time.monotonic()
     tenant_label = tenant or cfg.tenant
     if cancel is None:
@@ -864,11 +871,6 @@ def pull_model(cfg: Config, repo_id: str, revision: str = "main",
         device=str(device) if land else None)
     if sess is not None:
         sess.cancel_token = cancel
-    # The process sampler and the remediation engine run for the life of
-    # the process from the first pull on; each is one flag check, and
-    # with ZEST_TIMELINE=0 / ZEST_REMEDIATE=0 nothing starts.
-    telemetry.timeline.ensure_started()
-    telemetry.remediate.ensure_started()
     # A coop pull installs its trace context (host, trace id): the
     # previous one comes back at exit, so a daemon's next pull never
     # records under a stale identity.
@@ -1118,12 +1120,14 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
         coop_stats = pod_stats = fed_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
                                  coop_addrs, log)
-        # A pull that lands reads config.json and fans the safetensors
-        # headers out on the term pool from here, so the pod pre-pass and
-        # the landing's header pass find them in hand. A cooperative or
-        # federated round fetches each head unit once across hosts, so
-        # there the landing reads the headers from what the round cached.
-        if land:
+        # A pull that lands on the card reads config.json and fans the
+        # safetensors headers out on the term pool from here, so the pod
+        # pre-pass and the landing's header pass find them in hand. A
+        # cooperative or federated round fetches each head unit once
+        # across hosts, so there the landing reads the headers from what
+        # the round cached. A CPU landing has no pre-pass to hide them
+        # under and reads both where it needs them.
+        if land and _background_metadata(dev):
             early_read = term_pool.submit(_early_config, hub, repo_id,
                                           revision, files, snapshot_dir)
             if not (coop_cfg or fed):
@@ -1190,9 +1194,11 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
         cancel_point()
         rules = _landing_rules(early_cfg) if mesh is not None else None
         # Files the landing does not write ride the pipeline under it.
-        for entry in files:
-            if not entry.path.endswith(".safetensors"):
-                file_pipeline.submit(entry)
+        # The submits start its workers: files-stage work, traced as such.
+        with clock("files"):
+            for entry in files:
+                if not entry.path.endswith(".safetensors"):
+                    file_pipeline.submit(entry)
         if land:
             hbm_params, hbm_stats = _try_direct_stage(
                 bridge, files, snapshot_dir, dev, land_dtype, log, clock,
@@ -1577,14 +1583,18 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
     pipeline = None
     try:
         if cfg.land_stream and cfg.land_decode_ahead:
-            priorities = unit_layer_priorities(recs_with_headers)
-            required = [tensor_unit_keys(rec, header)
-                        for rec, header in recs_with_headers]
-            pipeline = _PipelinedWarm(bridge, recs_only,
-                                      evidence_recs=evidence_recs,
-                                      unit_priorities=priorities,
-                                      streaming=True, clock=clock,
-                                      skip_keys=skip_keys)
+            # The warm fetch's plan and its threads' start are fetch-stage
+            # work, as the stream-off path's first ``ensure`` is.
+            with clock("fetch"):
+                priorities = unit_layer_priorities(recs_with_headers)
+                required = [tensor_unit_keys(rec, header)
+                            for rec, header in recs_with_headers]
+                pipeline = _PipelinedWarm(bridge, recs_only,
+                                          evidence_recs=evidence_recs,
+                                          unit_priorities=priorities,
+                                          streaming=True, clock=clock,
+                                          skip_keys=skip_keys)
+                pipeline.poke(0)
 
             def tensor_gate(i, name, cancel=None):
                 keys = required[i].get(name)
@@ -1600,8 +1610,6 @@ def _try_direct_stage(bridge, files, snapshot_dir, dev, dtype, log,
                 return _StreamFileSink(file_pipeline, bridge, st[i], rec,
                                        header, snapshot_dir, clock)
 
-            clock.ensure("fetch")  # the warm threads clock it
-            pipeline.poke(0)
             with clock("hbm_commit"), _swap_span(preloaded):
                 params, hbm_stats = stage_cached_to_hbm(
                     bridge, recs_with_headers, dev, dtype=dtype,
@@ -1941,6 +1949,14 @@ def _early_config(hub, repo_id, revision, files, snapshot_dir
     return cfg if isinstance(cfg, dict) else None
 
 
+def _background_metadata(dev) -> bool:
+    """Whether a landing on ``dev`` reads config.json and the shard
+    headers in the background: on the card only, as the JAX package does
+    on its accelerator. On the CPU those reads would compete with the
+    landing's own thread for the interpreter outside any span."""
+    return dev.type == "cuda"
+
+
 def _prefetch_headers(bridge, files, ensure_auth) -> None:
     """Fetch every xet safetensors file's header through the waterfall
     (the head units land in the cache). Best effort: a miss leaves the
@@ -2213,6 +2229,31 @@ def _execute_copy_plan(copies, dst_fd: int) -> int:
     return moved
 
 
+def _drop_tracebacks(exc: BaseException) -> BaseException:
+    """``exc`` with its own and its chained exceptions' tracebacks
+    dropped: their frames (a read and its view of the lane's mmap) must
+    not outlive the read."""
+    seen = set()
+    e = exc
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        e.__traceback__ = None
+        if e.__cause__ is not None:
+            _drop_tracebacks(e.__cause__)
+        e = e.__context__
+    return exc
+
+
+def _close_mmap(mm: mmap.mmap) -> None:
+    """Close ``mm``. A slice of its view that only a reference cycle
+    still holds is collected first."""
+    try:
+        mm.close()
+    except BufferError:
+        gc.collect()
+        mm.close()
+
+
 def _write_file_from_cache(bridge, xet_hash: str, dest: Path,
                            lane_note=None) -> str | None:
     """The copy-range cache lane: a file written from its cached units,
@@ -2261,20 +2302,20 @@ def _write_file_from_cache(bridge, xet_hash: str, dest: Path,
                         for d_lo, d_hi in leftovers:
                             decoded += reader.read_into(
                                 d_lo, d_hi, view[d_lo:d_hi])
-                    except (DirectLandingError, ValueError):
-                        # Handled inside the view's lifetime: a
-                        # propagating traceback would pin read_into's
-                        # frame and its cast of the view, and mm.close()
-                        # would raise BufferError.
+                    except (DirectLandingError, ValueError) as exc:
+                        # Handled inside the view's lifetime, the
+                        # tracebacks dropped: one that lived on would pin
+                        # read_into's frame and its cast of the view.
+                        _drop_tracebacks(exc)
                         ok = False
                     except BaseException as exc:
                         # Anything else survives as itself once the mmap
                         # is closed.
-                        err = exc.with_traceback(None)
+                        err = _drop_tracebacks(exc)
                     finally:
                         view.release()
                 finally:
-                    mm.close()
+                    _close_mmap(mm)
         if err is not None:
             raise err
         if not ok:
