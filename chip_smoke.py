@@ -90,6 +90,19 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    ``coop_topology=(0, 0, 1, 1)``: a hierarchical schedule in 2 phases,
    intra-slice windows through lanes on ``cuda:0`` (``ici_windows`` > 0)
    and both ici and dcn bytes > 0, with phase 6c's other gates;
+20. (run after 6d) the collective over a pod map: four fresh hosts the
+   same way with ``coop_topology=WAN_SLICES`` (each host its own slice)
+   and ``coop_pods=WAN_PODS`` (two pods of two), each host's
+   ``DcnServer`` given both maps, its host index and ``WAN_SHAPING`` (a
+   cross-slice link 200 MB/s and 5 ms a request window, a cross-pod one
+   50 MB/s and 20 ms): phase 6's gates (the trees' digest phase 4's, the
+   fused kernel's rows the BG4 chunks received and kernel #1's the
+   rest), the federated schedule in 2 phases on every host, unaborted;
+   every host's ``link_bytes`` equal to the bytes its schedule requests
+   over each class, from the plan on the CPU (what the round moves
+   unshaped), DCN bytes on every host and WAN bytes on the gateways
+   (hosts 0 and 2) only; each class's phase walls at least its bytes over
+   its rate less one burst of the serving bucket a phase;
 10. (run after 6d) the pod round: a fresh node runs ``pod_round`` of
    revision A over ``pod_mesh(["cuda:0"] * 4)`` into a
    ``TieredCache(HbmStagingCache(cuda:0), disk)`` under a 256 MiB budget:
@@ -169,15 +182,23 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    writes counted), files byte-identical, ``lane_bytes`` all
    ``waterfall`` (the xet files and config.json), no fallback. No kernel
    launches on any of the four paths;
-9. the serving daemon. 9a: an ``HbmPool`` on ``cuda:0`` in this process
-   over fresh node pulls. Llama-3.2-1B from phase 7's snapshot: a cold
-   generate decodes from the first-layer commit, before the landing ends;
-   the pool's digest equals phase 7's landing; greedy and injected-noise
-   sampled tokens (bf16, batch 1 and 4) equal phase 7's float32 card
-   tokens, unless the float32 decision's margin where a row first
-   differs is below twice phase 7's bf16 logits error; an evict gives
-   back at least the tree's 2,471,628,800 B of ``memory_allocated``; a
-   re-land has the same digest and bit-equal tokens.
+9. the serving daemon, its Llama trees at Llama-3.2-1B's published
+   width with the **depth cut 16 → ``POOL_LAYERS`` (2)**. 9r: that
+   checkpoint (random bf16 from ``--seed + 7``, 768,626,688 B) pushed to
+   node A as ``POOL_REPO`` (kernel rows = minted chunks), landed onto
+   the card into node ``l2`` with phase 4's gates, its float32 logits
+   along the card's greedy and sampled tokens within ``LOGITS_TOL`` of
+   the CPU's forward at every position (the bf16 error beyond the
+   tolerance; the CPU decodes stay phase 7's). 9a: an
+   ``HbmPool`` on ``cuda:0`` in this process over fresh node pulls. The
+   2-layer Llama from 9r's snapshot: a cold generate decodes from the
+   first-layer commit, before the landing ends; the pool's digest equals
+   9r's landing; greedy and injected-noise sampled tokens (bf16, batch 1
+   and 4) equal 9r's float32 card tokens, unless the float32 decision's
+   margin where a row first differs is below twice 9r's bf16 logits
+   error; an evict gives back at least the tree's bytes of
+   ``memory_allocated``; a re-land has the same digest and bit-equal
+   tokens.
    ``mistralai/Mixtral-8x7B-v0.1`` at its published width, its depth cut
    to 1 layer (``MIXTRAL_CONFIG``: 1,713,418,240 bf16 parameters, random
    from ``--seed + 9``) is pushed to node A (kernel rows = minted chunks)
@@ -189,7 +210,7 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    within ``LOGITS_TOL`` of the CPU's float32 forward at every position.
    9b: ``python -m zest_tpu_torch serve --device cuda`` as its own process
    on a fresh node C whose hub is node A's publisher, with
-   ``ZEST_HBM_POOL_BYTES=3221225472``: ``POST /v1/generate`` Llama cold
+   ``ZEST_HBM_POOL_BYTES=2147483648``: ``POST /v1/generate`` Llama cold
    (9a's tokens), the same streamed (``token`` events, hot), Mixtral cold
    (evicts Llama; 9a's tokens, residency < 0.5), Llama again (cold, the
    same tokens), GPT-2 by sha (no ``pool`` key; phase 5's card tokens);
@@ -197,15 +218,16 @@ vocab; ~124 M f32 parameters, random weights from ``--seed``):
    the ``hbm_pool`` block and the daemon's kernel launches (read before
    the first request and after the last), and SIGTERM ends it with exit
    code 0;
-11. the mesh landing on four slots of ``cuda:0``. 11a: phase 7's Llama
-   repo pulled into a fresh node with ``mesh=model_mesh({"model": 4},
-   [cuda:0] * 4)``: ``hbm.sharded``, every shard byte-equal to the same
-   slice of the file's tensor, the digest phase 7's, the peak allocation
-   rise within the landed bytes and two commit groups; the
-   tensor-parallel float32 tree (``llama.params_from_hf`` of the sharded
-   tree) decodes greedy and injected-noise sampled at batch 1 and 4 with
-   logits within ``LOGITS_TOL`` of phase 7's CPU forward and phase 7's
-   tokens (a near-tie below twice the tolerance printed). 11b: phase 9's
+11. the mesh landing on four slots of ``cuda:0``. 11a: phase 9r's
+   2-layer Llama repo pulled into a fresh node with
+   ``mesh=model_mesh({"model": 4}, [cuda:0] * 4)``: ``hbm.sharded``,
+   every shard byte-equal to the same slice of the file's tensor, the
+   digest 9r's, the peak allocation rise within the landed bytes and two
+   commit groups; the tensor-parallel float32 tree
+   (``llama.params_from_hf`` of the sharded tree) decodes greedy and
+   injected-noise sampled at batch 1 and 4 with logits within
+   ``LOGITS_TOL`` of 9r's CPU forward and 9r's tokens (a near-tie below
+   twice the tolerance printed). 11b: phase 9's
    Mixtral repo pulled with ``mesh=model_mesh({"expert": 4}, [cuda:0] *
    4)``: the expert-routed pod round (``expert_routed``, 8 experts, the
    routed plan's expert units fetched, 0 failed, gather bytes saved > 0;
@@ -390,10 +412,13 @@ function; the fused kernel also beside the two-launch pair it replaced
 kernel's launch count is zeroed just before its path runs and read just
 after.
 
-Every phase is fatal. The last three lines of standard output are the
+Every phase is fatal. Each phase's wall is printed after it; the line
+before the last three gives the whole run's wall and those of its
+phases. The last three lines of standard output are the
 kernels' JSON record (with each kernel's launches by path: the serving
 pool's (``serve``), the daemon's (``serve_daemon``), the collective's
-(``coop_collective``, ``coop_collective_lane``), the pod round's
+(``coop_collective``, ``coop_collective_lane``), phase 20's round
+(``coop_wan``), phase 9r's push (``push_pool_llama``), the pod round's
 (``pod``), the mesh landing's expert round (``mesh``), the sharded swap's
 round (``mesh_swap``), the fine-tune's push (``push_finetune``), the
 federated pull's pre-passes (``federated``), the hierarchical fill
@@ -448,6 +473,15 @@ BG4_LENGTHS = tuple(sorted(set(
     (0, 1, 2, 3, 4, 5, 1023, 1024, 1025, 65535, 65536, 131072)
     + LEAF_LENGTHS)))
 COOP_HOSTS = 4
+# Phase 20: the collective over a pod map through WAN-shaped servers. Each
+# host its own slice, two pods of two: every host has a DCN partner in its
+# pod, and the pods' gateways (hosts 0 and 2) exchange over WAN. Each
+# server shapes a cross-slice connection to 200 MB/s and 5 ms a request
+# window, a cross-pod one to 50 MB/s and 20 ms.
+WAN_SLICES = (0, 1, 2, 3)
+WAN_PODS = (0, 0, 1, 1)
+WAN_SHAPING = {"rate_bps": 200_000_000, "window_rtt_s": 0.005,
+               "wan_bps": 50_000_000, "wan_rtt_s": 0.020}
 # Phase 10: four slots on cuda:0 (one card), and a pool budget below two
 # of GPT-2's ~67 MB units per slot, so the round takes several waves.
 POD_SLOTS = 4
@@ -481,6 +515,12 @@ LLAMA_CONFIG = {
     "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 128256,
 }
 LLAMA_TENSORS, LLAMA_PARAMS = 146, 1_235_814_400
+# Phase 9's pool trees and 11a's {"model": 4} landing: Llama-3.2-1B's
+# width, its depth cut 16 -> 2 (as 12b, 12c, 13c and 17c), pushed as a
+# repo of its own. Phase 7 keeps the full depth.
+POOL_LAYERS = 2
+POOL_REPO = LLAMA_REPO + "-2-layers"
+POOL_CONFIG = dict(LLAMA_CONFIG, num_hidden_layers=POOL_LAYERS)
 # Phase 9: mistralai/Mixtral-8x7B-v0.1's published config.json at its
 # width, its depth cut from 32 layers to 1 (the push encodes ~14-20 s a
 # GB on the host): 1,713,418,240 bf16 parameters, a 608,264,192-byte
@@ -502,10 +542,10 @@ MIXTRAL_CONFIG = {
 MIXTRAL_PARAMS = 1_713_418_240
 MIXTRAL_DENSE_BYTES, MIXTRAL_EXPERT_BYTES = 608_264_192, 2_818_572_288
 MIXTRAL_PAGER_BYTES = 1_056_964_608  # EXPERT_BUDGET_FRACTION: 3 groups
-# Phase 9b's pool watermark: each of the two trees fits alone (Llama
-# 2,471,628,800 B; Mixtral's core and pager budget 1,665,228,800 B), the
-# two together do not.
-DAEMON_POOL = 3 << 30
+# Phase 9b's pool watermark: each of the two trees fits alone (Llama at
+# POOL_LAYERS, 768,626,688 B; Mixtral's core and pager budget
+# 1,665,228,800 B), the two together do not.
+DAEMON_POOL = 2 << 30
 # Phase 7's sampled decode.
 SAMPLING = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
 # Phase 7's logits gate: the largest |card - CPU| over every position's
@@ -1171,16 +1211,18 @@ def swap_phase(work: Path, url: str, publisher, cfg_a, cfg_b, pulled,
 def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                digest: str, dev, revision: str, label: str = "phase 6",
                schedule: str | None = None, traced: bool = False,
-               **cfg_kw) -> dict:
-    """Phase 6 (the point-to-point exchange) and, with ``schedule``, 6c
-    and 6d (the collective, expected to run that schedule in 2 phases):
-    ``COOP_HOSTS`` cooperative pulls of ``revision`` in threads, their
-    configs given ``cfg_kw``. Returns the launch counts of the path; the
-    counters of the transports the hosts' collectives built are printed
-    and, for the device lane, gated. Each host's thread runs under its
-    host index as trace context and its DCN server stamps that index on
-    its spans; ``traced`` installs a tracer for the pulls and holds the
-    trace to :func:`coop_trace_gates`."""
+               shaping: dict | None = None, **cfg_kw) -> dict:
+    """Phase 6 (the point-to-point exchange) and, with ``schedule``, 6c,
+    6d and 20 (the collective, expected to run that schedule in 2
+    phases): ``COOP_HOSTS`` cooperative pulls of ``revision`` in threads,
+    their configs given ``cfg_kw``. Returns the launch counts of the
+    path; the counters of the transports the hosts' collectives built are
+    printed and, for the device lane, gated. Each host's thread runs under
+    its host index as trace context and its DCN server stamps that index
+    on its spans; ``traced`` installs a tracer for the pulls and holds the
+    trace to :func:`coop_trace_gates`. ``shaping`` (phase 20) gives every
+    server those ``DcnServer`` knobs over the configs' slice and pod maps,
+    and holds the round to :func:`link_gates`."""
     from zest_tpu_torch import telemetry
     from zest_tpu_torch.config import Config
     from zest_tpu_torch.ops import bg4_cuda, blake3_cuda
@@ -1195,7 +1237,11 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                    dcn_port=0, **cfg_kw) for i in range(n)]
     # Each host's listener outlives its own pull: the peers still behind
     # it read from it until every host is done.
-    servers = [DcnServer(c, span_attrs={"host": i})
+    shaped = {} if shaping is None else dict(
+        shaping, shape_slices=cfg_kw["coop_topology"],
+        shape_pods=cfg_kw["coop_pods"])
+    servers = [DcnServer(c, span_attrs={"host": i}, **shaped,
+                         **({"shape_host": i} if shaped else {}))
                for i, c in enumerate(cfgs)]
     addrs = {i: ("127.0.0.1", srv.start()) for i, srv in enumerate(servers)}
     results, errors = [None] * n, []
@@ -1351,12 +1397,77 @@ def coop_phase(work: Path, url: str, ckpt: Path, pushed, cfg_a,
                   f"{c.get('clock_offsets')}")
     if schedule is not None:
         print(f"  {label} transports: {lanes}")
+    if shaping is not None:
+        link_gates(label, work / f"c{tag}-plan", url, revision, results,
+                   servers, shaping, cfg_kw["coop_topology"],
+                   cfg_kw["coop_pods"], wall, launches)
     if tracer is not None:
         coop_trace_gates(label, tracer, results, fu_launches, (n - 1) * sum(
             1 for b, _ in per_xorb.values() if b))
     for i in range(n):
         shutil.rmtree(work / f"c{tag}-{i}")
     return {name: v[0] for name, v in launches.items()}
+
+
+def link_gates(label: str, root: Path, url: str, revision: str, results,
+               servers, shaping: dict, slices, pods, wall: float,
+               launches: dict) -> None:
+    """Phase 20's round over the pod map: every host's ``link_bytes``
+    equal to the bytes its schedule requests over each link class, from
+    the plan on the CPU (``transfer_matrix``: what the same round moves
+    unshaped; shaping moves no byte elsewhere); DCN bytes on every host,
+    WAN bytes on the pods' gateways and on no other host, none over ICI
+    (each host its own slice); and each class's phase walls at least its
+    bytes over its rate, less one burst of the serving bucket a phase."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.transfer import collective as coll
+    from zest_tpu_torch.transfer.coop import CoopPlan
+
+    plan = CoopPlan.build(gpt2_recs(Config(
+        hf_home=root / "hf", cache_dir=root / "zest", endpoint=url),
+        revision), len(results))
+    shutil.rmtree(root, ignore_errors=True)
+    matrix = coll.transfer_matrix(plan, slices, pods)
+    gateways = set(coll.elect_gateways(plan, pods).values())
+    rate = {"dcn": shaping["rate_bps"], "wan": shaping["wan_bps"]}
+    burst = {"dcn": servers[0]._bucket.capacity,
+             "wan": servers[0]._wan_bucket.capacity}
+    totals, rows = {"ici": 0, "dcn": 0, "wan": 0}, []
+    for i, res in enumerate(results):
+        cx = res.stats["coop"]["collective"]
+        got = cx["link_bytes"]
+        want = {"ici": 0, "dcn": 0, "wan": 0}
+        for src, row in enumerate(matrix):
+            link = ("wan" if pods[src] != pods[i] else
+                    "ici" if slices[src] == slices[i] else "dcn")
+            want[link] += row[i]
+        if got != want:
+            fail(f"{label} host {i}: link bytes {got}, the plan's {want}")
+        if not (got["dcn"] > 0 and got["ici"] == 0
+                and (got["wan"] > 0) == (i in gateways)):
+            fail(f"{label} host {i}: link bytes {got} (gateways "
+                 f"{sorted(gateways)})")
+        phases = coll.CollectiveSchedule.build(plan, i, slices,
+                                               pods).phases
+        for link in ("dcn", "wan"):
+            walls = [w for ph, w in zip(phases, cx["phase_wall_s"])
+                     if ph.link == link]
+            floor = (got[link] - len(walls) * burst[link]) / rate[link]
+            if sum(walls) < floor:
+                fail(f"{label} host {i}: {link} phases {walls} s for "
+                     f"{got[link]:,} B, below {floor:.3f} s at "
+                     f"{rate[link]:,} B/s less {len(walls)} bursts")
+            if got[link]:
+                rows.append(f"host {i} {link} {got[link]:,} B in "
+                            f"{sum(walls):.3f} s (floor {floor:.3f})")
+        for k in totals:
+            totals[k] += got[k]
+    print(f"{label} collective over pods ({card_label()}): wall "
+          f"{wall:.2f} s; slices {slices}, pods {pods}, gateways "
+          f"{sorted(gateways)}; link bytes {totals} = the plan's; "
+          f"shaping {shaping} (bursts {burst}); kernel launches (rows) "
+          + ", ".join(f"{k} {v[0]} ({v[1]})" for k, v in launches.items())
+          + "; " + "; ".join(rows))
 
 
 def coop_trace_gates(label: str, tracer, results, fused_launches: int,
@@ -2346,24 +2457,144 @@ def tokens_agree(label: str, got, want, margin_at, tol: float) -> str:
     return "equal" if not notes else "near-tie: " + "; ".join(notes)
 
 
+def llama_reference(label: str, res, host: dict, hf_config: dict,
+                    seed: int, steps: int, dev, cpu_decodes: bool = True):
+    """The decode gates of a Llama landing ``res`` (its bf16 tree on the
+    card; ``host`` the same checkpoint on the CPU): greedy decodes at
+    batch 1 and 4 from the landed tree through ``load_generator``, the
+    float32 tree's cached logits at every position within ``LOGITS_TOL``
+    of the CPU's uncached float32 forward (TF32 and bf16-tree errors
+    beside it, the bf16 one beyond the tolerance) and, with
+    ``cpu_decodes`` (phase 7), greedy and injected-noise sampled tokens
+    equal to the CPU float32 run's but for a near-tie below the
+    tolerance. Returns the reference later phases hold trees of this
+    checkpoint to (prompts, noise, the bf16 error, the card's tokens and
+    float32 logits along them, the CPU's logits, tok/s), the generator
+    and ``{"errs", "notes", "cpu_fwd_s", "cpu_decode_s"}``. The landing's
+    tree is dropped."""
+    import torch
+
+    from zest_tpu_torch.models import llama
+    from zest_tpu_torch.models.generate import load_generator
+    from zest_tpu_torch.models.sampling import gumbel_noise, sample_scores
+
+    cfg = llama.LlamaConfig.from_hf(hf_config)
+    _, gen = load_generator(res.snapshot_dir, device=dev, tensors=res.params)
+    params = llama.params_from_hf(res.params, cfg)  # the logits gate's
+    res.params = None  # the landed bf16 tree is not kept
+    params_cpu = llama.params_from_hf(host, cfg)
+    rng = np.random.default_rng(seed + 8)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 8)).tolist()
+    n0, total = 8, 8 + steps
+    rates, greedy = {}, {}
+    for batch in ([prompts[0]], prompts):
+        gen(batch, 2, stop_at_eos=False)  # warm-up
+        torch.cuda.synchronize(dev)
+        t0 = time.monotonic()
+        out = gen(batch, steps, stop_at_eos=False)
+        dt = time.monotonic() - t0
+        rates[len(batch)] = len(batch) * steps / dt
+        greedy[len(batch)] = np.atleast_2d(out)
+
+    # Logits: every position of the cached path on the card against the
+    # CPU's uncached float32 forward over the same rows; beside it the
+    # same comparison with TF32 on, and with the tree in bf16.
+    errs = {"f32": 0.0, "tf32": 0.0, "bf16": 0.0}
+    cpu_logits = {}
+    params_bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    t0 = time.monotonic()
+    for b, rows in greedy.items():
+        toks = torch.from_numpy(rows).to(dev)
+        want = llama.forward(params_cpu, toks.cpu(), cfg)[:, :total - 1]
+        cpu_logits[b] = want
+        for mode in errs:
+            torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
+            try:
+                got = cached_logits(llama, params_bf16 if mode == "bf16"
+                                    else params, cfg, toks, n0).cpu()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            errs[mode] = max(errs[mode], float((got - want).abs().max()))
+    del params_bf16
+    cpu_fwd_s = time.monotonic() - t0
+    if not errs["f32"] <= LOGITS_TOL:
+        fail(f"{label}: card logits off the CPU's by {errs['f32']:.3e} > "
+             f"{LOGITS_TOL:.1e}")
+    if not errs["bf16"] > LOGITS_TOL:
+        fail(f"{label}: a bf16 decode passes the logits tolerance "
+             f"({errs['bf16']:.3e} <= {LOGITS_TOL:.1e})")
+
+    # Greedy tokens against the CPU float32 run.
+    t0 = time.monotonic()
+    notes = {}
+    for b, rows in greedy.items() if cpu_decodes else ():
+        batch = prompts[:b]
+        want = np.atleast_2d(llama.generate_cached(params_cpu, cfg, batch,
+                                                   steps).numpy())
+        notes[f"greedy b{b}"] = tokens_agree(
+            f"{label} greedy batch {b}", rows, want,
+            lambda r, pos, b=b: top2_margin(cpu_logits[b][r, pos - 1]),
+            LOGITS_TOL)
+
+    # Sampled tokens: Gumbel noise drawn once on the host, injected on
+    # both sides; the margin rule on the perturbed scores, whose logits
+    # error is the logits' over the temperature.
+    noise = gumbel_noise((total - 1, 4, cfg.vocab_size),
+                         torch.Generator().manual_seed(seed))
+    sampled_tol = LOGITS_TOL / SAMPLING["temperature"]
+    sampled = {}
+    for b in (1, 4):
+        batch = prompts[:b]
+        got = sampled[b] = np.atleast_2d(gen(
+            batch, steps, stop_at_eos=False, noise=noise[:, :b].to(dev),
+            **SAMPLING))
+        if not cpu_decodes:
+            continue
+        want = np.atleast_2d(llama.generate_cached(
+            params_cpu, cfg, batch, steps, noise=noise[:, :b],
+            **SAMPLING).numpy())
+
+        def margin(r, pos, got=got, b=b):
+            logits = llama.forward(params_cpu, torch.from_numpy(
+                got[r:r + 1, :pos]), cfg)[0, -1]
+            return top2_margin(sample_scores(logits, **SAMPLING)
+                               + noise[pos - 1, r])
+
+        notes[f"sampled b{b}"] = tokens_agree(f"{label} sampled batch {b}",
+                                              got, want, margin, sampled_tol)
+    cpu_decode_s = time.monotonic() - t0
+
+    # What later phases hold a tree of this checkpoint to: the card's
+    # float32 tokens and the float32 logits along them.
+    ref = {"prompts": prompts, "noise": noise, "bf16_err": errs["bf16"],
+           "greedy": greedy, "sampled": sampled, "logits": {},
+           "cpu_logits": cpu_logits, "rates": rates}
+    for kind, rows_by_b in (("greedy", greedy), ("sampled", sampled)):
+        for b, rows in rows_by_b.items():
+            ref["logits"][kind, b] = cached_logits(
+                llama, params, cfg, torch.from_numpy(rows).to(dev),
+                n0).cpu()
+    del params, params_cpu
+    return ref, gen, {"errs": errs, "notes": notes, "cpu_fwd_s": cpu_fwd_s,
+                      "cpu_decode_s": cpu_decode_s}
+
+
 def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
                 dev) -> dict:
     """Phase 7: Llama-3.2-1B pushed, pulled onto the card through the
     direct streaming landing, and decoded (greedy and sampled, batch 1
-    and 4) against the port's own CPU float32 run. Returns the push's
-    BLAKE3 kernel launches and what phase 9 holds the pool to: the
-    pulled snapshot (node ``l`` stays), its digest, the prompts, the
-    card's float32 tokens and their logits, the noise and the bf16
-    tree's logits error."""
+    and 4) against the port's own CPU float32 run
+    (:func:`llama_reference`). Returns the push's BLAKE3 kernel launches,
+    its revision and the reference phases 12 and 13 hold their trees to:
+    the pulled snapshot (node ``l`` stays), its digest, the prompts, the
+    card's float32 tokens and their logits, the noise and the bf16 tree's
+    logits error."""
     import torch
 
     from zest_tpu_torch import telemetry
     from zest_tpu_torch.config import Config
-    from zest_tpu_torch.models import llama
-    from zest_tpu_torch.models.generate import load_generator
     from zest_tpu_torch.models.loader import load_checkpoint, params_digest
     from zest_tpu_torch.models.safetensors_io import write_safetensors
-    from zest_tpu_torch.models.sampling import gumbel_noise, sample_scores
     from zest_tpu_torch.ops import blake3_cuda
     from zest_tpu_torch.transfer.pull import pull_model
     from zest_tpu_torch.transfer.push import push_checkpoint
@@ -2416,103 +2647,12 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
     if any(t.dtype != torch.bfloat16 for t in res.params.values()):
         fail("phase 7: the landed tree is not bf16")
 
-    # ── decode: the card's float32 tree against the CPU's ──
-    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
-    _, gen = load_generator(res.snapshot_dir, device=dev, tensors=res.params)
-    params = llama.params_from_hf(res.params, cfg)  # the logits gate's
-    res.params = None  # the landed bf16 tree is not kept
-    params_cpu = llama.params_from_hf(host, cfg)
+    ref, gen, info = llama_reference("phase 7", res, host, LLAMA_CONFIG,
+                                     seed, steps, dev)
     del host
-    rng = np.random.default_rng(seed + 8)
-    prompts = rng.integers(0, cfg.vocab_size, (4, 8)).tolist()
+    ref["snapshot"], ref["digest"] = res.snapshot_dir, digest
+    prompts, rates, errs = ref["prompts"], ref["rates"], info["errs"]
     n0, total = 8, 8 + steps
-    rates, greedy = {}, {}
-    for batch in ([prompts[0]], prompts):
-        gen(batch, 2, stop_at_eos=False)  # warm-up
-        torch.cuda.synchronize(dev)
-        t0 = time.monotonic()
-        out = gen(batch, steps, stop_at_eos=False)
-        dt = time.monotonic() - t0
-        rates[len(batch)] = len(batch) * steps / dt
-        greedy[len(batch)] = np.atleast_2d(out)
-
-    # Logits: every position of the cached path on the card against the
-    # CPU's uncached float32 forward over the same rows; beside it the
-    # same comparison with TF32 on, and with the tree in bf16.
-    errs = {"f32": 0.0, "tf32": 0.0, "bf16": 0.0}
-    cpu_logits = {}
-    params_bf16 = tree_map(lambda t: t.to(torch.bfloat16), params)
-    t0 = time.monotonic()
-    for b, rows in greedy.items():
-        toks = torch.from_numpy(rows).to(dev)
-        want = llama.forward(params_cpu, toks.cpu(), cfg)[:, :total - 1]
-        cpu_logits[b] = want
-        for mode in errs:
-            torch.backends.cuda.matmul.allow_tf32 = mode == "tf32"
-            try:
-                got = cached_logits(llama, params_bf16 if mode == "bf16"
-                                    else params, cfg, toks, n0).cpu()
-            finally:
-                torch.backends.cuda.matmul.allow_tf32 = False
-            errs[mode] = max(errs[mode], float((got - want).abs().max()))
-    del params_bf16
-    cpu_fwd_s = time.monotonic() - t0
-    if not errs["f32"] <= LOGITS_TOL:
-        fail(f"phase 7: card logits off the CPU's by {errs['f32']:.3e} > "
-             f"{LOGITS_TOL:.1e}")
-    if not errs["bf16"] > LOGITS_TOL:
-        fail(f"phase 7: a bf16 decode passes the logits tolerance "
-             f"({errs['bf16']:.3e} <= {LOGITS_TOL:.1e})")
-
-    # Greedy tokens against the CPU float32 run.
-    t0 = time.monotonic()
-    notes = {}
-    for b, rows in greedy.items():
-        batch = prompts[:b]
-        want = np.atleast_2d(llama.generate_cached(params_cpu, cfg, batch,
-                                                   steps).numpy())
-        notes[f"greedy b{b}"] = tokens_agree(
-            f"phase 7 greedy batch {b}", rows, want,
-            lambda r, pos, b=b: top2_margin(cpu_logits[b][r, pos - 1]),
-            LOGITS_TOL)
-
-    # Sampled tokens: Gumbel noise drawn once on the host, injected on
-    # both sides; the margin rule on the perturbed scores, whose logits
-    # error is the logits' over the temperature.
-    noise = gumbel_noise((total - 1, 4, cfg.vocab_size),
-                         torch.Generator().manual_seed(seed))
-    sampled_tol = LOGITS_TOL / SAMPLING["temperature"]
-    sampled = {}
-    for b in (1, 4):
-        batch = prompts[:b]
-        got = sampled[b] = np.atleast_2d(gen(
-            batch, steps, stop_at_eos=False, noise=noise[:, :b].to(dev),
-            **SAMPLING))
-        want = np.atleast_2d(llama.generate_cached(
-            params_cpu, cfg, batch, steps, noise=noise[:, :b],
-            **SAMPLING).numpy())
-
-        def margin(r, pos, got=got, b=b):
-            logits = llama.forward(params_cpu, torch.from_numpy(
-                got[r:r + 1, :pos]), cfg)[0, -1]
-            return top2_margin(sample_scores(logits, **SAMPLING)
-                               + noise[pos - 1, r])
-
-        notes[f"sampled b{b}"] = tokens_agree(f"phase 7 sampled batch {b}",
-                                              got, want, margin, sampled_tol)
-    cpu_decode_s = time.monotonic() - t0
-
-    # Phase 9's reference: the card's float32 tokens (held to the CPU
-    # above) and the float32 logits along them.
-    ref = {"snapshot": res.snapshot_dir, "digest": digest,
-           "prompts": prompts, "noise": noise, "bf16_err": errs["bf16"],
-           "greedy": greedy, "sampled": sampled, "logits": {},
-           "cpu_logits": cpu_logits, "rates": rates}
-    for kind, rows_by_b in (("greedy", greedy), ("sampled", sampled)):
-        for b, rows in rows_by_b.items():
-            ref["logits"][kind, b] = cached_logits(
-                llama, params, cfg, torch.from_numpy(rows).to(dev),
-                n0).cpu()
 
     # Seeded on the card: one seed, one draw; on_token sees each
     # generated position once, in order.
@@ -2526,7 +2666,7 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
             not np.array_equal(one[:, p], t) for p, t in seen):
         fail(f"phase 7: on_token saw positions {[p for p, _ in seen]}")
     peak = torch.cuda.max_memory_allocated(dev)
-    del gen, params, params_cpu
+    del gen
     res = None
     shutil.rmtree(ckpt)
     torch.cuda.empty_cache()
@@ -2542,14 +2682,79 @@ def llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
           f"{bound_ms:.3f} ms/token: the float32 tree read once); "
           f"logits max |card - CPU| f32 {errs['f32']:.3e} (tolerance "
           f"{LOGITS_TOL:.1e}), TF32 {errs['tf32']:.3e}, bf16 tree "
-          f"{errs['bf16']:.3e}; tokens vs CPU float32 {notes}; one seed "
+          f"{errs['bf16']:.3e}; tokens vs CPU float32 {info['notes']}; one seed "
           f"twice on the card equal; on_token positions {n0}..{total - 1}")
-    print(f"  peak allocation {peak:,} B; CPU forward {cpu_fwd_s:.2f} s, "
-          f"CPU decodes {cpu_decode_s:.2f} s; phase wall "
+    print(f"  peak allocation {peak:,} B; CPU forward "
+          f"{info['cpu_fwd_s']:.2f} s, CPU decodes {info['cpu_decode_s']:.2f}"
+          f" s; phase wall "
           f"{time.monotonic() - wall0:.2f} s")
     print(f"  traced: {traced}")
     ref["launches"] = launches
     ref["revision"] = pushed.revision  # phase 12b's base revision
+    return ref
+
+
+def pool_llama_phase(work: Path, url: str, cfg_a, seed: int, steps: int,
+                     dev) -> dict:
+    """Phase 9's and 11a's Llama: Llama-3.2-1B at its published width,
+    depth cut to ``POOL_LAYERS`` (random bf16 from ``seed + 7``), pushed
+    to node A as ``POOL_REPO`` (the BLAKE3 kernel's rows = the minted
+    chunks), pulled onto the card into node ``l2`` by the direct landing
+    (files, digest, direct), and held to the CPU by
+    :func:`llama_reference`. Returns that reference with the snapshot,
+    digest, repo, config, tree bytes and the push's kernel launches."""
+    from zest_tpu_torch.config import Config
+    from zest_tpu_torch.models.loader import load_checkpoint, params_digest
+    from zest_tpu_torch.models.safetensors_io import write_safetensors
+    from zest_tpu_torch.ops import blake3_cuda
+    from zest_tpu_torch.transfer.pull import pull_model
+    from zest_tpu_torch.transfer.push import push_checkpoint
+
+    wall0 = time.monotonic()
+    ckpt = work / "llama2"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps(POOL_CONFIG, indent=2))
+    tensors = llama_checkpoint(seed + 7, POOL_CONFIG, dev)
+    tree = sum(t.numel() * t.element_size() for t in tensors.values())
+    write_safetensors(ckpt / "model.safetensors", tensors)
+    del tensors
+    blake3_cuda.COUNTER.reset()  # counts from here are the push's
+    t0 = time.monotonic()
+    pushed = push_checkpoint(cfg_a, POOL_REPO, ckpt, device=dev,
+                             notify=False)
+    push_s = time.monotonic() - t0
+    launches = blake3_cuda.COUNTER.launches
+    if launches < 1 or blake3_cuda.COUNTER.rows != pushed.minted_chunks:
+        fail(f"phase 9r: the push's kernel hashed "
+             f"{blake3_cuda.COUNTER.rows} chunks; it minted "
+             f"{pushed.minted_chunks}")
+    cfg_l = Config(hf_home=work / "l2" / "hf",
+                   cache_dir=work / "l2" / "zest", endpoint=url)
+    res = pull_model(cfg_l, POOL_REPO, device=dev, no_p2p=True)
+    st = res.stats
+    check_files("phase 9r", res, ckpt)
+    host = load_checkpoint(res.snapshot_dir, "cpu")
+    digest = params_digest(host)
+    check_tree("phase 9r", res, digest, dev)
+    check_direct("phase 9r", res)
+    # Phases 9 and 11 hold their trees to the card's float32 tokens and
+    # logits; the CPU decodes are phase 7's gate.
+    ref, gen, info = llama_reference("phase 9r", res, host, POOL_CONFIG,
+                                     seed, steps, dev, cpu_decodes=False)
+    del host, gen
+    shutil.rmtree(ckpt)
+    ref.update(snapshot=res.snapshot_dir, digest=digest, repo=POOL_REPO,
+               config=POOL_CONFIG, tree_bytes=tree, launches=launches)
+    errs, rates = info["errs"], ref["rates"]
+    print(f"phase 9r llama reference ({card_label()}): {POOL_REPO}, "
+          f"Llama-3.2-1B's width at {POOL_LAYERS} of 16 layers ({tree:,} "
+          f"B bf16); push_s {push_s:.2f} ({pushed.minted_chunks} chunks, "
+          f"kernel launches {launches}); {landing_summary(st)}; digest "
+          f"equal; tok/s b1 {rates[1]:.1f}, b4 {rates[4]:.1f}; logits max "
+          f"|card - CPU| f32 {errs['f32']:.3e}, TF32 {errs['tf32']:.3e}, "
+          f"bf16 tree {errs['bf16']:.3e}; CPU forward "
+          f"{info['cpu_fwd_s']:.2f} s; phase wall "
+          f"{time.monotonic() - wall0:.2f} s")
     return ref
 
 
@@ -2764,10 +2969,11 @@ def tokens_near(label: str, got, want, margin_at, tol: float) -> tuple:
 def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
                steps: int, dev) -> dict:
     """Phase 9a: an ``HbmPool`` on the card in this process, over fresh
-    node pulls: Llama-3.2-1B from phase 7's snapshot (cold, hot, evicted,
-    re-landed) and Mixtral-8x7B at its published width, cut to one layer
-    (pushed here; dense core landed, experts paged). Returns the pool's
-    tokens, the Mixtral push's kernel launches and this path's launches."""
+    node pulls: Llama-3.2-1B's width at ``POOL_LAYERS`` layers from phase
+    9r's snapshot (``ref``: cold, hot, evicted, re-landed) and
+    Mixtral-8x7B at its published width, cut to one layer (pushed here;
+    dense core landed, experts paged). Returns the pool's tokens, the
+    Mixtral push's kernel launches and this path's launches."""
     import dataclasses
     import gc
 
@@ -2790,7 +2996,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
     n0, total = 8, 8 + steps
     prompts = ref["prompts"]
     # A decision flips only where the float32 path's own margin is below
-    # twice the bf16 tree's logits error (phase 7's).
+    # twice the bf16 tree's logits error (phase 9r's).
     tol = 2 * ref["bf16_err"]
     cfg_p = Config(hf_home=work / "p" / "hf", cache_dir=work / "p" / "zest",
                    endpoint=url)
@@ -2800,7 +3006,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
 
     # ── Llama-3.2-1B: cold (decode from the first-layer commit), hot ──
     t0 = time.monotonic()
-    got, info = pool.generate_for(snap, LLAMA_REPO, [prompts[0]], steps,
+    got, info = pool.generate_for(snap, ref["repo"], [prompts[0]], steps,
                                   stop_at_eos=False)
     cold_s = time.monotonic() - t0
     entry = pool._entries[str(Path(snap).resolve())]
@@ -2810,7 +3016,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
              f"{entry.t_first_layer} land end {entry.t_land_end}")
     land_s = entry.t_land_end - entry.t_land_start
     if pool.digest(snap) != ref["digest"]:
-        fail("phase 9a: the pool's llama digest != phase 7's landing")
+        fail("phase 9a: the pool's llama digest != phase 9r's landing")
     if any(t.dtype != torch.bfloat16 for t in entry.params.values()):
         fail("phase 9a: the pool's llama tree is not bf16")
     cold_ids = np.atleast_2d(got)
@@ -2822,7 +3028,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
             if kind == "sampled":
                 kw = dict(SAMPLING, noise=ref["noise"][:, :b])
             t0 = time.monotonic()
-            ids, info_b = pool.generate_for(snap, LLAMA_REPO, prompts[:b],
+            ids, info_b = pool.generate_for(snap, ref["repo"], prompts[:b],
                                             steps, stop_at_eos=False, **kw)
             runs[kind, b] = (time.monotonic() - t0, info_b)
             ids = np.atleast_2d(ids)
@@ -2852,10 +3058,10 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
         fail("phase 9a: the llama tree was not evictable")
     gc.collect()
     freed = before - torch.cuda.memory_allocated(dev)
-    if freed < LLAMA_PARAMS * 2:
-        fail(f"phase 9a: evict freed {freed:,} B < {LLAMA_PARAMS * 2:,} B")
+    if freed < ref["tree_bytes"]:
+        fail(f"phase 9a: evict freed {freed:,} B < {ref['tree_bytes']:,} B")
     t0 = time.monotonic()
-    again, info_r = pool.generate_for(snap, LLAMA_REPO, [prompts[0]], steps,
+    again, info_r = pool.generate_for(snap, ref["repo"], [prompts[0]], steps,
                                       stop_at_eos=False)
     reland_s = time.monotonic() - t0
     if info_r["temp"] != "cold" or pool.digest(snap) != ref["digest"]:
@@ -2873,11 +3079,11 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
           f"{entry.gate_stall_s:.4f}; tok/s "
           + ", ".join(f"{k} b{b} {b * steps / dt:.1f}"
                       for (k, b), (dt, _) in runs.items())
-          + f"; evict freed {freed:,} B; digest = phase 7's before and "
+          + f"; evict freed {freed:,} B; digest = phase 9r's before and "
           f"after the re-land; tokens vs the float32 path {notes} "
           f"({compared} positions; a difference is forgiven where the "
           f"float32 decision's margin, twice the logit error that can flip "
-          f"it, is below {tol:.4f} = 2 x phase 7's bf16 logits error); "
+          f"it, is below {tol:.4f} = 2 x phase 9r's bf16 logits error); "
           f"re-land tokens bit-equal to the cold run's")
     # Node l stays: phase 12b delta-pulls its fine-tune there.
 
@@ -3012,6 +3218,7 @@ def pool_phase(work: Path, url: str, cfg_a, ref: dict, seed: int,
     shutil.rmtree(ckpt)
     shutil.rmtree(work / "p")
     out["push_launches"] = push_launches
+    out["llama_push"] = ref["launches"]  # phase 9r's push
     out["launches"] = launches
     return out
 
@@ -3035,10 +3242,10 @@ def sse_post(url: str, body: dict) -> list[tuple[float, dict]]:
     return events
 
 
-def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
-                 gpt2_b1, gpt2_sha: str, steps: int) -> dict:
+def daemon_phase(work: Path, url: str, pool_out: dict, llama_repo: str,
+                 llama_prompt, gpt2_b1, gpt2_sha: str, steps: int) -> dict:
     """Phase 9b: ``python -m zest_tpu_torch serve`` as its own process on
-    a fresh node C whose hub is node A's publisher, with a 3 GiB pool:
+    a fresh node C whose hub is node A's publisher, with a 2 GiB pool:
     five generate requests (Llama cold, streamed hot, Mixtral cold
     evicting Llama, Llama re-landed, GPT-2 on the single-model path),
     then its metrics, status and a SIGTERM. Returns the daemon's kernel
@@ -3085,12 +3292,12 @@ def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
                          + f", wall {t_done:.3f} s")
             return done
 
-        d1 = ask("1 llama", LLAMA_REPO)
+        d1 = ask("1 llama", llama_repo)
         if d1["pool"]["temp"] != "cold" or \
                 d1["ids"] != pool_out["llama_cold"][0].tolist():
             fail(f"phase 9b 1: {d1['pool']}, ids equal to 9a: "
                  f"{d1['ids'] == pool_out['llama_cold'][0].tolist()}")
-        d2 = ask("2 llama streamed", LLAMA_REPO, stream=True)
+        d2 = ask("2 llama streamed", llama_repo, stream=True)
         if d2["pool"]["temp"] != "hot" or d2["ids"] != d1["ids"]:
             fail(f"phase 9b 2: {d2['pool']}")
         d3 = ask("3 mixtral", MIXTRAL_REPO, ids=pool_out["mixtral_prompt"])
@@ -3105,7 +3312,7 @@ def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
                  f"{d3['ids'] == pool_out['mixtral'][0].tolist()}")
         lines.append(f"  pager {ex}; resident after: "
                      f"{[(r['repo'], r['bytes']) for r in resident]}")
-        d4 = ask("4 llama again", LLAMA_REPO)
+        d4 = ask("4 llama again", llama_repo)
         if d4["pool"]["temp"] != "cold" or d4["ids"] != d1["ids"]:
             fail(f"phase 9b 4: {d4['pool']}")
         d5 = ask("5 gpt2", REPO, revision=gpt2_sha,
@@ -3144,11 +3351,12 @@ def daemon_phase(work: Path, url: str, pool_out: dict, llama_prompt,
 def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
                pool_out: dict, steps: int, dev) -> dict:
     """Phase 11: the mesh landing and the tensor-parallel decode on four
-    slots of ``cuda:0``. 11a: Llama-3.2-1B (phase 7's push) pulled over
-    ``{"model": 4}``: every shard byte-equal to the same slice of the
-    file's tensor, the digest phase 7's, the peak allocation rise within
-    the landed bytes and one commit group; float32 tensor-parallel greedy
-    and injected-noise sampled decodes at batch 1 and 4 held to phase 7
+    slots of ``cuda:0``. 11a: Llama-3.2-1B's width at ``POOL_LAYERS``
+    layers (phase 9r's push, ``llama_ref``) pulled over ``{"model": 4}``:
+    every shard byte-equal to the same slice of the file's tensor, the
+    digest phase 9r's, the peak allocation rise within the landed bytes
+    and one commit group; float32 tensor-parallel greedy and
+    injected-noise sampled decodes at batch 1 and 4 held to phase 9r
     (logits to the CPU's forward within ``LOGITS_TOL``, tokens equal but
     for a printed near-tie). 11b: Mixtral (phase 9's push) pulled over
     ``{"expert": 4}`` through the expert-routed pod round (its shared
@@ -3190,14 +3398,15 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     def int_view(t):
         return t.contiguous().view(torch.int16)
 
-    # ── 11a: Llama-3.2-1B over {"model": 4} ──
+    # ── 11a: Llama-3.2-1B's width, POOL_LAYERS deep, over {"model": 4} ──
     mesh = model_mesh({"model": 4}, [dev] * 4)
     cfg_m = Config(hf_home=work / "m" / "hf", cache_dir=work / "m" / "zest",
                    endpoint=url)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
-    res = pull_model(cfg_m, LLAMA_REPO, device=dev, mesh=mesh, pod=False)
+    res = pull_model(cfg_m, llama_ref["repo"], device=dev, mesh=mesh,
+                     pod=False)
     torch.cuda.synchronize(dev)
     rise = torch.cuda.max_memory_allocated(dev) - base
     st = res.stats
@@ -3225,10 +3434,10 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     del host
     cmp_s = time.monotonic() - t0
     if params_digest(res.params) != llama_ref["digest"]:
-        fail("phase 11a: the sharded tree's digest != phase 7's")
+        fail("phase 11a: the sharded tree's digest != phase 9r's")
     specs = {str(tuple(t.spec)) for t in res.params.values()}
 
-    cfg = llama.LlamaConfig.from_hf(LLAMA_CONFIG)
+    cfg = llama.LlamaConfig.from_hf(llama_ref["config"])
     t0 = time.monotonic()
     train = llama.params_from_hf(res.params, cfg)
     res.params = None  # the float32 tree holds its own casts
@@ -3244,7 +3453,7 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     del train, q_w
     prompts = llama_ref["prompts"]
     rates, notes, errs = {}, {}, {}
-    tol = 2 * LOGITS_TOL  # the TP logits' error plus phase 7's
+    tol = 2 * LOGITS_TOL  # the TP logits' error plus phase 9r's
     for b in (1, 4):
         batch = prompts[:b]
         llama.generate_cached(params, cfg, batch, 2)  # warm-up
@@ -3279,19 +3488,19 @@ def mesh_phase(work: Path, url: str, cfg_a, llama_ref: dict,
     gather = params.gather_bytes
     del params
     torch.cuda.empty_cache()
-    print(f"phase 11a mesh llama ({card}): {LLAMA_REPO} over "
+    print(f"phase 11a mesh llama ({card}): {llama_ref['repo']} over "
           f"{{'model': 4}} on [{dev}] * 4: {landing_summary(st)}; sharded, "
           f"specs {sorted(specs)}; peak allocation rise {rise:,} B (landed "
           f"{landed:,} B, allowed {allowed:,}); every shard byte-equal to "
-          f"the file's slice ({cmp_s:.2f} s), digest = phase 7's; "
+          f"the file's slice ({cmp_s:.2f} s), digest = phase 9r's; "
           f"the sharded float32 tree and its tensor-parallel decode tree "
           f"built in {build_s:.2f} s (the decode tree gathered "
           f"{gather:,} B: the head, tied here); tok/s tensor-parallel "
           f"b1 {rates[1]:.1f}, b4 {rates[4]:.1f} against unsharded "
-          f"(phase 7, same card) b1 {llama_ref['rates'][1]:.1f}, b4 "
+          f"(phase 9r, same card) b1 {llama_ref['rates'][1]:.1f}, b4 "
           f"{llama_ref['rates'][4]:.1f}; logits max |TP - CPU| b1 "
           f"{errs[1]:.3e}, b4 {errs[4]:.3e} (tolerance {LOGITS_TOL:.1e}); "
-          f"tokens vs phase 7 {notes}")
+          f"tokens vs phase 9r {notes}")
 
     # ── 11b: Mixtral over {"expert": 4}: the expert-routed round ──
     mesh = model_mesh({"expert": 4}, [dev] * 4)
@@ -5382,22 +5591,29 @@ def decision_counts() -> tuple[int, dict]:
         return id(eng), dict(eng.counts)
 
 
-class DecisionLog:
-    """Prints the remediation engine's decisions, by action and outcome,
-    made since the previous mark: the engine is on by default, so every
-    phase shows what it decided there."""
+class PhaseLog:
+    """Prints, at each mark, the wall seconds since the previous mark and
+    the remediation engine's decisions made in them, by action and
+    outcome: the engine is on by default, so every phase shows what it
+    decided there. ``walls`` keeps each mark's seconds."""
 
     def __init__(self):
         self.eng, self.last = decision_counts()
+        self.t = time.monotonic()
+        self.walls: dict[str, float] = {}
 
     def mark(self, label: str) -> dict:
+        t = time.monotonic()
+        self.walls[label] = round(t - self.t, 2)
+        self.t = t
         eng, now = decision_counts()
         last = self.last if eng == self.eng else {}
         delta = {f"{a}/{o}": n - last.get((a, o), 0)
                  for (a, o), n in sorted(now.items())
                  if n != last.get((a, o), 0)}
         self.eng, self.last = eng, now
-        print(f"{label} remediation decisions: {delta or 'none'}")
+        print(f"{label} wall {self.walls[label]:.2f} s; remediation "
+              f"decisions: {delta or 'none'}")
         return delta
 
 
@@ -6617,8 +6833,9 @@ def run(args, work: Path) -> dict:
     rng = np.random.default_rng(args.seed)
 
     # ── 1. build ──
+    dlog = PhaseLog()  # each phase's wall and remediation decisions
     sass = build_all(work)
-    dlog = DecisionLog()  # the remediation engine's decisions, by phase
+    dlog.mark("phase 1")
 
     # ── 2. kernel vs plain vs native host BLAKE3, on the card ──
     chunks = [rng.bytes(n) for n in KERNEL_LENGTHS]
@@ -6647,6 +6864,7 @@ def run(args, work: Path) -> dict:
           f"(0-2049, every leaf count 1-128, the 32-leaf group edges), "
           f"plain and keyed, garbage-tolerant")
     bg4_phase(rng, dev)
+    dlog.mark("phases 2, 2b")
 
     # ── 3. push (the kernel verifies every minted chunk) ──
     ckpt = work / "checkpoint"
@@ -6670,6 +6888,7 @@ def run(args, work: Path) -> dict:
           f"{pushed.minted_chunks} chunks, kernel launches {push_launches}")
 
     publisher = PublisherServer(cfg_a).start()
+    dlog.mark("phase 3")
     try:
         # ── 4. pull through node A's loopback publisher: the direct
         # streaming landing ──
@@ -6737,7 +6956,13 @@ def run(args, work: Path) -> dict:
             work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
             pushed.revision, label="phase 6d", schedule="hierarchical",
             collective_backend="jax", coop_topology=(0, 0, 1, 1))
-        dlog.mark("phases 6, 6c, 6d")
+        # ── 20. the collective over a pod map, WAN-shaped servers ──
+        wan_launches = coop_phase(
+            work, publisher.url, ckpt, pushed, cfg_a, digest, dev,
+            pushed.revision, label="phase 20", schedule="federated",
+            shaping=WAN_SHAPING, coop_topology=WAN_SLICES,
+            coop_pods=WAN_PODS)
+        dlog.mark("phases 6, 6c, 6d, 20")
         torch.cuda.empty_cache()  # phase 4's and 6's trees are gone
 
         # ── 10. the pod round over four slots on cuda:0 ──
@@ -6761,17 +6986,23 @@ def run(args, work: Path) -> dict:
                                              ckpt, pushed, digest, dev)
         dlog.mark("phase 15")
 
-        # ── 9. the serving pool in-process, then the daemon over HTTP ──
-        pool_out = pool_phase(work, publisher.url, cfg_a, llama_ref,
+        # ── 9. the serving pool in-process, then the daemon over HTTP, on
+        # Llama-3.2-1B's width at two layers (9r: its push, landing and
+        # reference) ──
+        pool_ref = pool_llama_phase(work, publisher.url, cfg_a, args.seed,
+                                    args.steps, dev)
+        pool_out = pool_phase(work, publisher.url, cfg_a, pool_ref,
                               args.seed, args.steps, dev)
         daemon_launches = daemon_phase(
-            work, publisher.url, pool_out, llama_ref["prompts"][0], gpt2_b1,
-            pushed.revision, args.steps)
+            work, publisher.url, pool_out, pool_ref["repo"],
+            pool_ref["prompts"][0], gpt2_b1, pushed.revision, args.steps)
         dlog.mark("phase 9")
 
         # ── 11. the mesh landing and the tensor-parallel decode ──
-        mesh_launches = mesh_phase(work, publisher.url, cfg_a, llama_ref,
+        mesh_launches = mesh_phase(work, publisher.url, cfg_a, pool_ref,
                                    pool_out, args.steps, dev)
+        del pool_ref
+        shutil.rmtree(work / "l2")
         dlog.mark("phase 11")
 
         # ── 12. the training plane: GPT-2 AdamW with a train-state
@@ -6802,14 +7033,12 @@ def run(args, work: Path) -> dict:
         # ── 14. the multi-pod pull: the federated round across two pods,
         # the hierarchical distributor, the lossy cross-pod tier ──
         torch.cuda.empty_cache()
-        t14 = time.monotonic()
         fed_launches = federated_phase(
             work, publisher.url, cfg_a, ckpt, pushed, digest,
             {"tokens": gpt2_tokens, "steps": args.steps}, dev)
         hier_launches = hierarchy_phase(work, publisher.url, cfg_a, pushed,
                                         dev)
         lossy_launches = lossy_phase(work, publisher.url, ckpt, pushed, dev)
-        print(f"phase 14 wall {time.monotonic() - t14:.2f} s")
         dlog.mark("phase 14")
 
         # ── 16. the multi-tenant pull service: concurrent tenants, a
@@ -6827,6 +7056,7 @@ def run(args, work: Path) -> dict:
         heal_launches = heal_phase(work, publisher.url, publisher, cfg_a,
                                    cfg_b, ckpt, pushed, digest, args.seed,
                                    dev)
+        dlog.mark("phase 17")
 
         # ── 18. GPT-2's sharded step: a mesh pull with its pre-pass,
         # params_from_hf's one sharded tree, two AdamW steps against 12a,
@@ -6836,11 +7066,13 @@ def run(args, work: Path) -> dict:
             work, publisher.url, pushed.revision, gpt2_ref, prompts,
             args.steps, dev)
         del gpt2_ref
+        dlog.mark("phase 18")
 
         # ── 19. zest bench, a GB pull at full Llama-8B width, the shaped
         # cooperative bench and the fleet model ──
         torch.cuda.empty_cache()
         bench_launches = bench_phase(work, dev)
+        dlog.mark("phase 19")
     finally:
         publisher.close()
     receipt_timing(cfg_a, pushed, dev)
@@ -6896,6 +7128,7 @@ def run(args, work: Path) -> dict:
                                  "push_sharded": sharded_launches,
                                  "push_delta": delta_launches,
                                  "push_llama": llama_ref["launches"],
+                                 "push_pool_llama": pool_out["llama_push"],
                                  "push_finetune": finetune_launches,
                                  "push_mixtral": pool_out["push_launches"],
                                  "serve": pool_out["launches"][
@@ -6907,6 +7140,7 @@ def run(args, work: Path) -> dict:
                                      "blake3_chunks"],
                                  "coop_collective_lane": lane_launches[
                                      "blake3_chunks"],
+                                 "coop_wan": wan_launches["blake3_chunks"],
                                  "pod": pod_launches["blake3_chunks"],
                                  "mesh": mesh_launches["blake3_chunks"],
                                  "mesh_swap": mesh_swap_launches[
@@ -6927,6 +7161,7 @@ def run(args, work: Path) -> dict:
                                             collective_launches[k["name"]],
                                         "coop_collective_lane":
                                             lane_launches[k["name"]],
+                                        "coop_wan": wan_launches[k["name"]],
                                         "pod": pod_launches[k["name"]],
                                         "mesh": mesh_launches[k["name"]],
                                         "mesh_swap": mesh_swap_launches[
@@ -6946,7 +7181,8 @@ def run(args, work: Path) -> dict:
                                            phase_paths.items()}})
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
-    return {"kernels": kernels}
+    dlog.mark("kernel timing")
+    return {"kernels": kernels}, dlog.walls
 
 
 def main(argv=None) -> int:
@@ -6960,13 +7196,16 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    t0 = time.monotonic()
     work = Path(tempfile.mkdtemp(prefix=".smoke-",
                                  dir=Path(__file__).resolve().parent))
     try:
-        record = run(args, work)
+        record, walls = run(args, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     card = card_label()
+    print(f"chip_smoke wall {time.monotonic() - t0:.1f} s ({card}); by "
+          f"phase {json.dumps(walls)}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,7 @@ from zest_tpu_torch import faults, telemetry
 from zest_tpu_torch.cas.hub import HubClient
 from zest_tpu_torch.config import Config, parse_topology
 from zest_tpu_torch.ops import bg4
+from zest_tpu_torch.shaping import TokenBucket
 from zest_tpu_torch.transfer import collective as coll
 from zest_tpu_torch.transfer import coop
 from zest_tpu_torch.transfer.bridge import XetBridge
@@ -150,6 +151,7 @@ SCHEDULE_CASES = [
     (8, (0,) * 8, (0, 0, 0, 0, 1, 1, 1, 1), ()),
     (8, (0,) * 8, (0, 0, 1, 1, 2, 2, 3, 3), ()),
     (12, (0,) * 12, (0,) * 4 + (1,) * 4 + (2,) * 4, (4,)),
+    (4, (0, 1, 2, 3), (0, 0, 1, 1), ()),
 ]
 
 
@@ -280,11 +282,12 @@ def test_lossy_values_raise_naming_the_missing_port(value):
 
 
 def _run_hosts(hub, tmp_path, n, ref=False, skip=(), pools=None,
-               round_kwargs=None, **cfg_kw):
+               round_kwargs=None, server_kwargs=None, **cfg_kw):
     """n concurrent in-process hosts, each with its own cache and DCN
     server, over loopback; hosts in ``skip`` sit in the address map on a
     dead port. ``ref`` runs the JAX package's round. ``pools`` maps host
-    index → a ``DcnPool`` whose counters the test reads."""
+    index → a ``DcnPool`` whose counters the test reads;
+    ``server_kwargs(i)`` gives host i's server its knobs."""
     make, recs_of, server_cls, round_fn = (
         (_jbridge, _jrecs, j_dcn.DcnServer, j_coop.coop_round) if ref else
         (_bridge, _recs, DcnServer, coop.coop_round))
@@ -296,7 +299,8 @@ def _run_hosts(hub, tmp_path, n, ref=False, skip=(), pools=None,
             addrs[i] = ("127.0.0.1", 1)  # nothing listens
             servers.append(None)
         else:
-            s = server_cls(b.cfg, b.cache)
+            s = server_cls(b.cfg, b.cache,
+                           **(server_kwargs(i) if server_kwargs else {}))
             addrs[i] = ("127.0.0.1", s.start())
             servers.append(s)
     results: list = [None] * n
@@ -398,6 +402,73 @@ def test_collective_eight_host_hypercube(small_hub, tmp_path):
         assert (cx["schedule"], cx["phases"]) == ("hypercube", 3)
         assert "aborted" not in cx and r["fallbacks"] == 0, r
         _assert_fully_cached(b, tmp_path / f"h{i}", files)
+
+
+# The round over pods through WAN-shaped servers: four hosts, each its
+# own slice, two pods of two. Every host has a DCN partner; the pods'
+# gateways (hosts 0 and 2) also exchange over WAN.
+WAN_SLICES = (0, 1, 2, 3)
+WAN_PODS = (0, 0, 1, 1)
+WAN_SHAPING = dict(rate_bps=1_000_000, window_rtt_s=0.005,
+                   wan_bps=200_000, wan_rtt_s=0.02)
+
+
+def _wan_link(a, b):
+    """The link class between hosts ``a`` and ``b`` under the maps."""
+    if WAN_PODS[a] != WAN_PODS[b]:
+        return "wan"
+    return "ici" if WAN_SLICES[a] == WAN_SLICES[b] else "dcn"
+
+
+def _wan_servers(i):
+    return dict(WAN_SHAPING, shape_slices=WAN_SLICES, shape_pods=WAN_PODS,
+                shape_host=i)
+
+
+@pytest.fixture(scope="module")
+def wan_hub():
+    """Incompressible bytes, so a gateway's WAN share outgrows the
+    serving bucket's burst and its pace shows."""
+    files = {"model.safetensors": np.random.default_rng(9).integers(
+        0, 256, 512_000, dtype=np.uint8).tobytes()}
+    with FixtureHub(FixtureRepo(REPO_ID, files, chunks_per_xorb=1)) as h:
+        yield h, files
+
+
+def test_wan_shaped_round_over_pods_matches_reference(wan_hub, tmp_path):
+    """The federated round over WAN-shaped servers, port and reference:
+    equal counts and link bytes, WAN bytes on the gateways, every cache
+    complete, and each host's WAN phases at least its WAN bytes over
+    ``wan_bps`` less the serving bucket's burst."""
+    hub, files = wan_hub
+    kw = dict(coop_topology=WAN_SLICES, coop_pods=WAN_PODS)
+    bridges, results = _run_hosts(hub, tmp_path, 4,
+                                  server_kwargs=_wan_servers, **kw)
+    burst = TokenBucket(WAN_SHAPING["wan_bps"]).capacity  # each server's
+    _jb, ref = _run_hosts(hub, tmp_path, 4, ref=True,
+                          server_kwargs=_wan_servers, **kw)
+    plan = coop.CoopPlan.build(_recs(bridges[0]), 4)
+    matrix = coll.transfer_matrix(plan, WAN_SLICES, WAN_PODS)
+    for i, (b, r) in enumerate(zip(bridges, results)):
+        cx = r["collective"]
+        assert _counts(cx) == _counts(ref[i]["collective"])
+        # The wire bytes are the plan's: shaping moves none elsewhere.
+        want = {"ici": 0, "dcn": 0, "wan": 0}
+        for src, row in enumerate(matrix):
+            want[_wan_link(i, src)] += row[i]
+        assert cx["link_bytes"] == want
+        assert cx["schedule"] == "federated" and "aborted" not in cx
+        assert r["fallbacks"] == 0
+        _assert_fully_cached(b, tmp_path / f"h{i}", files)
+        sched = coll.CollectiveSchedule.build(plan, i, WAN_SLICES, WAN_PODS)
+        wan_walls = [w for ph, w in zip(sched.phases, cx["phase_wall_s"])
+                     if ph.link == "wan"]
+        wan = cx["link_bytes"]["wan"]
+        assert cx["link_bytes"]["dcn"] > 0
+        assert (wan > 0) == (i in (0, 2)) == bool(wan_walls)
+        if wan:
+            assert sum(wan_walls) >= (wan - burst) / WAN_SHAPING["wan_bps"]
+            assert wan > burst  # the pacing is visible
 
 
 def test_dead_host_degrades_to_p2p_ladder(hub, tmp_path):

@@ -198,6 +198,58 @@ def test_landing_starts_no_thread_outside_a_span(hub, tmp_path, monkeypatch):
                                                 "stage.fetch"}
 
 
+TAIL_DELAY_S = 0.05
+
+
+def test_files_only_tail_runs_inside_a_span(hub, tmp_path, monkeypatch):
+    """A files-only pull's bookkeeping after the files join (the bridge's
+    close, the ref, the delta manifest) runs inside ``stage.files``: with
+    each slowed by ``TAIL_DELAY_S``, the wall of ``pull`` outside every
+    span stays under 10 ms. Outside the stage each delay would land
+    whole in ``idle_s``; this is what a loaded machine does to the
+    ~0.5 ms each takes, made large enough to see on one pull. The file
+    workers' thread starts from the pull's thread are slowed too: they
+    run under the stage as well."""
+    import threading
+    import time
+
+    from zest_tpu_torch import storage
+    from zest_tpu_torch.transfer import bridge as bridge_mod
+    from zest_tpu_torch.transfer import pull as pull_mod
+
+    def slowed(fn):
+        def run(*a, **k):
+            time.sleep(TAIL_DELAY_S)
+            return fn(*a, **k)
+        return run
+
+    monkeypatch.setattr(bridge_mod.XetBridge, "close",
+                        slowed(bridge_mod.XetBridge.close))
+    monkeypatch.setattr(storage, "write_ref", slowed(storage.write_ref))
+    monkeypatch.setattr(pull_mod, "_save_manifest",
+                        slowed(pull_mod._save_manifest))
+    # The file workers' starts from the pull's own thread, slowed alike.
+    pulling = threading.current_thread()
+    start = threading.Thread.start
+
+    def slow_start(self):
+        if threading.current_thread() is pulling:
+            time.sleep(TAIL_DELAY_S)
+        return start(self)
+
+    monkeypatch.setattr(threading.Thread, "start", slow_start)
+    tracer = telemetry.trace.install(None)
+    cfg = _cfg(hub, tmp_path)
+    assert cfg.delta_pull  # the manifest is written
+    res = pull_model(cfg, "acme/session-model", device="cpu", land=False,
+                     no_p2p=True, log=_quiet)
+    monkeypatch.undo()
+    cp = res.stats["critical_path"]
+    assert cp["idle_s"] < 0.01, cp
+    assert cp["root"]["wall_s"] >= 3 * TAIL_DELAY_S, cp
+    assert "stage.files" in {s.name for s in tracer.spans()}
+
+
 def test_untraced_pull_has_no_critical_path(hub, tmp_path):
     res = pull_model(_cfg(hub, tmp_path), "acme/session-model",
                      device="cpu", land=False, no_p2p=True, log=_quiet)

@@ -7,7 +7,9 @@ the JAX package's.
 - the shaped wire: a shaped server's serving time is at least the bytes
   over ``rate_bps`` (less the bucket's burst), and a tagged
   ``request_many`` window pays ``window_rtt_s`` once while untagged
-  requests pay it each;
+  requests pay it each; with a pod map, a cross-pod client is paced by
+  ``wan_bps`` and pays ``wan_rtt_s`` alike, while a same-slice client's
+  identical request is not;
 - the stats: the same requests into a port and a reference server give
   equal stats, ``not_found`` included;
 - ``/v1/status``'s ``dcn`` block has the reference's keys.
@@ -25,6 +27,7 @@ import pytest
 
 from zest_tpu.config import Config as JConfig
 from zest_tpu.transfer import dcn as j_dcn
+from zest_tpu_torch import telemetry
 from zest_tpu_torch.api.http_api import PublisherServer
 from zest_tpu_torch.cas import hashing
 from zest_tpu_torch.cas.xorb import XorbBuilder
@@ -45,6 +48,9 @@ def _server_pair(tmp_path, **kw):
 
 
 SLICES = (0, 0, 1, 1)
+PODS = (0, 0, 1, 1)
+WAN = dict(wan_bps=500, wan_rtt_s=0.05)
+DCN = dict(rate_bps=1000, window_rtt_s=0.01)
 
 
 # (server knobs, server host, client host): both link classes, the
@@ -68,6 +74,36 @@ LINK_CASES = [
     (dict(rate_bps=1000, shape_slices=(0, 1, 2, 3)), 1, 2),
     (dict(rate_bps=1000, shape_slices=(0, 0, 0, 0)), 3, 0),
     (dict(rate_bps=1000, window_rtt_s=0.01, shape_slices=SLICES), 2, 3),
+    # The WAN class: a pod map with WAN knobs, across pods and within.
+    (dict(**DCN, **WAN, shape_slices=SLICES, shape_pods=PODS), 0, 2),
+    (dict(**DCN, **WAN, shape_slices=SLICES, shape_pods=PODS), 3, 1),
+    (dict(**DCN, **WAN, shape_slices=SLICES, shape_pods=PODS), 0, 1),
+    # A pod map with only the DCN knobs: WAN falls back to them.
+    (dict(**DCN, shape_slices=SLICES, shape_pods=PODS), 0, 3),
+    (dict(window_rtt_s=0.01, shape_slices=SLICES, shape_pods=PODS), 2, 0),
+    # WAN knobs and no slice map: every connection is the worst class.
+    (dict(**WAN, shape_pods=PODS), 0, 1),
+    (dict(**WAN), 0, 1),
+    (dict(**DCN, **WAN, shape_pods=PODS), None, 2),
+    # An anonymous client with a pod map is cross-pod.
+    (dict(**DCN, **WAN, shape_slices=SLICES, shape_pods=PODS), 1, None),
+    # A pod map shorter than the slice map: no pod test past its end.
+    (dict(**DCN, **WAN, shape_slices=(0, 1, 2, 3), shape_pods=(0, 1)),
+     0, 3),
+    (dict(**DCN, **WAN, shape_slices=(0, 1, 2, 3), shape_pods=(0, 1)),
+     0, 1),
+    # A host outside the pod map, or outside the slice map.
+    (dict(**DCN, **WAN, shape_slices=(0, 0, 1, 1, 2), shape_pods=PODS),
+     4, 0),
+    (dict(**DCN, **WAN, shape_slices=SLICES, shape_pods=PODS), 0, 6),
+    # Same pod, different slice.
+    (dict(**DCN, **WAN, shape_slices=(0, 1, 2, 3), shape_pods=PODS), 0, 1),
+    (dict(**DCN, **WAN, shape_slices=(0, 1, 2, 3), shape_pods=PODS), 2, 3),
+    # wan_bps alone: shaping is on only through the WAN bucket.
+    (dict(wan_bps=500, shape_slices=SLICES, shape_pods=PODS), 0, 2),
+    (dict(wan_bps=500, shape_slices=SLICES, shape_pods=PODS), 0, 1),
+    (dict(wan_bps=500, shape_slices=(0, 1, 2, 3), shape_pods=PODS), 0, 1),
+    (dict(wan_rtt_s=0.05, shape_slices=SLICES, shape_pods=PODS), 1, 3),
 ]
 
 
@@ -87,8 +123,10 @@ def test_link_class_and_shaping_equal_reference(tmp_path, knobs, host,
     jrtt, jbucket = ref._link_shaping(link)
     assert rtt == jrtt
     assert _bucket_rate(bucket) == _bucket_rate(jbucket)
-    # A shaped link takes the server's one bucket.
+    # A shaped link takes one of the server's two buckets.
     assert (bucket is port._bucket) == (jbucket is ref._bucket)
+    assert (bucket is port._wan_bucket) == (jbucket is ref._wan_bucket)
+    assert _bucket_rate(port._wan_bucket) == _bucket_rate(ref._wan_bucket)
 
 
 @pytest.fixture
@@ -159,6 +197,73 @@ def test_window_rtt_once_per_tagged_window(served):
     assert rtt <= tagged < 3 * rtt
     assert same < rtt
     assert rtt <= new_tag < 3 * rtt
+    assert untagged >= N_CHUNKS * rtt
+
+
+def _channel_as(host, port):
+    """A channel whose hello names coop host ``host``."""
+    with telemetry.trace.context(host=host):
+        return dcn.DcnChannel("127.0.0.1", port)
+
+
+def _pod_server(root, **knobs):
+    return _start(dcn.DcnServer(
+        Config(hf_home=root / "hf", cache_dir=root / "zest", dcn_port=0),
+        shape_slices=SLICES, shape_pods=PODS, shape_host=0, **knobs))
+
+
+def test_wan_client_paced_by_wan_bps_same_slice_unpaced(served):
+    root, xh = served
+    wan_bps = 200_000
+    # The DCN knobs are generous: a WAN client's pace is wan_bps's.
+    server, port = _pod_server(root, rate_bps=50_000_000, wan_bps=wan_bps)
+    wants = [(xh, i, i + 1) for i in range(N_CHUNKS)]
+
+    def timed(host):
+        ch = _channel_as(host, port)
+        try:
+            t0 = time.monotonic()
+            replies = ch.request_many(wants)
+            return time.monotonic() - t0, sum(len(r.data) for r in replies)
+        finally:
+            ch.close()
+
+    try:
+        near, near_bytes = timed(1)   # same slice: ici, unshaped
+        far, far_bytes = timed(2)     # other pod: wan
+    finally:
+        server.shutdown()
+    assert near_bytes == far_bytes
+    burst = server._wan_bucket.capacity
+    assert far >= (far_bytes - burst) / wan_bps
+    assert far_bytes - burst > 0.1 * wan_bps  # the pacing is visible
+    # The same-slice request took no token: well under the WAN pace.
+    assert near < 0.5 * (far_bytes - burst) / wan_bps
+    assert server._wan_bucket.tokens < burst  # spent by the WAN client
+
+
+def test_wan_rtt_once_per_tagged_window(served):
+    root, xh = served
+    rtt = 0.1
+    # A DCN RTT far below the WAN one: a WAN window pays wan_rtt_s.
+    server, port = _pod_server(root, window_rtt_s=0.001, wan_rtt_s=rtt)
+    ch = _channel_as(3, port)
+
+    def timed(wants, tag=0):
+        t0 = time.monotonic()
+        ch.request_many(wants, tag=tag)
+        return time.monotonic() - t0
+
+    try:
+        wants = [(xh, i, i + 1) for i in range(N_CHUNKS)]
+        tagged = timed(wants, tag=7)        # opens window 7: one RTT
+        same = timed(wants[:2], tag=7)      # still window 7: none
+        untagged = timed(wants)             # one a request
+    finally:
+        ch.close()
+        server.shutdown()
+    assert rtt <= tagged < 3 * rtt
+    assert same < rtt
     assert untagged >= N_CHUNKS * rtt
 
 

@@ -431,13 +431,19 @@ class DcnServer:
     With ``shape_slices`` (a coop topology) and ``shape_host`` (this
     server's host index) only cross-slice connections are shaped: the
     client's slice comes from its hello's ``peer_host``, and an anonymous
-    client counts as cross-slice."""
+    client counts as cross-slice. ``shape_pods`` (a coop pod map) adds a
+    third class: a cross-pod connection is WAN and pays ``wan_rtt_s`` per
+    window through its own ``wan_bps`` bucket, each falling back to the
+    DCN knob when unset; with a pod map an anonymous client counts as
+    cross-pod."""
 
     def __init__(self, cfg: Config, cache: XorbCache | None = None,
                  span_attrs: dict | None = None, rate_bps: int = 0,
                  window_rtt_s: float = 0.0,
                  shape_slices: tuple[int, ...] | None = None,
-                 shape_host: int | None = None):
+                 shape_host: int | None = None,
+                 shape_pods: tuple[int, ...] | None = None,
+                 wan_rtt_s: float = 0.0, wan_bps: int = 0):
         self.cfg = cfg
         self.cache = cache or XorbCache(cfg)
         # Attrs stamped on every ``dcn.serve`` span (the in-process
@@ -445,9 +451,12 @@ class DcnServer:
         # takes the process trace context instead).
         self.span_attrs = dict(span_attrs or {})
         self._bucket = TokenBucket(rate_bps) if rate_bps else None
+        self._wan_bucket = TokenBucket(wan_bps) if wan_bps else None
         self.window_rtt_s = float(window_rtt_s)
+        self.wan_rtt_s = float(wan_rtt_s)
         self.shape_slices = shape_slices
         self.shape_host = shape_host
+        self.shape_pods = shape_pods
         self.stats = DcnServerStats()
         self._stats_lock = threading.Lock()
         # The gossip responder (attach_gossip): anti-entropy rounds ride
@@ -553,21 +562,33 @@ class DcnServer:
 
     def _conn_link(self, hello: HelloInfo | None) -> str:
         """This connection's link class: ``"ici"`` (same slice,
-        unshaped) or ``"dcn"`` (cross-slice). Without a slice map, or for
-        a client that names no host in range, it is ``"dcn"``."""
-        if self._bucket is None and self.window_rtt_s <= 0:
+        unshaped), ``"dcn"`` (cross-slice) or ``"wan"`` (cross-pod, with a
+        pod map). Without a slice map, or for a client that names no host
+        in range, it is the worst configured class."""
+        if self._bucket is None and self._wan_bucket is None \
+                and self.window_rtt_s <= 0 and self.wan_rtt_s <= 0:
             return "ici"  # shaping off
+        pods = self.shape_pods
+        worst = "wan" if pods is not None else "dcn"
         slices, me = self.shape_slices, self.shape_host
         if slices is None or me is None:
-            return "dcn"
+            return worst
         peer = getattr(hello, "peer_host", None)
         if peer is None or not 0 <= peer < len(slices) \
                 or not 0 <= me < len(slices):
-            return "dcn"
+            return worst
+        if pods is not None and peer < len(pods) and me < len(pods) \
+                and pods[peer] != pods[me]:
+            return "wan"
         return "dcn" if slices[peer] != slices[me] else "ici"
 
     def _link_shaping(self, link: str):
-        """``(window_rtt_s, bucket)`` of a link class."""
+        """``(window_rtt_s, bucket)`` of a link class. WAN falls back to
+        the DCN knobs it lacks, so a pod map alone shapes a cross-pod link
+        at least as hard as a cross-slice one."""
+        if link == "wan":
+            return (self.wan_rtt_s or self.window_rtt_s,
+                    self._wan_bucket or self._bucket)
         if link == "dcn":
             return self.window_rtt_s, self._bucket
         return 0.0, None

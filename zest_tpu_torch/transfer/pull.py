@@ -1116,6 +1116,20 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
     if session is not None:
         hedge_target, hedge_fn = f"hedge:{session.id}", bridge.arm_hedge
         telemetry.remediate.register_target(hedge_target, hedge_fn)
+    released = []
+
+    def release() -> None:
+        """Take the hedge target back, then close the bridge and the
+        pull's own swarm: once, on success or error."""
+        if released:
+            return
+        released.append(True)
+        if hedge_target is not None:
+            telemetry.remediate.unregister_target(hedge_target, hedge_fn)
+        bridge.close()
+        if own_swarm is not None:
+            own_swarm.close()
+
     try:
         coop_stats = pod_stats = fed_stats = recs = None
         coop_cfg = _resolve_coop(cfg, coop, coop_hosts, coop_index,
@@ -1216,24 +1230,25 @@ def _pull_model(cfg: Config, repo_id: str, revision: str, device, coop,
                 time_to_first_layer = fl_at - t0
                 clock.note_interval("first_layer", t0, fl_at)
         cancel_point()
-        for entry in files:
-            file_pipeline.submit(entry)
-        clock.ensure("files")
-        downloaded, skipped = file_pipeline.join()
+        # The rest of the files, the join and the pull's bookkeeping are
+        # files-stage work: the submits start workers, the join wakes
+        # this thread, and the bridge's close, the ref and the manifest
+        # follow, all inside the stage. (The JAX package leaves the
+        # stretch after its join untraced.)
+        with clock("files"):
+            for entry in files:
+                file_pipeline.submit(entry)
+            downloaded, skipped = file_pipeline.join()
+            release()
+            storage.write_ref(cfg, repo_id, revision, commit_sha)
+            if cfg.delta_pull:
+                _save_manifest(cfg, bridge, repo_id, commit_sha, files,
+                               delta_base, log)
     except BaseException:
         file_pipeline.abort()
         raise
     finally:
-        if hedge_target is not None:
-            telemetry.remediate.unregister_target(hedge_target, hedge_fn)
-        bridge.close()
-        if own_swarm is not None:
-            own_swarm.close()
-
-    storage.write_ref(cfg, repo_id, revision, commit_sha)
-    if cfg.delta_pull:
-        _save_manifest(cfg, bridge, repo_id, commit_sha, files, delta_base,
-                       log)
+        release()
 
     if land and hbm_stats is None:
         # Disk staging: a resumed pull (complete files) or a shard that
