@@ -1,0 +1,8 @@
+"""transfer.pull resolve + cas_metadata: the mean over the steps of the
+program's two stage walls of a landing."""
+
+from portbench.readers import stage_mean
+
+
+def read(rec):
+    return stage_mean(rec, "resolve", "cas_metadata")
